@@ -1,0 +1,655 @@
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA H100.
+
+    python3 chip_smoke.py                     # all phases, one card
+    python3 chip_smoke.py --profile DIR       # plus a profiled generation
+
+Phases, each printing its own lines:
+  1. environment: torch/CUDA versions and the card's name and power limit;
+  2. kernel build: nvcc for sm_90a from fastvideo_tpu_torch/csrc;
+  3. kernel checks: each kernel against its plain PyTorch version on the
+     card at the main path's shapes, with kernel, plain, library and bound
+     times;
+  4. main path at full width: a random-weight FastWan2.1-T2V-1.3B-shaped
+     diffusers checkpoint written with the port's own safetensors writer,
+     loaded by VideoGenerator.from_pretrained(VSA_sparsity=0.8) and run by
+     generate_video at 81x480x832, seed 42 (warm-up, then timed), with the
+     kernels' launch counts;
+  5. the kernels line, the card line and the result line.
+
+Any failure exits non-zero before the result line. It imports nothing of
+the JAX package.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import shutil
+import subprocess
+import sys
+import time
+
+# the card's published dense peaks (NVIDIA H100 SXM data sheet)
+PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
+PEAK_BYTES = 3.35e12
+
+# kernel -> the Pallas function it replaces (file:line)
+REPLACES = {
+    "flash_fwd": "fastvideo_tpu/ops/flash_attention.py:93",
+    "vsa_sparse_fwd": "fastvideo_tpu/ops/vsa.py:209",
+    "conv3d": "fastvideo_tpu/ops/conv3d.py:180 and fastvideo_tpu/ops/conv3d.py:55",
+}
+SOURCES = {
+    "flash_fwd": "fastvideo_tpu_torch/csrc/flash_fwd.cu",
+    "vsa_sparse_fwd": "fastvideo_tpu_torch/csrc/vsa_sparse_fwd.cu",
+    "conv3d": "fastvideo_tpu_torch/csrc/conv3d.cu",
+}
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def bound_ms(flops: float, nbytes: float, dtype: str = "bf16"
+             ) -> tuple[float, str]:
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def time_ms(fn, reps: int = 5, warmup: int = 1) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def check(name: str, got, want, atol: float, rtol: float = 0.0) -> float:
+    """Hold a kernel's output to its plain version: every element within
+    atol + rtol * |plain|. Returns the max absolute error."""
+    import torch
+
+    torch.cuda.synchronize()
+    if not torch.isfinite(got.float()).all():
+        raise SystemExit(f"{name}: kernel output has non-finite values")
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    ok = bool((diff <= atol + rtol * want.float().abs()).all())
+    print(f"  {name}: max_abs_err {err:.3e} (tolerance {atol:.1e} + "
+          f"{rtol:.1e} * |plain|; plain std {want.float().std().item():.3e})"
+          f" {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise SystemExit(f"{name}: kernel disagrees with its plain version")
+    return err
+
+
+def attn_tol(want, dtype) -> tuple[float, float]:
+    """(atol, rtol) for an attention output against its plain version.
+
+    An output row is a softmax average of N random values, so its typical
+    size is about N**-0.5 (0.02 to 0.07 at the path's shapes), far below 1.
+    bf16: both sides round to bf16, so up to two bf16 ulps (2**-6 relative)
+    apart, plus 2**-5 of the plain output's std for values near zero, where
+    the order of the fp32 sums shows. fp32: summation order only."""
+    import torch
+
+    if dtype != torch.bfloat16:
+        return 1e-4, 1e-4
+    return 2.0**-5 * want.float().std().item(), 2.0**-6
+
+
+# -- phase 3: kernels against their plain versions ---------------------------
+
+
+def check_flash(dev, results: dict) -> None:
+    import torch
+    import torch.nn.functional as F
+
+    from fastvideo_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=g, device=dev, dtype=dtype)
+
+    cases = [
+        ("cross_attn", (1, 32760, 12, 128), 512, torch.bfloat16, False),
+        ("vae_mid_attn", (21, 6240, 1, 384), 6240, torch.bfloat16, False),
+        ("fp32_causal_tail", (2, 1000, 2, 64), 777, torch.float32, True),
+    ]
+    for label, (b, sq, h, d), skv, dtype, causal in cases:
+        q = rnd(b, sq, h, d, dtype=dtype)
+        k = rnd(b, skv, h, d, dtype=dtype)
+        v = rnd(b, skv, h, d, dtype=dtype)
+        kv_valid = skv - 13 if causal else skv
+        kw = dict(scale=d**-0.5, causal=causal, kv_valid=kv_valid)
+        out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+        ref, ref_lse = fa.flash_attention_plain(q, k, v, **kw)
+        err = check(f"flash_fwd[{label}]", out, ref, *attn_tol(ref, dtype))
+        check(f"flash_fwd[{label}] lse", lse, ref_lse, 1e-3)
+        if label != "cross_attn":
+            continue
+        ms = time_ms(lambda: fa.flash_attention(q, k, v, **kw))
+        plain = time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), 2)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, scale=d**-0.5))
+        flops = 4.0 * b * h * sq * skv * d
+        nbytes = 2.0 * (2 * b * sq * h * d + 2 * b * skv * h * d) + 4 * b * h * sq
+        bms, by = bound_ms(flops, nbytes)
+        results["flash_fwd"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                    bound_ms=bms, bound_by=by,
+                                    library_ms=lib,
+                                    shape=f"q{[b, sq, h, d]} kv{skv} bf16")
+        print(f"  flash_fwd[{label}]: {ms:.3f} ms kernel, {plain:.3f} ms "
+              f"plain, {lib:.3f} ms sdpa, bound {bms:.3f} ms ({by}, "
+              f"{flops:.3e} FLOP)", flush=True)
+
+
+def vsa_block_mask(idx, s: int, e: int, group_rows: int, block: int = 128):
+    """The flex_attention BlockMask of K2's sparsity: query rows of group g
+    see the key tiles idx[b, h, g]. A block of `block` rows or columns spans
+    at most two groups or tiles (block < E <= group_rows), so it is full
+    when all four (group, tile) pairs are selected, partial when some are."""
+    import torch
+    from torch.nn.attention.flex_attention import BlockMask
+
+    b, h, ng, _ = idx.shape
+    sel = torch.zeros(b, h, ng, s // e, dtype=torch.bool, device=idx.device)
+    sel.scatter_(-1, idx.long(), True)
+    lo = torch.arange(0, s, block, device=idx.device)
+    hi = torch.clamp(lo + block, max=s) - 1
+    pairs = [sel[:, :, gq][:, :, :, tk] for gq in (lo // group_rows,
+                                                   hi // group_rows)
+             for tk in (lo // e, hi // e)]
+    full = pairs[0] & pairs[1] & pairs[2] & pairs[3]
+    partial = (pairs[0] | pairs[1] | pairs[2] | pairs[3]) & ~full
+
+    def blocks(m):
+        order = torch.argsort(m.to(torch.int8), dim=-1, descending=True,
+                              stable=True)
+        return m.sum(-1, dtype=torch.int32), order.to(torch.int32)
+
+    def mask_mod(bi, hi_, q_idx, kv_idx):
+        return sel[bi, hi_, q_idx // group_rows, kv_idx // e]
+
+    return BlockMask.from_kv_blocks(*blocks(partial), *blocks(full),
+                                    BLOCK_SIZE=block, mask_mod=mask_mod,
+                                    seq_lengths=(s, s))
+
+
+def check_vsa(dev, results: dict) -> None:
+    import torch
+    from torch.nn.attention.flex_attention import flex_attention
+
+    from fastvideo_tpu_torch.ops import vsa
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    b, h, d, e, nb, qg, topk = 1, 12, 128, 280, 117, 3, 24
+    s, ng = nb * e, nb // qg
+    q, k, v = (torch.randn(b, h, s, d, generator=g, device=dev,
+                           dtype=torch.bfloat16) for _ in range(3))
+    idx = torch.stack([torch.randperm(nb, generator=g, device=dev)[:topk]
+                       for _ in range(b * h * ng)]).reshape(b, h, ng, topk)
+    idx = idx.to(torch.int32)
+    scale = d**-0.5
+    out = vsa.block_sparse_attention_fast(q, k, v, idx, scale=scale,
+                                          tile_elems=e)
+    ref = vsa.block_sparse_attention_plain(q, k, v, idx, scale=scale,
+                                           tile_elems=e)
+    tol = attn_tol(ref, torch.bfloat16)
+    err = check("vsa_sparse_fwd[480p]", out, ref, *tol)
+    ms = time_ms(lambda: vsa.block_sparse_attention_fast(
+        q, k, v, idx, scale=scale, tile_elems=e))
+    plain = time_ms(lambda: vsa.block_sparse_attention_plain(
+        q, k, v, idx, scale=scale, tile_elems=e), 1)
+    # the library yardstick: flex_attention (compiled) with the same
+    # block sparsity as a BlockMask; timed here only, the port never calls it
+    mask = vsa_block_mask(idx, s, e, qg * e)
+    flex = torch.compile(flex_attention, dynamic=False)
+    check("flex_attention[480p] (library)",
+          flex(q, k, v, block_mask=mask, scale=scale), ref, *tol)
+    lib = time_ms(lambda: flex(q, k, v, block_mask=mask, scale=scale))
+    flops = 4.0 * b * h * s * topk * e * d
+    nbytes = 2.0 * 4 * b * h * s * d + 4 * idx.numel()
+    bms, by = bound_ms(flops, nbytes)
+    results["vsa_sparse_fwd"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+        library_ms=lib, shape=f"q{[b, h, s, d]} E{e} groups{ng} topk{topk}")
+    print(f"  vsa_sparse_fwd[480p]: {ms:.3f} ms kernel, {plain:.3f} ms plain,"
+          f" {lib:.3f} ms flex_attention, bound {bms:.3f} ms ({by}, "
+          f"{flops:.3e} FLOP)", flush=True)
+
+
+# (label, C, Co, kt, time_pad, T_in, H, W): the decoder's conv shapes at
+# 480x832, one chunk of 4 latent frames (T cut so the plain version fits)
+CONV_SHAPES = [
+    ("conv_in", 16, 384, 3, 2, 4, 60, 104),
+    ("384x384@60x104", 384, 384, 3, 0, 6, 60, 104),
+    ("resample384->192@120x208", 384, 192, 1, 0, 8, 120, 208),
+    ("192->384@120x208", 192, 384, 3, 0, 10, 120, 208),
+    ("384x384@120x208", 384, 384, 3, 0, 10, 120, 208),
+    ("resample384->192@240x416", 384, 192, 1, 0, 16, 240, 416),
+    ("192x192@240x416", 192, 192, 3, 0, 18, 240, 416),
+    ("resample192->96@480x832", 192, 96, 1, 0, 16, 480, 832),
+    ("96x96@480x832", 96, 96, 3, 0, 18, 480, 832),
+    ("conv_out96->3@480x832", 96, 3, 3, 0, 18, 480, 832),
+]
+
+
+def check_conv(dev, results: dict) -> None:
+    import torch
+    import torch.nn.functional as F
+
+    from fastvideo_tpu_torch.ops import conv3d
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    for label, c, co, kt, tp, t, h, w in CONV_SHAPES:
+        x = torch.randn(1, t, h, w, c, generator=g, device=dev,
+                        dtype=torch.bfloat16)
+        wt = (torch.randn(kt, 3, 3, c, co, generator=g, device=dev) *
+              (kt * 9 * c)**-0.5).to(torch.bfloat16)
+        bias = torch.randn(co, generator=g, device=dev).to(torch.bfloat16)
+        out = conv3d.conv3d_ndhwc(x, wt, bias, time_pad=tp)
+        ref = conv3d.conv3d_ndhwc_plain(x, wt, bias, time_pad=tp)
+        # bf16 outputs: two bf16 ulps (2 * 2^-7) relative, plus 1e-2 for
+        # values near zero where fp32 summation order shows
+        err = check(f"conv3d[{label}]", out, ref, 1e-2, 1.6e-2)
+        if label != "96x96@480x832":
+            del x, out, ref
+            continue
+        ms = time_ms(lambda: conv3d.conv3d_ndhwc(x, wt, bias, time_pad=tp))
+        plain = time_ms(lambda: conv3d.conv3d_ndhwc_plain(
+            x, wt, bias, time_pad=tp), 1)
+        xc = x.permute(0, 4, 1, 2, 3)  # NCDHW view, channels-last strides
+        wc = wt.permute(4, 3, 0, 1, 2).contiguous(
+            memory_format=torch.channels_last_3d)
+        lib = time_ms(lambda: F.conv3d(F.pad(xc, (0, 0, 0, 0, tp, 0)), wc,
+                                       bias, padding=(0, 1, 1)))
+        t_out = t + tp - kt + 1
+        flops = 2.0 * t_out * h * w * c * co * kt * 9
+        nbytes = 2.0 * (t * h * w * c + t_out * h * w * co + wt.numel() + co)
+        bms, by = bound_ms(flops, nbytes)
+        results["conv3d"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                 bound_ms=bms, bound_by=by, library_ms=lib,
+                                 shape=f"x{[1, t, h, w, c]} w{[kt, 3, 3, c, co]}")
+        print(f"  conv3d[{label}]: {ms:.3f} ms kernel, {plain:.3f} ms plain,"
+              f" {lib:.3f} ms cudnn, bound {bms:.3f} ms ({by}, "
+              f"{flops:.3e} FLOP)", flush=True)
+        del x, out, ref
+
+
+def decode_conv_bound(latent=(21, 60, 104)) -> float:
+    """Print the bound of the decode's K3 launches per distinct conv shape
+    (from the decoder's structure at 480x832) and return the total ms."""
+    t0, h0, w0 = latent
+    t1, t2 = 2 * t0 - 1, 4 * t0 - 3  # frames after each temporal upsample
+    # (convs, C, Co, kt, output frames, H, W); every conv runs once per
+    # decode chunk, the frames split across the chunks
+    shapes = [
+        ("conv_in", 1, 16, 384, 3, t0, h0, w0),
+        ("mid + up0 resnets 384x384", 10, 384, 384, 3, t0, h0, w0),
+        ("up0 resample 384->192 (1,3,3)", 1, 384, 192, 1, t1, 2 * h0,
+         2 * w0),
+        ("up1 resnet0 conv1 192->384", 1, 192, 384, 3, t1, 2 * h0, 2 * w0),
+        ("up1 resnets 384x384", 5, 384, 384, 3, t1, 2 * h0, 2 * w0),
+        ("up1 resample 384->192 (1,3,3)", 1, 384, 192, 1, t2, 4 * h0,
+         4 * w0),
+        ("up2 resnets 192x192", 6, 192, 192, 3, t2, 4 * h0, 4 * w0),
+        ("up2 resample 192->96 (1,3,3)", 1, 192, 96, 1, t2, 8 * h0, 8 * w0),
+        ("up3 resnets 96x96", 6, 96, 96, 3, t2, 8 * h0, 8 * w0),
+        ("conv_out 96->3", 1, 96, 3, 3, t2, 8 * h0, 8 * w0),
+    ]
+    total_flops = total_bytes = 0.0
+    for label, n, c, co, kt, t, h, w in shapes:
+        flops = 2.0 * n * t * h * w * c * co * kt * 9
+        nbytes = 2.0 * n * t * h * w * (c + co)
+        total_flops += flops
+        total_bytes += nbytes
+        bms, by = bound_ms(flops, nbytes)
+        print(f"  K3 bound {label}: {n} conv(s), {flops:.3e} FLOP, "
+              f"{bms:.1f} ms ({by})", flush=True)
+    bms, by = bound_ms(total_flops, total_bytes)
+    print(f"  K3 bound for one 81x480x832 decode: {total_flops:.4e} FLOP, "
+          f"{bms:.1f} ms ({by})", flush=True)
+    return bms
+
+
+def run_kernel_checks(dev) -> dict:
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    results: dict = {}
+    check_flash(dev, results)
+    check_vsa(dev, results)
+    check_conv(dev, results)
+    decode_bound = decode_conv_bound()
+    # K1 also runs the VAE mid-block attention: 21 frames x 6240 tokens,
+    # one head of 384, once per decode
+    vae_attn, _ = bound_ms(4.0 * 21 * 6240 * 6240 * 384, 0.0)
+    k1, k2 = results["flash_fwd"]["bound_ms"], results["vsa_sparse_fwd"][
+        "bound_ms"]
+    print(f"  bound per generation: K1 {90 * k1 + vae_attn:.1f} ms (90 "
+          f"cross-attention launches + {vae_attn:.2f} ms VAE attention), K2 "
+          f"{90 * k2:.1f} ms (90 launches), K3 {decode_bound:.1f} ms",
+          flush=True)
+    torch.cuda.empty_cache()
+    return results
+
+
+# -- phase 4: the main path at full width -------------------------------------
+
+# FastWan2.1-T2V-1.3B: the DiT and VAE at their published sizes, UMT5 at the
+# full width of UMT5-XXL with a small synthetic vocabulary
+DIT_CFG = dict(num_attention_heads=12, attention_head_dim=128, in_channels=16,
+               out_channels=16, text_dim=4096, freq_dim=256, ffn_dim=8960,
+               num_layers=30, patch_size=[1, 2, 2],
+               qk_norm="rms_norm_across_heads", cross_attn_norm=True,
+               eps=1e-6)
+VAE_CFG = dict(base_dim=96, z_dim=16, dim_mult=[1, 2, 4, 4], num_res_blocks=2,
+               attn_scales=[], temperal_downsample=[False, True, True],
+               scale_factor_temporal=4, scale_factor_spatial=8)
+T5_CFG = dict(vocab_size=8192, d_model=4096, d_kv=64, d_ff=10240,
+              num_layers=24, num_heads=64, relative_attention_num_buckets=32,
+              relative_attention_max_distance=128,
+              feed_forward_proj="gated-gelu", model_type="umt5")
+# a tiny model of the same families, for the check against the plain path
+TINY_DIT_CFG = dict(DIT_CFG, num_attention_heads=4, attention_head_dim=16,
+                    in_channels=4, out_channels=4, text_dim=32, freq_dim=32,
+                    ffn_dim=64, num_layers=2)
+TINY_VAE_CFG = dict(base_dim=8, z_dim=4, dim_mult=[1, 2], num_res_blocks=1,
+                    attn_scales=[], temperal_downsample=[True],
+                    latents_mean=[0.0] * 4, latents_std=[1.0] * 4,
+                    scale_factor_temporal=2, scale_factor_spatial=2)
+TINY_T5_CFG = dict(T5_CFG, vocab_size=128, d_model=32, d_kv=8, d_ff=48,
+                   num_layers=2, num_heads=4, relative_attention_num_buckets=8,
+                   relative_attention_max_distance=16)
+PROMPT = ("w12 w7 w301 w44 w5 w900 w18 w2 w77 w1024 w3 w60, w8 w11 w250 w6")
+
+
+def random_state(module, dtype, device, gen) -> dict:
+    """Random weights for every parameter of a module built on the meta
+    device: matrices ~ N(0, 1/fan_in), norm scales 1, small biases."""
+    import torch
+
+    out = {}
+    for name, p in module.state_dict().items():
+        shape, leaf = tuple(p.shape), name.rsplit(".", 1)[-1]
+        randn = torch.randn(shape, generator=gen, device=device)
+        if leaf == "bias":
+            t = 0.02 * randn
+        elif leaf == "gamma" or (leaf == "weight" and len(shape) == 1):
+            t = torch.ones(shape, device=device)
+        elif leaf == "scale_shift_table":
+            t = randn / shape[-1]**0.5
+        elif name.endswith(("shared.weight", "relative_attention_bias.weight")):
+            t = randn
+        else:
+            fan_in = 1
+            for n in shape[1:]:
+                fan_in *= n
+            t = randn / fan_in**0.5
+        out[name] = t.to(dtype)
+    return out
+
+
+def write_checkpoint(root: str, dit_cfg: dict, vae_cfg: dict, t5_cfg: dict,
+                     seed: int, device: str = "cuda") -> str:
+    """A diffusers-format Wan T2V checkpoint with random weights, written
+    with the port's own safetensors writer (the VAE's decoder half)."""
+    import torch
+
+    from fastvideo_tpu_torch.configs.models.dits.wan import WanArchConfig
+    from fastvideo_tpu_torch.configs.models.encoders.t5 import T5ArchConfig
+    from fastvideo_tpu_torch.configs.models.vaes.wan import WanVAEArchConfig
+    from fastvideo_tpu_torch.models.dits.wan import WanTransformer3DModel
+    from fastvideo_tpu_torch.models.encoders.t5 import T5EncoderModel
+    from fastvideo_tpu_torch.models.loader.component_loader import (
+        _build_arch_config as arch)
+    from fastvideo_tpu_torch.models.loader.safetensors_io import save_file
+    from fastvideo_tpu_torch.models.vaes.wan import AutoencoderKLWan
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    os.makedirs(root, exist_ok=True)
+
+    def dump(path, obj):
+        with open(path, "w") as fh:
+            json.dump(obj, fh)
+
+    dump(os.path.join(root, "model_index.json"), {
+        "_class_name": "WanPipeline", "_diffusers_version": "0.33.0",
+        "scheduler": ["diffusers", "UniPCMultistepScheduler"],
+        "text_encoder": ["transformers", "UMT5EncoderModel"],
+        "tokenizer": ["transformers", "T5TokenizerFast"],
+        "transformer": ["diffusers", "WanTransformer3DModel"],
+        "vae": ["diffusers", "AutoencoderKLWan"]})
+    parts = [
+        ("transformer", "WanTransformer3DModel", dit_cfg,
+         lambda: WanTransformer3DModel(arch(WanArchConfig, dit_cfg),
+                                       device="meta"),
+         torch.bfloat16, "diffusion_pytorch_model.safetensors"),
+        ("vae", "AutoencoderKLWan", vae_cfg,
+         lambda: AutoencoderKLWan(arch(WanVAEArchConfig, vae_cfg),
+                                  device="meta"),
+         torch.float32, "diffusion_pytorch_model.safetensors"),
+        ("text_encoder", "UMT5EncoderModel", t5_cfg,
+         lambda: T5EncoderModel(arch(T5ArchConfig, t5_cfg), device="meta"),
+         torch.bfloat16, "model.safetensors"),
+    ]
+    for sub, cls_name, cfg, build, dtype, fname in parts:
+        d = os.path.join(root, sub)
+        os.makedirs(d, exist_ok=True)
+        key = "architectures" if sub == "text_encoder" else "_class_name"
+        dump(os.path.join(d, "config.json"),
+             {key: [cls_name] if key == "architectures" else cls_name, **cfg})
+        state = random_state(build(), dtype, device, gen)
+        save_file(state, os.path.join(d, fname))
+        del state
+    tok = os.path.join(root, "tokenizer")
+    os.makedirs(tok, exist_ok=True)
+    vocab = {"<pad>": 0, "</s>": 1, "<unk>": 2, " ": 3}
+    vocab.update({f"w{i}": i + 4 for i in range(t5_cfg["vocab_size"] - 4)})
+    dump(os.path.join(tok, "tokenizer.json"), {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": [], "normalizer": None,
+        "pre_tokenizer": {"type": "Whitespace"}, "post_processor": None,
+        "decoder": None,
+        "model": {"type": "WordLevel", "vocab": vocab, "unk_token": "<unk>"}})
+    dump(os.path.join(tok, "tokenizer_config.json"), {
+        "tokenizer_class": "PreTrainedTokenizerFast", "pad_token": "<pad>",
+        "eos_token": "</s>", "unk_token": "<unk>", "model_max_length": 512})
+    sched = os.path.join(root, "scheduler")
+    os.makedirs(sched, exist_ok=True)
+    dump(os.path.join(sched, "scheduler_config.json"), {
+        "_class_name": "UniPCMultistepScheduler", "num_train_timesteps": 1000,
+        "solver_order": 2})
+    return root
+
+
+def psnr(a, b) -> float:
+    import numpy as np
+
+    mse = np.mean((a.astype(np.float64) - b.astype(np.float64))**2)
+    return float("inf") if mse == 0 else 10 * np.log10(255.0**2 / mse)
+
+
+def check_small_path(work: str) -> None:
+    """The whole path on a tiny random model: the card (kernels) against the
+    CPU (plain versions), same checkpoint and seed, bf16 as served."""
+    import numpy as np
+
+    from fastvideo_tpu_torch import VideoGenerator
+
+    ckpt = write_checkpoint(os.path.join(work, "FastWan2.1-T2V-tiny-Diffusers"),
+                            TINY_DIT_CFG, TINY_VAE_CFG, TINY_T5_CFG, seed=7)
+    # 9 frames at 64x64: token grid (5, 16, 16), exact (1, 16, 16) VSA tiles
+    kw = dict(prompt="w1 w2 w3", height=64, width=64, num_frames=9, seed=11,
+              save_video=False)
+    outs = {}
+    for device in ("cuda", "cpu"):
+        gen = VideoGenerator.from_pretrained(ckpt, device=device,
+                                             VSA_sparsity=0.5)
+        outs[device] = gen.generate_video(**kw)
+        del gen
+    frames = {d: o["frames"][0] for d, o in outs.items()}
+    lat = {d: o["latents"].float().cpu().numpy() for d, o in outs.items()}
+    p_frames = psnr(frames["cuda"], frames["cpu"])
+    span = lat["cpu"].max() - lat["cpu"].min()
+    mse = float(np.mean((lat["cuda"] - lat["cpu"])**2))
+    p_lat = float("inf") if mse == 0 else 10 * np.log10(span**2 / mse)
+    print(f"  tiny path, card vs CPU plain: frames PSNR {p_frames:.2f} dB, "
+          f"latents PSNR {p_lat:.2f} dB (bar: > 35 dB)", flush=True)
+    if not (np.isfinite(lat["cuda"]).all() and p_frames > 35 and p_lat > 35):
+        raise SystemExit("tiny path: the card disagrees with the plain path")
+
+
+def run_main_path(work: str, profile_dir: str | None = None) -> dict:
+    import numpy as np
+    import torch
+
+    from fastvideo_tpu_torch import VideoGenerator
+    from fastvideo_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    root = os.path.join(work, "FastWan2.1-T2V-1.3B-Diffusers")
+    ckpt = write_checkpoint(root, DIT_CFG, VAE_CFG, T5_CFG, seed=42)
+    print(f"  checkpoint written in {time.perf_counter() - t0:.1f} s "
+          f"(UMT5 depth {T5_CFG['num_layers']}; disk free "
+          f"{shutil.disk_usage(work).free / 2**30:.0f} GiB)", flush=True)
+    t0 = time.perf_counter()
+    gen = VideoGenerator.from_pretrained(ckpt, VSA_sparsity=0.8)
+    print(f"  from_pretrained in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    kw = dict(prompt=PROMPT, height=480, width=832, num_frames=81, seed=42,
+              save_video=False)
+    warm = gen.generate_video(**kw)
+    print(f"  warm-up generation {warm['generation_time']:.2f} s", flush=True)
+    del warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_counts()
+    result = gen.generate_video(**kw)
+    launches = dict(_build.LAUNCHES)
+    plain = dict(_build.PLAIN_CALLS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    times = {k: round(v, 4) for k, v in result["stage_times"].items()}
+    print(f"  generation {result['generation_time']:.3f} s; stage seconds "
+          f"{json.dumps(times)}; peak memory {peak:.1f} GiB", flush=True)
+    print(f"  kernel launches {json.dumps(launches)}; plain calls "
+          f"{json.dumps(plain)}", flush=True)
+    frames = result["frames"][0]
+    latents = result["latents"]
+    if frames.shape != (81, 480, 832, 3) or frames.dtype != np.uint8:
+        raise SystemExit(f"frames {frames.shape} {frames.dtype}")
+    if not torch.isfinite(latents).all():
+        raise SystemExit("latents are not finite")
+    if any(n == 0 for n in launches.values()):
+        raise SystemExit(f"a kernel of the path never launched: {launches}")
+    if any(plain.values()):
+        raise SystemExit(f"the main path reached a plain version: {plain}")
+    print(f"  frames {frames.shape} uint8, mean {frames.mean():.2f}; "
+          f"latents finite, std {latents.float().std().item():.4f}",
+          flush=True)
+    if profile_dir:
+        profile_generation(gen, kw, profile_dir)
+    return launches
+
+
+def profile_generation(gen, kw: dict, out_dir: str) -> None:
+    """One more generation under torch.profiler: device time by kernel
+    name, the device's busy share of the wall time, and a Chrome trace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    t0 = time.perf_counter()
+    with profile(activities=acts) as prof:
+        gen.generate_video(**kw)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in events) / 1e6
+    print(f"  profiled generation: wall {wall:.3f} s, device kernels "
+          f"{total:.3f} s, device busy share {total / wall:.3f}", flush=True)
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:20]:
+        print(f"    {e.self_device_time_total / 1e3:10.1f} ms  "
+              f"{e.count:6d}x  {e.key[:110]}", flush=True)
+    os.makedirs(out_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(out_dir, "main_path_trace.json"))
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--profile", metavar="DIR",
+                        help="also profile one generation; trace into DIR")
+    args = parser.parse_args()
+
+    import torch
+
+    print(f"# phase 1: environment: python {sys.version.split()[0]}, torch "
+          f"{torch.__version__}, cuda {torch.version.cuda}", flush=True)
+    if not torch.cuda.is_available():
+        print("no CUDA device: chip_smoke.py needs an H100", file=sys.stderr)
+        return 1
+    card = card_line()
+    print(f"  card: {card}; devices: {torch.cuda.device_count()}", flush=True)
+    dev = torch.device("cuda", 0)
+
+    from fastvideo_tpu_torch.ops import _build
+
+    print("# phase 2: kernel build", flush=True)
+    paths = _build.build_all()
+    print(f"  built {sorted(paths)} in {_build.BUILD_SECONDS:.1f} s "
+          f"(nvcc, sm_90a, in parallel)", flush=True)
+
+    print("# phase 3: kernel checks at the main path's shapes", flush=True)
+    results = run_kernel_checks(dev)
+    _build.reset_counts()
+
+    os.environ["FASTVIDEO_ATTENTION_BACKEND"] = "VIDEO_SPARSE_ATTN"
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    print("# phase 4a: tiny model, card against the plain path", flush=True)
+    check_small_path(work)
+    print("# phase 4b: main path at full width, 81x480x832, 3 DMD steps, "
+          "VSA sparsity 0.8", flush=True)
+    launches = run_main_path(work, args.profile)
+    shutil.rmtree(work, ignore_errors=True)
+
+    kernels = []
+    for name in _build.KERNELS:
+        r = results[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "shape": r["shape"]})
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,49 @@
+"""JAX module parameters -> the port's ``state_dict``.
+
+``state_dict_from_jax`` takes the parameters of a ``fastvideo_tpu`` module,
+flattened from ``nnx.state(model)`` into numpy arrays keyed by dotted path,
+and applies the layout rules of ``fastvideo_tpu.models.loader.export``
+(copied here, the port imports nothing of the JAX package):
+
+* a Linear ``kernel`` [in, out] becomes ``weight`` [out, in];
+* a 5-D conv ``weight`` in DHWIO becomes OIDHW;
+* the PatchEmbed3D matmul kernel ``patch_embedding.proj.kernel``
+  [C*pt*ph*pw, O] becomes the 5-D conv weight ``patch_embedding.weight``;
+* list indices and every other leaf keep their path and value.
+
+The result's keys are the port module's ``state_dict()`` keys, and the
+same keys ``export_torch_layout`` writes into a checkpoint.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+PATCH_EMBED = "patch_embedding.proj."
+
+
+def state_dict_from_jax(flat: dict[str, np.ndarray], *,
+                        patch_size: tuple[int, int, int] = (1, 2, 2)
+                        ) -> dict[str, torch.Tensor]:
+    out: dict[str, torch.Tensor] = {}
+    for path, value in flat.items():
+        value = np.asarray(value)
+        prefix, _, leaf = path.rpartition(".")
+        if path.startswith(PATCH_EMBED):
+            if leaf == "kernel":
+                pt, ph, pw = patch_size
+                cin = value.shape[0] // (pt * ph * pw)
+                value = value.T.reshape(-1, cin, pt, ph, pw)
+            path = f"patch_embedding.{'weight' if leaf == 'kernel' else leaf}"
+        elif leaf == "kernel" and value.ndim == 2:
+            path, value = f"{prefix}.weight", value.T
+        elif leaf == "weight" and value.ndim == 5:
+            value = value.transpose(4, 3, 0, 1, 2)
+        value = np.array(value, order="C")  # a writable copy
+        if value.dtype.name == "bfloat16":  # ml_dtypes bf16: reinterpret
+            out[path] = torch.from_numpy(value.view(np.int16)).view(
+                torch.bfloat16)
+        else:
+            out[path] = torch.from_numpy(value)
+    return out

@@ -1,0 +1,23 @@
+"""Checkpoint class names -> (module class, arch config class)."""
+
+from __future__ import annotations
+
+from fastvideo_tpu_torch.configs.models.dits.wan import WanArchConfig
+from fastvideo_tpu_torch.configs.models.encoders.t5 import T5ArchConfig
+from fastvideo_tpu_torch.configs.models.vaes.wan import WanVAEArchConfig
+
+
+def resolve_model_cls(class_name: str):
+    if class_name == "WanTransformer3DModel":
+        from fastvideo_tpu_torch.models.dits.wan import WanTransformer3DModel
+
+        return WanTransformer3DModel, WanArchConfig
+    if class_name == "AutoencoderKLWan":
+        from fastvideo_tpu_torch.models.vaes.wan import AutoencoderKLWan
+
+        return AutoencoderKLWan, WanVAEArchConfig
+    if class_name in ("UMT5EncoderModel", "T5EncoderModel"):
+        from fastvideo_tpu_torch.models.encoders.t5 import T5EncoderModel
+
+        return T5EncoderModel, T5ArchConfig
+    raise ValueError(f"No model registered for {class_name!r} in the port")

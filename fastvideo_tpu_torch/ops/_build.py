@@ -1,0 +1,162 @@
+"""Build and load the port's CUDA kernels, and count their launches.
+
+Each ``csrc/<name>.cu`` compiles with nvcc into its own shared library with
+a plain C interface (no PyTorch headers, so a build takes seconds), loaded
+with ctypes. All sources build in parallel at first use into
+``build/kernels/<hash>/`` beside the package, keyed by a hash of every
+source and header, so an edited kernel rebuilds and an unchanged one is
+reused. Nothing builds when the module is imported.
+
+Every kernel wrapper calls :func:`count_launch` where it launches its
+kernel and :func:`count_plain` where it runs its plain PyTorch version, so
+a run can show which path the work took.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+import torch
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                    "csrc")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+KERNELS = ("flash_fwd", "vsa_sparse_fwd", "conv3d")
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}
+PLAIN_CALLS: dict[str, int] = {name: 0 for name in KERNELS}
+BUILD_SECONDS: float | None = None
+
+
+class KernelError(RuntimeError):
+    """A kernel could not be built, loaded or launched."""
+
+
+def count_launch(name: str) -> None:
+    LAUNCHES[name] += 1
+
+
+def count_plain(name: str) -> None:
+    PLAIN_CALLS[name] += 1
+
+
+def reset_counts() -> None:
+    for name in KERNELS:
+        LAUNCHES[name] = 0
+        PLAIN_CALLS[name] = 0
+
+
+def build_dir() -> str:
+    root = os.environ.get("FASTVIDEO_TORCH_BUILD_DIR") or os.path.join(
+        os.path.dirname(os.path.dirname(CSRC)), "build", "kernels")
+    h = hashlib.sha256()
+    for fn in sorted(os.listdir(CSRC)):
+        if fn.endswith((".cu", ".cuh")):
+            with open(os.path.join(CSRC, fn), "rb") as fh:
+                h.update(fn.encode() + b"\0" + fh.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(root, h.hexdigest()[:16])
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
+                        "nvcc")
+    if os.path.exists(cand):
+        return cand
+    raise KernelError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def build_all() -> dict[str, str]:
+    """Compile every kernel that is not built yet, one nvcc per source, all
+    started together. Returns {name: path of its shared library}."""
+    global BUILD_SECONDS
+    import time
+
+    out_dir = build_dir()
+    paths = {n: os.path.join(out_dir, f"lib{n}.so") for n in KERNELS}
+    todo = [n for n in KERNELS if not os.path.exists(paths[n])]
+    t0 = time.perf_counter()
+    if todo:
+        nvcc = _nvcc()
+        os.makedirs(out_dir, exist_ok=True)
+        procs = {}
+        for n in todo:
+            tmp = paths[n] + f".tmp{os.getpid()}"
+            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{n}.cu")]
+            procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                              stderr=subprocess.STDOUT,
+                                              text=True))
+        errors = []
+        for n, (tmp, proc) in procs.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"nvcc failed for {n}.cu:\n{log}")
+            else:
+                os.replace(tmp, paths[n])
+        if errors:
+            raise KernelError("\n".join(errors))
+    BUILD_SECONDS = time.perf_counter() - t0
+    return paths
+
+
+_SIGNATURES = {
+    # q, k, v, o, lse, dtype, B, H, Sq, Skv, D, 12 strides, scale, causal,
+    # kv_valid, stream
+    "fvt_flash_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 +
+    [ctypes.c_longlong] * 12 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                                ctypes.c_void_p],
+    # q, k, v, o, indices, B, H, S, D, E, ng, topk, 12 strides, scale,
+    # stream
+    "fvt_vsa_sparse_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 +
+    [ctypes.c_longlong] * 12 + [ctypes.c_float, ctypes.c_void_p],
+    # x, w, bias, y, B, T, H, W, C, Co, kt, time_pad, stream
+    "fvt_conv3d_ndhwc": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 +
+    [ctypes.c_void_p],
+}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, building all kernels first."""
+    with _lock:
+        if name not in _libs:
+            paths = build_all()
+            for n, path in paths.items():
+                lib = ctypes.CDLL(path)
+                for fn, argtypes in _SIGNATURES.items():
+                    if hasattr(lib, fn):
+                        getattr(lib, fn).argtypes = argtypes
+                        getattr(lib, fn).restype = ctypes.c_int
+                _libs[n] = lib
+        return _libs[name]
+
+
+def check_device(t: torch.Tensor, name: str) -> None:
+    """Raise unless ``t`` lies on an sm_90 card the kernels were built for."""
+    cap = torch.cuda.get_device_capability(t.device)
+    if cap != (9, 0):
+        raise KernelError(
+            f"{name}: the kernel is built for sm_90a (H100/H200); device "
+            f"{t.device} has capability {cap}")
+
+
+def launch(name: str, fn: str, *args) -> None:
+    """Call C entry ``fn`` of kernel ``name`` and raise on a CUDA error."""
+    err = getattr(load(name), fn)(*args)
+    if err != 0:
+        raise KernelError(f"{name}: launch failed with CUDA error {err}")
+    count_launch(name)
+
+
+def stream_ptr(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream

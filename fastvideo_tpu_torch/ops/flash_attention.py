@@ -1,0 +1,122 @@
+"""Flash attention forward (port of fastvideo_tpu/ops/flash_attention.py).
+
+``flash_attention`` takes ``[B, S, H, D]`` tensors like the JAX function.
+On a CUDA tensor it launches the hand-written sm_90a kernel
+``csrc/flash_fwd.cu`` (K1, replacing the Pallas ``_fwd_kernel``); on a CPU
+tensor it runs :func:`flash_attention_plain`, the same arithmetic in plain
+PyTorch. There is no fallback between the two.
+
+Numerics follow the JAX kernel: fp32 scores and softmax statistics, the
+probabilities rounded to the value dtype before the P@V product, and a row
+with no valid key outputs 0. Masked keys are excluded exactly (-inf), so
+that row's log-sum-exp is -inf.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from fastvideo_tpu_torch.ops import _build
+
+NAME = "flash_fwd"
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _structural_mask(sq: int, skv: int, kv_valid: int, causal: bool,
+                     device) -> torch.Tensor:
+    """[Sq, Skv] bool: key j is visible to query i (``_mask_tile``)."""
+    row = torch.arange(sq, device=device)[:, None]
+    col = torch.arange(skv, device=device)[None, :]
+    mask = col < kv_valid
+    if causal:
+        return mask & (col <= row)
+    return mask
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, scale: float, causal: bool = False,
+                          kv_valid: int | None = None
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K1: returns (out [B,Sq,H,D], lse [B,H,Sq])."""
+    _build.count_plain(NAME)
+    sq, skv = q.shape[1], k.shape[1]
+    kv_valid = skv if kv_valid is None else kv_valid
+    qf = q.float().transpose(1, 2)
+    kf = k.float().transpose(1, 2)
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    mask = _structural_mask(sq, skv, kv_valid, causal, q.device)
+    s = s.masked_fill(~mask, float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    m_safe = torch.where(torch.isinf(m), torch.zeros_like(m), m)
+    p = torch.exp(s - m_safe)
+    l = p.sum(dim=-1, keepdim=True)
+    pv = torch.matmul(p.to(v.dtype).float(), v.float().transpose(1, 2))
+    out = pv / torch.where(l == 0, torch.ones_like(l), l)
+    lse = torch.where(l == 0, torch.full_like(l, float("-inf")),
+                      m_safe + torch.log(l))
+    return out.to(q.dtype).transpose(1, 2), lse[..., 0]
+
+
+def attn_operand(t: torch.Tensor) -> torch.Tensor:
+    """A view the attention kernels can read: unit stride on the last dim,
+    16-byte aligned base and row strides (else a contiguous copy)."""
+    vec = 16 // t.element_size()
+    ok = (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+          and all(s % vec == 0 for s in t.stride()[:-1]))
+    return t if ok else t.contiguous()
+
+
+def _check_cuda_operands(name: str, *ts: torch.Tensor) -> int:
+    _build.check_device(ts[0], name)
+    dtype = ts[0].dtype
+    if dtype not in _DTYPE_CODES or any(t.dtype != dtype for t in ts):
+        raise _build.KernelError(
+            f"{name}: takes bfloat16 or float32 operands of one dtype, got "
+            f"{[t.dtype for t in ts]}")
+    if ts[0].shape[-1] % 16:
+        raise _build.KernelError(
+            f"{name}: head dim must be a multiple of 16, got {ts[0].shape[-1]}")
+    return _DTYPE_CODES[dtype]
+
+
+def _flash_attention_cuda(q, k, v, *, scale, causal, kv_valid):
+    dtype = _check_cuda_operands(NAME, q, k, v)
+    q, k, v = attn_operand(q), attn_operand(k), attn_operand(v)
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+
+    def bhs(t):  # (batch, head, row) strides of a [B, S, H, D] tensor
+        return t.stride(0), t.stride(2), t.stride(1)
+
+    _build.launch(NAME, "fvt_flash_fwd", q.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), out.data_ptr(), lse.data_ptr(), dtype, b, h,
+                  sq, skv, d, *bhs(q), *bhs(k), *bhs(v), *bhs(out),
+                  float(scale), int(causal), int(kv_valid),
+                  _build.stream_ptr(q))
+    return out, lse
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    scale: float | None = None, causal: bool = False,
+                    kv_valid: int | None = None, return_lse: bool = False):
+    """Flash attention over ``[B, S, H, D]`` tensors (same layout out).
+
+    ``kv_valid``: keys at index >= this are masked (default: all).
+    With ``return_lse`` also returns the fp32 log-sum-exp ``[B, H, Sq]``.
+    """
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if kv_valid is None:
+        kv_valid = k.shape[1]
+    kw = dict(scale=scale, causal=causal, kv_valid=int(kv_valid))
+    if q.is_cuda:
+        out, lse = _flash_attention_cuda(q, k, v, **kw)
+    elif q.device.type == "cpu":
+        out, lse = flash_attention_plain(q, k, v, **kw)
+    else:
+        raise _build.KernelError(f"flash_fwd: unsupported device {q.device}")
+    return (out, lse) if return_lse else out

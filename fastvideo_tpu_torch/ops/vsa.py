@@ -1,0 +1,298 @@
+"""Video Sparse Attention (port of fastvideo_tpu/ops/vsa.py).
+
+The composition follows the JAX function: tokens in tile-major order,
+a compression branch (per-tile means, dense coarse attention over tiles),
+top-k key tiles per query group from the coarse scores, a block-sparse
+branch over the selected tiles, and ``out_c * gate + out_s``.
+
+The block-sparse branch over full tiles is K2: on a CUDA tensor
+:func:`block_sparse_attention_fast` launches ``csrc/vsa_sparse_fwd.cu``
+(replacing the Pallas ``_sparse_fast_kernel``); on a CPU tensor it runs
+:func:`block_sparse_attention_plain`. Grids with no exact tile need the
+padded-tile kernel (K7's forward), which is not ported yet: on CUDA they
+raise, on the CPU the plain version covers them.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+
+import numpy as np
+import torch
+
+from fastvideo_tpu_torch.ops import _build
+from fastvideo_tpu_torch.ops.flash_attention import attn_operand
+
+NAME = "vsa_sparse_fwd"
+VSA_TILE_SIZE = (4, 4, 4)
+TILE_ELEMS = 64
+
+
+# -- static tile index tables (host numpy, cached per shape) ----------------
+
+
+@functools.lru_cache(maxsize=32)
+def tile_layout(dit_seq_shape: tuple[int, int, int],
+                tile_size: tuple[int, int, int] = VSA_TILE_SIZE):
+    """Returns (scatter_index, gather_back_index, block_sizes, num_tiles,
+    padded_len); ``scatter_index[i]`` is the slot of token i in the padded
+    tile-major buffer and ``block_sizes[j]`` the real tokens of tile j."""
+    T, H, W = dit_seq_shape
+    ts, hs, ws = tile_size
+    nt, nh, nw = (math.ceil(T / ts), math.ceil(H / hs), math.ceil(W / ws))
+    elems = ts * hs * ws
+    token_ids = np.arange(T * H * W).reshape(T, H, W)
+    scatter = np.zeros(T * H * W, dtype=np.int64)
+    block_sizes = np.zeros(nt * nh * nw, dtype=np.int32)
+    tile_idx = 0
+    for t in range(nt):
+        for h in range(nh):
+            for w in range(nw):
+                blk = token_ids[t * ts:(t + 1) * ts, h * hs:(h + 1) * hs,
+                                w * ws:(w + 1) * ws].reshape(-1)
+                scatter[blk] = tile_idx * elems + np.arange(blk.size)
+                block_sizes[tile_idx] = blk.size
+                tile_idx += 1
+    return scatter, scatter, block_sizes, (nt, nh, nw), nt * nh * nw * elems
+
+
+@functools.lru_cache(maxsize=64)
+def select_vsa_tile(dit_seq_shape: tuple[int, int, int],
+                    min_elems: int = 128,
+                    max_elems: int = 640) -> tuple[int, int, int] | None:
+    """A tile geometry that divides the token grid exactly: the tile-token
+    count closest to 256, then the squarer spatial footprint, then the
+    longer time extent. None when no divisor fits."""
+    T, H, W = dit_seq_shape
+
+    def divisors(n, cap=32):
+        return [d for d in range(1, min(n, cap) + 1) if n % d == 0]
+
+    best = None
+    for ts in divisors(T, 21):
+        for hs in divisors(H):
+            for ws in divisors(W):
+                elems = ts * hs * ws
+                if elems % 8 != 0 or not min_elems <= elems <= max_elems:
+                    continue
+                if (T // ts) * (H // hs) * (W // ws) < 4:
+                    continue
+                score = (abs(elems - 256), abs(hs - ws), -ts)
+                if best is None or score < best[0]:
+                    best = (score, (ts, hs, ws))
+    return best[1] if best else None
+
+
+def tile_tokens_exact(x: torch.Tensor, dit_seq_shape: tuple[int, int, int],
+                      tile_size: tuple[int, int, int]) -> torch.Tensor:
+    """[B, S, ...] raster order -> tile-major order (exact tiles)."""
+    T, H, W = dit_seq_shape
+    ts, hs, ws = tile_size
+    if T % ts or H % hs or W % ws:
+        raise ValueError(f"tile {tile_size} does not divide grid {dit_seq_shape}")
+    b, feat = x.shape[0], x.shape[2:]
+    x = x.reshape(b, T // ts, ts, H // hs, hs, W // ws, ws, *feat)
+    x = x.permute(0, 1, 3, 5, 2, 4, 6, *range(7, 7 + len(feat)))
+    return x.reshape(b, T * H * W, *feat)
+
+
+def untile_tokens_exact(x: torch.Tensor, dit_seq_shape: tuple[int, int, int],
+                        tile_size: tuple[int, int, int]) -> torch.Tensor:
+    """Inverse of :func:`tile_tokens_exact`."""
+    T, H, W = dit_seq_shape
+    ts, hs, ws = tile_size
+    b, feat = x.shape[0], x.shape[2:]
+    x = x.reshape(b, T // ts, H // hs, W // ws, ts, hs, ws, *feat)
+    x = x.permute(0, 1, 4, 2, 5, 3, 6, *range(7, 7 + len(feat)))
+    return x.reshape(b, T * H * W, *feat)
+
+
+@functools.lru_cache(maxsize=32)
+def tile_valid_mask(dit_seq_shape: tuple[int, int, int],
+                    tile_size: tuple[int, int, int] = VSA_TILE_SIZE):
+    """[S_pad] bool numpy mask: True where a tiled slot holds a real token."""
+    _, _, block_sizes, _, padded = tile_layout(tuple(dit_seq_shape),
+                                               tuple(tile_size))
+    elems = tile_size[0] * tile_size[1] * tile_size[2]
+    pos = np.arange(padded)
+    return (pos % elems) < block_sizes[pos // elems]
+
+
+def tile_tokens(x: torch.Tensor, dit_seq_shape: tuple[int, int, int],
+                tile_size: tuple[int, int, int] = VSA_TILE_SIZE
+                ) -> torch.Tensor:
+    """[B, S, ...] token order -> [B, S_pad, ...] tile-major padded order."""
+    scatter, _, _, _, padded_len = tile_layout(tuple(dit_seq_shape),
+                                               tuple(tile_size))
+    out = x.new_zeros((x.shape[0], padded_len, *x.shape[2:]))
+    out[:, torch.as_tensor(scatter, device=x.device)] = x
+    return out
+
+
+def untile_tokens(x: torch.Tensor, dit_seq_shape: tuple[int, int, int],
+                  tile_size: tuple[int, int, int] = VSA_TILE_SIZE
+                  ) -> torch.Tensor:
+    """[B, S_pad, ...] tiled order -> [B, S, ...] original token order."""
+    _, gather_back, _, _, _ = tile_layout(tuple(dit_seq_shape),
+                                          tuple(tile_size))
+    return x[:, torch.as_tensor(gather_back, device=x.device)]
+
+
+def block_mean(x: torch.Tensor, block_sizes: torch.Tensor,
+               tile_elems: int = TILE_ELEMS) -> torch.Tensor:
+    """[B, H, nB*E, D] -> [B, H, nB, D] mean over the valid tokens of each
+    tile, summed in fp32 and cast back to the input dtype."""
+    b, h, s, d = x.shape
+    sums = x.reshape(b, h, s // tile_elems, tile_elems, d).float().sum(dim=3)
+    return (sums / block_sizes.float()[None, None, :, None]).to(x.dtype)
+
+
+# -- block-sparse branch ------------------------------------------------------
+
+
+def block_sparse_attention_plain(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, indices: torch.Tensor,
+                                 block_sizes: torch.Tensor | None = None, *,
+                                 scale: float,
+                                 tile_elems: int = TILE_ELEMS) -> torch.Tensor:
+    """Plain PyTorch version of the sparse branch: each query group gathers
+    its selected key tiles (memory ~ S*K*E per head, never S^2).
+
+    q/k/v [B, H, nB*E, D]; indices [B, H, nG, K] key tiles per group of
+    nB/nG query tiles. ``block_sizes`` [nB] masks padded slots of partial
+    tiles (None: every tile is full).
+    """
+    _build.count_plain(NAME)
+    b, h, s, d = q.shape
+    e = tile_elems
+    nb = s // e
+    ng, topk = indices.shape[2], indices.shape[3]
+    rows = s // ng
+    out = torch.empty_like(q)
+    offs = torch.arange(e, device=q.device)
+    for bi in range(b):
+        for hi in range(h):
+            idx = indices[bi, hi].long()  # [nG, K]
+            kv_rows = (idx[..., None] * e + offs).reshape(ng, topk * e)
+            kt = k[bi, hi].float()[kv_rows]  # [nG, K*E, D]
+            vt = v[bi, hi][kv_rows]
+            qg = q[bi, hi].float().reshape(ng, rows, d)
+            sc = torch.matmul(qg, kt.transpose(-1, -2)) * scale
+            if block_sizes is not None:
+                valid = offs[None, None, :] < block_sizes.to(
+                    q.device)[idx][..., None]  # [nG, K, E]
+                sc = sc.masked_fill(~valid.reshape(ng, 1, topk * e),
+                                    float("-inf"))
+            m = sc.amax(dim=-1, keepdim=True)
+            p = torch.exp(sc - m)
+            l = p.sum(dim=-1, keepdim=True)
+            o = torch.matmul(p.to(v.dtype).float(), vt.float()) / l
+            out[bi, hi] = o.reshape(s, d).to(q.dtype)
+    return out
+
+
+def _block_sparse_attention_cuda(q, k, v, indices, scale, tile_elems):
+    _build.check_device(q, NAME)
+    d = q.shape[-1]
+    if any(t.dtype != torch.bfloat16 for t in (q, k, v)) or d % 16 or d > 128:
+        raise _build.KernelError(
+            f"{NAME}: takes bfloat16 operands with a head dim that is a "
+            f"multiple of 16 up to 128, got {[t.dtype for t in (q, k, v)]} "
+            f"and head dim {d}")
+    q, k, v = attn_operand(q), attn_operand(k), attn_operand(v)
+    b, h, s, d = q.shape
+    ng, topk = indices.shape[2], indices.shape[3]
+    idx = indices.to(device=q.device, dtype=torch.int32).contiguous()
+    # the output is laid out [B, S, H, D] so that the caller's transpose back
+    # to token-major order is free
+    out = torch.empty((b, s, h, d), dtype=q.dtype,
+                      device=q.device).transpose(1, 2)
+    st = []
+    for t in (q, k, v, out):
+        st += [t.stride(0), t.stride(1), t.stride(2)]
+    _build.launch(NAME, "fvt_vsa_sparse_fwd", q.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), out.data_ptr(), idx.data_ptr(), b, h, s,
+                  d, tile_elems, ng, topk, *st, float(scale),
+                  _build.stream_ptr(q))
+    return out
+
+
+def block_sparse_attention_fast(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, indices: torch.Tensor, *,
+                                scale: float | None = None,
+                                tile_elems: int = TILE_ELEMS) -> torch.Tensor:
+    """Block-sparse attention over FULL tiles (K2).
+
+    q/k/v: [B, H, nB*E, D] tile-major; indices: [B, H, nG, K] key-tile ids
+    per query group of nB/nG consecutive tiles. Returns [B, H, nB*E, D].
+    """
+    b, h, s, d = q.shape
+    nb = s // tile_elems
+    ng = indices.shape[2]
+    if s % tile_elems or nb % ng:
+        raise ValueError(f"{s} rows do not split into {ng} groups of "
+                         f"{tile_elems}-token tiles")
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    if q.is_cuda:
+        return _block_sparse_attention_cuda(q, k, v, indices, scale,
+                                            tile_elems)
+    if q.device.type == "cpu":
+        return block_sparse_attention_plain(q, k, v, indices, scale=scale,
+                                            tile_elems=tile_elems)
+    raise _build.KernelError(f"{NAME}: unsupported device {q.device}")
+
+
+# -- full VSA composition -----------------------------------------------------
+
+
+def video_sparse_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      block_sizes: torch.Tensor, topk: int, *,
+                      gate_compress: torch.Tensor | None = None,
+                      scale: float | None = None,
+                      tile_elems: int = TILE_ELEMS, full_tiles: bool = False,
+                      q_group: int = 1) -> torch.Tensor:
+    """VSA over tiled [B, H, S_pad, D] tensors.
+
+    ``full_tiles`` asserts there is no intra-tile padding, which K2 needs.
+    ``q_group`` consecutive query tiles share one top-k set, chosen from
+    their averaged coarse scores.
+    """
+    b, h, s, d = q.shape
+    nb = s // tile_elems
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    topk = max(1, min(topk, nb))
+    block_sizes = block_sizes.to(q.device)
+
+    q_c = block_mean(q, block_sizes, tile_elems)
+    k_c = block_mean(k, block_sizes, tile_elems)
+    v_c = block_mean(v, block_sizes, tile_elems)
+    scores = torch.matmul(q_c.float(), k_c.float().transpose(-1, -2)) * scale
+    attn = torch.softmax(scores, dim=-1)
+    out_c = torch.matmul(attn, v_c.float()).to(q.dtype)
+    out_c = out_c.repeat_interleave(tile_elems, dim=2)
+
+    if q_group > 1 and full_tiles and nb % q_group == 0:
+        scores_sel = scores.reshape(b, h, nb // q_group, q_group,
+                                    nb).mean(dim=3)
+    else:
+        scores_sel = scores
+    top_idx = torch.topk(scores_sel, topk, dim=-1).indices
+
+    if full_tiles:
+        out_s = block_sparse_attention_fast(q, k, v, top_idx, scale=scale,
+                                            tile_elems=tile_elems)
+    elif q.is_cuda:
+        raise _build.KernelError(
+            "VSA on a token grid with no exact tile needs the padded-tile "
+            "sparse kernel (Pallas _sparse_fwd_lse_kernel), which is not "
+            "ported to CUDA yet")
+    else:
+        out_s = block_sparse_attention_plain(q, k, v, top_idx, block_sizes,
+                                             scale=scale,
+                                             tile_elems=tile_elems)
+    if gate_compress is not None:
+        return out_c * gate_compress + out_s
+    return out_c + out_s

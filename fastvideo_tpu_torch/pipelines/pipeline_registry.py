@@ -1,0 +1,21 @@
+"""model_index ``_class_name`` -> pipeline class (port of
+fastvideo_tpu/pipelines/pipeline_registry.py, the Wan T2V entries)."""
+
+from __future__ import annotations
+
+from fastvideo_tpu_torch.pipelines.basic.wan.wan_pipeline import (
+    WanDMDPipeline, WanPipeline)
+
+_PIPELINES = {
+    "WanPipeline": WanPipeline,
+    "WanDMDPipeline": WanDMDPipeline,
+}
+
+
+def resolve_pipeline_cls(class_name: str, dmd: bool = False):
+    if dmd and class_name == "WanPipeline":
+        class_name = "WanDMDPipeline"
+    if class_name not in _PIPELINES:
+        raise ValueError(f"No pipeline registered for {class_name!r} in the "
+                         f"port; known: {sorted(_PIPELINES)}")
+    return _PIPELINES[class_name]

@@ -1,0 +1,133 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the card,
+at edge shapes the main path does not reach (ragged lengths, batch > 1,
+fp32 flash attention, non-contiguous views, channel tails). Marked ``cuda``: they skip
+without an sm_90 card. On the card (which has no JAX, so without the
+suite's conftest):
+
+    python -m pytest tests/test_torch_kernels_cuda.py -m cuda --noconftest -q
+"""
+
+import itertools
+
+import pytest
+import torch
+
+from fastvideo_tpu_torch.ops import _build, conv3d, flash_attention, vsa
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available() or \
+            torch.cuda.get_device_capability(0) != (9, 0):
+        pytest.skip("needs an sm_90 CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _close(got, want, dtype, attention=True):
+    # fp32: summation order only. bf16: both sides round to bf16, so two
+    # ulps (2^-6) relative, plus a floor for values near zero where the
+    # order of the fp32 sums shows. An attention output is a softmax average
+    # of N random values, typically about N^-0.5 (0.09 to 0.2 here), so its
+    # floor is 2^-5 of the plain output's std; a conv output here is of
+    # order 1 and its floor is 1e-2.
+    if dtype == torch.float32:
+        atol, rtol = 1e-4, 1e-4
+    elif attention:
+        atol, rtol = 2.0**-5 * want.float().std().item(), 2.0**-6
+    else:
+        atol, rtol = 1e-2, 1.6e-2
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype,d,causal,kv_valid", [
+    (torch.bfloat16, 64, False, None),
+    (torch.bfloat16, 128, True, 100),
+    (torch.bfloat16, 384, False, 60),
+    (torch.float32, 64, True, None),
+    (torch.float32, 384, False, 0),
+])
+def test_flash_matches_plain(dev, dtype, d, causal, kv_valid):
+    g = torch.Generator(device=dev).manual_seed(0)
+    b, sq, skv, h = 2, 77, 130, 3
+    q = torch.randn(b, sq, h, d, generator=g, device=dev, dtype=dtype)
+    # k/v as strided views of a wider buffer
+    kv = torch.randn(b, skv, h, 2 * d, generator=g, device=dev, dtype=dtype)
+    k, v = kv[..., :d], kv[..., d:]
+    kw = dict(scale=d**-0.5, causal=causal, kv_valid=kv_valid)
+    out, lse = flash_attention.flash_attention(q, k, v, return_lse=True,
+                                               **kw)
+    ref, ref_lse = flash_attention.flash_attention_plain(
+        q, k, v, **dict(kw, kv_valid=skv if kv_valid is None else kv_valid))
+    _close(out, ref, dtype)
+    finite = torch.isfinite(ref_lse)
+    assert torch.equal(finite, torch.isfinite(lse))
+    torch.testing.assert_close(lse[finite], ref_lse[finite], atol=1e-3,
+                               rtol=1e-4)
+
+
+@pytest.mark.parametrize("e,nb,qg,topk,d", [
+    (280, 9, 3, 4, 128),
+    (64, 8, 1, 1, 128),
+    (96, 6, 2, 6, 128),
+    (280, 6, 3, 2, 64),
+])
+def test_vsa_sparse_matches_plain(dev, e, nb, qg, topk, d):
+    g = torch.Generator(device=dev).manual_seed(1)
+    b, h, dtype = 2, 3, torch.bfloat16
+    q, k, v = (torch.randn(b, h, nb * e, d, generator=g, device=dev,
+                           dtype=dtype) for _ in range(3))
+    ng = nb // qg
+    idx = torch.stack([torch.randperm(nb, generator=g, device=dev)[:topk]
+                       for _ in range(b * h * ng)]).reshape(b, h, ng, topk)
+    out = vsa.block_sparse_attention_fast(q, k, v, idx, tile_elems=e)
+    ref = vsa.block_sparse_attention_plain(q, k, v, idx, scale=d**-0.5,
+                                           tile_elems=e)
+    _close(out, ref, dtype)
+
+
+@pytest.mark.parametrize("kt,time_pad,c,co", list(itertools.product(
+    [1, 3], [0, 2], [8, 24], [3, 40, 72])))
+def test_conv3d_matches_plain(dev, kt, time_pad, c, co):
+    g = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn(2, 4, 5, 7, c, generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    w = (torch.randn(kt, 3, 3, c, co, generator=g, device=dev) *
+         (kt * 9 * c)**-0.5).to(torch.bfloat16)
+    b = torch.randn(co, generator=g, device=dev).to(torch.bfloat16)
+    out = conv3d.conv3d_ndhwc(x, w, b, time_pad=time_pad)
+    ref = conv3d.conv3d_ndhwc_plain(x, w, b, time_pad=time_pad)
+    assert out.shape == (2, 4 + time_pad - kt + 1, 5, 7, co)
+    _close(out, ref, torch.bfloat16, attention=False)
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 128),
+                                     (torch.bfloat16, 256)])
+def test_vsa_sparse_rejects_other_dtypes_and_head_dims(dev, dtype, d):
+    q = torch.zeros(1, 1, 128, d, device=dev, dtype=dtype)
+    idx = torch.zeros(1, 1, 2, 1, device=dev, dtype=torch.int32)
+    with pytest.raises(_build.KernelError, match="bfloat16"):
+        vsa.block_sparse_attention_fast(q, q, q, idx, tile_elems=64)
+
+
+def test_wrappers_count_launches_not_plain(dev):
+    q = torch.randn(1, 64, 1, 64, device=dev, dtype=torch.bfloat16)
+    before = dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
+    flash_attention.flash_attention(q, q, q)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["flash_fwd"] == before[0]["flash_fwd"] + 1
+    assert _build.PLAIN_CALLS == before[1]
+
+
+def test_conv3d_gamma_raises_on_cuda(dev):
+    x = torch.zeros(1, 2, 4, 4, 8, device=dev, dtype=torch.bfloat16)
+    w = torch.zeros(3, 3, 3, 8, 8, device=dev, dtype=torch.bfloat16)
+    b = torch.zeros(8, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(_build.KernelError, match="prologue"):
+        conv3d.conv3d_ndhwc(x, w, b, time_pad=2, gamma=b)

@@ -1,0 +1,148 @@
+"""The port imports nothing of JAX, Flax or the JAX package, and its CUDA
+wrappers never fall back to the plain versions."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import fastvideo_tpu  # noqa: F401  (the JAX reference stays importable)
+import fastvideo_tpu_torch
+from fastvideo_tpu_torch.ops import _build
+from fastvideo_tpu_torch.ops import conv3d, flash_attention, vsa
+
+torch.set_num_threads(2)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.dirname(fastvideo_tpu_torch.__file__)
+FORBIDDEN = ("jax", "jaxlib", "flax", "fastvideo_tpu")
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def _port_sources():
+    for dirpath, _, files in os.walk(PKG):
+        for fn in files:
+            if fn.endswith(".py"):
+                yield os.path.join(dirpath, fn)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def test_no_forbidden_import_in_sources():
+    bad = []
+    for path in _port_sources():
+        with open(path) as fh:
+            tree = ast.parse(fh.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [(path, n) for n in names if _forbidden(n)]
+    assert not bad
+
+
+BLOCKER = """
+import importlib.abc, pkgutil, sys
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if any(name == f or name.startswith(f + ".") for f in {forbidden!r}):
+            raise ImportError("blocked: " + name)
+sys.meta_path.insert(0, Block())
+import fastvideo_tpu_torch
+from fastvideo_tpu_torch import VideoGenerator
+for mod in pkgutil.walk_packages(fastvideo_tpu_torch.__path__,
+                                 "fastvideo_tpu_torch."):
+    __import__(mod.name)
+assert not [m for m in sys.modules
+            if any(m == f or m.startswith(f + ".") for f in {forbidden!r})]
+print("ok")
+"""
+
+
+def test_port_imports_with_jax_blocked():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run(
+        [sys.executable, "-c", BLOCKER.format(forbidden=FORBIDDEN)],
+        capture_output=True, text=True, env=env, cwd=ROOT, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+class _CudaTyped(torch.Tensor):
+    """A CPU tensor that reports itself as a CUDA tensor, to drive the
+    wrappers' CUDA dispatch without a card."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+def _cuda_typed(t):
+    return t.as_subclass(_CudaTyped)
+
+
+def _calls():
+    bf = torch.bfloat16
+    q = torch.zeros(1, 64, 2, 32, dtype=bf)
+    qt = torch.zeros(1, 2, 128, 32, dtype=bf)
+    idx = torch.zeros(1, 2, 2, 1, dtype=torch.int32)
+    x = torch.zeros(1, 2, 4, 4, 8, dtype=bf)
+    w = torch.zeros(3, 3, 3, 8, 8, dtype=bf)
+    b = torch.zeros(8, dtype=bf)
+    c = _cuda_typed
+    return {
+        "flash_fwd": lambda: flash_attention.flash_attention(c(q), c(q), c(q)),
+        "vsa_sparse_fwd": lambda: vsa.block_sparse_attention_fast(
+            c(qt), c(qt), c(qt), idx, tile_elems=64),
+        "conv3d": lambda: conv3d.conv3d_ndhwc(c(x), c(w), c(b), time_pad=2),
+    }
+
+
+@pytest.mark.parametrize("kernel", _build.KERNELS)
+def test_cuda_call_without_kernel_library_raises(kernel, monkeypatch,
+                                                 tmp_path):
+    """With no library loaded and no nvcc, a CUDA-typed call raises a
+    KernelError from the build; the plain version never runs."""
+    monkeypatch.setattr(_build, "check_device", lambda t, name: None)
+    monkeypatch.setattr(_build, "stream_ptr", lambda t: 0)
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no_cuda"))
+    monkeypatch.setenv("FASTVIDEO_TORCH_BUILD_DIR", str(tmp_path / "build"))
+    before = dict(_build.PLAIN_CALLS)
+    with pytest.raises(_build.KernelError, match="nvcc not found"):
+        _calls()[kernel]()
+    assert _build.PLAIN_CALLS == before
+
+
+@pytest.mark.parametrize("kernel", _build.KERNELS)
+def test_cuda_call_on_other_card_raises(kernel, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "get_device_capability",
+                        lambda device=None: (8, 0))
+    before = dict(_build.PLAIN_CALLS)
+    with pytest.raises(_build.KernelError, match="sm_90a"):
+        _calls()[kernel]()
+    assert _build.PLAIN_CALLS == before
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 32),
+                                     (torch.bfloat16, 256)])
+def test_vsa_cuda_call_rejects_other_dtypes_and_head_dims(dtype, d,
+                                                          monkeypatch):
+    """K2 is built for bf16 with head dims up to 128 only; other CUDA calls
+    raise before any build, and the plain version never runs."""
+    monkeypatch.setattr(_build, "check_device", lambda t, name: None)
+    qt = _cuda_typed(torch.zeros(1, 2, 128, d, dtype=dtype))
+    idx = torch.zeros(1, 2, 2, 1, dtype=torch.int32)
+    before = dict(_build.PLAIN_CALLS), dict(_build.LAUNCHES)
+    with pytest.raises(_build.KernelError, match="bfloat16"):
+        vsa.block_sparse_attention_fast(qt, qt, qt, idx, tile_elems=64)
+    assert (dict(_build.PLAIN_CALLS), dict(_build.LAUNCHES)) == before
