@@ -7,13 +7,21 @@ Phases, each printing its own lines:
   1. environment: torch/CUDA versions and the card's name and power limit;
   2. kernel build: nvcc for sm_90a from fastvideo_tpu_torch/csrc;
   3. kernel checks: each kernel against its plain PyTorch version on the
-     card at the main path's shapes, with kernel, plain, library and bound
-     times;
-  4. main path at full width: a random-weight FastWan2.1-T2V-1.3B-shaped
-     diffusers checkpoint written with the port's own safetensors writer,
-     loaded by VideoGenerator.from_pretrained(VSA_sparsity=0.8) and run by
-     generate_video at 81x480x832, seed 42 (warm-up, then timed), with the
-     kernels' launch counts;
+     card at the main paths' shapes, with kernel, plain, library and bound
+     times (the padded sparse kernel at its VSA, STA and SLA shapes);
+  4. a: tiny models, the card's whole path against the CPU's plain path
+     (FastWan DMD; Wan UniPC + CFG with VSA and with STA on a padded grid);
+     b: the FastWan main path at full width: a random-weight
+     FastWan2.1-T2V-1.3B-shaped diffusers checkpoint written with the
+     port's own safetensors writer, loaded by
+     VideoGenerator.from_pretrained(VSA_sparsity=0.8) and run by
+     generate_video at 81x480x832, seed 42 (warm-up, then timed);
+     c, d: the Wan2.1-T2V-1.3B multistep path at full width and depth,
+     81x480x848 (token grid (21, 30, 53), no exact VSA tile), FlowUniPC
+     steps with classifier-free guidance: with VIDEO_SPARSE_ATTN at
+     sparsity 0.8 (--vsa-steps, default 4) and with SLIDING_TILE_ATTN
+     (--sta-steps, default 2); each with stage times, the kernels' launch
+     counts and peak memory;
   5. the kernels line, the card line and the result line.
 
 Any failure exits non-zero before the result line. It imports nothing of
@@ -38,11 +46,15 @@ PEAK_BYTES = 3.35e12
 REPLACES = {
     "flash_fwd": "fastvideo_tpu/ops/flash_attention.py:93",
     "vsa_sparse_fwd": "fastvideo_tpu/ops/vsa.py:209",
+    "vsa_sparse_padded_fwd":
+    "fastvideo_tpu/ops/vsa.py:629 and fastvideo_tpu/ops/vsa.py:378",
     "conv3d": "fastvideo_tpu/ops/conv3d.py:180 and fastvideo_tpu/ops/conv3d.py:55",
 }
 SOURCES = {
     "flash_fwd": "fastvideo_tpu_torch/csrc/flash_fwd.cu",
     "vsa_sparse_fwd": "fastvideo_tpu_torch/csrc/vsa_sparse_fwd.cu",
+    "vsa_sparse_padded_fwd":
+    "fastvideo_tpu_torch/csrc/vsa_sparse_padded_fwd.cu",
     "conv3d": "fastvideo_tpu_torch/csrc/conv3d.cu",
 }
 
@@ -120,28 +132,45 @@ def check_flash(dev, results: dict) -> None:
     import torch.nn.functional as F
 
     from fastvideo_tpu_torch.ops import flash_attention as fa
+    from fastvideo_tpu_torch.ops import vsa
 
     g = torch.Generator(device=dev).manual_seed(0)
 
     def rnd(*shape, dtype=torch.bfloat16):
         return torch.randn(*shape, generator=g, device=dev, dtype=dtype)
 
+    # 480x832: 32,760 tokens, VAE mid block 60x104. 480x848: the VSA trunk
+    # runs in padded tile-major order (43,008 slots, the padded ones zero),
+    # the STA trunk in token order (33,390), VAE mid block 60x106
     cases = [
         ("cross_attn", (1, 32760, 12, 128), 512, torch.bfloat16, False),
+        ("cross_attn 480x848 vsa", (1, 43008, 12, 128), 512, torch.bfloat16,
+         False),
+        ("cross_attn 480x848 sta", (1, 33390, 12, 128), 512, torch.bfloat16,
+         False),
         ("vae_mid_attn", (21, 6240, 1, 384), 6240, torch.bfloat16, False),
+        ("vae_mid_attn 480x848", (21, 6360, 1, 384), 6360, torch.bfloat16,
+         False),
         ("fp32_causal_tail", (2, 1000, 2, 64), 777, torch.float32, True),
     ]
+    padded_valid = torch.as_tensor(
+        vsa.tile_valid_mask((21, 30, 53), (4, 8, 8)), device=dev)
+    errs = []
     for label, (b, sq, h, d), skv, dtype, causal in cases:
         q = rnd(b, sq, h, d, dtype=dtype)
+        if sq == padded_valid.numel():
+            q = q * padded_valid[None, :, None, None]
         k = rnd(b, skv, h, d, dtype=dtype)
         v = rnd(b, skv, h, d, dtype=dtype)
         kv_valid = skv - 13 if causal else skv
         kw = dict(scale=d**-0.5, causal=causal, kv_valid=kv_valid)
         out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
         ref, ref_lse = fa.flash_attention_plain(q, k, v, **kw)
-        err = check(f"flash_fwd[{label}]", out, ref, *attn_tol(ref, dtype))
+        errs.append(check(f"flash_fwd[{label}]", out, ref,
+                          *attn_tol(ref, dtype)))
         check(f"flash_fwd[{label}] lse", lse, ref_lse, 1e-3)
         if label != "cross_attn":
+            del q, k, v, out, ref, lse, ref_lse
             continue
         ms = time_ms(lambda: fa.flash_attention(q, k, v, **kw))
         plain = time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), 2)
@@ -151,13 +180,14 @@ def check_flash(dev, results: dict) -> None:
         flops = 4.0 * b * h * sq * skv * d
         nbytes = 2.0 * (2 * b * sq * h * d + 2 * b * skv * h * d) + 4 * b * h * sq
         bms, by = bound_ms(flops, nbytes)
-        results["flash_fwd"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+        results["flash_fwd"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain,
                                     bound_ms=bms, bound_by=by,
                                     library_ms=lib,
                                     shape=f"q{[b, sq, h, d]} kv{skv} bf16")
         print(f"  flash_fwd[{label}]: {ms:.3f} ms kernel, {plain:.3f} ms "
               f"plain, {lib:.3f} ms sdpa, bound {bms:.3f} ms ({by}, "
               f"{flops:.3e} FLOP)", flush=True)
+    results["flash_fwd"]["max_abs_err"] = max(errs)  # over every case
 
 
 def vsa_block_mask(idx, s: int, e: int, group_rows: int, block: int = 128):
@@ -235,20 +265,187 @@ def check_vsa(dev, results: dict) -> None:
           f"{flops:.3e} FLOP)", flush=True)
 
 
-# (label, C, Co, kt, time_pad, T_in, H, W): the decoder's conv shapes at
-# 480x832, one chunk of 4 latent frames (T cut so the plain version fits)
-CONV_SHAPES = [
-    ("conv_in", 16, 384, 3, 2, 4, 60, 104),
-    ("384x384@60x104", 384, 384, 3, 0, 6, 60, 104),
-    ("resample384->192@120x208", 384, 192, 1, 0, 8, 120, 208),
-    ("192->384@120x208", 192, 384, 3, 0, 10, 120, 208),
-    ("384x384@120x208", 384, 384, 3, 0, 10, 120, 208),
-    ("resample384->192@240x416", 384, 192, 1, 0, 16, 240, 416),
-    ("192x192@240x416", 192, 192, 3, 0, 18, 240, 416),
-    ("resample192->96@480x832", 192, 96, 1, 0, 16, 480, 832),
-    ("96x96@480x832", 96, 96, 3, 0, 18, 480, 832),
-    ("conv_out96->3@480x832", 96, 3, 3, 0, 18, 480, 832),
-]
+def padded_block_mask(idx, sizes, s: int, e: int, block: int = 128):
+    """The flex_attention BlockMask of the padded kernel's sparsity: query
+    tile qi sees the keys below sizes[t] of every tile t in idx[b, h, qi]
+    (-1 slots see nothing). E is a multiple of `block`, so a key block lies
+    in one tile: full when the tile is selected and its valid count covers
+    the block, partial when the count ends inside it."""
+    import torch
+    from torch.nn.attention.flex_attention import BlockMask
+
+    b, h, nq, _ = idx.shape
+    nb, per = s // e, e // block
+    sel = torch.zeros(b, h, nq, nb + 1, dtype=torch.bool, device=idx.device)
+    sel.scatter_(-1, torch.where(idx >= 0, idx, nb).long(), True)
+    sel = sel[..., :nb]
+    blk = torch.arange(nb * per, device=idx.device)
+    cover = sizes[blk // per] - (blk % per) * block  # valid keys per block
+    sel_blk = sel[..., blk // per].repeat_interleave(per, dim=2)
+    full = sel_blk & (cover >= block)
+    partial = sel_blk & (cover > 0) & (cover < block)
+
+    def blocks(m):
+        order = torch.argsort(m.to(torch.int8), dim=-1, descending=True,
+                              stable=True)
+        return m.sum(-1, dtype=torch.int32), order.to(torch.int32)
+
+    def mask_mod(bi, hi_, q_idx, kv_idx):
+        return sel[bi, hi_, q_idx // e, kv_idx // e] & (
+            kv_idx % e < sizes[kv_idx // e])
+
+    return BlockMask.from_kv_blocks(*blocks(partial), *blocks(full),
+                                    BLOCK_SIZE=block, mask_mod=mask_mod,
+                                    seq_lengths=(s, s))
+
+
+def padded_bound(idx, sizes, d: int) -> tuple[float, float]:
+    """(FLOP, bytes) the padded sparse function needs for these inputs: real
+    query rows against the valid keys of their real slots, each real token
+    of q/k/v read once and of out (and the fp32 LSE) written once."""
+    import torch
+
+    sizes = sizes.double()
+    keys = (sizes[idx.clamp_min(0).long()] * (idx >= 0)).sum(-1)  # [B, H, nQ]
+    pairs = (keys * sizes[None, None, :]).sum().item()
+    b, h = idx.shape[:2]
+    tokens = b * h * sizes.sum().item()
+    return 4.0 * d * pairs, 2.0 * 4 * tokens * d + 4 * tokens + 4 * idx.numel()
+
+
+def check_vsa_padded(dev, results: dict) -> None:
+    """The padded sparse kernel at the 480x848 shapes: VSA (top-34 of 168
+    padded tiles, output and LSE), STA (window rows with -1 slots), an SLA
+    shape (64-token full tiles), and a row with no valid key."""
+    import torch
+    from torch.nn.attention.flex_attention import flex_attention
+
+    from fastvideo_tpu_torch.attention.backends.vsa import vsa_topk
+    from fastvideo_tpu_torch.ops import sla, sta, vsa
+
+    name = "vsa_sparse_padded_fwd"
+    g = torch.Generator(device=dev).manual_seed(3)
+    grid, tile, b, h, d = (21, 30, 53), (4, 8, 8), 1, 12, 128
+    _, _, sizes_np, _, s = vsa.tile_layout(grid, tile)
+    e, nb = 256, s // 256
+    sizes = torch.as_tensor(sizes_np, device=dev)
+    valid = torch.as_tensor(vsa.tile_valid_mask(grid, tile), device=dev)
+    # the padded slots hold zeros, as the backend leaves them
+    q, k, v = (torch.randn(b, h, s, d, generator=g, device=dev,
+                           dtype=torch.bfloat16) * valid[:, None]
+               for _ in range(3))
+    scale = d**-0.5
+    topk = vsa_topk(0.8, nb)
+    idx = torch.stack([torch.randperm(nb, generator=g, device=dev)[:topk]
+                       for _ in range(b * h * nb)]).reshape(b, h, nb, topk)
+    idx = idx.to(torch.int32)
+    kw = dict(scale=scale, tile_elems=e)
+
+    out, lse = vsa.block_sparse_attention(q, k, v, idx, sizes,
+                                          return_lse=True, **kw)
+    ref, ref_lse = vsa.block_sparse_attention_plain(q, k, v, idx, sizes,
+                                                    return_lse=True, **kw)
+    tol = attn_tol(ref, torch.bfloat16)
+    err = check(f"{name}[vsa 480x848]", out, ref, *tol)
+    check(f"{name}[vsa 480x848] lse", lse, ref_lse, 1e-3)
+    ms = time_ms(lambda: vsa.block_sparse_attention(
+        q, k, v, idx, sizes, return_lse=True, **kw))
+    plain = time_ms(lambda: vsa.block_sparse_attention_plain(
+        q, k, v, idx, sizes, return_lse=True, **kw), 1)
+    # the library yardstick, timed here only: compiled flex_attention with
+    # the same indices and valid counts as a BlockMask
+    mask = padded_block_mask(idx, sizes, s, e)
+    flex = torch.compile(flex_attention, dynamic=False)
+    check("flex_attention[vsa 480x848] (library)",
+          flex(q, k, v, block_mask=mask, scale=scale), ref, *tol)
+    lib = time_ms(lambda: flex(q, k, v, block_mask=mask, scale=scale))
+    flops, nbytes = padded_bound(idx, sizes, d)
+    bms, by = bound_ms(flops, nbytes)
+    print(f"  {name}[vsa 480x848]: {ms:.3f} ms kernel, {plain:.3f} ms plain, "
+          f"{lib:.3f} ms flex_attention, bound {bms:.3f} ms ({by}, "
+          f"{flops:.3e} FLOP on real rows and valid keys; top-{topk} of {nb} "
+          f"tiles, {sizes.sum().item()} tokens in {s} slots)", flush=True)
+
+    # STA: the (3, 3, 3)-tile window rows of the same grid, no LSE
+    widx = torch.as_tensor(sta.sta_window_indices(grid, tile,
+                                                  ((3, 3, 3),) * h),
+                           device=dev)[None]
+    out = vsa.block_sparse_attention(q, k, v, widx, sizes, **kw)
+    ref = vsa.block_sparse_attention_plain(q, k, v, widx, sizes, **kw)
+    sta_err = check(f"{name}[sta 480x848]", out, ref,
+                    *attn_tol(ref, torch.bfloat16))
+    sta_ms = time_ms(lambda: vsa.block_sparse_attention(q, k, v, widx, sizes,
+                                                        **kw))
+    sta_flops, sta_bytes = padded_bound(widx, sizes, d)
+    sta_bms, sta_by = bound_ms(sta_flops, sta_bytes)
+    print(f"  {name}[sta 480x848]: {sta_ms:.3f} ms kernel, bound "
+          f"{sta_bms:.3f} ms ({sta_by}, {sta_flops:.3e} FLOP; "
+          f"{(widx >= 0).sum().item() // h} (tile, window-tile) pairs a head,"
+          f" {(widx < 0).sum().item() // h} sentinel slots)", flush=True)
+    del q, k, v, out, ref, lse, ref_lse, mask
+
+    # SLA: 64-token full tiles, top 10% of 512 key blocks from its block map
+    s2, e2 = 32768, 64
+    q, k, v = (torch.randn(b, h, s2, d, generator=g, device=dev,
+                           dtype=torch.bfloat16) for _ in range(3))
+    lut, _ = sla.sla_block_map(q, k, 0.1)
+    full = torch.full((s2 // e2,), e2, dtype=torch.int32, device=dev)
+    out = vsa.block_sparse_attention(q, k, v, lut, full, scale=scale)
+    ref = vsa.block_sparse_attention_plain(q, k, v, lut, full, scale=scale)
+    sla_err = check(f"{name}[sla 32768]", out, ref,
+                    *attn_tol(ref, torch.bfloat16))
+    sla_ms = time_ms(lambda: vsa.block_sparse_attention(q, k, v, lut, full,
+                                                        scale=scale))
+    sla_flops, sla_bytes = padded_bound(lut, full, d)
+    sla_bms, sla_by = bound_ms(sla_flops, sla_bytes)
+    print(f"  {name}[sla 32768]: {sla_ms:.3f} ms kernel, bound {sla_bms:.3f} "
+          f"ms ({sla_by}, {sla_flops:.3e} FLOP; top-{lut.shape[-1]} of "
+          f"{s2 // e2} blocks)", flush=True)
+
+    # a query tile whose every slot is a sentinel: exactly 0, never NaN
+    small = torch.full((1, h, s2 // e2, 2), -1, dtype=torch.int32, device=dev)
+    small[:, :, 1:, 0] = 0
+    out, lse = vsa.block_sparse_attention(q, k, v, small, full, scale=scale,
+                                          return_lse=True)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(out.float()).all() and torch.isfinite(lse).all()
+            and (out[:, :, :e2] == 0).all()
+            and (lse[:, :, :e2] == vsa.MASK_VALUE).all()
+            and (out[:, :, e2:] != 0).any()):
+        raise SystemExit(f"{name}: a row with no valid key is not 0")
+    print(f"  {name}[all-masked rows]: output exactly 0, LSE "
+          f"{vsa.MASK_VALUE:.3e}, no NaN: ok", flush=True)
+    results[name] = dict(
+        max_abs_err=max(err, sta_err, sla_err), ms=ms, plain_ms=plain,
+        bound_ms=bms, bound_by=by, library_ms=lib,
+        shape=f"q{[b, h, s, d]} E{e} tiles{nb} topk{topk} + lse",
+        sta_ms=sta_ms, sta_bound_ms=sta_bms, sla_ms=sla_ms,
+        sla_bound_ms=sla_bms)
+
+
+def conv_shapes(w0: int) -> list[tuple]:
+    """(label, C, Co, kt, time_pad, T_in, H, W): the decoder's conv shapes
+    for a 60 x ``w0`` latent, one chunk of 4 latent frames (T cut so that
+    the plain version fits)."""
+    h, w = 60, w0
+    return [
+        (f"conv_in@{h}x{w}", 16, 384, 3, 2, 4, h, w),
+        (f"384x384@{h}x{w}", 384, 384, 3, 0, 6, h, w),
+        (f"resample384->192@{2 * h}x{2 * w}", 384, 192, 1, 0, 8, 2 * h, 2 * w),
+        (f"192->384@{2 * h}x{2 * w}", 192, 384, 3, 0, 10, 2 * h, 2 * w),
+        (f"384x384@{2 * h}x{2 * w}", 384, 384, 3, 0, 10, 2 * h, 2 * w),
+        (f"resample384->192@{4 * h}x{4 * w}", 384, 192, 1, 0, 16, 4 * h,
+         4 * w),
+        (f"192x192@{4 * h}x{4 * w}", 192, 192, 3, 0, 18, 4 * h, 4 * w),
+        (f"resample192->96@{8 * h}x{8 * w}", 192, 96, 1, 0, 16, 8 * h, 8 * w),
+        (f"96x96@{8 * h}x{8 * w}", 96, 96, 3, 0, 18, 8 * h, 8 * w),
+        (f"conv_out96->3@{8 * h}x{8 * w}", 96, 3, 3, 0, 18, 8 * h, 8 * w),
+    ]
+
+
+# 480x832 (FastWan path) and 480x848 (Wan UniPC paths: 53 x 16 columns, a
+# different ragged tail on the implicit-GEMM tiles)
+CONV_SHAPES = conv_shapes(104) + conv_shapes(106)
 
 
 def check_conv(dev, results: dict) -> None:
@@ -258,6 +455,7 @@ def check_conv(dev, results: dict) -> None:
     from fastvideo_tpu_torch.ops import conv3d
 
     g = torch.Generator(device=dev).manual_seed(2)
+    errs = []
     for label, c, co, kt, tp, t, h, w in CONV_SHAPES:
         x = torch.randn(1, t, h, w, c, generator=g, device=dev,
                         dtype=torch.bfloat16)
@@ -268,8 +466,8 @@ def check_conv(dev, results: dict) -> None:
         ref = conv3d.conv3d_ndhwc_plain(x, wt, bias, time_pad=tp)
         # bf16 outputs: two bf16 ulps (2 * 2^-7) relative, plus 1e-2 for
         # values near zero where fp32 summation order shows
-        err = check(f"conv3d[{label}]", out, ref, 1e-2, 1.6e-2)
-        if label != "96x96@480x832":
+        errs.append(check(f"conv3d[{label}]", out, ref, 1e-2, 1.6e-2))
+        if not label.startswith("96x96@480x"):
             del x, out, ref
             continue
         ms = time_ms(lambda: conv3d.conv3d_ndhwc(x, wt, bias, time_pad=tp))
@@ -284,18 +482,25 @@ def check_conv(dev, results: dict) -> None:
         flops = 2.0 * t_out * h * w * c * co * kt * 9
         nbytes = 2.0 * (t * h * w * c + t_out * h * w * co + wt.numel() + co)
         bms, by = bound_ms(flops, nbytes)
-        results["conv3d"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                                 bound_ms=bms, bound_by=by, library_ms=lib,
-                                 shape=f"x{[1, t, h, w, c]} w{[kt, 3, 3, c, co]}")
+        if w == 832:
+            results["conv3d"] = dict(
+                max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=bms,
+                bound_by=by, library_ms=lib,
+                shape=f"x{[1, t, h, w, c]} w{[kt, 3, 3, c, co]}")
+        else:
+            results["conv3d"].update(w848_ms=ms, w848_plain_ms=plain,
+                                     w848_bound_ms=bms, w848_library_ms=lib)
         print(f"  conv3d[{label}]: {ms:.3f} ms kernel, {plain:.3f} ms plain,"
               f" {lib:.3f} ms cudnn, bound {bms:.3f} ms ({by}, "
               f"{flops:.3e} FLOP)", flush=True)
         del x, out, ref
+    results["conv3d"]["max_abs_err"] = max(errs)  # over every shape
 
 
-def decode_conv_bound(latent=(21, 60, 104)) -> float:
+def decode_conv_bound(latent: tuple[int, int, int]) -> float:
     """Print the bound of the decode's K3 launches per distinct conv shape
-    (from the decoder's structure at 480x832) and return the total ms."""
+    (from the decoder's structure for a (T, H, W) latent) and return the
+    total ms."""
     t0, h0, w0 = latent
     t1, t2 = 2 * t0 - 1, 4 * t0 - 3  # frames after each temporal upsample
     # (convs, C, Co, kt, output frames, H, W); every conv runs once per
@@ -324,7 +529,8 @@ def decode_conv_bound(latent=(21, 60, 104)) -> float:
         print(f"  K3 bound {label}: {n} conv(s), {flops:.3e} FLOP, "
               f"{bms:.1f} ms ({by})", flush=True)
     bms, by = bound_ms(total_flops, total_bytes)
-    print(f"  K3 bound for one 81x480x832 decode: {total_flops:.4e} FLOP, "
+    print(f"  K3 bound for one {t2}x{8 * h0}x{8 * w0} decode: "
+          f"{total_flops:.4e} FLOP, "
           f"{bms:.1f} ms ({by})", flush=True)
     return bms
 
@@ -337,17 +543,26 @@ def run_kernel_checks(dev) -> dict:
     results: dict = {}
     check_flash(dev, results)
     check_vsa(dev, results)
+    check_vsa_padded(dev, results)
+    torch.cuda.empty_cache()
     check_conv(dev, results)
-    decode_bound = decode_conv_bound()
+    decode_bound = decode_conv_bound((21, 60, 104))
     # K1 also runs the VAE mid-block attention: 21 frames x 6240 tokens,
     # one head of 384, once per decode
     vae_attn, _ = bound_ms(4.0 * 21 * 6240 * 6240 * 384, 0.0)
     k1, k2 = results["flash_fwd"]["bound_ms"], results["vsa_sparse_fwd"][
         "bound_ms"]
-    print(f"  bound per generation: K1 {90 * k1 + vae_attn:.1f} ms (90 "
+    print(f"  bound per FastWan 480x832 generation: K1 "
+          f"{90 * k1 + vae_attn:.1f} ms (90 "
           f"cross-attention launches + {vae_attn:.2f} ms VAE attention), K2 "
           f"{90 * k2:.1f} ms (90 launches), K3 {decode_bound:.1f} ms",
           flush=True)
+    # the Wan 480x848 paths decode a (21, 60, 106) latent
+    decode_848 = decode_conv_bound((21, 60, 106))
+    vae_attn_848, _ = bound_ms(4.0 * 21 * 6360 * 6360 * 384, 0.0)
+    results["conv3d"]["w848_decode_bound_ms"] = decode_848
+    print(f"  bound per Wan 480x848 decode: K3 {decode_848:.1f} ms, K1 VAE "
+          f"attention {vae_attn_848:.2f} ms", flush=True)
     torch.cuda.empty_cache()
     return results
 
@@ -380,6 +595,7 @@ TINY_T5_CFG = dict(T5_CFG, vocab_size=128, d_model=32, d_kv=8, d_ff=48,
                    num_layers=2, num_heads=4, relative_attention_num_buckets=8,
                    relative_attention_max_distance=16)
 PROMPT = ("w12 w7 w301 w44 w5 w900 w18 w2 w77 w1024 w3 w60, w8 w11 w250 w6")
+NEGATIVE_PROMPT = "w4000 w17, w93 w2048 w5 w611, w30 w31 w32"
 
 
 def random_state(module, dtype, device, gen) -> dict:
@@ -409,9 +625,13 @@ def random_state(module, dtype, device, gen) -> dict:
 
 
 def write_checkpoint(root: str, dit_cfg: dict, vae_cfg: dict, t5_cfg: dict,
-                     seed: int, device: str = "cuda") -> str:
+                     seed: int, device: str = "cuda",
+                     share: str | None = None) -> str:
     """A diffusers-format Wan T2V checkpoint with random weights, written
-    with the port's own safetensors writer (the VAE's decoder half)."""
+    with the port's own safetensors writer (the VAE's decoder half). The
+    DiT has the blocks of the attention backend selected when this is
+    called. With ``share`` only the transformer is written; the other
+    components are links to those of the checkpoint ``share``."""
     import torch
 
     from fastvideo_tpu_torch.configs.models.dits.wan import WanArchConfig
@@ -451,6 +671,10 @@ def write_checkpoint(root: str, dit_cfg: dict, vae_cfg: dict, t5_cfg: dict,
          lambda: T5EncoderModel(arch(T5ArchConfig, t5_cfg), device="meta"),
          torch.bfloat16, "model.safetensors"),
     ]
+    if share is not None:
+        parts = parts[:1]
+        for sub in ("vae", "text_encoder", "tokenizer", "scheduler"):
+            os.symlink(os.path.join(share, sub), os.path.join(root, sub))
     for sub, cls_name, cfg, build, dtype, fname in parts:
         d = os.path.join(root, sub)
         os.makedirs(d, exist_ok=True)
@@ -460,6 +684,8 @@ def write_checkpoint(root: str, dit_cfg: dict, vae_cfg: dict, t5_cfg: dict,
         state = random_state(build(), dtype, device, gen)
         save_file(state, os.path.join(d, fname))
         del state
+    if share is not None:
+        return root
     tok = os.path.join(root, "tokenizer")
     os.makedirs(tok, exist_ok=True)
     vocab = {"<pad>": 0, "</s>": 1, "<unk>": 2, " ": 3}
@@ -488,23 +714,21 @@ def psnr(a, b) -> float:
     return float("inf") if mse == 0 else 10 * np.log10(255.0**2 / mse)
 
 
-def check_small_path(work: str) -> None:
+def check_small_path(work: str, name: str, backend: str, gen_kw: dict,
+                     from_kw: dict) -> None:
     """The whole path on a tiny random model: the card (kernels) against the
     CPU (plain versions), same checkpoint and seed, bf16 as served."""
     import numpy as np
 
     from fastvideo_tpu_torch import VideoGenerator
 
-    ckpt = write_checkpoint(os.path.join(work, "FastWan2.1-T2V-tiny-Diffusers"),
-                            TINY_DIT_CFG, TINY_VAE_CFG, TINY_T5_CFG, seed=7)
-    # 9 frames at 64x64: token grid (5, 16, 16), exact (1, 16, 16) VSA tiles
-    kw = dict(prompt="w1 w2 w3", height=64, width=64, num_frames=9, seed=11,
-              save_video=False)
+    os.environ["FASTVIDEO_ATTENTION_BACKEND"] = backend
+    ckpt = write_checkpoint(os.path.join(work, backend, name), TINY_DIT_CFG,
+                            TINY_VAE_CFG, TINY_T5_CFG, seed=7)
     outs = {}
     for device in ("cuda", "cpu"):
-        gen = VideoGenerator.from_pretrained(ckpt, device=device,
-                                             VSA_sparsity=0.5)
-        outs[device] = gen.generate_video(**kw)
+        gen = VideoGenerator.from_pretrained(ckpt, device=device, **from_kw)
+        outs[device] = gen.generate_video(save_video=False, **gen_kw)
         del gen
     frames = {d: o["frames"][0] for d, o in outs.items()}
     lat = {d: o["latents"].float().cpu().numpy() for d, o in outs.items()}
@@ -512,19 +736,66 @@ def check_small_path(work: str) -> None:
     span = lat["cpu"].max() - lat["cpu"].min()
     mse = float(np.mean((lat["cuda"] - lat["cpu"])**2))
     p_lat = float("inf") if mse == 0 else 10 * np.log10(span**2 / mse)
-    print(f"  tiny path, card vs CPU plain: frames PSNR {p_frames:.2f} dB, "
-          f"latents PSNR {p_lat:.2f} dB (bar: > 35 dB)", flush=True)
+    print(f"  tiny {name} with {backend}, card vs CPU plain: frames PSNR "
+          f"{p_frames:.2f} dB, latents PSNR {p_lat:.2f} dB (bar: > 35 dB)",
+          flush=True)
     if not (np.isfinite(lat["cuda"]).all() and p_frames > 35 and p_lat > 35):
-        raise SystemExit("tiny path: the card disagrees with the plain path")
+        raise SystemExit(f"tiny {name} with {backend}: the card disagrees "
+                         "with the plain path")
+
+
+def check_small_paths(work: str) -> None:
+    # FastWan DMD, 9 frames at 64x64: token grid (5, 16, 16), exact
+    # (1, 16, 16) VSA tiles
+    check_small_path(work, "FastWan2.1-T2V-tiny-Diffusers",
+                     "VIDEO_SPARSE_ATTN",
+                     dict(prompt="w1 w2 w3", height=64, width=64,
+                          num_frames=9, seed=11), dict(VSA_sparsity=0.5))
+    # Wan UniPC + CFG, 17 frames at 40x56: token grid (9, 10, 14), which no
+    # tile with a multiple of 8 tokens divides: 3 x 2 x 2 padded tiles
+    cfg_kw = dict(prompt="w1 w2 w3", negative_prompt="w9 w8", height=40,
+                  width=56, num_frames=17, seed=11, num_inference_steps=4,
+                  guidance_scale=5.0)
+    check_small_path(work, "Wan2.1-T2V-tiny-Diffusers", "VIDEO_SPARSE_ATTN",
+                     cfg_kw, dict(VSA_sparsity=0.6))
+    check_small_path(work, "Wan2.1-T2V-tiny-Diffusers", "SLIDING_TILE_ATTN",
+                     cfg_kw, {})
+
+
+def check_generation(label: str, result: dict, width: int, launches: dict,
+                     plain: dict, expect: dict) -> None:
+    """Frames and latents of a full-width generation, and its kernel
+    counts: ``expect`` maps each kernel of the path to its exact launch
+    count, or None for any count above 0; other kernels must not launch."""
+    import numpy as np
+    import torch
+
+    frames, latents = result["frames"][0], result["latents"]
+    if frames.shape != (81, 480, width, 3) or frames.dtype != np.uint8:
+        raise SystemExit(f"{label}: frames {frames.shape} {frames.dtype}")
+    if not torch.isfinite(latents).all():
+        raise SystemExit(f"{label}: latents are not finite")
+    for name, n in launches.items():
+        want = expect.get(name, 0)
+        if (want is None and n == 0) or (want is not None and n != want):
+            raise SystemExit(f"{label}: kernel {name} launched {n} times, "
+                             f"expected {'> 0' if want is None else want}: "
+                             f"{launches}")
+    if any(plain.values()):
+        raise SystemExit(f"{label}: the path reached a plain version: "
+                         f"{plain}")
+    print(f"  frames {frames.shape} uint8, mean {frames.mean():.2f}; "
+          f"latents finite, std {latents.float().std().item():.4f}",
+          flush=True)
 
 
 def run_main_path(work: str, profile_dir: str | None = None) -> dict:
-    import numpy as np
     import torch
 
     from fastvideo_tpu_torch import VideoGenerator
     from fastvideo_tpu_torch.ops import _build
 
+    os.environ["FASTVIDEO_ATTENTION_BACKEND"] = "VIDEO_SPARSE_ATTN"
     t0 = time.perf_counter()
     root = os.path.join(work, "FastWan2.1-T2V-1.3B-Diffusers")
     ckpt = write_checkpoint(root, DIT_CFG, VAE_CFG, T5_CFG, seed=42)
@@ -552,25 +823,68 @@ def run_main_path(work: str, profile_dir: str | None = None) -> dict:
           f"{json.dumps(times)}; peak memory {peak:.1f} GiB", flush=True)
     print(f"  kernel launches {json.dumps(launches)}; plain calls "
           f"{json.dumps(plain)}", flush=True)
-    frames = result["frames"][0]
-    latents = result["latents"]
-    if frames.shape != (81, 480, 832, 3) or frames.dtype != np.uint8:
-        raise SystemExit(f"frames {frames.shape} {frames.dtype}")
-    if not torch.isfinite(latents).all():
-        raise SystemExit("latents are not finite")
-    if any(n == 0 for n in launches.values()):
-        raise SystemExit(f"a kernel of the path never launched: {launches}")
-    if any(plain.values()):
-        raise SystemExit(f"the main path reached a plain version: {plain}")
-    print(f"  frames {frames.shape} uint8, mean {frames.mean():.2f}; "
-          f"latents finite, std {latents.float().std().item():.4f}",
-          flush=True)
+    check_generation("FastWan 480x832", result, 832, launches, plain,
+                     {"flash_fwd": None, "vsa_sparse_fwd": None,
+                      "conv3d": None})
     if profile_dir:
-        profile_generation(gen, kw, profile_dir)
+        profile_generation(gen, kw, profile_dir, "fastwan_480x832")
     return launches
 
 
-def profile_generation(gen, kw: dict, out_dir: str) -> None:
+def run_wan_path(work: str, backend: str, steps: int, from_kw: dict,
+                 profile_dir: str | None = None) -> dict:
+    """The multistep Wan2.1-T2V-1.3B path at full width and depth on the
+    token grid (21, 30, 53): one generation of ``steps`` FlowUniPC steps
+    with classifier-free guidance (two DiT passes a step), every DiT layer's
+    self-attention through the padded sparse kernel."""
+    import torch
+
+    from fastvideo_tpu_torch import VideoGenerator
+    from fastvideo_tpu_torch.ops import _build
+
+    os.environ["FASTVIDEO_ATTENTION_BACKEND"] = backend
+    label = f"Wan 480x848 {backend}"
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    root = os.path.join(work, backend, "Wan2.1-T2V-1.3B-Diffusers")
+    ckpt = write_checkpoint(
+        root, DIT_CFG, VAE_CFG, T5_CFG, seed=43,
+        share=os.path.join(work, "FastWan2.1-T2V-1.3B-Diffusers"))
+    gen = VideoGenerator.from_pretrained(ckpt, **from_kw)
+    print(f"  transformer written and pipeline loaded in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    kw = dict(prompt=PROMPT, negative_prompt=NEGATIVE_PROMPT, height=480,
+              width=848, num_frames=81, seed=42, num_inference_steps=steps,
+              guidance_scale=5.0, save_video=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_counts()
+    result = gen.generate_video(**kw)
+    launches = dict(_build.LAUNCHES)
+    plain = dict(_build.PLAIN_CALLS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    times = {k: round(v, 4) for k, v in result["stage_times"].items()}
+    layers = DIT_CFG["num_layers"]
+    print(f"  {steps} steps used; generation {result['generation_time']:.3f} "
+          f"s (first call in the process for this shape); stage seconds "
+          f"{json.dumps(times)}; {times['DenoisingStage'] / steps:.3f} s a "
+          f"step; peak memory {peak:.1f} GiB", flush=True)
+    print(f"  kernel launches {json.dumps(launches)} (padded sparse kernel: "
+          f"{layers} layers x 2 CFG passes x {steps} steps = "
+          f"{layers * 2 * steps}); plain calls {json.dumps(plain)}",
+          flush=True)
+    check_generation(label, result, 848, launches, plain,
+                     {"flash_fwd": None, "conv3d": None,
+                      "vsa_sparse_padded_fwd": layers * 2 * steps})
+    if profile_dir:
+        profile_generation(gen, kw, profile_dir,
+                           f"wan_480x848_{backend.lower()}")
+    del gen, result
+    torch.cuda.empty_cache()
+    return launches
+
+
+def profile_generation(gen, kw: dict, out_dir: str, label: str) -> None:
     """One more generation under torch.profiler: device time by kernel
     name, the device's busy share of the wall time, and a Chrome trace."""
     import torch
@@ -585,20 +899,29 @@ def profile_generation(gen, kw: dict, out_dir: str) -> None:
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     total = sum(e.self_device_time_total for e in events) / 1e6
-    print(f"  profiled generation: wall {wall:.3f} s, device kernels "
+    print(f"  profiled generation ({label}): wall {wall:.3f} s, device kernels "
           f"{total:.3f} s, device busy share {total / wall:.3f}", flush=True)
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:20]:
         print(f"    {e.self_device_time_total / 1e3:10.1f} ms  "
               f"{e.count:6d}x  {e.key[:110]}", flush=True)
     os.makedirs(out_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(out_dir, "main_path_trace.json"))
+    prof.export_chrome_trace(os.path.join(out_dir, f"{label}_trace.json"))
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR",
-                        help="also profile one generation; trace into DIR")
+                        help="also profile one generation of each full-width "
+                        "path; traces into DIR")
+    parser.add_argument("--vsa-steps", type=int, default=4,
+                        help="FlowUniPC steps of the 480x848 VSA generation "
+                        "(at least 4, so that the order-2 corrector runs)")
+    parser.add_argument("--sta-steps", type=int, default=2,
+                        help="FlowUniPC steps of the 480x848 STA generation "
+                        "(at least 2)")
     args = parser.parse_args()
+    if args.vsa_steps < 4 or args.sta_steps < 2:
+        parser.error("--vsa-steps must be at least 4 and --sta-steps 2")
 
     import torch
 
@@ -622,27 +945,35 @@ def main() -> int:
     results = run_kernel_checks(dev)
     _build.reset_counts()
 
-    os.environ["FASTVIDEO_ATTENTION_BACKEND"] = "VIDEO_SPARSE_ATTN"
     work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                         "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
-    print("# phase 4a: tiny model, card against the plain path", flush=True)
-    check_small_path(work)
-    print("# phase 4b: main path at full width, 81x480x832, 3 DMD steps, "
-          "VSA sparsity 0.8", flush=True)
+    print("# phase 4a: tiny models, card against the plain path", flush=True)
+    check_small_paths(work)
+    print("# phase 4b: FastWan main path at full width, 81x480x832, 3 DMD "
+          "steps, VSA sparsity 0.8", flush=True)
     launches = run_main_path(work, args.profile)
+    print(f"# phase 4c: Wan2.1-T2V-1.3B at full width and depth, 81x480x848, "
+          f"{args.vsa_steps} FlowUniPC steps with CFG, VSA sparsity 0.8 on "
+          f"padded tiles", flush=True)
+    vsa_launches = run_wan_path(work, "VIDEO_SPARSE_ATTN", args.vsa_steps,
+                                dict(VSA_sparsity=0.8), args.profile)
+    print(f"# phase 4d: the same with SLIDING_TILE_ATTN, {args.sta_steps} "
+          f"steps", flush=True)
+    sta_launches = run_wan_path(work, "SLIDING_TILE_ATTN", args.sta_steps, {},
+                                args.profile)
     shutil.rmtree(work, ignore_errors=True)
+    # each kernel's count comes from the path that runs it
+    launches["vsa_sparse_padded_fwd"] = vsa_launches["vsa_sparse_padded_fwd"]
+    results["vsa_sparse_padded_fwd"]["sta_launches"] = sta_launches[
+        "vsa_sparse_padded_fwd"]
 
     kernels = []
     for name in _build.KERNELS:
         r = results[name]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name], "launches": launches[name],
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "shape": r["shape"]})
+            "replaces": REPLACES[name], "launches": launches[name], **r})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -3,33 +3,43 @@
 Tiles tokens into video cubes, runs the VSA composition and restores token
 order. The tile geometry is chosen per grid (``select_vsa_tile``): an exact
 tile makes the permutation a reshape and lets K2 run on full tiles; grids
-with no exact tile use padded (4, 8, 8) tiles. With ``pre_tiled`` the model
-already runs in tile-major order and the backend permutes nothing.
+with no exact tile use padded (4, 8, 8) tiles and the padded-tile kernel.
+With ``pre_tiled`` the model already runs in tile-major order and the
+backend permutes nothing. ``FASTVIDEO_VSA_TILE`` and
+``FASTVIDEO_VSA_QGROUP`` override the geometry and the query grouping; both
+are read at every call.
 """
 
 from __future__ import annotations
 
-import functools
-
-import numpy as np
 import torch
 
+from fastvideo_tpu_torch import envs
 from fastvideo_tpu_torch.attention.backends.abstract import (AttentionBackend,
                                                              AttentionMetadata)
-from fastvideo_tpu_torch.ops.vsa import (select_vsa_tile, tile_layout,
+from fastvideo_tpu_torch.ops.vsa import (select_vsa_tile, tile_tables,
                                          tile_tokens, tile_tokens_exact,
-                                         tile_valid_mask, untile_tokens,
-                                         untile_tokens_exact,
+                                         untile_tokens, untile_tokens_exact,
                                          video_sparse_attn)
 
 # tiles for grids with no exact-divide geometry
 VSA_PADDED_TILE = (4, 8, 8)
 
 
-@functools.lru_cache(maxsize=64)
 def resolve_vsa_tile(grid: tuple[int, int, int]
                      ) -> tuple[tuple[int, int, int], bool]:
-    """(tile geometry, exact?) for a token grid."""
+    """(tile geometry, exact?) for a token grid.
+
+    ``FASTVIDEO_VSA_TILE=t,h,w`` forces a geometry; one that does not divide
+    the grid takes the padded route."""
+    forced = envs.FASTVIDEO_VSA_TILE
+    if forced:
+        tile = tuple(int(x) for x in forced.split(","))
+        if len(tile) != 3 or min(tile) < 1:
+            raise ValueError(
+                f"FASTVIDEO_VSA_TILE must be t,h,w of positive ints, got "
+                f"{forced!r}")
+        return tile, all(g % t == 0 for g, t in zip(grid, tile))
     tile = select_vsa_tile(grid)
     if tile is not None:
         return tile, True
@@ -38,9 +48,14 @@ def resolve_vsa_tile(grid: tuple[int, int, int]
 
 def q_group(nb: int, tile_elems: int, exact: bool) -> int:
     """Query tiles sharing one top-k set: up to 4 tiles and 1280 rows per
-    group on exact grids (3 tiles of 280 rows at 480p)."""
+    group on exact grids (3 tiles of 280 rows at 480p).
+    ``FASTVIDEO_VSA_QGROUP=N`` forces N where it divides the tile count
+    (1 restores per-tile selection)."""
     if not exact:
         return 1
+    forced = int(envs.FASTVIDEO_VSA_QGROUP or 0)
+    if forced > 0:
+        return forced if nb % forced == 0 else 1
     for g in (4, 3, 2):
         if nb % g == 0 and g * tile_elems <= 1280:
             return g
@@ -74,13 +89,10 @@ class VideoSparseAttentionBackend(AttentionBackend):
 
         tile, exact = resolve_vsa_tile(dit_shape)
         tile_elems = tile[0] * tile[1] * tile[2]
-        if exact:
-            padded = s_tokens
-            nb = padded // tile_elems
-            block_sizes = np.full((nb,), tile_elems, np.int32)
-        else:
-            _, _, block_sizes, _, padded = tile_layout(dit_shape, tile)
-            nb = padded // tile_elems
+        # an exact tiling has full tiles and no padded slot
+        _, block_sizes, mask = tile_tables(dit_shape, tile, q.device)
+        nb = block_sizes.numel()
+        padded = nb * tile_elems
         topk = vsa_topk(sparsity, nb)
 
         if pre_tiled and exact:
@@ -89,9 +101,6 @@ class VideoSparseAttentionBackend(AttentionBackend):
         elif pre_tiled:
             # tile-pad slots carry garbage after the first block: zero them
             # before they enter the block means and the key reads
-            mask = torch.as_tensor(tile_valid_mask(dit_shape, tile),
-                                   device=q.device)
-
             def prep(x):
                 xm = x[:, :padded] * mask[None, :, None, None].to(x.dtype)
                 return xm.transpose(1, 2)
@@ -105,7 +114,7 @@ class VideoSparseAttentionBackend(AttentionBackend):
                                    tile).transpose(1, 2)
 
         out = video_sparse_attn(
-            prep(q), prep(k), prep(v), torch.as_tensor(block_sizes), topk,
+            prep(q), prep(k), prep(v), block_sizes, topk,
             gate_compress=prep(gate) if gate is not None else None,
             scale=self.softmax_scale, tile_elems=tile_elems,
             full_tiles=exact, q_group=q_group(nb, tile_elems, exact))

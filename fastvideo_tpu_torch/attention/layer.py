@@ -59,7 +59,8 @@ class DistributedAttention(nn.Module):
                 gate: torch.Tensor | None = None,
                 pre_tiled: bool = False) -> torch.Tensor:
         """q/k/v [B, S, H, D]; ``freqs_cis`` (cos, sin) follow the token
-        order of q/k; ``grid``/``gate``/``pre_tiled`` feed VSA."""
+        order of q/k; ``grid`` feeds the backends that work on (t, h, w) tiles
+        (VSA, STA), ``gate`` and ``pre_tiled`` feed VSA."""
         if freqs_cis is not None:
             cos, sin = freqs_cis
             q = apply_rotary_emb(q, cos, sin)

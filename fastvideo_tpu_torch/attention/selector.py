@@ -1,8 +1,8 @@
 """Attention backend selection (port of fastvideo_tpu/attention/selector.py).
 
 Resolution order: explicit request > ``FASTVIDEO_ATTENTION_BACKEND`` >
-default (FLASH_ATTN); unknown names fail. The port has the two backends
-of the FastWan path: FLASH_ATTN and VIDEO_SPARSE_ATTN.
+default (FLASH_ATTN); unknown names fail. The port has FLASH_ATTN,
+VIDEO_SPARSE_ATTN, SLIDING_TILE_ATTN and SLA_ATTN.
 """
 
 from __future__ import annotations
@@ -10,18 +10,23 @@ from __future__ import annotations
 from fastvideo_tpu_torch import envs
 from fastvideo_tpu_torch.attention.backends.abstract import AttentionBackend
 from fastvideo_tpu_torch.attention.backends.flash import FlashAttentionBackend
+from fastvideo_tpu_torch.attention.backends.sla import SLAAttentionBackend
+from fastvideo_tpu_torch.attention.backends.sta import (
+    SlidingTileAttentionBackend)
 from fastvideo_tpu_torch.attention.backends.vsa import (
     VideoSparseAttentionBackend)
 
 _BACKENDS: dict[str, type[AttentionBackend]] = {
     cls.name: cls
-    for cls in (FlashAttentionBackend, VideoSparseAttentionBackend)
+    for cls in (FlashAttentionBackend, VideoSparseAttentionBackend,
+                SlidingTileAttentionBackend, SLAAttentionBackend)
 }
 
 _ALIASES = {
     "FLASH_ATTN_2": "FLASH_ATTN",
     "FLASH_ATTN_3": "FLASH_ATTN",
     "PALLAS_FLASH": "FLASH_ATTN",
+    "SLA": "SLA_ATTN",
 }
 
 DEFAULT_BACKEND = "FLASH_ATTN"

@@ -31,10 +31,12 @@ class SamplingParam:
 
     num_inference_steps: int = 50
     guidance_scale: float = 5.0
+    guidance_rescale: float = 0.0
     dmd_denoising_steps: list[int] | None = None
 
     return_frames: bool = False
     save_video: bool = True
+    return_trajectory_latents: bool = False
 
     extra: dict[str, Any] = dataclasses.field(default_factory=dict)
 

@@ -1,5 +1,6 @@
 // One query tile of online-softmax attention, shared by the dense flash
-// kernel (flash_fwd.cu) and the block-sparse VSA kernel (vsa_sparse_fwd.cu).
+// kernel (flash_fwd.cu) and the block-sparse kernels (vsa_sparse_fwd.cu,
+// vsa_sparse_padded_fwd.cu).
 //
 // A block of 4 warps owns BQ query rows. Q, the current K/V chunk (BK key
 // rows), the fp32 score tile S, the probability tile P and the fp32 output
@@ -254,8 +255,10 @@ struct AttnTile {
   }
 
   // out[r] = O[r] / l[r] for this warp's rows below `rows` (0 when l == 0);
-  // lse[r] = m + log(l), -inf for a row with no valid key. lse may be null.
-  __device__ void store(T* out, long long row_stride, int rows, float* lse) const {
+  // lse[r] = m + log(l), `empty_lse` for a row with no valid key. lse may be
+  // null.
+  __device__ void store(T* out, long long row_stride, int rows, float* lse,
+                        float empty_lse) const {
     const int warp = threadIdx.x / 32;
     const int lane = threadIdx.x % 32;
     for (int rr = 0; rr < kRowsPerWarp; ++rr) {
@@ -264,7 +267,7 @@ struct AttnTile {
       const float lr = l[r];
       const float inv = lr == 0.f ? 0.f : 1.f / lr;
       for (int d = lane; d < D; d += 32) out[r * row_stride + d] = from_float<T>(o[r * ldo + d] * inv);
-      if (lse != nullptr && lane == 0) lse[r] = lr == 0.f ? -CUDART_INF_F : m[r] + logf(lr);
+      if (lse != nullptr && lane == 0) lse[r] = lr == 0.f ? empty_lse : m[r] + logf(lr);
     }
   }
 };

@@ -66,7 +66,7 @@ __global__ void __launch_bounds__(fvt::kThreads)
     t.accumulate_pv();
   }
   float* lse_row = lse == nullptr ? nullptr : lse + (static_cast<long long>(b) * H + h) * Sq + q0;
-  t.store(o + b * o_sb + h * o_sh + q0 * o_ss, o_ss, nq, lse_row);
+  t.store(o + b * o_sb + h * o_sh + q0 * o_ss, o_ss, nq, lse_row, -CUDART_INF_F);
 }
 
 template <typename T, int BQ, int BK>

@@ -65,7 +65,7 @@ __global__ void __launch_bounds__(fvt::kThreads)
       t.accumulate_pv();
     }
   }
-  t.store(o + b * o_sb + h * o_sh + row0 * o_ss, o_ss, nq, nullptr);
+  t.store(o + b * o_sb + h * o_sh + row0 * o_ss, o_ss, nq, nullptr, 0.f);
 }
 
 template <typename T, int BQ, int BK>

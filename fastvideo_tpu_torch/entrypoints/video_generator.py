@@ -5,6 +5,10 @@ fastvideo_tpu/entrypoints/video_generator.py).
     result = gen.generate_video("a prompt", height=480, width=832,
                                 num_frames=81, seed=42)
 
+A FastWan checkpoint runs the 3-step DMD sampler; a Wan2.1 T2V checkpoint
+runs ``num_inference_steps`` FlowUniPC steps with classifier-free guidance
+(``negative_prompt``, ``guidance_scale``).
+
 It runs on the CUDA card unless the caller passes ``device="cpu"``; with
 no CUDA device and no ``device`` it raises.
 """
@@ -103,7 +107,10 @@ class VideoGenerator:
             num_frames=param.num_frames, seed=param.seed,
             num_inference_steps=param.num_inference_steps,
             guidance_scale=param.guidance_scale,
-            dmd_denoising_steps=dmd_steps, extra=dict(param.extra))
+            guidance_rescale=param.guidance_rescale,
+            dmd_denoising_steps=dmd_steps,
+            return_trajectory_latents=param.return_trajectory_latents,
+            extra=dict(param.extra))
         batch.extra["num_videos_per_prompt"] = param.num_videos_per_prompt
         batch = self.pipeline.forward(batch, self.fastvideo_args)
         frames = frames_uint8(batch.output)
@@ -114,6 +121,9 @@ class VideoGenerator:
             "stage_times": batch.logging_info.stage_times,
             "generation_time": time.perf_counter() - t0,
         }
+        if batch.return_trajectory_latents:
+            result["trajectory_latents"] = batch.trajectory_latents
+            result["trajectory_timesteps"] = batch.trajectory_timesteps
         if param.save_video:
             result["video_path"] = self.save_video(frames[0], param)
         if param.return_frames:

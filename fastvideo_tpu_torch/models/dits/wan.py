@@ -2,11 +2,16 @@
 
 Module names follow the JAX package, so the port's ``state_dict()`` keys
 are the torch-layout keys that ``fastvideo_tpu.models.loader.export`` writes.
-The AdaLN modulation runs in fp32 with bf16 activations. With the
+The AdaLN modulation runs in fp32 with bf16 activations. The blocks'
+self-attention takes the backend selected when the model is built
+(FLASH_ATTN, SLIDING_TILE_ATTN, SLA_ATTN or VIDEO_SPARSE_ATTN). With the
 VIDEO_SPARSE_ATTN backend the blocks carry ``to_gate_compress`` and the
 whole transformer runs in tile-major token order: the permutation is
 applied once after patch embedding (with the RoPE tables) and undone once
-before the output projection.
+before the output projection. On a token grid with no exact tile that order
+is the padded one: the padded slots enter as zeros (tokens and RoPE
+tables), collect bias terms as they pass the blocks, are zeroed again by
+the backend before every attention, and are dropped by the final untiling.
 """
 
 from __future__ import annotations

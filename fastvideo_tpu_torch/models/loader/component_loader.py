@@ -18,7 +18,7 @@ import torch
 
 from fastvideo_tpu_torch.models.loader.safetensors_io import (
     iterate_safetensors, load_json_config)
-from fastvideo_tpu_torch.models.loader.tokenizer import WordLevelTokenizer
+from fastvideo_tpu_torch.models.loader.tokenizer import load_tokenizer
 from fastvideo_tpu_torch.models.loader.weight_utils import load_weights
 from fastvideo_tpu_torch.models.registry import resolve_model_cls
 from fastvideo_tpu_torch.models.schedulers.flow_unipc import (
@@ -101,7 +101,7 @@ class PipelineComponentLoader:
                 precision=precisions[0] if precisions else "fp32",
                 model_config=cfgs[0] if cfgs else None)
         if module_name == "tokenizer":
-            return WordLevelTokenizer.from_pretrained(component_dir)
+            return load_tokenizer(component_dir)
         if module_name == "scheduler":
             return load_scheduler(component_dir, pipeline_config)
         raise ValueError(f"Unknown pipeline module {module_name!r}")

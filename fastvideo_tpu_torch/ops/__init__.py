@@ -1,8 +1,10 @@
 """Hand-written Hopper kernels with their plain PyTorch versions.
 
 K1 ``flash_attention`` (csrc/flash_fwd.cu), K2 ``block_sparse_attention_fast``
-(csrc/vsa_sparse_fwd.cu), K3 ``conv3d_ndhwc`` (csrc/conv3d.cu). Launch and
-plain-call counts live in ``_build.LAUNCHES`` / ``_build.PLAIN_CALLS``.
+(csrc/vsa_sparse_fwd.cu), K7 forward / K8 ``block_sparse_attention``
+(csrc/vsa_sparse_padded_fwd.cu, also under ``sta`` and ``sla``), K3
+``conv3d_ndhwc`` (csrc/conv3d.cu). Launch and plain-call counts live in
+``_build.LAUNCHES`` / ``_build.PLAIN_CALLS``.
 """
 
 from fastvideo_tpu_torch.ops._build import (KERNELS, LAUNCHES, PLAIN_CALLS,

@@ -27,7 +27,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-KERNELS = ("flash_fwd", "vsa_sparse_fwd", "conv3d")
+KERNELS = ("flash_fwd", "vsa_sparse_fwd", "vsa_sparse_padded_fwd", "conv3d")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -119,6 +119,10 @@ _SIGNATURES = {
     # q, k, v, o, indices, B, H, S, D, E, ng, topk, 12 strides, scale,
     # stream
     "fvt_vsa_sparse_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 +
+    [ctypes.c_longlong] * 12 + [ctypes.c_float, ctypes.c_void_p],
+    # q, k, v, o, lse (or null), indices, block_sizes, B, H, S, D, E, topk,
+    # 12 strides, scale, stream
+    "fvt_vsa_sparse_padded_fwd": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 +
     [ctypes.c_longlong] * 12 + [ctypes.c_float, ctypes.c_void_p],
     # x, w, bias, y, B, T, H, W, C, Co, kt, time_pad, stream
     "fvt_conv3d_ndhwc": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 +

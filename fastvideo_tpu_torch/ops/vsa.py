@@ -7,10 +7,13 @@ branch over the selected tiles, and ``out_c * gate + out_s``.
 
 The block-sparse branch over full tiles is K2: on a CUDA tensor
 :func:`block_sparse_attention_fast` launches ``csrc/vsa_sparse_fwd.cu``
-(replacing the Pallas ``_sparse_fast_kernel``); on a CPU tensor it runs
-:func:`block_sparse_attention_plain`. Grids with no exact tile need the
-padded-tile kernel (K7's forward), which is not ported yet: on CUDA they
-raise, on the CPU the plain version covers them.
+(replacing the Pallas ``_sparse_fast_kernel``). Grids with no exact tile,
+STA and SLA go through :func:`block_sparse_attention` over padded tiles with
+per-tile valid counts and ``-1`` index sentinels: on a CUDA tensor it
+launches ``csrc/vsa_sparse_padded_fwd.cu`` (replacing the Pallas
+``_sparse_fwd_lse_kernel`` and ``_sparse_kernel``; forward only). On a CPU
+tensor both run :func:`block_sparse_attention_plain`; there is no fallback
+between kernel and plain version.
 """
 
 from __future__ import annotations
@@ -25,8 +28,11 @@ from fastvideo_tpu_torch.ops import _build
 from fastvideo_tpu_torch.ops.flash_attention import attn_operand
 
 NAME = "vsa_sparse_fwd"
+PADDED_NAME = "vsa_sparse_padded_fwd"
 VSA_TILE_SIZE = (4, 4, 4)
 TILE_ELEMS = 64
+# the log-sum-exp of a row with no valid key (the JAX package's finite mask)
+MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
 
 
 # -- static tile index tables (host numpy, cached per shape) ----------------
@@ -119,14 +125,28 @@ def tile_valid_mask(dit_seq_shape: tuple[int, int, int],
     return (pos % elems) < block_sizes[pos // elems]
 
 
+@functools.lru_cache(maxsize=32)
+def tile_tables(dit_seq_shape: tuple[int, int, int],
+                tile_size: tuple[int, int, int], device: torch.device):
+    """(scatter_index, block_sizes, valid mask) of a tiling as tensors on
+    ``device``, copied once per (grid, tile, device): the attention layers
+    call this at every step."""
+    scatter, _, block_sizes, _, _ = tile_layout(dit_seq_shape, tile_size)
+    return (torch.as_tensor(scatter, device=device),
+            torch.as_tensor(block_sizes, device=device),
+            torch.as_tensor(tile_valid_mask(dit_seq_shape, tile_size),
+                            device=device))
+
+
 def tile_tokens(x: torch.Tensor, dit_seq_shape: tuple[int, int, int],
                 tile_size: tuple[int, int, int] = VSA_TILE_SIZE
                 ) -> torch.Tensor:
     """[B, S, ...] token order -> [B, S_pad, ...] tile-major padded order."""
-    scatter, _, _, _, padded_len = tile_layout(tuple(dit_seq_shape),
-                                               tuple(tile_size))
+    scatter, sizes, _ = tile_tables(tuple(dit_seq_shape), tuple(tile_size),
+                                    x.device)
+    padded_len = sizes.numel() * math.prod(tile_size)
     out = x.new_zeros((x.shape[0], padded_len, *x.shape[2:]))
-    out[:, torch.as_tensor(scatter, device=x.device)] = x
+    out[:, scatter] = x
     return out
 
 
@@ -134,9 +154,9 @@ def untile_tokens(x: torch.Tensor, dit_seq_shape: tuple[int, int, int],
                   tile_size: tuple[int, int, int] = VSA_TILE_SIZE
                   ) -> torch.Tensor:
     """[B, S_pad, ...] tiled order -> [B, S, ...] original token order."""
-    _, gather_back, _, _, _ = tile_layout(tuple(dit_seq_shape),
-                                          tuple(tile_size))
-    return x[:, torch.as_tensor(gather_back, device=x.device)]
+    gather_back, _, _ = tile_tables(tuple(dit_seq_shape), tuple(tile_size),
+                                    x.device)
+    return x[:, gather_back]
 
 
 def block_mean(x: torch.Tensor, block_sizes: torch.Tensor,
@@ -155,66 +175,84 @@ def block_sparse_attention_plain(q: torch.Tensor, k: torch.Tensor,
                                  v: torch.Tensor, indices: torch.Tensor,
                                  block_sizes: torch.Tensor | None = None, *,
                                  scale: float,
-                                 tile_elems: int = TILE_ELEMS) -> torch.Tensor:
-    """Plain PyTorch version of the sparse branch: each query group gathers
+                                 tile_elems: int = TILE_ELEMS,
+                                 return_lse: bool = False,
+                                 kernel: str = NAME):
+    """Plain PyTorch version of both sparse kernels: each query group gathers
     its selected key tiles (memory ~ S*K*E per head, never S^2).
 
     q/k/v [B, H, nB*E, D]; indices [B, H, nG, K] key tiles per group of
-    nB/nG query tiles. ``block_sizes`` [nB] masks padded slots of partial
-    tiles (None: every tile is full).
+    nB/nG query tiles (nG == nB: per query tile), -1 marking an unused slot.
+    ``block_sizes`` [nB] masks padded slots of partial tiles (None: every
+    tile is full). A row with no valid key outputs 0 and an LSE of
+    ``MASK_VALUE``. With ``return_lse`` also returns the fp32 [B, H, S]
+    log-sum-exp. ``kernel`` names the kernel the call is counted under.
     """
-    _build.count_plain(NAME)
+    _build.count_plain(kernel)
     b, h, s, d = q.shape
     e = tile_elems
-    nb = s // e
     ng, topk = indices.shape[2], indices.shape[3]
     rows = s // ng
     out = torch.empty_like(q)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     offs = torch.arange(e, device=q.device)
+    sizes = (torch.full((s // e,), e, device=q.device)
+             if block_sizes is None else block_sizes.to(q.device))
     for bi in range(b):
         for hi in range(h):
-            idx = indices[bi, hi].long()  # [nG, K]
+            slot = indices[bi, hi].long()  # [nG, K]
+            idx = slot.clamp_min(0)
             kv_rows = (idx[..., None] * e + offs).reshape(ng, topk * e)
             kt = k[bi, hi].float()[kv_rows]  # [nG, K*E, D]
             vt = v[bi, hi][kv_rows]
             qg = q[bi, hi].float().reshape(ng, rows, d)
             sc = torch.matmul(qg, kt.transpose(-1, -2)) * scale
-            if block_sizes is not None:
-                valid = offs[None, None, :] < block_sizes.to(
-                    q.device)[idx][..., None]  # [nG, K, E]
-                sc = sc.masked_fill(~valid.reshape(ng, 1, topk * e),
-                                    float("-inf"))
+            valid = (offs < sizes[idx][..., None]) & (slot >= 0)[..., None]
+            sc = sc.masked_fill(~valid.reshape(ng, 1, topk * e),
+                                float("-inf"))
             m = sc.amax(dim=-1, keepdim=True)
+            m = torch.where(torch.isinf(m), torch.zeros_like(m), m)
             p = torch.exp(sc - m)
             l = p.sum(dim=-1, keepdim=True)
-            o = torch.matmul(p.to(v.dtype).float(), vt.float()) / l
+            empty = l == 0
+            o = torch.matmul(p.to(v.dtype).float(), vt.float())
+            o = o / torch.where(empty, torch.ones_like(l), l)
             out[bi, hi] = o.reshape(s, d).to(q.dtype)
-    return out
+            lse[bi, hi] = torch.where(
+                empty, torch.full_like(l, MASK_VALUE),
+                m + torch.log(l)).reshape(s)
+    return (out, lse) if return_lse else out
 
 
-def _block_sparse_attention_cuda(q, k, v, indices, scale, tile_elems):
-    _build.check_device(q, NAME)
+def _sparse_cuda_operands(name: str, q, k, v, indices):
+    """Checked operands of a sparse kernel launch: (q, k, v, int32 indices,
+    out, the 12 strides). The output is laid out [B, S, H, D] so that the
+    caller's transpose back to token-major order is free."""
+    _build.check_device(q, name)
     d = q.shape[-1]
     if any(t.dtype != torch.bfloat16 for t in (q, k, v)) or d % 16 or d > 128:
         raise _build.KernelError(
-            f"{NAME}: takes bfloat16 operands with a head dim that is a "
+            f"{name}: takes bfloat16 operands with a head dim that is a "
             f"multiple of 16 up to 128, got {[t.dtype for t in (q, k, v)]} "
             f"and head dim {d}")
     q, k, v = attn_operand(q), attn_operand(k), attn_operand(v)
     b, h, s, d = q.shape
-    ng, topk = indices.shape[2], indices.shape[3]
     idx = indices.to(device=q.device, dtype=torch.int32).contiguous()
-    # the output is laid out [B, S, H, D] so that the caller's transpose back
-    # to token-major order is free
     out = torch.empty((b, s, h, d), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     st = []
     for t in (q, k, v, out):
         st += [t.stride(0), t.stride(1), t.stride(2)]
+    return q, k, v, idx, out, st
+
+
+def _block_sparse_attention_cuda(q, k, v, indices, scale, tile_elems):
+    q, k, v, idx, out, st = _sparse_cuda_operands(NAME, q, k, v, indices)
+    b, h, s, d = q.shape
     _build.launch(NAME, "fvt_vsa_sparse_fwd", q.data_ptr(), k.data_ptr(),
                   v.data_ptr(), out.data_ptr(), idx.data_ptr(), b, h, s,
-                  d, tile_elems, ng, topk, *st, float(scale),
-                  _build.stream_ptr(q))
+                  d, tile_elems, idx.shape[2], idx.shape[3], *st,
+                  float(scale), _build.stream_ptr(q))
     return out
 
 
@@ -242,6 +280,61 @@ def block_sparse_attention_fast(q: torch.Tensor, k: torch.Tensor,
         return block_sparse_attention_plain(q, k, v, indices, scale=scale,
                                             tile_elems=tile_elems)
     raise _build.KernelError(f"{NAME}: unsupported device {q.device}")
+
+
+def _block_sparse_padded_cuda(q, k, v, indices, block_sizes, scale,
+                              tile_elems, return_lse):
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise _build.KernelError(
+            f"{PADDED_NAME}: the backward kernels (Pallas "
+            "_sparse_bwd_dq_kernel, _sparse_bwd_dkv_kernel) are not ported; "
+            "call it under torch.no_grad() or on detached tensors")
+    q, k, v, idx, out, st = _sparse_cuda_operands(PADDED_NAME, q, k, v,
+                                                  indices)
+    b, h, s, d = q.shape
+    sizes = block_sizes.to(device=q.device, dtype=torch.int32).contiguous()
+    lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    _build.launch(PADDED_NAME, "fvt_vsa_sparse_padded_fwd", q.data_ptr(),
+                  k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  lse.data_ptr() if return_lse else None, idx.data_ptr(),
+                  sizes.data_ptr(), b, h, s, d, tile_elems, idx.shape[3],
+                  *st, float(scale), _build.stream_ptr(q))
+    return (out, lse) if return_lse else out
+
+
+def block_sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           indices: torch.Tensor, block_sizes: torch.Tensor,
+                           *, scale: float | None = None,
+                           tile_elems: int = TILE_ELEMS,
+                           return_lse: bool = False):
+    """Block-sparse attention over PADDED tiles: the forward of the JAX
+    ``block_sparse_attention`` (K8) and, with ``return_lse``, of
+    ``block_sparse_attention_trainable`` (K7). The backward kernels are not
+    ported, so on CUDA it raises for tensors that require grad.
+
+    q/k/v: [B, H, nB*E, D] in tile-major padded order. indices:
+    [B, H, nB, K] int32 key-tile ids per query tile, -1 marking an unused
+    slot. block_sizes: [nB] int32 valid token counts. Returns [B, H, nB*E, D]
+    and, on request, the fp32 log-sum-exp [B, H, nB*E].
+    """
+    b, h, s, d = q.shape
+    if s % tile_elems or indices.shape[2] != s // tile_elems or \
+            block_sizes.shape[0] != s // tile_elems:
+        raise ValueError(
+            f"{s} rows, indices {tuple(indices.shape)} and block_sizes "
+            f"{tuple(block_sizes.shape)} do not describe {tile_elems}-token "
+            "tiles with one index row per query tile")
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    if q.is_cuda:
+        return _block_sparse_padded_cuda(q, k, v, indices, block_sizes, scale,
+                                         tile_elems, return_lse)
+    if q.device.type == "cpu":
+        return block_sparse_attention_plain(
+            q, k, v, indices, block_sizes, scale=scale, tile_elems=tile_elems,
+            return_lse=return_lse, kernel=PADDED_NAME)
+    raise _build.KernelError(f"{PADDED_NAME}: unsupported device {q.device}")
 
 
 # -- full VSA composition -----------------------------------------------------
@@ -284,15 +377,9 @@ def video_sparse_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if full_tiles:
         out_s = block_sparse_attention_fast(q, k, v, top_idx, scale=scale,
                                             tile_elems=tile_elems)
-    elif q.is_cuda:
-        raise _build.KernelError(
-            "VSA on a token grid with no exact tile needs the padded-tile "
-            "sparse kernel (Pallas _sparse_fwd_lse_kernel), which is not "
-            "ported to CUDA yet")
     else:
-        out_s = block_sparse_attention_plain(q, k, v, top_idx, block_sizes,
-                                             scale=scale,
-                                             tile_elems=tile_elems)
+        out_s = block_sparse_attention(q, k, v, top_idx, block_sizes,
+                                       scale=scale, tile_elems=tile_elems)
     if gate_compress is not None:
         return out_c * gate_compress + out_s
     return out_c + out_s

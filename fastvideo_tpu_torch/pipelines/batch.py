@@ -43,13 +43,21 @@ class ForwardBatch:
     seed: int | None = None
     seeds: list[int] | None = None
     guidance_scale: float = 1.0
+    guidance_rescale: float = 0.0
 
     output: torch.Tensor | None = None
+    return_trajectory_latents: bool = False
+    # [B, steps, C, T, H, W] latents after each step, and their timesteps
+    trajectory_latents: torch.Tensor | None = None
+    trajectory_timesteps: list | None = None
     dmd_denoising_steps: list[int] | None = None
 
     extra: dict[str, Any] = dataclasses.field(default_factory=dict)
     logging_info: PipelineLoggingInfo = dataclasses.field(
         default_factory=PipelineLoggingInfo)
+
+    # per-request VSA sparsity; 0 leaves FastVideoArgs.VSA_sparsity in force
+    VSA_sparsity: float = 0.0
 
     def __post_init__(self) -> None:
         if self.seed is not None and self.seeds is None:

@@ -1,7 +1,10 @@
 """Model path -> PipelineConfig class (port of fastvideo_tpu/registry.py).
 
-The port registers the FastWan name fragments: a path whose name holds
-"fastwan2.1" and "t2v", or "fastwan", resolves FastWanT2V480PConfig.
+Name fragments are matched in the JAX registry's priority order. The port
+has the Wan T2V 480p configs (FastWan and the 50-step base); a name that the
+JAX registry resolves to a Wan-family config the port lacks (I2V, V2V,
+Wan2.2, 14B, Lucy Edit, TurboDiffusion) raises instead of falling through to
+T2V.
 """
 
 from __future__ import annotations
@@ -11,10 +14,19 @@ import os
 from fastvideo_tpu_torch.configs.pipelines import wan as wan_cfg
 from fastvideo_tpu_torch.configs.pipelines.base import PipelineConfig
 
-# (required name fragments, config class), most specific first
-_REGISTRY: list[tuple[tuple[str, ...], type[PipelineConfig]]] = [
+# (required name fragments, config class or None where the port has none),
+# highest priority first
+_REGISTRY: list[tuple[tuple[str, ...], type[PipelineConfig] | None]] = [
+    (("turbodiffusion",), None),
     (("fastwan2.1", "t2v"), wan_cfg.FastWanT2V480PConfig),
+    (("lucy-edit",), None),
     (("fastwan",), wan_cfg.FastWanT2V480PConfig),
+    (("wan", "v2v"), None),
+    (("wan2.2", "ti2v"), None),
+    (("wan2.2", "t2v"), None),
+    (("wan", "i2v"), None),
+    (("wan", "t2v", "14b"), None),
+    (("wan",), wan_cfg.WanT2V480PConfig),
 ]
 
 
@@ -24,5 +36,10 @@ def get_pipeline_config_cls_for_name(
     for frags, cls in _REGISTRY:
         for candidate in (name.lower(), model_path.lower()):
             if all(f in candidate for f in frags):
+                if cls is None:
+                    raise NotImplementedError(
+                        f"{model_path!r} names a pipeline config "
+                        f"({' + '.join(frags)}) that is not ported; the port "
+                        "has Wan2.1 T2V 480p and FastWan")
                 return cls
     return None

@@ -92,6 +92,118 @@ def test_vsa_sparse_matches_plain(dev, e, nb, qg, topk, d):
     _close(out, ref, dtype)
 
 
+def _padded_case(dev, b, h, nb, e, d, topk, seed=3):
+    """Random padded-tile inputs: partial tiles (garbage, even non-finite,
+    in the padded key slots), ragged index rows with -1 sentinels."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn(b, h, nb * e, d, generator=g, device=dev,
+                           dtype=torch.bfloat16) for _ in range(3))
+    sizes = torch.randint(1, e + 1, (nb,), generator=g, device=dev,
+                          dtype=torch.int32)
+    sizes[0] = e
+    pad = (torch.arange(nb * e, device=dev) % e) >= sizes.repeat_interleave(e)
+    k[:, :, pad] = float("nan")
+    v[:, :, pad] = float("inf")
+    idx = torch.stack([torch.randperm(nb, generator=g, device=dev)[:topk]
+                       for _ in range(b * h * nb)]).reshape(b, h, nb, topk)
+    keep = torch.randint(1, topk + 1, (b, h, nb, 1), generator=g, device=dev)
+    idx = torch.where(torch.arange(topk, device=dev) < keep, idx, -1)
+    return q, k, v, idx.to(torch.int32), sizes
+
+
+def _plain_padded(q, k, v, idx, sizes, e, **kw):
+    # the plain version multiplies masked probabilities (0) by the padded
+    # values, so it gets the padded slots zeroed; the kernel never reads them
+    pad = (torch.arange(q.shape[2], device=q.device) % e) >= \
+        sizes.repeat_interleave(e)
+    k, v = k.clone(), v.clone()
+    k[:, :, pad] = 0
+    v[:, :, pad] = 0
+    return vsa.block_sparse_attention_plain(
+        q, k, v, idx, sizes, scale=q.shape[-1]**-0.5, tile_elems=e, **kw)
+
+
+@pytest.mark.parametrize("e,nb,topk,d", [
+    (256, 7, 4, 128),   # the padded (4, 8, 8) VSA / STA tile
+    (64, 9, 3, 128),    # SLA's tile
+    (280, 5, 5, 64),    # a forced tile that is no multiple of the chunk
+    (40, 6, 2, 32),     # a tile smaller than a query sub-block
+])
+def test_vsa_sparse_padded_matches_plain(dev, e, nb, topk, d):
+    q, k, v, idx, sizes = _padded_case(dev, 2, 3, nb, e, d, topk)
+    out, lse = vsa.block_sparse_attention(q, k, v, idx, sizes, tile_elems=e,
+                                          return_lse=True)
+    ref, ref_lse = _plain_padded(q, k, v, idx, sizes, e, return_lse=True)
+    _close(out, ref, torch.bfloat16)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-4)
+    # the same kernel without the LSE output, on strided operands
+    qkv = torch.stack([q, k, v], dim=-2)  # [B, H, S, 3, D]
+    out2 = vsa.block_sparse_attention(qkv[..., 0, :], qkv[..., 1, :],
+                                      qkv[..., 2, :], idx, sizes,
+                                      tile_elems=e)
+    torch.cuda.synchronize()
+    assert torch.equal(out2, out)
+
+
+def test_vsa_sparse_padded_all_masked_rows_are_zero(dev):
+    """A query tile whose every slot is a sentinel outputs exactly 0 and the
+    finite empty-row LSE, never NaN."""
+    e, nb = 64, 4
+    q, k, v, idx, sizes = _padded_case(dev, 1, 2, nb, e, 64, 2)
+    idx[:, :, 1] = -1
+    out, lse = vsa.block_sparse_attention(q, k, v, idx, sizes, tile_elems=e,
+                                          return_lse=True)
+    ref, ref_lse = _plain_padded(q, k, v, idx, sizes, e, return_lse=True)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all() and torch.isfinite(lse).all()
+    assert (out[:, :, e:2 * e] == 0).all()
+    assert (lse[:, :, e:2 * e] == vsa.MASK_VALUE).all()
+    _close(out, ref, torch.bfloat16)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-4)
+
+
+def test_vsa_sparse_padded_rejects_grad_and_fp32(dev):
+    q = torch.zeros(1, 1, 128, 64, device=dev, dtype=torch.bfloat16)
+    idx = torch.zeros(1, 1, 2, 1, device=dev, dtype=torch.int32)
+    sizes = torch.full((2,), 64, device=dev, dtype=torch.int32)
+    with pytest.raises(_build.KernelError, match="bfloat16"):
+        vsa.block_sparse_attention(q.float(), q.float(), q.float(), idx,
+                                   sizes)
+    qg = q.clone().requires_grad_()
+    with pytest.raises(_build.KernelError, match="backward"):
+        vsa.block_sparse_attention(qg, q, q, idx, sizes)
+    with torch.no_grad():
+        vsa.block_sparse_attention(qg, q, q, idx, sizes)
+
+
+def test_sta_and_sla_launch_the_padded_kernel(dev):
+    from fastvideo_tpu_torch.ops import sla, sta
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    grid, tile, h, d = (5, 9, 11), (2, 4, 4), 2, 64
+    s = grid[0] * grid[1] * grid[2]
+    q, k, v = (torch.randn(1, s, h, d, generator=g, device=dev,
+                           dtype=torch.bfloat16) for _ in range(3))
+    windows = ((3, 3, 3), (1, 3, 5))
+    before = _build.LAUNCHES["vsa_sparse_padded_fwd"]
+    plain_before = dict(_build.PLAIN_CALLS)
+    out = sta.sliding_tile_attention(q, k, v, grid, windows, tile)
+    assert _build.LAUNCHES["vsa_sparse_padded_fwd"] == before + 1
+    assert _build.PLAIN_CALLS == plain_before
+    ref = sta.sliding_tile_attention(q.cpu(), k.cpu(), v.cpu(), grid, windows,
+                                     tile)
+    _close(out.cpu(), ref, torch.bfloat16)
+
+    q, k, v = (torch.randn(1, 512, h, d, generator=g, device=dev,
+                           dtype=torch.bfloat16) for _ in range(3))
+    w = torch.randn(d, d, generator=g, device=dev) * d**-0.5
+    out = sla.sla_attention(q, k, v, topk_ratio=0.4, proj_weight=w)
+    assert _build.LAUNCHES["vsa_sparse_padded_fwd"] == before + 2
+    ref = sla.sla_attention(q.cpu(), k.cpu(), v.cpu(), topk_ratio=0.4,
+                            proj_weight=w.cpu())
+    _close(out.cpu(), ref, torch.bfloat16)
+
+
 @pytest.mark.parametrize("kt,time_pad,c,co", list(itertools.product(
     [1, 3], [0, 2], [8, 24], [3, 40, 72])))
 def test_conv3d_matches_plain(dev, kt, time_pad, c, co):

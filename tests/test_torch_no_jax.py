@@ -94,6 +94,7 @@ def _calls():
     q = torch.zeros(1, 64, 2, 32, dtype=bf)
     qt = torch.zeros(1, 2, 128, 32, dtype=bf)
     idx = torch.zeros(1, 2, 2, 1, dtype=torch.int32)
+    sizes = torch.full((2,), 64, dtype=torch.int32)
     x = torch.zeros(1, 2, 4, 4, 8, dtype=bf)
     w = torch.zeros(3, 3, 3, 8, 8, dtype=bf)
     b = torch.zeros(8, dtype=bf)
@@ -102,6 +103,8 @@ def _calls():
         "flash_fwd": lambda: flash_attention.flash_attention(c(q), c(q), c(q)),
         "vsa_sparse_fwd": lambda: vsa.block_sparse_attention_fast(
             c(qt), c(qt), c(qt), idx, tile_elems=64),
+        "vsa_sparse_padded_fwd": lambda: vsa.block_sparse_attention(
+            c(qt), c(qt), c(qt), idx, sizes),
         "conv3d": lambda: conv3d.conv3d_ndhwc(c(x), c(w), c(b), time_pad=2),
     }
 
@@ -133,16 +136,67 @@ def test_cuda_call_on_other_card_raises(kernel, monkeypatch):
     assert _build.PLAIN_CALLS == before
 
 
+@pytest.mark.parametrize("padded", [False, True],
+                         ids=["full_tiles", "padded_tiles"])
 @pytest.mark.parametrize("dtype,d", [(torch.float32, 32),
                                      (torch.bfloat16, 256)])
-def test_vsa_cuda_call_rejects_other_dtypes_and_head_dims(dtype, d,
+def test_vsa_cuda_call_rejects_other_dtypes_and_head_dims(dtype, d, padded,
                                                           monkeypatch):
-    """K2 is built for bf16 with head dims up to 128 only; other CUDA calls
-    raise before any build, and the plain version never runs."""
+    """The sparse kernels are built for bf16 with head dims up to 128 only;
+    other CUDA calls raise before any build, and the plain version never
+    runs."""
     monkeypatch.setattr(_build, "check_device", lambda t, name: None)
     qt = _cuda_typed(torch.zeros(1, 2, 128, d, dtype=dtype))
     idx = torch.zeros(1, 2, 2, 1, dtype=torch.int32)
     before = dict(_build.PLAIN_CALLS), dict(_build.LAUNCHES)
     with pytest.raises(_build.KernelError, match="bfloat16"):
-        vsa.block_sparse_attention_fast(qt, qt, qt, idx, tile_elems=64)
+        if padded:
+            vsa.block_sparse_attention(
+                qt, qt, qt, idx, torch.full((2,), 64, dtype=torch.int32))
+        else:
+            vsa.block_sparse_attention_fast(qt, qt, qt, idx, tile_elems=64)
     assert (dict(_build.PLAIN_CALLS), dict(_build.LAUNCHES)) == before
+
+
+def test_padded_cuda_call_refuses_tensors_that_require_grad(monkeypatch):
+    """The padded kernel has no backward yet: a CUDA call on tensors that
+    require grad raises instead of returning a result with no graph."""
+    monkeypatch.setattr(_build, "check_device", lambda t, name: None)
+    qt = _cuda_typed(torch.zeros(1, 2, 128, 32, dtype=torch.bfloat16))
+    qg = _cuda_typed(torch.zeros(1, 2, 128, 32, dtype=torch.bfloat16,
+                                 requires_grad=True))
+    idx = torch.zeros(1, 2, 2, 1, dtype=torch.int32)
+    sizes = torch.full((2,), 64, dtype=torch.int32)
+    before = dict(_build.PLAIN_CALLS), dict(_build.LAUNCHES)
+    with pytest.raises(_build.KernelError, match="backward"):
+        vsa.block_sparse_attention(qg, qt, qt, idx, sizes)
+    assert (dict(_build.PLAIN_CALLS), dict(_build.LAUNCHES)) == before
+
+
+@pytest.mark.parametrize("path", ["video_sparse_attn", "sta", "sla"])
+def test_sparse_paths_reach_the_padded_kernel_on_cuda(path, monkeypatch):
+    """VSA on a grid with no exact tile, STA and SLA go to the padded
+    kernel's launch on a CUDA tensor (here: its build, which has no nvcc)
+    and never to the plain version."""
+    from fastvideo_tpu_torch.ops import sla, sta
+
+    monkeypatch.setattr(_build, "check_device", lambda t, name: None)
+    monkeypatch.setattr(_build, "stream_ptr", lambda t: 0)
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", "/nonexistent")
+    bf = torch.bfloat16
+    c = _cuda_typed
+    before = dict(_build.PLAIN_CALLS)
+    with pytest.raises(_build.KernelError, match="nvcc not found"):
+        if path == "video_sparse_attn":
+            q = c(torch.zeros(1, 2, 128, 32, dtype=bf))
+            vsa.video_sparse_attn(q, q, q, torch.tensor([64, 40]), 1)
+        elif path == "sta":
+            q = c(torch.zeros(1, 3 * 5 * 6, 2, 32, dtype=bf))
+            sta.sliding_tile_attention(q, q, q, (3, 5, 6), ((3, 3, 3),) * 2,
+                                       (2, 2, 4))
+        else:
+            q = c(torch.zeros(1, 128, 2, 32, dtype=bf))
+            sla.sla_attention(q, q, q, topk_ratio=0.5)
+    assert _build.PLAIN_CALLS == before

@@ -78,6 +78,6 @@ def test_tokenizer_matches_transformers(tmp_path):
 
 def test_tokenizer_rejects_other_models(tmp_path):
     (tmp_path / "tokenizer.json").write_text(
-        '{"model": {"type": "Unigram"}, "pre_tokenizer": null}')
-    with pytest.raises(NotImplementedError, match="Unigram"):
+        '{"model": {"type": "BPE"}, "pre_tokenizer": null}')
+    with pytest.raises(NotImplementedError, match="BPE"):
         WordLevelTokenizer.from_pretrained(str(tmp_path))
