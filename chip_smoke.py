@@ -8,7 +8,9 @@ Phases, each printing its own lines:
   2. kernel build: nvcc for sm_90a from fastvideo_tpu_torch/csrc;
   3. kernel checks: each kernel against its plain PyTorch version on the
      card at the main paths' shapes, with kernel, plain, library and bound
-     times (the padded sparse kernel at its VSA, STA and SLA shapes);
+     times (the padded sparse kernel at its VSA, STA and SLA shapes; the
+     decode convs in the dispatched decode's chunks: the first latent
+     frame alone, then 2 at a time);
   4. a: tiny models, the card's whole path against the CPU's plain path
      (FastWan DMD; Wan UniPC + CFG with VSA and with STA on a padded grid);
      b: the FastWan main path at full width: a random-weight
@@ -22,6 +24,15 @@ Phases, each printing its own lines:
      sparsity 0.8 (--vsa-steps, default 4) and with SLIDING_TILE_ATTN
      (--sta-steps, default 2); each with stage times, the kernels' launch
      counts and peak memory;
+     e: FastWan int8 serving, the 4b checkpoint loaded with
+     text_encoder_quant="int8-weight-only" (UMT5 quantized at load) and
+     transformer_quant="int8" (W8A8 DiT linears), decoded with
+     FASTVIDEO_VAE_CONV3D=auto_int8 (the int8 conv K4 where its rule
+     allows): UMT5 bytes and peak memory during its load, stage times,
+     the K3 / K4 split;
+     f: TurboDiffusion T2V 1.3B at 61x480x832 (SLA takes token counts
+     that are multiples of 64, and 81 frames give 32,760): 4 rCM steps
+     with SLA_ATTN (top 10 %), W8A8 DiT linears and auto_int8 decode;
   5. the kernels line, the card line and the result line.
 
 Any failure exits non-zero before the result line. It imports nothing of
@@ -39,7 +50,7 @@ import sys
 import time
 
 # the card's published dense peaks (NVIDIA H100 SXM data sheet)
-PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
+PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12, "int8": 1979e12}
 PEAK_BYTES = 3.35e12
 
 # kernel -> the Pallas function it replaces (file:line)
@@ -49,6 +60,7 @@ REPLACES = {
     "vsa_sparse_padded_fwd":
     "fastvideo_tpu/ops/vsa.py:629 and fastvideo_tpu/ops/vsa.py:378",
     "conv3d": "fastvideo_tpu/ops/conv3d.py:180 and fastvideo_tpu/ops/conv3d.py:55",
+    "conv3d_int8": "fastvideo_tpu/ops/conv3d.py:214",
 }
 SOURCES = {
     "flash_fwd": "fastvideo_tpu_torch/csrc/flash_fwd.cu",
@@ -56,6 +68,7 @@ SOURCES = {
     "vsa_sparse_padded_fwd":
     "fastvideo_tpu_torch/csrc/vsa_sparse_padded_fwd.cu",
     "conv3d": "fastvideo_tpu_torch/csrc/conv3d.cu",
+    "conv3d_int8": "fastvideo_tpu_torch/csrc/conv3d_int8.cu",
 }
 
 
@@ -139,18 +152,23 @@ def check_flash(dev, results: dict) -> None:
     def rnd(*shape, dtype=torch.bfloat16):
         return torch.randn(*shape, generator=g, device=dev, dtype=dtype)
 
-    # 480x832: 32,760 tokens, VAE mid block 60x104. 480x848: the VSA trunk
-    # runs in padded tile-major order (43,008 slots, the padded ones zero),
-    # the STA trunk in token order (33,390), VAE mid block 60x106
+    # 480x832: 32,760 tokens (4f's 61 frames: 24,960), VAE mid block 60x104.
+    # 480x848: the VSA trunk runs in padded tile-major order (43,008 slots,
+    # the padded ones zero), the STA trunk in token order (33,390), VAE mid
+    # block 60x106. The VAE attention runs once per decode chunk, on its
+    # frames: the first latent frame alone, then 2 at a time
+    chunk = decode_chunk_frames(latent_of(CLIP_480P))
+    bf16 = torch.bfloat16
     cases = [
-        ("cross_attn", (1, 32760, 12, 128), 512, torch.bfloat16, False),
-        ("cross_attn 480x848 vsa", (1, 43008, 12, 128), 512, torch.bfloat16,
-         False),
-        ("cross_attn 480x848 sta", (1, 33390, 12, 128), 512, torch.bfloat16,
-         False),
-        ("vae_mid_attn", (21, 6240, 1, 384), 6240, torch.bfloat16, False),
-        ("vae_mid_attn 480x848", (21, 6360, 1, 384), 6360, torch.bfloat16,
-         False),
+        ("cross_attn", (1, 32760, 12, 128), 512, bf16, False),
+        ("cross_attn 4f", (1, turbo_tokens(), 12, 128), 512, bf16, False),
+        ("cross_attn 480x848 vsa", (1, 43008, 12, 128), 512, bf16, False),
+        ("cross_attn 480x848 sta", (1, 33390, 12, 128), 512, bf16, False),
+        ("vae_mid_attn first chunk", (1, 6240, 1, 384), 6240, bf16, False),
+        (f"vae_mid_attn {chunk}-frame chunk", (chunk, 6240, 1, 384), 6240,
+         bf16, False),
+        (f"vae_mid_attn 480x848 {chunk}-frame chunk", (chunk, 6360, 1, 384),
+         6360, bf16, False),
         ("fp32_causal_tail", (2, 1000, 2, 64), 777, torch.float32, True),
     ]
     padded_valid = torch.as_tensor(
@@ -169,17 +187,23 @@ def check_flash(dev, results: dict) -> None:
         errs.append(check(f"flash_fwd[{label}]", out, ref,
                           *attn_tol(ref, dtype)))
         check(f"flash_fwd[{label}] lse", lse, ref_lse, 1e-3)
-        if label != "cross_attn":
+        if label not in ("cross_attn", "cross_attn 4f"):
             del q, k, v, out, ref, lse, ref_lse
             continue
         ms = time_ms(lambda: fa.flash_attention(q, k, v, **kw))
+        flops = 4.0 * b * h * sq * skv * d
+        nbytes = 2.0 * (2 * b * sq * h * d + 2 * b * skv * h * d) + 4 * b * h * sq
+        bms, by = bound_ms(flops, nbytes)
+        if label == "cross_attn 4f":
+            results["flash_fwd"].update(turbo_ms=ms, turbo_bound_ms=bms)
+            print(f"  flash_fwd[{label}]: {ms:.3f} ms kernel, bound {bms:.3f} "
+                  f"ms ({by}, {flops:.3e} FLOP)", flush=True)
+            del q, k, v, out, ref, lse, ref_lse
+            continue
         plain = time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), 2)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         lib = time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, scale=d**-0.5))
-        flops = 4.0 * b * h * sq * skv * d
-        nbytes = 2.0 * (2 * b * sq * h * d + 2 * b * skv * h * d) + 4 * b * h * sq
-        bms, by = bound_ms(flops, nbytes)
         results["flash_fwd"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain,
                                     bound_ms=bms, bound_by=by,
                                     library_ms=lib,
@@ -376,31 +400,45 @@ def check_vsa_padded(dev, results: dict) -> None:
                     *attn_tol(ref, torch.bfloat16))
     sta_ms = time_ms(lambda: vsa.block_sparse_attention(q, k, v, widx, sizes,
                                                         **kw))
+    sta_mask = padded_block_mask(widx, sizes, s, e)
+    check("flex_attention[sta 480x848] (library)",
+          flex(q, k, v, block_mask=sta_mask, scale=scale), ref,
+          *attn_tol(ref, torch.bfloat16))
+    sta_lib = time_ms(lambda: flex(q, k, v, block_mask=sta_mask, scale=scale))
     sta_flops, sta_bytes = padded_bound(widx, sizes, d)
     sta_bms, sta_by = bound_ms(sta_flops, sta_bytes)
-    print(f"  {name}[sta 480x848]: {sta_ms:.3f} ms kernel, bound "
-          f"{sta_bms:.3f} ms ({sta_by}, {sta_flops:.3e} FLOP; "
+    print(f"  {name}[sta 480x848]: {sta_ms:.3f} ms kernel, {sta_lib:.3f} ms "
+          f"flex_attention, bound {sta_bms:.3f} ms ({sta_by}, "
+          f"{sta_flops:.3e} FLOP; "
           f"{(widx >= 0).sum().item() // h} (tile, window-tile) pairs a head,"
           f" {(widx < 0).sum().item() // h} sentinel slots)", flush=True)
-    del q, k, v, out, ref, lse, ref_lse, mask
+    del q, k, v, out, ref, lse, ref_lse, mask, sta_mask
 
-    # SLA: 64-token full tiles, top 10% of 512 key blocks from its block map
-    s2, e2 = 32768, 64
+    # SLA at the 4f path's length: 64-token full tiles, top 10% of the key
+    # blocks from its block map
+    s2, e2 = turbo_tokens(), 64
     q, k, v = (torch.randn(b, h, s2, d, generator=g, device=dev,
                            dtype=torch.bfloat16) for _ in range(3))
     lut, _ = sla.sla_block_map(q, k, 0.1)
     full = torch.full((s2 // e2,), e2, dtype=torch.int32, device=dev)
     out = vsa.block_sparse_attention(q, k, v, lut, full, scale=scale)
     ref = vsa.block_sparse_attention_plain(q, k, v, lut, full, scale=scale)
-    sla_err = check(f"{name}[sla 32768]", out, ref,
+    sla_err = check(f"{name}[sla {s2}]", out, ref,
                     *attn_tol(ref, torch.bfloat16))
     sla_ms = time_ms(lambda: vsa.block_sparse_attention(q, k, v, lut, full,
                                                         scale=scale))
+    # 128-row mask blocks span two 64-token query and key tiles each
+    sla_mask = vsa_block_mask(lut, s2, e2, e2)
+    check(f"flex_attention[sla {s2}] (library)",
+          flex(q, k, v, block_mask=sla_mask, scale=scale), ref,
+          *attn_tol(ref, torch.bfloat16))
+    sla_lib = time_ms(lambda: flex(q, k, v, block_mask=sla_mask, scale=scale))
     sla_flops, sla_bytes = padded_bound(lut, full, d)
     sla_bms, sla_by = bound_ms(sla_flops, sla_bytes)
-    print(f"  {name}[sla 32768]: {sla_ms:.3f} ms kernel, bound {sla_bms:.3f} "
-          f"ms ({sla_by}, {sla_flops:.3e} FLOP; top-{lut.shape[-1]} of "
-          f"{s2 // e2} blocks)", flush=True)
+    print(f"  {name}[sla {s2}]: {sla_ms:.3f} ms kernel, {sla_lib:.3f} ms "
+          f"flex_attention, bound {sla_bms:.3f} ms ({sla_by}, "
+          f"{sla_flops:.3e} FLOP; top-{lut.shape[-1]} of {s2 // e2} blocks)",
+          flush=True)
 
     # a query tile whose every slot is a sentinel: exactly 0, never NaN
     small = torch.full((1, h, s2 // e2, 2), -1, dtype=torch.int32, device=dev)
@@ -419,33 +457,47 @@ def check_vsa_padded(dev, results: dict) -> None:
         max_abs_err=max(err, sta_err, sla_err), ms=ms, plain_ms=plain,
         bound_ms=bms, bound_by=by, library_ms=lib,
         shape=f"q{[b, h, s, d]} E{e} tiles{nb} topk{topk} + lse",
-        sta_ms=sta_ms, sta_bound_ms=sta_bms, sla_ms=sla_ms,
-        sla_bound_ms=sla_bms)
+        sta_ms=sta_ms, sta_bound_ms=sta_bms, sta_library_ms=sta_lib,
+        sla_ms=sla_ms, sla_bound_ms=sla_bms, sla_library_ms=sla_lib)
 
 
-def conv_shapes(w0: int) -> list[tuple]:
-    """(label, C, Co, kt, time_pad, T_in, H, W): the decoder's conv shapes
-    for a 60 x ``w0`` latent, one chunk of 4 latent frames (T cut so that
-    the plain version fits)."""
-    h, w = 60, w0
-    return [
-        (f"conv_in@{h}x{w}", 16, 384, 3, 2, 4, h, w),
-        (f"384x384@{h}x{w}", 384, 384, 3, 0, 6, h, w),
-        (f"resample384->192@{2 * h}x{2 * w}", 384, 192, 1, 0, 8, 2 * h, 2 * w),
-        (f"192->384@{2 * h}x{2 * w}", 192, 384, 3, 0, 10, 2 * h, 2 * w),
-        (f"384x384@{2 * h}x{2 * w}", 384, 384, 3, 0, 10, 2 * h, 2 * w),
-        (f"resample384->192@{4 * h}x{4 * w}", 384, 192, 1, 0, 16, 4 * h,
-         4 * w),
-        (f"192x192@{4 * h}x{4 * w}", 192, 192, 3, 0, 18, 4 * h, 4 * w),
-        (f"resample192->96@{8 * h}x{8 * w}", 192, 96, 1, 0, 16, 8 * h, 8 * w),
-        (f"96x96@{8 * h}x{8 * w}", 96, 96, 3, 0, 18, 8 * h, 8 * w),
-        (f"conv_out96->3@{8 * h}x{8 * w}", 96, 3, 3, 0, 18, 8 * h, 8 * w),
-    ]
+def decode_chunk_frames(latent: tuple[int, int, int]) -> int:
+    """Latent frames per chunk of the dispatched decode of a (T, H, W)
+    latent (pipelines/stages/decoding.py), T for a one-pass decode."""
+    import types
+
+    import torch
+
+    from fastvideo_tpu_torch.pipelines.stages.decoding import (
+        dispatched_chunk_frames)
+
+    z = torch.empty(1, VAE_CFG["z_dim"], *latent, device="meta")
+    return (dispatched_chunk_frames(z, types.SimpleNamespace(**VAE_CFG))
+            or latent[0])
 
 
-# 480x832 (FastWan path) and 480x848 (Wan UniPC paths: 53 x 16 columns, a
-# different ragged tail on the implicit-GEMM tiles)
-CONV_SHAPES = conv_shapes(104) + conv_shapes(106)
+def chunk_conv_shapes(latent: tuple[int, int, int]) -> list[tuple]:
+    """(label, convs, C, Co, kt, time_pad, T_in, H, W): the decoder's 3x3
+    convs in the two kinds of chunk of the dispatched decode of a (T, H, W)
+    latent: the first latent frame alone (each kt = 3 conv pads 2 zero
+    frames in front) and a chunk of later frames (each kt = 3 conv reads
+    the 2 frames cached from the chunk before, no pad)."""
+    chunk = decode_chunk_frames(latent)
+    out = []
+    for kind, t0, first in (("first chunk", 1, 1),
+                            (f"{chunk}-frame chunk", chunk, 0)):
+        for label, n, c, co, kt, t, h, w in decoder_conv_shapes(
+                (t0, *latent[1:]), first_len=first):
+            tp = kt - 1 if first else 0
+            out.append((f"{label}@{h}x{w} {kind}", n, c, co, kt, tp,
+                        t + kt - 1 - tp, h, w))
+    return out
+
+
+def is_hot(label: str) -> bool:
+    """The decode's hot conv: up3's 96x96 resnet convs at full resolution,
+    in a chunk of later frames."""
+    return label.startswith("up3 resnets") and "first chunk" not in label
 
 
 def check_conv(dev, results: dict) -> None:
@@ -456,7 +508,10 @@ def check_conv(dev, results: dict) -> None:
 
     g = torch.Generator(device=dev).manual_seed(2)
     errs = []
-    for label, c, co, kt, tp, t, h, w in CONV_SHAPES:
+    # 480x832 (FastWan, TurboDiffusion) and 480x848 (Wan UniPC paths: 53 x
+    # 16 columns, a different ragged tail on the implicit-GEMM tiles)
+    for label, _, c, co, kt, tp, t, h, w in (chunk_conv_shapes((21, 60, 104))
+                                             + chunk_conv_shapes((21, 60, 106))):
         x = torch.randn(1, t, h, w, c, generator=g, device=dev,
                         dtype=torch.bfloat16)
         wt = (torch.randn(kt, 3, 3, c, co, generator=g, device=dev) *
@@ -467,7 +522,7 @@ def check_conv(dev, results: dict) -> None:
         # bf16 outputs: two bf16 ulps (2 * 2^-7) relative, plus 1e-2 for
         # values near zero where fp32 summation order shows
         errs.append(check(f"conv3d[{label}]", out, ref, 1e-2, 1.6e-2))
-        if not label.startswith("96x96@480x"):
+        if not is_hot(label):
             del x, out, ref
             continue
         ms = time_ms(lambda: conv3d.conv3d_ndhwc(x, wt, bias, time_pad=tp))
@@ -497,15 +552,18 @@ def check_conv(dev, results: dict) -> None:
     results["conv3d"]["max_abs_err"] = max(errs)  # over every shape
 
 
-def decode_conv_bound(latent: tuple[int, int, int]) -> float:
-    """Print the bound of the decode's K3 launches per distinct conv shape
-    (from the decoder's structure for a (T, H, W) latent) and return the
-    total ms."""
+def decoder_conv_shapes(latent: tuple[int, int, int],
+                        first_len: int = 1) -> list[tuple]:
+    """The decoder's 3x3 convs for a (T, H, W) latent, from its structure
+    (models/vaes/wan.py): (label, convs, C, Co, kt, output frames, H, W).
+    Every conv runs once per decode chunk, the frames split across the
+    chunks. Each temporal upsample doubles the frames from ``first_len``
+    on: the clip's first frame is never doubled, and a later chunk holds
+    none of it (``first_len`` 0)."""
     t0, h0, w0 = latent
-    t1, t2 = 2 * t0 - 1, 4 * t0 - 3  # frames after each temporal upsample
-    # (convs, C, Co, kt, output frames, H, W); every conv runs once per
-    # decode chunk, the frames split across the chunks
-    shapes = [
+    t1 = first_len + 2 * (t0 - first_len)  # frames after each upsample
+    t2 = first_len + 2 * (t1 - first_len)
+    return [
         ("conv_in", 1, 16, 384, 3, t0, h0, w0),
         ("mid + up0 resnets 384x384", 10, 384, 384, 3, t0, h0, w0),
         ("up0 resample 384->192 (1,3,3)", 1, 384, 192, 1, t1, 2 * h0,
@@ -519,8 +577,27 @@ def decode_conv_bound(latent: tuple[int, int, int]) -> float:
         ("up3 resnets 96x96", 6, 96, 96, 3, t2, 8 * h0, 8 * w0),
         ("conv_out 96->3", 1, 96, 3, 3, t2, 8 * h0, 8 * w0),
     ]
+
+
+def int8_route_split(latent: tuple[int, int, int]) -> tuple[int, int]:
+    """(K4 convs, K3 convs) of one decode chunk under auto_int8: the JAX
+    package's int8 rule (C, Co multiples of 32, C >= 64, W >= 256)."""
+    from fastvideo_tpu_torch.ops.conv3d import int8_ok
+
+    k4 = sum(n for _, n, c, co, _, _, _, w in decoder_conv_shapes(latent)
+             if int8_ok(c, co, w, "auto_int8"))
+    k3 = sum(n for _, n, *_ in decoder_conv_shapes(latent))
+    return k4, k3 - k4
+
+
+def decode_conv_bound(latent: tuple[int, int, int]) -> float:
+    """Print the bound of the decode's K3 launches per distinct conv shape
+    (from the decoder's structure for a (T, H, W) latent) and return the
+    total ms."""
     total_flops = total_bytes = 0.0
-    for label, n, c, co, kt, t, h, w in shapes:
+    t2 = 4 * latent[0] - 3
+    h0, w0 = latent[1:]
+    for label, n, c, co, kt, t, h, w in decoder_conv_shapes(latent):
         flops = 2.0 * n * t * h * w * c * co * kt * 9
         nbytes = 2.0 * n * t * h * w * (c + co)
         total_flops += flops
@@ -535,6 +612,148 @@ def decode_conv_bound(latent: tuple[int, int, int]) -> float:
     return bms
 
 
+def int8_conv_shapes() -> list[tuple]:
+    """(label, mode, C, Co, kt, time_pad, T_in, H, W): every decoder conv
+    shape that takes K4 at 480x832 under auto_int8, in both kinds of decode
+    chunk, and the two edges of the route: C = Co = 32 under kf_int8 and
+    W = 256 under auto_int8."""
+    from fastvideo_tpu_torch.ops.conv3d import int8_ok
+
+    out = [(label, "auto_int8", c, co, kt, tp, t, h, w)
+           for label, _, c, co, kt, tp, t, h, w in chunk_conv_shapes(
+               (21, 60, 104)) if int8_ok(c, co, w, "auto_int8")]
+    out.append(("edge C=Co=32", "kf_int8", 32, 32, 3, 2, 4, 30, 52))
+    out.append(("edge W=256", "auto_int8", 64, 64, 3, 2, 3, 16, 256))
+    return out
+
+
+def check_ulp(name: str, got, want) -> float:
+    """K4 against its plain version: the int32 sums are exact in both, so
+    they may differ by the epilogue's rounding only, at most one bf16 ulp
+    of the output. Returns the max absolute error."""
+    import torch
+
+    torch.cuda.synchronize()
+    if not torch.isfinite(got.float()).all():
+        raise SystemExit(f"{name}: kernel output has non-finite values")
+    diff = (got.float() - want.float()).abs()
+    ulp = torch.exp2(torch.floor(torch.log2(
+        want.float().abs().clamp_min(2.0**-126))) - 7)
+    ok = bool((diff <= ulp).all())
+    err = diff.max().item()
+    print(f"  {name}: max_abs_err {err:.3e} (tolerance one bf16 ulp of the "
+          f"plain output) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise SystemExit(f"{name}: kernel disagrees with its plain version")
+    return err
+
+
+def check_conv_int8(dev, results: dict) -> None:
+    """K4 at every int8 decoder shape of 480x832 and at the route's edges:
+    conv3d_ndhwc in the int8 mode takes K4 (and the quantize passes), and
+    K4 agrees with conv3d_int8_plain on the same quantized operands. At the
+    hot shape: K4, plain, K3 and cuDNN bf16 times and the quantize pass."""
+    import torch
+    import torch.nn.functional as F
+
+    from fastvideo_tpu_torch.ops import _build, conv3d
+
+    g = torch.Generator(device=dev).manual_seed(8)
+    errs, total_ms, n_shapes = [], 0.0, 0
+    for label, mode, c, co, kt, tp, t, h, w in int8_conv_shapes():
+        x = torch.randn(1, t, h, w, c, generator=g, device=dev,
+                        dtype=torch.bfloat16)
+        wt = (torch.randn(kt, 3, 3, c, co, generator=g, device=dev) *
+              (kt * 9 * c)**-0.5).to(torch.bfloat16)
+        b = torch.randn(co, generator=g, device=dev).to(torch.bfloat16)
+        before = _build.LAUNCHES[conv3d.NAME_INT8]
+        routed = conv3d.conv3d_ndhwc(x, wt, b, time_pad=tp, mode=mode)
+        if _build.LAUNCHES[conv3d.NAME_INT8] != before + 1:
+            raise SystemExit(f"conv3d_int8[{label}]: {mode} did not take K4")
+        xq, sx = conv3d.quantize_int8(x)
+        wq, sw = conv3d.quantize_int8(wt, dims=(0, 1, 2, 3))
+        scale, bias = sw.reshape(-1) * sx.reshape(()), b.float()
+        args = (xq, wq, scale, bias)
+        kw = dict(time_pad=tp, out_dtype=torch.bfloat16)
+        out = conv3d.conv3d_int8(*args, **kw)
+        ref = conv3d.conv3d_int8_plain(*args, **kw)
+        errs.append(check_ulp(f"conv3d_int8[{label}]", out, ref))
+        if not torch.equal(routed, out):
+            raise SystemExit(f"conv3d_int8[{label}]: conv3d_ndhwc's int8 "
+                             "route differs from K4 on its own operands")
+        del routed, ref
+        t_out = t + tp - kt + 1
+        flops = 2.0 * t_out * h * w * c * co * kt * 9
+        nbytes = t * h * w * c + wq.numel() + 2.0 * t_out * h * w * co + 8 * co
+        bms, by = bound_ms(flops, nbytes, "int8")
+        ms = time_ms(lambda: conv3d.conv3d_int8(*args, **kw), 3)
+        if not label.startswith("edge"):
+            total_ms += ms
+            n_shapes += 1
+        print(f"  conv3d_int8[{label}]: {ms:.3f} ms kernel, "
+              f"{flops / ms / 1e9:.1f} TOPS, bound {bms:.3f} ms ({by}, "
+              f"{flops:.3e} operations)", flush=True)
+        if not is_hot(label):
+            del x, xq, out
+            continue
+        plain = time_ms(lambda: conv3d.conv3d_int8_plain(*args, **kw), 1)
+        quant = time_ms(lambda: conv3d.quantize_int8(x), 3)
+        k3 = time_ms(lambda: conv3d.conv3d_ndhwc(x, wt, b, time_pad=tp), 3)
+        xc = x.permute(0, 4, 1, 2, 3)  # NCDHW view, channels-last strides
+        wc = wt.permute(4, 3, 0, 1, 2).contiguous(
+            memory_format=torch.channels_last_3d)
+        cudnn = time_ms(lambda: F.conv3d(F.pad(xc, (0, 0, 0, 0, tp, 0)), wc,
+                                         b, padding=(0, 1, 1)), 3)
+        results["conv3d_int8"] = dict(
+            max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=bms,
+            bound_by=by, library_ms=None, bf16_cudnn_ms=cudnn, bf16_k3_ms=k3,
+            quantize_ms=quant,
+            shape=f"xq{[1, t, h, w, c]} wq{[kt, 3, 3, c, co]}")
+        print(f"  conv3d_int8[{label}]: {plain:.3f} ms plain (torch._int_mm "
+              f"per tap); context: {k3:.3f} ms K3 and {cudnn:.3f} ms cuDNN "
+              f"F.conv3d in bf16 on the same x (no single PyTorch call "
+              f"computes an int8 conv3d); the per-tensor quantize pass "
+              f"{quant:.3f} ms", flush=True)
+        del x, xq, out
+    results["conv3d_int8"]["max_abs_err"] = max(errs)
+    results["conv3d_int8"]["chunk_shapes_ms"] = total_ms
+    print(f"  K4 at the {n_shapes} 480x832 chunk shapes: {total_ms:.1f} ms for "
+          f"one conv of each", flush=True)
+
+
+def check_w8a8_linear(dev) -> None:
+    """The W8A8 linear (per-token quantize, torch._int_mm, dequantize) at
+    the DiT's FFN shapes against F.linear in bf16: times, and the int8
+    result's distance from the bf16 one."""
+    import torch
+
+    from fastvideo_tpu_torch.layers.linear import Linear
+    from fastvideo_tpu_torch.layers.quantization import int8
+
+    torch.manual_seed(9)
+    for fin, fout in ((1536, 8960), (8960, 1536)):
+        lin = Linear(fin, fout, device=dev, dtype=torch.bfloat16)
+        q = int8.Int8Linear.from_linear(lin)
+        x = torch.randn(1, 32760, fin, device=dev, dtype=torch.bfloat16)
+        want, got = lin(x).float(), q(x).float()
+        rel = ((got - want).norm() / want.norm()).item()
+        if not (torch.isfinite(got).all() and rel < 3e-2):
+            raise SystemExit(f"W8A8 linear {fin}->{fout}: relative error "
+                             f"{rel:.3e} against bf16")
+        xq, _ = int8.quantize_activation(x)
+        ms_q = time_ms(lambda: q(x))
+        ms_bf16 = time_ms(lambda: lin(x))
+        ms_quant = time_ms(lambda: int8.quantize_activation(x))
+        ms_mm = time_ms(lambda: int8.int8_mm(xq.reshape(-1, fin), q.weight_q))
+        ops = 2.0 * 32760 * fin * fout
+        print(f"  W8A8 linear [32760, {fin}] -> {fout}: {ms_q:.3f} ms "
+              f"(quantize {ms_quant:.3f}, torch._int_mm {ms_mm:.3f} ms = "
+              f"{ops / ms_mm / 1e9:.0f} TOPS, the rest dequantize and bias); "
+              f"F.linear bf16 {ms_bf16:.3f} ms ({ops / ms_bf16 / 1e9:.0f} "
+              f"TFLOP/s); relative L2 distance {rel:.2e}", flush=True)
+        del lin, q, x, xq, want, got
+
+
 def run_kernel_checks(dev) -> dict:
     import torch
 
@@ -546,6 +765,10 @@ def run_kernel_checks(dev) -> dict:
     check_vsa_padded(dev, results)
     torch.cuda.empty_cache()
     check_conv(dev, results)
+    torch.cuda.empty_cache()
+    check_conv_int8(dev, results)
+    check_w8a8_linear(dev)
+    torch.cuda.empty_cache()
     decode_bound = decode_conv_bound((21, 60, 104))
     # K1 also runs the VAE mid-block attention: 21 frames x 6240 tokens,
     # one head of 384, once per decode
@@ -591,9 +814,25 @@ TINY_VAE_CFG = dict(base_dim=8, z_dim=4, dim_mult=[1, 2], num_res_blocks=1,
                     attn_scales=[], temperal_downsample=[True],
                     latents_mean=[0.0] * 4, latents_std=[1.0] * 4,
                     scale_factor_temporal=2, scale_factor_spatial=2)
+# 32 channels wide throughout, so that its 3x3 convs take the int8 route
+TINY_INT8_VAE_CFG = dict(TINY_VAE_CFG, base_dim=32, dim_mult=[1, 1])
 TINY_T5_CFG = dict(T5_CFG, vocab_size=128, d_model=32, d_kv=8, d_ff=48,
                    num_layers=2, num_heads=4, relative_attention_num_buckets=8,
                    relative_attention_max_distance=16)
+# 4b-4e: the 480p clip (4c/4d 848 wide). 4f: TurboDiffusion at 480p with 61
+# frames, since SLA (as in the JAX package, ops/sla.py:86) takes token
+# counts that are multiples of 64: 81 frames give 21 x 30 x 52 = 32,760, 61
+# give 16 x 30 x 52 = 24,960 = 390 tiles
+CLIP_480P = dict(height=480, width=832, num_frames=81)
+TURBO_SIZE = dict(height=480, width=832, num_frames=61)
+TURBO_STEPS = 4  # the family's published serving form, and its maximum
+
+
+def turbo_tokens() -> int:
+    t, h, w = latent_of(TURBO_SIZE)
+    return t * (h // 2) * (w // 2)
+
+
 PROMPT = ("w12 w7 w301 w44 w5 w900 w18 w2 w77 w1024 w3 w60, w8 w11 w250 w6")
 NEGATIVE_PROMPT = "w4000 w17, w93 w2048 w5 w611, w30 w31 w32"
 
@@ -626,12 +865,14 @@ def random_state(module, dtype, device, gen) -> dict:
 
 def write_checkpoint(root: str, dit_cfg: dict, vae_cfg: dict, t5_cfg: dict,
                      seed: int, device: str = "cuda",
-                     share: str | None = None) -> str:
+                     share: str | None = None,
+                     class_name: str = "WanPipeline") -> str:
     """A diffusers-format Wan T2V checkpoint with random weights, written
     with the port's own safetensors writer (the VAE's decoder half). The
     DiT has the blocks of the attention backend selected when this is
     called. With ``share`` only the transformer is written; the other
-    components are links to those of the checkpoint ``share``."""
+    components are links to those of the checkpoint ``share``.
+    ``class_name`` is model_index.json's pipeline class."""
     import torch
 
     from fastvideo_tpu_torch.configs.models.dits.wan import WanArchConfig
@@ -652,7 +893,7 @@ def write_checkpoint(root: str, dit_cfg: dict, vae_cfg: dict, t5_cfg: dict,
             json.dump(obj, fh)
 
     dump(os.path.join(root, "model_index.json"), {
-        "_class_name": "WanPipeline", "_diffusers_version": "0.33.0",
+        "_class_name": class_name, "_diffusers_version": "0.33.0",
         "scheduler": ["diffusers", "UniPCMultistepScheduler"],
         "text_encoder": ["transformers", "UMT5EncoderModel"],
         "tokenizer": ["transformers", "T5TokenizerFast"],
@@ -715,21 +956,34 @@ def psnr(a, b) -> float:
 
 
 def check_small_path(work: str, name: str, backend: str, gen_kw: dict,
-                     from_kw: dict) -> None:
+                     from_kw: dict, vae_cfg: dict = TINY_VAE_CFG,
+                     class_name: str = "WanPipeline",
+                     conv_mode: str | None = None,
+                     launched: tuple[str, ...] = ()) -> None:
     """The whole path on a tiny random model: the card (kernels) against the
-    CPU (plain versions), same checkpoint and seed, bf16 as served."""
+    CPU (plain versions), same checkpoint and seed, bf16 as served. The
+    kernels in ``launched`` must launch in the card's run."""
     import numpy as np
 
     from fastvideo_tpu_torch import VideoGenerator
+    from fastvideo_tpu_torch.ops import _build
 
     os.environ["FASTVIDEO_ATTENTION_BACKEND"] = backend
+    if conv_mode:
+        os.environ["FASTVIDEO_VAE_CONV3D"] = conv_mode
     ckpt = write_checkpoint(os.path.join(work, backend, name), TINY_DIT_CFG,
-                            TINY_VAE_CFG, TINY_T5_CFG, seed=7)
+                            vae_cfg, TINY_T5_CFG, seed=7,
+                            class_name=class_name)
     outs = {}
     for device in ("cuda", "cpu"):
+        _build.reset_counts()
         gen = VideoGenerator.from_pretrained(ckpt, device=device, **from_kw)
         outs[device] = gen.generate_video(save_video=False, **gen_kw)
+        if device == "cuda" and not all(_build.LAUNCHES[k] for k in launched):
+            raise SystemExit(f"tiny {name}: {launched} did not all launch: "
+                             f"{_build.LAUNCHES}")
         del gen
+    os.environ.pop("FASTVIDEO_VAE_CONV3D", None)
     frames = {d: o["frames"][0] for d, o in outs.items()}
     lat = {d: o["latents"].float().cpu().numpy() for d, o in outs.items()}
     p_frames = psnr(frames["cuda"], frames["cpu"])
@@ -760,18 +1014,30 @@ def check_small_paths(work: str) -> None:
                      cfg_kw, dict(VSA_sparsity=0.6))
     check_small_path(work, "Wan2.1-T2V-tiny-Diffusers", "SLIDING_TILE_ATTN",
                      cfg_kw, {})
+    # TurboDiffusion: 4 rCM steps with SLA, W8A8 DiT linears and the int8
+    # decode convs of a 32-channel VAE; 9 frames at 64x64, 1,280 tokens
+    check_small_path(work, "TurboDiffusion-T2V-tiny", "SLA_ATTN",
+                     dict(prompt="w1 w2 w3", height=64, width=64,
+                          num_frames=9, seed=11, num_inference_steps=4,
+                          guidance_scale=1.0),
+                     dict(transformer_quant="int8"),
+                     vae_cfg=TINY_INT8_VAE_CFG,
+                     class_name="TurboDiffusionPipeline", conv_mode="kf_int8",
+                     launched=("conv3d_int8", "vsa_sparse_padded_fwd"))
 
 
-def check_generation(label: str, result: dict, width: int, launches: dict,
+def check_generation(label: str, result: dict, size: dict, launches: dict,
                      plain: dict, expect: dict) -> None:
-    """Frames and latents of a full-width generation, and its kernel
-    counts: ``expect`` maps each kernel of the path to its exact launch
-    count, or None for any count above 0; other kernels must not launch."""
+    """Frames (of the generation ``size``) and latents of a full-width
+    generation, and its kernel counts: ``expect`` maps each kernel of the
+    path to its exact launch count, or None for any count above 0; other
+    kernels must not launch."""
     import numpy as np
     import torch
 
     frames, latents = result["frames"][0], result["latents"]
-    if frames.shape != (81, 480, width, 3) or frames.dtype != np.uint8:
+    want_shape = (size["num_frames"], size["height"], size["width"], 3)
+    if frames.shape != want_shape or frames.dtype != np.uint8:
         raise SystemExit(f"{label}: frames {frames.shape} {frames.dtype}")
     if not torch.isfinite(latents).all():
         raise SystemExit(f"{label}: latents are not finite")
@@ -806,8 +1072,7 @@ def run_main_path(work: str, profile_dir: str | None = None) -> dict:
     gen = VideoGenerator.from_pretrained(ckpt, VSA_sparsity=0.8)
     print(f"  from_pretrained in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    kw = dict(prompt=PROMPT, height=480, width=832, num_frames=81, seed=42,
-              save_video=False)
+    kw = dict(prompt=PROMPT, seed=42, save_video=False, **CLIP_480P)
     warm = gen.generate_video(**kw)
     print(f"  warm-up generation {warm['generation_time']:.2f} s", flush=True)
     del warm
@@ -823,7 +1088,7 @@ def run_main_path(work: str, profile_dir: str | None = None) -> dict:
           f"{json.dumps(times)}; peak memory {peak:.1f} GiB", flush=True)
     print(f"  kernel launches {json.dumps(launches)}; plain calls "
           f"{json.dumps(plain)}", flush=True)
-    check_generation("FastWan 480x832", result, 832, launches, plain,
+    check_generation("FastWan 480x832", result, CLIP_480P, launches, plain,
                      {"flash_fwd": None, "vsa_sparse_fwd": None,
                       "conv3d": None})
     if profile_dir:
@@ -873,13 +1138,209 @@ def run_wan_path(work: str, backend: str, steps: int, from_kw: dict,
           f"{layers} layers x 2 CFG passes x {steps} steps = "
           f"{layers * 2 * steps}); plain calls {json.dumps(plain)}",
           flush=True)
-    check_generation(label, result, 848, launches, plain,
+    check_generation(label, result, dict(CLIP_480P, width=848), launches,
+                     plain,
                      {"flash_fwd": None, "conv3d": None,
                       "vsa_sparse_padded_fwd": layers * 2 * steps})
     if profile_dir:
         profile_generation(gen, kw, profile_dir,
                            f"wan_480x848_{backend.lower()}")
     del gen, result
+    torch.cuda.empty_cache()
+    return launches
+
+
+def state_bytes(module) -> int:
+    """Bytes of a module's parameters and buffers."""
+    return sum(t.numel() * t.element_size()
+               for t in module.state_dict().values())
+
+
+def latent_of(size: dict) -> tuple[int, int, int]:
+    """The (T, H, W) latent of a generation size."""
+    return ((size["num_frames"] - 1) // 4 + 1, size["height"] // 8,
+            size["width"] // 8)
+
+
+def int8_decode_launches(size: dict) -> tuple[int, int]:
+    """(K4, K3) launches of one auto_int8 decode at ``size``: the convs of
+    a chunk that meet the int8 rule, and the rest, times the chunks of the
+    dispatched decode."""
+    latent = latent_of(size)
+    t = latent[0]
+    chunk = decode_chunk_frames(latent)
+    # the first latent frame alone, then chunks; one pass if none is needed
+    chunks = 1 if t <= chunk else 1 + -(-(t - 1) // chunk)
+    k4, k3 = int8_route_split(latent)
+    split = (f"{chunks} chunks (the first latent frame, then {chunk} at a "
+             f"time)" if chunks > 1 else "one pass")
+    print(f"  decode in {split}: per chunk {k4} convs take K4 (auto_int8: C, "
+          f"Co % 32 == 0, C >= 64, W >= 256) and {k3} take K3", flush=True)
+    return k4 * chunks, k3 * chunks
+
+
+def timed_generation(gen, kw: dict) -> tuple[dict, dict, dict, float]:
+    """One generation with every kernel count and the peak memory reset just
+    before it: (result, launches, plain calls, peak GiB)."""
+    import torch
+
+    from fastvideo_tpu_torch.ops import _build
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_counts()
+    result = gen.generate_video(**kw)
+    torch.cuda.synchronize()
+    return (result, dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS),
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def run_int8_fastwan(work: str, profile_dir: str | None = None) -> dict:
+    """Phase 4e: the 4b checkpoint served with all three int8 forms, as the
+    JAX package's reported arm: UMT5 quantized at load (weight-only), W8A8
+    DiT linears, auto_int8 decode convs."""
+    import gc
+
+    import torch
+
+    from fastvideo_tpu_torch import VideoGenerator
+    from fastvideo_tpu_torch.layers.quantization import int8
+    from fastvideo_tpu_torch.models.loader import component_loader
+
+    os.environ["FASTVIDEO_ATTENTION_BACKEND"] = "VIDEO_SPARSE_ATTN"
+    os.environ["FASTVIDEO_VAE_CONV3D"] = "auto_int8"
+    gc.collect()
+    torch.cuda.empty_cache()
+    ckpt = os.path.join(work, "FastWan2.1-T2V-1.3B-Diffusers")
+    load_module = component_loader.PipelineComponentLoader.load_module
+    enc: dict = {}
+
+    def measured_load(name, *args, **kwargs):
+        # device memory over the text encoder's load alone
+        if name != "text_encoder":
+            return load_module(name, *args, **kwargs)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        module = load_module(name, *args, **kwargs)
+        torch.cuda.synchronize()
+        enc.update(seconds=time.perf_counter() - t0, bytes=state_bytes(module),
+                   peak=torch.cuda.max_memory_allocated() - base)
+        return module
+
+    component_loader.PipelineComponentLoader.load_module = staticmethod(
+        measured_load)
+    try:
+        t0 = time.perf_counter()
+        gen = VideoGenerator.from_pretrained(
+            ckpt, VSA_sparsity=0.8, text_encoder_quant="int8-weight-only",
+            transformer_quant="int8")
+    finally:
+        component_loader.PipelineComponentLoader.load_module = staticmethod(
+            load_module)
+    load_s = time.perf_counter() - t0
+    bf16_bytes = os.path.getsize(os.path.join(ckpt, "text_encoder",
+                                              "model.safetensors"))
+    largest = 2 * max(T5_CFG["d_ff"], T5_CFG["vocab_size"]) * T5_CFG["d_model"]
+    dit = gen.pipeline.modules["transformer"]
+    n_q = sum(isinstance(m, int8.Int8Linear) for m in dit.modules())
+    gib = 2**30
+    print(f"  from_pretrained in {load_s:.1f} s; UMT5 quantized at load in "
+          f"{enc['seconds']:.1f} s: {enc['bytes'] / gib:.3f} GiB on the card "
+          f"({enc['bytes'] / bf16_bytes:.3f} of the bf16 checkpoint's "
+          f"{bf16_bytes / gib:.3f} GiB), peak {enc['peak'] / gib:.3f} GiB "
+          f"over its load; {n_q} DiT linears W8A8 ({state_bytes(dit) / gib:.3f}"
+          f" GiB DiT)", flush=True)
+    if enc["bytes"] > 0.55 * bf16_bytes:
+        raise SystemExit("4e: the UMT5 on the card is not int8")
+    if enc["peak"] > enc["bytes"] + largest + gib:
+        raise SystemExit("4e: the UMT5 load held more than its int8 weights, "
+                         "one bf16 tensor and 1 GiB on the card")
+    if n_q != 4 * DIT_CFG["num_layers"] + 1:
+        raise SystemExit(f"4e: {n_q} W8A8 DiT linears, expected 4 a block "
+                         "and the patch embedding")
+    kw = dict(prompt=PROMPT, seed=42, save_video=False, **CLIP_480P)
+    warm = gen.generate_video(**kw)
+    print(f"  warm-up generation {warm['generation_time']:.2f} s", flush=True)
+    del warm
+    int8.reset_forward_calls()
+    result, launches, plain, peak = timed_generation(gen, kw)
+    times = {k: round(v, 4) for k, v in result["stage_times"].items()}
+    print(f"  generation {result['generation_time']:.3f} s; stage seconds "
+          f"{json.dumps(times)}; peak memory {peak:.2f} GiB (generation)",
+          flush=True)
+    print(f"  kernel launches {json.dumps(launches)}; plain calls "
+          f"{json.dumps(plain)}; int8 linear calls "
+          f"{json.dumps(int8.FORWARD_CALLS)}", flush=True)
+    k4, k3 = int8_decode_launches(CLIP_480P)
+    check_generation("FastWan int8 480x832", result, CLIP_480P,
+                     launches, plain,
+                     {"flash_fwd": None, "vsa_sparse_fwd": None,
+                      "conv3d": k3, "conv3d_int8": k4})
+    if not all(int8.FORWARD_CALLS.values()):
+        raise SystemExit(f"4e: an int8 linear form did not run: "
+                         f"{int8.FORWARD_CALLS}")
+    if profile_dir:
+        profile_generation(gen, kw, profile_dir, "fastwan_int8_480x832")
+    del gen, result
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_turbo_path(work: str, profile_dir: str | None = None) -> dict:
+    """Phase 4f: TurboDiffusion T2V 1.3B at full width and depth,
+    ``TURBO_SIZE``: ``TURBO_STEPS`` rCM steps without CFG, SLA_ATTN (top
+    10 % of key blocks), W8A8 DiT linears, auto_int8 decode."""
+    import gc
+
+    import torch
+
+    from fastvideo_tpu_torch import VideoGenerator
+    from fastvideo_tpu_torch.layers.quantization import int8
+
+    os.environ["FASTVIDEO_ATTENTION_BACKEND"] = "SLA_ATTN"
+    os.environ["FASTVIDEO_VAE_CONV3D"] = "auto_int8"
+    t0 = time.perf_counter()
+    root = os.path.join(work, "SLA_ATTN", "TurboDiffusion-T2V-1.3B-Diffusers")
+    ckpt = write_checkpoint(
+        root, DIT_CFG, VAE_CFG, T5_CFG, seed=44,
+        share=os.path.join(work, "FastWan2.1-T2V-1.3B-Diffusers"),
+        class_name="TurboDiffusionPipeline")
+    gen = VideoGenerator.from_pretrained(ckpt, transformer_quant="int8")
+    print(f"  transformer written and pipeline loaded in "
+          f"{time.perf_counter() - t0:.1f} s; scheduler "
+          f"{type(gen.pipeline.modules['scheduler']).__name__}", flush=True)
+    steps = TURBO_STEPS
+    kw = dict(prompt=PROMPT, seed=42, num_inference_steps=steps,
+              guidance_scale=1.0, save_video=False, **TURBO_SIZE)
+    int8.reset_forward_calls()
+    result, launches, plain, peak = timed_generation(gen, kw)
+    times = {k: round(v, 4) for k, v in result["stage_times"].items()}
+    layers = DIT_CFG["num_layers"]
+    print(f"  {steps} rCM steps; generation {result['generation_time']:.3f} s "
+          f"(first call in the process for this configuration); stage "
+          f"seconds {json.dumps(times)}; "
+          f"{times['DenoisingStage'] / steps:.3f} s a step; peak memory "
+          f"{peak:.2f} GiB", flush=True)
+    print(f"  kernel launches {json.dumps(launches)} (padded sparse kernel: "
+          f"{layers} layers x {steps} steps = {layers * steps}); plain calls "
+          f"{json.dumps(plain)}; int8 linear calls "
+          f"{json.dumps(int8.FORWARD_CALLS)}", flush=True)
+    k4, k3 = int8_decode_launches(TURBO_SIZE)
+    check_generation("TurboDiffusion 61x480x832", result, TURBO_SIZE,
+                     launches, plain,
+                     {"flash_fwd": None, "vsa_sparse_padded_fwd":
+                      layers * steps, "conv3d": k3, "conv3d_int8": k4})
+    w8a8 = int8.FORWARD_CALLS["int8_w8a8"]
+    if w8a8 != (4 * layers + 1) * steps:
+        raise SystemExit(f"4f: {w8a8} W8A8 linear calls, expected "
+                         f"{(4 * layers + 1) * steps}")
+    if profile_dir:
+        profile_generation(gen, kw, profile_dir, "turbodiffusion_480x832")
+    del gen, result
+    gc.collect()
     torch.cuda.empty_cache()
     return launches
 
@@ -962,11 +1423,24 @@ def main() -> int:
           f"steps", flush=True)
     sta_launches = run_wan_path(work, "SLIDING_TILE_ATTN", args.sta_steps, {},
                                 args.profile)
+    print("# phase 4e: FastWan int8 serving at 81x480x832: UMT5 int8 "
+          "weight-only (quantized at load), W8A8 DiT linears, auto_int8 "
+          "decode convs", flush=True)
+    int8_launches = run_int8_fastwan(work, args.profile)
+    print(f"# phase 4f: TurboDiffusion T2V 1.3B at 61x480x832, "
+          f"{TURBO_STEPS} rCM steps, SLA_ATTN top 10 %, W8A8 DiT linears, "
+          f"auto_int8 decode", flush=True)
+    turbo_launches = run_turbo_path(work, args.profile)
+    os.environ.pop("FASTVIDEO_VAE_CONV3D", None)
     shutil.rmtree(work, ignore_errors=True)
     # each kernel's count comes from the path that runs it
     launches["vsa_sparse_padded_fwd"] = vsa_launches["vsa_sparse_padded_fwd"]
     results["vsa_sparse_padded_fwd"]["sta_launches"] = sta_launches[
         "vsa_sparse_padded_fwd"]
+    results["vsa_sparse_padded_fwd"]["sla_launches"] = turbo_launches[
+        "vsa_sparse_padded_fwd"]
+    launches["conv3d_int8"] = int8_launches["conv3d_int8"]
+    results["conv3d_int8"]["turbo_launches"] = turbo_launches["conv3d_int8"]
 
     kernels = []
     for name in _build.KERNELS:

@@ -1,5 +1,6 @@
 """Wan pipeline configs (port of fastvideo_tpu/configs/pipelines/wan.py):
-the FastWan 3-step DMD config and its Wan T2V base."""
+the FastWan 3-step DMD config, the TurboDiffusion T2V config and their Wan
+T2V base."""
 
 from __future__ import annotations
 
@@ -51,3 +52,11 @@ class FastWanT2V480PConfig(WanT2V480PConfig):
     dmd_denoising_steps: list[int] | None = dataclasses.field(
         default_factory=lambda: [1000, 757, 522])
     text_encoder_precisions: tuple = ("bf16",)
+
+
+@dataclasses.dataclass
+class TurboDiffusionT2VConfig(WanT2V480PConfig):
+    """TurboDiffusion 1-4 step rCM sampling; the pipeline installs the rCM
+    scheduler."""
+
+    flow_shift: float | None = 3.0

@@ -7,7 +7,10 @@ fastvideo_tpu/entrypoints/video_generator.py).
 
 A FastWan checkpoint runs the 3-step DMD sampler; a Wan2.1 T2V checkpoint
 runs ``num_inference_steps`` FlowUniPC steps with classifier-free guidance
-(``negative_prompt``, ``guidance_scale``).
+(``negative_prompt``, ``guidance_scale``); a TurboDiffusion checkpoint runs
+1-4 rCM steps. ``from_pretrained(..., transformer_quant="int8",
+text_encoder_quant="int8-weight-only")`` serves the int8 forms, and
+``FASTVIDEO_VAE_CONV3D=auto_int8`` the int8 decode convs.
 
 It runs on the CUDA card unless the caller passes ``device="cpu"``; with
 no CUDA device and no ``device`` it raises.

@@ -18,9 +18,19 @@ environment_flags: dict[str, Callable[[], Any]] = {
     # N > 0: forces N query tiles per shared VSA top-k set on exact grids
     "FASTVIDEO_VSA_QGROUP":
     lambda: os.getenv("FASTVIDEO_VSA_QGROUP", None),
-    # VAE conv mode name (every name routes to the conv kernel)
+    # VAE conv mode name: "kf_int8" / "auto_int8" take the int8 conv kernel
+    # where its rule allows, every other name the bf16 conv kernel
     "FASTVIDEO_VAE_CONV3D":
     lambda: os.getenv("FASTVIDEO_VAE_CONV3D", None),
+    # transformer quantization, wins over FastVideoArgs.transformer_quant;
+    # "" disables. An alias of layers/quantization/int8.py ("int8", "w8a8",
+    # "int8-weight-only", ...)
+    "FASTVIDEO_TRANSFORMER_QUANT":
+    lambda: os.getenv("FASTVIDEO_TRANSFORMER_QUANT", "") or None,
+    # text-encoder quantize-at-load, wins over
+    # FastVideoArgs.text_encoder_quant; "" disables
+    "FASTVIDEO_TEXT_ENCODER_QUANT":
+    lambda: os.getenv("FASTVIDEO_TEXT_ENCODER_QUANT", "") or None,
 }
 
 

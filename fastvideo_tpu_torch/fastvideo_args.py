@@ -21,6 +21,11 @@ class FastVideoArgs:
     device: str | None = None
     flow_shift: float | None = None
     VSA_sparsity: float = 0.0
+    # int8 quantization of the DiT's linears after load ("int8" W8A8 or
+    # "int8-weight-only"), and of the text encoder's linears at load
+    # (FASTVIDEO_TRANSFORMER_QUANT / FASTVIDEO_TEXT_ENCODER_QUANT win)
+    transformer_quant: str | None = None
+    text_encoder_quant: str | None = None
     pipeline_config: Any = None
 
     @classmethod

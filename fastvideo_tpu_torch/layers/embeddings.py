@@ -33,7 +33,10 @@ class PatchEmbed3D(nn.Module):
 
     The weight is the 5-D ``Conv3d(kernel=stride=patch)`` weight
     [dim, C, pt, ph, pw]; non-overlapping patches make the conv one matmul
-    over the (C, pt, ph, pw) features.
+    over the (C, pt, ph, pw) features. The JAX module holds that matmul as
+    its Linear ``proj``; int8 quantization swaps it in here as an
+    ``Int8Linear`` ``proj`` over the [dim, C*pt*ph*pw] weight
+    (:meth:`as_linear`), in place of ``weight`` and ``bias``.
     """
 
     def __init__(self, in_channels: int, embed_dim: int,
@@ -46,8 +49,19 @@ class PatchEmbed3D(nn.Module):
                                                device=device, dtype=dtype))
         self.bias = nn.Parameter(torch.zeros(embed_dim, device=device,
                                              dtype=dtype))
+        self.register_module("proj", None)
         if self.weight.device.type != "meta":
             nn.init.xavier_uniform_(self.weight.view(embed_dim, -1))
+
+    def as_linear(self) -> Linear:
+        """The patch matmul as a Linear sharing this module's parameters."""
+        out = self.weight.shape[0]
+        lin = Linear(self.weight[0].numel(), out, device="meta",
+                     dtype=self.weight.dtype)
+        lin.weight = nn.Parameter(self.weight.reshape(out, -1),
+                                  requires_grad=self.weight.requires_grad)
+        lin.bias = self.bias
+        return lin
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c, t, h, w = x.shape
@@ -56,6 +70,8 @@ class PatchEmbed3D(nn.Module):
         # token order (t, h, w)-major, features (C, pt, ph, pw)
         x = x.permute(0, 2, 4, 6, 1, 3, 5, 7)
         x = x.reshape(b, (t // pt) * (h // ph) * (w // pw), -1)
+        if self.proj is not None:
+            return self.proj(x)
         weight = self.weight.reshape(self.weight.shape[0], -1).to(x.dtype)
         return nn.functional.linear(x, weight, self.bias.to(x.dtype))
 
@@ -89,7 +105,9 @@ class TimestepEmbedder(nn.Module):
     def forward(self, t: torch.Tensor) -> torch.Tensor:
         t_freq = timestep_embedding(t, self.frequency_embedding_size,
                                     self.max_period)
-        return self.mlp(t_freq.to(self.mlp.fc_in.weight.dtype))
+        # the MLP's parameter dtype, read off the bias that a Linear and an
+        # Int8Linear both carry
+        return self.mlp(t_freq.to(self.mlp.fc_in.bias.dtype))
 
 
 class ModulateProjection(nn.Module):

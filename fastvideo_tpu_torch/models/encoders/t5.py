@@ -71,7 +71,8 @@ class T5SelfAttention(nn.Module):
             np.arange(k_len)[None, :] - np.arange(q_len)[:, None],
             num_buckets=self.config.relative_attention_num_buckets,
             max_distance=self.config.relative_attention_max_distance)
-        ids = torch.as_tensor(buckets, device=self.q.weight.device)
+        ids = torch.as_tensor(buckets,
+                              device=self.relative_attention_bias.weight.device)
         return self.relative_attention_bias(ids).permute(2, 0, 1)[None]
 
     def forward(self, x: torch.Tensor, position_bias: torch.Tensor | None,

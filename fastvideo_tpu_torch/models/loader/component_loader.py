@@ -6,6 +6,14 @@ component. A model component's config.json picks the module class and
 fills its arch config; the module is built on the meta device and the
 safetensors tensors are assigned onto the target device in the
 component's precision.
+
+Two int8 forms, as in the JAX package: the text encoder may be quantized
+at load (``text_encoder_quant``: its linears become ``Int8Linear`` slots on
+the meta skeleton and each checkpoint tensor is quantized on the host, so
+the full-precision encoder never reaches the device), and the DiT may be
+quantized after its load (``transformer_quant``). The environment flags
+``FASTVIDEO_TEXT_ENCODER_QUANT`` and ``FASTVIDEO_TRANSFORMER_QUANT`` win
+over the arguments.
 """
 
 from __future__ import annotations
@@ -16,11 +24,15 @@ import os
 
 import torch
 
+from fastvideo_tpu_torch import envs
+from fastvideo_tpu_torch.layers.quantization.int8 import (
+    QuantizationConfig, quantize_model_linears, resolve_quant_method)
 from fastvideo_tpu_torch.models.loader.safetensors_io import (
     iterate_safetensors, load_json_config)
 from fastvideo_tpu_torch.models.loader.tokenizer import load_tokenizer
 from fastvideo_tpu_torch.models.loader.weight_utils import load_weights
-from fastvideo_tpu_torch.models.registry import resolve_model_cls
+from fastvideo_tpu_torch.models.registry import (resolve_model_cls,
+                                                 resolve_scheduler_cls)
 from fastvideo_tpu_torch.models.schedulers.flow_unipc import (
     FlowUniPCMultistepScheduler)
 
@@ -33,6 +45,20 @@ PRECISION_TO_DTYPE = {
 }
 
 
+def _maybe_quantize_transformer(dit, fastvideo_args):
+    """Swap the DiT's linears for int8 once its weights are loaded, when
+    ``FASTVIDEO_TRANSFORMER_QUANT`` or ``transformer_quant`` asks for it."""
+    spec = envs.FASTVIDEO_TRANSFORMER_QUANT or (
+        getattr(fastvideo_args, "transformer_quant", None)
+        if fastvideo_args is not None else None)
+    if not spec:
+        return dit
+    method = resolve_quant_method(spec)
+    count = quantize_model_linears(dit, QuantizationConfig(method=method))
+    logger.info("Quantized %d transformer linears (%s)", count, method)
+    return dit
+
+
 def _build_arch_config(arch_cls, hf_config: dict):
     arch = arch_cls()
     arch.update_from_hf(hf_config)
@@ -42,8 +68,10 @@ def _build_arch_config(arch_cls, hf_config: dict):
 
 
 def load_model_component(component_dir: str, *, device: torch.device,
-                         precision: str = "bf16", model_config=None):
-    """Build the component's module and load its weights (strict)."""
+                         precision: str = "bf16", model_config=None,
+                         quantize_spec: str | None = None):
+    """Build the component's module and load its weights (strict). With
+    ``quantize_spec`` (an int8 alias) its linears are quantized at load."""
     hf_config = load_json_config(os.path.join(component_dir, "config.json"))
     class_name = hf_config.get("_class_name") or hf_config.get(
         "architectures", ["?"])[0]
@@ -56,23 +84,33 @@ def load_model_component(component_dir: str, *, device: torch.device,
         mapping = model_config.param_names_mapping
     dtype = PRECISION_TO_DTYPE[precision]
     model = model_cls(arch, device="meta", dtype=dtype)
+    count = 0
+    if quantize_spec:
+        method = resolve_quant_method(quantize_spec)
+        count = quantize_model_linears(model, QuantizationConfig(method=method),
+                                       init_only=True)
     n = load_weights(model, iterate_safetensors(component_dir), mapping,
                      device=device, dtype=dtype,
                      ignore_prefixes=getattr(model_cls,
                                              "ignored_checkpoint_prefixes",
                                              ()))
-    logger.info("Loaded %d tensors for %s from %s", n, class_name,
-                component_dir)
+    logger.info("Loaded %d tensors for %s from %s (%d linears int8 at load)",
+                n, class_name, component_dir, count)
     return model.eval().requires_grad_(False)
 
 
 def load_scheduler(component_dir: str, pipeline_config=None):
+    """The scheduler the config names. A name the port lacks builds
+    FlowUniPC; every ported pipeline installs its own scheduler anyway."""
     cfg = load_json_config(os.path.join(component_dir,
                                         "scheduler_config.json"))
-    valid = set(inspect.signature(
-        FlowUniPCMultistepScheduler.__init__).parameters)
-    scheduler = FlowUniPCMultistepScheduler(
-        **{k: v for k, v in cfg.items() if k in valid})
+    sched_cls = resolve_scheduler_cls(cfg.get("_class_name", ""))
+    if sched_cls is None:
+        logger.info("Scheduler %r is not ported; loading FlowUniPC",
+                    cfg.get("_class_name"))
+        sched_cls = FlowUniPCMultistepScheduler
+    valid = set(inspect.signature(sched_cls.__init__).parameters)
+    scheduler = sched_cls(**{k: v for k, v in cfg.items() if k in valid})
     if pipeline_config is not None and pipeline_config.flow_shift is not None:
         scheduler.set_shift(pipeline_config.flow_shift)
     return scheduler
@@ -83,11 +121,12 @@ class PipelineComponentLoader:
 
     @staticmethod
     def load_module(module_name: str, component_dir: str, pipeline_config,
-                    device: torch.device):
+                    device: torch.device, fastvideo_args=None):
         if module_name == "transformer":
-            return load_model_component(component_dir, device=device,
-                                        precision=pipeline_config.precision,
-                                        model_config=pipeline_config.dit_config)
+            dit = load_model_component(component_dir, device=device,
+                                       precision=pipeline_config.precision,
+                                       model_config=pipeline_config.dit_config)
+            return _maybe_quantize_transformer(dit, fastvideo_args)
         if module_name == "vae":
             return load_model_component(
                 component_dir, device=device,
@@ -96,10 +135,13 @@ class PipelineComponentLoader:
         if module_name == "text_encoder":
             cfgs = pipeline_config.text_encoder_configs
             precisions = pipeline_config.text_encoder_precisions
+            quant = envs.FASTVIDEO_TEXT_ENCODER_QUANT or (
+                getattr(fastvideo_args, "text_encoder_quant", None)
+                if fastvideo_args is not None else None)
             return load_model_component(
                 component_dir, device=device,
                 precision=precisions[0] if precisions else "fp32",
-                model_config=cfgs[0] if cfgs else None)
+                model_config=cfgs[0] if cfgs else None, quantize_spec=quant)
         if module_name == "tokenizer":
             return load_tokenizer(component_dir)
         if module_name == "scheduler":

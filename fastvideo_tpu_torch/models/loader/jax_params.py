@@ -5,10 +5,13 @@ flattened from ``nnx.state(model)`` into numpy arrays keyed by dotted path,
 and applies the layout rules of ``fastvideo_tpu.models.loader.export``
 (copied here, the port imports nothing of the JAX package):
 
-* a Linear ``kernel`` [in, out] becomes ``weight`` [out, in];
+* a Linear ``kernel`` [in, out] becomes ``weight`` [out, in], and an
+  Int8Linear ``kernel_q`` [in, out] becomes ``weight_q`` [out, in] (its
+  ``scale`` [out] keeps its path);
 * a 5-D conv ``weight`` in DHWIO becomes OIDHW;
 * the PatchEmbed3D matmul kernel ``patch_embedding.proj.kernel``
-  [C*pt*ph*pw, O] becomes the 5-D conv weight ``patch_embedding.weight``;
+  [C*pt*ph*pw, O] becomes the 5-D conv weight ``patch_embedding.weight``
+  (a quantized one keeps its ``proj``, as the port's does);
 * list indices and every other leaf keep their path and value.
 
 The result's keys are the port module's ``state_dict()`` keys, and the
@@ -27,17 +30,19 @@ def state_dict_from_jax(flat: dict[str, np.ndarray], *,
                         patch_size: tuple[int, int, int] = (1, 2, 2)
                         ) -> dict[str, torch.Tensor]:
     out: dict[str, torch.Tensor] = {}
+    int8_patch = f"{PATCH_EMBED}kernel_q" in flat
     for path, value in flat.items():
         value = np.asarray(value)
         prefix, _, leaf = path.rpartition(".")
-        if path.startswith(PATCH_EMBED):
+        if path.startswith(PATCH_EMBED) and not int8_patch:
             if leaf == "kernel":
                 pt, ph, pw = patch_size
                 cin = value.shape[0] // (pt * ph * pw)
                 value = value.T.reshape(-1, cin, pt, ph, pw)
             path = f"patch_embedding.{'weight' if leaf == 'kernel' else leaf}"
-        elif leaf == "kernel" and value.ndim == 2:
-            path, value = f"{prefix}.weight", value.T
+        elif leaf in ("kernel", "kernel_q") and value.ndim == 2:
+            path = f"{prefix}.{'weight' if leaf == 'kernel' else 'weight_q'}"
+            value = value.T
         elif leaf == "weight" and value.ndim == 5:
             value = value.transpose(4, 3, 0, 1, 2)
         value = np.array(value, order="C")  # a writable copy

@@ -5,6 +5,10 @@ Checkpoint names go through the model's regex table, then the whole state
 dict is assigned at once onto a module built on the meta device. The load
 is strict both ways: a checkpoint tensor with no parameter and a parameter
 with no checkpoint tensor are both errors.
+
+The weight of an ``Int8Linear`` is a quantize-at-load slot: the checkpoint
+tensor is quantized on the host, as it was stored, and only the int8 weight
+and its fp32 scales go to the device.
 """
 
 from __future__ import annotations
@@ -14,6 +18,9 @@ from collections.abc import Iterable
 
 import torch
 from torch import nn
+
+from fastvideo_tpu_torch.layers.quantization.int8 import (Int8Linear,
+                                                          quantize_weight_int8)
 
 
 def apply_param_mapping(name: str, mapping: dict[str, str]) -> str:
@@ -35,11 +42,24 @@ def load_weights(model: nn.Module,
     mapping) belong to parts the module does not build and are skipped.
     Returns the number of tensors loaded."""
     expected = model.state_dict(keep_vars=True)
+    int8_weights = {f"{n}.weight" for n, m in model.named_modules()
+                    if isinstance(m, Int8Linear)}
     state: dict[str, torch.Tensor] = {}
     for name, value in weights:
         target = (apply_param_mapping(name, param_names_mapping)
                   if param_names_mapping else name)
         if target.startswith(ignore_prefixes):
+            continue
+        if target in int8_weights:
+            prefix = target[:-len("weight")]
+            wq, scale = quantize_weight_int8(value.cpu())
+            if wq.shape != expected[prefix + "weight_q"].shape:
+                raise ValueError(
+                    f"Shape mismatch for {target}: checkpoint "
+                    f"{tuple(wq.shape)} vs model "
+                    f"{tuple(expected[prefix + 'weight_q'].shape)}")
+            state[prefix + "weight_q"] = wq.to(device)
+            state[prefix + "scale"] = scale.to(device)
             continue
         if target not in expected:
             raise KeyError(f"Checkpoint key {name!r} (-> {target!r}) has no "

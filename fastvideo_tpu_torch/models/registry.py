@@ -1,4 +1,5 @@
-"""Checkpoint class names -> (module class, arch config class)."""
+"""Checkpoint class names -> (module class, arch config class), and
+scheduler class names -> scheduler class."""
 
 from __future__ import annotations
 
@@ -21,3 +22,20 @@ def resolve_model_cls(class_name: str):
 
         return T5EncoderModel, T5ArchConfig
     raise ValueError(f"No model registered for {class_name!r} in the port")
+
+
+def resolve_scheduler_cls(class_name: str):
+    """The scheduler a ``scheduler_config.json`` names; ``None`` for a name
+    the port does not have."""
+    if class_name in ("UniPCMultistepScheduler",
+                      "FlowUniPCMultistepScheduler"):
+        from fastvideo_tpu_torch.models.schedulers.flow_unipc import (
+            FlowUniPCMultistepScheduler)
+
+        return FlowUniPCMultistepScheduler
+    if class_name == "RCMScheduler":
+        from fastvideo_tpu_torch.models.schedulers.scheduling_rcm import (
+            RCMScheduler)
+
+        return RCMScheduler
+    return None

@@ -3,7 +3,8 @@
 K1 ``flash_attention`` (csrc/flash_fwd.cu), K2 ``block_sparse_attention_fast``
 (csrc/vsa_sparse_fwd.cu), K7 forward / K8 ``block_sparse_attention``
 (csrc/vsa_sparse_padded_fwd.cu, also under ``sta`` and ``sla``), K3
-``conv3d_ndhwc`` (csrc/conv3d.cu). Launch and plain-call counts live in
+``conv3d_ndhwc`` (csrc/conv3d.cu), K4 ``conv3d_int8`` (csrc/conv3d_int8.cu,
+the int8 modes of ``conv3d_ndhwc``). Launch and plain-call counts live in
 ``_build.LAUNCHES`` / ``_build.PLAIN_CALLS``.
 """
 

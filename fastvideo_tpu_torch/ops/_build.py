@@ -27,7 +27,8 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-KERNELS = ("flash_fwd", "vsa_sparse_fwd", "vsa_sparse_padded_fwd", "conv3d")
+KERNELS = ("flash_fwd", "vsa_sparse_fwd", "vsa_sparse_padded_fwd", "conv3d",
+           "conv3d_int8")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -126,6 +127,9 @@ _SIGNATURES = {
     [ctypes.c_longlong] * 12 + [ctypes.c_float, ctypes.c_void_p],
     # x, w, bias, y, B, T, H, W, C, Co, kt, time_pad, stream
     "fvt_conv3d_ndhwc": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 +
+    [ctypes.c_void_p],
+    # xq, w [Co, K], scale, bias, y, B, T, H, W, C, Co, kt, time_pad, stream
+    "fvt_conv3d_int8_ndhwc": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 +
     [ctypes.c_void_p],
 }
 

@@ -8,6 +8,17 @@ kernels of the JAX package ("kf" ``_conv_kernel_thcw_kf`` and "tap"
 ``_conv_kernel``): on the TPU they are two layouts of one function, so
 every conv mode name the JAX package accepts routes to K3 here. On a CPU
 tensor it runs :func:`conv3d_ndhwc_plain`, a tap-by-tap fp32 sum.
+
+The W8A8 modes "kf_int8" and "auto_int8" route as the JAX package does
+(``conv3d_ndhwc``'s int8 branch): where C and Co are multiples of 32 (and,
+for "auto_int8", C >= 64 and W >= 256) the input, after the optional
+RMSNorm+SiLU prologue, is quantized with one fp32 scale for the whole
+tensor and the weight with one scale per Co; :func:`conv3d_int8` then
+accumulates int8 x int8 in int32 and writes ``acc * (sw * sx) + b`` in fp32,
+cast to the input dtype. On a CUDA tensor that is the hand-written kernel
+``csrc/conv3d_int8.cu`` (K4, replacing ``_conv_kernel_thcw_kf_int8``), on a
+CPU tensor :func:`conv3d_int8_plain`. Every other conv keeps K3, as JAX
+keeps its bf16 kernel.
 """
 
 from __future__ import annotations
@@ -16,9 +27,11 @@ import torch
 import torch.nn.functional as F
 
 from fastvideo_tpu_torch import envs
+from fastvideo_tpu_torch.layers.quantization.int8 import div127, int8_mm
 from fastvideo_tpu_torch.ops import _build
 
 NAME = "conv3d"
+NAME_INT8 = "conv3d_int8"
 # FASTVIDEO_VAE_CONV3D values: each names a TPU layout of the same conv
 CONV3D_MODES = ("auto", "tap", "kf", "thcw", "nb", "dw", "dhw", "full",
                 "hoist", "dma", "shift3", "tfold", "wino")
@@ -28,14 +41,16 @@ INT8_MODES = ("kf_int8", "auto_int8")
 def vae_conv3d_mode() -> str:
     """The conv mode from ``FASTVIDEO_VAE_CONV3D`` (default "auto")."""
     mode = envs.FASTVIDEO_VAE_CONV3D or "auto"
-    if mode in INT8_MODES:
-        raise NotImplementedError(
-            f"FASTVIDEO_VAE_CONV3D={mode}: the W8A8 conv (Pallas "
-            "_conv_kernel_thcw_kf_int8) is not ported yet")
-    if mode not in CONV3D_MODES:
+    if mode not in CONV3D_MODES + INT8_MODES:
         raise ValueError(f"unknown FASTVIDEO_VAE_CONV3D={mode!r}; known: "
-                         f"{CONV3D_MODES}")
+                         f"{CONV3D_MODES + INT8_MODES}")
     return mode
+
+
+def int8_ok(cin: int, cout: int, w_dim: int, mode: str) -> bool:
+    """The JAX package's rule for the int8 route of an int8 mode."""
+    return (cin % 32 == 0 and cout % 32 == 0
+            and (mode == "kf_int8" or (cin >= 64 and w_dim >= 256)))
 
 
 def supports(kernel_size: tuple[int, int, int], stride: tuple[int, int, int],
@@ -91,6 +106,100 @@ def conv3d_ndhwc_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
     return (acc + b.float()).to(x.dtype)
 
 
+def quantize_int8(x: torch.Tensor, dims: tuple[int, ...] | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 with one fp32 scale over ``dims`` (None: the whole
+    tensor): (q, s) with x ~= q * s, s = max(amax, 1e-8) / 127 kept with
+    the reduced dims, as JAX's ``_quantize_int8``. The whole-tensor form
+    takes its amax with ``aminmax`` (no temporary) and quantizes one slice
+    of dim 1 at a time, so a full-size decode chunk needs no fp32 copy of
+    itself."""
+    if dims is None:
+        lo, hi = torch.aminmax(x)
+        amax = torch.maximum(lo.abs(), hi.abs()).float()
+        s = div127(amax.clamp_min(1e-8)).reshape((1,) * x.ndim)
+        q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+        for i in range(x.shape[1]):
+            xf = x[:, i].to(torch.float32, copy=True)
+            q[:, i] = xf.div_(s[:, 0]).round_().clamp_(-127, 127)
+        return q, s
+    amax = x.abs().amax(dim=dims, keepdim=True).float()
+    s = div127(amax.clamp_min(1e-8))
+    q = torch.round(x.float() / s).clamp_(-127, 127).to(torch.int8)
+    return q, s
+
+
+def conv3d_int8_plain(xq: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
+                      bias: torch.Tensor, *, time_pad: int,
+                      out_dtype: torch.dtype) -> torch.Tensor:
+    """Plain PyTorch version of K4: the sum over the kt*9 taps of exact int32
+    [voxels, C] @ [C, Co] products (``int8_mm``), then
+    ``acc * scale + bias`` in fp32."""
+    _build.count_plain(NAME_INT8)
+    kt = wq.shape[0]
+    bsz, t, h, wd, c = xq.shape
+    co = wq.shape[-1]
+    t_out = t + time_pad - kt + 1
+    xp = F.pad(xq, (0, 0, 1, 1, 1, 1, time_pad, 0))
+    acc = torch.zeros((bsz * t_out * h * wd, co), dtype=torch.int32,
+                      device=xq.device)
+    for dt in range(kt):
+        for dh in range(3):
+            for dw in range(3):
+                tap = xp[:, dt:dt + t_out, dh:dh + h, dw:dw + wd]
+                acc += int8_mm(tap.reshape(-1, c), wq[dt, dh, dw].t())
+    out = acc.float() * scale.float() + bias.float()
+    return out.to(out_dtype).reshape(bsz, t_out, h, wd, co)
+
+
+def _conv3d_int8_cuda(xq, wq, scale, bias, time_pad, out_dtype):
+    _build.check_device(xq, NAME_INT8)
+    if xq.dtype != torch.int8 or wq.dtype != torch.int8:
+        raise _build.KernelError(
+            f"conv3d_int8: takes int8 x and w, got {xq.dtype}, {wq.dtype}")
+    if scale.dtype != torch.float32 or bias.dtype != torch.float32:
+        raise _build.KernelError(
+            f"conv3d_int8: takes fp32 scale and bias, got {scale.dtype}, "
+            f"{bias.dtype}")
+    if out_dtype != torch.bfloat16:
+        raise _build.KernelError(
+            f"conv3d_int8: writes bfloat16, asked for {out_dtype}")
+    kt, kh, kw, c, co = wq.shape
+    if ((kh, kw) != (3, 3) or kt not in (1, 3) or c % 32 or co % 32
+            or xq.shape[-1] != c or scale.shape != (co,)
+            or bias.shape != (co,)):
+        raise _build.KernelError(
+            f"conv3d_int8: unsupported kernel {tuple(wq.shape)} for input "
+            f"{tuple(xq.shape)} (C and Co must be multiples of 32)")
+    xq = xq.contiguous()
+    if xq.data_ptr() % 16:
+        xq = xq.clone()
+    w_nk = wq.permute(4, 0, 1, 2, 3).contiguous()  # [Co, kt*9*C]
+    bsz, t, h, wd, _ = xq.shape
+    t_out = t + time_pad - kt + 1
+    y = torch.empty((bsz, t_out, h, wd, co), dtype=out_dtype,
+                    device=xq.device)
+    _build.launch(NAME_INT8, "fvt_conv3d_int8_ndhwc", xq.data_ptr(),
+                  w_nk.data_ptr(), scale.contiguous().data_ptr(),
+                  bias.contiguous().data_ptr(), y.data_ptr(), bsz, t, h, wd,
+                  c, co, kt, time_pad, _build.stream_ptr(xq))
+    return y
+
+
+def conv3d_int8(xq: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
+                bias: torch.Tensor, *, time_pad: int,
+                out_dtype: torch.dtype) -> torch.Tensor:
+    """K4: causal conv of int8 xq [B, T, H, W, C] with int8 wq [kt, 3, 3, C,
+    Co], int32 sums, out = (acc * scale[co] + bias[co]) in fp32 cast to
+    ``out_dtype``; ``time_pad`` zero frames in front, SAME spatial pad."""
+    if xq.is_cuda:
+        return _conv3d_int8_cuda(xq, wq, scale, bias, time_pad, out_dtype)
+    if xq.device.type == "cpu":
+        return conv3d_int8_plain(xq, wq, scale, bias, time_pad=time_pad,
+                                 out_dtype=out_dtype)
+    raise _build.KernelError(f"{NAME_INT8}: unsupported device {xq.device}")
+
+
 def _conv3d_cuda(x, w, b, time_pad, gamma):
     _build.check_device(x, NAME)
     if gamma is not None:
@@ -127,12 +236,22 @@ def conv3d_ndhwc(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
 
     ``time_pad`` zero frames go in front (causal); spatial padding is SAME.
     With ``gamma``, computes ``conv(silu(rmsnorm(x) * sqrt(C) * gamma))``.
-    ``mode`` is any FASTVIDEO_VAE_CONV3D name: all compute this function
-    through K3.
+    ``mode`` is any FASTVIDEO_VAE_CONV3D name: the int8 modes take K4 where
+    :func:`int8_ok` allows (the prologue runs before the quantization),
+    every other conv goes through K3.
     """
-    if mode in INT8_MODES or mode not in CONV3D_MODES:
+    if mode not in CONV3D_MODES + INT8_MODES:
         raise ValueError(f"conv3d_ndhwc: mode {mode!r} is not one of "
-                         f"{CONV3D_MODES}")
+                         f"{CONV3D_MODES + INT8_MODES}")
+    if mode in INT8_MODES and int8_ok(x.shape[-1], w.shape[-1], x.shape[3],
+                                      mode):
+        if gamma is not None:
+            x = rms_silu_prologue(x, gamma)
+        xq, sx = quantize_int8(x)
+        wq, sw = quantize_int8(w, dims=(0, 1, 2, 3))
+        scale = sw.reshape(-1) * sx.reshape(())
+        return conv3d_int8(xq, wq, scale, b.float(), time_pad=time_pad,
+                           out_dtype=x.dtype)
     if x.is_cuda:
         return _conv3d_cuda(x, w, b, time_pad, gamma)
     if x.device.type == "cpu":

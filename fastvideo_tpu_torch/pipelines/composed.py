@@ -41,7 +41,8 @@ class ComposedPipelineBase:
                 raise FileNotFoundError(
                     f"Pipeline module dir missing: {component_dir}")
             self.modules[name] = PipelineComponentLoader.load_module(
-                name, component_dir, self.pipeline_config, self.device)
+                name, component_dir, self.pipeline_config, self.device,
+                self.fastvideo_args)
         logger.info("Loaded pipeline modules: %s", sorted(self.modules))
 
     def get_module(self, name: str):

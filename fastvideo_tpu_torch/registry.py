@@ -1,10 +1,10 @@
 """Model path -> PipelineConfig class (port of fastvideo_tpu/registry.py).
 
 Name fragments are matched in the JAX registry's priority order. The port
-has the Wan T2V 480p configs (FastWan and the 50-step base); a name that the
-JAX registry resolves to a Wan-family config the port lacks (I2V, V2V,
-Wan2.2, 14B, Lucy Edit, TurboDiffusion) raises instead of falling through to
-T2V.
+has the Wan T2V 480p configs (FastWan, the 50-step base and TurboDiffusion
+T2V); a name that the JAX registry resolves to a Wan-family config the port
+lacks (I2V, V2V, Wan2.2, 14B, Lucy Edit, TurboDiffusion I2V and 14B) raises
+instead of falling through to T2V.
 """
 
 from __future__ import annotations
@@ -17,7 +17,9 @@ from fastvideo_tpu_torch.configs.pipelines.base import PipelineConfig
 # (required name fragments, config class or None where the port has none),
 # highest priority first
 _REGISTRY: list[tuple[tuple[str, ...], type[PipelineConfig] | None]] = [
-    (("turbodiffusion",), None),
+    (("turbodiffusion", "i2v"), None),
+    (("turbodiffusion", "14b"), None),
+    (("turbodiffusion",), wan_cfg.TurboDiffusionT2VConfig),
     (("fastwan2.1", "t2v"), wan_cfg.FastWanT2V480PConfig),
     (("lucy-edit",), None),
     (("fastwan",), wan_cfg.FastWanT2V480PConfig),

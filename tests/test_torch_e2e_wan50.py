@@ -95,7 +95,7 @@ def test_unported_wan_names_raise(tmp_path):
     from fastvideo_tpu_torch import VideoGenerator
 
     for name in ("Wan2.1-I2V-14B-480P-Diffusers", "Wan2.2-T2V-A14B-Diffusers",
-                 "Wan2.1-T2V-14B-Diffusers", "TurboDiffusion-T2V",
-                 "Lucy-Edit-Dev"):
+                 "Wan2.1-T2V-14B-Diffusers", "TurboDiffusion-I2V-A14B-720P",
+                 "TurboDiffusion-T2V-14B-720P", "Lucy-Edit-Dev"):
         with pytest.raises(NotImplementedError, match="not ported"):
             VideoGenerator.from_pretrained(str(tmp_path / name), device="cpu")

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 at edge shapes the main path does not reach (ragged lengths, batch > 1,
-fp32 flash attention, non-contiguous views, channel tails). Marked ``cuda``: they skip
+fp32 flash attention, non-contiguous views, channel tails; the int8 conv K4
+and the W8A8 linear). Marked ``cuda``: they skip
 without an sm_90 card. On the card (which has no JAX, so without the
 suite's conftest):
 
@@ -243,3 +244,120 @@ def test_conv3d_gamma_raises_on_cuda(dev):
     b = torch.zeros(8, device=dev, dtype=torch.bfloat16)
     with pytest.raises(_build.KernelError, match="prologue"):
         conv3d.conv3d_ndhwc(x, w, b, time_pad=2, gamma=b)
+
+
+def _int8_case(dev, bsz, t, h, w, c, co, kt, seed=4):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    xq = torch.randint(-127, 128, (bsz, t, h, w, c), generator=g, device=dev,
+                       dtype=torch.int8)
+    wq = torch.randint(-127, 128, (kt, 3, 3, c, co), generator=g, device=dev,
+                       dtype=torch.int8)
+    scale = torch.rand(co, generator=g, device=dev) * 1e-4
+    bias = torch.randn(co, generator=g, device=dev)
+    return xq, wq, scale, bias
+
+
+def _one_bf16_ulp(got, want):
+    # the int32 sums are exact on both sides and the epilogue rounds the
+    # same way, so they may differ by at most one bf16 ulp of the output
+    torch.cuda.synchronize()
+    ulp = 2.0**(torch.floor(torch.log2(want.float().abs().clamp_min(
+        2.0**-126))) - 7)
+    assert ((got.float() - want.float()).abs() <= ulp).all()
+
+
+@pytest.mark.parametrize("bsz,c,co,kt,time_pad,w", [
+    (1, 32, 32, 3, 2, 9),    # the smallest int8 route (kf_int8)
+    (2, 64, 96, 1, 0, 13),   # Co = 96 with a ragged voxel tail, batch 2
+    (2, 64, 96, 3, 2, 13),
+    (1, 96, 192, 3, 0, 7),   # two column blocks
+    (1, 192, 64, 1, 2, 5),   # a warp with n8 tiles past Co
+])
+def test_conv3d_int8_matches_plain(dev, bsz, c, co, kt, time_pad, w):
+    xq, wq, scale, bias = _int8_case(dev, bsz, 3, 5, w, c, co, kt)
+    before = dict(conv3d_int8=_build.LAUNCHES["conv3d_int8"]), dict(
+        _build.PLAIN_CALLS)
+    out = conv3d.conv3d_int8(xq, wq, scale, bias, time_pad=time_pad,
+                             out_dtype=torch.bfloat16)
+    assert _build.LAUNCHES["conv3d_int8"] == before[0]["conv3d_int8"] + 1
+    assert _build.PLAIN_CALLS == before[1]
+    ref = conv3d.conv3d_int8_plain(xq, wq, scale, bias, time_pad=time_pad,
+                                   out_dtype=torch.bfloat16)
+    assert out.shape == ref.shape == (bsz, 3 + time_pad - kt + 1, 5, w, co)
+    _one_bf16_ulp(out, ref)
+
+
+def test_conv3d_int8_takes_a_non_contiguous_input(dev):
+    xq, wq, scale, bias = _int8_case(dev, 1, 4, 5, 6, 64, 64, 3)
+    wide = torch.cat([xq, xq], dim=-1)[..., :64]  # strided channels
+    out = conv3d.conv3d_int8(wide, wq, scale, bias, time_pad=2,
+                             out_dtype=torch.bfloat16)
+    ref = conv3d.conv3d_int8_plain(xq, wq, scale, bias, time_pad=2,
+                                   out_dtype=torch.bfloat16)
+    _one_bf16_ulp(out, ref)
+
+
+def test_conv3d_int8_refuses_other_operands(dev):
+    xq, wq, scale, bias = _int8_case(dev, 1, 2, 4, 4, 32, 32, 3)
+    kw = dict(time_pad=2, out_dtype=torch.bfloat16)
+    with pytest.raises(_build.KernelError, match="int8"):
+        conv3d.conv3d_int8(xq.to(torch.bfloat16), wq, scale, bias, **kw)
+    with pytest.raises(_build.KernelError, match="multiples of 32"):
+        conv3d.conv3d_int8(xq[..., :16], wq[:, :, :, :16], scale, bias, **kw)
+    with pytest.raises(_build.KernelError, match="bfloat16"):
+        conv3d.conv3d_int8(xq, wq, scale, bias, time_pad=2,
+                           out_dtype=torch.float32)
+
+
+@pytest.mark.parametrize("mode", ["auto", "kf_int8"])
+def test_fp32_decode_convs_raise_on_cuda(dev, mode):
+    # vae_decode_precision="fp32" decodes in fp32: the JAX package's kernels
+    # (and the port's CPU path) take it, but K3 takes bf16 operands and K4
+    # writes bf16, so on the card such a decode raises instead of falling
+    # back to a plain version
+    x = torch.zeros(1, 2, 3, 16, 32, device=dev)
+    w = torch.zeros(3, 3, 3, 32, 32, device=dev)
+    b = torch.zeros(32, device=dev)
+    with pytest.raises(_build.KernelError, match="bfloat16"):
+        conv3d.conv3d_ndhwc(x, w, b, time_pad=2, mode=mode)
+
+
+@pytest.mark.parametrize("mode,c,w,int8", [
+    ("kf_int8", 32, 16, True), ("auto_int8", 64, 256, True),
+    ("auto_int8", 64, 255, False), ("kf_int8", 48, 16, False),
+])
+def test_conv3d_ndhwc_int8_modes_route_as_jax(dev, mode, c, w, int8):
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn(1, 2, 3, w, c, generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    wt = (torch.randn(3, 3, 3, c, 32, generator=g, device=dev) *
+          (27 * c)**-0.5).to(torch.bfloat16)
+    b = torch.randn(32, generator=g, device=dev).to(torch.bfloat16)
+    before = dict(_build.LAUNCHES)
+    out = conv3d.conv3d_ndhwc(x, wt, b, time_pad=2, mode=mode)
+    name = "conv3d_int8" if int8 else "conv3d"
+    assert _build.LAUNCHES[name] == before[name] + 1
+    ref = conv3d.conv3d_ndhwc(x.cpu(), wt.cpu(), b.cpu(), time_pad=2,
+                              mode=mode)
+    if int8:  # same quantized operands, exact sums
+        _one_bf16_ulp(out.cpu(), ref)
+    else:
+        _close(out.cpu(), ref, torch.bfloat16, attention=False)
+
+
+@pytest.mark.parametrize("weight_only", [False, True])
+def test_int8_linear_matches_cpu(dev, weight_only):
+    from fastvideo_tpu_torch.layers.linear import Linear
+    from fastvideo_tpu_torch.layers.quantization.int8 import Int8Linear
+
+    torch.manual_seed(0)
+    lin = Linear(96, 40, dtype=torch.bfloat16)
+    q = Int8Linear.from_linear(lin, weight_only=weight_only)
+    x = torch.randn(2, 7, 96).to(torch.bfloat16)  # 14 rows: padded to 17
+    want = q(x)
+    got = q.to(dev)(x.to(dev))
+    torch.cuda.synchronize()
+    if weight_only:  # a bf16 F.linear: summation order only
+        _close(got.cpu(), want, torch.bfloat16, attention=False)
+    else:  # exact int32 sums, the same fp32 epilogue
+        assert torch.equal(got.cpu(), want)

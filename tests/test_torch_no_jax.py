@@ -98,6 +98,9 @@ def _calls():
     x = torch.zeros(1, 2, 4, 4, 8, dtype=bf)
     w = torch.zeros(3, 3, 3, 8, 8, dtype=bf)
     b = torch.zeros(8, dtype=bf)
+    xq = torch.zeros(1, 2, 4, 4, 32, dtype=torch.int8)
+    wq = torch.zeros(3, 3, 3, 32, 32, dtype=torch.int8)
+    scale = torch.ones(32)
     c = _cuda_typed
     return {
         "flash_fwd": lambda: flash_attention.flash_attention(c(q), c(q), c(q)),
@@ -106,6 +109,8 @@ def _calls():
         "vsa_sparse_padded_fwd": lambda: vsa.block_sparse_attention(
             c(qt), c(qt), c(qt), idx, sizes),
         "conv3d": lambda: conv3d.conv3d_ndhwc(c(x), c(w), c(b), time_pad=2),
+        "conv3d_int8": lambda: conv3d.conv3d_int8(
+            c(xq), c(wq), scale, scale, time_pad=2, out_dtype=bf),
     }
 
 
