@@ -10,9 +10,13 @@ Phases, each printing its own lines:
      card at the main paths' shapes, with kernel, plain, library and bound
      times (the padded sparse kernel at its VSA, STA and SLA shapes; the
      decode convs in the dispatched decode's chunks: the first latent
-     frame alone, then 2 at a time);
+     frame alone, then 2 at a time; K5 at the causal stream's first
+     block, fourth block and full window; the fp32 decode's K3, K4 and K1
+     forms);
   4. a: tiny models, the card's whole path against the CPU's plain path
-     (FastWan DMD; Wan UniPC + CFG with VSA and with STA on a padded grid);
+     (FastWan DMD, also with an fp32 decode; Wan UniPC + CFG with VSA and
+     with STA on a padded grid; TurboDiffusion; the causal Wan with a
+     head of 128, a sink and a window of 1,280 keys that evicts);
      b: the FastWan main path at full width: a random-weight
      FastWan2.1-T2V-1.3B-shaped diffusers checkpoint written with the
      port's own safetensors writer, loaded by
@@ -33,6 +37,13 @@ Phases, each printing its own lines:
      f: TurboDiffusion T2V 1.3B at 61x480x832 (SLA takes token counts
      that are multiples of 64, and 81 frames give 32,760): 4 rCM steps
      with SLA_ATTN (top 10 %), W8A8 DiT linears and auto_int8 decode;
+     g: the causal (self-forcing) Wan, CausalWan-1.3B at full width and
+     depth through VideoGenerator (WanCausalDMDPipeline) at 81x480x832:
+     7 blocks of 3 latent frames, 3 flow-match Euler steps a block, every
+     cached self-attention through the kv-mask flash kernel K5;
+     h: StreamingVideoGenerator on 4g's modules: reset, 8 blocks (the
+     21-frame window fills and evicts), finalize; per-block latency,
+     steady block seconds and steady fps;
   5. the kernels line, the card line and the result line.
 
 Any failure exits non-zero before the result line. It imports nothing of
@@ -61,6 +72,9 @@ REPLACES = {
     "fastvideo_tpu/ops/vsa.py:629 and fastvideo_tpu/ops/vsa.py:378",
     "conv3d": "fastvideo_tpu/ops/conv3d.py:180 and fastvideo_tpu/ops/conv3d.py:55",
     "conv3d_int8": "fastvideo_tpu/ops/conv3d.py:214",
+    "flash_fwd_kv_mask":
+    "fastvideo_tpu/ops/flash_attention.py:93 (has_kv_mask, from "
+    "flash_attention_kv_mask :539)",
 }
 SOURCES = {
     "flash_fwd": "fastvideo_tpu_torch/csrc/flash_fwd.cu",
@@ -69,6 +83,7 @@ SOURCES = {
     "fastvideo_tpu_torch/csrc/vsa_sparse_padded_fwd.cu",
     "conv3d": "fastvideo_tpu_torch/csrc/conv3d.cu",
     "conv3d_int8": "fastvideo_tpu_torch/csrc/conv3d_int8.cu",
+    "flash_fwd_kv_mask": "fastvideo_tpu_torch/csrc/flash_fwd.cu",
 }
 
 
@@ -162,6 +177,9 @@ def check_flash(dev, results: dict) -> None:
     cases = [
         ("cross_attn", (1, 32760, 12, 128), 512, bf16, False),
         ("cross_attn 4f", (1, turbo_tokens(), 12, 128), 512, bf16, False),
+        # the causal paths (4g, 4h): one block's queries over the text K/V
+        ("cross_attn causal", (1, CAUSAL_BLOCK_TOKENS, 12, 128), 512, bf16,
+         False),
         ("cross_attn 480x848 vsa", (1, 43008, 12, 128), 512, bf16, False),
         ("cross_attn 480x848 sta", (1, 33390, 12, 128), 512, bf16, False),
         ("vae_mid_attn first chunk", (1, 6240, 1, 384), 6240, bf16, False),
@@ -187,15 +205,17 @@ def check_flash(dev, results: dict) -> None:
         errs.append(check(f"flash_fwd[{label}]", out, ref,
                           *attn_tol(ref, dtype)))
         check(f"flash_fwd[{label}] lse", lse, ref_lse, 1e-3)
-        if label not in ("cross_attn", "cross_attn 4f"):
+        if label not in ("cross_attn", "cross_attn 4f", "cross_attn causal"):
             del q, k, v, out, ref, lse, ref_lse
             continue
         ms = time_ms(lambda: fa.flash_attention(q, k, v, **kw))
         flops = 4.0 * b * h * sq * skv * d
         nbytes = 2.0 * (2 * b * sq * h * d + 2 * b * skv * h * d) + 4 * b * h * sq
         bms, by = bound_ms(flops, nbytes)
-        if label == "cross_attn 4f":
-            results["flash_fwd"].update(turbo_ms=ms, turbo_bound_ms=bms)
+        if label != "cross_attn":
+            key = "turbo" if label == "cross_attn 4f" else "causal"
+            results["flash_fwd"].update({f"{key}_ms": ms,
+                                         f"{key}_bound_ms": bms})
             print(f"  flash_fwd[{label}]: {ms:.3f} ms kernel, bound {bms:.3f} "
                   f"ms ({by}, {flops:.3e} FLOP)", flush=True)
             del q, k, v, out, ref, lse, ref_lse
@@ -476,16 +496,21 @@ def decode_chunk_frames(latent: tuple[int, int, int]) -> int:
             or latent[0])
 
 
-def chunk_conv_shapes(latent: tuple[int, int, int]) -> list[tuple]:
+def chunk_conv_shapes(latent: tuple[int, int, int],
+                      stream: bool = False) -> list[tuple]:
     """(label, convs, C, Co, kt, time_pad, T_in, H, W): the decoder's 3x3
     convs in the two kinds of chunk of the dispatched decode of a (T, H, W)
     latent: the first latent frame alone (each kt = 3 conv pads 2 zero
     frames in front) and a chunk of later frames (each kt = 3 conv reads
-    the 2 frames cached from the chunk before, no pad)."""
+    the 2 frames cached from the chunk before, no pad). With ``stream``
+    also the third kind the streaming decode runs: one later latent frame
+    behind its 2 cached frames."""
     chunk = decode_chunk_frames(latent)
+    kinds = [("first chunk", 1, 1), (f"{chunk}-frame chunk", chunk, 0)]
+    if stream:
+        kinds.append(("stream 1-frame chunk", 1, 0))
     out = []
-    for kind, t0, first in (("first chunk", 1, 1),
-                            (f"{chunk}-frame chunk", chunk, 0)):
+    for kind, t0, first in kinds:
         for label, n, c, co, kt, t, h, w in decoder_conv_shapes(
                 (t0, *latent[1:]), first_len=first):
             tp = kt - 1 if first else 0
@@ -496,8 +521,16 @@ def chunk_conv_shapes(latent: tuple[int, int, int]) -> list[tuple]:
 
 def is_hot(label: str) -> bool:
     """The decode's hot conv: up3's 96x96 resnet convs at full resolution,
-    in a chunk of later frames."""
-    return label.startswith("up3 resnets") and "first chunk" not in label
+    in a chunk of later frames of the dispatched decode."""
+    return (label.startswith("up3 resnets") and "first chunk" not in label
+            and "stream" not in label)
+
+
+def real_taps(t_out: int, kt: int, time_pad: int) -> int:
+    """(output frame, time tap) pairs of a causal conv that read a real
+    input frame: the taps on the zero pad in front add nothing and are not
+    work the conv needs."""
+    return sum(min(kt, max(0, o + kt - time_pad)) for o in range(t_out))
 
 
 def check_conv(dev, results: dict) -> None:
@@ -508,10 +541,12 @@ def check_conv(dev, results: dict) -> None:
 
     g = torch.Generator(device=dev).manual_seed(2)
     errs = []
-    # 480x832 (FastWan, TurboDiffusion) and 480x848 (Wan UniPC paths: 53 x
-    # 16 columns, a different ragged tail on the implicit-GEMM tiles)
-    for label, _, c, co, kt, tp, t, h, w in (chunk_conv_shapes((21, 60, 104))
-                                             + chunk_conv_shapes((21, 60, 106))):
+    # 480x832 (FastWan, TurboDiffusion, the causal stream's one-frame
+    # decodes) and 480x848 (Wan UniPC paths: 53 x 16 columns, a different
+    # ragged tail on the implicit-GEMM tiles)
+    for label, _, c, co, kt, tp, t, h, w in (
+            chunk_conv_shapes((21, 60, 104), stream=True)
+            + chunk_conv_shapes((21, 60, 106))):
         x = torch.randn(1, t, h, w, c, generator=g, device=dev,
                         dtype=torch.bfloat16)
         wt = (torch.randn(kt, 3, 3, c, co, generator=g, device=dev) *
@@ -522,6 +557,16 @@ def check_conv(dev, results: dict) -> None:
         # bf16 outputs: two bf16 ulps (2 * 2^-7) relative, plus 1e-2 for
         # values near zero where fp32 summation order shows
         errs.append(check(f"conv3d[{label}]", out, ref, 1e-2, 1.6e-2))
+        t_out = t + tp - kt + 1
+        flops = 2.0 * real_taps(t_out, kt, tp) * h * w * c * co * 9
+        nbytes = 2.0 * (t * h * w * c + t_out * h * w * co + wt.numel() + co)
+        bms, by = bound_ms(flops, nbytes)
+        if label.startswith("up3 resnets") and "stream" in label:
+            ms = time_ms(lambda: conv3d.conv3d_ndhwc(x, wt, bias,
+                                                     time_pad=tp))
+            results["conv3d"].update(stream_ms=ms, stream_bound_ms=bms)
+            print(f"  conv3d[{label}]: {ms:.3f} ms kernel, bound {bms:.3f} "
+                  f"ms ({by}, {flops:.3e} FLOP)", flush=True)
         if not is_hot(label):
             del x, out, ref
             continue
@@ -533,10 +578,6 @@ def check_conv(dev, results: dict) -> None:
             memory_format=torch.channels_last_3d)
         lib = time_ms(lambda: F.conv3d(F.pad(xc, (0, 0, 0, 0, tp, 0)), wc,
                                        bias, padding=(0, 1, 1)))
-        t_out = t + tp - kt + 1
-        flops = 2.0 * t_out * h * w * c * co * kt * 9
-        nbytes = 2.0 * (t * h * w * c + t_out * h * w * co + wt.numel() + co)
-        bms, by = bound_ms(flops, nbytes)
         if w == 832:
             results["conv3d"] = dict(
                 max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=bms,
@@ -598,7 +639,7 @@ def decode_conv_bound(latent: tuple[int, int, int]) -> float:
     t2 = 4 * latent[0] - 3
     h0, w0 = latent[1:]
     for label, n, c, co, kt, t, h, w in decoder_conv_shapes(latent):
-        flops = 2.0 * n * t * h * w * c * co * kt * 9
+        flops = 2.0 * n * real_taps(t, kt, kt - 1) * h * w * c * co * 9
         nbytes = 2.0 * n * t * h * w * (c + co)
         total_flops += flops
         total_bytes += nbytes
@@ -683,7 +724,7 @@ def check_conv_int8(dev, results: dict) -> None:
                              "route differs from K4 on its own operands")
         del routed, ref
         t_out = t + tp - kt + 1
-        flops = 2.0 * t_out * h * w * c * co * kt * 9
+        flops = 2.0 * real_taps(t_out, kt, tp) * h * w * c * co * 9
         nbytes = t * h * w * c + wq.numel() + 2.0 * t_out * h * w * co + 8 * co
         bms, by = bound_ms(flops, nbytes, "int8")
         ms = time_ms(lambda: conv3d.conv3d_int8(*args, **kw), 3)
@@ -754,6 +795,149 @@ def check_w8a8_linear(dev) -> None:
         del lin, q, x, xq, want, got
 
 
+# the causal stream at 480x832: a block of 3 latent frames of 30 x 52
+# tokens, and the 21-frame KV window
+CAUSAL_BLOCK_TOKENS = 3 * 30 * 52
+CAUSAL_WINDOW_TOKENS = 21 * 30 * 52
+
+
+def check_flash_kv_mask(dev, results: dict) -> None:
+    """K5 at the causal stream's shapes: one block's queries
+    [1, 4680, 12, 128] over the window's keys [1, 32760, 12, 128] in bf16,
+    with the window as block 0 sees it (its last 4,680 slots valid), as
+    block 3 sees it (18,720) and full (block 7 on). The bound counts the
+    valid keys only, which is all the kernel reads and computes."""
+    import torch
+    import torch.nn.functional as F
+
+    from fastvideo_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    n, window, h, d = CAUSAL_BLOCK_TOKENS, CAUSAL_WINDOW_TOKENS, 12, 128
+    q, k, v = (torch.randn(1, s, h, d, generator=g, device=dev,
+                           dtype=torch.bfloat16) for s in (n, window, window))
+    pos = torch.arange(window, device=dev)
+    errs, rec = [], {}
+    for label, valid in (("block0", n), ("block3", 4 * n),
+                         ("full", window)):
+        mask = pos >= window - valid
+        kw = dict(scale=d**-0.5)
+        out = fa.flash_attention_kv_mask(q, k, v, mask, **kw)
+        ref = fa.flash_attention_kv_mask_plain(q, k, v, mask, **kw)
+        errs.append(check(f"flash_fwd_kv_mask[{label}: {valid} of {window} "
+                          f"keys]", out, ref, *attn_tol(ref, torch.bfloat16)))
+        del out, ref
+        ms = time_ms(lambda: fa.flash_attention_kv_mask(q, k, v, mask, **kw))
+        flops = 4.0 * h * n * valid * d
+        nbytes = 2.0 * (2 * n * h * d + 2 * valid * h * d) + window
+        bms, by = bound_ms(flops, nbytes)
+        rec[label] = (ms, bms, by)
+        line = (f"  flash_fwd_kv_mask[{label}]: {ms:.3f} ms kernel, bound "
+                f"{bms:.3f} ms ({by}, {flops:.3e} FLOP)")
+        if label == "full":
+            plain = time_ms(lambda: fa.flash_attention_kv_mask_plain(
+                q, k, v, mask, **kw), 1)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            lib = time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask[None, None, None, :], **kw))
+            line += f", {plain:.3f} ms plain, {lib:.3f} ms sdpa with the mask"
+        print(line, flush=True)
+    ms, bms, by = rec["full"]
+    results["flash_fwd_kv_mask"] = dict(
+        max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=bms,
+        bound_by=by, library_ms=lib,
+        shape=f"q[1, {n}, {h}, {d}] kv[1, {window}, {h}, {d}] bf16",
+        block0_ms=rec["block0"][0], block0_bound_ms=rec["block0"][1],
+        block3_ms=rec["block3"][0], block3_bound_ms=rec["block3"][1])
+    del q, k, v
+
+
+def check_fp32_decode(dev, results: dict) -> None:
+    """The fp32 decode's kernels (vae_decode_precision="fp32") at 480x832:
+    K3's fp32 form at up3's 96x96 conv in the first decode chunk (one output
+    frame, two of its three time taps on the causal pad) and in a 2-frame
+    chunk (8 output frames, every tap real), and at conv_out's 96->3 tail;
+    K4 storing fp32 (bit for bit with its plain version), and K1 in fp32 at
+    the VAE attention's head of 384. The bounds count the real taps only."""
+    import torch
+    import torch.nn.functional as F
+
+    from fastvideo_tpu_torch.ops import conv3d
+    from fastvideo_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    chunk = decode_chunk_frames(latent_of(CLIP_480P))
+    errs = []
+    for label, co, t, tp, key in (
+            ("up3 resnet 96x96, first chunk", 96, 1, 2, "fp32"),
+            ("conv_out 96->3, first chunk", 3, 1, 2, None),
+            (f"up3 resnet 96x96, {chunk}-frame chunk", 96, 4 * chunk + 2, 0,
+             "fp32_chunk")):
+        x = torch.randn(1, t, 480, 832, 96, generator=g, device=dev)
+        wt = torch.randn(3, 3, 3, 96, co, generator=g, device=dev) * (
+            27 * 96)**-0.5
+        b = torch.randn(co, generator=g, device=dev)
+        out = conv3d.conv3d_ndhwc(x, wt, b, time_pad=tp)
+        ref = conv3d.conv3d_ndhwc_plain(x, wt, b, time_pad=tp)
+        # fp32: the kernel's one FMA chain against the plain version's
+        # tap-by-tap sums over K = 2592 products of order-1 outputs
+        errs.append(check(f"conv3d fp32[{label}]", out, ref, 5e-5, 1e-5))
+        del out, ref
+        if key is None:
+            continue
+        ms = time_ms(lambda: conv3d.conv3d_ndhwc(x, wt, b, time_pad=tp))
+        plain = time_ms(lambda: conv3d.conv3d_ndhwc_plain(x, wt, b,
+                                                          time_pad=tp), 2)
+        xc = x.permute(0, 4, 1, 2, 3)
+        wc = wt.permute(4, 3, 0, 1, 2).contiguous(
+            memory_format=torch.channels_last_3d)
+        lib = time_ms(lambda: F.conv3d(F.pad(xc, (0, 0, 0, 0, tp, 0)), wc, b,
+                                       padding=(0, 1, 1)))
+        t_out = t + tp - 2
+        flops = 2.0 * real_taps(t_out, 3, tp) * 480 * 832 * 96 * 96 * 9
+        nbytes = 4.0 * ((t + t_out) * 480 * 832 * 96 + wt.numel() + 96)
+        bms, by = bound_ms(flops, nbytes, "fp32")
+        results["conv3d"].update({f"{key}_ms": ms, f"{key}_plain_ms": plain,
+                                  f"{key}_bound_ms": bms,
+                                  f"{key}_library_ms": lib})
+        print(f"  conv3d fp32[{label}]: {ms:.3f} ms kernel, {plain:.3f} ms "
+              f"plain, {lib:.3f} ms cudnn fp32 (TF32 off), bound {bms:.3f} "
+              f"ms ({by} at 67 TFLOP/s, {flops:.3e} FLOP on real taps)",
+              flush=True)
+        del x
+    results["conv3d"]["fp32_max_abs_err"] = max(errs)
+
+    xq = torch.randint(-127, 128, (1, 1, 480, 832, 96), generator=g,
+                       device=dev, dtype=torch.int8)
+    wq = torch.randint(-127, 128, (3, 3, 3, 96, 96), generator=g, device=dev,
+                       dtype=torch.int8)
+    scale = torch.rand(96, generator=g, device=dev) * 1e-4
+    bias = torch.randn(96, generator=g, device=dev)
+    kw = dict(time_pad=2, out_dtype=torch.float32)
+    out = conv3d.conv3d_int8(xq, wq, scale, bias, **kw)
+    ref = conv3d.conv3d_int8_plain(xq, wq, scale, bias, **kw)
+    torch.cuda.synchronize()
+    if out.dtype != torch.float32 or not torch.equal(out, ref):
+        raise SystemExit("conv3d_int8 fp32 store: differs from its plain "
+                         "version")
+    ms = time_ms(lambda: conv3d.conv3d_int8(xq, wq, scale, bias, **kw))
+    results["conv3d_int8"].update(fp32_store_ms=ms)
+    print(f"  conv3d_int8 fp32 store[up3 resnet 96x96, first chunk]: equal "
+          f"to its plain version bit for bit; {ms:.3f} ms", flush=True)
+    del xq, out, ref
+
+    q, k, v = (torch.randn(1, 6240, 1, 384, generator=g, device=dev)
+               for _ in range(3))
+    out = fa.flash_attention(q, k, v)
+    ref, _ = fa.flash_attention_plain(q, k, v, scale=384**-0.5)
+    err = check("flash_fwd fp32[vae_mid_attn first chunk, head 384]", out,
+                ref, *attn_tol(ref, torch.float32))
+    ms = time_ms(lambda: fa.flash_attention(q, k, v))
+    results["flash_fwd"].update(fp32_vae_ms=ms, fp32_vae_max_abs_err=err)
+    print(f"  flash_fwd fp32[vae_mid_attn first chunk]: {ms:.3f} ms",
+          flush=True)
+
+
 def run_kernel_checks(dev) -> dict:
     import torch
 
@@ -768,6 +952,10 @@ def run_kernel_checks(dev) -> dict:
     torch.cuda.empty_cache()
     check_conv_int8(dev, results)
     check_w8a8_linear(dev)
+    torch.cuda.empty_cache()
+    check_flash_kv_mask(dev, results)
+    torch.cuda.empty_cache()
+    check_fp32_decode(dev, results)
     torch.cuda.empty_cache()
     decode_bound = decode_conv_bound((21, 60, 104))
     # K1 also runs the VAE mid-block attention: 21 frames x 6240 tokens,
@@ -814,6 +1002,10 @@ TINY_VAE_CFG = dict(base_dim=8, z_dim=4, dim_mult=[1, 2], num_res_blocks=1,
                     attn_scales=[], temperal_downsample=[True],
                     latents_mean=[0.0] * 4, latents_std=[1.0] * 4,
                     scale_factor_temporal=2, scale_factor_spatial=2)
+# the causal Wan with a head of 128, so that its cached attention takes K5
+TINY_CAUSAL_DIT_CFG = dict(TINY_DIT_CFG, num_attention_heads=1,
+                           attention_head_dim=128, num_frames_per_block=3,
+                           local_attn_size=5, sink_size=1)
 # 32 channels wide throughout, so that its 3x3 convs take the int8 route
 TINY_INT8_VAE_CFG = dict(TINY_VAE_CFG, base_dim=32, dim_mult=[1, 1])
 TINY_T5_CFG = dict(T5_CFG, vocab_size=128, d_model=32, d_kv=8, d_ff=48,
@@ -866,22 +1058,24 @@ def random_state(module, dtype, device, gen) -> dict:
 def write_checkpoint(root: str, dit_cfg: dict, vae_cfg: dict, t5_cfg: dict,
                      seed: int, device: str = "cuda",
                      share: str | None = None,
-                     class_name: str = "WanPipeline") -> str:
+                     class_name: str = "WanPipeline",
+                     dit_class: str = "WanTransformer3DModel") -> str:
     """A diffusers-format Wan T2V checkpoint with random weights, written
     with the port's own safetensors writer (the VAE's decoder half). The
     DiT has the blocks of the attention backend selected when this is
     called. With ``share`` only the transformer is written; the other
     components are links to those of the checkpoint ``share``.
-    ``class_name`` is model_index.json's pipeline class."""
+    ``class_name`` is model_index.json's pipeline class, ``dit_class`` the
+    transformer's."""
     import torch
 
     from fastvideo_tpu_torch.configs.models.dits.wan import WanArchConfig
     from fastvideo_tpu_torch.configs.models.encoders.t5 import T5ArchConfig
     from fastvideo_tpu_torch.configs.models.vaes.wan import WanVAEArchConfig
-    from fastvideo_tpu_torch.models.dits.wan import WanTransformer3DModel
     from fastvideo_tpu_torch.models.encoders.t5 import T5EncoderModel
     from fastvideo_tpu_torch.models.loader.component_loader import (
         _build_arch_config as arch)
+    from fastvideo_tpu_torch.models.registry import resolve_model_cls
     from fastvideo_tpu_torch.models.loader.safetensors_io import save_file
     from fastvideo_tpu_torch.models.vaes.wan import AutoencoderKLWan
 
@@ -897,12 +1091,12 @@ def write_checkpoint(root: str, dit_cfg: dict, vae_cfg: dict, t5_cfg: dict,
         "scheduler": ["diffusers", "UniPCMultistepScheduler"],
         "text_encoder": ["transformers", "UMT5EncoderModel"],
         "tokenizer": ["transformers", "T5TokenizerFast"],
-        "transformer": ["diffusers", "WanTransformer3DModel"],
+        "transformer": ["diffusers", dit_class],
         "vae": ["diffusers", "AutoencoderKLWan"]})
+    dit_cls = resolve_model_cls(dit_class)[0]
     parts = [
-        ("transformer", "WanTransformer3DModel", dit_cfg,
-         lambda: WanTransformer3DModel(arch(WanArchConfig, dit_cfg),
-                                       device="meta"),
+        ("transformer", dit_class, dit_cfg,
+         lambda: dit_cls(arch(WanArchConfig, dit_cfg), device="meta"),
          torch.bfloat16, "diffusion_pytorch_model.safetensors"),
         ("vae", "AutoencoderKLWan", vae_cfg,
          lambda: AutoencoderKLWan(arch(WanVAEArchConfig, vae_cfg),
@@ -959,10 +1153,13 @@ def check_small_path(work: str, name: str, backend: str, gen_kw: dict,
                      from_kw: dict, vae_cfg: dict = TINY_VAE_CFG,
                      class_name: str = "WanPipeline",
                      conv_mode: str | None = None,
-                     launched: tuple[str, ...] = ()) -> None:
+                     launched: tuple[str, ...] = (),
+                     dit_cfg: dict = TINY_DIT_CFG,
+                     dit_class: str = "WanTransformer3DModel") -> None:
     """The whole path on a tiny random model: the card (kernels) against the
     CPU (plain versions), same checkpoint and seed, bf16 as served. The
-    kernels in ``launched`` must launch in the card's run."""
+    kernels in ``launched`` must launch in the card's run, and no plain
+    version may run there."""
     import numpy as np
 
     from fastvideo_tpu_torch import VideoGenerator
@@ -971,9 +1168,9 @@ def check_small_path(work: str, name: str, backend: str, gen_kw: dict,
     os.environ["FASTVIDEO_ATTENTION_BACKEND"] = backend
     if conv_mode:
         os.environ["FASTVIDEO_VAE_CONV3D"] = conv_mode
-    ckpt = write_checkpoint(os.path.join(work, backend, name), TINY_DIT_CFG,
+    ckpt = write_checkpoint(os.path.join(work, backend, name), dit_cfg,
                             vae_cfg, TINY_T5_CFG, seed=7,
-                            class_name=class_name)
+                            class_name=class_name, dit_class=dit_class)
     outs = {}
     for device in ("cuda", "cpu"):
         _build.reset_counts()
@@ -982,6 +1179,13 @@ def check_small_path(work: str, name: str, backend: str, gen_kw: dict,
         if device == "cuda" and not all(_build.LAUNCHES[k] for k in launched):
             raise SystemExit(f"tiny {name}: {launched} did not all launch: "
                              f"{_build.LAUNCHES}")
+        if device == "cuda" and any(_build.PLAIN_CALLS.values()):
+            raise SystemExit(f"tiny {name}: the card's run reached a plain "
+                             f"version: {_build.PLAIN_CALLS}")
+        if device == "cuda" and launched:
+            print(f"  tiny {name}: card launches "
+                  f"{json.dumps({k: _build.LAUNCHES[k] for k in launched})}",
+                  flush=True)
         del gen
     os.environ.pop("FASTVIDEO_VAE_CONV3D", None)
     frames = {d: o["frames"][0] for d, o in outs.items()}
@@ -1024,6 +1228,24 @@ def check_small_paths(work: str) -> None:
                      vae_cfg=TINY_INT8_VAE_CFG,
                      class_name="TurboDiffusionPipeline", conv_mode="kf_int8",
                      launched=("conv3d_int8", "vsa_sparse_padded_fwd"))
+    # FastWan DMD decoded in fp32 (vae_decode_precision="fp32"): K3's fp32
+    # form and K1 in fp32 at the VAE attention
+    check_small_path(work, "FastWan2.1-T2V-tiny-fp32-decode",
+                     "VIDEO_SPARSE_ATTN",
+                     dict(prompt="w1 w2 w3", height=64, width=64,
+                          num_frames=9, seed=11),
+                     dict(VSA_sparsity=0.5, vae_decode_precision="fp32"),
+                     launched=("conv3d", "flash_fwd"))
+    # the causal Wan, one head of 128: 17 frames at 64x64 give 9 latent
+    # frames of 16 x 16 tokens, 3 blocks of 3; a 5-frame window (1,280
+    # keys, a 1-frame sink) takes K5, and the third block evicts
+    check_small_path(work, "Wan2.1-T2V-causal-tiny", "FLASH_ATTN",
+                     dict(prompt="w1 w2 w3", height=64, width=64,
+                          num_frames=17, seed=11, num_inference_steps=3),
+                     {}, class_name="WanCausalDMDPipeline",
+                     dit_cfg=TINY_CAUSAL_DIT_CFG,
+                     dit_class="CausalWanTransformer3DModel",
+                     launched=("flash_fwd_kv_mask", "flash_fwd"))
 
 
 def check_generation(label: str, result: dict, size: dict, launches: dict,
@@ -1345,6 +1567,132 @@ def run_turbo_path(work: str, profile_dir: str | None = None) -> dict:
     return launches
 
 
+# 4g/4h: the causal Wan at the FastWan/Wan2.1-1.3B widths, 3 latent frames
+# a block, the default 21-frame window, no sink (bench.py's streaming rider)
+CAUSAL_DIT_CFG = dict(DIT_CFG, num_frames_per_block=3, local_attn_size=-1,
+                      sink_size=0)
+CAUSAL_STEPS = 3
+STREAM_BLOCKS = 8
+
+
+def run_causal_path(work: str, profile_dir: str | None = None):
+    """Phase 4g: VideoGenerator on a CausalWan-1.3B checkpoint
+    (WanCausalDMDPipeline; text encoder, VAE and tokenizer linked from the
+    4b checkpoint; DiT seed 45) at 81x480x832: 7 blocks of 3 latent frames,
+    CAUSAL_STEPS flow-match Euler steps a block and one commit pass, every
+    cached self-attention through K5. Returns (launches, generator)."""
+    import torch
+
+    from fastvideo_tpu_torch import VideoGenerator
+
+    os.environ["FASTVIDEO_ATTENTION_BACKEND"] = "FLASH_ATTN"
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    root = os.path.join(work, "causal", "SelfForcing-Wan2.1-T2V-1.3B")
+    ckpt = write_checkpoint(
+        root, CAUSAL_DIT_CFG, VAE_CFG, T5_CFG, seed=45,
+        share=os.path.join(work, "FastWan2.1-T2V-1.3B-Diffusers"),
+        class_name="WanCausalDMDPipeline",
+        dit_class="CausalWanTransformer3DModel")
+    gen = VideoGenerator.from_pretrained(ckpt)
+    sched = gen.pipeline.modules["scheduler"]
+    print(f"  transformer written and pipeline loaded in "
+          f"{time.perf_counter() - t0:.1f} s; {type(gen.pipeline).__name__}, "
+          f"{type(sched).__name__}", flush=True)
+    kw = dict(prompt=PROMPT, seed=42, num_inference_steps=CAUSAL_STEPS,
+              save_video=False, **CLIP_480P)
+    result, launches, plain, peak = timed_generation(gen, kw)
+    times = {k: round(v, 4) for k, v in result["stage_times"].items()}
+    layers = CAUSAL_DIT_CFG["num_layers"]
+    blocks = latent_of(CLIP_480P)[0] // CAUSAL_DIT_CFG["num_frames_per_block"]
+    k5 = layers * blocks * (CAUSAL_STEPS + 1)
+    print(f"  {blocks} blocks x ({CAUSAL_STEPS} steps + 1 commit pass), "
+          f"scheduler shift {sched.shift}; generation "
+          f"{result['generation_time']:.3f} s (first call in the process for "
+          f"this configuration); stage seconds {json.dumps(times)}; "
+          f"{times['CausalDenoisingStage'] / blocks:.3f} s a block; peak "
+          f"memory {peak:.2f} GiB", flush=True)
+    print(f"  kernel launches {json.dumps(launches)} (K5: {layers} layers x "
+          f"{blocks} blocks x {CAUSAL_STEPS + 1} passes = {k5}); plain calls "
+          f"{json.dumps(plain)}", flush=True)
+    check_generation("causal Wan 480x832", result, CLIP_480P, launches, plain,
+                     {"flash_fwd_kv_mask": k5, "flash_fwd": None,
+                      "conv3d": None})
+    if profile_dir:
+        profile_generation(gen, kw, profile_dir, "causal_wan_480x832")
+    del result
+    return launches, gen
+
+
+def run_streaming(gen, spec: dict) -> tuple[dict, dict]:
+    """Phase 4h: StreamingVideoGenerator on 4g's loaded modules with
+    FlowMatchEulerDiscreteScheduler(shift=5.0), as the JAX package's
+    streaming rider builds it: reset with the benchmark's prompt,
+    STREAM_BLOCKS blocks, finalize. Steady block seconds and steady fps as
+    the JAX package's run_streaming_benchmark defines them (blocks 1 on).
+    Returns (launches, the stream's numbers)."""
+    import statistics
+
+    import torch
+
+    from fastvideo_tpu_torch.entrypoints.streaming_generator import (
+        StreamingVideoGenerator)
+    from fastvideo_tpu_torch.models.schedulers.flow_match_euler import (
+        FlowMatchEulerDiscreteScheduler)
+    from fastvideo_tpu_torch.ops import _build
+
+    mods = gen.pipeline.modules
+    sgen = StreamingVideoGenerator(
+        mods["transformer"], mods["vae"], mods["text_encoder"],
+        mods["tokenizer"], FlowMatchEulerDiscreteScheduler(shift=5.0),
+        num_inference_steps=CAUSAL_STEPS, height=480, width=832, seed=1024)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    sgen.reset(spec["stream"]["prompt"])
+    torch.cuda.synchronize()
+    reset_s = time.perf_counter() - t0
+    latencies, frames = [], []
+    for _ in range(STREAM_BLOCKS):
+        t0 = time.perf_counter()
+        out = sgen.step()
+        latencies.append(time.perf_counter() - t0)
+        frames.append(int(out.shape[0]))
+        if out.shape[1:] != (480, 832, 3) or out.dtype.name != "uint8":
+            raise SystemExit(f"4h: block frames {out.shape} {out.dtype}")
+    total = sgen.finalize()
+    launches, plain = dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    steady_block_s = statistics.mean(latencies[1:])
+    steady_fps = sum(frames[1:]) / sum(latencies[1:])
+    layers = CAUSAL_DIT_CFG["num_layers"]
+    k5 = layers * STREAM_BLOCKS * (CAUSAL_STEPS + 1)
+    window = sgen.kv_caches[0]
+    print(f"  reset {reset_s:.3f} s; block seconds "
+          f"{[round(t, 4) for t in latencies]}; frames {frames} ({total} in "
+          f"all); steady_block_s {steady_block_s:.4f}, steady_fps "
+          f"{steady_fps:.3f}; peak memory {peak:.2f} GiB; window "
+          f"{window['valid']} of {window['k'].shape[1]} slots valid after "
+          f"{window['global_end']} tokens", flush=True)
+    print(f"  kernel launches {json.dumps(launches)} (K5: {layers} layers x "
+          f"{STREAM_BLOCKS} blocks x {CAUSAL_STEPS + 1} passes = {k5}); plain "
+          f"calls {json.dumps(plain)}", flush=True)
+    if frames != [9] + [12] * (STREAM_BLOCKS - 1):
+        raise SystemExit(f"4h: frames per block {frames}")
+    if launches["flash_fwd_kv_mask"] != k5 or not launches["conv3d"] or \
+            not launches["flash_fwd"]:
+        raise SystemExit(f"4h: kernel launches {launches}")
+    if any(plain.values()):
+        raise SystemExit(f"4h: the stream reached a plain version: {plain}")
+    if window["global_end"] <= window["k"].shape[1]:
+        raise SystemExit("4h: the window never evicted")
+    return launches, dict(steady_block_s=steady_block_s,
+                          steady_fps=steady_fps,
+                          block_latencies_s=latencies, reset_s=reset_s,
+                          peak_gib=peak)
+
+
 def profile_generation(gen, kw: dict, out_dir: str, label: str) -> None:
     """One more generation under torch.profiler: device time by kernel
     name, the device's busy share of the wall time, and a Chrome trace."""
@@ -1432,6 +1780,18 @@ def main() -> int:
           f"auto_int8 decode", flush=True)
     turbo_launches = run_turbo_path(work, args.profile)
     os.environ.pop("FASTVIDEO_VAE_CONV3D", None)
+    print(f"# phase 4g: causal Wan 1.3B (self-forcing) at full width and "
+          f"depth, 81x480x832 through WanCausalDMDPipeline, {CAUSAL_STEPS} "
+          f"steps a block, K5 over the 21-frame KV window", flush=True)
+    causal_launches, causal_gen = run_causal_path(work, args.profile)
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "benchmarks", "causal_streaming.json")) as fh:
+        spec = json.load(fh)
+    print(f"# phase 4h: StreamingVideoGenerator on 4g's modules, "
+          f"{STREAM_BLOCKS} blocks at 480x832, prompt from "
+          f"benchmarks/causal_streaming.json", flush=True)
+    stream_launches, stream = run_streaming(causal_gen, spec)
+    del causal_gen
     shutil.rmtree(work, ignore_errors=True)
     # each kernel's count comes from the path that runs it
     launches["vsa_sparse_padded_fwd"] = vsa_launches["vsa_sparse_padded_fwd"]
@@ -1441,6 +1801,13 @@ def main() -> int:
         "vsa_sparse_padded_fwd"]
     launches["conv3d_int8"] = int8_launches["conv3d_int8"]
     results["conv3d_int8"]["turbo_launches"] = turbo_launches["conv3d_int8"]
+    launches["flash_fwd_kv_mask"] = causal_launches["flash_fwd_kv_mask"]
+    results["flash_fwd_kv_mask"].update(
+        stream_launches=stream_launches["flash_fwd_kv_mask"],
+        steady_block_s=stream["steady_block_s"],
+        steady_fps=stream["steady_fps"])
+    results["flash_fwd"]["causal_launches"] = causal_launches["flash_fwd"]
+    results["conv3d"]["causal_launches"] = causal_launches["conv3d"]
 
     kernels = []
     for name in _build.KERNELS:

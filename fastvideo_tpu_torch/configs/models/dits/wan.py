@@ -1,6 +1,7 @@
 """Wan DiT architecture config (port of
 fastvideo_tpu/configs/models/dits/wan.py). Defaults are the 14B sizes; the
-checkpoint's config.json resizes them."""
+checkpoint's config.json resizes them. The causal Wan reads three more
+fields: ``local_attn_size``, ``sink_size`` and ``num_frames_per_block``."""
 
 from __future__ import annotations
 
@@ -57,6 +58,12 @@ class WanArchConfig(DiTArchConfig):
     added_kv_proj_dim: int | None = None
     rope_max_seq_len: int = 1024
     rope_theta: float = 10000.0
+    # causal Wan: latent frames an attention window holds (-1: the default
+    # of 21 that ``init_caches`` takes), frames of it frozen as a sink, and
+    # latent frames generated per autoregressive block
+    local_attn_size: int = -1
+    sink_size: int = 0
+    num_frames_per_block: int = 3
 
     @property
     def hidden_size(self) -> int:

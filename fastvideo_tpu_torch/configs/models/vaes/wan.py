@@ -39,6 +39,10 @@ class WanVAEArchConfig(VAEArchConfig):
     scale_factor_spatial: int = 8
     clip_output: bool = True
 
+    @property
+    def spatial_compression_ratio(self) -> int:
+        return self.scale_factor_spatial
+
     def latents_mean_arr(self) -> np.ndarray:
         return np.asarray(self.latents_mean, dtype=np.float32)
 

@@ -22,6 +22,16 @@
 // makes it fast. The N tail (Co not a multiple of 64, e.g. conv_out's 3
 // channels) is masked on load and store.
 //
+// fp32 operands (a decode with vae_decode_precision="fp32", whose JAX convs
+// take fp32 operands) take a second kernel: the same implicit GEMM with
+// fp32 FMAs on CUDA cores and an fp32 accumulator, bias and output. WMMA
+// has no fp32 operand, and TF32 would leave the fp32 sum by about 1e-3
+// relative. It is a plain SIMT tile, BM x BN x BK = 64 x 64 x 16, 256
+// threads each owning a 4 x 4 block of outputs, operands staged k-major
+// in shared memory; the same bounds checks give the causal pad, the SAME
+// border and the masked Co tail. It is bound by the card's fp32 rate
+// (67 TFLOP/s), and this first design is not tuned.
+//
 // Grid: (ceil(M / BM), ceil(Co / BN)), 256 threads.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -166,18 +176,141 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+constexpr int FBM = 64;
+constexpr int FBN = 64;
+constexpr int FBK = 16;
+
+__global__ void __launch_bounds__(kThreads)
+    conv3d_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                      const float* __restrict__ bias, float* __restrict__ y, int T, int H,
+                      int W, int C, int Co, int kt, int time_pad, int T_out, long long M,
+                      int vec_b) {
+  __shared__ __align__(16) float As[FBK][FBM + 4];  // k-major: As[k][row]
+  __shared__ __align__(16) float Bs[FBK][FBN + 4];
+  __shared__ int row_b[FBM], row_t[FBM], row_h[FBM], row_w[FBM];
+
+  const int tid = threadIdx.x;
+  const int tx = tid % 16;  // columns tx + 16 * j
+  const int ty = tid / 16;  // rows ty + 16 * i
+  const long long m0 = static_cast<long long>(blockIdx.x) * FBM;
+  const int n0 = blockIdx.y * FBN;
+  const int Ktot = kt * 9 * C;
+
+  for (int i = tid; i < FBM; i += kThreads) {
+    const long long m = m0 + i;
+    if (m < M) {
+      long long r = m;
+      row_w[i] = static_cast<int>(r % W);
+      r /= W;
+      row_h[i] = static_cast<int>(r % H);
+      r /= H;
+      row_t[i] = static_cast<int>(r % T_out);
+      row_b[i] = static_cast<int>(r / T_out);
+    } else {
+      row_b[i] = -1;
+    }
+  }
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  __syncthreads();
+
+  for (int k0 = 0; k0 < Ktot; k0 += FBK) {
+    // A: FBM rows x FBK columns, 4 channels of one tap per 16-byte load
+    {
+      const int r = tid / (FBK / 4);
+      const int cv = (tid % (FBK / 4)) * 4;
+      const int kk = k0 + cv;
+      float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+      const int b = row_b[r];
+      if (b >= 0 && kk < Ktot) {
+        const int tap = kk / C;
+        const int c = kk - tap * C;
+        const int ti = row_t[r] + tap / 9 - time_pad;
+        const int hi = row_h[r] + (tap / 3) % 3 - 1;
+        const int wi = row_w[r] + tap % 3 - 1;
+        if (ti >= 0 && ti < T && hi >= 0 && hi < H && wi >= 0 && wi < W) {
+          const long long off = (((static_cast<long long>(b) * T + ti) * H + hi) * W + wi) * C + c;
+          val = *reinterpret_cast<const float4*>(x + off);
+        }
+      }
+      As[cv][r] = val.x;
+      As[cv + 1][r] = val.y;
+      As[cv + 2][r] = val.z;
+      As[cv + 3][r] = val.w;
+    }
+    // B: FBK rows x FBN columns of w viewed as [Ktot, Co]
+    {
+      const int r = tid / (FBN / 4);
+      const int cv = (tid % (FBN / 4)) * 4;
+      const int kk = k0 + r;
+      const int n = n0 + cv;
+      if (vec_b) {
+        float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (kk < Ktot && n < Co)
+          val = *reinterpret_cast<const float4*>(w + static_cast<long long>(kk) * Co + n);
+        *reinterpret_cast<float4*>(&Bs[r][cv]) = val;
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool ok = kk < Ktot && n + e < Co;
+          Bs[r][cv + e] = ok ? w[static_cast<long long>(kk) * Co + n + e] : 0.f;
+        }
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < FBK; ++kk) {
+      float a[4], bv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) bv[j] = Bs[kk][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const long long m = m0 + ty + 16 * i;
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + tx + 16 * j;
+      if (n < Co) y[m * Co + n] = acc[i][j] + bias[n];
+    }
+  }
+}
+
 }  // namespace
 
-// bf16 only. x [B, T, H, W, C] and w [kt, 3, 3, C, Co] contiguous with
-// C % 8 == 0 and 16-byte aligned; y [B, T + time_pad - kt + 1, H, W, Co].
-extern "C" int fvt_conv3d_ndhwc(const void* x, const void* w, const void* bias, void* y, int B,
-                                int T, int H, int W, int C, int Co, int kt, int time_pad,
-                                void* stream) {
+// dtype: 0 = float32, 1 = bfloat16, for x, w, bias and y alike. x [B, T, H,
+// W, C] and w [kt, 3, 3, C, Co] contiguous with C % 8 == 0 and 16-byte
+// aligned; y [B, T + time_pad - kt + 1, H, W, Co].
+extern "C" int fvt_conv3d_ndhwc(const void* x, const void* w, const void* bias, void* y,
+                                int dtype, int B, int T, int H, int W, int C, int Co, int kt,
+                                int time_pad, void* stream) {
   const int T_out = T + time_pad - kt + 1;
-  if (C % 8 != 0 || T_out <= 0 || B <= 0 || Co <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (C % 8 != 0 || T_out <= 0 || B <= 0 || Co <= 0 || (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   const long long M = static_cast<long long>(B) * T_out * H * W;
-  const long long blocks_m = (M + BM - 1) / BM;
+  const int bm = dtype == 0 ? FBM : BM;
+  const long long blocks_m = (M + bm - 1) / bm;
   if (blocks_m > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0) {
+    dim3 grid(static_cast<unsigned>(blocks_m), (Co + FBN - 1) / FBN);
+    conv3d_f32_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(x), static_cast<const float*>(w),
+        static_cast<const float*>(bias), static_cast<float*>(y), T, H, W, C, Co, kt, time_pad,
+        T_out, M, Co % 4 == 0 ? 1 : 0);
+    return static_cast<int>(cudaGetLastError());
+  }
   dim3 grid(static_cast<unsigned>(blocks_m), (Co + BN - 1) / BN);
   conv3d_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<const bf16*>(bias),

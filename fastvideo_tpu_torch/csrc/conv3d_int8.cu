@@ -2,7 +2,8 @@
 //
 // Replaces the Pallas kernel fastvideo_tpu/ops/conv3d.py:_conv_kernel_thcw_kf_int8
 // (K4, the "kf_int8" / "auto_int8" decode convs): y = acc * scale[co] + bias[co]
-// in fp32, written as bf16, where acc is the exact int32 sum over the
+// in fp32, written as bf16 (or, for an fp32 decode, as fp32: the JAX
+// kernel writes out_dtype=x.dtype), where acc is the exact int32 sum over the
 // kt*3*3*C taps of int8 x [B, T, H, W, C] (channels-last, one per-tensor
 // scale folded into `scale`) times int8 w. `time_pad` zero frames go in
 // front (causal) and the spatial padding is SAME.
@@ -58,7 +59,7 @@ __device__ __forceinline__ uint32_t lds32(const int8_t* p) {
 __global__ void __launch_bounds__(kThreads)
     conv3d_int8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
                        const float* __restrict__ scale, const float* __restrict__ bias,
-                       __nv_bfloat16* __restrict__ y, int T, int H, int W, int C, int Co,
+                       void* __restrict__ y, int out_f32, int T, int H, int W, int C, int Co,
                        int kt, int time_pad, int T_out, long long M) {
   __shared__ __align__(16) int8_t As[BM * LDS];
   __shared__ __align__(16) int8_t Bs[BN * LDS];
@@ -177,7 +178,11 @@ __global__ void __launch_bounds__(kThreads)
         if (m >= M) continue;
         const float v0 = __fadd_rn(__fmul_rn(__int2float_rn(acc[i][j][half * 2]), s0), b0);
         const float v1 = __fadd_rn(__fmul_rn(__int2float_rn(acc[i][j][half * 2 + 1]), s1), b1);
-        *reinterpret_cast<__nv_bfloat162*>(y + m * Co + n) = __floats2bfloat162_rn(v0, v1);
+        if (out_f32)
+          *reinterpret_cast<float2*>(static_cast<float*>(y) + m * Co + n) = make_float2(v0, v1);
+        else
+          *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(y) + m * Co + n) =
+              __floats2bfloat162_rn(v0, v1);
       }
   }
 }
@@ -186,12 +191,14 @@ __global__ void __launch_bounds__(kThreads)
 
 // x [B, T, H, W, C] int8 contiguous and 16-byte aligned, w [Co, kt*9*C] int8
 // contiguous, scale and bias fp32 [Co], y [B, T + time_pad - kt + 1, H, W, Co]
-// bf16; C and Co multiples of 32.
+// bf16 (out_dtype 1) or fp32 (out_dtype 0); C and Co multiples of 32.
 extern "C" int fvt_conv3d_int8_ndhwc(const void* x, const void* w, const void* scale,
-                                     const void* bias, void* y, int B, int T, int H, int W,
-                                     int C, int Co, int kt, int time_pad, void* stream) {
+                                     const void* bias, void* y, int out_dtype, int B, int T,
+                                     int H, int W, int C, int Co, int kt, int time_pad,
+                                     void* stream) {
   const int T_out = T + time_pad - kt + 1;
-  if (C % 32 != 0 || Co % 32 != 0 || T_out <= 0 || B <= 0 || (kt != 1 && kt != 3))
+  if (C % 32 != 0 || Co % 32 != 0 || T_out <= 0 || B <= 0 || (kt != 1 && kt != 3) ||
+      (out_dtype != 0 && out_dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long M = static_cast<long long>(B) * T_out * H * W;
   const long long blocks_m = (M + BM - 1) / BM;
@@ -200,6 +207,6 @@ extern "C" int fvt_conv3d_int8_ndhwc(const void* x, const void* w, const void* s
   conv3d_int8_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
       static_cast<const float*>(scale), static_cast<const float*>(bias),
-      static_cast<__nv_bfloat16*>(y), T, H, W, C, Co, kt, time_pad, T_out, M);
+      y, out_dtype == 0 ? 1 : 0, T, H, W, C, Co, kt, time_pad, T_out, M);
   return static_cast<int>(cudaGetLastError());
 }

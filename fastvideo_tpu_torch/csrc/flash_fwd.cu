@@ -7,6 +7,16 @@
 // causal (key <= query). Key tiles that no row of the query tile can reach
 // are skipped, as the Pallas kernel's _tile_reachable does.
 //
+// K5 is the same kernel with a per-key mask (fvt_flash_fwd_kv_mask): it
+// replaces _fwd_kernel with has_kv_mask, reached through
+// flash_attention_kv_mask, the streaming KV-cache attention of the causal
+// Wan. kv_mask [Skv] holds one byte a key, shared by every batch row and
+// head; key j is visible when kv_mask[j] != 0 (and j < kv_valid). A key
+// chunk whose mask is all zero is skipped: it would add exactly nothing,
+// since masked scores are -inf. Early in a stream most of the window is
+// empty (at the first block of the 1.3B stream, 28,080 of 32,760 keys), so
+// the skip saves those chunks' loads and products.
+//
 // What bounds it: at the main path's shapes (DiT cross-attention
 // [1,12,32760,128] x [1,12,512,128]; VAE mid-block [21,1,6240,384]) it is
 // tensor-core bound, 4*B*H*Sq*Skv*D FLOP against ~3 bytes per FLOP of
@@ -25,15 +35,20 @@ namespace {
 using fvt::AttnTile;
 using fvt::bf16;
 
-template <typename T, int BQ, int BK>
+// kKvMask is a compile-time flag: K1's instance (false) has no mask code,
+// and K5's (true) is a kernel of its own, so a profiler names the two apart.
+// K5 always runs with causal = 0.
+template <typename T, int BQ, int BK, bool kKvMask>
 __global__ void __launch_bounds__(fvt::kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      T* __restrict__ o, float* __restrict__ lse, int H, int Sq, int Skv, int D,
                      long long q_sb, long long q_sh, long long q_ss, long long k_sb,
                      long long k_sh, long long k_ss, long long v_sb, long long v_sh,
                      long long v_ss, long long o_sb, long long o_sh, long long o_ss,
-                     float scale, int causal, int kv_valid) {
+                     float scale, int causal, int kv_valid,
+                     const unsigned char* __restrict__ kv_mask) {
   extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ unsigned char mask_chunk[kKvMask ? BK : 1];
   AttnTile<T, BQ, BK> t;
   t.carve(smem, D);
 
@@ -55,13 +70,25 @@ __global__ void __launch_bounds__(fvt::kThreads)
   for (int j0 = 0; j0 < kv_end; j0 += BK) {
     const int nk = min(BK, Skv - j0);
     __syncthreads();  // every warp is done with the previous chunk
+    if constexpr (kKvMask) {
+      int any = 0;
+      for (int c = threadIdx.x; c < BK; c += fvt::kThreads) {
+        const unsigned char m = c < nk ? kv_mask[j0 + c] : 0;
+        mask_chunk[c] = m;
+        any |= m;
+      }
+      if (!__syncthreads_or(any)) continue;  // block-uniform: nothing visible
+    }
     t.load_rows(t.k, kp + j0 * k_ss, k_ss, nk, BK);
     t.load_rows(t.v, vp + j0 * v_ss, v_ss, nk, BK);
     __syncthreads();
     t.scores();
     t.softmax_update(scale, [&](int r, int c) {
       const int col = j0 + c;
-      return col < kv_end && (!causal || col <= q0 + r);
+      if constexpr (kKvMask)
+        return col < kv_end && mask_chunk[c] != 0;
+      else
+        return col < kv_end && (!causal || col <= q0 + r);
     });
     t.accumulate_pv();
   }
@@ -69,19 +96,37 @@ __global__ void __launch_bounds__(fvt::kThreads)
   t.store(o + b * o_sb + h * o_sh + q0 * o_ss, o_ss, nq, lse_row, -CUDART_INF_F);
 }
 
-template <typename T, int BQ, int BK>
+template <typename T, int BQ, int BK, bool kKvMask>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H,
            int Sq, int Skv, int D, const long long* st, float scale, int causal, int kv_valid,
-           cudaStream_t stream) {
+           const unsigned char* kv_mask, cudaStream_t stream) {
   const size_t smem = AttnTile<T, BQ, BK>::smem_bytes(D);
-  cudaError_t err = fvt::set_smem(flash_fwd_kernel<T, BQ, BK>, smem);
+  cudaError_t err = fvt::set_smem(flash_fwd_kernel<T, BQ, BK, kKvMask>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<T, BQ, BK><<<grid, fvt::kThreads, smem, stream>>>(
+  flash_fwd_kernel<T, BQ, BK, kKvMask><<<grid, fvt::kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), static_cast<float*>(lse), H, Sq, Skv, D, st[0], st[1], st[2], st[3],
-      st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], scale, causal, kv_valid);
+      st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], scale, causal, kv_valid, kv_mask);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kKvMask>
+int dispatch(const void* q, const void* k, const void* v, void* o, void* lse, int dtype, int B,
+             int H, int Sq, int Skv, int D, const long long* st, float scale, int causal,
+             int kv_valid, const unsigned char* kv_mask, cudaStream_t s) {
+  if (D % 16 != 0 || Sq <= 0 || B <= 0 || H <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 1) {
+    if (D <= 128)
+      return launch<bf16, 64, 64, kKvMask>(q, k, v, o, lse, B, H, Sq, Skv, D, st, scale, causal,
+                                           kv_valid, kv_mask, s);
+    return launch<bf16, 64, 32, kKvMask>(q, k, v, o, lse, B, H, Sq, Skv, D, st, scale, causal,
+                                         kv_valid, kv_mask, s);
+  }
+  if (dtype == 0)
+    return launch<float, 32, 16, kKvMask>(q, k, v, o, lse, B, H, Sq, Skv, D, st, scale, causal,
+                                          kv_valid, kv_mask, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -94,15 +139,24 @@ extern "C" int fvt_flash_fwd(const void* q, const void* k, const void* v, void* 
                              long long k_ss, long long v_sb, long long v_sh, long long v_ss,
                              long long o_sb, long long o_sh, long long o_ss, float scale,
                              int causal, int kv_valid, void* stream) {
-  if (D % 16 != 0 || Sq <= 0 || B <= 0 || H <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const long long st[12] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    if (D <= 128)
-      return launch<bf16, 64, 64>(q, k, v, o, lse, B, H, Sq, Skv, D, st, scale, causal, kv_valid, s);
-    return launch<bf16, 64, 32>(q, k, v, o, lse, B, H, Sq, Skv, D, st, scale, causal, kv_valid, s);
-  }
-  if (dtype == 0)
-    return launch<float, 32, 16>(q, k, v, o, lse, B, H, Sq, Skv, D, st, scale, causal, kv_valid, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch<false>(q, k, v, o, lse, dtype, B, H, Sq, Skv, D, st, scale, causal, kv_valid,
+                         nullptr, static_cast<cudaStream_t>(stream));
+}
+
+// K5: as fvt_flash_fwd with no causal mask and every key in range, plus
+// kv_mask [Skv] (one byte a key, 0 = masked), which must not be null; lse
+// may be null, as in fvt_flash_fwd.
+extern "C" int fvt_flash_fwd_kv_mask(const void* q, const void* k, const void* v, void* o,
+                                     void* lse, const void* kv_mask, int dtype, int B, int H,
+                                     int Sq, int Skv, int D, long long q_sb, long long q_sh,
+                                     long long q_ss, long long k_sb, long long k_sh,
+                                     long long k_ss, long long v_sb, long long v_sh,
+                                     long long v_ss, long long o_sb, long long o_sh,
+                                     long long o_ss, float scale, void* stream) {
+  if (kv_mask == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const long long st[12] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss};
+  return dispatch<true>(q, k, v, o, lse, dtype, B, H, Sq, Skv, D, st, scale, 0, Skv,
+                        static_cast<const unsigned char*>(kv_mask),
+                        static_cast<cudaStream_t>(stream));
 }

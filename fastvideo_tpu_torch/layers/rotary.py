@@ -18,12 +18,16 @@ import torch
 
 @functools.lru_cache(maxsize=32)
 def get_nd_rotary_pos_embed(rope_dim_list: tuple[int, ...],
-                            rope_sizes: tuple[int, ...], theta: float = 10000.0
+                            rope_sizes: tuple[int, ...],
+                            theta: float = 10000.0, start_frame: int = 0
                             ) -> tuple[np.ndarray, np.ndarray]:
     """Per-axis rope tables concatenated to [prod(sizes), sum(dims)] (fp32),
-    tokens axis-0-major like the patch-embed flatten."""
-    grids = np.meshgrid(*[np.arange(s, dtype=np.float64) for s in rope_sizes],
-                        indexing="ij")
+    tokens axis-0-major like the patch-embed flatten. ``start_frame``
+    offsets axis 0, so a block of a stream takes its absolute positions."""
+    grids = list(np.meshgrid(
+        *[np.arange(s, dtype=np.float64) for s in rope_sizes], indexing="ij"))
+    if start_frame:
+        grids[0] = grids[0] + start_frame
     cos_parts, sin_parts = [], []
     for dim, grid in zip(rope_dim_list, grids, strict=True):
         freqs = 1.0 / (theta**(np.arange(0, dim, 2, dtype=np.float64)[:dim // 2]
@@ -43,10 +47,12 @@ def wan_rope_dim_list(head_dim: int) -> tuple[int, int, int]:
 
 
 def get_rotary_pos_embed_wan(grid_thw: tuple[int, int, int], head_dim: int,
-                             theta: float = 10000.0, *, device=None
+                             theta: float = 10000.0, start_frame: int = 0, *,
+                             device=None
                              ) -> tuple[torch.Tensor, torch.Tensor]:
     cos, sin = get_nd_rotary_pos_embed(wan_rope_dim_list(head_dim),
-                                       tuple(grid_thw), theta)
+                                       tuple(grid_thw), theta,
+                                       start_frame=start_frame)
     return (torch.as_tensor(cos, device=device),
             torch.as_tensor(sin, device=device))
 

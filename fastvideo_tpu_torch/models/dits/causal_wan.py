@@ -1,0 +1,279 @@
+"""Causal Wan: the block-autoregressive DiT with rolling KV caches (port of
+fastvideo_tpu/models/dits/causal_wan.py), for self-forcing streaming.
+
+A layer's cache is a dict of fixed-size buffers: ``sink_k``/``sink_v``
+[B, sink_tokens, H, D], written while the stream is inside the sink region
+(by absolute position) and then frozen, and a rolling window ``k``/``v``
+[B, W, H, D] that shifts left by a block and appends it at the end. Empty
+window slots sit at the front and are masked by the ``valid`` count; window
+slots whose absolute position falls inside the sink region are masked too,
+so each token is attended once. Keys are cached after RoPE, at absolute
+positions (``start_frame``). ``valid`` and ``global_end`` are host ints.
+
+The denoise passes of a block read the caches and leave them as they were;
+only the clean commit pass (t = 0) writes them. :func:`cached_self_attention`
+never writes its input cache: it returns the new buffers (new tensors: the
+rolling shift is a concatenation, no overlapping in-place copy), and
+``forward_block(update_caches=True)`` swaps each layer's buffers for them
+as it goes, so the commit holds one layer's second copy at a time, never a
+second cache.
+
+Attention over the cache takes the kv-mask flash kernel K5
+(``ops.flash_attention.flash_attention_kv_mask``) where the JAX package
+takes its Pallas twin: at least 1,024 keys and a head dim that is a
+multiple of 128. Elsewhere it is the dense bias softmax, plain PyTorch
+here as it is XLA in JAX. The cross-attention over the cached text K/V
+goes through K1.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from fastvideo_tpu_torch.layers.embeddings import unpatchify
+from fastvideo_tpu_torch.layers.rotary import (apply_rotary_emb,
+                                               get_rotary_pos_embed_wan)
+from fastvideo_tpu_torch.models.dits.wan import (WanTransformer3DModel,
+                                                 WanTransformerBlock)
+from fastvideo_tpu_torch.ops.flash_attention import (flash_attention,
+                                                     flash_attention_kv_mask)
+
+NEG_INF = float(torch.finfo(torch.float32).min)
+# the window in latent frames when local_attn_size is -1
+SLIDING_WINDOW_NUM_FRAMES = 21
+# the smallest key count that takes K5, as in the JAX package
+FLASH_MIN_KEYS = 1024
+
+
+def init_layer_cache(batch_size: int, window_tokens: int, sink_tokens: int,
+                     num_heads: int, head_dim: int,
+                     dtype: torch.dtype = torch.bfloat16,
+                     device=None) -> dict:
+    """``window_tokens`` is the whole attention budget; the sink lives
+    inside it, so the rolling part holds window_tokens - sink_tokens."""
+    def z(n):
+        return torch.zeros((batch_size, n, num_heads, head_dim), dtype=dtype,
+                           device=device)
+
+    roll = max(window_tokens - sink_tokens, 0)
+    return {"k": z(roll), "v": z(roll), "sink_k": z(sink_tokens),
+            "sink_v": z(sink_tokens), "valid": 0, "global_end": 0}
+
+
+def _append_rolling(buf: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
+    """Shift left by len(new) and append new at the end, as a new tensor."""
+    n = new.shape[1]
+    if n >= buf.shape[1]:
+        return new[:, -buf.shape[1]:]
+    return torch.cat([buf[:, n:], new.to(buf.dtype)], dim=1)
+
+
+def _dense_attention(q, k, v, ok, scale):
+    """``jax.nn.dot_product_attention`` with a [S_kv] bias of 0 / NEG_INF:
+    fp32 logits and softmax, the probabilities in the key dtype."""
+    logits = torch.einsum("bthd,bshd->bhts", q.float(), k.float()) * scale
+    bias = torch.where(ok, 0.0, NEG_INF)[None, None, None, :]
+    probs = torch.softmax(logits + bias, dim=-1).to(k.dtype)
+    return torch.einsum("bhts,bshd->bthd", probs, v)
+
+
+def cached_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          cache: dict, scale: float
+                          ) -> tuple[torch.Tensor, dict]:
+    """q/k/v [B, n, H, D] (already roped). Returns (out, new cache); the
+    input cache is left as it was."""
+    n = q.shape[1]
+    window = cache["k"].shape[1]
+    sink_cap = cache["sink_k"].shape[1]
+    global_end = cache["global_end"] + n
+    dev = q.device
+
+    if sink_cap > 0:
+        # sink slot j takes new token (j - start) when 0 <= j - start < n:
+        # an exact gather and select by absolute position
+        src_idx = torch.arange(sink_cap, device=dev) - cache["global_end"]
+        in_range = ((src_idx >= 0) & (src_idx < n))[None, :, None, None]
+        gather = src_idx.clamp(0, n - 1)
+        sink_k = torch.where(in_range, k[:, gather].to(cache["sink_k"].dtype),
+                             cache["sink_k"])
+        sink_v = torch.where(in_range, v[:, gather].to(cache["sink_v"].dtype),
+                             cache["sink_v"])
+    else:
+        sink_k, sink_v = cache["sink_k"], cache["sink_v"]
+
+    new_k = _append_rolling(cache["k"], k)
+    new_v = _append_rolling(cache["v"], v)
+    valid = min(cache["valid"] + n, window)
+
+    # window slots [0, window - valid) are empty; sink slots past
+    # min(global_end, sink_cap) are empty; window slots whose absolute
+    # position lies in the sink region are attended through the sink
+    win_pos = torch.arange(window, device=dev)
+    win_ok = win_pos >= (window - valid)
+    if sink_cap > 0:
+        abs_pos = global_end - window + win_pos
+        win_ok = win_ok & (abs_pos >= sink_cap)
+        sink_ok = torch.arange(sink_cap, device=dev) < min(global_end,
+                                                           sink_cap)
+        keys = torch.cat([sink_k, new_k], dim=1)
+        vals = torch.cat([sink_v, new_v], dim=1)
+        ok = torch.cat([sink_ok, win_ok])
+    else:
+        keys, vals, ok = new_k, new_v, win_ok
+
+    if keys.shape[1] >= FLASH_MIN_KEYS and q.shape[-1] % 128 == 0:
+        out = flash_attention_kv_mask(q, keys.to(q.dtype), vals.to(q.dtype),
+                                      ok, scale=scale)
+    else:
+        out = _dense_attention(q, keys.to(q.dtype), vals.to(q.dtype), ok,
+                               scale)
+    new_cache = dict(cache, k=new_k, v=new_v, valid=valid,
+                     global_end=global_end, sink_k=sink_k, sink_v=sink_v)
+    return out, new_cache
+
+
+class CausalWanTransformerBlock(WanTransformerBlock):
+    """Wan block with cached causal self-attention and cached text K/V."""
+
+    def causal_forward(self, hidden_states: torch.Tensor,
+                       temb: torch.Tensor,
+                       freqs_cis: tuple[torch.Tensor, torch.Tensor],
+                       kv_cache: dict, crossattn_cache: dict
+                       ) -> tuple[torch.Tensor, dict]:
+        orig_dtype = hidden_states.dtype
+        b = hidden_states.shape[0]
+        n, d = self.num_heads, self.dim // self.num_heads
+        e = self.scale_shift_table.float() + temb.float()
+        shift_msa, scale_msa, gate_msa, c_shift, c_scale, c_gate = (
+            e[:, i:i + 1] for i in range(6))
+
+        norm_hidden = self.norm1.norm_f32(hidden_states)
+        norm_hidden = (norm_hidden * (1.0 + scale_msa) + shift_msa).to(
+            orig_dtype)
+        q = self.norm_q(self.to_q(norm_hidden)).reshape(b, -1, n, d)
+        k = self.norm_k(self.to_k(norm_hidden)).reshape(b, -1, n, d)
+        v = self.to_v(norm_hidden).reshape(b, -1, n, d)
+        cos, sin = freqs_cis
+        q = apply_rotary_emb(q, cos, sin)
+        k = apply_rotary_emb(k, cos, sin)
+        attn_out, kv_cache = cached_self_attention(q, k, v, kv_cache,
+                                                   scale=d**-0.5)
+        attn_out = self.to_out(attn_out.reshape(b, -1, self.dim))
+        norm_hidden, hidden_states = self.self_attn_residual_norm(
+            hidden_states, attn_out, gate_msa, 0.0, 0.0)
+
+        # cross-attention over the cached text K/V
+        ca = self.attn2
+        qx = ca.norm_q(ca.to_q(norm_hidden)).reshape(b, -1, n, d)
+        kx, vx = crossattn_cache["k"], crossattn_cache["v"]
+        x_out = flash_attention(qx, kx.to(qx.dtype), vx.to(qx.dtype))
+        attn_out = ca.to_out(x_out.reshape(b, -1, self.dim))
+        norm_hidden, hidden_states = self.cross_attn_residual_norm(
+            hidden_states, attn_out, 1.0, c_shift, c_scale)
+
+        ff = self.ffn(norm_hidden)
+        hidden_states = self.mlp_residual(hidden_states, ff, c_gate)
+        return hidden_states.to(orig_dtype), kv_cache
+
+
+class CausalWanTransformer3DModel(WanTransformer3DModel):
+    """Block-autoregressive Wan. Its parameters are the Wan DiT's."""
+
+    block_cls = CausalWanTransformerBlock
+
+    # -- caches -------------------------------------------------------------
+
+    def init_caches(self, batch_size: int, frame_seqlen: int,
+                    dtype: torch.dtype = torch.bfloat16,
+                    device=None) -> list[dict]:
+        cfg = self.config
+        if cfg.local_attn_size != -1:
+            window = cfg.local_attn_size * frame_seqlen
+        else:
+            window = SLIDING_WINDOW_NUM_FRAMES * frame_seqlen
+        sink = cfg.sink_size * frame_seqlen
+        return [init_layer_cache(batch_size, window, sink,
+                                 cfg.num_attention_heads,
+                                 cfg.attention_head_dim, dtype, device)
+                for _ in range(cfg.num_layers)]
+
+    def precompute_crossattn_caches(self, encoder_hidden_states: torch.Tensor,
+                                    dtype: torch.dtype | None = None
+                                    ) -> list[dict]:
+        """Each layer's text K/V, once per prompt: the context is the same
+        for every block and denoise step."""
+        ctx = self.condition_embedder.text_embedder(encoder_hidden_states)
+        if dtype is not None:
+            ctx = ctx.to(dtype)
+        b = ctx.shape[0]
+        caches = []
+        for block in self.blocks:
+            ca = block.attn2
+            n, d = block.num_heads, block.dim // block.num_heads
+            caches.append({"k": ca.norm_k(ca.to_k(ctx)).reshape(b, -1, n, d),
+                           "v": ca.to_v(ctx).reshape(b, -1, n, d)})
+        return caches
+
+    # -- block forward ------------------------------------------------------
+
+    def forward_block(self, hidden_states: torch.Tensor,
+                      encoder_hidden_states: torch.Tensor,
+                      timestep: torch.Tensor, kv_caches: list[dict],
+                      crossattn_caches: list[dict] | None = None,
+                      start_frame: int = 0,
+                      freqs_cis: tuple[torch.Tensor,
+                                       torch.Tensor] | None = None,
+                      *, update_caches: bool = True
+                      ) -> tuple[torch.Tensor, list[dict]]:
+        """One autoregressive block: hidden_states [B, C, Tb, H, W] ->
+        (pred [B, C, Tb, H, W], kv_caches). With ``update_caches`` (the
+        commit pass) each layer's cache dict takes its new buffers as the
+        layer runs; without it (a denoise pass) the caches are only read.
+        Without ``crossattn_caches`` the text K/V are projected here, as
+        ``precompute_crossattn_caches`` does once per prompt."""
+        cfg = self.config
+        _, _, t, h, w = hidden_states.shape
+        pt, ph, pw = cfg.patch_size
+        grid = (t // pt, h // ph, w // pw)
+        if freqs_cis is None:
+            freqs_cis = get_rotary_pos_embed_wan(
+                grid, cfg.attention_head_dim, cfg.rope_theta,
+                start_frame=start_frame, device=hidden_states.device)
+        x = self.patch_embedding(hidden_states)
+
+        ce = self.condition_embedder
+        temb = ce.time_embedder(timestep.reshape(-1))
+        timestep_proj = ce.time_modulation(temb)
+        timestep_proj = timestep_proj.reshape(timestep_proj.shape[0], 6, -1)
+        if crossattn_caches is None:
+            crossattn_caches = self.precompute_crossattn_caches(
+                encoder_hidden_states, x.dtype)
+
+        for i, block in enumerate(self.blocks):
+            x, new_cache = block.causal_forward(x, timestep_proj, freqs_cis,
+                                                kv_caches[i],
+                                                crossattn_caches[i])
+            if update_caches:
+                kv_caches[i].update(new_cache)
+            del new_cache
+
+        e = self.scale_shift_table.float() + temb.float()[:, None]
+        x = self.norm_out(x, e[:, 0:1], e[:, 1:2])
+        x = self.proj_out(x)
+        out = unpatchify(x, *grid, cfg.patch_size, cfg.out_channels)
+        return out, kv_caches
+
+    def train_forward(self, *args, **kwargs):
+        raise NotImplementedError(
+            "the causal Wan's blockwise-causal training forward (and K1's "
+            "chunk_tokens / tf_clean_len masks it needs) comes with the "
+            "training slice, ROADMAP Queue 1 item 4")
+
+
+def _masked_block_forward(*args, **kwargs):
+    raise NotImplementedError(
+        "_masked_block_forward is the training forward's block; it comes "
+        "with the training slice, ROADMAP Queue 1 item 4")
+
+
+EntryClass = CausalWanTransformer3DModel

@@ -184,6 +184,10 @@ class WanTransformerBlockVSA(WanTransformerBlock):
 class WanTransformer3DModel(nn.Module):
     """Top-level Wan T2V DiT: [B, C, T, H, W] latents -> flow prediction."""
 
+    # a subclass with its own block class (the causal Wan) never runs in
+    # the VSA tile-major order
+    block_cls: type[WanTransformerBlock] | None = None
+
     def __init__(self, config: WanArchConfig, *, device=None, dtype=None):
         super().__init__()
         if config.image_dim is not None or config.added_kv_proj_dim is not None:
@@ -196,9 +200,11 @@ class WanTransformer3DModel(nn.Module):
                                             config.patch_size, **kw)
         self.condition_embedder = WanTimeTextEmbedding(
             inner_dim, config.freq_dim, config.text_dim, **kw)
-        self.vsa_tiled_order = resolve_backend_name() == "VIDEO_SPARSE_ATTN"
-        block_cls = (WanTransformerBlockVSA if self.vsa_tiled_order else
-                     WanTransformerBlock)
+        self.vsa_tiled_order = (self.block_cls is None and
+                                resolve_backend_name() == "VIDEO_SPARSE_ATTN")
+        block_cls = self.block_cls or (WanTransformerBlockVSA
+                                       if self.vsa_tiled_order else
+                                       WanTransformerBlock)
         self.blocks = nn.ModuleList([
             block_cls(inner_dim, config.ffn_dim, config.num_attention_heads,
                       config.qk_norm, config.eps, **kw)

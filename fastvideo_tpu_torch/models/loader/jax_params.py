@@ -15,7 +15,9 @@ and applies the layout rules of ``fastvideo_tpu.models.loader.export``
 * list indices and every other leaf keep their path and value.
 
 The result's keys are the port module's ``state_dict()`` keys, and the
-same keys ``export_torch_layout`` writes into a checkpoint.
+same keys ``export_torch_layout`` writes into a checkpoint. A JAX
+``CausalWanTransformer3DModel`` has the Wan DiT's parameter tree, so its
+parameters carry over by the same rules.
 """
 
 from __future__ import annotations

@@ -13,6 +13,11 @@ def resolve_model_cls(class_name: str):
         from fastvideo_tpu_torch.models.dits.wan import WanTransformer3DModel
 
         return WanTransformer3DModel, WanArchConfig
+    if class_name == "CausalWanTransformer3DModel":
+        from fastvideo_tpu_torch.models.dits.causal_wan import (
+            CausalWanTransformer3DModel)
+
+        return CausalWanTransformer3DModel, WanArchConfig
     if class_name == "AutoencoderKLWan":
         from fastvideo_tpu_torch.models.vaes.wan import AutoencoderKLWan
 
@@ -33,6 +38,11 @@ def resolve_scheduler_cls(class_name: str):
             FlowUniPCMultistepScheduler)
 
         return FlowUniPCMultistepScheduler
+    if class_name == "FlowMatchEulerDiscreteScheduler":
+        from fastvideo_tpu_torch.models.schedulers.flow_match_euler import (
+            FlowMatchEulerDiscreteScheduler)
+
+        return FlowMatchEulerDiscreteScheduler
     if class_name == "RCMScheduler":
         from fastvideo_tpu_torch.models.schedulers.scheduling_rcm import (
             RCMScheduler)

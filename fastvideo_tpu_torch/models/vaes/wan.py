@@ -10,6 +10,8 @@ equal to the channel count).
 Long clips decode in chunks of latent frames, a Python loop in which each
 causal conv carries its last two input frames to the next chunk
 (``StreamCache``), so the chunked decode equals the whole-clip decode.
+``streaming_decode`` exposes the same carried cache to a caller that
+decodes a stream chunk by chunk (the streaming generator).
 """
 
 from __future__ import annotations
@@ -331,3 +333,24 @@ class AutoencoderKLWan(nn.Module):
                                      ctx=ctx))
         return torch.cat(outs, dim=1)
 
+
+    def streaming_decode(self, z: torch.Tensor,
+                         cache: list[torch.Tensor] | None,
+                         is_first_chunk: bool = False
+                         ) -> tuple[torch.Tensor, list[torch.Tensor]]:
+        """Causal streaming decode: one chunk z [B, C, T, H, W]
+        (denormalized) in, (pixels [B, 3, T', H', W'], the new conv cache)
+        out. With no cache the causal context is zeros and, for the
+        stream's first chunk, its first frame is not doubled in time."""
+        first_len = 1 if cache is None and is_first_chunk else 0
+        ctx = StreamCache(cache)
+        out = self._streaming_decode_body(z, ctx, first_len)
+        return out, ctx.out
+
+    def _streaming_decode_body(self, z: torch.Tensor, ctx: StreamCache,
+                               first_len: int) -> torch.Tensor:
+        x = self.post_quant_conv(z.permute(0, 2, 3, 4, 1))
+        out = self.decoder(x, first_len=first_len, ctx=ctx).float()
+        if self.config.clip_output:
+            out = out.clamp(-1.0, 1.0)
+        return out.permute(0, 4, 1, 2, 3)

@@ -1,6 +1,7 @@
 """Hand-written Hopper kernels with their plain PyTorch versions.
 
-K1 ``flash_attention`` (csrc/flash_fwd.cu), K2 ``block_sparse_attention_fast``
+K1 ``flash_attention`` and K5 ``flash_attention_kv_mask``
+(csrc/flash_fwd.cu), K2 ``block_sparse_attention_fast``
 (csrc/vsa_sparse_fwd.cu), K7 forward / K8 ``block_sparse_attention``
 (csrc/vsa_sparse_padded_fwd.cu, also under ``sta`` and ``sla``), K3
 ``conv3d_ndhwc`` (csrc/conv3d.cu), K4 ``conv3d_int8`` (csrc/conv3d_int8.cu,

@@ -9,7 +9,9 @@ reused. Nothing builds when the module is imported.
 
 Every kernel wrapper calls :func:`count_launch` where it launches its
 kernel and :func:`count_plain` where it runs its plain PyTorch version, so
-a run can show which path the work took.
+a run can show which path the work took. A kernel is counted by its own
+name even where it shares a source with another (K5, ``flash_fwd_kv_mask``,
+is an entry of ``flash_fwd.cu``).
 """
 
 from __future__ import annotations
@@ -27,8 +29,12 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-KERNELS = ("flash_fwd", "vsa_sparse_fwd", "vsa_sparse_padded_fwd", "conv3d",
+# one shared library per csrc/<name>.cu
+SOURCES = ("flash_fwd", "vsa_sparse_fwd", "vsa_sparse_padded_fwd", "conv3d",
            "conv3d_int8")
+# counted kernels -> the source that holds them
+SOURCE_OF = {**{n: n for n in SOURCES}, "flash_fwd_kv_mask": "flash_fwd"}
+KERNELS = tuple(SOURCE_OF)
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -85,8 +91,8 @@ def build_all() -> dict[str, str]:
     import time
 
     out_dir = build_dir()
-    paths = {n: os.path.join(out_dir, f"lib{n}.so") for n in KERNELS}
-    todo = [n for n in KERNELS if not os.path.exists(paths[n])]
+    paths = {n: os.path.join(out_dir, f"lib{n}.so") for n in SOURCES}
+    todo = [n for n in SOURCES if not os.path.exists(paths[n])]
     t0 = time.perf_counter()
     if todo:
         nvcc = _nvcc()
@@ -117,6 +123,10 @@ _SIGNATURES = {
     "fvt_flash_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 +
     [ctypes.c_longlong] * 12 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                                 ctypes.c_void_p],
+    # q, k, v, o, lse, kv_mask (uint8 [Skv]), dtype, B, H, Sq, Skv, D,
+    # 12 strides, scale, stream
+    "fvt_flash_fwd_kv_mask": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 +
+    [ctypes.c_longlong] * 12 + [ctypes.c_float, ctypes.c_void_p],
     # q, k, v, o, indices, B, H, S, D, E, ng, topk, 12 strides, scale,
     # stream
     "fvt_vsa_sparse_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 +
@@ -125,17 +135,19 @@ _SIGNATURES = {
     # 12 strides, scale, stream
     "fvt_vsa_sparse_padded_fwd": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 +
     [ctypes.c_longlong] * 12 + [ctypes.c_float, ctypes.c_void_p],
-    # x, w, bias, y, B, T, H, W, C, Co, kt, time_pad, stream
-    "fvt_conv3d_ndhwc": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 +
+    # x, w, bias, y, dtype, B, T, H, W, C, Co, kt, time_pad, stream
+    "fvt_conv3d_ndhwc": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 +
     [ctypes.c_void_p],
-    # xq, w [Co, K], scale, bias, y, B, T, H, W, C, Co, kt, time_pad, stream
-    "fvt_conv3d_int8_ndhwc": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 +
+    # xq, w [Co, K], scale, bias, y, out dtype, B, T, H, W, C, Co, kt,
+    # time_pad, stream
+    "fvt_conv3d_int8_ndhwc": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 +
     [ctypes.c_void_p],
 }
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, building all kernels first."""
+    name = SOURCE_OF[name]
     with _lock:
         if name not in _libs:
             paths = build_all()

@@ -19,6 +19,10 @@ cast to the input dtype. On a CUDA tensor that is the hand-written kernel
 ``csrc/conv3d_int8.cu`` (K4, replacing ``_conv_kernel_thcw_kf_int8``), on a
 CPU tensor :func:`conv3d_int8_plain`. Every other conv keeps K3, as JAX
 keeps its bf16 kernel.
+
+Both kernels serve an fp32 decode (``vae_decode_precision="fp32"``) as the
+JAX kernels do: K3 takes fp32 operands (fp32 FMAs, fp32 output) and K4
+writes fp32 when the input is fp32.
 """
 
 from __future__ import annotations
@@ -36,6 +40,8 @@ NAME_INT8 = "conv3d_int8"
 CONV3D_MODES = ("auto", "tap", "kf", "thcw", "nb", "dw", "dhw", "full",
                 "hoist", "dma", "shift3", "tfold", "wino")
 INT8_MODES = ("kf_int8", "auto_int8")
+# operand dtype -> the kernels' dtype code
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def vae_conv3d_mode() -> str:
@@ -161,9 +167,9 @@ def _conv3d_int8_cuda(xq, wq, scale, bias, time_pad, out_dtype):
         raise _build.KernelError(
             f"conv3d_int8: takes fp32 scale and bias, got {scale.dtype}, "
             f"{bias.dtype}")
-    if out_dtype != torch.bfloat16:
+    if out_dtype not in _DTYPE_CODES:
         raise _build.KernelError(
-            f"conv3d_int8: writes bfloat16, asked for {out_dtype}")
+            f"conv3d_int8: writes bfloat16 or float32, asked for {out_dtype}")
     kt, kh, kw, c, co = wq.shape
     if ((kh, kw) != (3, 3) or kt not in (1, 3) or c % 32 or co % 32
             or xq.shape[-1] != c or scale.shape != (co,)
@@ -181,8 +187,9 @@ def _conv3d_int8_cuda(xq, wq, scale, bias, time_pad, out_dtype):
                     device=xq.device)
     _build.launch(NAME_INT8, "fvt_conv3d_int8_ndhwc", xq.data_ptr(),
                   w_nk.data_ptr(), scale.contiguous().data_ptr(),
-                  bias.contiguous().data_ptr(), y.data_ptr(), bsz, t, h, wd,
-                  c, co, kt, time_pad, _build.stream_ptr(xq))
+                  bias.contiguous().data_ptr(), y.data_ptr(),
+                  _DTYPE_CODES[out_dtype], bsz, t, h, wd, c, co, kt, time_pad,
+                  _build.stream_ptr(xq))
     return y
 
 
@@ -191,7 +198,8 @@ def conv3d_int8(xq: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
                 out_dtype: torch.dtype) -> torch.Tensor:
     """K4: causal conv of int8 xq [B, T, H, W, C] with int8 wq [kt, 3, 3, C,
     Co], int32 sums, out = (acc * scale[co] + bias[co]) in fp32 cast to
-    ``out_dtype``; ``time_pad`` zero frames in front, SAME spatial pad."""
+    ``out_dtype`` (bfloat16 or float32); ``time_pad`` zero frames in front,
+    SAME spatial pad."""
     if xq.is_cuda:
         return _conv3d_int8_cuda(xq, wq, scale, bias, time_pad, out_dtype)
     if xq.device.type == "cpu":
@@ -206,9 +214,9 @@ def _conv3d_cuda(x, w, b, time_pad, gamma):
         raise _build.KernelError(
             "conv3d: the fused RMSNorm+SiLU prologue is not ported to CUDA "
             "(it is off by default: FASTVIDEO_VAE_FUSE_NORM=0)")
-    if any(t.dtype != torch.bfloat16 for t in (x, w, b)):
+    if x.dtype not in _DTYPE_CODES or any(t.dtype != x.dtype for t in (w, b)):
         raise _build.KernelError(
-            f"conv3d: takes bfloat16 operands, got "
+            f"conv3d: takes bfloat16 or float32 operands of one dtype, got "
             f"{[t.dtype for t in (x, w, b)]}")
     kt, kh, kw, c, co = w.shape
     if (kh, kw) != (3, 3) or kt not in (1, 3) or c % 8 or x.shape[-1] != c:
@@ -224,8 +232,8 @@ def _conv3d_cuda(x, w, b, time_pad, gamma):
     t_out = t + time_pad - kt + 1
     y = torch.empty((bsz, t_out, h, wd, co), dtype=x.dtype, device=x.device)
     _build.launch(NAME, "fvt_conv3d_ndhwc", x.data_ptr(), w.data_ptr(),
-                  b.data_ptr(), y.data_ptr(), bsz, t, h, wd, c, co, kt,
-                  time_pad, _build.stream_ptr(x))
+                  b.data_ptr(), y.data_ptr(), _DTYPE_CODES[x.dtype], bsz, t, h,
+                  wd, c, co, kt, time_pad, _build.stream_ptr(x))
     return y
 
 

@@ -6,10 +6,18 @@ On a CUDA tensor it launches the hand-written sm_90a kernel
 tensor it runs :func:`flash_attention_plain`, the same arithmetic in plain
 PyTorch. There is no fallback between the two.
 
+``flash_attention_kv_mask`` is K5, the same kernel with a per-key mask
+``[S_kv]`` (replacing ``_fwd_kernel`` with ``has_kv_mask``, reached through
+the JAX ``flash_attention_kv_mask``): the causal Wan's attention over its
+rolling KV cache, whose key validity changes from one stream block to the
+next. Its plain version is :func:`flash_attention_kv_mask_plain`.
+
 Numerics follow the JAX kernel: fp32 scores and softmax statistics, the
 probabilities rounded to the value dtype before the P@V product, and a row
 with no valid key outputs 0. Masked keys are excluded exactly (-inf), so
-that row's log-sum-exp is -inf.
+that row's log-sum-exp is -inf. The JAX kernel masks with a finite
+``DEFAULT_MASK_VALUE`` instead; the two agree on every row that has a
+valid key.
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ import torch
 from fastvideo_tpu_torch.ops import _build
 
 NAME = "flash_fwd"
+NAME_KV_MASK = "flash_fwd_kv_mask"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -43,10 +52,26 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.count_plain(NAME)
     sq, skv = q.shape[1], k.shape[1]
     kv_valid = skv if kv_valid is None else kv_valid
+    mask = _structural_mask(sq, skv, kv_valid, causal, q.device)
+    return _masked_attention(q, k, v, mask, scale)
+
+
+def flash_attention_kv_mask_plain(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, kv_mask: torch.Tensor, *,
+                                  scale: float) -> torch.Tensor:
+    """Plain PyTorch version of K5: K1's with key j visible where
+    ``kv_mask[j] != 0``. Returns out [B, Sq, H, D]."""
+    _build.count_plain(NAME_KV_MASK)
+    mask = (kv_mask.reshape(1, -1) != 0).to(q.device)
+    return _masked_attention(q, k, v, mask, scale)[0]
+
+
+def _masked_attention(q, k, v, mask, scale):
+    """Softmax attention over [B, S, H, D] where ``mask`` [Sq or 1, Skv]
+    says which keys a query row sees."""
     qf = q.float().transpose(1, 2)
     kf = k.float().transpose(1, 2)
     s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
-    mask = _structural_mask(sq, skv, kv_valid, causal, q.device)
     s = s.masked_fill(~mask, float("-inf"))
     m = s.amax(dim=-1, keepdim=True)
     m_safe = torch.where(torch.isinf(m), torch.zeros_like(m), m)
@@ -98,6 +123,46 @@ def _flash_attention_cuda(q, k, v, *, scale, causal, kv_valid):
                   float(scale), int(causal), int(kv_valid),
                   _build.stream_ptr(q))
     return out, lse
+
+
+def _flash_attention_kv_mask_cuda(q, k, v, kv_mask, *, scale):
+    dtype = _check_cuda_operands(NAME_KV_MASK, q, k, v)
+    if kv_mask.shape != (k.shape[1],) or kv_mask.device != q.device:
+        raise _build.KernelError(
+            f"{NAME_KV_MASK}: kv_mask must be [{k.shape[1]}] on {q.device}, "
+            f"got {tuple(kv_mask.shape)} on {kv_mask.device}")
+    mask = (kv_mask if kv_mask.dtype == torch.bool else kv_mask != 0)
+    mask = mask.contiguous()  # one byte a key, 0 or 1
+    q, k, v = attn_operand(q), attn_operand(k), attn_operand(v)
+    b, sq, h, d = q.shape
+    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+
+    def bhs(t):
+        return t.stride(0), t.stride(2), t.stride(1)
+
+    # no LSE: the JAX function returns none (a null pointer skips it)
+    _build.launch(NAME_KV_MASK, "fvt_flash_fwd_kv_mask", q.data_ptr(),
+                  k.data_ptr(), v.data_ptr(), out.data_ptr(), None,
+                  mask.data_ptr(), dtype, b, h, sq, k.shape[1], d, *bhs(q),
+                  *bhs(k), *bhs(v), *bhs(out), float(scale),
+                  _build.stream_ptr(q))
+    return out
+
+
+def flash_attention_kv_mask(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, kv_mask: torch.Tensor, *,
+                            scale: float | None = None) -> torch.Tensor:
+    """K5: flash attention over ``[B, S, H, D]`` tensors where key j is
+    visible to every query where ``kv_mask[j] != 0`` (``kv_mask`` [S_kv],
+    bool or 0/1, its values free to change between calls). Forward only,
+    as in the JAX package."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.is_cuda:
+        return _flash_attention_kv_mask_cuda(q, k, v, kv_mask, scale=scale)
+    if q.device.type == "cpu":
+        return flash_attention_kv_mask_plain(q, k, v, kv_mask, scale=scale)
+    raise _build.KernelError(f"{NAME_KV_MASK}: unsupported device {q.device}")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

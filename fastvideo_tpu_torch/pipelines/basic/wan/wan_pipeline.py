@@ -1,14 +1,19 @@
 """Wan T2V pipelines (port of
-fastvideo_tpu/pipelines/basic/wan/wan_pipeline.py): WanPipeline and the
-3-step DMD WanDMDPipeline. Wan always uses FlowUniPC timesteps, whatever
-scheduler the checkpoint names."""
+fastvideo_tpu/pipelines/basic/wan/wan_pipeline.py): WanPipeline, the 3-step
+DMD WanDMDPipeline and the self-forcing WanCausalDMDPipeline. Wan uses
+FlowUniPC timesteps and the causal Wan flow-match Euler, whatever scheduler
+the checkpoint names."""
 
 from __future__ import annotations
 
 from fastvideo_tpu_torch.fastvideo_args import FastVideoArgs
+from fastvideo_tpu_torch.models.schedulers.flow_match_euler import (
+    FlowMatchEulerDiscreteScheduler)
 from fastvideo_tpu_torch.models.schedulers.flow_unipc import (
     FlowUniPCMultistepScheduler)
 from fastvideo_tpu_torch.pipelines.composed import ComposedPipelineBase
+from fastvideo_tpu_torch.pipelines.stages.causal_denoising import (
+    CausalDenoisingStage)
 from fastvideo_tpu_torch.pipelines.stages.decoding import DecodingStage
 from fastvideo_tpu_torch.pipelines.stages.denoising import (DenoisingStage,
                                                             DmdDenoisingStage)
@@ -60,3 +65,20 @@ class WanDMDPipeline(WanPipeline):
                                 self.pipeline_config, device=self.device)
         self._stages[self._stages.index(self.denoising_stage)] = dmd
         self.denoising_stage = dmd
+
+
+class WanCausalDMDPipeline(WanPipeline):
+    """Self-forcing causal generation: the causal Wan denoises block by
+    block over its rolling KV caches."""
+
+    def initialize_pipeline(self, fastvideo_args: FastVideoArgs) -> None:
+        self.modules["scheduler"] = FlowMatchEulerDiscreteScheduler(
+            shift=self.pipeline_config.flow_shift or 5.0)
+
+    def create_pipeline_stages(self, fastvideo_args: FastVideoArgs) -> None:
+        super().create_pipeline_stages(fastvideo_args)
+        causal = CausalDenoisingStage(self.get_module("transformer"),
+                                      self.get_module("scheduler"),
+                                      self.pipeline_config, device=self.device)
+        self._stages[self._stages.index(self.denoising_stage)] = causal
+        self.denoising_stage = causal

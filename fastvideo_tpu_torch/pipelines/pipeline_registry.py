@@ -1,17 +1,19 @@
 """model_index ``_class_name`` -> pipeline class (port of
-fastvideo_tpu/pipelines/pipeline_registry.py, the Wan and TurboDiffusion
-T2V entries)."""
+fastvideo_tpu/pipelines/pipeline_registry.py, the Wan, causal Wan and
+TurboDiffusion T2V entries)."""
 
 from __future__ import annotations
 
 from fastvideo_tpu_torch.pipelines.basic.turbodiffusion import (
     turbodiffusion_pipeline as turbo)
 from fastvideo_tpu_torch.pipelines.basic.wan.wan_pipeline import (
-    WanDMDPipeline, WanPipeline)
+    WanCausalDMDPipeline, WanDMDPipeline, WanPipeline)
 
 _PIPELINES = {
     "WanPipeline": WanPipeline,
     "WanDMDPipeline": WanDMDPipeline,
+    "WanCausalDMDPipeline": WanCausalDMDPipeline,
+    "CausalWanPipeline": WanCausalDMDPipeline,
     "TurboDiffusionPipeline": turbo.TurboDiffusionPipeline,
 }
 

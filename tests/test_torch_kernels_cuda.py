@@ -1,9 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 at edge shapes the main path does not reach (ragged lengths, batch > 1,
 fp32 flash attention, non-contiguous views, channel tails; the int8 conv K4
-and the W8A8 linear). Marked ``cuda``: they skip
-without an sm_90 card. On the card (which has no JAX, so without the
-suite's conftest):
+and the W8A8 linear; the kv-mask flash kernel K5 and the fp32 decode
+convs). Marked ``cuda``: they skip without an sm_90 card. On the card
+(which has no JAX, so without the suite's conftest):
 
     python -m pytest tests/test_torch_kernels_cuda.py -m cuda --noconftest -q
 """
@@ -53,6 +53,7 @@ def _close(got, want, dtype, attention=True):
     (torch.bfloat16, 384, False, 60),
     (torch.float32, 64, True, None),
     (torch.float32, 384, False, 0),
+    (torch.float32, 384, False, None),  # the VAE attention of an fp32 decode
 ])
 def test_flash_matches_plain(dev, dtype, d, causal, kv_valid):
     g = torch.Generator(device=dev).manual_seed(0)
@@ -304,22 +305,112 @@ def test_conv3d_int8_refuses_other_operands(dev):
         conv3d.conv3d_int8(xq.to(torch.bfloat16), wq, scale, bias, **kw)
     with pytest.raises(_build.KernelError, match="multiples of 32"):
         conv3d.conv3d_int8(xq[..., :16], wq[:, :, :, :16], scale, bias, **kw)
-    with pytest.raises(_build.KernelError, match="bfloat16"):
+    with pytest.raises(_build.KernelError, match="bfloat16 or float32"):
         conv3d.conv3d_int8(xq, wq, scale, bias, time_pad=2,
-                           out_dtype=torch.float32)
+                           out_dtype=torch.float16)
 
 
 @pytest.mark.parametrize("mode", ["auto", "kf_int8"])
 def test_fp32_decode_convs_raise_on_cuda(dev, mode):
-    # vae_decode_precision="fp32" decodes in fp32: the JAX package's kernels
-    # (and the port's CPU path) take it, but K3 takes bf16 operands and K4
-    # writes bf16, so on the card such a decode raises instead of falling
-    # back to a plain version
-    x = torch.zeros(1, 2, 3, 16, 32, device=dev)
-    w = torch.zeros(3, 3, 3, 32, 32, device=dev)
-    b = torch.zeros(32, device=dev)
-    with pytest.raises(_build.KernelError, match="bfloat16"):
-        conv3d.conv3d_ndhwc(x, w, b, time_pad=2, mode=mode)
+    # vae_decode_precision="fp32" decodes in fp32, as the JAX package's
+    # kernels do: K3 takes fp32 operands and K4 writes fp32. Once this test
+    # held that such a decode raised on the card; it now holds both kernels
+    # to the CPU's plain version: K3 within fp32 summation order, K4 bit
+    # for bit (exact int32 sums, the same quantized operands, the same
+    # rounding in the epilogue).
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn(1, 2, 3, 16, 32, generator=g, device=dev)
+    w = torch.randn(3, 3, 3, 32, 32, generator=g, device=dev) * (27 * 32)**-0.5
+    b = torch.randn(32, generator=g, device=dev)
+    name = "conv3d_int8" if mode == "kf_int8" else "conv3d"
+    before = dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
+    out = conv3d.conv3d_ndhwc(x, w, b, time_pad=2, mode=mode)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[name] == before[0][name] + 1
+    assert _build.PLAIN_CALLS == before[1]
+    assert out.dtype == torch.float32
+    ref = conv3d.conv3d_ndhwc(x.cpu(), w.cpu(), b.cpu(), time_pad=2,
+                              mode=mode)
+    if mode == "kf_int8":
+        assert torch.equal(out.cpu(), ref)
+    else:
+        _close_f32_conv(out.cpu(), ref)
+
+
+def _close_f32_conv(got, want):
+    # fp32 on both sides: the kernel sums the kt*9*C products in one
+    # sequential chain of FMAs, the plain version tap by tap; outputs are
+    # of order 1 here, so the orders differ by a few 1e-6
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("kt,time_pad,c,co", list(itertools.product(
+    [1, 3], [0, 2], [8, 64], [3, 40, 72])))
+def test_conv3d_fp32_matches_plain(dev, kt, time_pad, c, co):
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(2, 4, 5, 7, c, generator=g, device=dev)
+    w = torch.randn(kt, 3, 3, c, co, generator=g, device=dev) * (
+        kt * 9 * c)**-0.5
+    b = torch.randn(co, generator=g, device=dev)
+    out = conv3d.conv3d_ndhwc(x, w, b, time_pad=time_pad)
+    ref = conv3d.conv3d_ndhwc_plain(x, w, b, time_pad=time_pad)
+    assert out.shape == (2, 4 + time_pad - kt + 1, 5, 7, co)
+    torch.cuda.synchronize()
+    _close_f32_conv(out.cpu(), ref.cpu())
+
+
+def test_conv3d_int8_fp32_store_matches_plain(dev):
+    xq, wq, scale, bias = _int8_case(dev, 2, 3, 5, 13, 64, 96, 3)
+    kw = dict(time_pad=2, out_dtype=torch.float32)
+    out = conv3d.conv3d_int8(xq, wq, scale, bias, **kw)
+    ref = conv3d.conv3d_int8_plain(xq, wq, scale, bias, **kw)
+    torch.cuda.synchronize()
+    assert out.dtype == ref.dtype == torch.float32
+    assert torch.equal(out, ref)
+
+
+def _kv_mask(kind, skv, g, dev):
+    pos = torch.arange(skv, device=dev)
+    if kind == "empty_front":  # a stream's first blocks: the window's tail
+        return pos >= skv - 200
+    if kind == "sink_window":  # a frozen sink, then the filled window
+        return (pos < 96) | (pos >= 700)
+    return torch.rand(skv, generator=g, device=dev) < 0.3
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kind", ["empty_front", "sink_window", "random"])
+def test_flash_kv_mask_matches_plain(dev, kind, dtype):
+    g = torch.Generator(device=dev).manual_seed(5)
+    b, sq, skv, h, d = 1, 150, 1152, 2, 128
+    q = torch.randn(b, sq, h, d, generator=g, device=dev, dtype=dtype)
+    k = torch.randn(b, skv, h, d, generator=g, device=dev, dtype=dtype)
+    v = torch.randn(b, skv, h, d, generator=g, device=dev, dtype=dtype)
+    mask = _kv_mask(kind, skv, g, dev)
+    out = flash_attention.flash_attention_kv_mask(q, k, v, mask,
+                                                  scale=d**-0.5)
+    ref = flash_attention.flash_attention_kv_mask_plain(q, k, v, mask,
+                                                        scale=d**-0.5)
+    _close(out, ref, dtype)
+    # 0/1 integers name the same mask as booleans
+    again = flash_attention.flash_attention_kv_mask(
+        q, k, v, mask.to(torch.int32), scale=d**-0.5)
+    assert torch.equal(again, out)
+
+
+def test_flash_kv_mask_counts_its_own_launches(dev):
+    q = torch.randn(1, 64, 1, 128, device=dev, dtype=torch.bfloat16)
+    mask = torch.ones(64, dtype=torch.bool, device=dev)
+    before = dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
+    flash_attention.flash_attention_kv_mask(q, q, q, mask)
+    torch.cuda.synchronize()
+    after = dict(before[0], flash_fwd_kv_mask=before[0][
+        "flash_fwd_kv_mask"] + 1)
+    assert _build.LAUNCHES == after
+    assert _build.PLAIN_CALLS == before[1]
+    with pytest.raises(_build.KernelError, match="kv_mask"):
+        flash_attention.flash_attention_kv_mask(q, q, q, mask[:10])
 
 
 @pytest.mark.parametrize("mode,c,w,int8", [

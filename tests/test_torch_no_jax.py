@@ -104,6 +104,8 @@ def _calls():
     c = _cuda_typed
     return {
         "flash_fwd": lambda: flash_attention.flash_attention(c(q), c(q), c(q)),
+        "flash_fwd_kv_mask": lambda: flash_attention.flash_attention_kv_mask(
+            c(q), c(q), c(q), c(torch.ones(q.shape[1], dtype=torch.bool))),
         "vsa_sparse_fwd": lambda: vsa.block_sparse_attention_fast(
             c(qt), c(qt), c(qt), idx, tile_elems=64),
         "vsa_sparse_padded_fwd": lambda: vsa.block_sparse_attention(
