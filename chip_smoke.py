@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py                     # all phases, one card
     python3 chip_smoke.py --profile DIR       # plus a profiled generation
+                                              # of each path and train step
 
 Phases, each printing its own lines:
   1. environment: torch/CUDA versions and the card's name and power limit;
@@ -12,7 +13,9 @@ Phases, each printing its own lines:
      decode convs in the dispatched decode's chunks: the first latent
      frame alone, then 2 at a time; K5 at the causal stream's first
      block, fourth block and full window; the fp32 decode's K3, K4 and K1
-     forms);
+     forms; the backward kernels K6 at the training cross-attention and K7
+     bwd at the training self-attention, 117 exact tiles of 280 with a real
+     coarse top-24, and at the 480x848 padded shape);
   4. a: tiny models, the card's whole path against the CPU's plain path
      (FastWan DMD, also with an fp32 decode; Wan UniPC + CFG with VSA and
      with STA on a padded grid; TurboDiffusion; the causal Wan with a
@@ -44,6 +47,13 @@ Phases, each printing its own lines:
      h: StreamingVideoGenerator on 4g's modules: reset, 8 blocks (the
      21-frame window fills and evicts), finalize; per-block latency,
      steady block seconds and steady fps;
+     i: flow-matching SFT of Wan2.1-T2V-1.3B at the JAX repo's sft_33k
+     cell (81x480x832 latents, 512 text tokens, VSA 0.8, full remat,
+     AdamW, fp32 master weights) on the 4b checkpoint's DiT, through
+     build_from_config, SFTMethod and method.train over the port's
+     PrefetchingLoader: a warm-up step, then --train-steps (default 3)
+     timed ones; seconds a step, loss, grad_norm, peak memory and the
+     launch counts of every kernel of the step;
   5. the kernels line, the card line and the result line.
 
 Any failure exits non-zero before the result line. It imports nothing of
@@ -54,6 +64,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -75,6 +86,10 @@ REPLACES = {
     "flash_fwd_kv_mask":
     "fastvideo_tpu/ops/flash_attention.py:93 (has_kv_mask, from "
     "flash_attention_kv_mask :539)",
+    "flash_bwd_dq": "fastvideo_tpu/ops/flash_attention.py:310",
+    "flash_bwd_dkv": "fastvideo_tpu/ops/flash_attention.py:355",
+    "vsa_sparse_bwd_dq": "fastvideo_tpu/ops/vsa.py:698",
+    "vsa_sparse_bwd_dkv": "fastvideo_tpu/ops/vsa.py:762",
 }
 SOURCES = {
     "flash_fwd": "fastvideo_tpu_torch/csrc/flash_fwd.cu",
@@ -84,6 +99,10 @@ SOURCES = {
     "conv3d": "fastvideo_tpu_torch/csrc/conv3d.cu",
     "conv3d_int8": "fastvideo_tpu_torch/csrc/conv3d_int8.cu",
     "flash_fwd_kv_mask": "fastvideo_tpu_torch/csrc/flash_fwd.cu",
+    "flash_bwd_dq": "fastvideo_tpu_torch/csrc/flash_bwd.cu",
+    "flash_bwd_dkv": "fastvideo_tpu_torch/csrc/flash_bwd.cu",
+    "vsa_sparse_bwd_dq": "fastvideo_tpu_torch/csrc/vsa_sparse_bwd.cu",
+    "vsa_sparse_bwd_dkv": "fastvideo_tpu_torch/csrc/vsa_sparse_bwd.cu",
 }
 
 
@@ -938,6 +957,240 @@ def check_fp32_decode(dev, results: dict) -> None:
           flush=True)
 
 
+# -- phase 3, the backward kernels (K6, K7 bwd) at the training shapes -------
+
+
+def kernel_device_ms(fn, names: dict, reps: int = 3) -> dict:
+    """Device time a call of each kernel in ``names`` ({label: substring of
+    its CUDA kernel name}) takes inside ``fn``, from torch.profiler over
+    ``reps`` calls after a warm-up."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for label, sub in names.items():
+        hits = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and sub in e.key]
+        if not hits:
+            raise SystemExit(f"profiler shows no device time for {sub}")
+        out[label] = sum(e.self_device_time_total for e in hits) / reps / 1e3
+    return out
+
+
+def library_backward_ms(fwd, ins, do) -> float:
+    """Time of the backward of one PyTorch call (``fwd(*ins)``) given the
+    output gradient ``do``: the library yardstick of a backward kernel."""
+    import torch
+
+    leaves = [t.detach().requires_grad_() for t in ins]
+    out = fwd(*leaves)
+    return time_ms(lambda: torch.autograd.grad(out, leaves, do,
+                                               retain_graph=True))
+
+
+def bwd_bounds(pair_products: float, nbytes_dq: float, nbytes_dkv: float):
+    """Bounds of the two backward kernels from the FLOP of one product over
+    the sparsity's (query row, valid key) pairs (2 * D a pair): dQ needs
+    three products (S, dP, dS K), dK/dV four (S, dP, p^T dO, dS^T Q); the
+    whole backward five."""
+    return (bound_ms(3 * pair_products, nbytes_dq),
+            bound_ms(4 * pair_products, nbytes_dkv),
+            bound_ms(5 * pair_products, nbytes_dq + nbytes_dkv))
+
+
+def check_flash_bwd(dev, results: dict) -> None:
+    """K6 at the training cross-attention: q/dO [1,32760,12,128] over k/v
+    [1,512,12,128], bf16, against the plain backward."""
+    import torch
+    import torch.nn.functional as F
+
+    from fastvideo_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    b, sq, skv, h, d = 1, 32760, 512, 12, 128
+    q, do = (torch.randn(b, sq, h, d, generator=g, device=dev,
+                         dtype=torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(b, skv, h, d, generator=g, device=dev,
+                        dtype=torch.bfloat16) for _ in range(2))
+    kw = dict(scale=d**-0.5, causal=False, kv_valid=skv)
+    out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
+    errs = [check(f"flash_bwd[cross_attn] d{n}", t, w, *attn_tol(w,
+                                                                  torch.bfloat16))
+            for n, t, w in zip("qkv", got, want)]
+    del got, want
+    ms = kernel_device_ms(
+        lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, **kw),
+        {"dq": "flash_bwd_dq_kernel", "dkv": "flash_bwd_dkv_kernel"})
+    whole = time_ms(lambda: fa.flash_attention_bwd(q, k, v, out, lse, do,
+                                                   **kw))
+    plain = time_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, out, lse,
+                                                         do, **kw), 2)
+    qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
+    lib = library_backward_ms(lambda a, b_, c: F.scaled_dot_product_attention(
+        a, b_, c, scale=d**-0.5), (qt, kt, vt), dot)
+    product = 2.0 * b * h * sq * skv * d
+    rows = 2.0 * b * h * d  # bytes of one bf16 row of every head
+    io = 4 * 2 * b * h * sq + 2 * rows * skv  # lse, delta; k, v
+    (dq_b, dq_by), (dkv_b, dkv_by), (all_b, all_by) = bwd_bounds(
+        product, io + 3 * rows * sq, io + 2 * rows * sq + 2 * rows * skv)
+    shape = f"q/dO{[b, sq, h, d]} k/v{[b, skv, h, d]} bf16"
+    common = dict(plain_ms=plain, library_ms=lib, shape=shape,
+                  backward_ms=whole, backward_bound_ms=all_b)
+    results["flash_bwd_dq"] = dict(max_abs_err=errs[0], ms=ms["dq"],
+                                   bound_ms=dq_b, bound_by=dq_by, **common)
+    results["flash_bwd_dkv"] = dict(max_abs_err=max(errs[1:]),
+                                    ms=ms["dkv"], bound_ms=dkv_b,
+                                    bound_by=dkv_by, **common)
+    print(f"  flash_bwd[cross_attn]: dQ {ms['dq']:.3f} ms (bound "
+          f"{dq_b:.3f}, {dq_by}), dK/dV {ms['dkv']:.3f} ms (bound "
+          f"{dkv_b:.3f}, {dkv_by}); the backward {whole:.3f} ms with delta "
+          f"(bound {all_b:.3f} ms: 5 products, {5 * product:.3e} FLOP), "
+          f"{plain:.3f} ms plain, {lib:.3f} ms scaled_dot_product_attention's "
+          f"backward", flush=True)
+
+
+def coarse_topk(q, k, sizes, e: int, topk: int, q_group: int):
+    """Per-tile top-k key tiles chosen as VSA chooses them: from the
+    coarse (tile-mean) scores, averaged over groups of ``q_group`` query
+    tiles, expanded to one row per tile. [B, H, nB, topk] int32."""
+    from fastvideo_tpu_torch.ops import vsa
+
+    b, h, s, d = q.shape
+    nb = s // e
+    qc, kc = (vsa.block_mean(t, sizes, e).float() for t in (q, k))
+    scores = qc @ kc.transpose(-1, -2) * d**-0.5
+    if q_group > 1:
+        scores = scores.reshape(b, h, nb // q_group, q_group, nb).mean(3)
+    idx = scores.topk(topk, dim=-1).indices
+    return idx.repeat_interleave(nb // idx.shape[2], dim=2).int()
+
+
+def sparse_bwd_case(label, q, k, v, do, idx, sizes, e, results=None):
+    """K7's LSE forward, then K7 bwd on its out and LSE, each against its
+    plain version on one case; with ``results``, also the backward's times,
+    bounds, plain and library (compiled flex_attention's backward with the
+    same BlockMask) times, and the forward's time. Returns (max abs errors
+    of dq, dk, dv; of the forward's out and LSE; the forward's ms or
+    None)."""
+    import torch
+    from torch.nn.attention.flex_attention import flex_attention
+
+    from fastvideo_tpu_torch.ops import vsa
+
+    scale = q.shape[-1]**-0.5
+    kw = dict(scale=scale, tile_elems=e)
+    out, lse = vsa.block_sparse_attention(q, k, v, idx, sizes,
+                                          return_lse=True, **kw)
+    ref, ref_lse = vsa.block_sparse_attention_plain(q, k, v, idx, sizes,
+                                                    return_lse=True, **kw)
+    fwd_errs = (check(f"vsa_sparse_padded_fwd[{label}]", out, ref,
+                      *attn_tol(ref, torch.bfloat16)),
+                check(f"vsa_sparse_padded_fwd[{label}] lse", lse, ref_lse,
+                      1e-3))
+    del ref, ref_lse
+    got = vsa.block_sparse_attention_bwd(q, k, v, idx, sizes, out, lse, do,
+                                         **kw)
+    want = vsa.block_sparse_attention_bwd_plain(q, k, v, idx, sizes, out,
+                                                lse, do, **kw)
+    errs = [check(f"vsa_sparse_bwd[{label}] d{n}", t, w,
+                  *attn_tol(w, torch.bfloat16))
+            for n, t, w in zip("qkv", got, want)]
+    del got, want
+    if results is None:
+        return errs, fwd_errs, None
+    ms = kernel_device_ms(
+        lambda: vsa.block_sparse_attention_bwd(q, k, v, idx, sizes, out, lse,
+                                               do, **kw),
+        {"dq": "vsa_sparse_bwd_dq_kernel", "dkv": "vsa_sparse_bwd_dkv_kernel"})
+    whole = time_ms(lambda: vsa.block_sparse_attention_bwd(
+        q, k, v, idx, sizes, out, lse, do, **kw))
+    fwd_ms = time_ms(lambda: vsa.block_sparse_attention(
+        q, k, v, idx, sizes, return_lse=True, **kw))
+    plain = time_ms(lambda: vsa.block_sparse_attention_bwd_plain(
+        q, k, v, idx, sizes, out, lse, do, **kw), 1)
+    mask = padded_block_mask(idx, sizes, q.shape[2], e) if e % 128 == 0 \
+        else vsa_block_mask(idx, q.shape[2], e, e)
+    flex = torch.compile(flex_attention, dynamic=False)
+    lib = library_backward_ms(lambda a, b_, c: flex(a, b_, c, block_mask=mask,
+                                                    scale=scale),
+                              (q, k, v), do)
+    flops, _ = padded_bound(idx, sizes, q.shape[-1])  # 4 D a pair
+    product = flops / 2
+    b, h, s, d = q.shape
+    tokens = b * h * sizes.sum().item()
+    io = 2.0 * 2 * tokens * d + 8.0 * tokens + 4 * idx.numel()  # k, v, stats
+    (dq_b, dq_by), (dkv_b, dkv_by), (all_b, _) = bwd_bounds(
+        product, io + 2.0 * 3 * tokens * d, io + 2.0 * 4 * tokens * d)
+    common = dict(plain_ms=plain, library_ms=lib, backward_ms=whole,
+                  backward_bound_ms=all_b,
+                  shape=f"q{[b, h, s, d]} E{e} tiles{s // e} "
+                  f"topk{idx.shape[-1]}")
+    results["vsa_sparse_bwd_dq"] = dict(max_abs_err=errs[0], ms=ms["dq"],
+                                        bound_ms=dq_b, bound_by=dq_by,
+                                        **common)
+    results["vsa_sparse_bwd_dkv"] = dict(max_abs_err=max(errs[1:]),
+                                         ms=ms["dkv"], bound_ms=dkv_b,
+                                         bound_by=dkv_by, **common)
+    print(f"  vsa_sparse_bwd[{label}]: dQ {ms['dq']:.3f} ms (bound "
+          f"{dq_b:.3f}), dK/dV {ms['dkv']:.3f} ms (bound {dkv_b:.3f}); the "
+          f"backward {whole:.3f} ms with delta and membership (bound "
+          f"{all_b:.3f} ms: 5 products, {5 * product:.3e} FLOP on valid "
+          f"keys), {plain:.3f} ms plain, {lib:.3f} ms flex_attention's "
+          f"backward; K7 fwd with LSE {fwd_ms:.3f} ms", flush=True)
+    return errs, fwd_errs, fwd_ms
+
+
+def check_vsa_bwd(dev, results: dict) -> None:
+    """K7 bwd at the training shape (q/k/v [1,12,32760,128], E 280, 117
+    exact tiles, a real coarse top-24 over q_group 3, expanded per tile)
+    and at the 480x848 padded shape (168 tiles of 256 with valid counts,
+    top-34)."""
+    import torch
+
+    from fastvideo_tpu_torch.attention.backends.vsa import vsa_topk
+    from fastvideo_tpu_torch.ops import vsa
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    b, h, d, e, nb = 1, 12, 128, 280, 117
+
+    def rnd(s):
+        return torch.randn(b, h, s, d, generator=g, device=dev,
+                           dtype=torch.bfloat16)
+
+    q, k, v, do = (rnd(nb * e) for _ in range(4))
+    sizes = torch.full((nb,), e, dtype=torch.int32, device=dev)
+    idx = coarse_topk(q, k, sizes, e, vsa_topk(0.8, nb), 3)
+    errs, fwd_errs, fwd_ms = sparse_bwd_case("480p train", q, k, v, do, idx,
+                                             sizes, e, results)
+    fwd = results["vsa_sparse_padded_fwd"]
+    fwd.update(train_lse_ms=fwd_ms, train_max_abs_err=fwd_errs[0],
+               train_lse_max_abs_err=fwd_errs[1],
+               max_abs_err=max(fwd["max_abs_err"], fwd_errs[0]))
+    del q, k, v, do
+    grid, tile = (21, 30, 53), (4, 8, 8)
+    _, _, sizes_np, _, s = vsa.tile_layout(grid, tile)
+    e2 = 256
+    sizes = torch.as_tensor(sizes_np, device=dev)
+    valid = torch.as_tensor(vsa.tile_valid_mask(grid, tile), device=dev)
+    q, k, v, do = (rnd(s) * valid[:, None] for _ in range(4))
+    idx = coarse_topk(q, k, sizes, e2, vsa_topk(0.8, s // e2), 1)
+    padded_errs, fwd_errs, _ = sparse_bwd_case("480x848 padded", q, k, v,
+                                               do, idx, sizes, e2)
+    errs += padded_errs
+    fwd["max_abs_err"] = max(fwd["max_abs_err"], fwd_errs[0])
+    for name in ("vsa_sparse_bwd_dq", "vsa_sparse_bwd_dkv"):
+        results[name]["max_abs_err"] = max(errs)
+
+
 def run_kernel_checks(dev) -> dict:
     import torch
 
@@ -947,6 +1200,10 @@ def run_kernel_checks(dev) -> dict:
     check_flash(dev, results)
     check_vsa(dev, results)
     check_vsa_padded(dev, results)
+    torch.cuda.empty_cache()
+    check_flash_bwd(dev, results)
+    torch.cuda.empty_cache()
+    check_vsa_bwd(dev, results)
     torch.cuda.empty_cache()
     check_conv(dev, results)
     torch.cuda.empty_cache()
@@ -1693,6 +1950,263 @@ def run_streaming(gen, spec: dict) -> tuple[dict, dict]:
                           peak_gib=peak)
 
 
+# -- 4a (training) and 4i: the SFT trainer ------------------------------------
+
+# the JAX repo's training cell sft_33k (benchmarks/train_step_1_3b.json):
+# full-AdamW SFT of Wan2.1-T2V-1.3B, latents [accum, B, 16, 21, 60, 104]
+# (81x480x832: 32,760 tokens), 512 text tokens, VSA 0.8, full remat
+TRAIN_LATENTS = (1, 1, 16, 21, 60, 104)
+TRAIN_EMBEDS = (1, 1, 512, 4096)
+TRAIN_KW = dict(VSA_sparsity=0.8, selective_checkpointing="full",
+                learning_rate=1e-5, max_grad_norm=1.0,
+                weighting_scheme="uniform", seed=0,
+                gradient_accumulation_steps=1, checkpointing_steps=0)
+# 4a's tiny trainer: token grid (2, 16, 16), exact (2, 8, 8) VSA tiles
+TINY_TRAIN_LATENTS = (1, 1, 4, 2, 32, 32)
+TINY_TRAIN_EMBEDS = (1, 1, 12, 32)
+
+
+class StepRecorder:
+    """A tracker that keeps each step's metrics."""
+
+    def __init__(self):
+        self.rows = []
+
+    def log(self, metrics: dict, step: int) -> None:
+        self.rows.append(dict(metrics))
+
+    def finish(self) -> None:
+        pass
+
+
+def train_loader(latents_shape, embeds_shape, seed: int = 0):
+    """Seeded numpy batches through the port's samplers and prefetching
+    loader, as the JAX repo's train-step bench builds them
+    (scripts/bench_train_step.py:43-56)."""
+    import numpy as np
+
+    from fastvideo_tpu_torch.dataset.loader import PrefetchingLoader
+    from fastvideo_tpu_torch.dataset.parquet import (DPSPBatchSampler,
+                                                     _AccumSampler)
+
+    rng = np.random.default_rng(seed)
+
+    def make_batch(groups):
+        return (rng.standard_normal(latents_shape).astype(np.float32),
+                rng.standard_normal(embeds_shape).astype(np.float32))
+
+    sampler = _AccumSampler(DPSPBatchSampler(64, 1, 1, 0, seed=seed), 1)
+    return PrefetchingLoader(sampler, make_batch, prefetch=2)
+
+
+def build_sft(ckpt: str, out_dir: str, device: str, **training):
+    """SFTMethod through the training entry point's own calls
+    (build_from_config: resolve_method("sft"), SFTMethod.from_config)."""
+    from fastvideo_tpu_torch.entrypoints.cli.train import build_from_config
+    from fastvideo_tpu_torch.training.run_config import (ModelSpec,
+                                                         TrainRunConfig)
+
+    cfg = TrainRunConfig(
+        method="sft",
+        model=ModelSpec(pretrained_model_path=ckpt, dit_precision="fp32"),
+        training=dict(TRAIN_KW, output_dir=out_dir, device=device,
+                      **training))
+    method, loader = build_from_config(cfg)
+    if loader is not None:
+        raise SystemExit("the config names no data path")
+    method.pipeline.tracker = StepRecorder()
+    return method
+
+
+def train_launches(layers: int, steps: int) -> dict:
+    """Launches of a trainer step under full remat with VSA: each block's
+    forward runs twice (the step and the recompute in the backward), its
+    backward once."""
+    return {"flash_fwd": 2 * layers * steps,
+            "vsa_sparse_padded_fwd": 2 * layers * steps,
+            "flash_bwd_dq": layers * steps, "flash_bwd_dkv": layers * steps,
+            "vsa_sparse_bwd_dq": layers * steps,
+            "vsa_sparse_bwd_dkv": layers * steps}
+
+
+def check_launches(label: str, launches: dict, plain: dict,
+                   expect: dict) -> None:
+    for name, n in launches.items():
+        if n != expect.get(name, 0):
+            raise SystemExit(f"{label}: kernel {name} launched {n} times, "
+                             f"expected {expect.get(name, 0)}: {launches}")
+    if any(plain.values()):
+        raise SystemExit(f"{label}: the path reached a plain version: "
+                         f"{plain}")
+
+
+def check_small_training(work: str) -> None:
+    """One SFT step of a tiny VSA Wan (heads of 16, 2 layers) on the card
+    against the same step on the CPU's plain path: the same checkpoint,
+    seed and batch, so the same draws (a CPU generator on both). bf16
+    compute, so: loss within 1e-2 relative, the gradients within 3e-2
+    relative L2, and the parameters after AdamW within 2e-6 wherever the
+    two (clipped) gradients agree in sign and are at least 1e-5: AdamW's
+    first update is lr * g / (|g| + 1e-8), lr times the sign where
+    |g| >> 1e-8, and a gradient at the bf16 noise level may take either
+    sign. The largest difference over all elements is printed, not held to
+    a bar: two first updates never differ by more than 2 lr."""
+    import numpy as np
+    import torch
+
+    from fastvideo_tpu_torch.ops import _build
+
+    os.environ["FASTVIDEO_ATTENTION_BACKEND"] = "VIDEO_SPARSE_ATTN"
+    ckpt = write_checkpoint(os.path.join(work, "train", "Wan2.1-T2V-tiny"),
+                            TINY_DIT_CFG, TINY_VAE_CFG, TINY_T5_CFG, seed=8)
+    rng = np.random.default_rng(8)
+    batch = (rng.standard_normal(TINY_TRAIN_LATENTS).astype(np.float32),
+             rng.standard_normal(TINY_TRAIN_EMBEDS).astype(np.float32))
+    lr = 1e-3
+    runs = {}
+    for device in ("cuda", "cpu"):
+        method = build_sft(ckpt, "", device, learning_rate=lr)
+        pipe = method.pipeline
+        seen = []
+        step = pipe.optimizer.step
+
+        def capture(*a, _pipe=pipe, _seen=seen, _step=step, **kw):
+            _seen.append([p.grad.float().cpu() for p in _pipe.params])
+            return _step(*a, **kw)
+
+        pipe.optimizer.step = capture
+        _build.reset_counts()
+        out = pipe.train_one_step(*batch, vsa_sparsity=0.8)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            launches, plain = dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
+        params = [p.detach().float().cpu() for p in pipe.params]
+        runs[device] = (out, seen[0], params)
+        del method, pipe
+    layers = TINY_DIT_CFG["num_layers"]
+    check_launches("tiny train step", launches, plain,
+                   train_launches(layers, 1))
+    (c_out, c_g, c_p), (p_out, p_g, p_p) = runs["cuda"], runs["cpu"]
+    gc, gp = (torch.cat([g.flatten() for g in gs]) for gs in (c_g, p_g))
+    rel = ((gc - gp).norm() / gp.norm()).item()
+    worst_all = worst_sure = 0.0
+    flips = 0
+    for a, b, g_card, g_cpu in zip(c_p, p_p, c_g, p_g):
+        diff = (a - b).abs()
+        worst_all = max(worst_all, diff.max().item())
+        sure = (torch.sign(g_card) == torch.sign(g_cpu)) & (
+            torch.minimum(g_card.abs(), g_cpu.abs()) >= 1e-5)
+        flips += int((~sure).sum())
+        if sure.any():
+            worst_sure = max(worst_sure, diff[sure].max().item())
+    loss_rel = abs(c_out["loss"] - p_out["loss"]) / abs(p_out["loss"])
+    print(f"  tiny train step, card vs CPU plain: loss {c_out['loss']:.5f} "
+          f"/ {p_out['loss']:.5f} (rel {loss_rel:.2e}, bar 1e-2), grad_norm "
+          f"{c_out['grad_norm']:.5f} / {p_out['grad_norm']:.5f}, gradients "
+          f"rel L2 {rel:.2e} (bar 3e-2), parameters after AdamW: max diff "
+          f"{worst_all:.2e} (no bar: a first AdamW update is +-lr), "
+          f"{worst_sure:.2e} where the gradients agree in sign and are "
+          f">= 1e-5 (bar 2e-6; {flips} of "
+          f"{gc.numel()} elements are not); card launches "
+          f"{json.dumps({k: v for k, v in launches.items() if v})}",
+          flush=True)
+    if not (math.isfinite(c_out["loss"]) and loss_rel < 1e-2 and rel < 3e-2
+            and worst_sure <= 2e-6):
+        raise SystemExit("tiny train step: the card disagrees with the "
+                         "plain path")
+
+
+def run_training(work: str, steps: int, profile_dir: str | None = None
+                 ) -> dict:
+    """Phase 4i: SFTMethod.from_config (through build_from_config) on the
+    4b checkpoint's Wan2.1-T2V-1.3B-shaped DiT in fp32 master weights,
+    then method.train over the port's PrefetchingLoader: one warm-up step,
+    then ``steps`` timed ones, at the JAX repo's sft_33k cell."""
+    import torch
+
+    from fastvideo_tpu_torch.ops import _build
+
+    os.environ["FASTVIDEO_ATTENTION_BACKEND"] = "VIDEO_SPARSE_ATTN"
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    method = build_sft(os.path.join(work, "FastWan2.1-T2V-1.3B-Diffusers"),
+                       os.path.join(work, "train_out"), "cuda",
+                       max_train_steps=1 + steps)
+    pipe = method.pipeline
+    n_params = sum(p.numel() for p in pipe.params)
+    print(f"  SFTMethod built in {time.perf_counter() - t0:.1f} s: "
+          f"{n_params / 1e9:.3f} B fp32 parameters, remat "
+          f"{pipe.args.selective_checkpointing}, VSA "
+          f"{pipe.current_vsa_sparsity(1)}", flush=True)
+    loader = train_loader(TRAIN_LATENTS, TRAIN_EMBEDS)
+    try:
+        t0 = time.perf_counter()
+        method.train(loader, max_steps=1)
+        torch.cuda.synchronize()
+        print(f"  warm-up step {time.perf_counter() - t0:.2f} s", flush=True)
+        watch = {n: p.detach().clone() for n, p in
+                 list(pipe.transformer.named_parameters())[:4]}
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_counts()
+        t0 = time.perf_counter()
+        method.train(loader, max_steps=1 + steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, plain = dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        rows = pipe.tracker.rows[-steps:]
+        if profile_dir:
+            profile_train_step(method, loader, profile_dir)
+    finally:
+        loader.shutdown()
+    moved = [not torch.equal(w, dict(pipe.transformer.named_parameters())[n])
+             for n, w in watch.items()]
+    print(f"  {steps} steps in {wall:.3f} s: {wall / steps:.3f} s a step; "
+          f"loss {[round(r['loss'], 5) for r in rows]}, grad_norm "
+          f"{[round(r['grad_norm'], 5) for r in rows]}; peak memory "
+          f"{peak:.2f} GiB", flush=True)
+    layers = DIT_CFG["num_layers"]
+    print(f"  kernel launches {json.dumps(launches)} ({layers} layers x "
+          f"{steps} steps: K1 and K7 fwd 2 a layer, each backward kernel 1); "
+          f"plain calls {json.dumps(plain)}", flush=True)
+    check_launches("SFT 480x832", launches, plain,
+                   train_launches(layers, steps))
+    if not (all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+                for r in rows) and all(moved)):
+        raise SystemExit(f"SFT 480x832: loss or grad_norm not finite, or "
+                         f"parameters not moved ({moved})")
+    del method, pipe
+    torch.cuda.empty_cache()
+    return dict(launches=launches, step_s=wall / steps, peak_gib=peak,
+                loss=[r["loss"] for r in rows],
+                grad_norm=[r["grad_norm"] for r in rows])
+
+
+def profile_train_step(method, loader, out_dir: str) -> None:
+    """One more step under torch.profiler: device time by kernel name, the
+    device's busy share of the wall time, and a Chrome trace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    pipe = method.pipeline
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        method.train(loader, max_steps=pipe.step + 1)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in events) / 1e6
+    print(f"  profiled train step: wall {wall:.3f} s, device kernels "
+          f"{total:.3f} s, device busy share {total / wall:.3f}", flush=True)
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:25]:
+        print(f"    {e.self_device_time_total / 1e3:10.1f} ms  "
+              f"{e.count:6d}x  {e.key[:110]}", flush=True)
+    os.makedirs(out_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(out_dir, "sft_480x832_trace.json"))
+
+
 def profile_generation(gen, kw: dict, out_dir: str, label: str) -> None:
     """One more generation under torch.profiler: device time by kernel
     name, the device's busy share of the wall time, and a Chrome trace."""
@@ -1728,9 +2242,13 @@ def main() -> int:
     parser.add_argument("--sta-steps", type=int, default=2,
                         help="FlowUniPC steps of the 480x848 STA generation "
                         "(at least 2)")
+    parser.add_argument("--train-steps", type=int, default=3,
+                        help="timed SFT steps of phase 4i, after one "
+                        "warm-up step (at least 1)")
     args = parser.parse_args()
-    if args.vsa_steps < 4 or args.sta_steps < 2:
-        parser.error("--vsa-steps must be at least 4 and --sta-steps 2")
+    if args.vsa_steps < 4 or args.sta_steps < 2 or args.train_steps < 1:
+        parser.error("--vsa-steps must be at least 4, --sta-steps 2 and "
+                     "--train-steps 1")
 
     import torch
 
@@ -1759,6 +2277,7 @@ def main() -> int:
     shutil.rmtree(work, ignore_errors=True)
     print("# phase 4a: tiny models, card against the plain path", flush=True)
     check_small_paths(work)
+    check_small_training(work)
     print("# phase 4b: FastWan main path at full width, 81x480x832, 3 DMD "
           "steps, VSA sparsity 0.8", flush=True)
     launches = run_main_path(work, args.profile)
@@ -1792,6 +2311,11 @@ def main() -> int:
           f"benchmarks/causal_streaming.json", flush=True)
     stream_launches, stream = run_streaming(causal_gen, spec)
     del causal_gen
+    print(f"# phase 4i: SFT training of Wan2.1-T2V-1.3B at full width and "
+          f"depth (the JAX repo's sft_33k cell: 81x480x832 latents, 512 text "
+          f"tokens, VSA 0.8, full remat, AdamW, fp32 master weights): 1 "
+          f"warm-up + {args.train_steps} timed steps", flush=True)
+    train = run_training(work, args.train_steps, args.profile)
     shutil.rmtree(work, ignore_errors=True)
     # each kernel's count comes from the path that runs it
     launches["vsa_sparse_padded_fwd"] = vsa_launches["vsa_sparse_padded_fwd"]
@@ -1807,6 +2331,15 @@ def main() -> int:
         steady_block_s=stream["steady_block_s"],
         steady_fps=stream["steady_fps"])
     results["flash_fwd"]["causal_launches"] = causal_launches["flash_fwd"]
+    # the backward kernels' counts come from 4i, as do the training counts
+    # of K1 and of K7's LSE forward
+    for name in ("flash_bwd_dq", "flash_bwd_dkv", "vsa_sparse_bwd_dq",
+                 "vsa_sparse_bwd_dkv"):
+        launches[name] = train["launches"][name]
+        results[name]["train_step_s"] = train["step_s"]
+    results["flash_fwd"]["train_launches"] = train["launches"]["flash_fwd"]
+    results["vsa_sparse_padded_fwd"]["train_lse_launches"] = train[
+        "launches"]["vsa_sparse_padded_fwd"]
     results["conv3d"]["causal_launches"] = causal_launches["conv3d"]
 
     kernels = []

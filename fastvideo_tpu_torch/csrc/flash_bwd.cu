@@ -1,0 +1,219 @@
+// Flash attention backward for Hopper (sm_90a): K6.
+//
+// Replaces the Pallas kernels fastvideo_tpu/ops/flash_attention.py:
+// _bwd_dq_kernel (dQ) and _bwd_dkv_kernel (dK, dV), reached through
+// _flash_attention_bwd_bhsd, the custom VJP of flash_attention. From the
+// forward's O and fp32 log-sum-exp (K1, flash_fwd.cu) and delta =
+// rowsum(dO * O) (a plain reduction in the caller, as it is XLA in JAX),
+// each entry replays p = exp(s * scale - lse) tile by tile and never writes
+// a score matrix to device memory (attn_bwd_tile.cuh has the arithmetic
+// and its rounding points). Masks: keys at index >= kv_valid, and causal
+// (key <= query). K1's chunk-causal and teacher-forcing masks are not
+// ported (ROADMAP), so neither is their backward.
+//
+// Rows with no valid key (K1 stores their LSE as -inf) have every key
+// masked, so p is 0 before the exponent is used and their gradients are
+// exactly 0. Padded rows in JAX get an LSE of +inf; here bounds checks do
+// that job: a query row past Sq and a key past Skv are never live.
+//
+// What bounds it: 2 * B * H * Sq * Skv * D FLOP a product, five products
+// (S and dP in both entries, dQ; dK, dV) on tensor cores, against reads of
+// q, k, v, dO and writes of dq, dk, dv: at the training shape (q/dO
+// [1,32760,12,128] over k/v [1,512,12,128]) 2.58e11 FLOP, operations-bound
+// on paper. The design is the simple one: one block per 64 query rows for
+// dQ (looping the keys) and one per 64 keys for dK/dV (looping the query
+// rows), WMMA bf16 tiles through shared memory, no overlap of loads with
+// compute. At the cross-attention's 512 keys dK/dV has 8 x 12 = 96 blocks
+// for 132 SMs, each looping 512 query tiles: under one wave. A split-q dK/dV
+// (partial sums per query range, then a reduction) is a later change.
+//
+// Strides are in elements (batch, head, row for each tensor), so the
+// caller passes [B, S, H, D] views, and autograd's dO, as they are.
+#include "attn_bwd_tile.cuh"
+
+namespace {
+
+using fvt::bf16;
+using fvt::BwdSmem;
+
+constexpr int kBQ = 64;
+constexpr int kBK = 64;
+
+// One block: kBQ query rows of one (batch, head); loops the key chunks.
+__global__ void __launch_bounds__(fvt::kThreads)
+    flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        bf16* __restrict__ dq, int H, int Sq, int Skv, int D, long long q_sb,
+                        long long q_sh, long long q_ss, long long k_sb, long long k_sh,
+                        long long k_ss, long long v_sb, long long v_sh, long long v_ss,
+                        long long o_sb, long long o_sh, long long o_ss, long long dq_sb,
+                        long long dq_sh, long long dq_ss, float scale, int causal, int kv_valid) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  BwdSmem<kBQ, kBK> t;
+  t.carve(smem, D, 1);
+  const int b = blockIdx.z;
+  const int h = blockIdx.y;
+  const int q0 = blockIdx.x * kBQ;
+  const int nq = min(kBQ, Sq - q0);
+  const int warp = threadIdx.x / 32;
+  const long long stat0 = (static_cast<long long>(b) * H + h) * Sq + q0;
+
+  t.zero_acc(1);
+  fvt::load_bf16_rows(t.own0, t.ldt, q + b * q_sb + h * q_sh + q0 * q_ss, q_ss, nq, kBQ, D);
+  fvt::load_bf16_rows(t.own1, t.ldt, dout + b * o_sb + h * o_sh + q0 * o_ss, o_ss, nq, kBQ, D);
+  for (int r = threadIdx.x; r < kBQ; r += fvt::kThreads) {
+    t.lse[r] = r < nq ? lse[stat0 + r] : 0.f;
+    t.delta[r] = r < nq ? delta[stat0 + r] : 0.f;
+  }
+  const bf16* kp = k + b * k_sb + h * k_sh;
+  const bf16* vp = v + b * v_sb + h * v_sh;
+
+  // keys past kv_end are masked for every row of this tile
+  int kv_end = min(kv_valid, Skv);
+  if (causal) kv_end = min(kv_end, q0 + nq);
+  for (int j0 = 0; j0 < kv_end; j0 += kBK) {
+    const int nk = min(kBK, Skv - j0);
+    __syncthreads();  // every warp is done with the previous chunk
+    fvt::load_bf16_rows(t.str0, t.ldt, kp + j0 * k_ss, k_ss, nk, kBK, D);
+    fvt::load_bf16_rows(t.str1, t.ldt, vp + j0 * v_ss, v_ss, nk, kBK, D);
+    __syncthreads();
+    fvt::warp_abt(t.s + warp * 16 * t.lds, t.lds, t.own0 + warp * 16 * t.ldt, t.str0, t.ldt,
+                  kBK, D);
+    fvt::warp_abt(t.dp + warp * 16 * t.lds, t.lds, t.own1 + warp * 16 * t.ldt, t.str1, t.ldt,
+                  kBK, D);
+    __syncwarp();
+    fvt::grad_scores<kBK>(
+        t.s, t.dp, t.lds, nullptr, t.ds, t.ldp, scale, false,
+        [&](int r, int c) {
+          const int col = j0 + c;
+          return r < nq && col < kv_end && (!causal || col <= q0 + r);
+        },
+        [&](int r, int) { return t.lse[r]; }, [&](int r, int) { return t.delta[r]; });
+    fvt::warp_acc_ab(t.acc0 + warp * 16 * t.ldo, t.ldo, t.ds + warp * 16 * t.ldp, t.ldp, t.str0,
+                     t.ldt, kBK, D);
+  }
+  __syncwarp();
+  t.store(t.acc0, dq + b * dq_sb + h * dq_sh + q0 * dq_ss, dq_ss, nq);
+}
+
+// One block: kBK keys of one (batch, head); loops the query chunks that can
+// see them (all of them, or from the key's own row on under causal).
+__global__ void __launch_bounds__(fvt::kThreads)
+    flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int Sq, int Skv,
+                         int D, long long q_sb, long long q_sh, long long q_ss, long long k_sb,
+                         long long k_sh, long long k_ss, long long v_sb, long long v_sh,
+                         long long v_ss, long long o_sb, long long o_sh, long long o_ss,
+                         long long dk_sb, long long dk_sh, long long dk_ss, long long dv_sb,
+                         long long dv_sh, long long dv_ss, float scale, int causal,
+                         int kv_valid) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  BwdSmem<kBK, kBQ> t;
+  t.carve(smem, D, 2);
+  const int b = blockIdx.z;
+  const int h = blockIdx.y;
+  const int k0 = blockIdx.x * kBK;
+  const int nk = min(kBK, Skv - k0);
+  const int warp = threadIdx.x / 32;
+  const int kv_end = min(kv_valid, Skv);
+  const long long stat_bh = (static_cast<long long>(b) * H + h) * Sq;
+  const bf16* qp = q + b * q_sb + h * q_sh;
+  const bf16* op = dout + b * o_sb + h * o_sh;
+
+  t.zero_acc(2);
+  fvt::load_bf16_rows(t.own0, t.ldt, k + b * k_sb + h * k_sh + k0 * k_ss, k_ss, nk, kBK, D);
+  fvt::load_bf16_rows(t.own1, t.ldt, v + b * v_sb + h * v_sh + k0 * v_ss, v_ss, nk, kBK, D);
+
+  // a tile wholly past kv_valid gets zero gradients (k0 is block-uniform)
+  const int i_start = causal ? (k0 / kBQ) * kBQ : 0;
+  for (int i0 = i_start; k0 < kv_end && i0 < Sq; i0 += kBQ) {
+    const int nq = min(kBQ, Sq - i0);
+    __syncthreads();  // every warp is done with the previous chunk
+    fvt::load_bf16_rows(t.str0, t.ldt, qp + i0 * q_ss, q_ss, nq, kBQ, D);
+    fvt::load_bf16_rows(t.str1, t.ldt, op + i0 * o_ss, o_ss, nq, kBQ, D);
+    for (int c = threadIdx.x; c < kBQ; c += fvt::kThreads) {
+      t.lse[c] = c < nq ? lse[stat_bh + i0 + c] : 0.f;
+      t.delta[c] = c < nq ? delta[stat_bh + i0 + c] : 0.f;
+    }
+    __syncthreads();
+    // rows of s are keys, columns query rows: s = K Q^T, dp = V dO^T
+    fvt::warp_abt(t.s + warp * 16 * t.lds, t.lds, t.own0 + warp * 16 * t.ldt, t.str0, t.ldt,
+                  kBQ, D);
+    fvt::warp_abt(t.dp + warp * 16 * t.lds, t.lds, t.own1 + warp * 16 * t.ldt, t.str1, t.ldt,
+                  kBQ, D);
+    __syncwarp();
+    fvt::grad_scores<kBQ>(
+        t.s, t.dp, t.lds, t.p, t.ds, t.ldp, scale, true,
+        [&](int r, int c) {
+          const int key = k0 + r;
+          return c < nq && key < kv_end && (!causal || key <= i0 + c);
+        },
+        [&](int, int c) { return t.lse[c]; }, [&](int, int c) { return t.delta[c]; });
+    // dV += p^T dO, dK += dS^T Q (p and dS are stored key-major already)
+    fvt::warp_acc_ab(t.acc1 + warp * 16 * t.ldo, t.ldo, t.p + warp * 16 * t.ldp, t.ldp, t.str1,
+                     t.ldt, kBQ, D);
+    fvt::warp_acc_ab(t.acc0 + warp * 16 * t.ldo, t.ldo, t.ds + warp * 16 * t.ldp, t.ldp, t.str0,
+                     t.ldt, kBQ, D);
+  }
+  __syncwarp();
+  t.store(t.acc0, dk + b * dk_sb + h * dk_sh + k0 * dk_ss, dk_ss, nk);
+  t.store(t.acc1, dv + b * dv_sb + h * dv_sh + k0 * dv_ss, dv_ss, nk);
+}
+
+bool bad_shape(int B, int H, int Sq, int Skv, int D) {
+  return D % 16 != 0 || D > 128 || B <= 0 || H <= 0 || Sq <= 0 || Skv <= 0;
+}
+
+}  // namespace
+
+// bfloat16 only, D a multiple of 16 up to 128. lse and delta are fp32
+// [B, H, Sq] contiguous; strides in elements (batch, head, row) for q, k, v,
+// dO and dq.
+extern "C" int fvt_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
+                                const void* lse, const void* delta, void* dq, int B, int H,
+                                int Sq, int Skv, int D, long long q_sb, long long q_sh,
+                                long long q_ss, long long k_sb, long long k_sh, long long k_ss,
+                                long long v_sb, long long v_sh, long long v_ss, long long o_sb,
+                                long long o_sh, long long o_ss, long long dq_sb, long long dq_sh,
+                                long long dq_ss, float scale, int causal, int kv_valid,
+                                void* stream) {
+  if (bad_shape(B, H, Sq, Skv, D)) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = BwdSmem<kBQ, kBK>::bytes(D, 1);
+  cudaError_t err = fvt::set_smem(flash_bwd_dq_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
+  flash_bwd_dq_kernel<<<grid, fvt::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dq), H, Sq, Skv, D, q_sb, q_sh, q_ss,
+      k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, dq_sb, dq_sh, dq_ss, scale, causal,
+      kv_valid);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// As fvt_flash_bwd_dq, writing dk and dv (strides batch, head, row each).
+extern "C" int fvt_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
+                                 const void* lse, const void* delta, void* dk, void* dv, int B,
+                                 int H, int Sq, int Skv, int D, long long q_sb, long long q_sh,
+                                 long long q_ss, long long k_sb, long long k_sh, long long k_ss,
+                                 long long v_sb, long long v_sh, long long v_ss, long long o_sb,
+                                 long long o_sh, long long o_ss, long long dk_sb,
+                                 long long dk_sh, long long dk_ss, long long dv_sb,
+                                 long long dv_sh, long long dv_ss, float scale, int causal,
+                                 int kv_valid, void* stream) {
+  if (bad_shape(B, H, Sq, Skv, D)) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = BwdSmem<kBK, kBQ>::bytes(D, 2);
+  cudaError_t err = fvt::set_smem(flash_bwd_dkv_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((Skv + kBK - 1) / kBK, H, B);
+  flash_bwd_dkv_kernel<<<grid, fvt::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, Sq,
+      Skv, D, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, dk_sb,
+      dk_sh, dk_ss, dv_sb, dv_sh, dv_ss, scale, causal, kv_valid);
+  return static_cast<int>(cudaGetLastError());
+}

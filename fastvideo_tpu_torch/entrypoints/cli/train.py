@@ -1,0 +1,75 @@
+"""Training entry point (port of fastvideo_tpu/entrypoints/cli/train.py):
+
+    python -m fastvideo_tpu_torch.entrypoints.cli.train --config cfg.yaml
+
+The config tree (JSON, or the simple YAML subset of ``api/parser.py``;
+unknown keys are errors):
+
+    method: sft                 # the one method the port registers
+    model:
+      pretrained_model_path: /path/to/Diffusers-dir   # transformer/ inside
+      dit_precision: fp32
+    data:
+      path: /path/to/parquet    # not readable yet: no Parquet reader
+      batch_size: 1
+    training:                   # any TrainingArgs field
+      learning_rate: 1e-5
+      max_train_steps: 1000
+      device: cuda              # or cpu
+    method_config: {}
+
+``method`` resolves through the plugin registry. A ``data.path`` raises
+until the port reads Parquet; a caller drives ``method.train`` with a
+``PrefetchingLoader`` of its own batches meanwhile.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+
+from fastvideo_tpu_torch.training.run_config import (DataSpec, DMDSpec,
+                                                     ModelSpec,
+                                                     TrainRunConfig,
+                                                     build_dataloader,
+                                                     load_train_config)
+
+logger = logging.getLogger(__name__)
+
+__all__ = [
+    "TrainRunConfig", "ModelSpec", "DataSpec", "DMDSpec",
+    "load_train_config", "build_from_config", "main",
+]
+
+
+def build_from_config(cfg: TrainRunConfig):
+    """Resolve the method plugin and build (method, dataloader)."""
+    from fastvideo_tpu_torch.training.methods import resolve_method
+
+    method_cls = resolve_method(cfg.method)
+    method = method_cls.from_config(cfg)
+    dataloader = build_dataloader(cfg, method.args)
+    return method, dataloader
+
+
+def main(argv: list[str] | None = None) -> int:
+    parser = argparse.ArgumentParser("fastvideo_tpu_torch train")
+    parser.add_argument("--config", required=True,
+                        help="YAML/JSON training config")
+    parser.add_argument("--resume", action="store_true",
+                        help="resume from the latest checkpoint")
+    ns = parser.parse_args(argv)
+    cfg = load_train_config(ns.config)
+    method, dataloader = build_from_config(cfg)
+    if ns.resume:
+        method.resume_from_checkpoint()
+    if dataloader is None:
+        raise SystemExit("data.path is required to run training")
+    logger.info("Starting %s training (%d steps)", cfg.method,
+                method.args.max_train_steps)
+    method.train(dataloader, callbacks=cfg.callbacks or None)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

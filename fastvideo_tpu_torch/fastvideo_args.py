@@ -1,8 +1,9 @@
-"""FastVideoArgs: runtime configuration (port of
-fastvideo_tpu/fastvideo_args.py, the fields the inference path reads).
+"""FastVideoArgs / TrainingArgs: runtime configuration (port of
+fastvideo_tpu/fastvideo_args.py, the fields the inference and SFT training
+paths read).
 
-The port runs on one card: ``num_gpus``, ``sp_size`` and ``tp_size`` must
-be 1 until the parallelism slice.
+The port runs on one card: ``num_gpus``, ``sp_size`` and ``tp_size`` (and
+for training ``dp_size``) must be 1 until the parallelism slice.
 """
 
 from __future__ import annotations
@@ -38,3 +39,49 @@ class FastVideoArgs:
             raise NotImplementedError(
                 "the port runs on one card (num_gpus = sp_size = tp_size = 1)")
         return args
+
+
+@dataclasses.dataclass
+class TrainingArgs(FastVideoArgs):
+    """The fields of the JAX ``TrainingArgs`` that the SFT path reads, with
+    the JAX defaults and names (a JAX training config's fields parse)."""
+
+    gradient_accumulation_steps: int = 1
+    max_train_steps: int = 1000
+    # optimizer (AdamW)
+    learning_rate: float = 1e-5
+    lr_scheduler: str = "constant"
+    lr_warmup_steps: int = 0
+    weight_decay: float = 1e-4
+    max_grad_norm: float = 1.0
+    betas: tuple[float, float] = (0.9, 0.999)
+    # VSA sparsity ramp: sparsity grows by VSA_decay_rate every
+    # VSA_decay_interval_steps up to VSA_sparsity; rate or interval <= 0
+    # jumps straight to the target
+    VSA_decay_rate: float = 0.0
+    VSA_decay_interval_steps: int = 0
+    # timestep sampling
+    weighting_scheme: str = "uniform"
+    logit_mean: float = 0.0
+    logit_std: float = 1.0
+    mode_scale: float = 1.29
+    # checkpointing
+    output_dir: str = "outputs"
+    checkpointing_steps: int = 500
+    # activation checkpointing: "full" recomputes each DiT block in the
+    # backward; "ops" (keep the matmul outputs) is not ported
+    selective_checkpointing: str = "full"
+    validation_steps: int = 0
+    # tracking ("jsonl" local files; unknown backends are skipped)
+    trackers: tuple[str, ...] = ()
+    tracker_project_name: str | None = None
+    wandb_run_name: str | None = None
+    seed: int = 42
+
+    def __post_init__(self):
+        if self.num_gpus != 1 or self.sp_size != 1 or self.tp_size != 1:
+            raise NotImplementedError(
+                "the port trains on one card (num_gpus = sp_size = tp_size "
+                "= 1)")
+        self.betas = tuple(self.betas)
+        self.trackers = tuple(self.trackers or ())

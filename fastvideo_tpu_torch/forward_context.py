@@ -12,7 +12,7 @@ from typing import Any
 from fastvideo_tpu_torch.attention.backends.abstract import AttentionMetadata
 
 __all__ = ["ForwardContext", "get_forward_context", "set_forward_context",
-           "AttentionMetadata"]
+           "bind_forward_context", "AttentionMetadata"]
 
 
 @dataclasses.dataclass
@@ -40,3 +40,22 @@ def set_forward_context(current_timestep: int = 0,
         yield
     finally:
         _forward_context.reset(token)
+
+
+def bind_forward_context(fn):
+    """``fn`` run under the forward context that is current now, wherever
+    it is called later. A block under activation checkpointing runs its
+    forward again inside the backward, and on CUDA autograd runs that on a
+    thread of its own, which does not see the caller's context: bound, the
+    recompute reads the same attention metadata (the same VSA sparsity, so
+    the same tiles) as the forward."""
+    ctx = _forward_context.get()
+
+    def bound(*args, **kwargs):
+        token = _forward_context.set(ctx)
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            _forward_context.reset(token)
+
+    return bound

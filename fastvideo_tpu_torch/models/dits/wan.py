@@ -12,6 +12,13 @@ before the output projection. On a token grid with no exact tile that order
 is the padded one: the padded slots enter as zeros (tokens and RoPE
 tables), collect bias terms as they pass the blocks, are zeroed again by
 the backend before every attention, and are dropped by the final untiling.
+
+``gradient_checkpointing`` (set by the trainer) runs each block under
+``torch.utils.checkpoint`` when grad is enabled: the block's activations
+are recomputed in the backward, as JAX wraps each block in
+``jax.checkpoint``. The checkpointed block is bound to the forward context
+of the forward (``bind_forward_context``), so its recompute picks the same
+VSA tiles on whatever thread autograd runs it.
 """
 
 from __future__ import annotations
@@ -19,12 +26,14 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from fastvideo_tpu_torch.attention import DistributedAttention, LocalAttention
 from fastvideo_tpu_torch.attention.backends.vsa import resolve_vsa_tile
 from fastvideo_tpu_torch.attention.selector import resolve_backend_name
 from fastvideo_tpu_torch.configs.models.dits.wan import WanArchConfig
+from fastvideo_tpu_torch.forward_context import bind_forward_context
 from fastvideo_tpu_torch.layers.embeddings import (ModulateProjection,
                                                    PatchEmbed3D,
                                                    TimestepEmbedder,
@@ -218,6 +227,8 @@ class WanTransformer3DModel(nn.Module):
         self.scale_shift_table = nn.Parameter(
             torch.randn(1, 2, inner_dim, device=device, dtype=torch.float32) /
             inner_dim**0.5)
+        # set by the trainer: recompute each block in the backward
+        self.gradient_checkpointing = False
 
     def forward(self, hidden_states: torch.Tensor,
                 encoder_hidden_states: torch.Tensor,
@@ -246,9 +257,16 @@ class WanTransformer3DModel(nn.Module):
             timestep, encoder_hidden_states)
         timestep_proj = timestep_proj.reshape(timestep_proj.shape[0], 6, -1)
         context = context.to(x.dtype)
+        remat = self.gradient_checkpointing and torch.is_grad_enabled()
         for block in self.blocks:
-            x = block(x, context, timestep_proj, (cos, sin), None, grid=grid,
-                      pre_tiled=pre_tiled)
+            if remat:
+                x = torch.utils.checkpoint.checkpoint(
+                    bind_forward_context(block), x, context, timestep_proj,
+                    (cos, sin), None, grid=grid, pre_tiled=pre_tiled,
+                    use_reentrant=False)
+            else:
+                x = block(x, context, timestep_proj, (cos, sin), None,
+                          grid=grid, pre_tiled=pre_tiled)
 
         e = self.scale_shift_table.float() + temb.float()[:, None]
         x = self.norm_out(x, e[:, 0:1], e[:, 1:2])

@@ -69,9 +69,13 @@ def _build_arch_config(arch_cls, hf_config: dict):
 
 def load_model_component(component_dir: str, *, device: torch.device,
                          precision: str = "bf16", model_config=None,
-                         quantize_spec: str | None = None):
+                         quantize_spec: str | None = None,
+                         trainable: bool = False):
     """Build the component's module and load its weights (strict). With
-    ``quantize_spec`` (an int8 alias) its linears are quantized at load."""
+    ``quantize_spec`` (an int8 alias) its linears are quantized at load.
+    With ``trainable`` the module comes back in train mode with every
+    parameter requiring grad (the trainer's load), else in eval mode with
+    none."""
     hf_config = load_json_config(os.path.join(component_dir, "config.json"))
     class_name = hf_config.get("_class_name") or hf_config.get(
         "architectures", ["?"])[0]
@@ -96,6 +100,10 @@ def load_model_component(component_dir: str, *, device: torch.device,
                                              ()))
     logger.info("Loaded %d tensors for %s from %s (%d linears int8 at load)",
                 n, class_name, component_dir, count)
+    if trainable:
+        if count:
+            raise ValueError("an int8-quantized component cannot be trained")
+        return model.train().requires_grad_(True)
     return model.eval().requires_grad_(False)
 
 

@@ -18,9 +18,16 @@ The result's keys are the port module's ``state_dict()`` keys, and the
 same keys ``export_torch_layout`` writes into a checkpoint. A JAX
 ``CausalWanTransformer3DModel`` has the Wan DiT's parameter tree, so its
 parameters carry over by the same rules.
+
+The parameters may also come as the nested mapping of a JAX training
+state (``TrainingPipeline.state.params`` from ``nnx.split``, as
+``to_pure_dict()`` with numpy leaves): it is flattened to dotted paths
+first. A gradient tree of the same structure maps the same way.
 """
 
 from __future__ import annotations
+
+from collections.abc import Mapping
 
 import numpy as np
 import torch
@@ -28,9 +35,24 @@ import torch
 PATCH_EMBED = "patch_embedding.proj."
 
 
-def state_dict_from_jax(flat: dict[str, np.ndarray], *,
+def flatten_params(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
+    """A nested {name: {...: array}} mapping (integer keys for list items)
+    as {dotted path: array}."""
+    out: dict[str, np.ndarray] = {}
+    for key, value in tree.items():
+        path = f"{prefix}{key}"
+        if isinstance(value, Mapping):
+            out.update(flatten_params(value, path + "."))
+        else:
+            out[path] = value
+    return out
+
+
+def state_dict_from_jax(flat: Mapping, *,
                         patch_size: tuple[int, int, int] = (1, 2, 2)
                         ) -> dict[str, torch.Tensor]:
+    if any(isinstance(v, Mapping) for v in flat.values()):
+        flat = flatten_params(flat)
     out: dict[str, torch.Tensor] = {}
     int8_patch = f"{PATCH_EMBED}kernel_q" in flat
     for path, value in flat.items():

@@ -11,7 +11,9 @@ Every kernel wrapper calls :func:`count_launch` where it launches its
 kernel and :func:`count_plain` where it runs its plain PyTorch version, so
 a run can show which path the work took. A kernel is counted by its own
 name even where it shares a source with another (K5, ``flash_fwd_kv_mask``,
-is an entry of ``flash_fwd.cu``).
+is an entry of ``flash_fwd.cu``; the backward sources hold a dQ and a dK/dV
+kernel each, ``flash_bwd_dq`` / ``flash_bwd_dkv`` (K6) and
+``vsa_sparse_bwd_dq`` / ``vsa_sparse_bwd_dkv`` (K7 bwd)).
 """
 
 from __future__ import annotations
@@ -31,9 +33,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 # one shared library per csrc/<name>.cu
 SOURCES = ("flash_fwd", "vsa_sparse_fwd", "vsa_sparse_padded_fwd", "conv3d",
-           "conv3d_int8")
-# counted kernels -> the source that holds them
-SOURCE_OF = {**{n: n for n in SOURCES}, "flash_fwd_kv_mask": "flash_fwd"}
+           "conv3d_int8", "flash_bwd", "vsa_sparse_bwd")
+# counted kernels -> the source that holds them (each backward source holds
+# a dQ and a dK/dV kernel, counted apart)
+SOURCE_OF = {**{n: n for n in SOURCES[:5]}, "flash_fwd_kv_mask": "flash_fwd",
+             "flash_bwd_dq": "flash_bwd", "flash_bwd_dkv": "flash_bwd",
+             "vsa_sparse_bwd_dq": "vsa_sparse_bwd",
+             "vsa_sparse_bwd_dkv": "vsa_sparse_bwd"}
 KERNELS = tuple(SOURCE_OF)
 
 _lock = threading.Lock()
@@ -135,6 +141,24 @@ _SIGNATURES = {
     # 12 strides, scale, stream
     "fvt_vsa_sparse_padded_fwd": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 +
     [ctypes.c_longlong] * 12 + [ctypes.c_float, ctypes.c_void_p],
+    # q, k, v, dO, lse, delta, dq, B, H, Sq, Skv, D, 15 strides, scale,
+    # causal, kv_valid, stream
+    "fvt_flash_bwd_dq": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 +
+    [ctypes.c_longlong] * 15 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                                ctypes.c_void_p],
+    # q, k, v, dO, lse, delta, dk, dv, B, H, Sq, Skv, D, 18 strides, scale,
+    # causal, kv_valid, stream
+    "fvt_flash_bwd_dkv": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 +
+    [ctypes.c_longlong] * 18 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                                ctypes.c_void_p],
+    # q, k, v, dO, lse, delta, dq, indices, block_sizes, B, H, S, D, E, topk,
+    # 15 strides, scale, stream
+    "fvt_vsa_sparse_bwd_dq": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 +
+    [ctypes.c_longlong] * 15 + [ctypes.c_float, ctypes.c_void_p],
+    # q, k, v, dO, lse, delta, dk, dv, membership, block_sizes, B, H, S, D,
+    # E, 18 strides, scale, stream
+    "fvt_vsa_sparse_bwd_dkv": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 +
+    [ctypes.c_longlong] * 18 + [ctypes.c_float, ctypes.c_void_p],
     # x, w, bias, y, dtype, B, T, H, W, C, Co, kt, time_pad, stream
     "fvt_conv3d_ndhwc": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 +
     [ctypes.c_void_p],
@@ -159,6 +183,25 @@ def load(name: str) -> ctypes.CDLL:
                         getattr(lib, fn).restype = ctypes.c_int
                 _libs[n] = lib
         return _libs[name]
+
+
+def needs_grad(*ts: torch.Tensor) -> bool:
+    """Whether autograd would record a call on ``ts``."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def refuse_grad(name: str, *ts: torch.Tensor, use: str | None = None
+                ) -> None:
+    """Raise for a kernel with no backward when autograd would need one: its
+    output, filled through a ctypes launch, would have no ``grad_fn`` and
+    the operands' gradients would be lost without an error. ``use`` names
+    the differentiable form of the call, where there is one."""
+    if needs_grad(*ts):
+        why = (f"the differentiable form is {use}" if use else
+               "the JAX package differentiates it on no path")
+        raise KernelError(
+            f"{name}: the kernel has no backward ({why}); call it under "
+            "torch.no_grad() or on detached tensors")
 
 
 def check_device(t: torch.Tensor, name: str) -> None:

@@ -159,6 +159,7 @@ def conv3d_int8_plain(xq: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
 
 
 def _conv3d_int8_cuda(xq, wq, scale, bias, time_pad, out_dtype):
+    _build.refuse_grad(NAME_INT8, scale, bias)
     _build.check_device(xq, NAME_INT8)
     if xq.dtype != torch.int8 or wq.dtype != torch.int8:
         raise _build.KernelError(
@@ -209,6 +210,7 @@ def conv3d_int8(xq: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
 
 
 def _conv3d_cuda(x, w, b, time_pad, gamma):
+    _build.refuse_grad(NAME, x, w, b)
     _build.check_device(x, NAME)
     if gamma is not None:
         raise _build.KernelError(
@@ -253,6 +255,8 @@ def conv3d_ndhwc(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
                          f"{CONV3D_MODES + INT8_MODES}")
     if mode in INT8_MODES and int8_ok(x.shape[-1], w.shape[-1], x.shape[3],
                                       mode):
+        if x.is_cuda:  # the quantization would cut the graph before K4
+            _build.refuse_grad(NAME_INT8, x, w, b)
         if gamma is not None:
             x = rms_silu_prologue(x, gamma)
         xq, sx = quantize_int8(x)

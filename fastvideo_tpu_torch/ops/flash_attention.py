@@ -10,7 +10,15 @@ PyTorch. There is no fallback between the two.
 ``[S_kv]`` (replacing ``_fwd_kernel`` with ``has_kv_mask``, reached through
 the JAX ``flash_attention_kv_mask``): the causal Wan's attention over its
 rolling KV cache, whose key validity changes from one stream block to the
-next. Its plain version is :func:`flash_attention_kv_mask_plain`.
+next. Its plain version is :func:`flash_attention_kv_mask_plain`. It has no
+backward (nor has the JAX one): on CUDA it raises for operands that
+require grad.
+
+Under autograd ``flash_attention`` runs as one ``torch.autograd.Function``:
+K1's forward with its LSE, then K6 (``csrc/flash_bwd.cu``, replacing the
+Pallas ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``) for dQ and dK/dV, as the
+JAX function's custom VJP does. :func:`flash_attention_bwd_plain` is K6's
+plain version, used in the backward of CPU tensors only.
 
 Numerics follow the JAX kernel: fp32 scores and softmax statistics, the
 probabilities rounded to the value dtype before the P@V product, and a row
@@ -30,6 +38,8 @@ from fastvideo_tpu_torch.ops import _build
 
 NAME = "flash_fwd"
 NAME_KV_MASK = "flash_fwd_kv_mask"
+NAME_BWD_DQ = "flash_bwd_dq"
+NAME_BWD_DKV = "flash_bwd_dkv"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -84,6 +94,37 @@ def _masked_attention(q, k, v, mask, scale):
     return out.to(q.dtype).transpose(1, 2), lse[..., 0]
 
 
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, out: torch.Tensor,
+                              lse: torch.Tensor, do: torch.Tensor, *,
+                              scale: float, causal: bool = False,
+                              kv_valid: int | None = None):
+    """Plain PyTorch version of K6 (JAX ``_flash_attention_bwd_bhsd``):
+    (dq, dk, dv) of ``[B, S, H, D]`` operands from the forward's out and
+    fp32 lse [B, H, Sq], step by step in fp32 with the Pallas kernels'
+    rounding points: p to dO's dtype before p^T dO, dS to the operands'
+    dtype before dS K and dS^T Q, the results in the input dtypes."""
+    _build.count_plain(NAME_BWD_DQ)
+    _build.count_plain(NAME_BWD_DKV)
+    sq, skv = q.shape[1], k.shape[1]
+    kv_valid = skv if kv_valid is None else kv_valid
+    mask = _structural_mask(sq, skv, kv_valid, causal, q.device)
+    qf, kf, vf, of, dof = (t.float().transpose(1, 2)
+                           for t in (q, k, v, out, do))
+    delta = (dof * of).sum(dim=-1, keepdim=True)  # [B, H, Sq, 1]
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    # masked before the exponent: an empty row's -inf LSE meets no key
+    p = torch.exp((s - lse.float()[..., None]).masked_fill(~mask,
+                                                           float("-inf")))
+    dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), dof)
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    ds = p * (dp - delta) * scale
+    dq = torch.matmul(ds.to(k.dtype).float(), kf)
+    dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), qf)
+    return (dq.to(q.dtype).transpose(1, 2), dk.to(k.dtype).transpose(1, 2),
+            dv.to(v.dtype).transpose(1, 2))
+
+
 def attn_operand(t: torch.Tensor) -> torch.Tensor:
     """A view the attention kernels can read: unit stride on the last dim,
     16-byte aligned base and row strides (else a contiguous copy)."""
@@ -125,7 +166,100 @@ def _flash_attention_cuda(q, k, v, *, scale, causal, kv_valid):
     return out, lse
 
 
+def check_bwd_operands(name: str, *ts: torch.Tensor) -> None:
+    """The backward kernels (K6, K7 bwd) take bf16 with a head dim that is a
+    multiple of 16 up to 128."""
+    _build.check_device(ts[0], name)
+    d = ts[0].shape[-1]
+    if any(t.dtype != torch.bfloat16 for t in ts) or d % 16 or d > 128:
+        raise _build.KernelError(
+            f"{name}: the backward takes bfloat16 operands with a head dim "
+            f"that is a multiple of 16 up to 128, got "
+            f"{[t.dtype for t in ts]} and head dim {d}")
+
+
+def _flash_attention_bwd_cuda(q, k, v, out, lse, do, *, scale, causal,
+                              kv_valid):
+    check_bwd_operands(NAME_BWD_DQ, q, k, v, out, do)
+    q, k, v, do = (attn_operand(t) for t in (q, k, v, do))
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    # delta = rowsum(dO * O): a plain reduction, as it is XLA in JAX
+    delta = (do.float() * out.float()).sum(dim=-1).transpose(1,
+                                                             2).contiguous()
+    lse = lse.float().contiguous()
+    dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, skv, h, d), dtype=k.dtype, device=q.device)
+    dv = torch.empty((b, skv, h, d), dtype=v.dtype, device=q.device)
+
+    def bhs(t):
+        return t.stride(0), t.stride(2), t.stride(1)
+
+    common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+              lse.data_ptr(), delta.data_ptr())
+    tail = (float(scale), int(causal), int(kv_valid), _build.stream_ptr(q))
+    _build.launch(NAME_BWD_DQ, "fvt_flash_bwd_dq", *common, dq.data_ptr(), b,
+                  h, sq, skv, d, *bhs(q), *bhs(k), *bhs(v), *bhs(do),
+                  *bhs(dq), *tail)
+    _build.launch(NAME_BWD_DKV, "fvt_flash_bwd_dkv", *common, dk.data_ptr(),
+                  dv.data_ptr(), b, h, sq, skv, d, *bhs(q), *bhs(k), *bhs(v),
+                  *bhs(do), *bhs(dk), *bhs(dv), *tail)
+    return dq, dk, dv
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        do: torch.Tensor, *, scale: float,
+                        causal: bool = False, kv_valid: int | None = None):
+    """K6: (dq, dk, dv) of flash attention over ``[B, S, H, D]`` operands,
+    from the forward's out and lse [B, H, Sq] and the output gradient
+    ``do``. CUDA tensors launch the kernels, CPU tensors run
+    :func:`flash_attention_bwd_plain`."""
+    kw = dict(scale=scale, causal=causal,
+              kv_valid=k.shape[1] if kv_valid is None else int(kv_valid))
+    if q.is_cuda:
+        return _flash_attention_bwd_cuda(q, k, v, out, lse, do, **kw)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
+    raise _build.KernelError(f"{NAME_BWD_DQ}: unsupported device {q.device}")
+
+
+def _flash_attention_fwd(q, k, v, *, scale, causal, kv_valid):
+    """(out, lse): K1 on a CUDA tensor, its plain version on a CPU one."""
+    if q.is_cuda:
+        return _flash_attention_cuda(q, k, v, scale=scale, causal=causal,
+                                     kv_valid=kv_valid)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, scale=scale, causal=causal,
+                                     kv_valid=kv_valid)
+    raise _build.KernelError(f"{NAME}: unsupported device {q.device}")
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K1 forward with its LSE, K6 backward (JAX ``_flash_attention_bhsd``'s
+    custom VJP)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal, kv_valid):
+        kw = dict(scale=scale, causal=causal, kv_valid=kv_valid)
+        if q.is_cuda:
+            # refuse what K6 cannot take before the forward runs
+            check_bwd_operands(NAME_BWD_DQ, q, k, v)
+        out, lse = _flash_attention_fwd(q, k, v, **kw)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = kw
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do, **ctx.kw)
+        return dq, dk, dv, None, None, None
+
+
 def _flash_attention_kv_mask_cuda(q, k, v, kv_mask, *, scale):
+    _build.refuse_grad(NAME_KV_MASK, q, k, v)
     dtype = _check_cuda_operands(NAME_KV_MASK, q, k, v)
     if kv_mask.shape != (k.shape[1],) or kv_mask.device != q.device:
         raise _build.KernelError(
@@ -172,16 +306,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     ``kv_valid``: keys at index >= this are masked (default: all).
     With ``return_lse`` also returns the fp32 log-sum-exp ``[B, H, Sq]``.
+    Differentiable in q, k and v (K6 backward on CUDA, bf16 only).
     """
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if kv_valid is None:
         kv_valid = k.shape[1]
-    kw = dict(scale=scale, causal=causal, kv_valid=int(kv_valid))
-    if q.is_cuda:
-        out, lse = _flash_attention_cuda(q, k, v, **kw)
-    elif q.device.type == "cpu":
-        out, lse = flash_attention_plain(q, k, v, **kw)
+    if _build.needs_grad(q, k, v):
+        out, lse = _FlashAttention.apply(q, k, v, scale, causal,
+                                         int(kv_valid))
     else:
-        raise _build.KernelError(f"flash_fwd: unsupported device {q.device}")
+        out, lse = _flash_attention_fwd(q, k, v, scale=scale, causal=causal,
+                                        kv_valid=int(kv_valid))
     return (out, lse) if return_lse else out

@@ -11,9 +11,21 @@ The block-sparse branch over full tiles is K2: on a CUDA tensor
 STA and SLA go through :func:`block_sparse_attention` over padded tiles with
 per-tile valid counts and ``-1`` index sentinels: on a CUDA tensor it
 launches ``csrc/vsa_sparse_padded_fwd.cu`` (replacing the Pallas
-``_sparse_fwd_lse_kernel`` and ``_sparse_kernel``; forward only). On a CPU
-tensor both run :func:`block_sparse_attention_plain`; there is no fallback
-between kernel and plain version.
+``_sparse_fwd_lse_kernel`` and ``_sparse_kernel``). On a CPU tensor both run
+:func:`block_sparse_attention_plain`; there is no fallback between kernel
+and plain version.
+
+Under autograd the branch is :func:`block_sparse_attention_trainable`, one
+``torch.autograd.Function``: K7's forward in its LSE mode (the padded
+kernel), then K7 bwd (``csrc/vsa_sparse_bwd.cu``, replacing the Pallas
+``_sparse_bwd_dq_kernel`` and ``_sparse_bwd_dkv_kernel``) for dQ and dK/dV,
+as the JAX custom VJPs do. :func:`video_sparse_attn` takes that path under
+grad on every grid, on exact tiles with per-tile indices as JAX's
+``_bsa_fast`` does; :func:`block_sparse_attention_fast` (K2) and
+:func:`block_sparse_attention` (K8: STA, SLA) have no backward and raise on
+CUDA for operands that require grad.
+:func:`block_sparse_attention_bwd_plain` is K7 bwd's plain version, used in
+the backward of CPU tensors only.
 """
 
 from __future__ import annotations
@@ -25,10 +37,13 @@ import numpy as np
 import torch
 
 from fastvideo_tpu_torch.ops import _build
-from fastvideo_tpu_torch.ops.flash_attention import attn_operand
+from fastvideo_tpu_torch.ops.flash_attention import (attn_operand,
+                                                     check_bwd_operands)
 
 NAME = "vsa_sparse_fwd"
 PADDED_NAME = "vsa_sparse_padded_fwd"
+BWD_DQ_NAME = "vsa_sparse_bwd_dq"
+BWD_DKV_NAME = "vsa_sparse_bwd_dkv"
 VSA_TILE_SIZE = (4, 4, 4)
 TILE_ELEMS = 64
 # the log-sum-exp of a row with no valid key (the JAX package's finite mask)
@@ -130,12 +145,16 @@ def tile_tables(dit_seq_shape: tuple[int, int, int],
                 tile_size: tuple[int, int, int], device: torch.device):
     """(scatter_index, block_sizes, valid mask) of a tiling as tensors on
     ``device``, copied once per (grid, tile, device): the attention layers
-    call this at every step."""
+    call this at every step. They are built outside inference mode even
+    when the first call is a generation's: a later training step saves
+    the valid counts for its backward, which autograd refuses for an
+    inference tensor."""
     scatter, _, block_sizes, _, _ = tile_layout(dit_seq_shape, tile_size)
-    return (torch.as_tensor(scatter, device=device),
-            torch.as_tensor(block_sizes, device=device),
-            torch.as_tensor(tile_valid_mask(dit_seq_shape, tile_size),
-                            device=device))
+    with torch.inference_mode(False):
+        return (torch.as_tensor(scatter, device=device),
+                torch.as_tensor(block_sizes, device=device),
+                torch.as_tensor(tile_valid_mask(dit_seq_shape, tile_size),
+                                device=device))
 
 
 def tile_tokens(x: torch.Tensor, dit_seq_shape: tuple[int, int, int],
@@ -247,6 +266,7 @@ def _sparse_cuda_operands(name: str, q, k, v, indices):
 
 
 def _block_sparse_attention_cuda(q, k, v, indices, scale, tile_elems):
+    _build.refuse_grad(NAME, q, k, v, use="block_sparse_attention_trainable")
     q, k, v, idx, out, st = _sparse_cuda_operands(NAME, q, k, v, indices)
     b, h, s, d = q.shape
     _build.launch(NAME, "fvt_vsa_sparse_fwd", q.data_ptr(), k.data_ptr(),
@@ -264,6 +284,9 @@ def block_sparse_attention_fast(q: torch.Tensor, k: torch.Tensor,
 
     q/k/v: [B, H, nB*E, D] tile-major; indices: [B, H, nG, K] key-tile ids
     per query group of nB/nG consecutive tiles. Returns [B, H, nB*E, D].
+    It has no backward: on CUDA it raises for tensors that require grad
+    (:func:`block_sparse_attention_trainable` with valid counts of E is the
+    differentiable form, as JAX's ``_bsa_fast_fwd`` routes it).
     """
     b, h, s, d = q.shape
     nb = s // tile_elems
@@ -284,11 +307,8 @@ def block_sparse_attention_fast(q: torch.Tensor, k: torch.Tensor,
 
 def _block_sparse_padded_cuda(q, k, v, indices, block_sizes, scale,
                               tile_elems, return_lse):
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise _build.KernelError(
-            f"{PADDED_NAME}: the backward kernels (Pallas "
-            "_sparse_bwd_dq_kernel, _sparse_bwd_dkv_kernel) are not ported; "
-            "call it under torch.no_grad() or on detached tensors")
+    _build.refuse_grad(PADDED_NAME, q, k, v,
+                       use="block_sparse_attention_trainable")
     q, k, v, idx, out, st = _sparse_cuda_operands(PADDED_NAME, q, k, v,
                                                   indices)
     b, h, s, d = q.shape
@@ -308,10 +328,11 @@ def block_sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            *, scale: float | None = None,
                            tile_elems: int = TILE_ELEMS,
                            return_lse: bool = False):
-    """Block-sparse attention over PADDED tiles: the forward of the JAX
-    ``block_sparse_attention`` (K8) and, with ``return_lse``, of
-    ``block_sparse_attention_trainable`` (K7). The backward kernels are not
-    ported, so on CUDA it raises for tensors that require grad.
+    """Block-sparse attention over PADDED tiles: the JAX
+    ``block_sparse_attention`` (K8) and, with ``return_lse``, the forward of
+    ``block_sparse_attention_trainable`` (K7). It has no backward: on CUDA
+    it raises for tensors that require grad
+    (:func:`block_sparse_attention_trainable` is the differentiable form).
 
     q/k/v: [B, H, nB*E, D] in tile-major padded order. indices:
     [B, H, nB, K] int32 key-tile ids per query tile, -1 marking an unused
@@ -337,6 +358,186 @@ def block_sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     raise _build.KernelError(f"{PADDED_NAME}: unsupported device {q.device}")
 
 
+# -- backward (K7 bwd) and the trainable op -----------------------------------
+
+
+def block_sparse_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                                     v: torch.Tensor, indices: torch.Tensor,
+                                     block_sizes: torch.Tensor | None,
+                                     out: torch.Tensor, lse: torch.Tensor,
+                                     do: torch.Tensor, *, scale: float,
+                                     tile_elems: int = TILE_ELEMS):
+    """Plain PyTorch version of K7 bwd (JAX ``_block_sparse_bwd``): (dq, dk,
+    dv) of :func:`block_sparse_attention_plain`'s function from its out and
+    fp32 lse [B, H, S], step by step in fp32 with the Pallas kernels'
+    rounding points. A probability is live where its key is below the
+    tile's valid count, its slot is not -1 and the row's LSE is above
+    ``MASK_VALUE / 2``. Indices as in the forward ([B, H, nG, K])."""
+    _build.count_plain(BWD_DQ_NAME)
+    _build.count_plain(BWD_DKV_NAME)
+    b, h, s, d = q.shape
+    e = tile_elems
+    ng, topk = indices.shape[2], indices.shape[3]
+    rows = s // ng
+    offs = torch.arange(e, device=q.device)
+    sizes = (torch.full((s // e,), e, device=q.device)
+             if block_sizes is None else block_sizes.to(q.device))
+    dq = torch.empty_like(q)
+    dk = torch.zeros((b, h, s, d), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    for bi in range(b):
+        for hi in range(h):
+            slot = indices[bi, hi].long()  # [nG, K]
+            idx = slot.clamp_min(0)
+            kv_rows = (idx[..., None] * e + offs).reshape(ng, topk * e)
+            kt = k[bi, hi].float()[kv_rows]  # [nG, K*E, D]
+            vt = v[bi, hi].float()[kv_rows]
+            qg = q[bi, hi].float().reshape(ng, rows, d)
+            dog = do[bi, hi].float().reshape(ng, rows, d)
+            og = out[bi, hi].float().reshape(ng, rows, d)
+            lg = lse[bi, hi].float().reshape(ng, rows, 1)
+            delta = (dog * og).sum(dim=-1, keepdim=True)
+            sc = torch.matmul(qg, kt.transpose(-1, -2)) * scale
+            valid = (offs < sizes[idx][..., None]) & (slot >= 0)[..., None]
+            live = valid.reshape(ng, 1, topk * e) & (lg > MASK_VALUE / 2)
+            p = torch.exp((sc - lg).masked_fill(~live, float("-inf")))
+            dp = torch.matmul(dog, vt.transpose(-1, -2))
+            ds = p * (dp - delta) * scale
+            dq[bi, hi] = torch.matmul(ds.to(k.dtype).float(),
+                                      kt).reshape(s, d).to(q.dtype)
+            dv_g = torch.matmul(p.to(do.dtype).float().transpose(-1, -2),
+                                dog)
+            dk_g = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2),
+                                qg)
+            flat = kv_rows.reshape(-1)
+            dk[bi, hi].index_add_(0, flat, dk_g.reshape(-1, d))
+            dv[bi, hi].index_add_(0, flat, dv_g.reshape(-1, d))
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
+
+
+def sparse_membership(indices: torch.Tensor, n_tiles: int) -> torch.Tensor:
+    """member[b, h, kv_tile, q_tile] = 1 where query tile q_tile selected key
+    tile kv_tile (uint8 [B, H, nB, nQ]); ``-1`` slots select nothing. The
+    transposed sparsity of dK/dV, built outside the kernel as in JAX
+    (vsa.py:934-946)."""
+    b, h, nq, _ = indices.shape
+    member = torch.zeros((b, h, n_tiles + 1, nq), dtype=torch.uint8,
+                         device=indices.device)
+    slots = torch.where(indices >= 0, indices, n_tiles).long()
+    member.scatter_(2, slots.transpose(2, 3), 1)
+    return member[:, :, :n_tiles].contiguous()
+
+
+def _block_sparse_bwd_cuda(q, k, v, indices, block_sizes, out, lse, do,
+                           scale, tile_elems):
+    check_bwd_operands(BWD_DQ_NAME, q, k, v, out, do)
+    q, k, v, do = (attn_operand(t) for t in (q, k, v, do))
+    b, h, s, d = q.shape
+    nb = s // tile_elems
+    if indices.shape[2] != nb:
+        raise _build.KernelError(
+            f"{BWD_DQ_NAME}: takes one index row per query tile "
+            f"({nb}), got {tuple(indices.shape)}")
+    idx = indices.to(device=q.device, dtype=torch.int32).contiguous()
+    sizes = block_sizes.to(device=q.device, dtype=torch.int32).contiguous()
+    # delta = rowsum(dO * O): a plain reduction, as it is XLA in JAX
+    delta = (do.float() * out.float()).sum(dim=-1).contiguous()
+    lse = lse.float().contiguous()
+    member = sparse_membership(idx, nb)
+
+    def grad_like(t):  # [B, H, S, D] view of a [B, S, H, D] buffer
+        return torch.empty((b, s, h, d), dtype=t.dtype,
+                           device=q.device).transpose(1, 2)
+
+    dq, dk, dv = grad_like(q), grad_like(k), grad_like(v)
+
+    def st(t):
+        return t.stride(0), t.stride(1), t.stride(2)
+
+    common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+              lse.data_ptr(), delta.data_ptr())
+    strides = (*st(q), *st(k), *st(v), *st(do))
+    _build.launch(BWD_DQ_NAME, "fvt_vsa_sparse_bwd_dq", *common,
+                  dq.data_ptr(), idx.data_ptr(), sizes.data_ptr(), b, h, s, d,
+                  tile_elems, idx.shape[3], *strides, *st(dq), float(scale),
+                  _build.stream_ptr(q))
+    _build.launch(BWD_DKV_NAME, "fvt_vsa_sparse_bwd_dkv", *common,
+                  dk.data_ptr(), dv.data_ptr(), member.data_ptr(),
+                  sizes.data_ptr(), b, h, s, d, tile_elems, *strides,
+                  *st(dk), *st(dv), float(scale), _build.stream_ptr(q))
+    return dq, dk, dv
+
+
+def block_sparse_attention_bwd(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, indices: torch.Tensor,
+                               block_sizes: torch.Tensor, out: torch.Tensor,
+                               lse: torch.Tensor, do: torch.Tensor, *,
+                               scale: float, tile_elems: int = TILE_ELEMS):
+    """K7 bwd: (dq, dk, dv) of block-sparse attention over padded tiles with
+    per-tile indices [B, H, nB, K]. CUDA tensors launch the kernels, CPU
+    tensors run :func:`block_sparse_attention_bwd_plain`."""
+    if q.is_cuda:
+        return _block_sparse_bwd_cuda(q, k, v, indices, block_sizes, out,
+                                      lse, do, scale, tile_elems)
+    if q.device.type == "cpu":
+        return block_sparse_attention_bwd_plain(
+            q, k, v, indices, block_sizes, out, lse, do, scale=scale,
+            tile_elems=tile_elems)
+    raise _build.KernelError(f"{BWD_DQ_NAME}: unsupported device {q.device}")
+
+
+class _BlockSparseAttention(torch.autograd.Function):
+    """K7 forward in its LSE mode, K7 bwd backward (JAX
+    ``_block_sparse_attention_vjp``); indices and valid counts carry no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, indices, block_sizes, scale, tile_elems):
+        if q.is_cuda:
+            # refuse what K7 bwd cannot take before the forward runs
+            check_bwd_operands(BWD_DQ_NAME, q, k, v)
+        out, lse = block_sparse_attention(q, k, v, indices, block_sizes,
+                                          scale=scale, tile_elems=tile_elems,
+                                          return_lse=True)
+        ctx.save_for_backward(q, k, v, indices, block_sizes, out, lse)
+        ctx.kw = dict(scale=scale, tile_elems=tile_elems)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, indices, block_sizes, out, lse = ctx.saved_tensors
+        dq, dk, dv = block_sparse_attention_bwd(q, k, v, indices, block_sizes,
+                                                out, lse, do, **ctx.kw)
+        return dq, dk, dv, None, None, None, None
+
+
+def block_sparse_attention_trainable(q: torch.Tensor, k: torch.Tensor,
+                                     v: torch.Tensor, indices: torch.Tensor,
+                                     block_sizes: torch.Tensor, *,
+                                     scale: float | None = None,
+                                     tile_elems: int = TILE_ELEMS
+                                     ) -> torch.Tensor:
+    """Differentiable block-sparse attention (K7 forward with LSE, K7 bwd).
+
+    The contract of :func:`block_sparse_attention`; ``indices`` may also be
+    grouped ([B, H, nG, K], nG dividing nB), and are then expanded to one
+    row per query tile, as JAX's ``_bsa_fast_fwd`` does. Gradients flow to
+    q, k and v; indices come from top-k and carry none."""
+    b, h, s, d = q.shape
+    nb = s // tile_elems
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    ng = indices.shape[2]
+    if nb % ng:
+        raise ValueError(f"{nb} query tiles do not split into {ng} groups")
+    if ng != nb:
+        indices = indices.repeat_interleave(nb // ng, dim=2)
+    indices = indices.to(device=q.device, dtype=torch.int32)
+    block_sizes = block_sizes.to(device=q.device, dtype=torch.int32)
+    return _BlockSparseAttention.apply(q, k, v, indices, block_sizes,
+                                       float(scale), tile_elems)
+
+
 # -- full VSA composition -----------------------------------------------------
 
 
@@ -350,7 +551,11 @@ def video_sparse_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     ``full_tiles`` asserts there is no intra-tile padding, which K2 needs.
     ``q_group`` consecutive query tiles share one top-k set, chosen from
-    their averaged coarse scores.
+    their averaged coarse scores. Under autograd the sparse branch is
+    :func:`block_sparse_attention_trainable` on every grid (K7 forward with
+    LSE and K7 bwd; on full tiles the valid counts are all E, as JAX's
+    ``_bsa_fast_fwd`` does), so K2 runs only without grad; the compression
+    branch is plain PyTorch.
     """
     b, h, s, d = q.shape
     nb = s // tile_elems
@@ -374,7 +579,10 @@ def video_sparse_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scores_sel = scores
     top_idx = torch.topk(scores_sel, topk, dim=-1).indices
 
-    if full_tiles:
+    if _build.needs_grad(q, k, v):
+        out_s = block_sparse_attention_trainable(
+            q, k, v, top_idx, block_sizes, scale=scale, tile_elems=tile_elems)
+    elif full_tiles:
         out_s = block_sparse_attention_fast(q, k, v, top_idx, scale=scale,
                                             tile_elems=tile_elems)
     else:

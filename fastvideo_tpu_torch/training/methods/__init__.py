@@ -1,0 +1,20 @@
+"""Training method plugin registry (port of
+fastvideo_tpu/training/methods/__init__.py). Importing this package
+registers the built-in methods the port has: ``sft``."""
+
+from fastvideo_tpu_torch.training.methods import fine_tuning  # noqa: F401
+from fastvideo_tpu_torch.training.methods.base import (NOT_PORTED,
+                                                       PipelineMethod,
+                                                       TrainingMethod,
+                                                       list_methods,
+                                                       register_method,
+                                                       resolve_method)
+
+__all__ = [
+    "NOT_PORTED",
+    "TrainingMethod",
+    "PipelineMethod",
+    "register_method",
+    "resolve_method",
+    "list_methods",
+]

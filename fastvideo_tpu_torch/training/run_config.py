@@ -1,0 +1,98 @@
+"""Training run config, the YAML schema (port of
+fastvideo_tpu/training/run_config.py), and the shared component builders.
+
+``method`` resolves through the plugin registry (``training.methods``).
+``build_dataloader`` waits for the port's Parquet reader: the card's
+machine has no ``pyarrow``, which the JAX reader needs.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from dataclasses import dataclass, field
+from typing import Any
+
+import torch
+
+from fastvideo_tpu_torch.fastvideo_args import TrainingArgs
+
+
+@dataclass
+class ModelSpec:
+    pretrained_model_path: str = ""
+    dit_precision: str = "fp32"
+    flow_shift: float = 3.0
+
+
+@dataclass
+class DataSpec:
+    path: str = ""
+    batch_size: int = 1
+    text_drop_rate: float = 0.0
+
+
+@dataclass
+class DMDSpec:
+    dmd_denoising_steps: list[int] = field(
+        default_factory=lambda: [1000, 757, 522])
+    real_score_guidance_scale: float = 3.5
+    dfake_gen_update_ratio: int = 5
+    timestep_shift: float = 8.0
+
+
+@dataclass
+class TrainRunConfig:
+    method: str = "sft"
+    model: ModelSpec = field(default_factory=ModelSpec)
+    data: DataSpec = field(default_factory=DataSpec)
+    training: dict[str, Any] = field(default_factory=dict)
+    dmd: DMDSpec = field(default_factory=DMDSpec)
+    # method-specific free-form options, passed to Method.from_config
+    method_config: dict[str, Any] = field(default_factory=dict)
+    # named callbacks: not ported (the trainer raises when any is given)
+    callbacks: dict[str, Any] = field(default_factory=dict)
+
+
+def load_train_config(path: str) -> TrainRunConfig:
+    from fastvideo_tpu_torch.api.parser import load_config_file
+
+    return load_config_file(TrainRunConfig, path)
+
+
+def build_training_args(cfg: TrainRunConfig) -> TrainingArgs:
+    args_fields = {f.name for f in dataclasses.fields(TrainingArgs)}
+    unknown = set(cfg.training) - args_fields
+    if unknown:
+        raise ValueError(f"Unknown training fields: {sorted(unknown)}")
+    return TrainingArgs(**cfg.training)
+
+
+def build_transformer(spec: ModelSpec, device: torch.device | str = "cuda"):
+    """The DiT of a diffusers-format directory (its ``transformer/``),
+    loaded trainable in ``spec.dit_precision`` on ``device``."""
+    from fastvideo_tpu_torch.models.loader.component_loader import (
+        load_model_component)
+    from fastvideo_tpu_torch.registry import get_pipeline_config_cls_for_name
+
+    config_cls = get_pipeline_config_cls_for_name(spec.pretrained_model_path)
+    dit_config = None
+    if config_cls is not None:
+        dit_config = config_cls(
+            model_path=spec.pretrained_model_path).dit_config
+    tdir = os.path.join(spec.pretrained_model_path, "transformer")
+    return load_model_component(tdir, device=torch.device(device),
+                                precision=spec.dit_precision,
+                                model_config=dit_config, trainable=True)
+
+
+def build_dataloader(cfg: TrainRunConfig, training_args: TrainingArgs):
+    """None without ``data.path``. The latents Parquet dataset is not
+    ported: its reader needs pyarrow, which the card's machine lacks, and
+    the port's own Parquet reader is a ROADMAP item of its own."""
+    if not cfg.data.path:
+        return None
+    raise NotImplementedError(
+        "the Parquet latents dataset (LatentsParquetMapStyleDataset) is not "
+        "ported: the port has no Parquet reader yet (ROADMAP Queue 1); drive "
+        "the trainer with a PrefetchingLoader over your own batches")

@@ -452,3 +452,166 @@ def test_int8_linear_matches_cpu(dev, weight_only):
         _close(got.cpu(), want, torch.bfloat16, attention=False)
     else:  # exact int32 sums, the same fp32 epilogue
         assert torch.equal(got.cpu(), want)
+
+
+# -- backward kernels (K6, K7 bwd) and the grad rule --------------------------
+
+
+def _close_grad(got, want):
+    """A gradient against its plain version, both bf16 with the same
+    rounding points: dS and p round to bf16 before the products, and one
+    element of them may round the other way where the fp32 sums differ in
+    order, so the attention rule (2^-6 relative plus 2^-5 of the plain
+    gradient's std) holds it."""
+    _close(got, want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("b,sq,skv,h,d,causal,kv_valid", [
+    (1, 300, 512, 2, 128, False, None),  # the cross-attention's form
+    (2, 77, 130, 3, 64, True, 100),
+    (1, 150, 70, 2, 16, False, 33),      # a head of 16 (the tiny models)
+    (1, 64, 64, 1, 32, False, 0),        # every row empty
+])
+def test_flash_bwd_matches_plain(dev, b, sq, skv, h, d, causal, kv_valid):
+    g = torch.Generator(device=dev).manual_seed(7)
+    q, k, v = (torch.randn(b, s, h, d, generator=g, device=dev,
+                           dtype=torch.bfloat16) for s in (sq, skv, skv))
+    # dO as autograd may hand it: a strided view
+    do = torch.randn(b, sq, h, 2 * d, generator=g, device=dev,
+                     dtype=torch.bfloat16)[..., ::2]
+    kw = dict(scale=d**-0.5, causal=causal,
+              kv_valid=skv if kv_valid is None else kv_valid)
+    out, lse = flash_attention.flash_attention(q, k, v, return_lse=True,
+                                               **kw)
+    before = dict(_build.LAUNCHES)
+    got = flash_attention.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        assert _build.LAUNCHES[name] == before[name] + 1
+    want = flash_attention.flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                                     **kw)
+    for t, w in zip(got, want):
+        assert t.shape == w.shape and t.dtype == w.dtype
+        if kv_valid == 0:
+            torch.cuda.synchronize()
+            assert torch.all(t == 0)
+        else:
+            _close_grad(t, w)
+
+
+@pytest.mark.parametrize("e,nb,topk,d,full", [
+    (280, 9, 4, 128, True),   # the 480p tile, not a multiple of 64
+    (256, 7, 4, 128, False),  # the padded (4, 8, 8) tile
+    (40, 6, 2, 32, False),    # a tile smaller than a block's 64 rows
+    (64, 6, 3, 16, True),     # a head of 16 (the tiny models)
+])
+def test_vsa_sparse_bwd_matches_plain(dev, e, nb, topk, d, full):
+    q, k, v, idx, sizes = _padded_case(dev, 2, 3, nb, e, d, topk, seed=8)
+    # the padded slots hold zeros, as the backend leaves them
+    pad = (torch.arange(nb * e, device=dev) % e) >= sizes.repeat_interleave(e)
+    k[:, :, pad] = 0
+    v[:, :, pad] = 0
+    if full:
+        sizes = torch.full_like(sizes, e)
+    # a query tile whose every slot is a sentinel: its rows get zeros
+    idx[0, 0, 1] = -1
+    g = torch.Generator(device=dev).manual_seed(9)
+    do = torch.randn(q.shape, generator=g, device=dev, dtype=torch.bfloat16)
+    scale = d**-0.5
+    out, lse = vsa.block_sparse_attention(q, k, v, idx, sizes, scale=scale,
+                                          tile_elems=e, return_lse=True)
+    before = dict(_build.LAUNCHES)
+    got = vsa.block_sparse_attention_bwd(q, k, v, idx, sizes, out, lse, do,
+                                         scale=scale, tile_elems=e)
+    for name in ("vsa_sparse_bwd_dq", "vsa_sparse_bwd_dkv"):
+        assert _build.LAUNCHES[name] == before[name] + 1
+    want = vsa.block_sparse_attention_bwd_plain(
+        q, k, v, idx, sizes, out, lse, do, scale=scale, tile_elems=e)
+    torch.cuda.synchronize()
+    assert torch.all(got[0][0, 0, e:2 * e] == 0)
+    for t, w in zip(got, want):
+        assert t.shape == w.shape and t.dtype == w.dtype
+        _close_grad(t, w)
+
+
+def _grad_case(dev, kind):
+    """(wrapper call, its leaf tensors) on the card for the grad rule."""
+    g = torch.Generator(device=dev).manual_seed(10)
+    bf = torch.bfloat16
+
+    def leaf(*shape, dtype=bf):
+        return torch.randn(*shape, generator=g, device=dev,
+                           dtype=dtype).requires_grad_()
+
+    if kind == "flash":
+        ts = [leaf(1, 90, 2, 64), leaf(1, 70, 2, 64), leaf(1, 70, 2, 64)]
+        return lambda q, k, v: flash_attention.flash_attention(
+            q, k, v, kv_valid=61), ts
+    if kind in ("vsa_fast", "vsa_padded"):
+        e, nb = (64, 6) if kind == "vsa_fast" else (40, 6)
+        ts = [leaf(1, 2, nb * e, 32) for _ in range(3)]
+        sizes = torch.full((nb,), e, dtype=torch.int32, device=dev)
+        sizes[-1] = e - 9
+
+        def call(q, k, v):
+            return vsa.video_sparse_attn(q, k, v, sizes, 3, tile_elems=e,
+                                         full_tiles=kind == "vsa_fast",
+                                         q_group=2)
+        return call, ts
+    raise ValueError(kind)
+
+
+@pytest.mark.parametrize("kind", ["flash", "vsa_fast", "vsa_padded"])
+def test_grad_rule_backward_equals_plain(dev, kind):
+    """A wrapper with a backward: its gradients on the card equal the plain
+    version's on the CPU (same inputs), through the kernels only."""
+    call, ts = _grad_case(dev, kind)
+    before = dict(_build.PLAIN_CALLS)
+    out = call(*ts)
+    assert out.grad_fn is not None
+    out.float().square().sum().backward()
+    assert _build.PLAIN_CALLS == before
+    cpu = [t.detach().cpu().requires_grad_() for t in ts]
+    call(*cpu).float().square().sum().backward()
+    for t, c in zip(ts, cpu):
+        _close_grad(t.grad.cpu(), c.grad)
+
+
+@pytest.mark.parametrize("kind", ["flash_fp32", "kv_mask", "k2", "k8",
+                                  "sta", "sla", "conv3d", "conv3d_int8"])
+def test_grad_rule_kernels_without_backward_raise(dev, kind):
+    """A wrapper with no backward raises for operands that require grad,
+    rather than return an output without a grad_fn; under no_grad it
+    runs."""
+    from fastvideo_tpu_torch.ops import sla, sta
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    bf = torch.bfloat16
+    x = torch.randn(1, 128, 2, 64, generator=g, device=dev, dtype=bf)
+    xt = x.transpose(1, 2)
+    idx = torch.zeros(1, 2, 2, 1, device=dev, dtype=torch.int32)
+    sizes = torch.full((2,), 64, device=dev, dtype=torch.int32)
+    cx = torch.randn(1, 2, 4, 16, 32, generator=g, device=dev, dtype=bf)
+    cw = torch.randn(3, 3, 3, 32, 32, generator=g, device=dev, dtype=bf)
+    cb = torch.zeros(32, device=dev, dtype=bf)
+    calls = {
+        "flash_fp32": lambda t: flash_attention.flash_attention(
+            t.float(), t.float(), t.float()),
+        "kv_mask": lambda t: flash_attention.flash_attention_kv_mask(
+            t, t, t, torch.ones(128, dtype=torch.bool, device=dev)),
+        "k2": lambda t: vsa.block_sparse_attention_fast(
+            t.transpose(1, 2), xt, xt, idx, tile_elems=64),
+        "k8": lambda t: vsa.block_sparse_attention(
+            t.transpose(1, 2), xt, xt, idx, sizes),
+        "sta": lambda t: sta.sliding_tile_attention(
+            t, x, x, (2, 8, 8), ((3, 3, 3), (3, 3, 3)), (2, 4, 4)),
+        "sla": lambda t: sla.sla_attention(t, x, x, topk_ratio=0.5),
+        "conv3d": lambda t: conv3d.conv3d_ndhwc(t, cw, cb, time_pad=2),
+        "conv3d_int8": lambda t: conv3d.conv3d_ndhwc(t, cw, cb, time_pad=2,
+                                                     mode="kf_int8"),
+    }
+    leaf = (cx if kind.startswith("conv3d") else x).clone().requires_grad_()
+    with pytest.raises(_build.KernelError, match="backward"):
+        calls[kind](leaf)
+    with torch.no_grad():
+        calls[kind](leaf)
+    torch.cuda.synchronize()

@@ -101,7 +101,19 @@ def _calls():
     xq = torch.zeros(1, 2, 4, 4, 32, dtype=torch.int8)
     wq = torch.zeros(3, 3, 3, 32, 32, dtype=torch.int8)
     scale = torch.ones(32)
+    lse = torch.zeros(1, 2, 64)
+    lse_t = torch.zeros(1, 2, 128)
     c = _cuda_typed
+
+    def flash_bwd():
+        return flash_attention.flash_attention_bwd(
+            c(q), c(q), c(q), c(q), lse, c(q), scale=0.125)
+
+    def vsa_bwd():
+        return vsa.block_sparse_attention_bwd(
+            c(qt), c(qt), c(qt), idx, sizes, c(qt), lse_t, c(qt),
+            scale=0.125, tile_elems=64)
+
     return {
         "flash_fwd": lambda: flash_attention.flash_attention(c(q), c(q), c(q)),
         "flash_fwd_kv_mask": lambda: flash_attention.flash_attention_kv_mask(
@@ -113,6 +125,10 @@ def _calls():
         "conv3d": lambda: conv3d.conv3d_ndhwc(c(x), c(w), c(b), time_pad=2),
         "conv3d_int8": lambda: conv3d.conv3d_int8(
             c(xq), c(wq), scale, scale, time_pad=2, out_dtype=bf),
+        "flash_bwd_dq": flash_bwd,
+        "flash_bwd_dkv": flash_bwd,
+        "vsa_sparse_bwd_dq": vsa_bwd,
+        "vsa_sparse_bwd_dkv": vsa_bwd,
     }
 
 
@@ -206,4 +222,80 @@ def test_sparse_paths_reach_the_padded_kernel_on_cuda(path, monkeypatch):
         else:
             q = c(torch.zeros(1, 128, 2, 32, dtype=bf))
             sla.sla_attention(q, q, q, topk_ratio=0.5)
+    assert _build.PLAIN_CALLS == before
+
+
+def _grad_calls():
+    """CUDA-typed calls of the wrappers with no backward, on operands that
+    require grad."""
+    bf = torch.bfloat16
+    c = _cuda_typed
+
+    def leaf(*shape, dtype=bf):
+        return c(torch.zeros(*shape, dtype=dtype, requires_grad=True))
+
+    q = torch.zeros(1, 64, 2, 32, dtype=bf)
+    qt = torch.zeros(1, 2, 128, 32, dtype=bf)
+    idx = torch.zeros(1, 2, 2, 1, dtype=torch.int32)
+    sizes = torch.full((2,), 64, dtype=torch.int32)
+    w = torch.zeros(3, 3, 3, 32, 32, dtype=bf)
+    b = torch.zeros(32, dtype=bf)
+    return {
+        "flash_fwd_kv_mask": lambda: flash_attention.flash_attention_kv_mask(
+            leaf(1, 64, 2, 32), c(q), c(q),
+            c(torch.ones(64, dtype=torch.bool))),
+        "vsa_sparse_fwd": lambda: vsa.block_sparse_attention_fast(
+            leaf(1, 2, 128, 32), c(qt), c(qt), idx, tile_elems=64),
+        "vsa_sparse_padded_fwd": lambda: vsa.block_sparse_attention(
+            leaf(1, 2, 128, 32), c(qt), c(qt), idx, sizes),
+        "conv3d": lambda: conv3d.conv3d_ndhwc(
+            leaf(1, 2, 4, 16, 32), c(w), c(b), time_pad=2),
+        "conv3d_int8": lambda: conv3d.conv3d_ndhwc(
+            leaf(1, 2, 4, 16, 32), c(w), c(b), time_pad=2, mode="kf_int8"),
+        "flash_fwd_fp32": lambda: flash_attention.flash_attention(
+            leaf(1, 64, 2, 32, dtype=torch.float32),
+            c(q.float()), c(q.float())),
+    }
+
+
+@pytest.mark.parametrize("kind", list(_grad_calls()))
+def test_cuda_wrappers_without_backward_refuse_grad(kind, monkeypatch):
+    """A CUDA wrapper with no backward (K2, K5, K8, K3, K4, and K1 in fp32,
+    which K6 does not take) raises for operands that require grad, before
+    any build or launch, instead of returning an output with no grad_fn;
+    the plain version never runs."""
+    monkeypatch.setattr(_build, "check_device", lambda t, name: None)
+    before = dict(_build.PLAIN_CALLS), dict(_build.LAUNCHES)
+    with pytest.raises(_build.KernelError, match="backward"):
+        _grad_calls()[kind]()
+    assert (dict(_build.PLAIN_CALLS), dict(_build.LAUNCHES)) == before
+
+
+@pytest.mark.parametrize("path", ["flash", "vsa_fast", "vsa_padded"])
+def test_cuda_grad_paths_go_to_the_trainable_kernels(path, monkeypatch):
+    """Under grad K1 and VSA on full and on padded tiles take the autograd
+    Functions whose forward is a kernel launch (here: its build, which has
+    no nvcc): never a plain version, never K2."""
+    monkeypatch.setattr(_build, "check_device", lambda t, name: None)
+    monkeypatch.setattr(_build, "stream_ptr", lambda t: 0)
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", "/nonexistent")
+    bf = torch.bfloat16
+    c = _cuda_typed
+    q = c(torch.zeros(1, 2, 256, 32, dtype=bf, requires_grad=True))
+    sizes = torch.full((4,), 64, dtype=torch.int32)
+    calls = {
+        "flash": lambda: flash_attention.flash_attention(
+            c(torch.zeros(1, 64, 2, 32, dtype=bf, requires_grad=True)),
+            c(torch.zeros(1, 64, 2, 32, dtype=bf)),
+            c(torch.zeros(1, 64, 2, 32, dtype=bf))),
+        "vsa_fast": lambda: vsa.video_sparse_attn(
+            q, q, q, sizes, 2, tile_elems=64, full_tiles=True, q_group=2),
+        "vsa_padded": lambda: vsa.video_sparse_attn(
+            q, q, q, sizes, 2, tile_elems=64, full_tiles=False),
+    }
+    before = dict(_build.PLAIN_CALLS)
+    with pytest.raises(_build.KernelError, match="nvcc not found"):
+        calls[path]()
     assert _build.PLAIN_CALLS == before
