@@ -15,11 +15,16 @@ Phases, each printing its own lines:
      block, fourth block and full window; the fp32 decode's K3, K4 and K1
      forms; the backward kernels K6 at the training cross-attention and K7
      bwd at the training self-attention, 117 exact tiles of 280 with a real
-     coarse top-24, and at the 480x848 padded shape);
+     coarse top-24, and at the 480x848 padded shape; the count-driven
+     sparse kernels K9a at 4k's NABLA shape, under nabla_block_mask's mask
+     and under a ramp of per-row counts 1..390, and K9b at 4j's BSA shape,
+     32 pruned queries a tile, under select_kv_blocks' mask);
   4. a: tiny models, the card's whole path against the CPU's plain path
      (FastWan DMD, also with an fp32 decode; Wan UniPC + CFG with VSA and
-     with STA on a padded grid; TurboDiffusion; the causal Wan with a
-     head of 128, a sink and a window of 1,280 keys that evicts);
+     with STA on a padded grid, and on every other self-attention backend:
+     BSA, NABLA, TORCH_SDPA, SAGE_ATTN, VMOBA_ATTN, ATTN_QAT_TRAIN;
+     TurboDiffusion; the causal Wan with a head of 128, a sink and a window
+     of 1,280 keys that evicts);
      b: the FastWan main path at full width: a random-weight
      FastWan2.1-T2V-1.3B-shaped diffusers checkpoint written with the
      port's own safetensors writer, loaded by
@@ -54,7 +59,15 @@ Phases, each printing its own lines:
      PrefetchingLoader: a warm-up step, then --train-steps (default 3)
      timed ones; seconds a step, loss, grad_norm, peak memory and the
      launch counts of every kernel of the step;
+     j, k: the Wan2.1-T2V-1.3B multistep path at full width and depth with
+     BSA_ATTN at 81x480x848 (K9b) and with NABLA_ATTN at 61x480x832 (K9a,
+     which takes token counts that are multiples of 64), 2 FlowUniPC steps
+     with CFG each, on checkpoints without VSA gate weights: stage times,
+     seconds a step, peak memory, the mean kept fraction of the block
+     masks and the launch counts;
   5. the kernels line, the card line and the result line.
+
+Each phase header ends with the seconds since the start.
 
 Any failure exits non-zero before the result line. It imports nothing of
 the JAX package.
@@ -63,6 +76,7 @@ the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -90,6 +104,10 @@ REPLACES = {
     "flash_bwd_dkv": "fastvideo_tpu/ops/flash_attention.py:355",
     "vsa_sparse_bwd_dq": "fastvideo_tpu/ops/vsa.py:698",
     "vsa_sparse_bwd_dkv": "fastvideo_tpu/ops/vsa.py:762",
+    "dyn_sparse_fwd": "fastvideo_tpu/ops/nabla.py:60 (call :188, from "
+    "masked_block_sparse_attention :134)",
+    "dyn_sparse_qtile_fwd": "fastvideo_tpu/ops/nabla.py:60 with q_rows (call "
+    "fastvideo_tpu/ops/bsa.py:137, from _masked_sparse_qtile :91)",
 }
 SOURCES = {
     "flash_fwd": "fastvideo_tpu_torch/csrc/flash_fwd.cu",
@@ -103,6 +121,8 @@ SOURCES = {
     "flash_bwd_dkv": "fastvideo_tpu_torch/csrc/flash_bwd.cu",
     "vsa_sparse_bwd_dq": "fastvideo_tpu_torch/csrc/vsa_sparse_bwd.cu",
     "vsa_sparse_bwd_dkv": "fastvideo_tpu_torch/csrc/vsa_sparse_bwd.cu",
+    "dyn_sparse_fwd": "fastvideo_tpu_torch/csrc/dyn_sparse_fwd.cu",
+    "dyn_sparse_qtile_fwd": "fastvideo_tpu_torch/csrc/dyn_sparse_fwd.cu",
 }
 
 
@@ -498,6 +518,135 @@ def check_vsa_padded(dev, results: dict) -> None:
         shape=f"q{[b, h, s, d]} E{e} tiles{nb} topk{topk} + lse",
         sta_ms=sta_ms, sta_bound_ms=sta_bms, sta_library_ms=sta_lib,
         sla_ms=sla_ms, sla_bound_ms=sla_bms, sla_library_ms=sla_lib)
+
+
+def dyn_block_mask(mask, sq: int, skv: int, q_block: int, kv_block: int):
+    """The flex_attention BlockMask of K9's sparsity: query block qi sees
+    every key of the key blocks that ``mask[b, h, qi]`` keeps (all full
+    blocks: the tiles hold 64 real tokens each)."""
+    import torch
+    from torch.nn.attention.flex_attention import BlockMask
+
+    from fastvideo_tpu_torch.ops import nabla
+
+    idx, counts = nabla.mask_indices(mask)
+    none = torch.zeros_like(counts)
+    return BlockMask.from_kv_blocks(none, idx.clamp_min(0), counts,
+                                    idx.clamp_min(0),
+                                    BLOCK_SIZE=(q_block, kv_block),
+                                    seq_lengths=(sq, skv))
+
+
+def dyn_bound(mask, rows: int, e: int, d: int) -> tuple[float, float]:
+    """(FLOP, bytes) K9 needs for these inputs: 4*D a (query row, kept key)
+    pair; q read and o written once, each key tile that some row keeps read
+    once (k and v), the indices and counts."""
+    b, h, nq, nk = mask.shape
+    pairs = mask.sum().item() * rows * e
+    tiles = mask.any(dim=2).sum().item()
+    nbytes = 2.0 * 2 * b * h * nq * rows * d + 2.0 * 2 * tiles * e * d + \
+        4 * (mask.numel() + b * h * nq)
+    return 4.0 * d * pairs, nbytes
+
+
+def time_dyn_case(label: str, q, k, v, mask, q_rows) -> dict:
+    """K9a (q_rows None) or K9b on one mask: held to the plain version on
+    the same indices and counts, timed, with the plain time, the library
+    time (compiled flex_attention with a BlockMask of the same kept pairs,
+    (rows, 64) blocks; timed here only, the port never calls it), the
+    bound and the kept fraction."""
+    import torch
+    from torch.nn.attention.flex_attention import flex_attention
+
+    from fastvideo_tpu_torch.ops import nabla
+
+    rows, e, d = q_rows or 64, 64, q.shape[-1]
+    sizes = torch.full((k.shape[2] // e,), e, dtype=torch.int32,
+                       device=q.device)
+    scale = d**-0.5
+    name = nabla.QTILE_NAME if q_rows else nabla.NAME
+    idx, counts = nabla.mask_indices(mask)
+    kw = dict(scale=scale, q_rows=q_rows)
+    out = nabla.dyn_sparse_attention(q, k, v, idx, counts, sizes, **kw)
+    ref = nabla.dyn_sparse_attention_plain(q, k, v, idx, counts, sizes, **kw)
+    tol = attn_tol(ref, torch.bfloat16)
+    err = check(f"{name}[{label}]", out, ref, *tol)
+    ms = time_ms(lambda: nabla.dyn_sparse_attention(q, k, v, idx, counts,
+                                                    sizes, **kw))
+    plain = time_ms(lambda: nabla.dyn_sparse_attention_plain(
+        q, k, v, idx, counts, sizes, **kw), 1)
+    block_mask = dyn_block_mask(mask, q.shape[2], k.shape[2], rows, e)
+    flex = torch.compile(flex_attention, dynamic=False)
+    opts = {"BLOCK_M": rows, "BLOCK_N": e}
+    check(f"flex_attention[{label}] (library)",
+          flex(q, k, v, block_mask=block_mask, scale=scale,
+               kernel_options=opts), ref, *tol)
+    lib = time_ms(lambda: flex(q, k, v, block_mask=block_mask, scale=scale,
+                               kernel_options=opts))
+    flops, nbytes = dyn_bound(mask, rows, e, d)
+    bms, by = bound_ms(flops, nbytes)
+    kept = mask.float().mean().item()
+    print(f"  {name}[{label}]: {ms:.3f} ms kernel, {plain:.3f} ms plain, "
+          f"{lib:.3f} ms flex_attention ({rows}, {e}) blocks, bound "
+          f"{bms:.3f} ms ({by}, {flops:.3e} FLOP); kept fraction {kept:.4f},"
+          f" counts {counts.min().item()}..{counts.max().item()} of "
+          f"{mask.shape[-1]}; q{list(q.shape)} k{list(k.shape)}", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+                bound_by=by, library_ms=lib, kept_fraction=kept)
+
+
+def check_dyn_sparse(dev, results: dict) -> None:
+    """K9a at 4k's NABLA shape (q/k/v [1, 12, 24960, 128], 390 tiles) under
+    the mask nabla_block_mask builds from seeded q/k at thr 0.9, and under
+    a mask whose per-row counts run from 1 to 390; K9b at 4j's BSA shape
+    (the pruned queries of the 480x848 grid's 672 padded tiles, 32 rows a
+    tile, over k/v [1, 12, 43008, 128]) under select_kv_blocks' mask."""
+    import torch
+
+    from fastvideo_tpu_torch.ops import bsa, nabla, vsa
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    b, h, d, bf = 1, 12, 128, torch.bfloat16
+    s = turbo_tokens()
+    nb = s // 64
+    q, k, v = (torch.randn(b, s, h, d, generator=g, device=dev, dtype=bf)
+               for _ in range(3))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    mask = nabla.nabla_block_mask(q, k, None, 0.9)
+    r = time_dyn_case(f"nabla {s} thr 0.9", qt, kt, vt, mask, None)
+    # counts 1 .. nb across each head's rows, random tiles
+    row = torch.arange(nb, device=dev)
+    counts = (row[None, :] + 37 * torch.arange(h, device=dev)[:, None]) % nb
+    ranks = torch.rand(b, h, nb, nb, generator=g, device=dev).argsort(
+        -1).argsort(-1)
+    ramp = ranks < (counts + 1)[None, :, :, None]
+    r2 = time_dyn_case(f"counts 1..{nb}", qt, kt, vt, ramp, None)
+    results[nabla.NAME] = dict(
+        r, shape=f"q/k/v{[b, h, s, d]}, {nb} tiles, NABLA mask thr 0.9",
+        ramp_ms=r2["ms"], ramp_bound_ms=r2["bound_ms"],
+        ramp_library_ms=r2["library_ms"], ramp_plain_ms=r2["plain_ms"],
+        ramp_kept_fraction=r2["kept_fraction"],
+        max_abs_err=max(r["max_abs_err"], r2["max_abs_err"]))
+    del q, k, v, qt, kt, vt, mask, ramp
+    torch.cuda.empty_cache()
+
+    # K9b: the 480x848 grid as BSA_ATTN builds it
+    grid = (21, 30, 53)
+    s = grid[0] * grid[1] * grid[2]
+    q, k, v = (vsa.tile_tokens(torch.randn(b, s, h, d, generator=g,
+                                           device=dev, dtype=bf), grid)
+               for _ in range(3))
+    n = q.shape[1] // 64
+    qb = q.transpose(1, 2).reshape(b, h, n, 64, d)
+    kb = k.transpose(1, 2).reshape(b, h, n, 64, d)
+    sparse_q, _, keep = bsa.prune_queries(qb, 0.5)
+    mask = bsa.select_kv_blocks(sparse_q, kb, 0.9, 1)
+    qs = sparse_q.reshape(b, h, n * keep, d)
+    kbt, vt = kb.reshape(b, h, n * 64, d), v.transpose(1, 2)
+    r = time_dyn_case(f"bsa 480x848 q_rows {keep}", qs, kbt, vt, mask, keep)
+    results[nabla.QTILE_NAME] = dict(
+        r, shape=f"q{[b, h, n * keep, d]} ({keep} rows a tile) over "
+        f"k/v{[b, h, n * 64, d]}, {n} tiles, select_kv_blocks thr 0.9")
 
 
 def decode_chunk_frames(latent: tuple[int, int, int]) -> int:
@@ -1201,6 +1350,8 @@ def run_kernel_checks(dev) -> dict:
     check_vsa(dev, results)
     check_vsa_padded(dev, results)
     torch.cuda.empty_cache()
+    check_dyn_sparse(dev, results)
+    torch.cuda.empty_cache()
     check_flash_bwd(dev, results)
     torch.cuda.empty_cache()
     check_vsa_bwd(dev, results)
@@ -1275,6 +1426,8 @@ TINY_T5_CFG = dict(T5_CFG, vocab_size=128, d_model=32, d_kv=8, d_ff=48,
 CLIP_480P = dict(height=480, width=832, num_frames=81)
 TURBO_SIZE = dict(height=480, width=832, num_frames=61)
 TURBO_STEPS = 4  # the family's published serving form, and its maximum
+# 4j/4k: FlowUniPC steps of the BSA and NABLA generations (each with CFG)
+K9_STEPS = 2
 
 
 def turbo_tokens() -> int:
@@ -1475,6 +1628,19 @@ def check_small_paths(work: str) -> None:
                      cfg_kw, dict(VSA_sparsity=0.6))
     check_small_path(work, "Wan2.1-T2V-tiny-Diffusers", "SLIDING_TILE_ATTN",
                      cfg_kw, {})
+    # the same path on every other self-attention backend: BSA (K9b) on the
+    # padded grid (9, 10, 14); NABLA (K9a) at 9 frames of 32x64, a grid of
+    # (5, 8, 16), 640 tokens; the plain-PyTorch backends (SDPA also takes
+    # the text cross-attention, as in JAX)
+    check_small_path(work, "Wan2.1-T2V-tiny-Diffusers", "BSA_ATTN", cfg_kw,
+                     {}, launched=("dyn_sparse_qtile_fwd",))
+    check_small_path(work, "Wan2.1-T2V-tiny-Diffusers", "NABLA_ATTN",
+                     dict(cfg_kw, height=32, width=64, num_frames=9), {},
+                     launched=("dyn_sparse_fwd",))
+    for backend in ("TORCH_SDPA", "SAGE_ATTN", "VMOBA_ATTN",
+                    "ATTN_QAT_TRAIN"):
+        check_small_path(work, "Wan2.1-T2V-tiny-Diffusers", backend, cfg_kw,
+                         {}, launched=("conv3d",))
     # TurboDiffusion: 4 rCM steps with SLA, W8A8 DiT linears and the int8
     # decode convs of a 32-channel VAE; 9 frames at 64x64, 1,280 tokens
     check_small_path(work, "TurboDiffusion-T2V-tiny", "SLA_ATTN",
@@ -1575,19 +1741,44 @@ def run_main_path(work: str, profile_dir: str | None = None) -> dict:
     return launches
 
 
+@contextlib.contextmanager
+def kept_fraction_meter():
+    """Collects, for each K9 call of a run, the kept fraction of its block
+    mask (a device scalar, read once at the end, so no call waits on the
+    host)."""
+    from fastvideo_tpu_torch.ops import bsa, nabla
+
+    fracs: list = []
+    orig = nabla.mask_indices
+
+    def metered(mask):
+        fracs.append(mask.float().mean())
+        return orig(mask)
+
+    nabla.mask_indices = bsa.mask_indices = metered
+    try:
+        yield fracs
+    finally:
+        nabla.mask_indices = bsa.mask_indices = orig
+
+
 def run_wan_path(work: str, backend: str, steps: int, from_kw: dict,
-                 profile_dir: str | None = None) -> dict:
-    """The multistep Wan2.1-T2V-1.3B path at full width and depth on the
-    token grid (21, 30, 53): one generation of ``steps`` FlowUniPC steps
-    with classifier-free guidance (two DiT passes a step), every DiT layer's
-    self-attention through the padded sparse kernel."""
+                 profile_dir: str | None = None,
+                 size: dict | None = None,
+                 kernel: str = "vsa_sparse_padded_fwd") -> dict:
+    """The multistep Wan2.1-T2V-1.3B path at full width and depth (480x848,
+    token grid (21, 30, 53), unless ``size`` says otherwise): one
+    generation of ``steps`` FlowUniPC steps with classifier-free guidance
+    (two DiT passes a step), every DiT layer's self-attention through the
+    sparse kernel ``kernel``."""
     import torch
 
     from fastvideo_tpu_torch import VideoGenerator
     from fastvideo_tpu_torch.ops import _build
 
+    size = size or dict(CLIP_480P, width=848)
     os.environ["FASTVIDEO_ATTENTION_BACKEND"] = backend
-    label = f"Wan 480x848 {backend}"
+    label = f"Wan {size['height']}x{size['width']} {backend}"
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     root = os.path.join(work, backend, "Wan2.1-T2V-1.3B-Diffusers")
@@ -1597,36 +1788,42 @@ def run_wan_path(work: str, backend: str, steps: int, from_kw: dict,
     gen = VideoGenerator.from_pretrained(ckpt, **from_kw)
     print(f"  transformer written and pipeline loaded in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    kw = dict(prompt=PROMPT, negative_prompt=NEGATIVE_PROMPT, height=480,
-              width=848, num_frames=81, seed=42, num_inference_steps=steps,
-              guidance_scale=5.0, save_video=False)
+    kw = dict(prompt=PROMPT, negative_prompt=NEGATIVE_PROMPT, seed=42,
+              num_inference_steps=steps, guidance_scale=5.0, save_video=False,
+              **size)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_counts()
-    result = gen.generate_video(**kw)
+    with kept_fraction_meter() as fracs:
+        result = gen.generate_video(**kw)
     launches = dict(_build.LAUNCHES)
     plain = dict(_build.PLAIN_CALLS)
     peak = torch.cuda.max_memory_allocated() / 2**30
     times = {k: round(v, 4) for k, v in result["stage_times"].items()}
     layers = DIT_CFG["num_layers"]
+    kept = (f"; mean kept fraction of the K9 block masks "
+            f"{torch.stack(fracs).mean().item():.4f} over {len(fracs)} "
+            f"calls" if fracs else "")
     print(f"  {steps} steps used; generation {result['generation_time']:.3f} "
           f"s (first call in the process for this shape); stage seconds "
           f"{json.dumps(times)}; {times['DenoisingStage'] / steps:.3f} s a "
-          f"step; peak memory {peak:.1f} GiB", flush=True)
-    print(f"  kernel launches {json.dumps(launches)} (padded sparse kernel: "
+          f"step; peak memory {peak:.1f} GiB{kept}", flush=True)
+    print(f"  kernel launches {json.dumps(launches)} ({kernel}: "
           f"{layers} layers x 2 CFG passes x {steps} steps = "
           f"{layers * 2 * steps}); plain calls {json.dumps(plain)}",
           flush=True)
-    check_generation(label, result, dict(CLIP_480P, width=848), launches,
-                     plain,
+    check_generation(label, result, size, launches, plain,
                      {"flash_fwd": None, "conv3d": None,
-                      "vsa_sparse_padded_fwd": layers * 2 * steps})
+                      kernel: layers * 2 * steps})
     if profile_dir:
         profile_generation(gen, kw, profile_dir,
-                           f"wan_480x848_{backend.lower()}")
+                           f"wan_{size['height']}x{size['width']}_"
+                           f"{backend.lower()}")
     del gen, result
     torch.cuda.empty_cache()
-    return launches
+    return dict(launches, kept_fraction=(torch.stack(fracs).mean().item()
+                                         if fracs else None),
+                step_s=times["DenoisingStage"] / steps)
 
 
 def state_bytes(module) -> int:
@@ -2252,8 +2449,14 @@ def main() -> int:
 
     import torch
 
-    print(f"# phase 1: environment: python {sys.version.split()[0]}, torch "
-          f"{torch.__version__}, cuda {torch.version.cuda}", flush=True)
+    t_start = time.perf_counter()
+
+    def phase(title: str) -> None:
+        print(f"{title} [{time.perf_counter() - t_start:.0f} s in]",
+              flush=True)
+
+    phase(f"# phase 1: environment: python {sys.version.split()[0]}, torch "
+          f"{torch.__version__}, cuda {torch.version.cuda}")
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py needs an H100", file=sys.stderr)
         return 1
@@ -2263,59 +2466,67 @@ def main() -> int:
 
     from fastvideo_tpu_torch.ops import _build
 
-    print("# phase 2: kernel build", flush=True)
+    phase("# phase 2: kernel build")
     paths = _build.build_all()
     print(f"  built {sorted(paths)} in {_build.BUILD_SECONDS:.1f} s "
           f"(nvcc, sm_90a, in parallel)", flush=True)
 
-    print("# phase 3: kernel checks at the main path's shapes", flush=True)
+    phase("# phase 3: kernel checks at the main path's shapes")
     results = run_kernel_checks(dev)
     _build.reset_counts()
 
     work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                         "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
-    print("# phase 4a: tiny models, card against the plain path", flush=True)
+    phase("# phase 4a: tiny models, card against the plain path")
     check_small_paths(work)
     check_small_training(work)
-    print("# phase 4b: FastWan main path at full width, 81x480x832, 3 DMD "
-          "steps, VSA sparsity 0.8", flush=True)
+    phase("# phase 4b: FastWan main path at full width, 81x480x832, 3 DMD "
+          "steps, VSA sparsity 0.8")
     launches = run_main_path(work, args.profile)
-    print(f"# phase 4c: Wan2.1-T2V-1.3B at full width and depth, 81x480x848, "
+    phase(f"# phase 4c: Wan2.1-T2V-1.3B at full width and depth, 81x480x848, "
           f"{args.vsa_steps} FlowUniPC steps with CFG, VSA sparsity 0.8 on "
-          f"padded tiles", flush=True)
+          f"padded tiles")
     vsa_launches = run_wan_path(work, "VIDEO_SPARSE_ATTN", args.vsa_steps,
                                 dict(VSA_sparsity=0.8), args.profile)
-    print(f"# phase 4d: the same with SLIDING_TILE_ATTN, {args.sta_steps} "
-          f"steps", flush=True)
+    phase(f"# phase 4d: the same with SLIDING_TILE_ATTN, {args.sta_steps} "
+          f"steps")
     sta_launches = run_wan_path(work, "SLIDING_TILE_ATTN", args.sta_steps, {},
                                 args.profile)
-    print("# phase 4e: FastWan int8 serving at 81x480x832: UMT5 int8 "
+    phase("# phase 4e: FastWan int8 serving at 81x480x832: UMT5 int8 "
           "weight-only (quantized at load), W8A8 DiT linears, auto_int8 "
-          "decode convs", flush=True)
+          "decode convs")
     int8_launches = run_int8_fastwan(work, args.profile)
-    print(f"# phase 4f: TurboDiffusion T2V 1.3B at 61x480x832, "
+    phase(f"# phase 4f: TurboDiffusion T2V 1.3B at 61x480x832, "
           f"{TURBO_STEPS} rCM steps, SLA_ATTN top 10 %, W8A8 DiT linears, "
-          f"auto_int8 decode", flush=True)
+          f"auto_int8 decode")
     turbo_launches = run_turbo_path(work, args.profile)
     os.environ.pop("FASTVIDEO_VAE_CONV3D", None)
-    print(f"# phase 4g: causal Wan 1.3B (self-forcing) at full width and "
+    phase(f"# phase 4g: causal Wan 1.3B (self-forcing) at full width and "
           f"depth, 81x480x832 through WanCausalDMDPipeline, {CAUSAL_STEPS} "
-          f"steps a block, K5 over the 21-frame KV window", flush=True)
+          f"steps a block, K5 over the 21-frame KV window")
     causal_launches, causal_gen = run_causal_path(work, args.profile)
     with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "benchmarks", "causal_streaming.json")) as fh:
         spec = json.load(fh)
-    print(f"# phase 4h: StreamingVideoGenerator on 4g's modules, "
+    phase(f"# phase 4h: StreamingVideoGenerator on 4g's modules, "
           f"{STREAM_BLOCKS} blocks at 480x832, prompt from "
-          f"benchmarks/causal_streaming.json", flush=True)
+          f"benchmarks/causal_streaming.json")
     stream_launches, stream = run_streaming(causal_gen, spec)
     del causal_gen
-    print(f"# phase 4i: SFT training of Wan2.1-T2V-1.3B at full width and "
+    phase(f"# phase 4i: SFT training of Wan2.1-T2V-1.3B at full width and "
           f"depth (the JAX repo's sft_33k cell: 81x480x832 latents, 512 text "
           f"tokens, VSA 0.8, full remat, AdamW, fp32 master weights): 1 "
-          f"warm-up + {args.train_steps} timed steps", flush=True)
+          f"warm-up + {args.train_steps} timed steps")
     train = run_training(work, args.train_steps, args.profile)
+    phase(f"# phase 4j: Wan2.1-T2V-1.3B at full width and depth, 81x480x848 "
+          f"with BSA_ATTN (K9b), {K9_STEPS} FlowUniPC steps with CFG")
+    bsa_run = run_wan_path(work, "BSA_ATTN", K9_STEPS, {}, args.profile,
+                           kernel="dyn_sparse_qtile_fwd")
+    phase(f"# phase 4k: the same at 61x480x832 with NABLA_ATTN (K9a), "
+          f"{K9_STEPS} steps")
+    nabla_run = run_wan_path(work, "NABLA_ATTN", K9_STEPS, {}, args.profile,
+                             size=TURBO_SIZE, kernel="dyn_sparse_fwd")
     shutil.rmtree(work, ignore_errors=True)
     # each kernel's count comes from the path that runs it
     launches["vsa_sparse_padded_fwd"] = vsa_launches["vsa_sparse_padded_fwd"]
@@ -2341,6 +2552,13 @@ def main() -> int:
     results["vsa_sparse_padded_fwd"]["train_lse_launches"] = train[
         "launches"]["vsa_sparse_padded_fwd"]
     results["conv3d"]["causal_launches"] = causal_launches["conv3d"]
+    # K9b's count from 4j, K9a's from 4k
+    for name, run in (("dyn_sparse_qtile_fwd", bsa_run),
+                      ("dyn_sparse_fwd", nabla_run)):
+        launches[name] = run[name]
+        results[name].update(path_kept_fraction=run["kept_fraction"],
+                             path_step_s=run["step_s"])
+    phase("# phase 5: the kernels line, the card line, the result line")
 
     kernels = []
     for name in _build.KERNELS:

@@ -72,7 +72,8 @@ class WanTimeTextEmbedding(nn.Module):
 
 
 class WanT2VCrossAttention(nn.Module):
-    """Text cross-attention (FLASH_ATTN)."""
+    """Text cross-attention (FLASH_ATTN, or TORCH_SDPA where that is the
+    selected backend, as in JAX)."""
 
     def __init__(self, dim: int, num_heads: int, eps: float = 1e-6, *,
                  device=None, dtype=None):
@@ -87,7 +88,8 @@ class WanT2VCrossAttention(nn.Module):
         self.norm_q = RMSNorm(dim, eps=eps, **kw)
         self.norm_k = RMSNorm(dim, eps=eps, **kw)
         self.attn = LocalAttention(num_heads, self.head_dim,
-                                   supported_backends=("FLASH_ATTN",))
+                                   supported_backends=("FLASH_ATTN",
+                                                       "TORCH_SDPA"))
 
     def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
         b = x.shape[0]

@@ -33,13 +33,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 # one shared library per csrc/<name>.cu
 SOURCES = ("flash_fwd", "vsa_sparse_fwd", "vsa_sparse_padded_fwd", "conv3d",
-           "conv3d_int8", "flash_bwd", "vsa_sparse_bwd")
+           "conv3d_int8", "flash_bwd", "vsa_sparse_bwd", "dyn_sparse_fwd")
 # counted kernels -> the source that holds them (each backward source holds
-# a dQ and a dK/dV kernel, counted apart)
+# a dQ and a dK/dV kernel, counted apart; dyn_sparse_fwd.cu holds K9a and
+# K9b, the query-tile form)
 SOURCE_OF = {**{n: n for n in SOURCES[:5]}, "flash_fwd_kv_mask": "flash_fwd",
              "flash_bwd_dq": "flash_bwd", "flash_bwd_dkv": "flash_bwd",
              "vsa_sparse_bwd_dq": "vsa_sparse_bwd",
-             "vsa_sparse_bwd_dkv": "vsa_sparse_bwd"}
+             "vsa_sparse_bwd_dkv": "vsa_sparse_bwd",
+             "dyn_sparse_fwd": "dyn_sparse_fwd",
+             "dyn_sparse_qtile_fwd": "dyn_sparse_fwd"}
 KERNELS = tuple(SOURCE_OF)
 
 _lock = threading.Lock()
@@ -159,6 +162,14 @@ _SIGNATURES = {
     # E, 18 strides, scale, stream
     "fvt_vsa_sparse_bwd_dkv": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 +
     [ctypes.c_longlong] * 18 + [ctypes.c_float, ctypes.c_void_p],
+    # q, k, v, o, indices, counts, block_sizes, B, H, Sq, Skv, D, E,
+    # n_slots, 12 strides, scale, stream
+    "fvt_dyn_sparse_fwd": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 +
+    [ctypes.c_longlong] * 12 + [ctypes.c_float, ctypes.c_void_p],
+    # q, k, v, o, indices, counts, block_sizes, B, H, Sq, Skv, D, E, q_rows,
+    # n_slots, 12 strides, scale, stream
+    "fvt_dyn_sparse_qtile_fwd": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 +
+    [ctypes.c_longlong] * 12 + [ctypes.c_float, ctypes.c_void_p],
     # x, w, bias, y, dtype, B, T, H, W, C, Co, kt, time_pad, stream
     "fvt_conv3d_ndhwc": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 +
     [ctypes.c_void_p],

@@ -243,10 +243,11 @@ def block_sparse_attention_plain(q: torch.Tensor, k: torch.Tensor,
     return (out, lse) if return_lse else out
 
 
-def _sparse_cuda_operands(name: str, q, k, v, indices):
-    """Checked operands of a sparse kernel launch: (q, k, v, int32 indices,
-    out, the 12 strides). The output is laid out [B, S, H, D] so that the
-    caller's transpose back to token-major order is free."""
+def sparse_cuda_operands(name: str, q, k, v, indices):
+    """Checked operands of a sparse kernel launch (K2, K7 fwd / K8, K9): (q,
+    k, v, int32 indices, out, the 12 strides). The output is laid out
+    [B, S, H, D] so that the caller's transpose back to token-major order
+    is free."""
     _build.check_device(q, name)
     d = q.shape[-1]
     if any(t.dtype != torch.bfloat16 for t in (q, k, v)) or d % 16 or d > 128:
@@ -267,7 +268,7 @@ def _sparse_cuda_operands(name: str, q, k, v, indices):
 
 def _block_sparse_attention_cuda(q, k, v, indices, scale, tile_elems):
     _build.refuse_grad(NAME, q, k, v, use="block_sparse_attention_trainable")
-    q, k, v, idx, out, st = _sparse_cuda_operands(NAME, q, k, v, indices)
+    q, k, v, idx, out, st = sparse_cuda_operands(NAME, q, k, v, indices)
     b, h, s, d = q.shape
     _build.launch(NAME, "fvt_vsa_sparse_fwd", q.data_ptr(), k.data_ptr(),
                   v.data_ptr(), out.data_ptr(), idx.data_ptr(), b, h, s,
@@ -309,7 +310,7 @@ def _block_sparse_padded_cuda(q, k, v, indices, block_sizes, scale,
                               tile_elems, return_lse):
     _build.refuse_grad(PADDED_NAME, q, k, v,
                        use="block_sparse_attention_trainable")
-    q, k, v, idx, out, st = _sparse_cuda_operands(PADDED_NAME, q, k, v,
+    q, k, v, idx, out, st = sparse_cuda_operands(PADDED_NAME, q, k, v,
                                                   indices)
     b, h, s, d = q.shape
     sizes = block_sizes.to(device=q.device, dtype=torch.int32).contiguous()

@@ -2,7 +2,8 @@
 at edge shapes the main path does not reach (ragged lengths, batch > 1,
 fp32 flash attention, non-contiguous views, channel tails; the int8 conv K4
 and the W8A8 linear; the kv-mask flash kernel K5 and the fp32 decode
-convs). Marked ``cuda``: they skip without an sm_90 card. On the card
+convs; the count-driven sparse kernels K9a / K9b). Marked ``cuda``: they
+skip without an sm_90 card. On the card
 (which has no JAX, so without the suite's conftest):
 
     python -m pytest tests/test_torch_kernels_cuda.py -m cuda --noconftest -q
@@ -13,7 +14,8 @@ import itertools
 import pytest
 import torch
 
-from fastvideo_tpu_torch.ops import _build, conv3d, flash_attention, vsa
+from fastvideo_tpu_torch.ops import (_build, bsa, conv3d, flash_attention,
+                                     nabla, vsa)
 
 pytestmark = pytest.mark.cuda
 
@@ -577,7 +579,8 @@ def test_grad_rule_backward_equals_plain(dev, kind):
 
 
 @pytest.mark.parametrize("kind", ["flash_fp32", "kv_mask", "k2", "k8",
-                                  "sta", "sla", "conv3d", "conv3d_int8"])
+                                  "sta", "sla", "conv3d", "conv3d_int8",
+                                  "k9a", "k9b"])
 def test_grad_rule_kernels_without_backward_raise(dev, kind):
     """A wrapper with no backward raises for operands that require grad,
     rather than return an output without a grad_fn; under no_grad it
@@ -608,6 +611,8 @@ def test_grad_rule_kernels_without_backward_raise(dev, kind):
         "conv3d": lambda t: conv3d.conv3d_ndhwc(t, cw, cb, time_pad=2),
         "conv3d_int8": lambda t: conv3d.conv3d_ndhwc(t, cw, cb, time_pad=2,
                                                      mode="kf_int8"),
+        "k9a": lambda t: nabla.nabla_attention(t, x, x),
+        "k9b": lambda t: bsa.bsa_attention(t, x, x),
     }
     leaf = (cx if kind.startswith("conv3d") else x).clone().requires_grad_()
     with pytest.raises(_build.KernelError, match="backward"):
@@ -615,3 +620,76 @@ def test_grad_rule_kernels_without_backward_raise(dev, kind):
     with torch.no_grad():
         calls[kind](leaf)
     torch.cuda.synchronize()
+
+
+def _dyn_mask(counts, nq, nk, h, g, dev):
+    """A bool [1, h, nq, nk] mask: each row keeps ``counts`` random tiles
+    ("one", "all"), or 0 (the first row), 1, ..., nk cycling ("mixed")."""
+    mask = torch.zeros(1, h, nq, nk, dtype=torch.bool, device=dev)
+    for hi in range(h):
+        for qi in range(nq):
+            n = {"one": 1, "all": nk}.get(counts, (qi + hi) % (nk + 1))
+            keep = torch.randperm(nk, generator=g, device=dev)[:n]
+            mask[0, hi, qi, keep] = True
+    return mask
+
+
+@pytest.mark.parametrize("counts", ["one", "all", "mixed"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("q_rows", [None, 8, 32, 64],
+                         ids=["k9a", "k9b_8", "k9b_32", "k9b_64"])
+def test_dyn_sparse_matches_plain(dev, q_rows, d, counts):
+    """K9a (a query tile of 64 rows) and K9b (q_rows rows) against the
+    plain version on the same indices and counts; a row of count 0 is
+    exactly 0. bf16 attention tolerance (_close)."""
+    g = torch.Generator(device=dev).manual_seed(d + (q_rows or 0))
+    h, nk = 3, 7
+    rows = q_rows or 64
+    bf = torch.bfloat16
+    q = torch.randn(2, h, nk * rows, d, generator=g, device=dev, dtype=bf)
+    # k/v as strided views of a wider buffer
+    kv = torch.randn(2, h, nk * 64, 2 * d, generator=g, device=dev, dtype=bf)
+    k, v = kv[..., :d], kv[..., d:]
+    mask = torch.cat([_dyn_mask(counts, nk, nk, h, g, dev)
+                      for _ in range(2)])
+    idx, cnt = nabla.mask_indices(mask)
+    sizes = torch.full((nk,), 64, dtype=torch.int32, device=dev)
+    kw = dict(scale=d**-0.5, q_rows=q_rows)
+    out = nabla.dyn_sparse_attention(q, k, v, idx, cnt, sizes, **kw)
+    ref = nabla.dyn_sparse_attention_plain(q, k, v, idx, cnt, sizes, **kw)
+    _close(out, ref, bf)
+    if counts == "mixed":
+        empty = (cnt == 0).repeat_interleave(rows, dim=-1)
+        assert empty.any() and (out[empty] == 0).all()
+
+
+@pytest.mark.parametrize("kernel", ["dyn_sparse_fwd", "dyn_sparse_qtile_fwd"])
+def test_dyn_sparse_counts_its_own_launches_and_refuses(dev, kernel):
+    """Each entry adds one to its own counter and runs no plain version;
+    an fp32 operand, a head dim above 128 and operands that require grad
+    raise before any launch."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(1, 2, 256, 64, generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    mask = torch.ones(1, 2, 4, 4, dtype=torch.bool, device=dev)
+    sizes = torch.full((4,), 64, dtype=torch.int32, device=dev)
+
+    def call(q, k, v):
+        if kernel == "dyn_sparse_fwd":
+            return nabla.masked_block_sparse_attention(q, k, v, mask, sizes)
+        return bsa._masked_sparse_qtile(q[:, :, :128], k, v, mask, sizes, 32,
+                                        scale=0.125)
+
+    before = dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
+    call(x, x, x)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == dict(before[0],
+                                   **{kernel: before[0][kernel] + 1})
+    assert _build.PLAIN_CALLS == before[1]
+    wide = torch.randn(1, 2, 256, 256, generator=g, device=dev,
+                       dtype=torch.bfloat16)
+    for bad, match in ((x.float(), "bfloat16"), (wide, "bfloat16"),
+                       (x.clone().requires_grad_(), "backward")):
+        with pytest.raises(_build.KernelError, match=match):
+            call(bad, bad.detach(), bad.detach())
+    assert _build.LAUNCHES[kernel] == before[0][kernel] + 1

@@ -12,7 +12,7 @@ import torch
 import fastvideo_tpu  # noqa: F401  (the JAX reference stays importable)
 import fastvideo_tpu_torch
 from fastvideo_tpu_torch.ops import _build
-from fastvideo_tpu_torch.ops import conv3d, flash_attention, vsa
+from fastvideo_tpu_torch.ops import bsa, conv3d, flash_attention, nabla, vsa
 
 torch.set_num_threads(2)
 
@@ -129,6 +129,12 @@ def _calls():
         "flash_bwd_dkv": flash_bwd,
         "vsa_sparse_bwd_dq": vsa_bwd,
         "vsa_sparse_bwd_dkv": vsa_bwd,
+        "dyn_sparse_fwd": lambda: nabla.masked_block_sparse_attention(
+            c(qt), c(qt), c(qt), torch.ones(1, 2, 2, 2, dtype=torch.bool),
+            sizes),
+        "dyn_sparse_qtile_fwd": lambda: bsa._masked_sparse_qtile(
+            c(qt[:, :, :64]), c(qt), c(qt),
+            torch.ones(1, 2, 2, 2, dtype=torch.bool), sizes, 32, scale=0.125),
     }
 
 
@@ -255,13 +261,19 @@ def _grad_calls():
         "flash_fwd_fp32": lambda: flash_attention.flash_attention(
             leaf(1, 64, 2, 32, dtype=torch.float32),
             c(q.float()), c(q.float())),
+        "dyn_sparse_fwd": lambda: nabla.masked_block_sparse_attention(
+            leaf(1, 2, 128, 32), c(qt), c(qt), idx[..., :1] >= 0, sizes),
+        "dyn_sparse_qtile_fwd": lambda: bsa._masked_sparse_qtile(
+            leaf(1, 2, 16, 32), c(qt), c(qt),
+            torch.ones(1, 2, 2, 2, dtype=torch.bool), sizes, 8, scale=0.125),
     }
 
 
 @pytest.mark.parametrize("kind", list(_grad_calls()))
 def test_cuda_wrappers_without_backward_refuse_grad(kind, monkeypatch):
-    """A CUDA wrapper with no backward (K2, K5, K8, K3, K4, and K1 in fp32,
-    which K6 does not take) raises for operands that require grad, before
+    """A CUDA wrapper with no backward (K2, K5, K8, K3, K4, K9a, K9b, and
+    K1 in fp32, which K6 does not take) raises for operands that require
+    grad, before
     any build or launch, instead of returning an output with no grad_fn;
     the plain version never runs."""
     monkeypatch.setattr(_build, "check_device", lambda t, name: None)
@@ -298,4 +310,47 @@ def test_cuda_grad_paths_go_to_the_trainable_kernels(path, monkeypatch):
     before = dict(_build.PLAIN_CALLS)
     with pytest.raises(_build.KernelError, match="nvcc not found"):
         calls[path]()
+    assert _build.PLAIN_CALLS == before
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 32),
+                                     (torch.bfloat16, 256)])
+@pytest.mark.parametrize("kernel", ["dyn_sparse_fwd", "dyn_sparse_qtile_fwd"])
+def test_dyn_sparse_cuda_call_rejects_other_dtypes_and_head_dims(
+        kernel, dtype, d, monkeypatch):
+    """K9a / K9b are built for bf16 with head dims up to 128 only; other
+    CUDA calls raise before any build, and the plain version never runs."""
+    monkeypatch.setattr(_build, "check_device", lambda t, name: None)
+    qt = _cuda_typed(torch.zeros(1, 2, 128, d, dtype=dtype))
+    mask = torch.ones(1, 2, 2, 2, dtype=torch.bool)
+    sizes = torch.full((2,), 64, dtype=torch.int32)
+    before = dict(_build.PLAIN_CALLS), dict(_build.LAUNCHES)
+    with pytest.raises(_build.KernelError, match="bfloat16"):
+        if kernel == "dyn_sparse_fwd":
+            nabla.masked_block_sparse_attention(qt, qt, qt, mask, sizes)
+        else:
+            bsa._masked_sparse_qtile(qt[:, :, :64], qt, qt, mask, sizes, 32,
+                                     scale=0.125)
+    assert (dict(_build.PLAIN_CALLS), dict(_build.LAUNCHES)) == before
+
+
+@pytest.mark.parametrize("backend", ["NABLA_ATTN", "BSA_ATTN"])
+def test_nabla_and_bsa_reach_their_kernels_on_cuda(backend, monkeypatch):
+    """The NABLA_ATTN and BSA_ATTN backends go to K9a / K9b's launch on a
+    CUDA tensor (here: its build, which has no nvcc), never to the plain
+    version."""
+    from fastvideo_tpu_torch.attention.selector import get_attn_backend
+
+    monkeypatch.setattr(_build, "check_device", lambda t, name: None)
+    monkeypatch.setattr(_build, "stream_ptr", lambda t: 0)
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", "/nonexistent")
+    be = get_attn_backend(2, 32, requested=backend)
+    rng = torch.Generator().manual_seed(0)
+    q = _cuda_typed(torch.randn(1, 4 * 8 * 8, 2, 32, generator=rng,
+                                dtype=torch.bfloat16))
+    before = dict(_build.PLAIN_CALLS)
+    with pytest.raises(_build.KernelError, match="nvcc not found"):
+        be.forward(q, q, q, grid=(4, 8, 8))
     assert _build.PLAIN_CALLS == before
