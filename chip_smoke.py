@@ -56,7 +56,7 @@ Phases, each printing its own lines:
      cell (81x480x832 latents, 512 text tokens, VSA 0.8, full remat,
      AdamW, fp32 master weights) on the 4b checkpoint's DiT, through
      build_from_config, SFTMethod and method.train over the port's
-     PrefetchingLoader: a warm-up step, then --train-steps (default 3)
+     PrefetchingLoader: a warm-up step, then --train-steps (default 1)
      timed ones; seconds a step, loss, grad_norm, peak memory and the
      launch counts of every kernel of the step;
      j, k: the Wan2.1-T2V-1.3B multistep path at full width and depth with
@@ -108,6 +108,13 @@ REPLACES = {
     "masked_block_sparse_attention :134)",
     "dyn_sparse_qtile_fwd": "fastvideo_tpu/ops/nabla.py:60 with q_rows (call "
     "fastvideo_tpu/ops/bsa.py:137, from _masked_sparse_qtile :91)",
+    "flash_fwd_struct": "fastvideo_tpu/ops/flash_attention.py:93 with "
+    "chunk_tokens / tf_clean_len (_mask_tile :39, _tile_reachable :70; call "
+    ":222)",
+    "flash_bwd_struct_dq": "fastvideo_tpu/ops/flash_attention.py:310 with "
+    "chunk_tokens / tf_clean_len (call :432)",
+    "flash_bwd_struct_dkv": "fastvideo_tpu/ops/flash_attention.py:355 with "
+    "chunk_tokens / tf_clean_len (call :459)",
 }
 SOURCES = {
     "flash_fwd": "fastvideo_tpu_torch/csrc/flash_fwd.cu",
@@ -123,6 +130,9 @@ SOURCES = {
     "vsa_sparse_bwd_dkv": "fastvideo_tpu_torch/csrc/vsa_sparse_bwd.cu",
     "dyn_sparse_fwd": "fastvideo_tpu_torch/csrc/dyn_sparse_fwd.cu",
     "dyn_sparse_qtile_fwd": "fastvideo_tpu_torch/csrc/dyn_sparse_fwd.cu",
+    "flash_fwd_struct": "fastvideo_tpu_torch/csrc/flash_fwd.cu",
+    "flash_bwd_struct_dq": "fastvideo_tpu_torch/csrc/flash_bwd.cu",
+    "flash_bwd_struct_dkv": "fastvideo_tpu_torch/csrc/flash_bwd.cu",
 }
 
 
@@ -1207,6 +1217,152 @@ def check_flash_bwd(dev, results: dict) -> None:
           f"backward", flush=True)
 
 
+# the causal Wan's training forward at 81x480x832: 21 latent frames of 30 x
+# 52 tokens, 3 frames a chunk; dfsft runs the chunk-causal mask over 32,760
+# tokens, tfsft the teacher-forcing one over [clean | noisy], 65,520
+STRUCT_FRAME = 30 * 52
+STRUCT_CHUNK = 3 * STRUCT_FRAME
+STRUCT_CASES = {"dfsft": (21 * STRUCT_FRAME, 0),
+                "tfsft": (2 * 21 * STRUCT_FRAME, 21 * STRUCT_FRAME)}
+
+
+def struct_pairs(s_len: int, ct: int, clean_len: int) -> int:
+    """(query, key) pairs of one head that the chunk-causal (clean_len 0)
+    or teacher-forcing mask keeps: a row sees [0, a) and its own noisy
+    chunk."""
+    import numpy as np
+
+    r = np.arange(s_len, dtype=np.int64)
+    if clean_len == 0:
+        return int(np.minimum((r // ct + 1) * ct, s_len).sum())
+    cq = (r - clean_len) // ct
+    own = np.minimum(clean_len + (cq + 1) * ct, s_len) - (clean_len + cq * ct)
+    seen = np.where(r < clean_len,
+                    np.minimum((r // ct + 1) * ct, clean_len),
+                    np.minimum(cq * ct, clean_len) + own)
+    return int(seen.sum())
+
+
+def struct_mask_mod(ct: int, clean_len: int):
+    """The same mask as a flex_attention mask_mod, for the library
+    yardstick."""
+    def mask_mod(b, h, q_idx, kv_idx):
+        if clean_len == 0:
+            return kv_idx // ct <= q_idx // ct
+        clean = q_idx < clean_len
+        cq = (q_idx - clean_len) // ct
+        clean_ok = clean & (kv_idx < clean_len) & (kv_idx // ct <= q_idx // ct)
+        own = (kv_idx >= clean_len) & ((kv_idx - clean_len) // ct == cq)
+        ctx = (kv_idx < clean_len) & (kv_idx // ct < cq)
+        return clean_ok | (~clean & (own | ctx))
+
+    return mask_mod
+
+
+def check_flash_struct(dev, results: dict) -> None:
+    """K1 struct and K6 struct at the causal Wan's full-width training
+    shapes: q/k/v/dO [1, S, 12, 128] bf16 under the dfsft chunk-causal mask
+    (S 32,760) and the tfsft teacher-forcing one (S 65,520), against the
+    plain versions (out, LSE, dq, dk, dv), with compiled flex_attention's
+    forward and backward on a BlockMask of the same mask_mod as the library
+    yardstick (timed here only, the port never calls it)."""
+    import torch
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+
+    from fastvideo_tpu_torch.ops import flash_attention as fa
+
+    b, h, d, ct = 1, 12, 128, STRUCT_CHUNK
+    scale = d**-0.5
+    fwd, dq_r, dkv_r = {}, {}, {}
+    for label, (s_len, clean_len) in STRUCT_CASES.items():
+        g = torch.Generator(device=dev).manual_seed(13)
+        q, k, v, do = (torch.randn(b, s_len, h, d, generator=g, device=dev,
+                                   dtype=torch.bfloat16) for _ in range(4))
+        kw = dict(scale=scale, kv_valid=s_len, chunk_tokens=ct,
+                  tf_clean_len=clean_len)
+        out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+        ref, ref_lse = fa.flash_attention_plain(q, k, v, **kw)
+        tol = attn_tol(ref, torch.bfloat16)
+        err = check(f"flash_fwd_struct[{label}]", out, ref, *tol)
+        check(f"flash_fwd_struct[{label}] lse", lse, ref_lse, 1e-3)
+        ms = time_ms(lambda: fa.flash_attention(q, k, v, **kw), 3)
+        plain = time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), 1)
+        got = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+        want = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
+        errs = [check(f"flash_bwd_struct[{label}] d{n}", t, w,
+                      *attn_tol(w, torch.bfloat16))
+                for n, t, w in zip("qkv", got, want)]
+        del got, want
+        bwd = kernel_device_ms(
+            lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, **kw),
+            {"dq": "flash_bwd_dq_kernel", "dkv": "flash_bwd_dkv_kernel"})
+        whole = time_ms(lambda: fa.flash_attention_bwd(q, k, v, out, lse, do,
+                                                       **kw), 3)
+        plain_bwd = time_ms(lambda: fa.flash_attention_bwd_plain(
+            q, k, v, out, lse, do, **kw), 1)
+        # the library yardstick on [B, H, S, D] views of the same tensors
+        mask = create_block_mask(struct_mask_mod(ct, clean_len), None, None,
+                                 s_len, s_len, device=dev, BLOCK_SIZE=128,
+                                 _compile=True)
+        qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
+        # the timing calls its backward twice on one graph, which a compiled
+        # backward with donated buffers refuses
+        with torch._functorch.config.patch(donated_buffer=False):
+            flex = torch.compile(flex_attention, dynamic=False)
+            check(f"flex_attention[{label}] (library)",
+                  flex(qt, kt, vt, block_mask=mask,
+                       scale=scale).transpose(1, 2), ref, *tol)
+            del ref, ref_lse
+            lib = time_ms(lambda: flex(qt, kt, vt, block_mask=mask,
+                                       scale=scale))
+            lib_bwd = library_backward_ms(lambda a, b_, c: flex(
+                a, b_, c, block_mask=mask, scale=scale), (qt, kt, vt), dot)
+        pairs = h * struct_pairs(s_len, ct, clean_len)
+        product = 2.0 * d * pairs * b
+        rows = 2.0 * b * h * d * s_len  # bytes of one bf16 [B, S, H, D]
+        stats = 4.0 * b * h * s_len  # one fp32 [B, H, S]
+        f_bms, f_by = bound_ms(2 * product, 4 * rows + stats)
+        io = 2 * stats + 2 * rows  # lse, delta; k, v
+        (dq_b, dq_by), (dkv_b, dkv_by), (all_b, _) = bwd_bounds(
+            product, io + 3 * rows, io + 4 * rows)
+        shape = (f"q/k/v{[b, s_len, h, d]} bf16, chunk_tokens {ct}, "
+                 f"tf_clean_len {clean_len}")
+        density = pairs / (h * s_len * s_len)
+        fwd[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                          bound_ms=f_bms, bound_by=f_by, library_ms=lib,
+                          shape=shape, kept_fraction=density)
+        common = dict(plain_ms=plain_bwd, library_ms=lib_bwd, shape=shape,
+                      backward_ms=whole, backward_bound_ms=all_b)
+        dq_r[label] = dict(max_abs_err=errs[0], ms=bwd["dq"], bound_ms=dq_b,
+                           bound_by=dq_by, **common)
+        dkv_r[label] = dict(max_abs_err=max(errs[1:]), ms=bwd["dkv"],
+                            bound_ms=dkv_b, bound_by=dkv_by, **common)
+        print(f"  flash_struct[{label}]: kept fraction {density:.4f} "
+              f"({pairs:.3e} pairs); forward {ms:.3f} ms kernel, {plain:.3f} "
+              f"ms plain, {lib:.3f} ms flex_attention, bound {f_bms:.3f} ms "
+              f"({f_by}, {2 * product:.3e} FLOP); backward dQ {bwd['dq']:.3f}"
+              f" ms (bound {dq_b:.3f}), dK/dV {bwd['dkv']:.3f} ms (bound "
+              f"{dkv_b:.3f}), {whole:.3f} ms with delta (bound {all_b:.3f}: 5 "
+              f"products, {5 * product:.3e} FLOP), {plain_bwd:.3f} ms plain, "
+              f"{lib_bwd:.3f} ms flex_attention's backward", flush=True)
+        del q, k, v, do, out, lse, mask
+        torch.cuda.empty_cache()
+
+    def merged(per: dict) -> dict:
+        # dfsft's numbers first, tfsft's under a "tfsft_" prefix; the error
+        # is the larger of the two
+        out = dict(per["dfsft"])
+        out.update({f"tfsft_{k}": v for k, v in per["tfsft"].items()})
+        out["max_abs_err"] = max(per["dfsft"]["max_abs_err"],
+                                 per["tfsft"]["max_abs_err"])
+        return out
+
+    results["flash_fwd_struct"] = merged(fwd)
+    results["flash_bwd_struct_dq"] = merged(dq_r)
+    results["flash_bwd_struct_dkv"] = merged(dkv_r)
+
+
 def coarse_topk(q, k, sizes, e: int, topk: int, q_group: int):
     """Per-tile top-k key tiles chosen as VSA chooses them: from the
     coarse (tile-mean) scores, averaged over groups of ``q_group`` query
@@ -1345,6 +1501,10 @@ def run_kernel_checks(dev) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # compiled flex_attention, the library yardstick, compiles once for
+    # each shape and mask here (12 of them); past dynamo's default limit of
+    # 8 it would run eagerly, which builds the dense score matrix
+    torch._dynamo.config.recompile_limit = 64
     results: dict = {}
     check_flash(dev, results)
     check_vsa(dev, results)
@@ -1353,6 +1513,8 @@ def run_kernel_checks(dev) -> dict:
     check_dyn_sparse(dev, results)
     torch.cuda.empty_cache()
     check_flash_bwd(dev, results)
+    torch.cuda.empty_cache()
+    check_flash_struct(dev, results)
     torch.cuda.empty_cache()
     check_vsa_bwd(dev, results)
     torch.cuda.empty_cache()
@@ -2196,23 +2358,46 @@ def train_loader(latents_shape, embeds_shape, seed: int = 0):
     return PrefetchingLoader(sampler, make_batch, prefetch=2)
 
 
-def build_sft(ckpt: str, out_dir: str, device: str, **training):
-    """SFTMethod through the training entry point's own calls
-    (build_from_config: resolve_method("sft"), SFTMethod.from_config)."""
+def build_method(method: str, ckpt: str, out_dir: str, device: str,
+                 training: dict, method_config: dict | None = None):
+    """A training method through the training entry point's own calls
+    (build_from_config: resolve_method(method), its from_config)."""
     from fastvideo_tpu_torch.entrypoints.cli.train import build_from_config
     from fastvideo_tpu_torch.training.run_config import (ModelSpec,
                                                          TrainRunConfig)
 
     cfg = TrainRunConfig(
-        method="sft",
+        method=method,
         model=ModelSpec(pretrained_model_path=ckpt, dit_precision="fp32"),
-        training=dict(TRAIN_KW, output_dir=out_dir, device=device,
-                      **training))
-    method, loader = build_from_config(cfg)
+        training=dict(training, output_dir=out_dir, device=device),
+        method_config=method_config or {})
+    m, loader = build_from_config(cfg)
     if loader is not None:
         raise SystemExit("the config names no data path")
-    method.pipeline.tracker = StepRecorder()
-    return method
+    m.pipeline.tracker = StepRecorder()
+    return m
+
+
+def step_with_grads(pipe, batch, **kw) -> tuple[dict, list, dict, dict]:
+    """One train_one_step: its metrics, the gradients AdamW was handed (on
+    the host), and the launch and plain-call counts of the step."""
+    import torch
+
+    from fastvideo_tpu_torch.ops import _build
+
+    seen = []
+    step = pipe.optimizer.step
+
+    def capture(*a, **k):
+        seen.append([p.grad.float().cpu() for p in pipe.params])
+        return step(*a, **k)
+
+    pipe.optimizer.step = capture
+    _build.reset_counts()
+    out = pipe.train_one_step(*batch, **kw)
+    if pipe.device.type == "cuda":
+        torch.cuda.synchronize()
+    return out, seen[0], dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
 
 
 def train_launches(layers: int, steps: int) -> dict:
@@ -2251,8 +2436,6 @@ def check_small_training(work: str) -> None:
     import numpy as np
     import torch
 
-    from fastvideo_tpu_torch.ops import _build
-
     os.environ["FASTVIDEO_ATTENTION_BACKEND"] = "VIDEO_SPARSE_ATTN"
     ckpt = write_checkpoint(os.path.join(work, "train", "Wan2.1-T2V-tiny"),
                             TINY_DIT_CFG, TINY_VAE_CFG, TINY_T5_CFG, seed=8)
@@ -2262,23 +2445,15 @@ def check_small_training(work: str) -> None:
     lr = 1e-3
     runs = {}
     for device in ("cuda", "cpu"):
-        method = build_sft(ckpt, "", device, learning_rate=lr)
+        method = build_method("sft", ckpt, "", device,
+                              dict(TRAIN_KW, learning_rate=lr))
         pipe = method.pipeline
-        seen = []
-        step = pipe.optimizer.step
-
-        def capture(*a, _pipe=pipe, _seen=seen, _step=step, **kw):
-            _seen.append([p.grad.float().cpu() for p in _pipe.params])
-            return _step(*a, **kw)
-
-        pipe.optimizer.step = capture
-        _build.reset_counts()
-        out = pipe.train_one_step(*batch, vsa_sparsity=0.8)
+        out, grads, counts, plain_counts = step_with_grads(
+            pipe, batch, vsa_sparsity=0.8)
         if device == "cuda":
-            torch.cuda.synchronize()
-            launches, plain = dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
+            launches, plain = counts, plain_counts
         params = [p.detach().float().cpu() for p in pipe.params]
-        runs[device] = (out, seen[0], params)
+        runs[device] = (out, grads, params)
         del method, pipe
     layers = TINY_DIT_CFG["num_layers"]
     check_launches("tiny train step", launches, plain,
@@ -2326,9 +2501,10 @@ def run_training(work: str, steps: int, profile_dir: str | None = None
     os.environ["FASTVIDEO_ATTENTION_BACKEND"] = "VIDEO_SPARSE_ATTN"
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    method = build_sft(os.path.join(work, "FastWan2.1-T2V-1.3B-Diffusers"),
-                       os.path.join(work, "train_out"), "cuda",
-                       max_train_steps=1 + steps)
+    method = build_method("sft",
+                          os.path.join(work, "FastWan2.1-T2V-1.3B-Diffusers"),
+                          os.path.join(work, "train_out"), "cuda",
+                          dict(TRAIN_KW, max_train_steps=1 + steps))
     pipe = method.pipeline
     n_params = sum(p.numel() for p in pipe.params)
     print(f"  SFTMethod built in {time.perf_counter() - t0:.1f} s: "
@@ -2379,7 +2555,152 @@ def run_training(work: str, steps: int, profile_dir: str | None = None
                 grad_norm=[r["grad_norm"] for r in rows])
 
 
-def profile_train_step(method, loader, out_dir: str) -> None:
+# -- 4a (causal training), 4l and 4m: dfsft and tfsft of the causal Wan -------
+
+# 4l/4m: 4g's CausalWan-1.3B checkpoint (3 latent frames a chunk), latents
+# [accum, B, 16, 21, 60, 104] (81x480x832: 7 chunks of 4,680 tokens), 512
+# text tokens, fp32 masters, AdamW, full remat
+DF_KW = dict(selective_checkpointing="full", learning_rate=1e-5,
+             max_grad_norm=1.0, seed=0, gradient_accumulation_steps=1,
+             checkpointing_steps=0)
+# 4a's tiny causal student: heads of 64, 2-frame chunks of 5 x 6 tokens a
+# frame, so the chunk borders (every 60 tokens) and tfsft's clean/noisy
+# border (180) fall inside the kernels' 64-row tiles
+TINY_DF_DIT_CFG = dict(TINY_DIT_CFG, num_attention_heads=2,
+                       attention_head_dim=64, num_frames_per_block=2,
+                       local_attn_size=-1, sink_size=0)
+TINY_DF_LATENTS = (1, 1, 4, 6, 10, 12)
+
+
+def df_launches(layers: int, steps: int) -> dict:
+    """Launches of a dfsft / tfsft step under full remat: each block's
+    forward runs twice (K1 struct for the self-attention, K1 for the
+    cross-attention), its backward once (K6 struct, K6)."""
+    return {"flash_fwd_struct": 2 * layers * steps,
+            "flash_fwd": 2 * layers * steps,
+            "flash_bwd_struct_dq": layers * steps,
+            "flash_bwd_struct_dkv": layers * steps,
+            "flash_bwd_dq": layers * steps, "flash_bwd_dkv": layers * steps}
+
+
+def check_small_df_training(work: str) -> None:
+    """One dfsft and one tfsft step of a tiny causal Wan (heads of 64, 2
+    layers, chunk and clean/noisy borders inside 64-row tiles) on the card
+    against the same step on the CPU's plain path: the same checkpoint,
+    seed and batch, so the same draws. bf16 compute, so: loss within 1e-2
+    relative and the gradients within 3e-2 relative L2, as 4a's SFT step."""
+    import numpy as np
+    import torch
+
+    os.environ["FASTVIDEO_ATTENTION_BACKEND"] = "FLASH_ATTN"
+    ckpt = write_checkpoint(os.path.join(work, "train", "CausalWan-tiny"),
+                            TINY_DF_DIT_CFG, TINY_VAE_CFG, TINY_T5_CFG,
+                            seed=9, dit_class="CausalWanTransformer3DModel")
+    rng = np.random.default_rng(9)
+    batch = (rng.standard_normal(TINY_DF_LATENTS).astype(np.float32),
+             rng.standard_normal(TINY_TRAIN_EMBEDS).astype(np.float32))
+    layers = TINY_DF_DIT_CFG["num_layers"]
+    chunk = dict(chunk_size=TINY_DF_DIT_CFG["num_frames_per_block"])
+    for method in ("dfsft", "tfsft"):
+        runs = {}
+        for device in ("cuda", "cpu"):
+            m = build_method(method, ckpt, "", device,
+                             dict(DF_KW, learning_rate=1e-3), chunk)
+            out, grads, counts, plain_counts = step_with_grads(m.pipeline,
+                                                               batch)
+            if device == "cuda":
+                launches, plain = counts, plain_counts
+            runs[device] = (out, grads)
+            del m
+        check_launches(f"tiny {method} step", launches, plain,
+                       df_launches(layers, 1))
+        (c_out, c_g), (p_out, p_g) = runs["cuda"], runs["cpu"]
+        gc, gp = (torch.cat([g.flatten() for g in gs]) for gs in (c_g, p_g))
+        rel = ((gc - gp).norm() / gp.norm()).item()
+        loss_rel = abs(c_out["loss"] - p_out["loss"]) / abs(p_out["loss"])
+        print(f"  tiny {method} step, card vs CPU plain: loss "
+              f"{c_out['loss']:.5f} / {p_out['loss']:.5f} (rel "
+              f"{loss_rel:.2e}, bar 1e-2), grad_norm {c_out['grad_norm']:.5f}"
+              f" / {p_out['grad_norm']:.5f}, gradients rel L2 {rel:.2e} (bar "
+              f"3e-2); card launches "
+              f"{json.dumps({k: v for k, v in launches.items() if v})}",
+              flush=True)
+        if not (math.isfinite(c_out["loss"]) and loss_rel < 1e-2
+                and rel < 3e-2):
+            raise SystemExit(f"tiny {method} step: the card disagrees with "
+                             "the plain path")
+
+
+def run_df_training(work: str, method: str, steps: int,
+                    profile_dir: str | None = None) -> dict:
+    """Phases 4l (dfsft) and 4m (tfsft): the method through
+    build_from_config on 4g's CausalWan-1.3B checkpoint in fp32 master
+    weights, then method.train over the port's PrefetchingLoader at
+    81x480x832: one warm-up step, then ``steps`` timed ones."""
+    import torch
+
+    from fastvideo_tpu_torch.ops import _build
+
+    os.environ["FASTVIDEO_ATTENTION_BACKEND"] = "FLASH_ATTN"
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    m = build_method(
+        method, os.path.join(work, "causal", "SelfForcing-Wan2.1-T2V-1.3B"),
+        os.path.join(work, f"{method}_out"), "cuda",
+        dict(DF_KW, max_train_steps=1 + steps),
+        dict(chunk_size=CAUSAL_DIT_CFG["num_frames_per_block"]))
+    pipe = m.pipeline
+    n_params = sum(p.numel() for p in pipe.params)
+    print(f"  {type(m).__name__} built in {time.perf_counter() - t0:.1f} s: "
+          f"{n_params / 1e9:.3f} B fp32 parameters, remat "
+          f"{pipe.args.selective_checkpointing}, chunk {pipe.chunk_size} "
+          f"frames, teacher forcing {pipe.teacher_forcing}", flush=True)
+    loader = train_loader(TRAIN_LATENTS, TRAIN_EMBEDS)
+    try:
+        t0 = time.perf_counter()
+        m.train(loader, max_steps=1)
+        torch.cuda.synchronize()
+        print(f"  warm-up step {time.perf_counter() - t0:.2f} s", flush=True)
+        watch = {n: p.detach().clone() for n, p in
+                 list(pipe.transformer.named_parameters())[:4]}
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_counts()
+        t0 = time.perf_counter()
+        m.train(loader, max_steps=1 + steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, plain = dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        rows = pipe.tracker.rows[-steps:]
+        if profile_dir:
+            profile_train_step(m, loader, profile_dir, f"{method}_480x832")
+    finally:
+        loader.shutdown()
+    moved = [not torch.equal(w, dict(pipe.transformer.named_parameters())[n])
+             for n, w in watch.items()]
+    print(f"  {steps} steps in {wall:.3f} s: {wall / steps:.3f} s a step; "
+          f"loss {[round(r['loss'], 5) for r in rows]}, grad_norm "
+          f"{[round(r['grad_norm'], 5) for r in rows]}; peak memory "
+          f"{peak:.2f} GiB; parameters moved {all(moved)}", flush=True)
+    layers = CAUSAL_DIT_CFG["num_layers"]
+    print(f"  kernel launches {json.dumps(launches)} ({layers} layers x "
+          f"{steps} steps: K1 struct and K1 2 a layer, each backward kernel "
+          f"1); plain calls {json.dumps(plain)}", flush=True)
+    check_launches(f"{method} 480x832", launches, plain,
+                   df_launches(layers, steps))
+    if not (all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+                for r in rows) and all(moved)):
+        raise SystemExit(f"{method} 480x832: loss or grad_norm not finite, "
+                         f"or parameters not moved ({moved})")
+    del m, pipe
+    torch.cuda.empty_cache()
+    return dict(launches=launches, step_s=wall / steps, peak_gib=peak,
+                loss=[r["loss"] for r in rows],
+                grad_norm=[r["grad_norm"] for r in rows])
+
+
+def profile_train_step(method, loader, out_dir: str,
+                       label: str = "sft_480x832") -> None:
     """One more step under torch.profiler: device time by kernel name, the
     device's busy share of the wall time, and a Chrome trace."""
     import torch
@@ -2401,7 +2722,7 @@ def profile_train_step(method, loader, out_dir: str) -> None:
         print(f"    {e.self_device_time_total / 1e3:10.1f} ms  "
               f"{e.count:6d}x  {e.key[:110]}", flush=True)
     os.makedirs(out_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(out_dir, "sft_480x832_trace.json"))
+    prof.export_chrome_trace(os.path.join(out_dir, f"{label}_trace.json"))
 
 
 def profile_generation(gen, kw: dict, out_dir: str, label: str) -> None:
@@ -2439,13 +2760,17 @@ def main() -> int:
     parser.add_argument("--sta-steps", type=int, default=2,
                         help="FlowUniPC steps of the 480x848 STA generation "
                         "(at least 2)")
-    parser.add_argument("--train-steps", type=int, default=3,
+    parser.add_argument("--train-steps", type=int, default=1,
                         help="timed SFT steps of phase 4i, after one "
                         "warm-up step (at least 1)")
+    parser.add_argument("--df-steps", type=int, default=1,
+                        help="timed dfsft and tfsft steps of phases 4l and "
+                        "4m, each after one warm-up step (at least 1)")
     args = parser.parse_args()
-    if args.vsa_steps < 4 or args.sta_steps < 2 or args.train_steps < 1:
-        parser.error("--vsa-steps must be at least 4, --sta-steps 2 and "
-                     "--train-steps 1")
+    if (args.vsa_steps < 4 or args.sta_steps < 2 or args.train_steps < 1
+            or args.df_steps < 1):
+        parser.error("--vsa-steps must be at least 4, --sta-steps 2, "
+                     "--train-steps 1 and --df-steps 1")
 
     import torch
 
@@ -2481,6 +2806,7 @@ def main() -> int:
     phase("# phase 4a: tiny models, card against the plain path")
     check_small_paths(work)
     check_small_training(work)
+    check_small_df_training(work)
     phase("# phase 4b: FastWan main path at full width, 81x480x832, 3 DMD "
           "steps, VSA sparsity 0.8")
     launches = run_main_path(work, args.profile)
@@ -2527,6 +2853,17 @@ def main() -> int:
           f"{K9_STEPS} steps")
     nabla_run = run_wan_path(work, "NABLA_ATTN", K9_STEPS, {}, args.profile,
                              size=TURBO_SIZE, kernel="dyn_sparse_fwd")
+    df_runs = {}
+    for letter, method, what in (
+            ("l", "dfsft", "diffusion forcing, the chunk-causal mask"),
+            ("m", "tfsft", "teacher forcing, [clean | noisy] over 65,520 "
+             "tokens")):
+        phase(f"# phase 4{letter}: {method} ({what}) of CausalWan-1.3B at "
+              f"full width and depth on 4g's checkpoint (81x480x832 latents, "
+              f"3-frame chunks, 512 text tokens, full remat, AdamW, fp32 "
+              f"master weights): 1 warm-up + {args.df_steps} timed steps")
+        df_runs[method] = run_df_training(work, method, args.df_steps,
+                                          args.profile)
     shutil.rmtree(work, ignore_errors=True)
     # each kernel's count comes from the path that runs it
     launches["vsa_sparse_padded_fwd"] = vsa_launches["vsa_sparse_padded_fwd"]
@@ -2558,6 +2895,14 @@ def main() -> int:
         launches[name] = run[name]
         results[name].update(path_kept_fraction=run["kept_fraction"],
                              path_step_s=run["step_s"])
+    # the struct kernels' counts come from 4l, tfsft's beside them
+    for name in ("flash_fwd_struct", "flash_bwd_struct_dq",
+                 "flash_bwd_struct_dkv"):
+        launches[name] = df_runs["dfsft"]["launches"][name]
+        results[name].update(
+            dfsft_step_s=df_runs["dfsft"]["step_s"],
+            tfsft_launches=df_runs["tfsft"]["launches"][name],
+            tfsft_step_s=df_runs["tfsft"]["step_s"])
     phase("# phase 5: the kernels line, the card line, the result line")
 
     kernels = []

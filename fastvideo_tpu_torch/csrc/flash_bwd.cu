@@ -8,8 +8,17 @@
 // each entry replays p = exp(s * scale - lse) tile by tile and never writes
 // a score matrix to device memory (attn_bwd_tile.cuh has the arithmetic
 // and its rounding points). Masks: keys at index >= kv_valid, and causal
-// (key <= query). K1's chunk-causal and teacher-forcing masks are not
-// ported (ROADMAP), so neither is their backward.
+// (key <= query); and in K6 struct's instances (fvt_flash_bwd_struct_dq /
+// fvt_flash_bwd_struct_dkv), the causal Wan training forward's chunk-causal
+// and teacher-forcing masks (chunk_tokens > 0, tf_clean_len; the Pallas
+// kernels with those arguments, _mask_tile and _tile_reachable :39-90).
+// struct_mask.cuh has the rule. In those, dQ walks the key ranges its rows
+// see, as K1 struct does, and dK/dV the query-row ranges that see its keys:
+// chunk-causal, from the key tile's first chunk start to the end; teacher
+// forcing, for a clean key of chunk c the clean rows of chunks >= c and the
+// noisy rows of chunks > c (two ranges), for a noisy key the rows of its own
+// noisy chunk. Every element is checked against its row's (key's) ranges,
+// since chunk borders fall inside 64-row tiles.
 //
 // Rows with no valid key (K1 stores their LSE as -inf) have every key
 // masked, so p is 0 before the exponent is used and their gradients are
@@ -30,6 +39,7 @@
 // Strides are in elements (batch, head, row for each tensor), so the
 // caller passes [B, S, H, D] views, and autograd's dO, as they are.
 #include "attn_bwd_tile.cuh"
+#include "struct_mask.cuh"
 
 namespace {
 
@@ -40,6 +50,9 @@ constexpr int kBQ = 64;
 constexpr int kBK = 64;
 
 // One block: kBQ query rows of one (batch, head); loops the key chunks.
+// kStruct: K6 struct's instance (chunk_tokens / tf_clean_len in place of
+// causal), a kernel of its own so the profiler names it apart.
+template <bool kStruct>
 __global__ void __launch_bounds__(fvt::kThreads)
     flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -48,8 +61,11 @@ __global__ void __launch_bounds__(fvt::kThreads)
                         long long q_sh, long long q_ss, long long k_sb, long long k_sh,
                         long long k_ss, long long v_sb, long long v_sh, long long v_ss,
                         long long o_sb, long long o_sh, long long o_ss, long long dq_sb,
-                        long long dq_sh, long long dq_ss, float scale, int causal, int kv_valid) {
+                        long long dq_sh, long long dq_ss, float scale, int causal, int kv_valid,
+                        int chunk_tokens, int tf_clean_len) {
   extern __shared__ __align__(128) unsigned char smem[];
+  // K6 struct: the key ranges [0, a) and [b, c) each row sees
+  __shared__ int span[kStruct ? 3 * kBQ : 1];
   BwdSmem<kBQ, kBK> t;
   t.carve(smem, D, 1);
   const int b = blockIdx.z;
@@ -69,12 +85,8 @@ __global__ void __launch_bounds__(fvt::kThreads)
   const bf16* kp = k + b * k_sb + h * k_sh;
   const bf16* vp = v + b * v_sb + h * v_sh;
 
-  // keys past kv_end are masked for every row of this tile
-  int kv_end = min(kv_valid, Skv);
-  if (causal) kv_end = min(kv_end, q0 + nq);
-  for (int j0 = 0; j0 < kv_end; j0 += kBK) {
-    const int nk = min(kBK, Skv - j0);
-    __syncthreads();  // every warp is done with the previous chunk
+  // one key chunk of nk keys from j0: S, dP, dS, then dQ += dS K
+  auto step = [&](int j0, int nk, auto live) {
     fvt::load_bf16_rows(t.str0, t.ldt, kp + j0 * k_ss, k_ss, nk, kBK, D);
     fvt::load_bf16_rows(t.str1, t.ldt, vp + j0 * v_ss, v_ss, nk, kBK, D);
     __syncthreads();
@@ -84,21 +96,56 @@ __global__ void __launch_bounds__(fvt::kThreads)
                   kBK, D);
     __syncwarp();
     fvt::grad_scores<kBK>(
-        t.s, t.dp, t.lds, nullptr, t.ds, t.ldp, scale, false,
-        [&](int r, int c) {
-          const int col = j0 + c;
-          return r < nq && col < kv_end && (!causal || col <= q0 + r);
-        },
+        t.s, t.dp, t.lds, nullptr, t.ds, t.ldp, scale, false, live,
         [&](int r, int) { return t.lse[r]; }, [&](int r, int) { return t.delta[r]; });
     fvt::warp_acc_ab(t.acc0 + warp * 16 * t.ldo, t.ldo, t.ds + warp * 16 * t.ldp, t.ldp, t.str0,
                      t.ldt, kBK, D);
+  };
+
+  // keys past kv_end are masked for every row of this tile
+  int kv_end = min(kv_valid, Skv);
+  if constexpr (kStruct) {
+    int* sa = span;
+    int* sb = span + kBQ;
+    int* sc = span + 2 * kBQ;
+    for (int r = threadIdx.x; r < kBQ; r += fvt::kThreads) {
+      int a = 0, b0 = 0, c = 0;
+      if (r < nq) fvt::struct_row_keys(q0 + r, chunk_tokens, tf_clean_len, kv_end, a, b0, c);
+      sa[r] = a;
+      sb[r] = b0;
+      sc[r] = c;
+    }
+    __syncthreads();
+    const fvt::Ranges keys = fvt::struct_tile_keys(sa, sb, sc, nq);
+    for (int i = 0; i < keys.n; ++i) {
+      for (int j0 = keys.lo[i]; j0 < keys.hi[i]; j0 += kBK) {
+        const int nk = min(kBK, keys.hi[i] - j0);
+        __syncthreads();  // every warp is done with the previous chunk
+        step(j0, nk, [&](int r, int c) {
+          const int col = j0 + c;
+          return r < nq && c < nk && (col < sa[r] || (col >= sb[r] && col < sc[r]));
+        });
+      }
+    }
+  } else {
+    if (causal) kv_end = min(kv_end, q0 + nq);
+    for (int j0 = 0; j0 < kv_end; j0 += kBK) {
+      const int nk = min(kBK, Skv - j0);
+      __syncthreads();  // every warp is done with the previous chunk
+      step(j0, nk, [&](int r, int c) {
+        const int col = j0 + c;
+        return r < nq && col < kv_end && (!causal || col <= q0 + r);
+      });
+    }
   }
   __syncwarp();
   t.store(t.acc0, dq + b * dq_sb + h * dq_sh + q0 * dq_ss, dq_ss, nq);
 }
 
 // One block: kBK keys of one (batch, head); loops the query chunks that can
-// see them (all of them, or from the key's own row on under causal).
+// see them (all of them, or from the key's own row on under causal; under
+// kStruct the row ranges of struct_mask.cuh).
+template <bool kStruct>
 __global__ void __launch_bounds__(fvt::kThreads)
     flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -109,8 +156,10 @@ __global__ void __launch_bounds__(fvt::kThreads)
                          long long v_ss, long long o_sb, long long o_sh, long long o_ss,
                          long long dk_sb, long long dk_sh, long long dk_ss, long long dv_sb,
                          long long dv_sh, long long dv_ss, float scale, int causal,
-                         int kv_valid) {
+                         int kv_valid, int chunk_tokens, int tf_clean_len) {
   extern __shared__ __align__(128) unsigned char smem[];
+  // K6 struct: the row ranges [d, e) and [f, g) that see each key
+  __shared__ int span[kStruct ? 4 * kBK : 1];
   BwdSmem<kBK, kBQ> t;
   t.carve(smem, D, 2);
   const int b = blockIdx.z;
@@ -127,11 +176,9 @@ __global__ void __launch_bounds__(fvt::kThreads)
   fvt::load_bf16_rows(t.own0, t.ldt, k + b * k_sb + h * k_sh + k0 * k_ss, k_ss, nk, kBK, D);
   fvt::load_bf16_rows(t.own1, t.ldt, v + b * v_sb + h * v_sh + k0 * v_ss, v_ss, nk, kBK, D);
 
-  // a tile wholly past kv_valid gets zero gradients (k0 is block-uniform)
-  const int i_start = causal ? (k0 / kBQ) * kBQ : 0;
-  for (int i0 = i_start; k0 < kv_end && i0 < Sq; i0 += kBQ) {
-    const int nq = min(kBQ, Sq - i0);
-    __syncthreads();  // every warp is done with the previous chunk
+  // one chunk of nq query rows from i0: S^T, dP^T, p and dS, then dV += p^T dO
+  // and dK += dS^T Q
+  auto step = [&](int i0, int nq, auto live) {
     fvt::load_bf16_rows(t.str0, t.ldt, qp + i0 * q_ss, q_ss, nq, kBQ, D);
     fvt::load_bf16_rows(t.str1, t.ldt, op + i0 * o_ss, o_ss, nq, kBQ, D);
     for (int c = threadIdx.x; c < kBQ; c += fvt::kThreads) {
@@ -146,17 +193,52 @@ __global__ void __launch_bounds__(fvt::kThreads)
                   kBQ, D);
     __syncwarp();
     fvt::grad_scores<kBQ>(
-        t.s, t.dp, t.lds, t.p, t.ds, t.ldp, scale, true,
-        [&](int r, int c) {
-          const int key = k0 + r;
-          return c < nq && key < kv_end && (!causal || key <= i0 + c);
-        },
+        t.s, t.dp, t.lds, t.p, t.ds, t.ldp, scale, true, live,
         [&](int, int c) { return t.lse[c]; }, [&](int, int c) { return t.delta[c]; });
     // dV += p^T dO, dK += dS^T Q (p and dS are stored key-major already)
     fvt::warp_acc_ab(t.acc1 + warp * 16 * t.ldo, t.ldo, t.p + warp * 16 * t.ldp, t.ldp, t.str1,
                      t.ldt, kBQ, D);
     fvt::warp_acc_ab(t.acc0 + warp * 16 * t.ldo, t.ldo, t.ds + warp * 16 * t.ldp, t.ldp, t.str0,
                      t.ldt, kBQ, D);
+  };
+
+  if constexpr (kStruct) {
+    int* sd = span;
+    int* se = span + kBK;
+    int* sf = span + 2 * kBK;
+    int* sg = span + 3 * kBK;
+    for (int r = threadIdx.x; r < kBK; r += fvt::kThreads) {
+      int d = 0, e = 0, f = 0, g = 0;
+      if (r < nk)
+        fvt::struct_key_rows(k0 + r, chunk_tokens, tf_clean_len, Sq, kv_end, d, e, f, g);
+      sd[r] = d;
+      se[r] = e;
+      sf[r] = f;
+      sg[r] = g;
+    }
+    __syncthreads();
+    const fvt::Ranges rows = fvt::struct_tile_rows(sd, se, sf, sg, nk, k0, tf_clean_len);
+    for (int i = 0; i < rows.n; ++i) {
+      for (int i0 = rows.lo[i]; i0 < rows.hi[i]; i0 += kBQ) {
+        const int nq = min(kBQ, rows.hi[i] - i0);
+        __syncthreads();  // every warp is done with the previous chunk
+        step(i0, nq, [&](int r, int c) {
+          const int row = i0 + c;
+          return c < nq && ((row >= sd[r] && row < se[r]) || (row >= sf[r] && row < sg[r]));
+        });
+      }
+    }
+  } else {
+    // a tile wholly past kv_valid gets zero gradients (k0 is block-uniform)
+    const int i_start = causal ? (k0 / kBQ) * kBQ : 0;
+    for (int i0 = i_start; k0 < kv_end && i0 < Sq; i0 += kBQ) {
+      const int nq = min(kBQ, Sq - i0);
+      __syncthreads();  // every warp is done with the previous chunk
+      step(i0, nq, [&](int r, int c) {
+        const int key = k0 + r;
+        return c < nq && key < kv_end && (!causal || key <= i0 + c);
+      });
+    }
   }
   __syncwarp();
   t.store(t.acc0, dk + b * dk_sb + h * dk_sh + k0 * dk_ss, dk_ss, nk);
@@ -165,6 +247,45 @@ __global__ void __launch_bounds__(fvt::kThreads)
 
 bool bad_shape(int B, int H, int Sq, int Skv, int D) {
   return D % 16 != 0 || D > 128 || B <= 0 || H <= 0 || Sq <= 0 || Skv <= 0;
+}
+
+template <bool kStruct>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+              const void* delta, void* dq, int B, int H, int Sq, int Skv, int D,
+              const long long* st, float scale, int causal, int kv_valid, int chunk_tokens,
+              int tf_clean_len, void* stream) {
+  if (bad_shape(B, H, Sq, Skv, D)) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = BwdSmem<kBQ, kBK>::bytes(D, 1);
+  cudaError_t err = fvt::set_smem(flash_bwd_dq_kernel<kStruct>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
+  flash_bwd_dq_kernel<kStruct><<<grid, fvt::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dq), H, Sq, Skv, D, st[0], st[1],
+      st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], st[12], st[13],
+      st[14], scale, causal, kv_valid, chunk_tokens, tf_clean_len);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kStruct>
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+               const void* delta, void* dk, void* dv, int B, int H, int Sq, int Skv, int D,
+               const long long* st, float scale, int causal, int kv_valid, int chunk_tokens,
+               int tf_clean_len, void* stream) {
+  if (bad_shape(B, H, Sq, Skv, D)) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = BwdSmem<kBK, kBQ>::bytes(D, 2);
+  cudaError_t err = fvt::set_smem(flash_bwd_dkv_kernel<kStruct>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((Skv + kBK - 1) / kBK, H, B);
+  flash_bwd_dkv_kernel<kStruct><<<grid, fvt::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, Sq,
+      Skv, D, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10],
+      st[11], st[12], st[13], st[14], st[15], st[16], st[17], scale, causal, kv_valid,
+      chunk_tokens, tf_clean_len);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -180,18 +301,10 @@ extern "C" int fvt_flash_bwd_dq(const void* q, const void* k, const void* v, con
                                 long long o_sh, long long o_ss, long long dq_sb, long long dq_sh,
                                 long long dq_ss, float scale, int causal, int kv_valid,
                                 void* stream) {
-  if (bad_shape(B, H, Sq, Skv, D)) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = BwdSmem<kBQ, kBK>::bytes(D, 1);
-  cudaError_t err = fvt::set_smem(flash_bwd_dq_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  flash_bwd_dq_kernel<<<grid, fvt::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dq), H, Sq, Skv, D, q_sb, q_sh, q_ss,
-      k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, dq_sb, dq_sh, dq_ss, scale, causal,
-      kv_valid);
-  return static_cast<int>(cudaGetLastError());
+  const long long st[15] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh,
+                            v_ss, o_sb, o_sh, o_ss, dq_sb, dq_sh, dq_ss};
+  return launch_dq<false>(q, k, v, dout, lse, delta, dq, B, H, Sq, Skv, D, st, scale, causal,
+                          kv_valid, 0, 0, stream);
 }
 
 // As fvt_flash_bwd_dq, writing dk and dv (strides batch, head, row each).
@@ -204,16 +317,46 @@ extern "C" int fvt_flash_bwd_dkv(const void* q, const void* k, const void* v, co
                                  long long dk_sh, long long dk_ss, long long dv_sb,
                                  long long dv_sh, long long dv_ss, float scale, int causal,
                                  int kv_valid, void* stream) {
-  if (bad_shape(B, H, Sq, Skv, D)) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = BwdSmem<kBK, kBQ>::bytes(D, 2);
-  cudaError_t err = fvt::set_smem(flash_bwd_dkv_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((Skv + kBK - 1) / kBK, H, B);
-  flash_bwd_dkv_kernel<<<grid, fvt::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, Sq,
-      Skv, D, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, dk_sb,
-      dk_sh, dk_ss, dv_sb, dv_sh, dv_ss, scale, causal, kv_valid);
-  return static_cast<int>(cudaGetLastError());
+  const long long st[18] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
+                            o_sb, o_sh, o_ss, dk_sb, dk_sh, dk_ss, dv_sb, dv_sh, dv_ss};
+  return launch_dkv<false>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Skv, D, st, scale,
+                           causal, kv_valid, 0, 0, stream);
+}
+
+// K6 struct: as fvt_flash_bwd_dq with the chunk-causal (chunk_tokens > 0,
+// tf_clean_len 0) or teacher-forcing (both > 0) mask in place of causal.
+extern "C" int fvt_flash_bwd_struct_dq(const void* q, const void* k, const void* v,
+                                       const void* dout, const void* lse, const void* delta,
+                                       void* dq, int B, int H, int Sq, int Skv, int D,
+                                       long long q_sb, long long q_sh, long long q_ss,
+                                       long long k_sb, long long k_sh, long long k_ss,
+                                       long long v_sb, long long v_sh, long long v_ss,
+                                       long long o_sb, long long o_sh, long long o_ss,
+                                       long long dq_sb, long long dq_sh, long long dq_ss,
+                                       float scale, int kv_valid, int chunk_tokens,
+                                       int tf_clean_len, void* stream) {
+  if (chunk_tokens <= 0 || tf_clean_len < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long st[15] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh,
+                            v_ss, o_sb, o_sh, o_ss, dq_sb, dq_sh, dq_ss};
+  return launch_dq<true>(q, k, v, dout, lse, delta, dq, B, H, Sq, Skv, D, st, scale, 0,
+                         kv_valid, chunk_tokens, tf_clean_len, stream);
+}
+
+// K6 struct: as fvt_flash_bwd_dkv with the mask of fvt_flash_bwd_struct_dq.
+extern "C" int fvt_flash_bwd_struct_dkv(const void* q, const void* k, const void* v,
+                                        const void* dout, const void* lse, const void* delta,
+                                        void* dk, void* dv, int B, int H, int Sq, int Skv, int D,
+                                        long long q_sb, long long q_sh, long long q_ss,
+                                        long long k_sb, long long k_sh, long long k_ss,
+                                        long long v_sb, long long v_sh, long long v_ss,
+                                        long long o_sb, long long o_sh, long long o_ss,
+                                        long long dk_sb, long long dk_sh, long long dk_ss,
+                                        long long dv_sb, long long dv_sh, long long dv_ss,
+                                        float scale, int kv_valid, int chunk_tokens,
+                                        int tf_clean_len, void* stream) {
+  if (chunk_tokens <= 0 || tf_clean_len < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long st[18] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
+                            o_sb, o_sh, o_ss, dk_sb, dk_sh, dk_ss, dv_sb, dv_sh, dv_ss};
+  return launch_dkv<true>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Skv, D, st, scale, 0,
+                          kv_valid, chunk_tokens, tf_clean_len, stream);
 }

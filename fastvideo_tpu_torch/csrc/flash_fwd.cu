@@ -17,6 +17,18 @@
 // empty (at the first block of the 1.3B stream, 28,080 of 32,760 keys), so
 // the skip saves those chunks' loads and products.
 //
+// K1 struct is the same kernel with the causal Wan training forward's
+// chunk-causal and teacher-forcing masks (fvt_flash_fwd_struct): it replaces
+// _fwd_kernel with chunk_tokens > 0 or tf_clean_len > 0 (_mask_tile and
+// _tile_reachable, :39-90), reached through flash_attention(chunk_tokens=,
+// tf_clean_len=) from models/dits/causal_wan.py:_masked_block_forward.
+// struct_mask.cuh has the rule. Each query tile computes the key ranges of
+// its rows and loops their union, at most two ranges (for a noisy tile the
+// clean keys of earlier chunks, then its own noisy chunk: the masked keys
+// between them are skipped, which JAX's upper bound visits), and checks
+// every element against its row's ranges. At 480x832 the mask keeps 28/49
+// of the pairs, so the work is that share of the dense product.
+//
 // What bounds it: at the main path's shapes (DiT cross-attention
 // [1,12,32760,128] x [1,12,512,128]; VAE mid-block [21,1,6240,384]) it is
 // tensor-core bound, 4*B*H*Sq*Skv*D FLOP against ~3 bytes per FLOP of
@@ -29,16 +41,21 @@
 // Grid: (ceil(Sq / BQ), H, B), 128 threads. Strides are in elements and let
 // the caller pass [B, S, H, D] views without a transpose copy.
 #include "attn_tile.cuh"
+#include "struct_mask.cuh"
 
 namespace {
 
 using fvt::AttnTile;
 using fvt::bf16;
 
-// kKvMask is a compile-time flag: K1's instance (false) has no mask code,
-// and K5's (true) is a kernel of its own, so a profiler names the two apart.
-// K5 always runs with causal = 0.
-template <typename T, int BQ, int BK, bool kKvMask>
+// The mask mode is a compile-time parameter: K1's instance (kPlain) has no
+// mask code beyond kv_valid and causal, and K5's (kKvMask) and K1 struct's
+// (kStruct) are kernels of their own, so a profiler names the three apart.
+// K5 always runs with causal = 0; K1 struct ignores causal, as the Pallas
+// kernel does when chunk_tokens > 0.
+enum MaskMode : int { kPlain = 0, kKvMask = 1, kStruct = 2 };
+
+template <typename T, int BQ, int BK, int kMode>
 __global__ void __launch_bounds__(fvt::kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      T* __restrict__ o, float* __restrict__ lse, int H, int Sq, int Skv, int D,
@@ -46,9 +63,12 @@ __global__ void __launch_bounds__(fvt::kThreads)
                      long long k_sh, long long k_ss, long long v_sb, long long v_sh,
                      long long v_ss, long long o_sb, long long o_sh, long long o_ss,
                      float scale, int causal, int kv_valid,
-                     const unsigned char* __restrict__ kv_mask) {
+                     const unsigned char* __restrict__ kv_mask, int chunk_tokens,
+                     int tf_clean_len) {
   extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ unsigned char mask_chunk[kKvMask ? BK : 1];
+  __shared__ unsigned char mask_chunk[kMode == kKvMask ? BK : 1];
+  // K1 struct: the key ranges [0, a) and [b, c) each row sees
+  __shared__ int span[kMode == kStruct ? 3 * BQ : 1];
   AttnTile<T, BQ, BK> t;
   t.carve(smem, D);
 
@@ -64,68 +84,104 @@ __global__ void __launch_bounds__(fvt::kThreads)
   t.load_rows(t.q, qp, q_ss, nq, BQ);
   __syncthreads();
 
-  // keys past kv_end are masked for every row of this tile
-  int kv_end = min(kv_valid, Skv);
-  if (causal) kv_end = min(kv_end, q0 + BQ);
-  for (int j0 = 0; j0 < kv_end; j0 += BK) {
-    const int nk = min(BK, Skv - j0);
-    __syncthreads();  // every warp is done with the previous chunk
-    if constexpr (kKvMask) {
-      int any = 0;
-      for (int c = threadIdx.x; c < BK; c += fvt::kThreads) {
-        const unsigned char m = c < nk ? kv_mask[j0 + c] : 0;
-        mask_chunk[c] = m;
-        any |= m;
-      }
-      if (!__syncthreads_or(any)) continue;  // block-uniform: nothing visible
-    }
+  // one key chunk of nk keys from j0 into the online softmax
+  auto step = [&](int j0, int nk, auto valid) {
     t.load_rows(t.k, kp + j0 * k_ss, k_ss, nk, BK);
     t.load_rows(t.v, vp + j0 * v_ss, v_ss, nk, BK);
     __syncthreads();
     t.scores();
-    t.softmax_update(scale, [&](int r, int c) {
-      const int col = j0 + c;
-      if constexpr (kKvMask)
-        return col < kv_end && mask_chunk[c] != 0;
-      else
-        return col < kv_end && (!causal || col <= q0 + r);
-    });
+    t.softmax_update(scale, valid);
     t.accumulate_pv();
+  };
+
+  // keys past kv_end are masked for every row of this tile
+  int kv_end = min(kv_valid, Skv);
+  if constexpr (kMode == kStruct) {
+    int* sa = span;
+    int* sb = span + BQ;
+    int* sc = span + 2 * BQ;
+    for (int r = threadIdx.x; r < BQ; r += fvt::kThreads) {
+      int a = 0, b0 = 0, c = 0;
+      if (r < nq) fvt::struct_row_keys(q0 + r, chunk_tokens, tf_clean_len, kv_end, a, b0, c);
+      sa[r] = a;
+      sb[r] = b0;
+      sc[r] = c;
+    }
+    __syncthreads();
+    const fvt::Ranges keys = fvt::struct_tile_keys(sa, sb, sc, nq);
+    for (int i = 0; i < keys.n; ++i) {
+      for (int j0 = keys.lo[i]; j0 < keys.hi[i]; j0 += BK) {
+        const int nk = min(BK, keys.hi[i] - j0);
+        __syncthreads();  // every warp is done with the previous chunk
+        step(j0, nk, [&](int r, int c) {
+          const int col = j0 + c;
+          return c < nk && (col < sa[r] || (col >= sb[r] && col < sc[r]));
+        });
+      }
+    }
+  } else {
+    if (causal) kv_end = min(kv_end, q0 + BQ);
+    for (int j0 = 0; j0 < kv_end; j0 += BK) {
+      const int nk = min(BK, Skv - j0);
+      __syncthreads();  // every warp is done with the previous chunk
+      if constexpr (kMode == kKvMask) {
+        int any = 0;
+        for (int c = threadIdx.x; c < BK; c += fvt::kThreads) {
+          const unsigned char m = c < nk ? kv_mask[j0 + c] : 0;
+          mask_chunk[c] = m;
+          any |= m;
+        }
+        if (!__syncthreads_or(any)) continue;  // block-uniform: nothing visible
+      }
+      step(j0, nk, [&](int r, int c) {
+        const int col = j0 + c;
+        if constexpr (kMode == kKvMask)
+          return col < kv_end && mask_chunk[c] != 0;
+        else
+          return col < kv_end && (!causal || col <= q0 + r);
+      });
+    }
   }
   float* lse_row = lse == nullptr ? nullptr : lse + (static_cast<long long>(b) * H + h) * Sq + q0;
   t.store(o + b * o_sb + h * o_sh + q0 * o_ss, o_ss, nq, lse_row, -CUDART_INF_F);
 }
 
-template <typename T, int BQ, int BK, bool kKvMask>
+// The mask arguments of one launch: causal and kv_valid (every mode), the
+// K5 key mask, the K1 struct chunk geometry.
+struct MaskArgs {
+  int causal, kv_valid;
+  const unsigned char* kv_mask;
+  int chunk_tokens, tf_clean_len;
+};
+
+template <typename T, int BQ, int BK, int kMode>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H,
-           int Sq, int Skv, int D, const long long* st, float scale, int causal, int kv_valid,
-           const unsigned char* kv_mask, cudaStream_t stream) {
+           int Sq, int Skv, int D, const long long* st, float scale, const MaskArgs& m,
+           cudaStream_t stream) {
   const size_t smem = AttnTile<T, BQ, BK>::smem_bytes(D);
-  cudaError_t err = fvt::set_smem(flash_fwd_kernel<T, BQ, BK, kKvMask>, smem);
+  cudaError_t err = fvt::set_smem(flash_fwd_kernel<T, BQ, BK, kMode>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<T, BQ, BK, kKvMask><<<grid, fvt::kThreads, smem, stream>>>(
+  flash_fwd_kernel<T, BQ, BK, kMode><<<grid, fvt::kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), static_cast<float*>(lse), H, Sq, Skv, D, st[0], st[1], st[2], st[3],
-      st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], scale, causal, kv_valid, kv_mask);
+      st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], scale, m.causal, m.kv_valid,
+      m.kv_mask, m.chunk_tokens, m.tf_clean_len);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kKvMask>
+template <int kMode>
 int dispatch(const void* q, const void* k, const void* v, void* o, void* lse, int dtype, int B,
-             int H, int Sq, int Skv, int D, const long long* st, float scale, int causal,
-             int kv_valid, const unsigned char* kv_mask, cudaStream_t s) {
+             int H, int Sq, int Skv, int D, const long long* st, float scale, const MaskArgs& m,
+             cudaStream_t s) {
   if (D % 16 != 0 || Sq <= 0 || B <= 0 || H <= 0) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 1) {
     if (D <= 128)
-      return launch<bf16, 64, 64, kKvMask>(q, k, v, o, lse, B, H, Sq, Skv, D, st, scale, causal,
-                                           kv_valid, kv_mask, s);
-    return launch<bf16, 64, 32, kKvMask>(q, k, v, o, lse, B, H, Sq, Skv, D, st, scale, causal,
-                                         kv_valid, kv_mask, s);
+      return launch<bf16, 64, 64, kMode>(q, k, v, o, lse, B, H, Sq, Skv, D, st, scale, m, s);
+    return launch<bf16, 64, 32, kMode>(q, k, v, o, lse, B, H, Sq, Skv, D, st, scale, m, s);
   }
   if (dtype == 0)
-    return launch<float, 32, 16, kKvMask>(q, k, v, o, lse, B, H, Sq, Skv, D, st, scale, causal,
-                                          kv_valid, kv_mask, s);
+    return launch<float, 32, 16, kMode>(q, k, v, o, lse, B, H, Sq, Skv, D, st, scale, m, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -140,8 +196,9 @@ extern "C" int fvt_flash_fwd(const void* q, const void* k, const void* v, void* 
                              long long o_sb, long long o_sh, long long o_ss, float scale,
                              int causal, int kv_valid, void* stream) {
   const long long st[12] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss};
-  return dispatch<false>(q, k, v, o, lse, dtype, B, H, Sq, Skv, D, st, scale, causal, kv_valid,
-                         nullptr, static_cast<cudaStream_t>(stream));
+  return dispatch<kPlain>(q, k, v, o, lse, dtype, B, H, Sq, Skv, D, st, scale,
+                          MaskArgs{causal, kv_valid, nullptr, 0, 0},
+                          static_cast<cudaStream_t>(stream));
 }
 
 // K5: as fvt_flash_fwd with no causal mask and every key in range, plus
@@ -156,7 +213,25 @@ extern "C" int fvt_flash_fwd_kv_mask(const void* q, const void* k, const void* v
                                      long long o_ss, float scale, void* stream) {
   if (kv_mask == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const long long st[12] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss};
-  return dispatch<true>(q, k, v, o, lse, dtype, B, H, Sq, Skv, D, st, scale, 0, Skv,
-                        static_cast<const unsigned char*>(kv_mask),
-                        static_cast<cudaStream_t>(stream));
+  return dispatch<kKvMask>(q, k, v, o, lse, dtype, B, H, Sq, Skv, D, st, scale,
+                           MaskArgs{0, Skv, static_cast<const unsigned char*>(kv_mask), 0, 0},
+                           static_cast<cudaStream_t>(stream));
+}
+
+// K1 struct: as fvt_flash_fwd with the chunk-causal mask (chunk_tokens > 0,
+// tf_clean_len 0) or the teacher-forcing mask (both > 0) in place of causal;
+// lse may be null.
+extern "C" int fvt_flash_fwd_struct(const void* q, const void* k, const void* v, void* o,
+                                    void* lse, int dtype, int B, int H, int Sq, int Skv, int D,
+                                    long long q_sb, long long q_sh, long long q_ss,
+                                    long long k_sb, long long k_sh, long long k_ss,
+                                    long long v_sb, long long v_sh, long long v_ss,
+                                    long long o_sb, long long o_sh, long long o_ss, float scale,
+                                    int kv_valid, int chunk_tokens, int tf_clean_len,
+                                    void* stream) {
+  if (chunk_tokens <= 0 || tf_clean_len < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long st[12] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss};
+  return dispatch<kStruct>(q, k, v, o, lse, dtype, B, H, Sq, Skv, D, st, scale,
+                           MaskArgs{0, kv_valid, nullptr, chunk_tokens, tf_clean_len},
+                           static_cast<cudaStream_t>(stream));
 }

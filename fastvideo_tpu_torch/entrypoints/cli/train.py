@@ -5,7 +5,7 @@
 The config tree (JSON, or the simple YAML subset of ``api/parser.py``;
 unknown keys are errors):
 
-    method: sft                 # the one method the port registers
+    method: sft                 # or dfsft / tfsft (a causal checkpoint)
     model:
       pretrained_model_path: /path/to/Diffusers-dir   # transformer/ inside
       dit_precision: fp32
@@ -16,7 +16,9 @@ unknown keys are errors):
       learning_rate: 1e-5
       max_train_steps: 1000
       device: cuda              # or cpu
-    method_config: {}
+    method_config: {}           # dfsft / tfsft: chunk_size,
+                                # min_timestep_ratio, max_timestep_ratio,
+                                # precondition_outputs
 
 ``method`` resolves through the plugin registry. A ``data.path`` raises
 until the port reads Parquet; a caller drives ``method.train`` with a

@@ -102,12 +102,19 @@ class TimestepEmbedder(nn.Module):
         self.mlp = MLP(frequency_embedding_size, hidden_size, hidden_size,
                        act_type=act_layer, device=device, dtype=dtype)
 
-    def forward(self, t: torch.Tensor) -> torch.Tensor:
+    def forward(self, t: torch.Tensor,
+                timestep_seq_len: int | None = None) -> torch.Tensor:
+        """t [N] -> [N, hidden]; with ``timestep_seq_len`` the N timesteps
+        are per token, N = B * seq_len, and the result is [B, seq_len,
+        hidden]."""
         t_freq = timestep_embedding(t, self.frequency_embedding_size,
                                     self.max_period)
         # the MLP's parameter dtype, read off the bias that a Linear and an
         # Int8Linear both carry
-        return self.mlp(t_freq.to(self.mlp.fc_in.bias.dtype))
+        t_freq = t_freq.to(self.mlp.fc_in.bias.dtype)
+        if timestep_seq_len is not None:
+            t_freq = t_freq.reshape(-1, timestep_seq_len, t_freq.shape[-1])
+        return self.mlp(t_freq)
 
 
 class ModulateProjection(nn.Module):

@@ -24,17 +24,26 @@ takes its Pallas twin: at least 1,024 keys and a head dim that is a
 multiple of 128. Elsewhere it is the dense bias softmax, plain PyTorch
 here as it is XLA in JAX. The cross-attention over the cached text K/V
 goes through K1.
+
+``train_forward`` is the full-sequence forward of diffusion-forcing and
+teacher-forcing training (the ``dfsft`` / ``tfsft`` methods): per-frame
+timesteps, per-token modulation, and the self-attention under K1 struct's
+chunk-causal or teacher-forcing mask (K6 struct in the backward).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 from fastvideo_tpu_torch.layers.embeddings import unpatchify
 from fastvideo_tpu_torch.layers.rotary import (apply_rotary_emb,
                                                get_rotary_pos_embed_wan)
 from fastvideo_tpu_torch.models.dits.wan import (WanTransformer3DModel,
                                                  WanTransformerBlock)
+# after the DiT, which imports the attention package that forward_context
+# needs first
+from fastvideo_tpu_torch.forward_context import bind_forward_context
 from fastvideo_tpu_torch.ops.flash_attention import (flash_attention,
                                                      flash_attention_kv_mask)
 
@@ -263,17 +272,122 @@ class CausalWanTransformer3DModel(WanTransformer3DModel):
         out = unpatchify(x, *grid, cfg.patch_size, cfg.out_channels)
         return out, kv_caches
 
-    def train_forward(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the causal Wan's blockwise-causal training forward (and K1's "
-            "chunk_tokens / tf_clean_len masks it needs) comes with the "
-            "training slice, ROADMAP Queue 1 item 4")
+    # -- full-sequence training forward ---------------------------------------
+
+    def train_forward(self, hidden_states: torch.Tensor,
+                      encoder_hidden_states: torch.Tensor,
+                      timestep: torch.Tensor,
+                      clean_x: torch.Tensor | None = None,
+                      aug_t: torch.Tensor | None = None) -> torch.Tensor:
+        """Blockwise-causal full-sequence forward of diffusion-forcing and
+        teacher-forcing training: hidden_states [B, C, T, H, W], timestep
+        [B, gt] per latent frame -> the prediction [B, C, T, H, W].
+
+        With ``clean_x`` the sequence is ``[clean | noisy]`` under the
+        teacher-forcing mask and only the noisy half's prediction is
+        returned; the clean tokens' modulation comes from ``aug_t`` [B, gt]
+        (default zeros), and clean frame i shares noisy frame i's rope
+        position. The output modulation comes from the noisy timesteps.
+        With ``gradient_checkpointing`` (and grad enabled) each block runs
+        under ``torch.utils.checkpoint``, bound to the forward's context."""
+        cfg = self.config
+        b, _, t, h, w = hidden_states.shape
+        pt, ph, pw = cfg.patch_size
+        grid = (t // pt, h // ph, w // pw)
+        gt, fs = grid[0], grid[1] * grid[2]
+        seq_len = gt * fs
+        if timestep.ndim != 2 or timestep.shape[1] != gt:
+            raise ValueError(f"timestep must be [B, {gt}] per latent frame, "
+                             f"got {tuple(timestep.shape)}")
+        chunk_tokens = cfg.num_frames_per_block * fs
+        dev = hidden_states.device
+        cos, sin = get_rotary_pos_embed_wan(grid, cfg.attention_head_dim,
+                                            cfg.rope_theta, device=dev)
+        x = self.patch_embedding(hidden_states)  # [B, S, C]
+
+        ce = self.condition_embedder
+
+        def modulation(ts):  # [B, gt] -> per-token temb, [B, S, 6, C]
+            tok = ts.float().repeat_interleave(fs, dim=1).reshape(-1)
+            temb = ce.time_embedder(tok, seq_len)
+            return temb, ce.time_modulation(temb).reshape(b, seq_len, 6, -1)
+
+        temb, timestep_proj = modulation(timestep)
+        context = ce.text_embedder(encoder_hidden_states).to(x.dtype)
+
+        tf_clean_len = 0
+        if clean_x is not None:
+            tf_clean_len = seq_len
+            if aug_t is None:
+                aug_t = torch.zeros_like(timestep)
+            _, proj_clean = modulation(aug_t)
+            x = torch.cat([self.patch_embedding(clean_x), x], dim=1)
+            timestep_proj = torch.cat([proj_clean, timestep_proj], dim=1)
+            del proj_clean
+            cos, sin = torch.cat([cos, cos]), torch.cat([sin, sin])
+
+        remat = self.gradient_checkpointing and torch.is_grad_enabled()
+        for block in self.blocks:
+            args = (block, x, context, timestep_proj, (cos, sin),
+                    chunk_tokens, tf_clean_len)
+            if remat:
+                x = torch.utils.checkpoint.checkpoint(
+                    bind_forward_context(_masked_block_forward), *args,
+                    use_reentrant=False)
+            else:
+                x = _masked_block_forward(*args)
+
+        if clean_x is not None:
+            x = x[:, seq_len:]
+        e = self.scale_shift_table.float()[None] + temb.float()[:, :, None]
+        x = self.norm_out(x, e[:, :, 0], e[:, :, 1])
+        x = self.proj_out(x)
+        return unpatchify(x, *grid, cfg.patch_size, cfg.out_channels)
 
 
-def _masked_block_forward(*args, **kwargs):
-    raise NotImplementedError(
-        "_masked_block_forward is the training forward's block; it comes "
-        "with the training slice, ROADMAP Queue 1 item 4")
+def _masked_block_forward(block: CausalWanTransformerBlock,
+                          hidden_states: torch.Tensor,
+                          encoder_hidden_states: torch.Tensor,
+                          temb: torch.Tensor,
+                          freqs_cis: tuple[torch.Tensor, torch.Tensor],
+                          chunk_tokens: int,
+                          tf_clean_len: int) -> torch.Tensor:
+    """A block over the full sequence under a structural flash mask: the
+    self-attention is K1 struct (the chunk-causal mask, or the
+    teacher-forcing one when ``tf_clean_len`` > 0), computed from the chunk
+    geometry inside the kernel, so no [S, S] mask is ever built. ``temb``
+    is the per-token modulation [B, S, 6, C]; the cross-attention is the
+    block's own (K1 over the text keys)."""
+    orig_dtype = hidden_states.dtype
+    b = hidden_states.shape[0]
+    n, d = block.num_heads, block.dim // block.num_heads
+    e = block.scale_shift_table.float()[None] + temb.float()
+    shift_msa, scale_msa, gate_msa, c_shift, c_scale, c_gate = (
+        e[:, :, i] for i in range(6))
+
+    norm_hidden = block.norm1.norm_f32(hidden_states)
+    norm_hidden = (norm_hidden * (1.0 + scale_msa) + shift_msa).to(
+        orig_dtype)
+    q = block.norm_q(block.to_q(norm_hidden)).reshape(b, -1, n, d)
+    k = block.norm_k(block.to_k(norm_hidden)).reshape(b, -1, n, d)
+    v = block.to_v(norm_hidden).reshape(b, -1, n, d)
+    cos, sin = freqs_cis
+    q = apply_rotary_emb(q, cos, sin)
+    k = apply_rotary_emb(k, cos, sin)
+    attn_out = flash_attention(q, k, v, scale=d**-0.5,
+                               chunk_tokens=chunk_tokens,
+                               tf_clean_len=tf_clean_len)
+    attn_out = block.to_out(attn_out.reshape(b, -1, block.dim))
+    norm_hidden, hidden_states = block.self_attn_residual_norm(
+        hidden_states, attn_out, gate_msa, 0.0, 0.0)
+
+    attn_out = block.attn2(norm_hidden, encoder_hidden_states)
+    norm_hidden, hidden_states = block.cross_attn_residual_norm(
+        hidden_states, attn_out, 1.0, c_shift, c_scale)
+
+    ff = block.ffn(norm_hidden)
+    hidden_states = block.mlp_residual(hidden_states, ff, c_gate)
+    return hidden_states.to(orig_dtype)
 
 
 EntryClass = CausalWanTransformer3DModel

@@ -65,8 +65,12 @@ class WanTimeTextEmbedding(nn.Module):
                                  act_type="gelu_pytorch_tanh", **kw)
 
     def forward(self, timestep: torch.Tensor,
-                encoder_hidden_states: torch.Tensor):
-        temb = self.time_embedder(timestep)
+                encoder_hidden_states: torch.Tensor,
+                timestep_seq_len: int | None = None):
+        """(temb, its 6-way modulation, the text context). With
+        ``timestep_seq_len`` the timesteps are per token (B * seq_len of
+        them) and temb is [B, seq_len, C]."""
+        temb = self.time_embedder(timestep, timestep_seq_len)
         return (temb, self.time_modulation(temb),
                 self.text_embedder(encoder_hidden_states))
 

@@ -11,9 +11,10 @@ Every kernel wrapper calls :func:`count_launch` where it launches its
 kernel and :func:`count_plain` where it runs its plain PyTorch version, so
 a run can show which path the work took. A kernel is counted by its own
 name even where it shares a source with another (K5, ``flash_fwd_kv_mask``,
-is an entry of ``flash_fwd.cu``; the backward sources hold a dQ and a dK/dV
-kernel each, ``flash_bwd_dq`` / ``flash_bwd_dkv`` (K6) and
-``vsa_sparse_bwd_dq`` / ``vsa_sparse_bwd_dkv`` (K7 bwd)).
+and K1 struct, ``flash_fwd_struct``, are entries of ``flash_fwd.cu``; the
+backward sources hold a dQ and a dK/dV kernel each, ``flash_bwd_dq`` /
+``flash_bwd_dkv`` (K6), ``flash_bwd_struct_dq`` / ``flash_bwd_struct_dkv``
+(K6 struct) and ``vsa_sparse_bwd_dq`` / ``vsa_sparse_bwd_dkv`` (K7 bwd)).
 """
 
 from __future__ import annotations
@@ -36,13 +37,17 @@ SOURCES = ("flash_fwd", "vsa_sparse_fwd", "vsa_sparse_padded_fwd", "conv3d",
            "conv3d_int8", "flash_bwd", "vsa_sparse_bwd", "dyn_sparse_fwd")
 # counted kernels -> the source that holds them (each backward source holds
 # a dQ and a dK/dV kernel, counted apart; dyn_sparse_fwd.cu holds K9a and
-# K9b, the query-tile form)
+# K9b, the query-tile form; K1 struct and K6 struct, the causal Wan
+# training masks, are instances of flash_fwd.cu and flash_bwd.cu)
 SOURCE_OF = {**{n: n for n in SOURCES[:5]}, "flash_fwd_kv_mask": "flash_fwd",
              "flash_bwd_dq": "flash_bwd", "flash_bwd_dkv": "flash_bwd",
              "vsa_sparse_bwd_dq": "vsa_sparse_bwd",
              "vsa_sparse_bwd_dkv": "vsa_sparse_bwd",
              "dyn_sparse_fwd": "dyn_sparse_fwd",
-             "dyn_sparse_qtile_fwd": "dyn_sparse_fwd"}
+             "dyn_sparse_qtile_fwd": "dyn_sparse_fwd",
+             "flash_fwd_struct": "flash_fwd",
+             "flash_bwd_struct_dq": "flash_bwd",
+             "flash_bwd_struct_dkv": "flash_bwd"}
 KERNELS = tuple(SOURCE_OF)
 
 _lock = threading.Lock()
@@ -132,6 +137,11 @@ _SIGNATURES = {
     "fvt_flash_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 +
     [ctypes.c_longlong] * 12 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                                 ctypes.c_void_p],
+    # q, k, v, o, lse, dtype, B, H, Sq, Skv, D, 12 strides, scale, kv_valid,
+    # chunk_tokens, tf_clean_len, stream
+    "fvt_flash_fwd_struct": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 +
+    [ctypes.c_longlong] * 12 + [ctypes.c_float] + [ctypes.c_int] * 3 +
+    [ctypes.c_void_p],
     # q, k, v, o, lse, kv_mask (uint8 [Skv]), dtype, B, H, Sq, Skv, D,
     # 12 strides, scale, stream
     "fvt_flash_fwd_kv_mask": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 +
@@ -154,6 +164,16 @@ _SIGNATURES = {
     "fvt_flash_bwd_dkv": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 +
     [ctypes.c_longlong] * 18 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                                 ctypes.c_void_p],
+    # q, k, v, dO, lse, delta, dq, B, H, Sq, Skv, D, 15 strides, scale,
+    # kv_valid, chunk_tokens, tf_clean_len, stream
+    "fvt_flash_bwd_struct_dq": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 +
+    [ctypes.c_longlong] * 15 + [ctypes.c_float] + [ctypes.c_int] * 3 +
+    [ctypes.c_void_p],
+    # q, k, v, dO, lse, delta, dk, dv, B, H, Sq, Skv, D, 18 strides, scale,
+    # kv_valid, chunk_tokens, tf_clean_len, stream
+    "fvt_flash_bwd_struct_dkv": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 +
+    [ctypes.c_longlong] * 18 + [ctypes.c_float] + [ctypes.c_int] * 3 +
+    [ctypes.c_void_p],
     # q, k, v, dO, lse, delta, dq, indices, block_sizes, B, H, S, D, E, topk,
     # 15 strides, scale, stream
     "fvt_vsa_sparse_bwd_dq": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 +

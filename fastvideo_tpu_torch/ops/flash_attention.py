@@ -14,6 +14,24 @@ next. Its plain version is :func:`flash_attention_kv_mask_plain`. It has no
 backward (nor has the JAX one): on CUDA it raises for operands that
 require grad.
 
+With ``chunk_tokens > 0`` (and ``tf_clean_len``) the mask is the causal
+Wan training forward's chunk-causal or teacher-forcing one (JAX
+``_mask_tile``): K1 struct, an instance of its own in the same source
+(``fvt_flash_fwd_struct``, counter ``flash_fwd_struct``), and under
+autograd K6 struct (``flash_bwd_struct_dq`` / ``flash_bwd_struct_dkv``).
+With ct = ``chunk_tokens`` and s = ``tf_clean_len``, key c is visible to
+query r when c < ``kv_valid`` and: chunk-causal (s = 0), c // ct <= r // ct;
+teacher forcing (the sequence ``[clean | noisy]``, 2s rows), for a clean
+query (r < s) c < s and c // ct <= r // ct, for a noisy one its own noisy
+chunk (c >= s, (c - s) // ct == (r - s) // ct) or the clean keys of
+strictly earlier chunks (c < s, c // ct < (r - s) // ct). ``causal`` is
+ignored there, as in JAX.
+
+The plain versions work in slabs of query rows whose fp32 scores take at
+most ``SLAB_BYTES`` (1 GiB), so that they hold the kernels at the causal
+Wan's full-width training shapes (a dense [B, H, S, S] score tensor of
+65,520 rows would be 206 GB); the backward sums dK and dV over the slabs.
+
 Under autograd ``flash_attention`` runs as one ``torch.autograd.Function``:
 K1's forward with its LSE, then K6 (``csrc/flash_bwd.cu``, replacing the
 Pallas ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``) for dQ and dK/dV, as the
@@ -40,30 +58,78 @@ NAME = "flash_fwd"
 NAME_KV_MASK = "flash_fwd_kv_mask"
 NAME_BWD_DQ = "flash_bwd_dq"
 NAME_BWD_DKV = "flash_bwd_dkv"
+NAME_STRUCT = "flash_fwd_struct"
+NAME_BWD_STRUCT_DQ = "flash_bwd_struct_dq"
+NAME_BWD_STRUCT_DKV = "flash_bwd_struct_dkv"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the most fp32 scores a plain version holds at once
+SLAB_BYTES = 1 << 30
 
 
-def _structural_mask(sq: int, skv: int, kv_valid: int, causal: bool,
-                     device) -> torch.Tensor:
-    """[Sq, Skv] bool: key j is visible to query i (``_mask_tile``)."""
-    row = torch.arange(sq, device=device)[:, None]
+def check_struct(chunk_tokens: int, tf_clean_len: int) -> None:
+    """The teacher-forcing mask is chunk-granular (JAX ``flash_attention``
+    raises the same)."""
+    if tf_clean_len > 0 and chunk_tokens <= 0:
+        raise ValueError(
+            "tf_clean_len > 0 requires chunk_tokens > 0 (teacher-forcing "
+            "masks are chunk-granular)")
+
+
+def _structural_mask(rows: range, skv: int, kv_valid: int, causal: bool,
+                     device, chunk_tokens: int = 0,
+                     tf_clean_len: int = 0) -> torch.Tensor:
+    """[len(rows), Skv] bool: key c is visible to query row r of ``rows``
+    (``_mask_tile``)."""
+    row = torch.arange(rows.start, rows.stop, device=device)[:, None]
     col = torch.arange(skv, device=device)[None, :]
     mask = col < kv_valid
+    ct, s = chunk_tokens, tf_clean_len
+
+    def div(x):
+        return torch.div(x, ct, rounding_mode="floor")
+
+    if s > 0:
+        clean = row < s
+        cq = div(row - s)
+        clean_ok = clean & (col < s) & (div(col) <= div(row))
+        noisy_own = (col >= s) & (div(col - s) == cq)
+        noisy_ctx = (col < s) & (div(col) < cq)
+        return mask & (clean_ok | (~clean & (noisy_own | noisy_ctx)))
+    if ct > 0:
+        return mask & (div(col) <= div(row))
     if causal:
         return mask & (col <= row)
     return mask
 
 
+def _row_slabs(q: torch.Tensor, skv: int):
+    """Ranges of query rows whose fp32 scores [B, H, rows, Skv] take at
+    most ``SLAB_BYTES``."""
+    b, sq, h, _ = q.shape
+    step = max(1, SLAB_BYTES // (4 * b * h * max(skv, 1)))
+    return [range(r0, min(r0 + step, sq)) for r0 in range(0, sq, step)]
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, scale: float, causal: bool = False,
-                          kv_valid: int | None = None
+                          kv_valid: int | None = None, chunk_tokens: int = 0,
+                          tf_clean_len: int = 0
                           ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of K1: returns (out [B,Sq,H,D], lse [B,H,Sq])."""
-    _build.count_plain(NAME)
-    sq, skv = q.shape[1], k.shape[1]
+    """Plain PyTorch version of K1 (and K1 struct, with ``chunk_tokens``):
+    returns (out [B,Sq,H,D], lse [B,H,Sq])."""
+    check_struct(chunk_tokens, tf_clean_len)
+    _build.count_plain(NAME_STRUCT if chunk_tokens > 0 else NAME)
+    skv = k.shape[1]
     kv_valid = skv if kv_valid is None else kv_valid
-    mask = _structural_mask(sq, skv, kv_valid, causal, q.device)
-    return _masked_attention(q, k, v, mask, scale)
+    outs, lses = [], []
+    for rows in _row_slabs(q, skv):
+        mask = _structural_mask(rows, skv, kv_valid, causal, q.device,
+                                chunk_tokens, tf_clean_len)
+        out, lse = _masked_attention(q[:, rows.start:rows.stop], k, v, mask,
+                                     scale)
+        outs.append(out)
+        lses.append(lse)
+    return torch.cat(outs, dim=1), torch.cat(lses, dim=2)
 
 
 def flash_attention_kv_mask_plain(q: torch.Tensor, k: torch.Tensor,
@@ -98,30 +164,44 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, out: torch.Tensor,
                               lse: torch.Tensor, do: torch.Tensor, *,
                               scale: float, causal: bool = False,
-                              kv_valid: int | None = None):
+                              kv_valid: int | None = None,
+                              chunk_tokens: int = 0, tf_clean_len: int = 0):
     """Plain PyTorch version of K6 (JAX ``_flash_attention_bwd_bhsd``):
     (dq, dk, dv) of ``[B, S, H, D]`` operands from the forward's out and
     fp32 lse [B, H, Sq], step by step in fp32 with the Pallas kernels'
     rounding points: p to dO's dtype before p^T dO, dS to the operands'
-    dtype before dS K and dS^T Q, the results in the input dtypes."""
-    _build.count_plain(NAME_BWD_DQ)
-    _build.count_plain(NAME_BWD_DKV)
-    sq, skv = q.shape[1], k.shape[1]
+    dtype before dS K and dS^T Q, the results in the input dtypes. In
+    slabs of query rows (``SLAB_BYTES``), dK and dV summed over them."""
+    check_struct(chunk_tokens, tf_clean_len)
+    struct = chunk_tokens > 0
+    _build.count_plain(NAME_BWD_STRUCT_DQ if struct else NAME_BWD_DQ)
+    _build.count_plain(NAME_BWD_STRUCT_DKV if struct else NAME_BWD_DKV)
+    skv = k.shape[1]
     kv_valid = skv if kv_valid is None else kv_valid
-    mask = _structural_mask(sq, skv, kv_valid, causal, q.device)
-    qf, kf, vf, of, dof = (t.float().transpose(1, 2)
-                           for t in (q, k, v, out, do))
-    delta = (dof * of).sum(dim=-1, keepdim=True)  # [B, H, Sq, 1]
-    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
-    # masked before the exponent: an empty row's -inf LSE meets no key
-    p = torch.exp((s - lse.float()[..., None]).masked_fill(~mask,
-                                                           float("-inf")))
-    dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), dof)
-    dp = torch.matmul(dof, vf.transpose(-1, -2))
-    ds = p * (dp - delta) * scale
-    dq = torch.matmul(ds.to(k.dtype).float(), kf)
-    dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), qf)
-    return (dq.to(q.dtype).transpose(1, 2), dk.to(k.dtype).transpose(1, 2),
+    kf, vf = (t.float().transpose(1, 2) for t in (k, v))
+    dqs = []
+    dk = dv = 0.0
+    for rows in _row_slabs(q, skv):
+        sl = slice(rows.start, rows.stop)
+        mask = _structural_mask(rows, skv, kv_valid, causal, q.device,
+                                chunk_tokens, tf_clean_len)
+        qf, of, dof = (t[:, sl].float().transpose(1, 2) for t in (q, out, do))
+        delta = (dof * of).sum(dim=-1, keepdim=True)  # [B, H, rows, 1]
+        s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+        # masked before the exponent: an empty row's -inf LSE meets no key
+        p = torch.exp((s - lse[:, :, sl].float()[..., None]).masked_fill(
+            ~mask, float("-inf")))
+        del s
+        dv = dv + torch.matmul(p.to(do.dtype).float().transpose(-1, -2),
+                               dof)
+        dp = torch.matmul(dof, vf.transpose(-1, -2))
+        ds = p * (dp - delta) * scale
+        del p, dp
+        dqs.append(torch.matmul(ds.to(k.dtype).float(), kf).to(q.dtype))
+        dk = dk + torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), qf)
+        del ds
+    return (torch.cat(dqs, dim=2).transpose(1, 2),
+            dk.to(k.dtype).transpose(1, 2),
             dv.to(v.dtype).transpose(1, 2))
 
 
@@ -147,22 +227,31 @@ def _check_cuda_operands(name: str, *ts: torch.Tensor) -> int:
     return _DTYPE_CODES[dtype]
 
 
-def _flash_attention_cuda(q, k, v, *, scale, causal, kv_valid):
-    dtype = _check_cuda_operands(NAME, q, k, v)
+def bhs(t):
+    """(batch, head, row) strides of a [B, S, H, D] tensor."""
+    return t.stride(0), t.stride(2), t.stride(1)
+
+
+def _flash_attention_cuda(q, k, v, *, scale, causal, kv_valid, chunk_tokens,
+                          tf_clean_len):
+    struct = chunk_tokens > 0
+    name = NAME_STRUCT if struct else NAME
+    dtype = _check_cuda_operands(name, q, k, v)
     q, k, v = attn_operand(q), attn_operand(k), attn_operand(v)
     b, sq, h, d = q.shape
     skv = k.shape[1]
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-
-    def bhs(t):  # (batch, head, row) strides of a [B, S, H, D] tensor
-        return t.stride(0), t.stride(2), t.stride(1)
-
-    _build.launch(NAME, "fvt_flash_fwd", q.data_ptr(), k.data_ptr(),
-                  v.data_ptr(), out.data_ptr(), lse.data_ptr(), dtype, b, h,
-                  sq, skv, d, *bhs(q), *bhs(k), *bhs(v), *bhs(out),
-                  float(scale), int(causal), int(kv_valid),
-                  _build.stream_ptr(q))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), dtype, b, h, sq, skv, d, *bhs(q), *bhs(k),
+            *bhs(v), *bhs(out), float(scale))
+    if struct:
+        _build.launch(name, "fvt_flash_fwd_struct", *ptrs, int(kv_valid),
+                      int(chunk_tokens), int(tf_clean_len),
+                      _build.stream_ptr(q))
+    else:
+        _build.launch(name, "fvt_flash_fwd", *ptrs, int(causal),
+                      int(kv_valid), _build.stream_ptr(q))
     return out, lse
 
 
@@ -179,8 +268,11 @@ def check_bwd_operands(name: str, *ts: torch.Tensor) -> None:
 
 
 def _flash_attention_bwd_cuda(q, k, v, out, lse, do, *, scale, causal,
-                              kv_valid):
-    check_bwd_operands(NAME_BWD_DQ, q, k, v, out, do)
+                              kv_valid, chunk_tokens, tf_clean_len):
+    struct = chunk_tokens > 0
+    names = ((NAME_BWD_STRUCT_DQ, NAME_BWD_STRUCT_DKV) if struct else
+             (NAME_BWD_DQ, NAME_BWD_DKV))
+    check_bwd_operands(names[0], q, k, v, out, do)
     q, k, v, do = (attn_operand(t) for t in (q, k, v, do))
     b, sq, h, d = q.shape
     skv = k.shape[1]
@@ -192,16 +284,20 @@ def _flash_attention_bwd_cuda(q, k, v, out, lse, do, *, scale, causal,
     dk = torch.empty((b, skv, h, d), dtype=k.dtype, device=q.device)
     dv = torch.empty((b, skv, h, d), dtype=v.dtype, device=q.device)
 
-    def bhs(t):
-        return t.stride(0), t.stride(2), t.stride(1)
-
     common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
               lse.data_ptr(), delta.data_ptr())
-    tail = (float(scale), int(causal), int(kv_valid), _build.stream_ptr(q))
-    _build.launch(NAME_BWD_DQ, "fvt_flash_bwd_dq", *common, dq.data_ptr(), b,
-                  h, sq, skv, d, *bhs(q), *bhs(k), *bhs(v), *bhs(do),
-                  *bhs(dq), *tail)
-    _build.launch(NAME_BWD_DKV, "fvt_flash_bwd_dkv", *common, dk.data_ptr(),
+    if struct:
+        entries = ("fvt_flash_bwd_struct_dq", "fvt_flash_bwd_struct_dkv")
+        tail = (float(scale), int(kv_valid), int(chunk_tokens),
+                int(tf_clean_len), _build.stream_ptr(q))
+    else:
+        entries = ("fvt_flash_bwd_dq", "fvt_flash_bwd_dkv")
+        tail = (float(scale), int(causal), int(kv_valid),
+                _build.stream_ptr(q))
+    _build.launch(names[0], entries[0], *common, dq.data_ptr(), b, h, sq,
+                  skv, d, *bhs(q), *bhs(k), *bhs(v), *bhs(do), *bhs(dq),
+                  *tail)
+    _build.launch(names[1], entries[1], *common, dk.data_ptr(),
                   dv.data_ptr(), b, h, sq, skv, d, *bhs(q), *bhs(k), *bhs(v),
                   *bhs(do), *bhs(dk), *bhs(dv), *tail)
     return dq, dk, dv
@@ -210,13 +306,16 @@ def _flash_attention_bwd_cuda(q, k, v, out, lse, do, *, scale, causal,
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, lse: torch.Tensor,
                         do: torch.Tensor, *, scale: float,
-                        causal: bool = False, kv_valid: int | None = None):
+                        causal: bool = False, kv_valid: int | None = None,
+                        chunk_tokens: int = 0, tf_clean_len: int = 0):
     """K6: (dq, dk, dv) of flash attention over ``[B, S, H, D]`` operands,
     from the forward's out and lse [B, H, Sq] and the output gradient
-    ``do``. CUDA tensors launch the kernels, CPU tensors run
-    :func:`flash_attention_bwd_plain`."""
+    ``do``; K6 struct with ``chunk_tokens > 0``. CUDA tensors launch the
+    kernels, CPU tensors run :func:`flash_attention_bwd_plain`."""
+    check_struct(chunk_tokens, tf_clean_len)
     kw = dict(scale=scale, causal=causal,
-              kv_valid=k.shape[1] if kv_valid is None else int(kv_valid))
+              kv_valid=k.shape[1] if kv_valid is None else int(kv_valid),
+              chunk_tokens=int(chunk_tokens), tf_clean_len=int(tf_clean_len))
     if q.is_cuda:
         return _flash_attention_bwd_cuda(q, k, v, out, lse, do, **kw)
     if q.device.type == "cpu":
@@ -224,27 +323,29 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     raise _build.KernelError(f"{NAME_BWD_DQ}: unsupported device {q.device}")
 
 
-def _flash_attention_fwd(q, k, v, *, scale, causal, kv_valid):
-    """(out, lse): K1 on a CUDA tensor, its plain version on a CPU one."""
+def _flash_attention_fwd(q, k, v, **kw):
+    """(out, lse): K1 (or K1 struct) on a CUDA tensor, its plain version
+    on a CPU one."""
     if q.is_cuda:
-        return _flash_attention_cuda(q, k, v, scale=scale, causal=causal,
-                                     kv_valid=kv_valid)
+        return _flash_attention_cuda(q, k, v, **kw)
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, scale=scale, causal=causal,
-                                     kv_valid=kv_valid)
+        return flash_attention_plain(q, k, v, **kw)
     raise _build.KernelError(f"{NAME}: unsupported device {q.device}")
 
 
 class _FlashAttention(torch.autograd.Function):
     """K1 forward with its LSE, K6 backward (JAX ``_flash_attention_bhsd``'s
-    custom VJP)."""
+    custom VJP); their struct instances with ``chunk_tokens > 0``."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale, causal, kv_valid):
-        kw = dict(scale=scale, causal=causal, kv_valid=kv_valid)
+    def forward(ctx, q, k, v, scale, causal, kv_valid, chunk_tokens,
+                tf_clean_len):
+        kw = dict(scale=scale, causal=causal, kv_valid=kv_valid,
+                  chunk_tokens=chunk_tokens, tf_clean_len=tf_clean_len)
         if q.is_cuda:
             # refuse what K6 cannot take before the forward runs
-            check_bwd_operands(NAME_BWD_DQ, q, k, v)
+            check_bwd_operands(NAME_BWD_STRUCT_DQ if chunk_tokens > 0 else
+                               NAME_BWD_DQ, q, k, v)
         out, lse = _flash_attention_fwd(q, k, v, **kw)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.kw = kw
@@ -255,7 +356,7 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, do, _dlse):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do, **ctx.kw)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
 def _flash_attention_kv_mask_cuda(q, k, v, kv_mask, *, scale):
@@ -270,10 +371,6 @@ def _flash_attention_kv_mask_cuda(q, k, v, kv_mask, *, scale):
     q, k, v = attn_operand(q), attn_operand(k), attn_operand(v)
     b, sq, h, d = q.shape
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
-
-    def bhs(t):
-        return t.stride(0), t.stride(2), t.stride(1)
-
     # no LSE: the JAX function returns none (a null pointer skips it)
     _build.launch(NAME_KV_MASK, "fvt_flash_fwd_kv_mask", q.data_ptr(),
                   k.data_ptr(), v.data_ptr(), out.data_ptr(), None,
@@ -301,21 +398,26 @@ def flash_attention_kv_mask(q: torch.Tensor, k: torch.Tensor,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: float | None = None, causal: bool = False,
-                    kv_valid: int | None = None, return_lse: bool = False):
+                    kv_valid: int | None = None, return_lse: bool = False,
+                    chunk_tokens: int = 0, tf_clean_len: int = 0):
     """Flash attention over ``[B, S, H, D]`` tensors (same layout out).
 
     ``kv_valid``: keys at index >= this are masked (default: all).
+    ``chunk_tokens`` > 0: the chunk-causal mask at this chunk size in place
+    of ``causal``; with ``tf_clean_len`` > 0 the teacher-forcing
+    ``[clean | noisy]`` mask (sequence length 2 * ``tf_clean_len``).
     With ``return_lse`` also returns the fp32 log-sum-exp ``[B, H, Sq]``.
     Differentiable in q, k and v (K6 backward on CUDA, bf16 only).
     """
+    check_struct(chunk_tokens, tf_clean_len)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if kv_valid is None:
         kv_valid = k.shape[1]
+    kw = dict(scale=scale, causal=causal, kv_valid=int(kv_valid),
+              chunk_tokens=int(chunk_tokens), tf_clean_len=int(tf_clean_len))
     if _build.needs_grad(q, k, v):
-        out, lse = _FlashAttention.apply(q, k, v, scale, causal,
-                                         int(kv_valid))
+        out, lse = _FlashAttention.apply(q, k, v, *kw.values())
     else:
-        out, lse = _flash_attention_fwd(q, k, v, scale=scale, causal=causal,
-                                        kv_valid=int(kv_valid))
+        out, lse = _flash_attention_fwd(q, k, v, **kw)
     return (out, lse) if return_lse else out

@@ -1,6 +1,7 @@
 """Training method plugin registry (port of
 fastvideo_tpu/training/methods/__init__.py). Importing this package
-registers the built-in methods the port has: ``sft``."""
+registers the built-in methods the port has: ``sft``, ``dfsft`` and
+``tfsft``."""
 
 from fastvideo_tpu_torch.training.methods import fine_tuning  # noqa: F401
 from fastvideo_tpu_torch.training.methods.base import (NOT_PORTED,

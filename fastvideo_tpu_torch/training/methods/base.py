@@ -2,9 +2,9 @@
 fastvideo_tpu/training/methods/base.py).
 
 A method owns its role models and steps and is resolved by registry name.
-The port registers ``sft`` only; the JAX package's other built-in names
-raise with the ROADMAP item that brings them (and the JAX package's dotted
-``_target_`` paths are not taken).
+The port registers ``sft``, ``dfsft`` and ``tfsft``; the JAX package's
+other built-in names raise with the ROADMAP item that brings them (and the
+JAX package's dotted ``_target_`` paths are not taken).
 """
 
 from __future__ import annotations
@@ -22,10 +22,6 @@ _METHOD_REGISTRY: dict[str, type["TrainingMethod"]] = {}
 
 # the JAX package's other built-in methods, and what the port waits on
 NOT_PORTED = {
-    "dfsft": "ROADMAP Queue 1, causal training methods (K1's chunk-causal "
-             "mask and its backward)",
-    "tfsft": "ROADMAP Queue 1, causal training methods (K1's teacher-forcing "
-             "mask and its backward)",
     "self_forcing": "ROADMAP Queue 1, causal training methods",
     "streaming_long_tuning": "ROADMAP Queue 1, causal training methods",
     "causal_cd": "ROADMAP Queue 1, causal training methods",

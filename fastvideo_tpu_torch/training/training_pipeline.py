@@ -144,7 +144,9 @@ class TrainingPipeline:
              ) -> tuple[torch.Tensor, torch.Tensor]:
         """The step's random numbers for one micro-batch: u [B] in [0, 1)
         for the timesteps (by ``weighting_scheme``) and fp32 noise of the
-        latents' shape, from the pipeline's CPU generator."""
+        latents' shape, from the pipeline's CPU generator. :meth:`loss`
+        takes them after the batch; a subclass that replaces the one
+        replaces the other."""
         a = self.args
         u = compute_density_for_timestep_sampling(
             a.weighting_scheme, latents_shape[0], self.generator,
@@ -185,9 +187,9 @@ class TrainingPipeline:
         accum = latents.shape[0]
         total = torch.zeros((), dtype=torch.float32, device=self.device)
         for i in range(accum):
-            u, noise = self.draw(tuple(latents[i].shape))
+            draws = self.draw(tuple(latents[i].shape))
             with self._context(vsa_sparsity):
-                loss = self.loss(latents[i], embeds[i], u, noise)
+                loss = self.loss(latents[i], embeds[i], *draws)
             (loss / accum if accum > 1 else loss).backward()
             total += loss.detach() / accum
         grad_norm = clip_grad_norm(self.params, self.args.max_grad_norm)

@@ -201,6 +201,11 @@ def test_start_frame_rope_matches_jax(start_frame):
 
 
 def test_training_forward_raises(models):
+    """The training forward is ported (tests/test_torch_causal_train_forward.py
+    holds it against JAX); what it still refuses, as the JAX one does, is a
+    timestep that is not one per latent frame."""
     _, tmodel = models
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        tmodel.train_forward(None, None, None)
+    x = torch.zeros(1, TINY_DIT["in_channels"], 2, 8, 8)
+    ctx = torch.zeros(1, 5, TINY_DIT["text_dim"])
+    with pytest.raises(ValueError, match="per latent frame"):
+        tmodel.train_forward(x, ctx, torch.zeros(1))

@@ -2,7 +2,8 @@
 at edge shapes the main path does not reach (ragged lengths, batch > 1,
 fp32 flash attention, non-contiguous views, channel tails; the int8 conv K4
 and the W8A8 linear; the kv-mask flash kernel K5 and the fp32 decode
-convs; the count-driven sparse kernels K9a / K9b). Marked ``cuda``: they
+convs; the count-driven sparse kernels K9a / K9b; the causal Wan training
+masks of K1 struct / K6 struct). Marked ``cuda``: they
 skip without an sm_90 card. On the card
 (which has no JAX, so without the suite's conftest):
 
@@ -693,3 +694,71 @@ def test_dyn_sparse_counts_its_own_launches_and_refuses(dev, kernel):
         with pytest.raises(_build.KernelError, match=match):
             call(bad, bad.detach(), bad.detach())
     assert _build.LAUNCHES[kernel] == before[0][kernel] + 1
+
+
+@pytest.mark.parametrize("sq,ct,clean_len,kv_valid,d,dtype", [
+    # chunk borders inside 64-row tiles (40 and 56 are no multiple of 64)
+    (200, 40, 0, None, 64, torch.bfloat16),
+    (230, 56, 0, 170, 128, torch.bfloat16),
+    # teacher forcing: the clean/noisy border at 150 cuts a tile
+    (300, 48, 150, None, 128, torch.bfloat16),
+    (192, 32, 96, 180, 64, torch.bfloat16),
+    # a head of 16 (the tiny models), chunks of one 16-token frame
+    (130, 16, 65, None, 16, torch.bfloat16),
+    (200, 40, 100, None, 64, torch.float32),  # fp32 forward only
+])
+def test_flash_struct_matches_plain(dev, sq, ct, clean_len, kv_valid, d,
+                                    dtype):
+    """K1 struct (out and LSE) and, in bf16, K6 struct (dq, dk, dv) against
+    their plain versions; each counted on its own counter, K1's and K6's
+    untouched."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    b, h = 2, 3
+    q, k, v = (torch.randn(b, sq, h, d, generator=g, device=dev, dtype=dtype)
+               for _ in range(3))
+    do = torch.randn(b, sq, h, 2 * d, generator=g, device=dev,
+                     dtype=dtype)[..., ::2]
+    kw = dict(scale=d**-0.5, kv_valid=sq if kv_valid is None else kv_valid,
+              chunk_tokens=ct, tf_clean_len=clean_len)
+    before = dict(_build.LAUNCHES)
+    out, lse = flash_attention.flash_attention(q, k, v, return_lse=True,
+                                               **kw)
+    ref, ref_lse = flash_attention.flash_attention_plain(q, k, v, **kw)
+    _close(out, ref, dtype)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-4)
+    expect = {"flash_fwd_struct": 1}
+    if dtype == torch.bfloat16:
+        got = flash_attention.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+        want = flash_attention.flash_attention_bwd_plain(q, k, v, out, lse,
+                                                         do, **kw)
+        for t, w in zip(got, want):
+            assert t.shape == w.shape and t.dtype == w.dtype
+            _close_grad(t, w)
+        expect.update(flash_bwd_struct_dq=1, flash_bwd_struct_dkv=1)
+    assert {n: _build.LAUNCHES[n] - before[n] for n in before
+            if _build.LAUNCHES[n] != before[n]} == expect
+
+
+def test_flash_struct_under_autograd_takes_the_struct_backward(dev):
+    """flash_attention with chunk_tokens under grad runs K1 struct forward
+    and K6 struct backward, and its gradients equal the plain backward's
+    on the forward's own out and LSE."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    q, k, v = (torch.randn(1, 256, 2, 128, generator=g, device=dev,
+                           dtype=torch.bfloat16).requires_grad_()
+               for _ in range(3))
+    kw = dict(chunk_tokens=48, tf_clean_len=128)
+    before = dict(_build.LAUNCHES)
+    out, lse = flash_attention.flash_attention(q, k, v, return_lse=True, **kw)
+    do = torch.randn(out.shape, generator=g, device=dev, dtype=out.dtype)
+    out.backward(do)
+    for name in ("flash_fwd_struct", "flash_bwd_struct_dq",
+                 "flash_bwd_struct_dkv"):
+        assert _build.LAUNCHES[name] == before[name] + 1
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert _build.LAUNCHES[name] == before[name]
+    want = flash_attention.flash_attention_bwd_plain(
+        q.detach(), k.detach(), v.detach(), out.detach(), lse, do,
+        scale=128**-0.5, **kw)
+    for t, w in zip((q.grad, k.grad, v.grad), want):
+        _close_grad(t, w)

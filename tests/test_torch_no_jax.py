@@ -109,6 +109,11 @@ def _calls():
         return flash_attention.flash_attention_bwd(
             c(q), c(q), c(q), c(q), lse, c(q), scale=0.125)
 
+    def flash_bwd_struct():
+        return flash_attention.flash_attention_bwd(
+            c(q), c(q), c(q), c(q), lse, c(q), scale=0.125, chunk_tokens=16,
+            tf_clean_len=32)
+
     def vsa_bwd():
         return vsa.block_sparse_attention_bwd(
             c(qt), c(qt), c(qt), idx, sizes, c(qt), lse_t, c(qt),
@@ -135,6 +140,10 @@ def _calls():
         "dyn_sparse_qtile_fwd": lambda: bsa._masked_sparse_qtile(
             c(qt[:, :, :64]), c(qt), c(qt),
             torch.ones(1, 2, 2, 2, dtype=torch.bool), sizes, 32, scale=0.125),
+        "flash_fwd_struct": lambda: flash_attention.flash_attention(
+            c(q), c(q), c(q), chunk_tokens=16),
+        "flash_bwd_struct_dq": flash_bwd_struct,
+        "flash_bwd_struct_dkv": flash_bwd_struct,
     }
 
 
