@@ -6,11 +6,17 @@
 
 Phases, each printing its own lines:
   1. environment: torch/CUDA versions and the card's name and power limit;
-  2. kernel build: nvcc for sm_90a from fastvideo_tpu_torch/csrc;
+  2. kernel build: nvcc for sm_90a from fastvideo_tpu_torch/csrc, and
+     the registers, spills and shared memory of each Hopper instance of
+     the flash kernels (from -Xptxas -v; a spill at a head of 128 fails);
   3. kernel checks: each kernel against its plain PyTorch version on the
      card at the main paths' shapes, with kernel, plain, library and bound
-     times (the padded sparse kernel at its VSA, STA and SLA shapes; the
-     decode convs in the dispatched decode's chunks: the first latent
+     times; each flash case prints the schedule it takes (a bf16 case with
+     a head of 128 must take the Hopper one, and the profiler must name
+     K1's and K6's Hopper kernels), and K6's split dK/dV reduction is held
+     to its plain version at the cross-attention's scratch shape (the
+     padded sparse kernel at its VSA, STA and SLA shapes; the decode convs
+     in the dispatched decode's chunks: the first latent
      frame alone, then 2 at a time; K5 at the causal stream's first
      block, fourth block and full window; the fp32 decode's K3, K4 and K1
      forms; the backward kernels K6 at the training cross-attention and K7
@@ -115,6 +121,9 @@ REPLACES = {
     "chunk_tokens / tf_clean_len (call :432)",
     "flash_bwd_struct_dkv": "fastvideo_tpu/ops/flash_attention.py:355 with "
     "chunk_tokens / tf_clean_len (call :459)",
+    "flash_bwd_dkv_reduce": "fastvideo_tpu/ops/flash_attention.py:355 (the "
+    "sum over the query grid axis that _bwd_dkv_kernel carries in scratch; "
+    "call :459)",
 }
 SOURCES = {
     "flash_fwd": "fastvideo_tpu_torch/csrc/flash_fwd.cu",
@@ -133,7 +142,13 @@ SOURCES = {
     "flash_fwd_struct": "fastvideo_tpu_torch/csrc/flash_fwd.cu",
     "flash_bwd_struct_dq": "fastvideo_tpu_torch/csrc/flash_bwd.cu",
     "flash_bwd_struct_dkv": "fastvideo_tpu_torch/csrc/flash_bwd.cu",
+    "flash_bwd_dkv_reduce": "fastvideo_tpu_torch/csrc/flash_bwd.cu",
 }
+# the flash kernels' Hopper instances by their mangled names' stem
+SM90_KERNELS = {"flash_fwd_sm90": {"0": "K1", "1": "K5", "2": "K1 struct"},
+                "flash_bwd_dq_sm90": {"0": "K6 dQ", "1": "K6 struct dQ"},
+                "flash_bwd_dkv_sm90": {"0": "K6 dK/dV",
+                                       "1": "K6 struct dK/dV"}}
 
 
 def card_line() -> str:
@@ -201,6 +216,67 @@ def attn_tol(want, dtype) -> tuple[float, float]:
     return 2.0**-5 * want.float().std().item(), 2.0**-6
 
 
+def report_sm90_build() -> None:
+    """Registers, spills, stack and shared memory of each Hopper instance of
+    the flash kernels, from the -Xptxas -v log of their build (the dynamic
+    shared memory from the library, K5's at the 32,760-key window). Fails
+    on a spill in an instance with a head of 128."""
+    import re
+
+    from fastvideo_tpu_torch.ops import _build
+
+    for src in _build.PTXAS_VERBOSE:
+        for r in _build.ptxas_report(src):
+            m = re.search(r"(flash_\w+_sm90)ILi(\d+)EL[ib](\d)E", r["kernel"])
+            if m and m.group(1) in SM90_KERNELS:
+                stem, d, mode = m.group(1), int(m.group(2)), int(m.group(3))
+                label = f"{SM90_KERNELS[stem][str(mode)]}, {stem}<{d}, {mode}>"
+                if stem == "flash_fwd_sm90":
+                    dyn = _build.query(src, "fvt_flash_fwd_sm90_smem", d, mode,
+                                       CAUSAL_WINDOW_TOKENS)
+                else:
+                    dyn = _build.query(src, "fvt_flash_bwd_sm90_smem",
+                                       int(stem == "flash_bwd_dkv_sm90"), d,
+                                       mode)
+            elif "flash_bwd_dkv_reduce" in r["kernel"]:
+                label, d, dyn = "flash_bwd_dkv_reduce", 0, 0
+            else:
+                continue
+            spills = r["spill_stores"] + r["spill_loads"]
+            print(f"  {label}: {r['registers']} registers, {spills} spill "
+                  f"bytes ({r['spill_stores']} stored, {r['spill_loads']} "
+                  f"loaded), {r['stack']} bytes stack, {dyn + r['smem']} "
+                  f"bytes shared memory", flush=True)
+            if d == 128 and spills:
+                raise SystemExit(f"{label}: ptxas reports {spills} spill "
+                                 "bytes in a head-of-128 instance")
+
+
+def check_schedule(label: str, dtype, d: int, backward: bool = False) -> str:
+    """The schedule the flash library takes for (dtype, head d): it must be
+    the host rule's (flash_attention.flash_schedule), and a bf16 case with
+    a head of 128 must take the Hopper one."""
+    import torch
+
+    from fastvideo_tpu_torch.ops import _build
+    from fastvideo_tpu_torch.ops import flash_attention as fa
+
+    if backward:
+        lib = _build.query(fa.NAME_BWD_DQ, "fvt_flash_bwd_sm90", d)
+    else:
+        lib = _build.query(fa.NAME, "fvt_flash_fwd_sm90",
+                           int(dtype == torch.bfloat16), d)
+    took = "sm90" if lib else "tile"
+    print(f"  {label}: schedule {took}", flush=True)
+    if took != fa.flash_schedule(dtype, d):
+        raise SystemExit(f"{label}: the library takes schedule {took}, the "
+                         f"host rule {fa.flash_schedule(dtype, d)}")
+    if dtype == torch.bfloat16 and d == 128 and took != "sm90":
+        raise SystemExit(f"{label}: a bf16 case with a head of 128 reached "
+                         "the first schedule")
+    return took
+
+
 # -- phase 3: kernels against their plain versions ---------------------------
 
 
@@ -249,6 +325,7 @@ def check_flash(dev, results: dict) -> None:
         v = rnd(b, skv, h, d, dtype=dtype)
         kv_valid = skv - 13 if causal else skv
         kw = dict(scale=d**-0.5, causal=causal, kv_valid=kv_valid)
+        check_schedule(f"flash_fwd[{label}]", dtype, d)
         out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
         ref, ref_lse = fa.flash_attention_plain(q, k, v, **kw)
         errs.append(check(f"flash_fwd[{label}]", out, ref,
@@ -273,6 +350,9 @@ def check_flash(dev, results: dict) -> None:
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         lib = time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, scale=d**-0.5))
+        # the profiler names the Hopper kernel that ran
+        kernel_device_ms(lambda: fa.flash_attention(q, k, v, **kw),
+                         {"K1": "flash_fwd_sm90"})
         results["flash_fwd"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain,
                                     bound_ms=bms, bound_by=by,
                                     library_ms=lib,
@@ -1000,6 +1080,7 @@ def check_flash_kv_mask(dev, results: dict) -> None:
                          ("full", window)):
         mask = pos >= window - valid
         kw = dict(scale=d**-0.5)
+        check_schedule(f"flash_fwd_kv_mask[{label}]", torch.bfloat16, d)
         out = fa.flash_attention_kv_mask(q, k, v, mask, **kw)
         ref = fa.flash_attention_kv_mask_plain(q, k, v, mask, **kw)
         errs.append(check(f"flash_fwd_kv_mask[{label}: {valid} of {window} "
@@ -1106,6 +1187,8 @@ def check_fp32_decode(dev, results: dict) -> None:
 
     q, k, v = (torch.randn(1, 6240, 1, 384, generator=g, device=dev)
                for _ in range(3))
+    check_schedule("flash_fwd fp32[vae_mid_attn first chunk, head 384]",
+                   torch.float32, 384)
     out = fa.flash_attention(q, k, v)
     ref, _ = fa.flash_attention_plain(q, k, v, scale=384**-0.5)
     err = check("flash_fwd fp32[vae_mid_attn first chunk, head 384]", out,
@@ -1170,6 +1253,7 @@ def check_flash_bwd(dev, results: dict) -> None:
     import torch
     import torch.nn.functional as F
 
+    from fastvideo_tpu_torch.ops import _build
     from fastvideo_tpu_torch.ops import flash_attention as fa
 
     g = torch.Generator(device=dev).manual_seed(12)
@@ -1179,6 +1263,11 @@ def check_flash_bwd(dev, results: dict) -> None:
     k, v = (torch.randn(b, skv, h, d, generator=g, device=dev,
                         dtype=torch.bfloat16) for _ in range(2))
     kw = dict(scale=d**-0.5, causal=False, kv_valid=skv)
+    check_schedule("flash_bwd[cross_attn]", torch.bfloat16, d, backward=True)
+    splits = fa.dkv_splits(b, h, sq, skv, d, _build.num_sms(dev))
+    print(f"  flash_bwd[cross_attn]: dK/dV over {splits} query-row splits "
+          f"({b * h * -(-skv // fa.DKV_BLOCK_KEYS)} key tiles, "
+          f"{_build.num_sms(dev)} SMs)", flush=True)
     out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
     got = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
     want = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
@@ -1186,9 +1275,11 @@ def check_flash_bwd(dev, results: dict) -> None:
                                                                   torch.bfloat16))
             for n, t, w in zip("qkv", got, want)]
     del got, want
+    names = {"dq": "flash_bwd_dq_sm90", "dkv": "flash_bwd_dkv_sm90"}
+    if splits > 1:
+        names["reduce"] = "flash_bwd_dkv_reduce"
     ms = kernel_device_ms(
-        lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, **kw),
-        {"dq": "flash_bwd_dq_kernel", "dkv": "flash_bwd_dkv_kernel"})
+        lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, **kw), names)
     whole = time_ms(lambda: fa.flash_attention_bwd(q, k, v, out, lse, do,
                                                    **kw))
     plain = time_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, out, lse,
@@ -1208,13 +1299,49 @@ def check_flash_bwd(dev, results: dict) -> None:
                                    bound_ms=dq_b, bound_by=dq_by, **common)
     results["flash_bwd_dkv"] = dict(max_abs_err=max(errs[1:]),
                                     ms=ms["dkv"], bound_ms=dkv_b,
-                                    bound_by=dkv_by, **common)
+                                    bound_by=dkv_by, splits=splits, **common)
+    check_dkv_reduce(dev, results, (splits, b, h, skv, d))
     print(f"  flash_bwd[cross_attn]: dQ {ms['dq']:.3f} ms (bound "
           f"{dq_b:.3f}, {dq_by}), dK/dV {ms['dkv']:.3f} ms (bound "
           f"{dkv_b:.3f}, {dkv_by}); the backward {whole:.3f} ms with delta "
           f"(bound {all_b:.3f} ms: 5 products, {5 * product:.3e} FLOP), "
           f"{plain:.3f} ms plain, {lib:.3f} ms scaled_dot_product_attention's "
           f"backward", flush=True)
+
+
+def check_dkv_reduce(dev, results: dict, shape: tuple) -> None:
+    """flash_bwd_dkv_reduce at the cross-attention's scratch shape [splits,
+    B, H, Skv, D] against its plain version (both add the splits in order
+    and round once), on random partial sums: it is a pure function of
+    them. Bound: the partial sums read once, dK and dV written once."""
+    import torch
+
+    from fastvideo_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(14)
+    part_k, part_v = (torch.randn(shape, generator=g, device=dev)
+                      for _ in range(2))
+    splits, b, h, skv, d = shape
+    dk, dv = (torch.empty(b, skv, h, d, dtype=torch.bfloat16, device=dev)
+              for _ in range(2))
+    fa.dkv_reduce(part_k, part_v, dk, dv)
+    want = fa.dkv_reduce_plain(part_k, part_v)
+    # one bf16 rounding of sums taken in the same order: equal, or one ulp
+    # apart where the fp32 sums differ in their last bit
+    err = max(check(f"flash_bwd_dkv_reduce[{n}]", t, w, 0.0, 2.0**-7)
+              for n, t, w in zip(("dk", "dv"), (dk, dv), want))
+    ms = time_ms(lambda: fa.dkv_reduce(part_k, part_v, dk, dv))
+    plain = time_ms(lambda: fa.dkv_reduce_plain(part_k, part_v), 2)
+    lib = time_ms(lambda: (part_k.sum(dim=0), part_v.sum(dim=0)))
+    nbytes = 2 * 4.0 * part_k.numel() + 2 * 2.0 * dk.numel()
+    bms, by = bound_ms(splits * 2.0 * dk.numel(), nbytes, "fp32")
+    results["flash_bwd_dkv_reduce"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+        library_ms=lib, shape=f"2 x {list(shape)} fp32 -> 2 x "
+        f"{[b, skv, h, d]} bf16")
+    print(f"  flash_bwd_dkv_reduce[{list(shape)}]: {ms:.3f} ms kernel, "
+          f"{plain:.3f} ms plain, {lib:.3f} ms torch.sum over the splits "
+          f"(fp32 out), bound {bms:.3f} ms ({by})", flush=True)
 
 
 # the causal Wan's training forward at 81x480x832: 21 latent frames of 30 x
@@ -1281,6 +1408,9 @@ def check_flash_struct(dev, results: dict) -> None:
                                    dtype=torch.bfloat16) for _ in range(4))
         kw = dict(scale=scale, kv_valid=s_len, chunk_tokens=ct,
                   tf_clean_len=clean_len)
+        check_schedule(f"flash_fwd_struct[{label}]", torch.bfloat16, d)
+        check_schedule(f"flash_bwd_struct[{label}]", torch.bfloat16, d,
+                       backward=True)
         out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
         ref, ref_lse = fa.flash_attention_plain(q, k, v, **kw)
         tol = attn_tol(ref, torch.bfloat16)
@@ -1296,7 +1426,7 @@ def check_flash_struct(dev, results: dict) -> None:
         del got, want
         bwd = kernel_device_ms(
             lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, **kw),
-            {"dq": "flash_bwd_dq_kernel", "dkv": "flash_bwd_dkv_kernel"})
+            {"dq": "flash_bwd_dq_sm90", "dkv": "flash_bwd_dkv_sm90"})
         whole = time_ms(lambda: fa.flash_attention_bwd(q, k, v, out, lse, do,
                                                        **kw), 3)
         plain_bwd = time_ms(lambda: fa.flash_attention_bwd_plain(
@@ -2400,13 +2530,28 @@ def step_with_grads(pipe, batch, **kw) -> tuple[dict, list, dict, dict]:
     return out, seen[0], dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
 
 
-def train_launches(layers: int, steps: int) -> dict:
+def split_backwards(cfg: dict, shapes) -> int:
+    """How many of a block's flash backwards, one for each (query rows,
+    keys) in ``shapes``, split their dK/dV grid and so launch
+    flash_bwd_dkv_reduce once (flash_attention.dkv_splits on this card)."""
+    import torch
+
+    from fastvideo_tpu_torch.ops import _build
+    from fastvideo_tpu_torch.ops import flash_attention as fa
+
+    sms = _build.num_sms(torch.device("cuda", 0))
+    h, d = cfg["num_attention_heads"], cfg["attention_head_dim"]
+    return sum(fa.dkv_splits(1, h, sq, skv, d, sms) > 1 for sq, skv in shapes)
+
+
+def train_launches(layers: int, steps: int, reduces: int) -> dict:
     """Launches of a trainer step under full remat with VSA: each block's
     forward runs twice (the step and the recompute in the backward), its
-    backward once."""
+    backward once; ``reduces`` of a block's backwards split dK/dV."""
     return {"flash_fwd": 2 * layers * steps,
             "vsa_sparse_padded_fwd": 2 * layers * steps,
             "flash_bwd_dq": layers * steps, "flash_bwd_dkv": layers * steps,
+            "flash_bwd_dkv_reduce": reduces * layers * steps,
             "vsa_sparse_bwd_dq": layers * steps,
             "vsa_sparse_bwd_dkv": layers * steps}
 
@@ -2456,8 +2601,10 @@ def check_small_training(work: str) -> None:
         runs[device] = (out, grads, params)
         del method, pipe
     layers = TINY_DIT_CFG["num_layers"]
-    check_launches("tiny train step", launches, plain,
-                   train_launches(layers, 1))
+    tokens = math.prod(TINY_TRAIN_LATENTS[-3:]) // 4
+    check_launches("tiny train step", launches, plain, train_launches(
+        layers, 1, split_backwards(TINY_DIT_CFG,
+                                   [(tokens, TINY_TRAIN_EMBEDS[2])])))
     (c_out, c_g, c_p), (p_out, p_g, p_p) = runs["cuda"], runs["cpu"]
     gc, gp = (torch.cat([g.flatten() for g in gs]) for gs in (c_g, p_g))
     rel = ((gc - gp).norm() / gp.norm()).item()
@@ -2543,7 +2690,9 @@ def run_training(work: str, steps: int, profile_dir: str | None = None
           f"{steps} steps: K1 and K7 fwd 2 a layer, each backward kernel 1); "
           f"plain calls {json.dumps(plain)}", flush=True)
     check_launches("SFT 480x832", launches, plain,
-                   train_launches(layers, steps))
+                   train_launches(layers, steps, split_backwards(
+                       DIT_CFG, [(math.prod(TRAIN_LATENTS[-3:]) // 4,
+                                  TRAIN_EMBEDS[2])])))
     if not (all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
                 for r in rows) and all(moved)):
         raise SystemExit(f"SFT 480x832: loss or grad_norm not finite, or "
@@ -2572,15 +2721,25 @@ TINY_DF_DIT_CFG = dict(TINY_DIT_CFG, num_attention_heads=2,
 TINY_DF_LATENTS = (1, 1, 4, 6, 10, 12)
 
 
-def df_launches(layers: int, steps: int) -> dict:
+def df_launches(layers: int, steps: int, reduces: int) -> dict:
     """Launches of a dfsft / tfsft step under full remat: each block's
     forward runs twice (K1 struct for the self-attention, K1 for the
-    cross-attention), its backward once (K6 struct, K6)."""
+    cross-attention), its backward once (K6 struct, K6); ``reduces`` of a
+    block's two backwards split dK/dV."""
     return {"flash_fwd_struct": 2 * layers * steps,
             "flash_fwd": 2 * layers * steps,
             "flash_bwd_struct_dq": layers * steps,
             "flash_bwd_struct_dkv": layers * steps,
-            "flash_bwd_dq": layers * steps, "flash_bwd_dkv": layers * steps}
+            "flash_bwd_dq": layers * steps, "flash_bwd_dkv": layers * steps,
+            "flash_bwd_dkv_reduce": reduces * layers * steps}
+
+
+def df_split_backwards(cfg: dict, latents: tuple, text: int,
+                       method: str) -> int:
+    """split_backwards of a dfsft (tfsft: [clean | noisy], twice the rows)
+    block: its self-attention and its cross-attention."""
+    rows = math.prod(latents[-3:]) // 4 * (2 if method == "tfsft" else 1)
+    return split_backwards(cfg, [(rows, rows), (rows, text)])
 
 
 def check_small_df_training(work: str) -> None:
@@ -2612,8 +2771,9 @@ def check_small_df_training(work: str) -> None:
                 launches, plain = counts, plain_counts
             runs[device] = (out, grads)
             del m
-        check_launches(f"tiny {method} step", launches, plain,
-                       df_launches(layers, 1))
+        check_launches(f"tiny {method} step", launches, plain, df_launches(
+            layers, 1, df_split_backwards(TINY_DF_DIT_CFG, TINY_DF_LATENTS,
+                                          TINY_TRAIN_EMBEDS[2], method)))
         (c_out, c_g), (p_out, p_g) = runs["cuda"], runs["cpu"]
         gc, gp = (torch.cat([g.flatten() for g in gs]) for gs in (c_g, p_g))
         rel = ((gc - gp).norm() / gp.norm()).item()
@@ -2687,7 +2847,9 @@ def run_df_training(work: str, method: str, steps: int,
           f"{steps} steps: K1 struct and K1 2 a layer, each backward kernel "
           f"1); plain calls {json.dumps(plain)}", flush=True)
     check_launches(f"{method} 480x832", launches, plain,
-                   df_launches(layers, steps))
+                   df_launches(layers, steps, df_split_backwards(
+                       CAUSAL_DIT_CFG, TRAIN_LATENTS, TRAIN_EMBEDS[2],
+                       method)))
     if not (all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
                 for r in rows) and all(moved)):
         raise SystemExit(f"{method} 480x832: loss or grad_norm not finite, "
@@ -2795,6 +2957,7 @@ def main() -> int:
     paths = _build.build_all()
     print(f"  built {sorted(paths)} in {_build.BUILD_SECONDS:.1f} s "
           f"(nvcc, sm_90a, in parallel)", flush=True)
+    report_sm90_build()
 
     phase("# phase 3: kernel checks at the main path's shapes")
     results = run_kernel_checks(dev)
@@ -2881,8 +3044,8 @@ def main() -> int:
     results["flash_fwd"]["causal_launches"] = causal_launches["flash_fwd"]
     # the backward kernels' counts come from 4i, as do the training counts
     # of K1 and of K7's LSE forward
-    for name in ("flash_bwd_dq", "flash_bwd_dkv", "vsa_sparse_bwd_dq",
-                 "vsa_sparse_bwd_dkv"):
+    for name in ("flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_dkv_reduce",
+                 "vsa_sparse_bwd_dq", "vsa_sparse_bwd_dkv"):
         launches[name] = train["launches"][name]
         results[name]["train_step_s"] = train["step_s"]
     results["flash_fwd"]["train_launches"] = train["launches"]["flash_fwd"]

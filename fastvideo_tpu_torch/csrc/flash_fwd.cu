@@ -1,17 +1,17 @@
 // Flash attention forward for Hopper (sm_90a).
 //
 // Replaces the Pallas kernel fastvideo_tpu/ops/flash_attention.py:_fwd_kernel
-// (reached through _flash_attention_fwd_bhsd). Computes softmax(Q K^T * scale)
-// V over [B, H, S, D] tensors with an online softmax, emitting O and the
-// per-row log-sum-exp in fp32. Masks: keys at index >= kv_valid, and
-// causal (key <= query). Key tiles that no row of the query tile can reach
-// are skipped, as the Pallas kernel's _tile_reachable does.
+// (:93, reached through _flash_attention_fwd_bhsd, call :222). Computes
+// softmax(Q K^T * scale) V over [B, H, S, D] tensors with an online softmax,
+// emitting O and the per-row log-sum-exp in fp32. Masks: keys at index >=
+// kv_valid, and causal (key <= query). Key tiles that no row of the query
+// tile can reach are skipped, as the Pallas kernel's _tile_reachable does.
 //
 // K5 is the same kernel with a per-key mask (fvt_flash_fwd_kv_mask): it
 // replaces _fwd_kernel with has_kv_mask, reached through
-// flash_attention_kv_mask, the streaming KV-cache attention of the causal
-// Wan. kv_mask [Skv] holds one byte a key, shared by every batch row and
-// head; key j is visible when kv_mask[j] != 0 (and j < kv_valid). A key
+// flash_attention_kv_mask (:539), the streaming KV-cache attention of the
+// causal Wan. kv_mask [Skv] holds one byte a key, shared by every batch row
+// and head; key j is visible when kv_mask[j] != 0 (and j < kv_valid). A key
 // chunk whose mask is all zero is skipped: it would add exactly nothing,
 // since masked scores are -inf. Early in a stream most of the window is
 // empty (at the first block of the 1.3B stream, 28,080 of 32,760 keys), so
@@ -25,35 +25,44 @@
 // struct_mask.cuh has the rule. Each query tile computes the key ranges of
 // its rows and loops their union, at most two ranges (for a noisy tile the
 // clean keys of earlier chunks, then its own noisy chunk: the masked keys
-// between them are skipped, which JAX's upper bound visits), and checks
-// every element against its row's ranges. At 480x832 the mask keeps 28/49
-// of the pairs, so the work is that share of the dense product.
+// between them are skipped, which JAX's upper bound visits). At 480x832 the
+// mask keeps 28/49 of the pairs, so the work is that share of the dense
+// product.
 //
-// What bounds it: at the main path's shapes (DiT cross-attention
-// [1,12,32760,128] x [1,12,512,128]; VAE mid-block [21,1,6240,384]) it is
-// tensor-core bound, 4*B*H*Sq*Skv*D FLOP against ~3 bytes per FLOP of
-// unique input. The design keeps the score tile and the accumulator in
-// shared memory and never writes S to device memory; each block loads its Q
-// tile once and streams K/V chunks of BK rows. It uses WMMA bf16 tiles, not
-// wgmma/TMA, and does not overlap the next chunk's loads with compute: a
-// later change makes it fast.
+// What bounds it: at the main path's shapes it is tensor-core bound, 4 * B *
+// H * Sq * Skv_visible * D FLOP against ~3 bytes of unique input per FLOP
+// at the DiT cross-attention [1,32760,12,128] x [1,512,12,128], and far
+// less at the self-attention shapes of K5 and K1 struct (32,760 keys). Two
+// schedules, chosen by shape alone (fvt_flash_fwd_sm90 says which; there is
+// no fallback between them):
+//  - bf16 with a head of 64 or 128, every DiT launch: flash_fwd_sm90.cuh,
+//    wgmma products with the scores, the softmax and O in registers, TMA
+//    copies through a two-stage ring, two warpgroups a block. The first
+//    schedule lost its time in shared-memory round trips of S, P and O,
+//    in one-row-at-a-time softmax rounds, and in synchronous loads.
+//  - fp32, and bf16 with other heads (the VAE's 384, the tiny models' 16
+//    and 32): attn_tile.cuh's schedule, WMMA 16x16x16 (bf16) or scalar FMA
+//    (fp32) through shared memory, one 64-row (fp32: 32-row) tile a block.
 //
-// Grid: (ceil(Sq / BQ), H, B), 128 threads. Strides are in elements and let
-// the caller pass [B, S, H, D] views without a transpose copy.
+// Strides are in elements and let the caller pass [B, S, H, D] views
+// without a transpose copy.
 #include "attn_tile.cuh"
+#include "flash_fwd_sm90.cuh"
 #include "struct_mask.cuh"
 
 namespace {
 
 using fvt::AttnTile;
 using fvt::bf16;
+using fvt::kKvMask;
+using fvt::kPlain;
+using fvt::kStruct;
 
 // The mask mode is a compile-time parameter: K1's instance (kPlain) has no
 // mask code beyond kv_valid and causal, and K5's (kKvMask) and K1 struct's
 // (kStruct) are kernels of their own, so a profiler names the three apart.
 // K5 always runs with causal = 0; K1 struct ignores causal, as the Pallas
 // kernel does when chunk_tokens > 0.
-enum MaskMode : int { kPlain = 0, kKvMask = 1, kStruct = 2 };
 
 template <typename T, int BQ, int BK, int kMode>
 __global__ void __launch_bounds__(fvt::kThreads)
@@ -170,11 +179,54 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse, int 
   return static_cast<int>(cudaGetLastError());
 }
 
+// The Hopper schedule's instance for a head of D.
+template <int D, int kMode>
+int launch_sm90(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H,
+                int Sq, int Skv, const long long* st, float scale, const MaskArgs& m,
+                cudaStream_t stream) {
+  namespace s9 = fvt::sm90;
+  s9::FwdParams p;
+  if (!s9::map_bshd(&p.q, q, B, Sq, H, D, st[0], st[1], st[2], s9::kFwdBQ) ||
+      !s9::map_bshd(&p.k, k, B, Skv, H, D, st[3], st[4], st[5], s9::kFwdBK) ||
+      !s9::map_bshd(&p.v, v, B, Skv, H, D, st[6], st[7], st[8], s9::kFwdBK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  p.o = static_cast<bf16*>(o);
+  p.lse = static_cast<float*>(lse);
+  p.o_sb = st[9];
+  p.o_sh = st[10];
+  p.o_ss = st[11];
+  p.kv_mask = m.kv_mask;
+  p.H = H;
+  p.Sq = Sq;
+  p.Skv = Skv;
+  p.n_qtiles = (Sq + s9::kFwdBQ - 1) / s9::kFwdBQ;
+  p.scale_log2 = scale * s9::kLog2e;
+  p.causal = m.causal;
+  p.kv_valid = m.kv_valid;
+  p.chunk_tokens = m.chunk_tokens;
+  p.tf_clean_len = m.tf_clean_len;
+  const size_t smem = s9::fwd_smem_bytes<D, kMode>(Skv);
+  cudaError_t err = s9::set_smem(s9::flash_fwd_sm90<D, kMode>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (p.n_qtiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid(H, B, p.n_qtiles);
+  s9::flash_fwd_sm90<D, kMode><<<grid, s9::kFwdThreads, smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Whether (dtype, D) takes the Hopper schedule: bf16 with a head of 64 or
+// 128. ops/flash_attention.py:flash_schedule states the same rule.
+bool use_sm90(int dtype, int D) { return dtype == 1 && (D == 64 || D == 128); }
+
 template <int kMode>
 int dispatch(const void* q, const void* k, const void* v, void* o, void* lse, int dtype, int B,
              int H, int Sq, int Skv, int D, const long long* st, float scale, const MaskArgs& m,
              cudaStream_t s) {
   if (D % 16 != 0 || Sq <= 0 || B <= 0 || H <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (use_sm90(dtype, D)) {
+    if (D == 64) return launch_sm90<64, kMode>(q, k, v, o, lse, B, H, Sq, Skv, st, scale, m, s);
+    return launch_sm90<128, kMode>(q, k, v, o, lse, B, H, Sq, Skv, st, scale, m, s);
+  }
   if (dtype == 1) {
     if (D <= 128)
       return launch<bf16, 64, 64, kMode>(q, k, v, o, lse, B, H, Sq, Skv, D, st, scale, m, s);
@@ -186,6 +238,28 @@ int dispatch(const void* q, const void* k, const void* v, void* o, void* lse, in
 }
 
 }  // namespace
+
+// 1 when (dtype, D) runs the Hopper schedule (flash_fwd_sm90.cuh), 0 when it
+// runs attn_tile.cuh's.
+extern "C" int fvt_flash_fwd_sm90(int dtype, int D) { return use_sm90(dtype, D) ? 1 : 0; }
+
+// The Hopper schedule's dynamic shared memory a block (bytes) for a head of
+// D (64 or 128), mask mode `mode` (0 K1, 1 K5, 2 K1 struct) and Skv keys.
+extern "C" int fvt_flash_fwd_sm90_smem(int D, int mode, int Skv) {
+  namespace s9 = fvt::sm90;
+  const bool d64 = D == 64;
+  switch (mode) {
+    case kKvMask:
+      return static_cast<int>(d64 ? s9::fwd_smem_bytes<64, kKvMask>(Skv)
+                                  : s9::fwd_smem_bytes<128, kKvMask>(Skv));
+    case kStruct:
+      return static_cast<int>(d64 ? s9::fwd_smem_bytes<64, kStruct>(Skv)
+                                  : s9::fwd_smem_bytes<128, kStruct>(Skv));
+    default:
+      return static_cast<int>(d64 ? s9::fwd_smem_bytes<64, kPlain>(Skv)
+                                  : s9::fwd_smem_bytes<128, kPlain>(Skv));
+  }
+}
 
 // dtype: 0 = float32, 1 = bfloat16. D must be a multiple of 16; strides in
 // elements (q, k, v, o each as batch, head, row); lse may be null.

@@ -14,7 +14,11 @@ name even where it shares a source with another (K5, ``flash_fwd_kv_mask``,
 and K1 struct, ``flash_fwd_struct``, are entries of ``flash_fwd.cu``; the
 backward sources hold a dQ and a dK/dV kernel each, ``flash_bwd_dq`` /
 ``flash_bwd_dkv`` (K6), ``flash_bwd_struct_dq`` / ``flash_bwd_struct_dkv``
-(K6 struct) and ``vsa_sparse_bwd_dq`` / ``vsa_sparse_bwd_dkv`` (K7 bwd)).
+(K6 struct) and ``vsa_sparse_bwd_dq`` / ``vsa_sparse_bwd_dkv`` (K7 bwd);
+``flash_bwd_dkv_reduce`` adds a split dK/dV launch's partial sums).
+
+The flash sources compile with ``-Xptxas -v``; :func:`ptxas_report` reads
+back each of their kernels' registers, spills and static shared memory.
 """
 
 from __future__ import annotations
@@ -47,8 +51,11 @@ SOURCE_OF = {**{n: n for n in SOURCES[:5]}, "flash_fwd_kv_mask": "flash_fwd",
              "dyn_sparse_qtile_fwd": "dyn_sparse_fwd",
              "flash_fwd_struct": "flash_fwd",
              "flash_bwd_struct_dq": "flash_bwd",
-             "flash_bwd_struct_dkv": "flash_bwd"}
+             "flash_bwd_struct_dkv": "flash_bwd",
+             "flash_bwd_dkv_reduce": "flash_bwd"}
 KERNELS = tuple(SOURCE_OF)
+# sources whose ptxas resource report is kept beside their library
+PTXAS_VERBOSE = ("flash_fwd", "flash_bwd")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -83,7 +90,7 @@ def build_dir() -> str:
         if fn.endswith((".cu", ".cuh")):
             with open(os.path.join(CSRC, fn), "rb") as fh:
                 h.update(fn.encode() + b"\0" + fh.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + PTXAS_VERBOSE).encode())
     return os.path.join(root, h.hexdigest()[:16])
 
 
@@ -114,7 +121,9 @@ def build_all() -> dict[str, str]:
         procs = {}
         for n in todo:
             tmp = paths[n] + f".tmp{os.getpid()}"
-            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{n}.cu")]
+            verbose = ("-Xptxas", "-v") if n in PTXAS_VERBOSE else ()
+            cmd = [nvcc, *NVCC_FLAGS, *verbose, "-o", tmp,
+                   os.path.join(CSRC, f"{n}.cu")]
             procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                               stderr=subprocess.STDOUT,
                                               text=True))
@@ -124,6 +133,9 @@ def build_all() -> dict[str, str]:
             if proc.returncode != 0:
                 errors.append(f"nvcc failed for {n}.cu:\n{log}")
             else:
+                if n in PTXAS_VERBOSE:
+                    with open(_report_path(out_dir, n), "w") as fh:
+                        fh.write(log)
                 os.replace(tmp, paths[n])
         if errors:
             raise KernelError("\n".join(errors))
@@ -131,7 +143,72 @@ def build_all() -> dict[str, str]:
     return paths
 
 
+def _report_path(out_dir: str, name: str) -> str:
+    return os.path.join(out_dir, f"{name}.ptxas.txt")
+
+
+def ptxas_report(name: str) -> list[dict]:
+    """Per-kernel resources of source ``name`` (one of ``PTXAS_VERBOSE``),
+    from the ``-Xptxas -v`` log of its build: [{"kernel": mangled name,
+    "registers", "spill_stores", "spill_loads", "stack", "smem"}] (bytes;
+    smem is the static shared memory, dynamic memory is set per launch)."""
+    import re
+
+    build_all()
+    with open(_report_path(build_dir(), name)) as fh:
+        log = fh.read()
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = {"kernel": m.group(1), "registers": None, "spill_stores": 0,
+                   "spill_loads": 0, "stack": 0, "smem": 0}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur["stack"], cur["spill_stores"], cur["spill_loads"] = map(
+                int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(sm.group(1)) if sm else 0
+    return out
+
+
+_SMS: dict[int, int] = {}
+
+
+def num_sms(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (cached)."""
+    idx = (device.index if device.index is not None else
+           torch.cuda.current_device())
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _SMS[idx]
+
 _SIGNATURES = {
+    # dtype, D: 1 when the flash forward runs its Hopper schedule
+    "fvt_flash_fwd_sm90": [ctypes.c_int] * 2,
+    # D: 1 when the flash backward runs its Hopper schedule
+    "fvt_flash_bwd_sm90": [ctypes.c_int],
+    # D, mode (0 K1, 1 K5, 2 K1 struct), Skv: the Hopper forward's dynamic
+    # shared memory; kind (0 dQ, 1 dK/dV), D, struct: the backward's
+    "fvt_flash_fwd_sm90_smem": [ctypes.c_int] * 3,
+    "fvt_flash_bwd_sm90_smem": [ctypes.c_int] * 3,
+    # q, k, v, dO, lse, delta, part_k, part_v, B, H, Sq, Skv, D, 12 strides,
+    # scale, causal, kv_valid, chunk_tokens, tf_clean_len, splits, stream
+    "fvt_flash_bwd_dkv_split": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 +
+    [ctypes.c_longlong] * 12 + [ctypes.c_float] + [ctypes.c_int] * 5 +
+    [ctypes.c_void_p],
+    # part_k, part_v, dk, dv, splits, B, H, Skv, D, 6 strides, stream
+    "fvt_flash_bwd_dkv_reduce": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 +
+    [ctypes.c_longlong] * 6 + [ctypes.c_void_p],
     # q, k, v, o, lse, dtype, B, H, Sq, Skv, D, 12 strides, scale, causal,
     # kv_valid, stream
     "fvt_flash_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 +
@@ -201,8 +278,11 @@ _SIGNATURES = {
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, building all kernels first."""
-    name = SOURCE_OF[name]
+    """The loaded library of kernel (or source) ``name``, building all
+    kernels first."""
+    name = SOURCE_OF.get(name, name)
+    if name not in SOURCES:
+        raise KernelError(f"no kernel or source named {name}")
     with _lock:
         if name not in _libs:
             paths = build_all()
@@ -242,6 +322,12 @@ def check_device(t: torch.Tensor, name: str) -> None:
         raise KernelError(
             f"{name}: the kernel is built for sm_90a (H100/H200); device "
             f"{t.device} has capability {cap}")
+
+
+def query(name: str, fn: str, *args) -> int:
+    """The value of C entry ``fn`` of kernel (or source) ``name``'s library
+    (a schedule or size query, not a launch)."""
+    return getattr(load(name), fn)(*args)
 
 
 def launch(name: str, fn: str, *args) -> None:

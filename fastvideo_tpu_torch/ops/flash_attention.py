@@ -38,6 +38,17 @@ Pallas ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``) for dQ and dK/dV, as the
 JAX function's custom VJP does. :func:`flash_attention_bwd_plain` is K6's
 plain version, used in the backward of CPU tensors only.
 
+Each kernel has two schedules, chosen by shape alone (:func:`flash_schedule`;
+the CUDA sources apply the same rule): bf16 with a head of 64 or 128, every
+DiT launch, runs the Hopper schedule (``csrc/flash_fwd_sm90.cuh``,
+``csrc/flash_bwd_sm90.cuh``: wgmma, registers, TMA); fp32 and other heads
+run the first one (``csrc/attn_tile.cuh``, ``csrc/attn_bwd_tile.cuh``).
+Where the dK/dV grid of the Hopper schedule would leave the card's SMs
+idle (the cross-attention's 512 keys), :func:`dkv_splits` cuts the query
+rows over more blocks: each writes fp32 partial sums to a scratch
+[splits, B, H, Skv, D], and ``flash_bwd_dkv_reduce`` (its own counter) adds
+them in split order (:func:`dkv_reduce_plain` is its plain version).
+
 Numerics follow the JAX kernel: fp32 scores and softmax statistics, the
 probabilities rounded to the value dtype before the P@V product, and a row
 with no valid key outputs 0. Masked keys are excluded exactly (-inf), so
@@ -61,9 +72,83 @@ NAME_BWD_DKV = "flash_bwd_dkv"
 NAME_STRUCT = "flash_fwd_struct"
 NAME_BWD_STRUCT_DQ = "flash_bwd_struct_dq"
 NAME_BWD_STRUCT_DKV = "flash_bwd_struct_dkv"
+NAME_BWD_REDUCE = "flash_bwd_dkv_reduce"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the Hopper schedule's heads, and the keys a dK/dV block owns and the query
+# rows it streams a step (csrc/flash_bwd_sm90.cuh: kBwdOwn, kBwdStep)
+SM90_HEADS = (64, 128)
+DKV_BLOCK_KEYS = 128
+DKV_STEP_ROWS = 64
+# aim for this many waves of dK/dV blocks (one block an SM) when splitting
+DKV_SPLIT_WAVES = 4
 # the most fp32 scores a plain version holds at once
 SLAB_BYTES = 1 << 30
+
+
+def flash_schedule(dtype: torch.dtype, d: int) -> str:
+    """The schedule a flash kernel runs for operands of ``dtype`` with a
+    head of ``d``: "sm90" (wgmma and TMA) for bf16 with a head of 64 or
+    128, else "tile" (the first, WMMA or scalar, schedule). The backward
+    takes bf16 only, so its rule is this one at bf16."""
+    return "sm90" if dtype == torch.bfloat16 and d in SM90_HEADS else "tile"
+
+
+def dkv_splits(b: int, h: int, sq: int, skv: int, d: int,
+               num_sms: int) -> int:
+    """Query-row ranges the dK/dV kernel's grid is cut into: 1 when its
+    key tiles alone fill the card's ``num_sms`` SMs (or the first schedule
+    runs), else enough to give about ``DKV_SPLIT_WAVES`` waves, at most one
+    a streamed step of rows. At the cross-attention's 512 keys and 12
+    heads on 132 SMs: 48 blocks, 11 splits, 528 blocks."""
+    if flash_schedule(torch.bfloat16, d) != "sm90":
+        return 1
+    blocks = b * h * -(-skv // DKV_BLOCK_KEYS)
+    if blocks >= num_sms:
+        return 1
+    steps = -(-sq // DKV_STEP_ROWS)
+    return max(1, min(steps, -(-DKV_SPLIT_WAVES * num_sms // blocks)))
+
+
+def dkv_scratch_shape(splits: int, b: int, h: int, skv: int,
+                      d: int) -> tuple[int, ...]:
+    """Shape of each fp32 partial-sum scratch (dK's and dV's) of a split
+    dK/dV launch."""
+    return (splits, b, h, skv, d)
+
+
+def dkv_reduce_plain(part_k: torch.Tensor, part_v: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of ``flash_bwd_dkv_reduce``: (dk, dv) bf16 [B, Skv, H,
+    D], the fp32 partial sums [splits, B, H, Skv, D] added in split order
+    and rounded once."""
+    _build.count_plain(NAME_BWD_REDUCE)
+    outs = []
+    for part in (part_k, part_v):
+        acc = part[0].clone()
+        for z in range(1, part.shape[0]):
+            acc += part[z]
+        outs.append(acc.to(torch.bfloat16).transpose(1, 2))
+    return outs[0], outs[1]
+
+
+def dkv_reduce(part_k: torch.Tensor, part_v: torch.Tensor, dk: torch.Tensor,
+               dv: torch.Tensor) -> None:
+    """``flash_bwd_dkv_reduce``: dk, dv (bf16 [B, Skv, H, D], written in
+    place) = the partial sums [splits, B, H, Skv, D] added in split
+    order."""
+    _build.check_device(part_k, NAME_BWD_REDUCE)
+    splits, b, h, skv, d = part_k.shape
+    if (part_v.shape != part_k.shape or any(
+            t.dtype != torch.float32 or not t.is_contiguous()
+            for t in (part_k, part_v)) or dk.shape != (b, skv, h, d)
+            or dv.shape != dk.shape):
+        raise _build.KernelError(
+            f"{NAME_BWD_REDUCE}: takes contiguous fp32 partial sums "
+            f"[splits, B, H, Skv, D] and bf16 dk/dv [B, Skv, H, D]")
+    _build.launch(NAME_BWD_REDUCE, "fvt_flash_bwd_dkv_reduce",
+                  part_k.data_ptr(), part_v.data_ptr(), dk.data_ptr(),
+                  dv.data_ptr(), splits, b, h, skv, d, *bhs(dk), *bhs(dv),
+                  _build.stream_ptr(dk))
 
 
 def check_struct(chunk_tokens: int, tf_clean_len: int) -> None:
@@ -297,9 +382,21 @@ def _flash_attention_bwd_cuda(q, k, v, out, lse, do, *, scale, causal,
     _build.launch(names[0], entries[0], *common, dq.data_ptr(), b, h, sq,
                   skv, d, *bhs(q), *bhs(k), *bhs(v), *bhs(do), *bhs(dq),
                   *tail)
-    _build.launch(names[1], entries[1], *common, dk.data_ptr(),
-                  dv.data_ptr(), b, h, sq, skv, d, *bhs(q), *bhs(k), *bhs(v),
-                  *bhs(do), *bhs(dk), *bhs(dv), *tail)
+    splits = dkv_splits(b, h, sq, skv, d, _build.num_sms(q.device))
+    if splits == 1:
+        _build.launch(names[1], entries[1], *common, dk.data_ptr(),
+                      dv.data_ptr(), b, h, sq, skv, d, *bhs(q), *bhs(k),
+                      *bhs(v), *bhs(do), *bhs(dk), *bhs(dv), *tail)
+        return dq, dk, dv
+    shape = dkv_scratch_shape(splits, b, h, skv, d)
+    part_k = torch.empty(shape, dtype=torch.float32, device=q.device)
+    part_v = torch.empty(shape, dtype=torch.float32, device=q.device)
+    _build.launch(names[1], "fvt_flash_bwd_dkv_split", *common,
+                  part_k.data_ptr(), part_v.data_ptr(), b, h, sq, skv, d,
+                  *bhs(q), *bhs(k), *bhs(v), *bhs(do), float(scale),
+                  int(causal), int(kv_valid), int(chunk_tokens),
+                  int(tf_clean_len), splits, _build.stream_ptr(q))
+    dkv_reduce(part_k, part_v, dk, dv)
     return dq, dk, dv
 
 

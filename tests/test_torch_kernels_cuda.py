@@ -3,7 +3,10 @@ at edge shapes the main path does not reach (ragged lengths, batch > 1,
 fp32 flash attention, non-contiguous views, channel tails; the int8 conv K4
 and the W8A8 linear; the kv-mask flash kernel K5 and the fp32 decode
 convs; the count-driven sparse kernels K9a / K9b; the causal Wan training
-masks of K1 struct / K6 struct). Marked ``cuda``: they
+masks of K1 struct / K6 struct; the Hopper schedule of the flash kernels
+at its edges: ragged tiles and ring stages, strided views, heads of 64 and
+128, struct borders inside 128-row tiles, K5's empty chunks, the split
+dK/dV and its reduction, rows with no key). Marked ``cuda``: they
 skip without an sm_90 card. On the card
 (which has no JAX, so without the suite's conftest):
 
@@ -735,6 +738,10 @@ def test_flash_struct_matches_plain(dev, sq, ct, clean_len, kv_valid, d,
             assert t.shape == w.shape and t.dtype == w.dtype
             _close_grad(t, w)
         expect.update(flash_bwd_struct_dq=1, flash_bwd_struct_dkv=1)
+        # a split dK/dV grid adds its partial sums on its own counter
+        if flash_attention.dkv_splits(b, h, sq, sq, d,
+                                      _build.num_sms(dev)) > 1:
+            expect.update(flash_bwd_dkv_reduce=1)
     assert {n: _build.LAUNCHES[n] - before[n] for n in before
             if _build.LAUNCHES[n] != before[n]} == expect
 
@@ -762,3 +769,171 @@ def test_flash_struct_under_autograd_takes_the_struct_backward(dev):
         scale=128**-0.5, **kw)
     for t, w in zip((q.grad, k.grad, v.grad), want):
         _close_grad(t, w)
+
+
+# -- the flash kernels' Hopper schedule (bf16, heads of 64 and 128) -----------
+
+
+def _strided(t, dev):
+    """The same values as a [B, S, H, D] view with padded rows and heads."""
+    b, s, h, d = t.shape
+    wide = torch.zeros(b, s, h + 1, d + 64, device=dev, dtype=t.dtype)
+    wide[:, :, :h, 32:32 + d] = t
+    return wide[:, :, :h, 32:32 + d]
+
+
+@pytest.mark.parametrize("b,sq,skv,h,d,causal,kv_valid,strided", [
+    # neither length a multiple of 128: a ragged last query tile and key
+    # chunk (the ring's last stage half full)
+    (1, 300, 333, 2, 128, False, None, False),
+    (2, 130, 700, 3, 64, True, 650, True),
+    (1, 129, 257, 2, 128, True, None, True),
+    (1, 600, 512, 2, 128, False, None, False),  # the cross-attention's keys
+    (1, 64, 96, 2, 128, False, 0, False),        # every row empty
+    (1, 200, 150, 1, 64, False, 0, True),
+])
+def test_flash_sm90_matches_plain(dev, b, sq, skv, h, d, causal, kv_valid,
+                                  strided):
+    """K1 and K6 on the Hopper schedule against their plain versions: out,
+    LSE (-inf on empty rows), and dq, dk, dv from a strided dO, with the
+    library taking that schedule for the shape."""
+    g = torch.Generator(device=dev).manual_seed(21)
+    assert _build.query("flash_fwd", "fvt_flash_fwd_sm90", 1, d) == 1
+    assert _build.query("flash_bwd", "fvt_flash_bwd_sm90", d) == 1
+    q, k, v = (torch.randn(b, s, h, d, generator=g, device=dev,
+                           dtype=torch.bfloat16) for s in (sq, skv, skv))
+    if strided:
+        q, k, v = (_strided(t, dev) for t in (q, k, v))
+    do = torch.randn(b, sq, h, 2 * d, generator=g, device=dev,
+                     dtype=torch.bfloat16)[..., ::2]
+    kw = dict(scale=d**-0.5, causal=causal,
+              kv_valid=skv if kv_valid is None else kv_valid)
+    out, lse = flash_attention.flash_attention(q, k, v, return_lse=True,
+                                               **kw)
+    ref, ref_lse = flash_attention.flash_attention_plain(q, k, v, **kw)
+    finite = torch.isfinite(ref_lse)
+    assert torch.equal(finite, torch.isfinite(lse))
+    got = flash_attention.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    want = flash_attention.flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                                     **kw)
+    if kv_valid == 0:
+        torch.cuda.synchronize()
+        assert torch.all(out == 0) and not finite.any()
+        for t in got:
+            assert torch.all(t == 0)
+        return
+    _close(out, ref, torch.bfloat16)
+    torch.testing.assert_close(lse[finite], ref_lse[finite], atol=1e-3,
+                               rtol=1e-4)
+    for t, w in zip(got, want):
+        assert t.shape == w.shape and t.dtype == w.dtype
+        _close_grad(t, w)
+
+
+@pytest.mark.parametrize("sq,ct,clean_len,kv_valid,d", [
+    # chunk borders inside 128-row tiles, and chunks longer than a tile:
+    # full, partial and empty key chunks in one query tile
+    (700, 100, 0, None, 128),
+    (650, 300, 0, 600, 64),
+    # teacher forcing: the clean/noisy border at 330 cuts a 128-row tile
+    (660, 100, 330, None, 128),
+    (520, 260, 260, 500, 64),
+])
+def test_flash_struct_sm90_matches_plain(dev, sq, ct, clean_len, kv_valid,
+                                         d):
+    """K1 struct and K6 struct on the Hopper schedule against their plain
+    versions, where borders fall inside the 128-row tiles."""
+    g = torch.Generator(device=dev).manual_seed(22)
+    b, h = 1, 2
+    q, k, v = (torch.randn(b, sq, h, d, generator=g, device=dev,
+                           dtype=torch.bfloat16) for _ in range(3))
+    do = torch.randn(b, sq, h, d, generator=g, device=dev,
+                     dtype=torch.bfloat16)
+    kw = dict(scale=d**-0.5, kv_valid=sq if kv_valid is None else kv_valid,
+              chunk_tokens=ct, tf_clean_len=clean_len)
+    out, lse = flash_attention.flash_attention(q, k, v, return_lse=True,
+                                               **kw)
+    ref, ref_lse = flash_attention.flash_attention_plain(q, k, v, **kw)
+    _close(out, ref, torch.bfloat16)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-4)
+    got = flash_attention.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    want = flash_attention.flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                                     **kw)
+    for t, w in zip(got, want):
+        _close_grad(t, w)
+
+
+@pytest.mark.parametrize("kind", ["zero_chunks", "all_zero", "full"])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_kv_mask_sm90_chunks(dev, kind, d):
+    """K5 on the Hopper schedule with whole 128-key chunks masked (skipped),
+    every key masked (output 0) and none masked."""
+    g = torch.Generator(device=dev).manual_seed(23)
+    b, sq, skv, h = 1, 200, 1300, 2
+    q, k, v = (torch.randn(b, s, h, d, generator=g, device=dev,
+                           dtype=torch.bfloat16) for s in (sq, skv, skv))
+    pos = torch.arange(skv, device=dev)
+    mask = {"zero_chunks": ((pos // 128) % 3 == 1) | (pos >= 1250),
+            "all_zero": pos < 0, "full": pos >= 0}[kind]
+    out = flash_attention.flash_attention_kv_mask(q, k, v, mask,
+                                                  scale=d**-0.5)
+    ref = flash_attention.flash_attention_kv_mask_plain(q, k, v, mask,
+                                                        scale=d**-0.5)
+    if kind == "all_zero":
+        torch.cuda.synchronize()
+        assert torch.all(out == 0)
+    else:
+        _close(out, ref, torch.bfloat16)
+
+
+def test_flash_bwd_split_dkv_and_reduce(dev):
+    """At the cross-attention's 512 keys the dK/dV grid is split over the
+    query rows (dkv_splits > 1 on this card): one dK/dV and one reduce
+    launch, gradients equal to the plain backward's; the reduce kernel adds
+    random partial sums as its plain version does."""
+    g = torch.Generator(device=dev).manual_seed(24)
+    b, sq, skv, h, d = 1, 2000, 512, 4, 128
+    splits = flash_attention.dkv_splits(b, h, sq, skv, d,
+                                        _build.num_sms(dev))
+    assert splits > 1
+    q, k, v, do = (torch.randn(b, s, h, d, generator=g, device=dev,
+                               dtype=torch.bfloat16)
+                   for s in (sq, skv, skv, sq))
+    kw = dict(scale=d**-0.5, causal=False, kv_valid=skv)
+    out, lse = flash_attention.flash_attention(q, k, v, return_lse=True,
+                                               **kw)
+    before = dict(_build.LAUNCHES)
+    got = flash_attention.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    assert {n: _build.LAUNCHES[n] - before[n] for n in before
+            if _build.LAUNCHES[n] != before[n]} == {
+                "flash_bwd_dq": 1, "flash_bwd_dkv": 1,
+                "flash_bwd_dkv_reduce": 1}
+    want = flash_attention.flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                                     **kw)
+    for t, w in zip(got, want):
+        _close_grad(t, w)
+    shape = flash_attention.dkv_scratch_shape(3, 2, h, 300, d)
+    part_k, part_v = (torch.randn(shape, generator=g, device=dev)
+                      for _ in range(2))
+    dk, dv = (torch.empty(2, 300, h, d, device=dev, dtype=torch.bfloat16)
+              for _ in range(2))
+    flash_attention.dkv_reduce(part_k, part_v, dk, dv)
+    for t, w in zip((dk, dv), flash_attention.dkv_reduce_plain(part_k,
+                                                               part_v)):
+        torch.testing.assert_close(t.float(), w.float(), atol=0,
+                                   rtol=2.0**-7)
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 64),
+                                     (torch.bfloat16, 128),
+                                     (torch.bfloat16, 16),
+                                     (torch.bfloat16, 384),
+                                     (torch.float32, 128)])
+def test_flash_library_schedule_is_the_host_rule(dev, dtype, d):
+    fwd = _build.query("flash_fwd", "fvt_flash_fwd_sm90",
+                       int(dtype == torch.bfloat16), d)
+    assert ("sm90" if fwd else "tile") == flash_attention.flash_schedule(
+        dtype, d)
+    if dtype == torch.bfloat16 and d <= 128:
+        bwd = _build.query("flash_bwd", "fvt_flash_bwd_sm90", d)
+        assert bool(bwd) == bool(fwd)

@@ -103,6 +103,7 @@ def _calls():
     scale = torch.ones(32)
     lse = torch.zeros(1, 2, 64)
     lse_t = torch.zeros(1, 2, 128)
+    part = torch.zeros(2, 1, 2, 64, 32)  # dK/dV partial sums of 2 splits
     c = _cuda_typed
 
     def flash_bwd():
@@ -144,6 +145,8 @@ def _calls():
             c(q), c(q), c(q), chunk_tokens=16),
         "flash_bwd_struct_dq": flash_bwd_struct,
         "flash_bwd_struct_dkv": flash_bwd_struct,
+        "flash_bwd_dkv_reduce": lambda: flash_attention.dkv_reduce(
+            c(part), c(part), c(q), c(q)),
     }
 
 
