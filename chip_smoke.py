@@ -7,13 +7,16 @@
 Phases, each printing its own lines:
   1. environment: torch/CUDA versions and the card's name and power limit;
   2. kernel build: nvcc for sm_90a from fastvideo_tpu_torch/csrc, and
-     the registers, spills and shared memory of each Hopper instance of
-     the flash kernels (from -Xptxas -v; a spill at a head of 128 fails);
+     the registers, spills, shared memory and ptxas warnings of each
+     Hopper instance of the flash and sparse kernels (from -Xptxas -v; a
+     spill at a head of 128 fails, and so does a serialized wgmma, C7518,
+     in a head-of-128 instance of K7 bwd or K9);
   3. kernel checks: each kernel against its plain PyTorch version on the
      card at the main paths' shapes, with kernel, plain, library and bound
-     times; each flash case prints the schedule it takes (a bf16 case with
-     a head of 128 must take the Hopper one, and the profiler must name
-     K1's and K6's Hopper kernels), and K6's split dK/dV reduction is held
+     times; each flash, K7 bwd and K9 case prints the schedule it takes (a
+     bf16 case with a head of 128 must take the Hopper one, and the
+     profiler must name K1's and K6's Hopper kernels), and K6's split dK/dV
+     reduction is held
      to its plain version at the cross-attention's scratch shape (the
      padded sparse kernel at its VSA, STA and SLA shapes; the decode convs
      in the dispatched decode's chunks: the first latent
@@ -149,6 +152,10 @@ SM90_KERNELS = {"flash_fwd_sm90": {"0": "K1", "1": "K5", "2": "K1 struct"},
                 "flash_bwd_dq_sm90": {"0": "K6 dQ", "1": "K6 struct dQ"},
                 "flash_bwd_dkv_sm90": {"0": "K6 dK/dV",
                                        "1": "K6 struct dK/dV"}}
+# the sparse kernels' Hopper instances
+SPARSE_SM90 = {"vsa_sparse_bwd_dq_sm90": {"0": "K7 bwd dQ"},
+               "vsa_sparse_bwd_dkv_sm90": {"0": "K7 bwd dK/dV"},
+               "dyn_sparse_fwd_sm90": {"0": "K9a", "1": "K9b"}}
 
 
 def card_line() -> str:
@@ -216,40 +223,73 @@ def attn_tol(want, dtype) -> tuple[float, float]:
     return 2.0**-5 * want.float().std().item(), 2.0**-6
 
 
-def report_sm90_build() -> None:
-    """Registers, spills, stack and shared memory of each Hopper instance of
-    the flash kernels, from the -Xptxas -v log of their build (the dynamic
-    shared memory from the library, K5's at the 32,760-key window). Fails
-    on a spill in an instance with a head of 128."""
+def sm90_instance(kernel: str):
+    """(label, stem, head, mode) of a Hopper instance's mangled name, or
+    None: the flash kernels' (SM90_KERNELS) and the sparse kernels'
+    (SPARSE_SM90)."""
     import re
 
+    m = re.search(r"(flash_\w+_sm90)ILi(\d+)EL[ib](\d)E", kernel)
+    if m and m.group(1) in SM90_KERNELS:
+        stem, d, mode = m.group(1), int(m.group(2)), m.group(3)
+        return SM90_KERNELS[stem][mode], stem, d, int(mode)
+    m = re.search(r"(vsa_sparse_bwd_d(?:q|kv)_sm90|dyn_sparse_fwd_sm90)ILi"
+                  r"(\d+)E(?:Lb(\d)E)?", kernel)
+    if m:
+        stem, d, mode = m.group(1), int(m.group(2)), m.group(3) or "0"
+        return SPARSE_SM90[stem][mode], stem, d, int(mode)
+    return None
+
+
+def report_sm90_build() -> None:
+    """Registers, spills, stack, shared memory and ptxas warnings of each
+    Hopper instance of the flash and sparse kernels, from the -Xptxas -v
+    log of their build (the dynamic shared memory from the library, K5's
+    at the 32,760-key window, K7 bwd's at 4i's top-24 over 117 tiles, K9's
+    over 4j's 672 key tiles). Fails on a spill in an instance with a head of
+    128, and on a serialized-wgmma warning (C7518) in a head-of-128
+    instance of the sparse kernels; the flash kernels' warnings (the
+    head-of-64 struct dQ's C7518) are reported."""
     from fastvideo_tpu_torch.ops import _build
 
     for src in _build.PTXAS_VERBOSE:
         for r in _build.ptxas_report(src):
-            m = re.search(r"(flash_\w+_sm90)ILi(\d+)EL[ib](\d)E", r["kernel"])
-            if m and m.group(1) in SM90_KERNELS:
-                stem, d, mode = m.group(1), int(m.group(2)), int(m.group(3))
-                label = f"{SM90_KERNELS[stem][str(mode)]}, {stem}<{d}, {mode}>"
+            inst = sm90_instance(r["kernel"])
+            if inst is not None:
+                name, stem, d, mode = inst
+                label = f"{name}, {stem}<{d}, {mode}>"
                 if stem == "flash_fwd_sm90":
                     dyn = _build.query(src, "fvt_flash_fwd_sm90_smem", d, mode,
                                        CAUSAL_WINDOW_TOKENS)
-                else:
+                elif stem.startswith("flash_bwd"):
                     dyn = _build.query(src, "fvt_flash_bwd_sm90_smem",
                                        int(stem == "flash_bwd_dkv_sm90"), d,
                                        mode)
+                elif stem.startswith("vsa_sparse_bwd"):
+                    dkv = stem == "vsa_sparse_bwd_dkv_sm90"
+                    dyn = _build.query(src, "fvt_vsa_sparse_bwd_sm90_smem",
+                                       int(dkv), d, 117 if dkv else 24)
+                else:
+                    dyn = _build.query(src, "fvt_dyn_sparse_fwd_sm90_smem", d,
+                                       672)
             elif "flash_bwd_dkv_reduce" in r["kernel"]:
-                label, d, dyn = "flash_bwd_dkv_reduce", 0, 0
+                label, stem, d, dyn = "flash_bwd_dkv_reduce", "", 0, 0
             else:
                 continue
             spills = r["spill_stores"] + r["spill_loads"]
+            serial = [w for w in r["warnings"] if w.startswith("C7518")
+                      or "serialized" in w]
             print(f"  {label}: {r['registers']} registers, {spills} spill "
                   f"bytes ({r['spill_stores']} stored, {r['spill_loads']} "
                   f"loaded), {r['stack']} bytes stack, {dyn + r['smem']} "
-                  f"bytes shared memory", flush=True)
+                  f"bytes shared memory; ptxas warnings: "
+                  f"{r['warnings'] or 'none'}", flush=True)
             if d == 128 and spills:
                 raise SystemExit(f"{label}: ptxas reports {spills} spill "
                                  "bytes in a head-of-128 instance")
+            if d == 128 and serial and stem in SPARSE_SM90:
+                raise SystemExit(f"{label}: ptxas serialized the wgmma of a "
+                                 f"head-of-128 instance: {serial}")
 
 
 def check_schedule(label: str, dtype, d: int, backward: bool = False) -> str:
@@ -272,6 +312,30 @@ def check_schedule(label: str, dtype, d: int, backward: bool = False) -> str:
         raise SystemExit(f"{label}: the library takes schedule {took}, the "
                          f"host rule {fa.flash_schedule(dtype, d)}")
     if dtype == torch.bfloat16 and d == 128 and took != "sm90":
+        raise SystemExit(f"{label}: a bf16 case with a head of 128 reached "
+                         "the first schedule")
+    return took
+
+
+def check_sparse_schedule(label: str, kernel: str, d: int) -> str:
+    """The schedule the sparse library of ``kernel`` (K7 bwd or K9) takes
+    for a bf16 head of d: it must be the host rule's
+    (sparse_schedule.sparse_schedule), and a head of 128 must take the
+    Hopper one."""
+    import torch
+
+    from fastvideo_tpu_torch.ops import _build
+    from fastvideo_tpu_torch.ops.sparse_schedule import sparse_schedule
+
+    fn = ("fvt_vsa_sparse_bwd_sm90" if kernel.startswith("vsa_sparse_bwd")
+          else "fvt_dyn_sparse_fwd_sm90_route")
+    took = "sm90" if _build.query(kernel, fn, d) else "tile"
+    want = sparse_schedule(torch.bfloat16, d)
+    print(f"  {label}: schedule {took}", flush=True)
+    if took != want:
+        raise SystemExit(f"{label}: the library takes schedule {took}, the "
+                         f"host rule {want}")
+    if d == 128 and took != "sm90":
         raise SystemExit(f"{label}: a bf16 case with a head of 128 reached "
                          "the first schedule")
     return took
@@ -644,17 +708,20 @@ def time_dyn_case(label: str, q, k, v, mask, q_rows) -> dict:
     the same indices and counts, timed, with the plain time, the library
     time (compiled flex_attention with a BlockMask of the same kept pairs,
     (rows, 64) blocks; timed here only, the port never calls it), the
-    bound and the kept fraction."""
+    bound, the kept fraction and the fraction of key tiles the Hopper
+    schedule's groups walk (the union of their tiles' lists)."""
     import torch
     from torch.nn.attention.flex_attention import flex_attention
 
     from fastvideo_tpu_torch.ops import nabla
+    from fastvideo_tpu_torch.ops.sparse_schedule import grouped_lists
 
     rows, e, d = q_rows or 64, 64, q.shape[-1]
     sizes = torch.full((k.shape[2] // e,), e, dtype=torch.int32,
                        device=q.device)
     scale = d**-0.5
     name = nabla.QTILE_NAME if q_rows else nabla.NAME
+    check_sparse_schedule(f"{name}[{label}]", name, d)
     idx, counts = nabla.mask_indices(mask)
     kw = dict(scale=scale, q_rows=q_rows)
     out = nabla.dyn_sparse_attention(q, k, v, idx, counts, sizes, **kw)
@@ -676,13 +743,18 @@ def time_dyn_case(label: str, q, k, v, mask, q_rows) -> dict:
     flops, nbytes = dyn_bound(mask, rows, e, d)
     bms, by = bound_ms(flops, nbytes)
     kept = mask.float().mean().item()
+    # the Hopper schedule walks each group's union: the key tiles it runs
+    _, lens, _, group = grouped_lists(idx, counts, mask.shape[-1], rows)
+    walked = lens.float().mean().item() / mask.shape[-1]
     print(f"  {name}[{label}]: {ms:.3f} ms kernel, {plain:.3f} ms plain, "
           f"{lib:.3f} ms flex_attention ({rows}, {e}) blocks, bound "
           f"{bms:.3f} ms ({by}, {flops:.3e} FLOP); kept fraction {kept:.4f},"
           f" counts {counts.min().item()}..{counts.max().item()} of "
-          f"{mask.shape[-1]}; q{list(q.shape)} k{list(k.shape)}", flush=True)
+          f"{mask.shape[-1]}; groups of {group} tiles walk {walked:.4f} of "
+          f"the key tiles; q{list(q.shape)} k{list(k.shape)}", flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
-                bound_by=by, library_ms=lib, kept_fraction=kept)
+                bound_by=by, library_ms=lib, kept_fraction=kept,
+                walked_fraction=walked)
 
 
 def check_dyn_sparse(dev, results: dict) -> None:
@@ -716,6 +788,7 @@ def check_dyn_sparse(dev, results: dict) -> None:
         ramp_ms=r2["ms"], ramp_bound_ms=r2["bound_ms"],
         ramp_library_ms=r2["library_ms"], ramp_plain_ms=r2["plain_ms"],
         ramp_kept_fraction=r2["kept_fraction"],
+        ramp_walked_fraction=r2["walked_fraction"],
         max_abs_err=max(r["max_abs_err"], r2["max_abs_err"]))
     del q, k, v, qt, kt, vt, mask, ramp
     torch.cuda.empty_cache()
@@ -1205,7 +1278,9 @@ def check_fp32_decode(dev, results: dict) -> None:
 def kernel_device_ms(fn, names: dict, reps: int = 3) -> dict:
     """Device time a call of each kernel in ``names`` ({label: substring of
     its CUDA kernel name}) takes inside ``fn``, from torch.profiler over
-    ``reps`` calls after a warm-up."""
+    ``reps`` calls after a warm-up: the mean over the launches it recorded
+    (``fn`` launches each kernel once; the profiler may drop a launch's
+    record, which a sum over ``reps`` calls would count as 0 ms)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1222,7 +1297,8 @@ def kernel_device_ms(fn, names: dict, reps: int = 3) -> dict:
                 and sub in e.key]
         if not hits:
             raise SystemExit(f"profiler shows no device time for {sub}")
-        out[label] = sum(e.self_device_time_total for e in hits) / reps / 1e3
+        out[label] = sum(e.self_device_time_total for e in hits) / sum(
+            e.count for e in hits) / 1e3
     return out
 
 
@@ -1523,6 +1599,8 @@ def sparse_bwd_case(label, q, k, v, do, idx, sizes, e, results=None):
 
     scale = q.shape[-1]**-0.5
     kw = dict(scale=scale, tile_elems=e)
+    check_sparse_schedule(f"vsa_sparse_bwd[{label}]", "vsa_sparse_bwd_dq",
+                          q.shape[-1])
     out, lse = vsa.block_sparse_attention(q, k, v, idx, sizes,
                                           return_lse=True, **kw)
     ref, ref_lse = vsa.block_sparse_attention_plain(q, k, v, idx, sizes,
@@ -1545,7 +1623,7 @@ def sparse_bwd_case(label, q, k, v, do, idx, sizes, e, results=None):
     ms = kernel_device_ms(
         lambda: vsa.block_sparse_attention_bwd(q, k, v, idx, sizes, out, lse,
                                                do, **kw),
-        {"dq": "vsa_sparse_bwd_dq_kernel", "dkv": "vsa_sparse_bwd_dkv_kernel"})
+        {"dq": "vsa_sparse_bwd_dq", "dkv": "vsa_sparse_bwd_dkv"})
     whole = time_ms(lambda: vsa.block_sparse_attention_bwd(
         q, k, v, idx, sizes, out, lse, do, **kw))
     fwd_ms = time_ms(lambda: vsa.block_sparse_attention(
@@ -1577,7 +1655,7 @@ def sparse_bwd_case(label, q, k, v, do, idx, sizes, e, results=None):
                                          bound_by=dkv_by, **common)
     print(f"  vsa_sparse_bwd[{label}]: dQ {ms['dq']:.3f} ms (bound "
           f"{dq_b:.3f}), dK/dV {ms['dkv']:.3f} ms (bound {dkv_b:.3f}); the "
-          f"backward {whole:.3f} ms with delta and membership (bound "
+          f"backward {whole:.3f} ms with delta and the lists (bound "
           f"{all_b:.3f} ms: 5 products, {5 * product:.3e} FLOP on valid "
           f"keys), {plain:.3f} ms plain, {lib:.3f} ms flex_attention's "
           f"backward; K7 fwd with LSE {fwd_ms:.3f} ms", flush=True)

@@ -1,0 +1,240 @@
+// The count-driven sparse forward's Hopper schedule (K9a and K9b at bf16
+// with a head of 64 or 128): dyn_sparse_fwd.cu launches it, and keeps its
+// first schedule (attn_tile.cuh) for other heads. It is K1's Hopper forward
+// (flash_fwd_sm90.cuh: two consumer warpgroups of 64 query rows, a TMA
+// ring of 128-key chunks, the online softmax on the register fragment with
+// exp2, P as the register A operand of P V, the next S issued before P V is
+// waited for) on a list walk (sm90.cuh: TileList, Cursor). Bound by the
+// tensor cores at NABLA's and BSA's kept fractions: 4 D FLOP a (query row,
+// kept key) pair.
+//
+// A block owns 128 consecutive query rows. Where a query tile has fewer
+// rows (K9a's 64-row tiles, K9b's 32 pruned queries of a tile), the block's
+// rows hold a group of `group` = 128 / rows query tiles, and it walks the
+// ascending union of their lists, built in the caller (ops/
+// sparse_schedule.py:grouped_lists) with, per entry, the bit set of the
+// group's tiles that keep it; each row masks the key tiles its own tile
+// does not keep (p = 0, and the row's max ignores them), so the result is
+// each tile's own. A row of a tile with no key stores 0, as the Pallas
+// kernel's l_inv does. The key tiles are read through a 5-D map over
+// [B, H, nK, E, D] in 64-row units, two units a chunk (an odd walk's last
+// chunk loads its unit twice and masks the second copy), whole: the
+// padded slots of a tile past its valid count must hold finite values (BSA
+// and NABLA have none). The grid runs the groups with the longest unions
+// first (`order`).
+#pragma once
+
+#include "flash_fwd_sm90.cuh"
+
+namespace fvt {
+namespace sm90 {
+
+constexpr int kDynBQ = kFwdBQ;       // query rows a block: 2 warpgroups of 64
+constexpr int kDynBK = 2 * kUnit;    // keys a chunk: two units of the walk
+constexpr int kDynStages = kFwdStages;
+static_assert(kDynBK == kFwdBK, "a chunk is K1's 128 keys");
+
+struct DynFwdParams {
+  CUtensorMap q;     // map_bshd over [B, H, Sq, D], box {64, 64}
+  CUtensorMap k, v;  // map_tiles over [B, H, nK, E, D], box {64, kUnit}
+  bf16* o;
+  long long o_sb, o_sh, o_ss;
+  const int* list;    // [B, H, nG, nK] each group's union, ascending, then -1
+  const int* counts;  // [B, H, nG]
+  const int* bits;    // [B, H, nG, nK] the group's tiles that keep each entry
+  const int* sizes;   // [nK]
+  const int* order;   // [B * H * nG] flat (batch, head, group) in launch order
+  int H, Sq, nK, E, rows, group, nG, n_sub;
+  float scale_log2;
+};
+
+template <int D>
+__host__ __device__ constexpr size_t dyn_fwd_smem_bytes(int nK) {
+  return 1024 + round_1k(kDynBQ * D * 2) + 2 * round_1k(kDynStages * kDynBK * D * 2) +
+         Ring<kDynStages>::bytes() + TileList::bytes(nK, true);
+}
+
+template <int D, bool kQTile>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+    dyn_sparse_fwd_sm90(const __grid_constant__ DynFwdParams p) {
+  constexpr int BQ = kDynBQ, BK = kDynBK, NS = kDynStages;
+  extern __shared__ unsigned char smem_raw[];
+  Carve carve(smem_raw);
+  bf16* sq = carve.take<bf16>(BQ * D);
+  bf16* sk = carve.take<bf16>(NS * BK * D);
+  bf16* sv = carve.take<bf16>(NS * BK * D);
+  const Ring<NS> ring(carve);
+  TileList list(carve, p.nK, true);
+
+  const int flat = p.order[blockIdx.x / p.n_sub];  // (batch, head, group)
+  const int sub = blockIdx.x % p.n_sub;
+  const int g = flat % p.nG;
+  const int h = (flat / p.nG) % p.H;
+  const int b = flat / (p.nG * p.H);
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / kWarpgroup, 0);
+  const int span = p.group * p.rows;  // the group's rows
+  const int base = g * span;          // its first row
+  const int r0 = sub * BQ;            // the block's first row in the group
+  const int live_wgs = max(0, min(2, (min(span, p.Sq - base) - r0 + 63) / 64));
+
+  list.build(p.list + static_cast<long long>(flat) * p.nK,
+             p.bits + static_cast<long long>(flat) * p.nK, live_wgs > 0 ? p.counts[flat] : 0,
+             p.sizes, p.E);
+  const int units = *list.total;
+  const int n_steps = (units + 1) / 2;
+
+  Cursor fill;
+  fill.start(list);
+  int filled = 0;  // units issued
+  auto issue = [&](int i) {
+    const int s = i % NS;
+    bar_expect(&ring.full[s], 2 * BK * D * 2);
+    int kt = 0, c0 = 0;
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      if (filled < units) {  // else: the last unit again, masked
+        kt = fill.tile(list);
+        c0 = fill.row0();
+        fill.next(list);
+        ++filled;
+      }
+#pragma unroll
+      for (int nb = 0; nb < D / 64; ++nb) {
+        const int at = s * BK * D + nb * BK * 64 + u * kUnit * 64;
+        tma_load_5d(sk + at, &p.k, &ring.full[s], nb * 64, c0, kt, h, b);
+        tma_load_5d(sv + at, &p.v, &ring.full[s], nb * 64, c0, kt, h, b);
+      }
+    }
+  };
+  if (threadIdx.x == 0) {
+    bar_expect(ring.own, live_wgs * 64 * D * 2);
+    for (int w = 0; w < live_wgs; ++w)
+#pragma unroll
+      for (int nb = 0; nb < D / 64; ++nb)
+        tma_load_4d(sq + nb * BQ * 64 + w * 64 * 64, &p.q, ring.own, nb * 64, base + r0 + 64 * w,
+                    h, b);
+    for (int i = 0; i < min(NS, n_steps); ++i) issue(i);
+  }
+
+  if (wg >= live_wgs) {  // rows past the group: release the stages
+    for (int i = 0; i < n_steps; ++i) {
+      ring.wait(i);
+      ring.release(i, n_steps, issue);
+    }
+    return;
+  }
+
+  // this thread's two rows (in the group) and the bit of each one's tile
+  const int lrow0 = r0 + 64 * wg + frag_row(0);
+  const int lrows[2] = {lrow0, lrow0 + 8};
+  unsigned mine[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    mine[r] = lrows[r] < span && base + lrows[r] < p.Sq ? 1u << (lrows[r] / p.rows) : 0u;
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F};
+  float l[2] = {0.f, 0.f};
+  float s[BK / 2];
+  uint32_t pf[BK / 16][4];
+  Cursor at;
+  at.start(list);
+  int used = 0;  // units consumed
+
+  bar_wait(ring.own, 0);
+  for (int i = 0; i < n_steps; ++i) {
+    const int st = i % NS;
+    const bf16* ks = sk + st * BK * D;
+    const bf16* vs = sv + st * BK * D;
+    ring.wait(i);
+    mma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      mma_ss<BK>(s, desc_k(sq, BQ, 64 * wg, kk), desc_k(ks, BK, 0, kk), kk > 0);
+    mma_commit();
+    if (i > 0) {  // the previous chunk's P V is done: its stage is free
+      mma_wait<1>();
+      fence_regs(o);
+      ring.release(i - 1, n_steps, issue);
+    }
+    // the visible keys of each unit for each row: below lim[r][u]
+    int lim[2][2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      int nk = 0;
+      unsigned keep = 0;
+      if (used < units) {
+        nk = at.rows(list);
+        keep = static_cast<unsigned>(list.bits[at.j]);
+        at.next(list);
+        ++used;
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) lim[r][u] = (keep & mine[r]) ? nk : 0;
+    }
+    mma_wait<0>();
+    fence_regs(s);
+
+#pragma unroll
+    for (int e = 0; e < BK / 2; ++e) {
+      const int u = e >= BK / 4;  // columns 64 on: the second unit
+      const bool ok = frag_col(e) - u * kUnit < lim[(e >> 1) & 1][u];
+      s[e] = ok ? s[e] : -CUDART_INF_F;
+    }
+
+    // online softmax on the fragment, in log2 units of the scaled scores
+    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+    for (int e = 0; e < BK / 2; ++e) mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], s[e]);
+    float alpha[2], m_use[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_next = fmaxf(m[r], quad_max(mx[r]) * p.scale_log2);
+      m_use[r] = m_next == -CUDART_INF_F ? 0.f : m_next;
+      alpha[r] = exp2f(m[r] - m_use[r]);  // 0 while the row has seen no key
+      m[r] = m_next;
+    }
+#pragma unroll
+    for (int e = 0; e < BK / 2; ++e) {
+      const int r = (e >> 1) & 1;
+      s[e] = exp2f(fmaf(s[e], p.scale_log2, -m_use[r]));
+      sum[r] += s[e];
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + sum[r];
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) o[e] *= alpha[(e >> 1) & 1];
+    to_a_frags(s, pf);
+
+    mma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) mma_rs<D>(o, pf[kk], desc_mn(vs, BK, kk), 1);
+    mma_commit();
+  }
+  if (n_steps > 0) {
+    mma_wait<0>();
+    fence_regs(o);
+    ring.release(n_steps - 1, n_steps, issue);
+  }
+
+  // epilogue: O / l in bf16 (0 for a row that saw no key)
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] = quad_sum(l[r]);
+    inv[r] = l[r] == 0.f ? 0.f : 1.f / l[r];
+  }
+  bf16* out = p.o + b * p.o_sb + h * p.o_sh + static_cast<long long>(base) * p.o_ss;
+#pragma unroll
+  for (int e = 0; e < D / 2; e += 2) {
+    const int r = (e >> 1) & 1;
+    if (mine[r] != 0u)
+      *reinterpret_cast<uint32_t*>(out + lrows[r] * p.o_ss + frag_col(e)) =
+          pack_bf16(o[e] * inv[r], o[e + 1] * inv[r]);
+  }
+}
+
+}  // namespace sm90
+}  // namespace fvt

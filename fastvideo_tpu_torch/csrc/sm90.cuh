@@ -1,7 +1,11 @@
 // Hopper (sm_90a) building blocks of the dense flash attention kernels
-// (flash_fwd_sm90.cuh, flash_bwd_sm90.cuh): warpgroup products (wgmma) with
-// fp32 sums in registers, tensor-memory copies (TMA) that complete to
-// mbarriers, and the host-side tensor maps over [B, S, H, D] views.
+// (flash_fwd_sm90.cuh, flash_bwd_sm90.cuh) and of the sparse ones built on
+// them (vsa_sparse_bwd_sm90.cuh, dyn_sparse_fwd_sm90.cuh): warpgroup
+// products (wgmma) with fp32 sums in registers, tensor-memory copies (TMA)
+// that complete to mbarriers, the host-side tensor maps over [B, S, H, D]
+// views and over tile-major [B, H, nT, E, D] views, and the walks: a range
+// walk (Walk) for the dense kernels, a list walk (TileList, Cursor) for the
+// sparse ones.
 //
 // Layout: every bf16 tile in shared memory is held as column blocks of 64
 // values (128 bytes) a row, as TMA writes a box of {64, rows} with the
@@ -87,6 +91,17 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// A box of a 5-D tensor map (map_tiles) into shared memory.
+__device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(c4)
       : "memory");
 }
 
@@ -368,6 +383,36 @@ inline bool map_bshd(CUtensorMap* map, const void* base, int B, int S, int H, in
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// Rows of a tile a list walk (TileList) takes at a time.
+constexpr int kUnit = 64;
+
+// A map over a bf16 tile-major [B, H, nT, E, D] view (element strides sb,
+// sh of batch and head, ss of a row, so tile t starts t E ss on; unit
+// stride along D) whose box is {64, kUnit}: one 64-column block of kUnit
+// rows of one tile, 128-byte swizzled. Rows past a tile's E read as zero,
+// not as the next tile's rows.
+inline bool map_tiles(CUtensorMap* map, const void* base, int B, int H, int nT, int E, int D,
+                      long long sb, long long sh, long long ss) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[5] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(E),
+                              static_cast<cuuint64_t>(nT), static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(B)};
+  const long long packed[4] = {D, static_cast<long long>(D) * E,
+                               static_cast<long long>(D) * E * nT,
+                               static_cast<long long>(D) * E * nT * H};
+  const long long given[4] = {ss, ss * E, sh, sb};
+  cuuint64_t strides[4];
+  for (int i = 0; i < 4; ++i)
+    strides[i] = static_cast<cuuint64_t>(2 * (dims[i + 1] == 1 ? packed[i] : given[i]));
+  const cuuint32_t box[5] = {64, kUnit, 1, 1, 1};
+  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(base), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // A map over n fp32 values whose box is `count` consecutive ones (past n:
 // zero).
 inline bool map_f32(CUtensorMap* map, const void* base, long long n, int count) {
@@ -449,6 +494,78 @@ struct Ring {
     }
     __syncwarp();
   }
+};
+
+// -- walking a list of tiles (the sparse kernels) -----------------------------
+
+// A block's list of tiles in shared memory: per entry its tile id, its
+// valid rows (0 for a -1 slot) and, where the walk is shared by several
+// query tiles, the bit set of those that keep it. Entry j is walked in
+// units of kUnit rows: unit c is rows [c kUnit, c kUnit + kUnit) of tile
+// id[j], of which the first valid[j] - c kUnit (at most kUnit) are valid.
+struct TileList {
+  int* id;
+  int* valid;
+  int* bits;  // or null
+  int* total;  // units of the whole walk
+  int n = 0;
+
+  __host__ __device__ static constexpr size_t bytes(int cap, bool with_bits) {
+    return round_1k(((with_bits ? 3 : 2) * static_cast<size_t>(cap) + 1) * 4);
+  }
+
+  __device__ TileList(Carve& carve, int cap, bool with_bits) {
+    total = carve.take<int>((with_bits ? 3 : 2) * static_cast<size_t>(cap) + 1);
+    id = total + 1;
+    valid = id + cap;
+    bits = with_bits ? valid + cap : nullptr;
+  }
+
+  // Every thread of the block: copy entries [0, count) of `ids` (and
+  // `bits_g`), a tile's valid rows min(sizes[tile], E) (E where `sizes` is
+  // null), and sum the walk's units. Holds two __syncthreads().
+  __device__ void build(const int* ids, const int* bits_g, int count, const int* sizes, int E) {
+    n = count;
+    if (threadIdx.x == 0) *total = 0;
+    __syncthreads();
+    int units = 0;
+    for (int t = threadIdx.x; t < count; t += blockDim.x) {
+      const int tile = __ldg(ids + t);
+      const int v = tile < 0 ? 0 : (sizes == nullptr ? E : max(0, min(__ldg(sizes + tile), E)));
+      id[t] = tile;
+      valid[t] = v;
+      if (bits != nullptr) bits[t] = __ldg(bits_g + t);
+      units += (v + kUnit - 1) / kUnit;
+    }
+    if (units > 0) atomicAdd(total, units);
+    __syncthreads();
+  }
+};
+
+// A position in a TileList's walk, advanced one unit at a time; each
+// walker (the thread that issues the copies, each consumer thread) keeps
+// its own, so issuing a unit never waits on the consumers.
+struct Cursor {
+  int j = 0, c = 0;
+
+  __device__ void start(const TileList& l) {
+    j = 0;
+    c = 0;
+    skip(l);
+  }
+  __device__ void skip(const TileList& l) {
+    while (j < l.n && l.valid[j] == 0) ++j;
+  }
+  __device__ void next(const TileList& l) {
+    if (++c * kUnit >= l.valid[j]) {
+      c = 0;
+      ++j;
+      skip(l);
+    }
+  }
+  __device__ int tile(const TileList& l) const { return l.id[j]; }
+  __device__ int rows(const TileList& l) const { return min(l.valid[j] - c * kUnit, kUnit); }
+  __device__ int row0() const { return c * kUnit; }
 };
 
 }  // namespace sm90

@@ -17,8 +17,10 @@ backward sources hold a dQ and a dK/dV kernel each, ``flash_bwd_dq`` /
 (K6 struct) and ``vsa_sparse_bwd_dq`` / ``vsa_sparse_bwd_dkv`` (K7 bwd);
 ``flash_bwd_dkv_reduce`` adds a split dK/dV launch's partial sums).
 
-The flash sources compile with ``-Xptxas -v``; :func:`ptxas_report` reads
-back each of their kernels' registers, spills and static shared memory.
+The sources with Hopper schedules (the flash and sparse attention kernels)
+compile with ``-Xptxas -v``; :func:`ptxas_report` reads back each of their
+kernels' registers, spills, static shared memory and ptxas warnings (C7518:
+wgmma serialized).
 """
 
 from __future__ import annotations
@@ -55,7 +57,7 @@ SOURCE_OF = {**{n: n for n in SOURCES[:5]}, "flash_fwd_kv_mask": "flash_fwd",
              "flash_bwd_dkv_reduce": "flash_bwd"}
 KERNELS = tuple(SOURCE_OF)
 # sources whose ptxas resource report is kept beside their library
-PTXAS_VERBOSE = ("flash_fwd", "flash_bwd")
+PTXAS_VERBOSE = ("flash_fwd", "flash_bwd", "vsa_sparse_bwd", "dyn_sparse_fwd")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -150,20 +152,35 @@ def _report_path(out_dir: str, name: str) -> str:
 def ptxas_report(name: str) -> list[dict]:
     """Per-kernel resources of source ``name`` (one of ``PTXAS_VERBOSE``),
     from the ``-Xptxas -v`` log of its build: [{"kernel": mangled name,
-    "registers", "spill_stores", "spill_loads", "stack", "smem"}] (bytes;
-    smem is the static shared memory, dynamic memory is set per launch)."""
-    import re
-
+    "registers", "spill_stores", "spill_loads", "stack", "smem",
+    "warnings"}] (bytes; smem is the static shared memory, dynamic memory
+    is set per launch; warnings are ptxas's coded notes on the kernel, such
+    as "C7518: Potential Performance Loss: wgmma.mma_async instructions are
+    serialized ...")."""
     build_all()
     with open(_report_path(build_dir(), name)) as fh:
-        log = fh.read()
-    out, cur = [], None
+        return parse_ptxas(fh.read())
+
+
+def parse_ptxas(log: str) -> list[dict]:
+    """:func:`ptxas_report` of one ``-Xptxas -v`` log. A coded note names
+    its kernel ("in the function '<name>'") or belongs to the entry being
+    compiled."""
+    import re
+
+    out, cur, notes = [], None, []
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             cur = {"kernel": m.group(1), "registers": None, "spill_stores": 0,
-                   "spill_loads": 0, "stack": 0, "smem": 0}
+                   "spill_loads": 0, "stack": 0, "smem": 0, "warnings": []}
             out.append(cur)
+            continue
+        m = re.search(r"\((C\d+)\)\s*(.*)", line)
+        if m:
+            fn = re.search(r"function '([^']+)'", m.group(2))
+            notes.append((fn.group(1) if fn else cur and cur["kernel"],
+                          f"{m.group(1)}: {m.group(2).strip()}"))
             continue
         if cur is None:
             continue
@@ -177,6 +194,10 @@ def ptxas_report(name: str) -> list[dict]:
             cur["registers"] = int(m.group(1))
             sm = re.search(r"(\d+) bytes smem", line)
             cur["smem"] = int(sm.group(1)) if sm else 0
+    by_name = {r["kernel"]: r for r in out}
+    for kernel, text in notes:
+        if kernel in by_name:
+            by_name[kernel]["warnings"].append(text)
     return out
 
 
@@ -255,9 +276,13 @@ _SIGNATURES = {
     # 15 strides, scale, stream
     "fvt_vsa_sparse_bwd_dq": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 +
     [ctypes.c_longlong] * 15 + [ctypes.c_float, ctypes.c_void_p],
-    # q, k, v, dO, lse, delta, dk, dv, membership, block_sizes, B, H, S, D,
-    # E, 18 strides, scale, stream
-    "fvt_vsa_sparse_bwd_dkv": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 +
+    # D: 1 when K7 bwd runs its Hopper schedule; kind (0 dQ, 1 dK/dV), D,
+    # slots or tiles: that schedule's dynamic shared memory
+    "fvt_vsa_sparse_bwd_sm90": [ctypes.c_int],
+    "fvt_vsa_sparse_bwd_sm90_smem": [ctypes.c_int] * 3,
+    # q, k, v, dO, lse, delta, dk, dv, t_list, t_counts, order, block_sizes,
+    # B, H, S, D, E, 18 strides, scale, stream
+    "fvt_vsa_sparse_bwd_dkv": [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 +
     [ctypes.c_longlong] * 18 + [ctypes.c_float, ctypes.c_void_p],
     # q, k, v, o, indices, counts, block_sizes, B, H, Sq, Skv, D, E,
     # n_slots, 12 strides, scale, stream
@@ -267,6 +292,17 @@ _SIGNATURES = {
     # n_slots, 12 strides, scale, stream
     "fvt_dyn_sparse_qtile_fwd": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 +
     [ctypes.c_longlong] * 12 + [ctypes.c_float, ctypes.c_void_p],
+    # D: 1 when K9 runs its Hopper schedule; D, nK: its shared memory
+    "fvt_dyn_sparse_fwd_sm90_route": [ctypes.c_int],
+    "fvt_dyn_sparse_fwd_sm90_smem": [ctypes.c_int] * 2,
+    # q, k, v, o, list, counts, bits, order, block_sizes, B, H, Sq, Skv, D,
+    # E, group, 12 strides, scale, stream
+    "fvt_dyn_sparse_fwd_sm90": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 +
+    [ctypes.c_longlong] * 12 + [ctypes.c_float, ctypes.c_void_p],
+    # the same with q_rows before group
+    "fvt_dyn_sparse_qtile_fwd_sm90": [ctypes.c_void_p] * 9 +
+    [ctypes.c_int] * 8 + [ctypes.c_longlong] * 12 +
+    [ctypes.c_float, ctypes.c_void_p],
     # x, w, bias, y, dtype, B, T, H, W, C, Co, kt, time_pad, stream
     "fvt_conv3d_ndhwc": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 +
     [ctypes.c_void_p],

@@ -12,7 +12,12 @@ tensor :func:`dyn_sparse_attention` launches ``csrc/dyn_sparse_fwd.cu``:
 entry ``fvt_dyn_sparse_fwd`` (K9a, a query tile is a key tile, NABLA) or
 ``fvt_dyn_sparse_qtile_fwd`` (K9b, a query tile of ``q_rows`` rows, BSA's
 pruned queries, ``ops/bsa.py``), both replacing the Pallas
-``_dyn_sparse_kernel``. On a CPU tensor it runs
+``_dyn_sparse_kernel``, or with a bf16 head of 64 or 128 their Hopper
+entries (``..._sm90``, ``ops/sparse_schedule.py``): there the query tiles
+run in groups of ``sparse_schedule.query_group(rows)`` (two of K9a's
+64-row tiles, four of K9b's 32-row tiles in a block of 128 rows) that walk
+the union of their lists, each row masking the key tiles its own tile does
+not keep. On a CPU tensor it runs
 :func:`dyn_sparse_attention_plain`; there is no fallback between the two.
 JAX has no VJP for the kernel, so on CUDA it raises under grad. The mask,
 the pooling and the index table are plain PyTorch, as they are XLA in JAX.
@@ -25,6 +30,10 @@ import math
 import torch
 
 from fastvideo_tpu_torch.ops import _build
+from fastvideo_tpu_torch.ops.sparse_schedule import (grouped_lists,
+                                                     heaviest_first,
+                                                     kept_mask, mask_indices,
+                                                     sparse_schedule)
 from fastvideo_tpu_torch.ops.vsa import TILE_ELEMS, sparse_cuda_operands
 
 NAME = "dyn_sparse_fwd"
@@ -59,17 +68,6 @@ def nabla_block_mask(q: torch.Tensor, k: torch.Tensor,
     return mask
 
 
-def mask_indices(mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """bool [B, H, nQ, nK] -> (int32 [B, H, nQ, nK] kept key-tile ids in
-    ascending order, then -1; int32 [B, H, nQ] counts), as the JAX wrapper
-    builds them (a stable argsort of ``~mask``)."""
-    counts = mask.sum(dim=-1, dtype=torch.int32)
-    order = torch.argsort((~mask).to(torch.uint8), dim=-1, stable=True)
-    col = torch.arange(mask.shape[-1], device=mask.device)
-    idx = torch.where(col < counts[..., None], order, -1)
-    return idx.to(torch.int32), counts
-
-
 def dyn_sparse_attention_plain(q: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor, indices: torch.Tensor,
                                counts: torch.Tensor,
@@ -86,13 +84,8 @@ def dyn_sparse_attention_plain(q: torch.Tensor, k: torch.Tensor,
     _build.count_plain(NAME if q_rows is None else QTILE_NAME)
     b, h, sq, d = q.shape
     skv, nk = k.shape[2], k.shape[2] // tile_elems
-    nq, slots = sq // rows, indices.shape[-1]
-    live = torch.arange(slots, device=q.device) < counts[..., None].to(
-        q.device)
-    ids = torch.where(live, indices.to(q.device).long(), nk)
-    sel = torch.zeros((b, h, nq, nk + 1), dtype=torch.bool, device=q.device)
-    sel.scatter_(-1, ids, True)
-    sel = sel[..., :nk]
+    nq = sq // rows
+    sel = kept_mask(indices.to(q.device), counts.to(q.device), nk)
     col_ok = (torch.arange(skv, device=q.device) % tile_elems <
               block_sizes.to(q.device).repeat_interleave(tile_elems))
     per = max(1, _PLAIN_SLAB // (rows * skv))
@@ -124,15 +117,26 @@ def _dyn_sparse_cuda(name, q, k, v, indices, counts, block_sizes, scale,
     b, h, sq, d = q.shape
     cnt = counts.to(device=q.device, dtype=torch.int32).contiguous()
     sizes = block_sizes.to(device=q.device, dtype=torch.int32).contiguous()
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            idx.data_ptr(), cnt.data_ptr(), sizes.data_ptr())
     dims = (b, h, sq, k.shape[2], d, tile_elems)
-    if q_rows is None:
-        _build.launch(name, "fvt_dyn_sparse_fwd", *ptrs, *dims, idx.shape[-1],
-                      *st, float(scale), _build.stream_ptr(q))
+    qtile = () if q_rows is None else (q_rows,)
+    entry = "fvt_dyn_sparse_fwd" if q_rows is None else \
+        "fvt_dyn_sparse_qtile_fwd"
+    if sparse_schedule(q.dtype, d) == "sm90":
+        # groups of query tiles walking the union of their lists, the
+        # longest unions first
+        lists, lens, bits, group = grouped_lists(
+            idx, cnt, k.shape[2] // tile_elems, q_rows or tile_elems)
+        order = heaviest_first(lens)
+        _build.launch(name, entry + "_sm90", q.data_ptr(), k.data_ptr(),
+                      v.data_ptr(), out.data_ptr(), lists.data_ptr(),
+                      lens.data_ptr(), bits.data_ptr(), order.data_ptr(),
+                      sizes.data_ptr(), *dims, *qtile, group, *st,
+                      float(scale), _build.stream_ptr(q))
     else:
-        _build.launch(name, "fvt_dyn_sparse_qtile_fwd", *ptrs, *dims, q_rows,
-                      idx.shape[-1], *st, float(scale), _build.stream_ptr(q))
+        _build.launch(name, entry, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      out.data_ptr(), idx.data_ptr(), cnt.data_ptr(),
+                      sizes.data_ptr(), *dims, *qtile, idx.shape[-1], *st,
+                      float(scale), _build.stream_ptr(q))
     return out
 
 

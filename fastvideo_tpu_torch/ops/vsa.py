@@ -19,9 +19,14 @@ Under autograd the branch is :func:`block_sparse_attention_trainable`, one
 ``torch.autograd.Function``: K7's forward in its LSE mode (the padded
 kernel), then K7 bwd (``csrc/vsa_sparse_bwd.cu``, replacing the Pallas
 ``_sparse_bwd_dq_kernel`` and ``_sparse_bwd_dkv_kernel``) for dQ and dK/dV,
-as the JAX custom VJPs do. :func:`video_sparse_attn` takes that path under
-grad on every grid, on exact tiles with per-tile indices as JAX's
-``_bsa_fast`` does; :func:`block_sparse_attention_fast` (K2) and
+as the JAX custom VJPs do. K7 bwd has two schedules, chosen by
+``sparse_schedule.sparse_schedule`` (dtype and head) in the CUDA source: a
+head of 64 or 128 runs the Hopper one, other heads the first one. Both
+dK/dV walk the compacted transpose of the top-k
+(``sparse_schedule.transposed_lists``), the longest lists first.
+:func:`video_sparse_attn` takes that path under grad on every grid, on
+exact tiles with per-tile indices as JAX's ``_bsa_fast`` does;
+:func:`block_sparse_attention_fast` (K2) and
 :func:`block_sparse_attention` (K8: STA, SLA) have no backward and raise on
 CUDA for operands that require grad.
 :func:`block_sparse_attention_bwd_plain` is K7 bwd's plain version, used in
@@ -39,6 +44,8 @@ import torch
 from fastvideo_tpu_torch.ops import _build
 from fastvideo_tpu_torch.ops.flash_attention import (attn_operand,
                                                      check_bwd_operands)
+from fastvideo_tpu_torch.ops.sparse_schedule import (heaviest_first,
+                                                     transposed_lists)
 
 NAME = "vsa_sparse_fwd"
 PADDED_NAME = "vsa_sparse_padded_fwd"
@@ -416,19 +423,6 @@ def block_sparse_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     return dq, dk.to(k.dtype), dv.to(v.dtype)
 
 
-def sparse_membership(indices: torch.Tensor, n_tiles: int) -> torch.Tensor:
-    """member[b, h, kv_tile, q_tile] = 1 where query tile q_tile selected key
-    tile kv_tile (uint8 [B, H, nB, nQ]); ``-1`` slots select nothing. The
-    transposed sparsity of dK/dV, built outside the kernel as in JAX
-    (vsa.py:934-946)."""
-    b, h, nq, _ = indices.shape
-    member = torch.zeros((b, h, n_tiles + 1, nq), dtype=torch.uint8,
-                         device=indices.device)
-    slots = torch.where(indices >= 0, indices, n_tiles).long()
-    member.scatter_(2, slots.transpose(2, 3), 1)
-    return member[:, :, :n_tiles].contiguous()
-
-
 def _block_sparse_bwd_cuda(q, k, v, indices, block_sizes, out, lse, do,
                            scale, tile_elems):
     check_bwd_operands(BWD_DQ_NAME, q, k, v, out, do)
@@ -444,7 +438,6 @@ def _block_sparse_bwd_cuda(q, k, v, indices, block_sizes, out, lse, do,
     # delta = rowsum(dO * O): a plain reduction, as it is XLA in JAX
     delta = (do.float() * out.float()).sum(dim=-1).contiguous()
     lse = lse.float().contiguous()
-    member = sparse_membership(idx, nb)
 
     def grad_like(t):  # [B, H, S, D] view of a [B, S, H, D] buffer
         return torch.empty((b, s, h, d), dtype=t.dtype,
@@ -462,10 +455,14 @@ def _block_sparse_bwd_cuda(q, k, v, indices, block_sizes, out, lse, do,
                   dq.data_ptr(), idx.data_ptr(), sizes.data_ptr(), b, h, s, d,
                   tile_elems, idx.shape[3], *strides, *st(dq), float(scale),
                   _build.stream_ptr(q))
+    # per key tile the query tiles that chose it, longest lists first
+    t_idx, t_counts = transposed_lists(idx, nb)
+    order = heaviest_first(t_counts)
     _build.launch(BWD_DKV_NAME, "fvt_vsa_sparse_bwd_dkv", *common,
-                  dk.data_ptr(), dv.data_ptr(), member.data_ptr(),
-                  sizes.data_ptr(), b, h, s, d, tile_elems, *strides,
-                  *st(dk), *st(dv), float(scale), _build.stream_ptr(q))
+                  dk.data_ptr(), dv.data_ptr(), t_idx.data_ptr(),
+                  t_counts.data_ptr(), order.data_ptr(), sizes.data_ptr(), b,
+                  h, s, d, tile_elems, *strides, *st(dk), *st(dv),
+                  float(scale), _build.stream_ptr(q))
     return dq, dk, dv
 
 

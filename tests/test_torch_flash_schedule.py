@@ -117,7 +117,8 @@ def test_host_rules_match_the_sources():
         assert heads == fa.SM90_HEADS, src
     assert "flash_bwd_dkv_reduce" in _build.KERNELS
     assert _build.SOURCE_OF["flash_bwd_dkv_reduce"] == "flash_bwd"
-    assert set(_build.PTXAS_VERBOSE) == {"flash_fwd", "flash_bwd"}
+    assert set(_build.PTXAS_VERBOSE) == {"flash_fwd", "flash_bwd",
+                                         "vsa_sparse_bwd", "dyn_sparse_fwd"}
 
 
 def test_ptxas_report_parses_a_log(tmp_path, monkeypatch):
@@ -142,6 +143,6 @@ def test_ptxas_report_parses_a_log(tmp_path, monkeypatch):
     assert got == [
         {"kernel": "_ZN3fvt4sm9014flash_fwd_sm90ILi128ELi0EEEvNS0_9FwdParamsE",
          "registers": 186, "spill_stores": 0, "spill_loads": 0, "stack": 32,
-         "smem": 0},
+         "smem": 0, "warnings": []},
         {"kernel": "_ZN1a6kernelEv", "registers": 40, "spill_stores": 4,
-         "spill_loads": 8, "stack": 8, "smem": 1024}]
+         "spill_loads": 8, "stack": 8, "smem": 1024, "warnings": []}]

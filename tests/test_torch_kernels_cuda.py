@@ -6,7 +6,10 @@ convs; the count-driven sparse kernels K9a / K9b; the causal Wan training
 masks of K1 struct / K6 struct; the Hopper schedule of the flash kernels
 at its edges: ragged tiles and ring stages, strided views, heads of 64 and
 128, struct borders inside 128-row tiles, K5's empty chunks, the split
-dK/dV and its reduction, rows with no key). Marked ``cuda``: they
+dK/dV and its reduction, rows with no key; the sparse kernels' Hopper
+schedule: K7 bwd's ragged units, empty tiles and -1 slots, K9's groups of
+query tiles and ragged key units, the first schedule at other heads, and
+an unaligned operand that raises). Marked ``cuda``: they
 skip without an sm_90 card. On the card
 (which has no JAX, so without the suite's conftest):
 
@@ -20,6 +23,7 @@ import torch
 
 from fastvideo_tpu_torch.ops import (_build, bsa, conv3d, flash_attention,
                                      nabla, vsa)
+from fastvideo_tpu_torch.ops import sparse_schedule as ss
 
 pytestmark = pytest.mark.cuda
 
@@ -937,3 +941,178 @@ def test_flash_library_schedule_is_the_host_rule(dev, dtype, d):
     if dtype == torch.bfloat16 and d <= 128:
         bwd = _build.query("flash_bwd", "fvt_flash_bwd_sm90", d)
         assert bool(bwd) == bool(fwd)
+
+
+# -- the sparse kernels' Hopper schedule (K7 bwd, K9a, K9b) -------------------
+
+
+def _sparse_bwd_case(dev, e, nb, topk, d, seed):
+    """K7 bwd inputs with ragged valid counts (tile 1 keeps no key), -1
+    slots inside the top-k, a query tile whose every kept tile is empty
+    (its rows get a gradient of exactly 0) and padded slots of zeros, as
+    the tiling leaves them."""
+    q, k, v, idx, sizes = _padded_case(dev, 1, 2, nb, e, d, topk, seed=seed)
+    sizes[1] = 0
+    sizes[2] = e - 24
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    k, v = (torch.randn(q.shape, generator=g, device=dev,
+                        dtype=torch.bfloat16) for _ in range(2))
+    pad = (torch.arange(nb * e, device=dev) % e) >= sizes.repeat_interleave(e)
+    k[:, :, pad] = 0
+    v[:, :, pad] = 0
+    idx[0, 0, 3] = -1
+    idx[0, 0, 3, 0] = 1  # only the empty tile
+    idx[0, 1, 4, 0] = -1  # a -1 slot before kept ones
+    do = torch.randn(q.shape, generator=g, device=dev, dtype=torch.bfloat16)
+    return q, k, v, do, idx, sizes
+
+
+@pytest.mark.parametrize("e,nb,topk,d", [
+    (280, 9, 4, 128),   # the 480p tile: four 64-row units and one of 24
+    (256, 7, 4, 128),   # the padded (4, 8, 8) tile
+    (280, 6, 3, 64),    # a head of 64
+    (100, 5, 5, 64),    # every tile in each top-k
+])
+def test_vsa_sparse_bwd_sm90_matches_plain(dev, e, nb, topk, d):
+    """K7 bwd on the Hopper schedule against its plain version: ragged
+    units, valid counts below E and of 0, -1 slots, a row whose kept tiles
+    are all empty (exactly 0), with the library taking that schedule."""
+    assert _build.query("vsa_sparse_bwd", "fvt_vsa_sparse_bwd_sm90", d) == 1
+    q, k, v, do, idx, sizes = _sparse_bwd_case(dev, e, nb, topk, d, seed=30)
+    kw = dict(scale=d**-0.5, tile_elems=e)
+    out, lse = vsa.block_sparse_attention(q, k, v, idx, sizes,
+                                          return_lse=True, **kw)
+    got = vsa.block_sparse_attention_bwd(q, k, v, idx, sizes, out, lse, do,
+                                         **kw)
+    want = vsa.block_sparse_attention_bwd_plain(q, k, v, idx, sizes, out,
+                                                lse, do, **kw)
+    torch.cuda.synchronize()
+    assert torch.all(got[0][0, 0, 3 * e:4 * e] == 0)
+    for t in got[1:]:  # keys of the tile with no valid key
+        assert torch.all(t[:, :, e:2 * e] == 0)
+    for t, w in zip(got, want):
+        assert t.shape == w.shape and t.dtype == w.dtype
+        _close_grad(t, w)
+
+
+def test_vsa_sparse_bwd_first_schedule_at_other_heads(dev):
+    """A head of 48 runs the first schedule (its dK/dV over the same
+    transposed lists) and matches its plain version; fp32 operands
+    raise."""
+    d = 48
+    assert _build.query("vsa_sparse_bwd", "fvt_vsa_sparse_bwd_sm90", d) == 0
+    assert ss.sparse_schedule(torch.bfloat16, d) == "tile"
+    q, k, v, do, idx, sizes = _sparse_bwd_case(dev, 70, 5, 3, d, seed=31)
+    kw = dict(scale=d**-0.5, tile_elems=70)
+    out, lse = vsa.block_sparse_attention(q, k, v, idx, sizes,
+                                          return_lse=True, **kw)
+    got = vsa.block_sparse_attention_bwd(q, k, v, idx, sizes, out, lse, do,
+                                         **kw)
+    want = vsa.block_sparse_attention_bwd_plain(q, k, v, idx, sizes, out,
+                                                lse, do, **kw)
+    for t, w in zip(got, want):
+        _close_grad(t, w)
+    with pytest.raises(_build.KernelError, match="bfloat16"):
+        vsa.block_sparse_attention_bwd(q.float(), k.float(), v.float(), idx,
+                                       sizes, out.float(), lse, do.float(),
+                                       **kw)
+
+
+@pytest.mark.parametrize("q_rows,e,d", [
+    (None, 96, 128),  # K9a with 96-row tiles: a unit of 32, one tile a block
+    (24, 96, 64),     # K9b, 5 query tiles of 24 rows a block
+    (40, 64, 128),    # K9b, 3 of 40 rows a block (120 rows)
+    (8, 64, 64),      # K9b, 16 tiles of 8 rows a block
+])
+def test_dyn_sparse_sm90_groups_and_ragged_units(dev, q_rows, e, d):
+    """K9 on the Hopper schedule where a group's tiles split a warpgroup,
+    key tiles end in a ragged unit with valid counts below E, and the
+    number of query tiles is not a multiple of the group: against the plain
+    version, counts of 0 exactly 0."""
+    assert _build.query("dyn_sparse_fwd", "fvt_dyn_sparse_fwd_sm90_route",
+                        d) == 1
+    g = torch.Generator(device=dev).manual_seed(32)
+    h, nk = 2, 7
+    rows = q_rows or e
+    nq = 2 * ss.query_group(rows) + 1
+    bf = torch.bfloat16
+    q = torch.randn(1, h, nq * rows, d, generator=g, device=dev, dtype=bf)
+    k, v = (torch.randn(1, h, nk * e, d, generator=g, device=dev, dtype=bf)
+            for _ in range(2))
+    sizes = torch.full((nk,), e, dtype=torch.int32, device=dev)
+    sizes[1], sizes[3] = e - 40, 0
+    pad = (torch.arange(nk * e, device=dev) % e) >= sizes.repeat_interleave(e)
+    k[:, :, pad] = 0
+    v[:, :, pad] = 0
+    mask = _dyn_mask("mixed", nq, nk, h, g, dev)
+    idx, cnt = nabla.mask_indices(mask)
+    kw = dict(scale=d**-0.5, tile_elems=e, q_rows=q_rows)
+    out = nabla.dyn_sparse_attention(q, k, v, idx, cnt, sizes, **kw)
+    ref = nabla.dyn_sparse_attention_plain(q, k, v, idx, cnt, sizes, **kw)
+    _close(out, ref, bf)
+    empty = (cnt == 0).repeat_interleave(rows, dim=-1)
+    assert empty.any() and (out[empty] == 0).all()
+
+
+def test_dyn_sparse_first_schedule_at_other_heads(dev):
+    """A head of 48 runs K9's first schedule and matches its plain version
+    (K9a and K9b); fp32 operands raise."""
+    assert _build.query("dyn_sparse_fwd", "fvt_dyn_sparse_fwd_sm90_route",
+                        48) == 0
+    g = torch.Generator(device=dev).manual_seed(33)
+    h, nk, d, bf = 2, 5, 48, torch.bfloat16
+    k, v = (torch.randn(1, h, nk * 64, d, generator=g, device=dev, dtype=bf)
+            for _ in range(2))
+    mask = _dyn_mask("mixed", nk, nk, h, g, dev)
+    idx, cnt = nabla.mask_indices(mask)
+    sizes = torch.full((nk,), 64, dtype=torch.int32, device=dev)
+    for q_rows in (None, 32):
+        q = torch.randn(1, h, nk * (q_rows or 64), d, generator=g, device=dev,
+                        dtype=bf)
+        kw = dict(scale=d**-0.5, q_rows=q_rows)
+        _close(nabla.dyn_sparse_attention(q, k, v, idx, cnt, sizes, **kw),
+               nabla.dyn_sparse_attention_plain(q, k, v, idx, cnt, sizes,
+                                                **kw), bf)
+        with pytest.raises(_build.KernelError, match="bfloat16"):
+            nabla.dyn_sparse_attention(q.float(), k.float(), v.float(), idx,
+                                       cnt, sizes, **kw)
+
+
+def test_sparse_sm90_unaligned_view_raises(dev):
+    """A base the tensor maps cannot take (not 16-byte aligned) makes the
+    Hopper entries fail and the wrapper's launch raise: no other schedule
+    runs in its place."""
+    g = torch.Generator(device=dev).manual_seed(34)
+    h, nk, d, e = 2, 4, 64, 64
+    buf = torch.randn(1, h, nk * e * d + 8, generator=g, device=dev,
+                      dtype=torch.bfloat16)
+    bad = buf[..., 1:1 + nk * e * d].reshape(1, h, nk * e, d)  # 2-byte offset
+    x = torch.randn(1, h, nk * e, d, generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    mask = torch.ones(1, h, nk, nk, dtype=torch.bool, device=dev)
+    lists, lens, bits, group = ss.grouped_lists(*nabla.mask_indices(mask),
+                                                nk, e)
+    order = ss.heaviest_first(lens)
+    sizes = torch.full((nk,), e, dtype=torch.int32, device=dev)
+    out = torch.empty_like(x)
+    st = []
+    for t in (bad, x, x, out):
+        st += [t.stride(0), t.stride(1), t.stride(2)]
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(_build.KernelError, match="CUDA error"):
+        _build.launch("dyn_sparse_fwd", "fvt_dyn_sparse_fwd_sm90",
+                      bad.data_ptr(), x.data_ptr(), x.data_ptr(),
+                      out.data_ptr(), lists.data_ptr(), lens.data_ptr(),
+                      bits.data_ptr(), order.data_ptr(), sizes.data_ptr(), 1,
+                      h, nk * e, nk * e, d, e, group, *st, 0.125,
+                      _build.stream_ptr(x))
+    lse = torch.zeros(1, h, nk * e, device=dev)
+    idx = torch.zeros(1, h, nk, 1, dtype=torch.int32, device=dev)
+    with pytest.raises(_build.KernelError, match="CUDA error"):
+        _build.launch("vsa_sparse_bwd_dq", "fvt_vsa_sparse_bwd_dq",
+                      bad.data_ptr(), x.data_ptr(), x.data_ptr(),
+                      x.data_ptr(), lse.data_ptr(), lse.data_ptr(),
+                      out.data_ptr(), idx.data_ptr(), sizes.data_ptr(), 1, h,
+                      nk * e, d, e, 1, *st[:3], *st[3:6], *st[6:9], *st[3:6],
+                      *st[9:], 0.125, _build.stream_ptr(x))
+    assert _build.LAUNCHES == before

@@ -16,6 +16,7 @@ import torch
 
 from fastvideo_tpu_torch.ops import _build
 from fastvideo_tpu_torch.ops import vsa as tvsa
+from fastvideo_tpu_torch.ops.sparse_schedule import sparse_membership
 
 # the JAX package's ops/__init__ rebinds some module names to functions
 jvsa = importlib.import_module("fastvideo_tpu.ops.vsa")
@@ -108,7 +109,7 @@ def test_bwd_plain_matches_jax_bwd(ragged, dtype):
 def test_membership_is_the_transposed_sparsity(ragged):
     idx = torch.from_numpy(ragged["idx"])
     nb = idx.shape[2]
-    member = tvsa.sparse_membership(idx, nb)
+    member = sparse_membership(idx, nb)
     assert member.shape == (1, 2, nb, nb) and member.dtype == torch.uint8
     for hh in range(2):
         for qi in range(nb):
