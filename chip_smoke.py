@@ -8,19 +8,22 @@ Phases, each printing its own lines:
   1. environment: torch/CUDA versions and the card's name and power limit;
   2. kernel build: nvcc for sm_90a from fastvideo_tpu_torch/csrc, and
      the registers, spills, shared memory and ptxas warnings of each
-     Hopper instance of the flash and sparse kernels (from -Xptxas -v; a
-     spill at a head of 128 fails, and so does a serialized wgmma, C7518,
-     in a head-of-128 instance of K7 bwd or K9);
+     Hopper instance of the flash, sparse and conv kernels (from -Xptxas
+     -v; a spill at a head of 128 or in a conv instance of 96 or 128
+     output channels fails, and so does a serialized wgmma, C7518, in a
+     head-of-128 instance of K7 bwd, K9 or K8 / K7 fwd, or in those conv
+     instances);
   3. kernel checks: each kernel against its plain PyTorch version on the
      card at the main paths' shapes, with kernel, plain, library and bound
-     times; each flash, K7 bwd and K9 case prints the schedule it takes (a
-     bf16 case with a head of 128 must take the Hopper one, and the
-     profiler must name K1's and K6's Hopper kernels), and K6's split dK/dV
-     reduction is held
+     times; each flash, K7 bwd, K9, K8 / K7 fwd and conv case prints the
+     schedule it takes (a bf16 case with a head of 128 and every bf16 conv
+     must take the Hopper one, and the profiler must name K1's and K6's
+     Hopper kernels), and K6's split dK/dV reduction is held
      to its plain version at the cross-attention's scratch shape (the
-     padded sparse kernel at its VSA, STA and SLA shapes; the decode convs
-     in the dispatched decode's chunks: the first latent
-     frame alone, then 2 at a time; K5 at the causal stream's first
+     padded sparse kernel at its VSA, STA and SLA shapes, with the walked
+     fraction of SLA's block map, and in its LSE mode at 4i's E 280 /
+     top-24; the decode convs in the dispatched decode's chunks: the first
+     latent frame alone, then 2 at a time, and the stream's one frame; K5 at the causal stream's first
      block, fourth block and full window; the fp32 decode's K3, K4 and K1
      forms; the backward kernels K6 at the training cross-attention and K7
      bwd at the training self-attention, 117 exact tiles of 280 with a real
@@ -152,10 +155,16 @@ SM90_KERNELS = {"flash_fwd_sm90": {"0": "K1", "1": "K5", "2": "K1 struct"},
                 "flash_bwd_dq_sm90": {"0": "K6 dQ", "1": "K6 struct dQ"},
                 "flash_bwd_dkv_sm90": {"0": "K6 dK/dV",
                                        "1": "K6 struct dK/dV"}}
-# the sparse kernels' Hopper instances
+# the sparse kernels' Hopper instances (the padded forward's mode: its
+# warpgroups a block)
 SPARSE_SM90 = {"vsa_sparse_bwd_dq_sm90": {"0": "K7 bwd dQ"},
                "vsa_sparse_bwd_dkv_sm90": {"0": "K7 bwd dK/dV"},
-               "dyn_sparse_fwd_sm90": {"0": "K9a", "1": "K9b"}}
+               "dyn_sparse_fwd_sm90": {"0": "K9a", "1": "K9b"},
+               "vsa_sparse_padded_fwd_sm90": {"1": "K8 / K7 fwd, E <= 64",
+                                              "2": "K8 / K7 fwd"}}
+# the conv's Hopper instances by their N tile, and the convs they take
+CONV_SM90 = {"8": "K3 conv_out (Co 3)", "96": "K3 (Co 96: up3, the hot "
+             "conv; Co 192)", "128": "K3 (Co 384)"}
 
 
 def card_line() -> str:
@@ -233,23 +242,30 @@ def sm90_instance(kernel: str):
     if m and m.group(1) in SM90_KERNELS:
         stem, d, mode = m.group(1), int(m.group(2)), m.group(3)
         return SM90_KERNELS[stem][mode], stem, d, int(mode)
-    m = re.search(r"(vsa_sparse_bwd_d(?:q|kv)_sm90|dyn_sparse_fwd_sm90)ILi"
-                  r"(\d+)E(?:Lb(\d)E)?", kernel)
+    m = re.search(r"(vsa_sparse_bwd_d(?:q|kv)_sm90|dyn_sparse_fwd_sm90|"
+                  r"vsa_sparse_padded_fwd_sm90)ILi(\d+)E(?:L[bi](\d)E)?",
+                  kernel)
     if m:
         stem, d, mode = m.group(1), int(m.group(2)), m.group(3) or "0"
         return SPARSE_SM90[stem][mode], stem, d, int(mode)
+    m = re.search(r"conv3d_sm90ILi(\d+)E", kernel)
+    if m:
+        return CONV_SM90[m.group(1)], "conv3d_sm90", int(m.group(1)), 0
     return None
 
 
 def report_sm90_build() -> None:
     """Registers, spills, stack, shared memory and ptxas warnings of each
-    Hopper instance of the flash and sparse kernels, from the -Xptxas -v
-    log of their build (the dynamic shared memory from the library, K5's
-    at the 32,760-key window, K7 bwd's at 4i's top-24 over 117 tiles, K9's
-    over 4j's 672 key tiles). Fails on a spill in an instance with a head of
-    128, and on a serialized-wgmma warning (C7518) in a head-of-128
-    instance of the sparse kernels; the flash kernels' warnings (the
-    head-of-64 struct dQ's C7518) are reported."""
+    Hopper instance of the flash, sparse and conv kernels, from the
+    -Xptxas -v log of their build (the dynamic shared memory from the
+    library, K5's at the 32,760-key window, K7 bwd's at 4i's top-24 over
+    117 tiles, K9's over 4j's 672 key tiles, K8's at VSA's top-34 and
+    SLA's top-39 rows, K3's at W = 832's 64 x 2 patches). Fails on a
+    spill in an instance with a head of 128 or in a conv instance of 96 or
+    128 output channels, and on a serialized-wgmma warning (C7518) in a
+    head-of-128 instance of the sparse kernels or in those conv instances;
+    the flash kernels' warnings (the head-of-64 struct dQ's C7518) are
+    reported."""
     from fastvideo_tpu_torch.ops import _build
 
     for src in _build.PTXAS_VERBOSE:
@@ -269,6 +285,13 @@ def report_sm90_build() -> None:
                     dkv = stem == "vsa_sparse_bwd_dkv_sm90"
                     dyn = _build.query(src, "fvt_vsa_sparse_bwd_sm90_smem",
                                        int(dkv), d, 117 if dkv else 24)
+                elif stem == "vsa_sparse_padded_fwd_sm90":  # a top-k row
+                    dyn = _build.query(src,
+                                       "fvt_vsa_sparse_padded_fwd_sm90_smem",
+                                       d, mode, 39 if mode == 1 else 34)
+                elif stem == "conv3d_sm90":  # d is the N tile
+                    dyn = _build.query(src, "fvt_conv3d_sm90_smem",
+                                       {8: 3, 96: 96, 128: 384}[d], 64)
                 else:
                     dyn = _build.query(src, "fvt_dyn_sparse_fwd_sm90_smem", d,
                                        672)
@@ -284,12 +307,17 @@ def report_sm90_build() -> None:
                   f"loaded), {r['stack']} bytes stack, {dyn + r['smem']} "
                   f"bytes shared memory; ptxas warnings: "
                   f"{r['warnings'] or 'none'}", flush=True)
-            if d == 128 and spills:
+            hot = (stem == "conv3d_sm90" and d >= 96) or (
+                stem != "conv3d_sm90" and d == 128)
+            if hot and spills:
                 raise SystemExit(f"{label}: ptxas reports {spills} spill "
-                                 "bytes in a head-of-128 instance")
-            if d == 128 and serial and stem in SPARSE_SM90:
+                                 "bytes in a head-of-128 or hot conv "
+                                 "instance")
+            if hot and serial and (stem in SPARSE_SM90
+                                   or stem == "conv3d_sm90"):
                 raise SystemExit(f"{label}: ptxas serialized the wgmma of a "
-                                 f"head-of-128 instance: {serial}")
+                                 f"head-of-128 or hot conv instance: "
+                                 f"{serial}")
 
 
 def check_schedule(label: str, dtype, d: int, backward: bool = False) -> str:
@@ -318,7 +346,8 @@ def check_schedule(label: str, dtype, d: int, backward: bool = False) -> str:
 
 
 def check_sparse_schedule(label: str, kernel: str, d: int) -> str:
-    """The schedule the sparse library of ``kernel`` (K7 bwd or K9) takes
+    """The schedule the sparse library of ``kernel`` (K7 bwd, K9 or K8 / K7
+    fwd) takes
     for a bf16 head of d: it must be the host rule's
     (sparse_schedule.sparse_schedule), and a head of 128 must take the
     Hopper one."""
@@ -328,6 +357,8 @@ def check_sparse_schedule(label: str, kernel: str, d: int) -> str:
     from fastvideo_tpu_torch.ops.sparse_schedule import sparse_schedule
 
     fn = ("fvt_vsa_sparse_bwd_sm90" if kernel.startswith("vsa_sparse_bwd")
+          else "fvt_vsa_sparse_padded_fwd_route"
+          if kernel == "vsa_sparse_padded_fwd"
           else "fvt_dyn_sparse_fwd_sm90_route")
     took = "sm90" if _build.query(kernel, fn, d) else "tile"
     want = sparse_schedule(torch.bfloat16, d)
@@ -339,6 +370,28 @@ def check_sparse_schedule(label: str, kernel: str, d: int) -> str:
         raise SystemExit(f"{label}: a bf16 case with a head of 128 reached "
                          "the first schedule")
     return took
+
+
+def check_conv_schedule(label: str, c: int, co: int) -> str:
+    """The schedule and N tile the conv library takes for a bf16 conv of C
+    in and Co out channels: they must be the host rule's
+    (conv3d.conv_schedule, conv3d.conv_tile_n), and every bf16 conv must
+    take the Hopper one."""
+    import torch
+
+    from fastvideo_tpu_torch.ops import _build, conv3d
+
+    took = "sm90" if _build.query(conv3d.NAME, "fvt_conv3d_route", 1, c,
+                                  co) else "simt"
+    bn = _build.query(conv3d.NAME, "fvt_conv3d_tile_n", co)
+    want = conv3d.conv_schedule(torch.bfloat16, c, co)
+    if took != want or bn != conv3d.conv_tile_n(co):
+        raise SystemExit(f"{label}: the library takes schedule {took} with "
+                         f"N tile {bn}, the host rule {want} with "
+                         f"{conv3d.conv_tile_n(co)}")
+    if took != "sm90":
+        raise SystemExit(f"{label}: a bf16 conv reached the first schedule")
+    return f"{took}, N tile {bn}"
 
 
 # -- phase 3: kernels against their plain versions ---------------------------
@@ -551,14 +604,17 @@ def padded_bound(idx, sizes, d: int) -> tuple[float, float]:
 
 
 def check_vsa_padded(dev, results: dict) -> None:
-    """The padded sparse kernel at the 480x848 shapes: VSA (top-34 of 168
-    padded tiles, output and LSE), STA (window rows with -1 slots), an SLA
-    shape (64-token full tiles), and a row with no valid key."""
+    """The padded sparse kernel (K8 / K7 fwd) at the 480x848 shapes: VSA
+    (top-34 of 168 padded tiles, output and LSE), STA (window rows with -1
+    slots), SLA at 4f's shape (64-token full tiles, with the walked
+    fraction of its block map), and rows with no valid key on 256- and
+    64-row tiles; each case on the Hopper schedule."""
     import torch
     from torch.nn.attention.flex_attention import flex_attention
 
     from fastvideo_tpu_torch.attention.backends.vsa import vsa_topk
     from fastvideo_tpu_torch.ops import sla, sta, vsa
+    from fastvideo_tpu_torch.ops import sparse_schedule as ss
 
     name = "vsa_sparse_padded_fwd"
     g = torch.Generator(device=dev).manual_seed(3)
@@ -578,6 +634,7 @@ def check_vsa_padded(dev, results: dict) -> None:
     idx = idx.to(torch.int32)
     kw = dict(scale=scale, tile_elems=e)
 
+    check_sparse_schedule(f"{name}[vsa 480x848]", name, d)
     out, lse = vsa.block_sparse_attention(q, k, v, idx, sizes,
                                           return_lse=True, **kw)
     ref, ref_lse = vsa.block_sparse_attention_plain(q, k, v, idx, sizes,
@@ -603,10 +660,24 @@ def check_vsa_padded(dev, results: dict) -> None:
           f"{flops:.3e} FLOP on real rows and valid keys; top-{topk} of {nb} "
           f"tiles, {sizes.sum().item()} tokens in {s} slots)", flush=True)
 
+    # a query tile whose every slot is a sentinel, on 256-row tiles (two
+    # warpgroups a block): exactly 0 and the empty-row LSE
+    empty = idx.clone()
+    empty[:, :, 5] = -1
+    out, lse = vsa.block_sparse_attention(q, k, v, empty, sizes,
+                                          return_lse=True, **kw)
+    rows = slice(5 * e, 6 * e)
+    torch.cuda.synchronize()
+    if not ((out[:, :, rows] == 0).all()
+            and (lse[:, :, rows] == vsa.MASK_VALUE).all()):
+        raise SystemExit(f"{name}: a 256-row tile with no valid key is not "
+                         "0 with the empty-row LSE")
+
     # STA: the (3, 3, 3)-tile window rows of the same grid, no LSE
     widx = torch.as_tensor(sta.sta_window_indices(grid, tile,
                                                   ((3, 3, 3),) * h),
                            device=dev)[None]
+    check_sparse_schedule(f"{name}[sta 480x848]", name, d)
     out = vsa.block_sparse_attention(q, k, v, widx, sizes, **kw)
     ref = vsa.block_sparse_attention_plain(q, k, v, widx, sizes, **kw)
     sta_err = check(f"{name}[sta 480x848]", out, ref,
@@ -634,6 +705,23 @@ def check_vsa_padded(dev, results: dict) -> None:
                            dtype=torch.bfloat16) for _ in range(3))
     lut, _ = sla.sla_block_map(q, k, 0.1)
     full = torch.full((s2 // e2,), e2, dtype=torch.int32, device=dev)
+    # the walked fraction: the key tiles a block walks over those a tile
+    # keeps; two 64-row tiles a 128-row block would walk their union, so
+    # tiles of 64 rows take a block of one warpgroup each (padded_walk)
+    nq = s2 // e2
+    slots = torch.full(lut.shape[:3], lut.shape[3], dtype=torch.int32,
+                       device=dev)
+    kept = (lut >= 0).sum().item() / (b * h * nq * nq)
+    walked = {}
+    for g_ in (2, ss.padded_walk(e2)[1]):
+        lens = ss.grouped_lists(lut.int(), slots, nq, e2, group=g_)[1]
+        walked[g_] = lens.sum().item() / (b * h * lens.shape[2] * nq)
+    print(f"  {name}[sla {s2}]: kept fraction {kept:.4f}; a block of two "
+          f"64-row tiles would walk {walked[2]:.4f} ({walked[2] / kept:.2f}x "
+          f"the kept pairs); a block of one warpgroup a tile (the route, "
+          f"{ss.padded_walk(e2)}) walks {walked[ss.padded_walk(e2)[1]]:.4f}",
+          flush=True)
+    check_sparse_schedule(f"{name}[sla {s2}]", name, d)
     out = vsa.block_sparse_attention(q, k, v, lut, full, scale=scale)
     ref = vsa.block_sparse_attention_plain(q, k, v, lut, full, scale=scale)
     sla_err = check(f"{name}[sla {s2}]", out, ref,
@@ -671,7 +759,9 @@ def check_vsa_padded(dev, results: dict) -> None:
         bound_ms=bms, bound_by=by, library_ms=lib,
         shape=f"q{[b, h, s, d]} E{e} tiles{nb} topk{topk} + lse",
         sta_ms=sta_ms, sta_bound_ms=sta_bms, sta_library_ms=sta_lib,
-        sla_ms=sla_ms, sla_bound_ms=sla_bms, sla_library_ms=sla_lib)
+        sla_ms=sla_ms, sla_bound_ms=sla_bms, sla_library_ms=sla_lib,
+        sla_kept_fraction=kept, sla_walked_fraction=walked[
+            ss.padded_walk(e2)[1]], sla_union_walked_fraction=walked[2])
 
 
 def dyn_block_mask(mask, sq: int, skv: int, q_block: int, kv_block: int):
@@ -864,9 +954,24 @@ def real_taps(t_out: int, kt: int, time_pad: int) -> int:
     return sum(min(kt, max(0, o + kt - time_pad)) for o in range(t_out))
 
 
-def check_conv(dev, results: dict) -> None:
+def cudnn_conv(x, wt, bias, tp: int):
+    """The library yardstick of K3, timed here only: cuDNN's F.conv3d on
+    the same channels-last inputs and weight, with the causal pad."""
     import torch
     import torch.nn.functional as F
+
+    xc = x.permute(0, 4, 1, 2, 3)  # NCDHW view, channels-last strides
+    wc = wt.permute(4, 3, 0, 1, 2).contiguous(
+        memory_format=torch.channels_last_3d)
+    return lambda: F.conv3d(F.pad(xc, (0, 0, 0, 0, tp, 0)), wc, bias,
+                            padding=(0, 1, 1))
+
+
+def check_conv(dev, results: dict) -> None:
+    """K3 (bf16) at every 3x3 conv shape of the decoder's chunks, each
+    taking the Hopper schedule, with kernel, plain, cuDNN and bound times
+    at up3's hot conv (W = 832 and 848) and at the stream's chunk."""
+    import torch
 
     from fastvideo_tpu_torch.ops import conv3d
 
@@ -883,11 +988,14 @@ def check_conv(dev, results: dict) -> None:
         wt = (torch.randn(kt, 3, 3, c, co, generator=g, device=dev) *
               (kt * 9 * c)**-0.5).to(torch.bfloat16)
         bias = torch.randn(co, generator=g, device=dev).to(torch.bfloat16)
+        sched = check_conv_schedule(f"conv3d[{label}]", c, co)
         out = conv3d.conv3d_ndhwc(x, wt, bias, time_pad=tp)
         ref = conv3d.conv3d_ndhwc_plain(x, wt, bias, time_pad=tp)
         # bf16 outputs: two bf16 ulps (2 * 2^-7) relative, plus 1e-2 for
         # values near zero where fp32 summation order shows
-        errs.append(check(f"conv3d[{label}]", out, ref, 1e-2, 1.6e-2))
+        errs.append(check(f"conv3d[{label}] ({sched}, "
+                          f"{conv3d.conv_tile_w(h, w)}-wide patches)", out,
+                          ref, 1e-2, 1.6e-2))
         t_out = t + tp - kt + 1
         flops = 2.0 * real_taps(t_out, kt, tp) * h * w * c * co * 9
         nbytes = 2.0 * (t * h * w * c + t_out * h * w * co + wt.numel() + co)
@@ -895,20 +1003,19 @@ def check_conv(dev, results: dict) -> None:
         if label.startswith("up3 resnets") and "stream" in label:
             ms = time_ms(lambda: conv3d.conv3d_ndhwc(x, wt, bias,
                                                      time_pad=tp))
-            results["conv3d"].update(stream_ms=ms, stream_bound_ms=bms)
-            print(f"  conv3d[{label}]: {ms:.3f} ms kernel, bound {bms:.3f} "
-                  f"ms ({by}, {flops:.3e} FLOP)", flush=True)
+            lib = time_ms(cudnn_conv(x, wt, bias, tp))
+            results["conv3d"].update(stream_ms=ms, stream_bound_ms=bms,
+                                     stream_library_ms=lib)
+            print(f"  conv3d[{label}]: {ms:.3f} ms kernel, {lib:.3f} ms "
+                  f"cudnn, bound {bms:.3f} ms ({by}, {flops:.3e} FLOP)",
+                  flush=True)
         if not is_hot(label):
             del x, out, ref
             continue
         ms = time_ms(lambda: conv3d.conv3d_ndhwc(x, wt, bias, time_pad=tp))
         plain = time_ms(lambda: conv3d.conv3d_ndhwc_plain(
             x, wt, bias, time_pad=tp), 1)
-        xc = x.permute(0, 4, 1, 2, 3)  # NCDHW view, channels-last strides
-        wc = wt.permute(4, 3, 0, 1, 2).contiguous(
-            memory_format=torch.channels_last_3d)
-        lib = time_ms(lambda: F.conv3d(F.pad(xc, (0, 0, 0, 0, tp, 0)), wc,
-                                       bias, padding=(0, 1, 1)))
+        lib = time_ms(cudnn_conv(x, wt, bias, tp))
         if w == 832:
             results["conv3d"] = dict(
                 max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=bms,
@@ -1626,6 +1733,8 @@ def sparse_bwd_case(label, q, k, v, do, idx, sizes, e, results=None):
         {"dq": "vsa_sparse_bwd_dq", "dkv": "vsa_sparse_bwd_dkv"})
     whole = time_ms(lambda: vsa.block_sparse_attention_bwd(
         q, k, v, idx, sizes, out, lse, do, **kw))
+    check_sparse_schedule(f"vsa_sparse_padded_fwd[{label}]",
+                          "vsa_sparse_padded_fwd", q.shape[-1])
     fwd_ms = time_ms(lambda: vsa.block_sparse_attention(
         q, k, v, idx, sizes, return_lse=True, **kw))
     plain = time_ms(lambda: vsa.block_sparse_attention_bwd_plain(
@@ -1636,7 +1745,15 @@ def sparse_bwd_case(label, q, k, v, do, idx, sizes, e, results=None):
     lib = library_backward_ms(lambda a, b_, c: flex(a, b_, c, block_mask=mask,
                                                     scale=scale),
                               (q, k, v), do)
-    flops, _ = padded_bound(idx, sizes, q.shape[-1])  # 4 D a pair
+    fwd_lib = time_ms(lambda: flex(q, k, v, block_mask=mask, scale=scale))
+    flops, fwd_bytes = padded_bound(idx, sizes, q.shape[-1])  # 4 D a pair
+    fwd_bound, fwd_by = bound_ms(flops, fwd_bytes)
+    results["vsa_sparse_padded_fwd"].update(
+        train_lse_library_ms=fwd_lib, train_lse_bound_ms=fwd_bound)
+    print(f"  vsa_sparse_padded_fwd[{label}] (K7 fwd, LSE mode): "
+          f"{fwd_ms:.3f} ms kernel, {fwd_lib:.3f} ms flex_attention, bound "
+          f"{fwd_bound:.3f} ms ({fwd_by}, {flops:.3e} FLOP on valid keys)",
+          flush=True)
     product = flops / 2
     b, h, s, d = q.shape
     tokens = b * h * sizes.sum().item()

@@ -108,7 +108,7 @@ namespace s9 = fvt::sm90;
 
 template <int D, bool kQTile>
 int launch_sm90(s9::DynFwdParams& p, long long blocks, cudaStream_t stream) {
-  const size_t smem = s9::dyn_fwd_smem_bytes<D>(p.nK);
+  const size_t smem = s9::dyn_fwd_smem_bytes<D>(p.stride);
   cudaError_t err = s9::set_smem(s9::dyn_sparse_fwd_sm90<D, kQTile>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   s9::dyn_sparse_fwd_sm90<D, kQTile>
@@ -132,6 +132,7 @@ int launch_grouped(const void* q, const void* k, const void* v, void* o, const v
       !s9::map_tiles(&p.v, v, B, H, nK, E, D, st[6], st[7], st[8]))
     return static_cast<int>(cudaErrorInvalidValue);
   p.o = static_cast<bf16*>(o);
+  p.lse = nullptr;
   p.o_sb = st[9];
   p.o_sh = st[10];
   p.o_ss = st[11];
@@ -142,12 +143,12 @@ int launch_grouped(const void* q, const void* k, const void* v, void* o, const v
   p.order = static_cast<const int*>(order);
   p.H = H;
   p.Sq = Sq;
-  p.nK = nK;
   p.E = E;
   p.rows = rows;
   p.group = group;
   p.nG = (Sq / rows + group - 1) / group;
   p.n_sub = (group * rows + s9::kDynBQ - 1) / s9::kDynBQ;
+  p.stride = nK;
   p.scale_log2 = scale * s9::kLog2e;
   const long long blocks = static_cast<long long>(B) * H * p.nG * p.n_sub;
   if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);

@@ -18,10 +18,19 @@
 // each tile's own. A row of a tile with no key stores 0, as the Pallas
 // kernel's l_inv does. The key tiles are read through a 5-D map over
 // [B, H, nK, E, D] in 64-row units, two units a chunk (an odd walk's last
-// chunk loads its unit twice and masks the second copy), whole: the
-// padded slots of a tile past its valid count must hold finite values (BSA
-// and NABLA have none). The grid runs the groups with the longest unions
-// first (`order`).
+// chunk loads its unit twice and masks the second copy), whole: a unit's
+// K rows past its valid keys are masked in the scores, and its V rows are
+// zeroed in shared memory before P V, so the padded slots of a tile may
+// hold anything (0 * NaN would be NaN). The grid runs the groups with the
+// longest unions first (`order`).
+//
+// The padded sparse forward (K8, and K7 fwd, its LSE mode) runs the same
+// body (vsa_sparse_padded_fwd.cu): each query tile walks its own top-k row
+// as it is (no counts, no bits: a -1 slot has no valid row and is
+// skipped), and the LSE is written where its pointer is set (a row with no valid key: 0 and kEmptyLse, the Pallas kernels'
+// MASK_VALUE). Its tiles of 64 rows (SLA) run one warpgroup a block over
+// 64-key chunks (kWGs = 1), so each tile walks its own list: a group of
+// two 10 % lists walks close to their sum.
 #pragma once
 
 #include "flash_fwd_sm90.cuh"
@@ -34,37 +43,53 @@ constexpr int kDynBK = 2 * kUnit;    // keys a chunk: two units of the walk
 constexpr int kDynStages = kFwdStages;
 static_assert(kDynBK == kFwdBK, "a chunk is K1's 128 keys");
 
+// the LSE of a row with no valid key: the Pallas kernels' MASK_VALUE
+constexpr float kEmptyLse = -0.7f * 3.4028234663852886e38f;
+
 struct DynFwdParams {
   CUtensorMap q;     // map_bshd over [B, H, Sq, D], box {64, 64}
   CUtensorMap k, v;  // map_tiles over [B, H, nK, E, D], box {64, kUnit}
   bf16* o;
+  float* lse;  // [B, H, Sq] or null
   long long o_sb, o_sh, o_ss;
-  const int* list;    // [B, H, nG, nK] each group's union, ascending, then -1
-  const int* counts;  // [B, H, nG]
-  const int* bits;    // [B, H, nG, nK] the group's tiles that keep each entry
+  const int* list;    // [B, H, nG, stride] each group's union, ascending, then -1
+  const int* counts;  // [B, H, nG], or null: a list's every entry
+  const int* bits;    // [B, H, nG, stride] the group's tiles that keep each
+                      // entry, or null: a group of one tile keeps every entry
   const int* sizes;   // [nK]
   const int* order;   // [B * H * nG] flat (batch, head, group) in launch order
-  int H, Sq, nK, E, rows, group, nG, n_sub;
+  int H, Sq, E, rows, group, nG, n_sub;
+  int stride;  // entries a list row holds (nK for a union list)
   float scale_log2;
 };
 
-template <int D>
-__host__ __device__ constexpr size_t dyn_fwd_smem_bytes(int nK) {
-  return 1024 + round_1k(kDynBQ * D * 2) + 2 * round_1k(kDynStages * kDynBK * D * 2) +
-         Ring<kDynStages>::bytes() + TileList::bytes(nK, true);
+// A block of kWGs consumer warpgroups (64 query rows each) walks chunks of
+// kWGs units: 128 keys (K9's and K1's chunk) with two, 64 with one.
+template <int kWGs>
+__host__ __device__ constexpr int dyn_chunk_keys() {
+  return kWGs == 2 ? kDynBK : kUnit;
 }
 
-template <int D, bool kQTile>
-__global__ void __launch_bounds__(kFwdThreads, 1)
-    dyn_sparse_fwd_sm90(const __grid_constant__ DynFwdParams p) {
-  constexpr int BQ = kDynBQ, BK = kDynBK, NS = kDynStages;
+// The dynamic shared memory of a block whose list rows hold `stride`
+// entries.
+template <int D, int kWGs = 2>
+__host__ __device__ constexpr size_t dyn_fwd_smem_bytes(int stride) {
+  return 1024 + round_1k(64 * kWGs * D * 2) +
+         2 * round_1k(kDynStages * dyn_chunk_keys<kWGs>() * D * 2) +
+         Ring<kDynStages, 4 * kWGs>::bytes() + TileList::bytes(stride, true);
+}
+
+template <int D, int kWGs>
+__device__ __forceinline__ void dyn_fwd_body(const DynFwdParams& p) {
+  constexpr int BQ = 64 * kWGs, BK = dyn_chunk_keys<kWGs>(), NS = kDynStages;
+  constexpr int U = BK / kUnit;  // units a chunk
   extern __shared__ unsigned char smem_raw[];
   Carve carve(smem_raw);
   bf16* sq = carve.take<bf16>(BQ * D);
   bf16* sk = carve.take<bf16>(NS * BK * D);
   bf16* sv = carve.take<bf16>(NS * BK * D);
-  const Ring<NS> ring(carve);
-  TileList list(carve, p.nK, true);
+  const Ring<NS, 4 * kWGs> ring(carve);
+  TileList list(carve, p.stride, true);
 
   const int flat = p.order[blockIdx.x / p.n_sub];  // (batch, head, group)
   const int sub = blockIdx.x % p.n_sub;
@@ -75,13 +100,14 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
   const int span = p.group * p.rows;  // the group's rows
   const int base = g * span;          // its first row
   const int r0 = sub * BQ;            // the block's first row in the group
-  const int live_wgs = max(0, min(2, (min(span, p.Sq - base) - r0 + 63) / 64));
+  const int live_wgs = max(0, min(kWGs, (min(span, p.Sq - base) - r0 + 63) / 64));
 
-  list.build(p.list + static_cast<long long>(flat) * p.nK,
-             p.bits + static_cast<long long>(flat) * p.nK, live_wgs > 0 ? p.counts[flat] : 0,
-             p.sizes, p.E);
+  const long long row = static_cast<long long>(flat) * p.stride;
+  list.build(p.list + row, p.bits == nullptr ? nullptr : p.bits + row,
+             live_wgs == 0 ? 0 : p.counts == nullptr ? p.stride : p.counts[flat], p.sizes,
+             p.E);
   const int units = *list.total;
-  const int n_steps = (units + 1) / 2;
+  const int n_steps = (units + U - 1) / U;
 
   Cursor fill;
   fill.start(list);
@@ -91,7 +117,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
     bar_expect(&ring.full[s], 2 * BK * D * 2);
     int kt = 0, c0 = 0;
 #pragma unroll
-    for (int u = 0; u < 2; ++u) {
+    for (int u = 0; u < U; ++u) {
       if (filled < units) {  // else: the last unit again, masked
         kt = fill.tile(list);
         c0 = fill.row0();
@@ -160,9 +186,10 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
       ring.release(i - 1, n_steps, issue);
     }
     // the visible keys of each unit for each row: below lim[r][u]
-    int lim[2][2];
+    int lim[2][U], valid[U];
+    bool ragged = false;
 #pragma unroll
-    for (int u = 0; u < 2; ++u) {
+    for (int u = 0; u < U; ++u) {
       int nk = 0;
       unsigned keep = 0;
       if (used < units) {
@@ -171,15 +198,32 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
         at.next(list);
         ++used;
       }
+      valid[u] = nk;
+      ragged = ragged || nk < kUnit;
 #pragma unroll
       for (int r = 0; r < 2; ++r) lim[r][u] = (keep & mine[r]) ? nk : 0;
+    }
+    if (ragged) {  // the same for every thread of the block
+      // V rows past a unit's valid keys may hold anything (a tile's padded
+      // slots): zero them, so that their zero weights give 0, not NaN
+      bf16* vz = sv + st * BK * D;
+      const int t = threadIdx.x % kWarpgroup;
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int nb = 0; nb < D / 64; ++nb)
+          for (int c = valid[u] * 8 + t; c < kUnit * 8; c += kWarpgroup)  // 16-byte chunks
+            reinterpret_cast<uint4*>(vz + nb * BK * 64 + u * kUnit * 64)[c] = make_uint4(0, 0, 0, 0);
+      // the generic stores before this warpgroup's P V reads them
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      asm volatile("bar.sync %0, %1;\n" ::"r"(1 + wg), "n"(kWarpgroup) : "memory");
     }
     mma_wait<0>();
     fence_regs(s);
 
 #pragma unroll
     for (int e = 0; e < BK / 2; ++e) {
-      const int u = e >= BK / 4;  // columns 64 on: the second unit
+      const int u = U == 2 && e >= BK / 4;  // columns 64 on: the second unit
       const bool ok = frag_col(e) - u * kUnit < lim[(e >> 1) & 1][u];
       s[e] = ok ? s[e] : -CUDART_INF_F;
     }
@@ -219,7 +263,8 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
     ring.release(n_steps - 1, n_steps, issue);
   }
 
-  // epilogue: O / l in bf16 (0 for a row that saw no key)
+  // epilogue: O / l in bf16 (0 for a row that saw no key), and the LSE
+  // m ln 2 + ln l (kEmptyLse for such a row) where it is asked for
   float inv[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -234,6 +279,26 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
       *reinterpret_cast<uint32_t*>(out + lrows[r] * p.o_ss + frag_col(e)) =
           pack_bf16(o[e] * inv[r], o[e + 1] * inv[r]);
   }
+  if (p.lse != nullptr && threadIdx.x % 4 == 0) {
+    float* lse = p.lse + (static_cast<long long>(b) * p.H + h) * p.Sq + base;
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (mine[r] != 0u) lse[lrows[r]] = l[r] == 0.f ? kEmptyLse : m[r] * kLn2 + logf(l[r]);
+  }
+}
+
+// K9a (kQTile false) and K9b (true): two instances, listed apart.
+template <int D, bool kQTile>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+    dyn_sparse_fwd_sm90(const __grid_constant__ DynFwdParams p) {
+  dyn_fwd_body<D, 2>(p);
+}
+
+// K8 / K7 fwd: kWGs warpgroups a block (1 for tiles of 64 rows).
+template <int D, int kWGs>
+__global__ void __launch_bounds__(kWGs * kWarpgroup, 1)
+    vsa_sparse_padded_fwd_sm90(const __grid_constant__ DynFwdParams p) {
+  dyn_fwd_body<D, kWGs>(p);
 }
 
 }  // namespace sm90

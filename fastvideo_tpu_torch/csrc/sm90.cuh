@@ -452,11 +452,11 @@ struct Carve {
   }
 };
 
-// The copy ring of a block of two consumer warpgroups: NS stages of
-// streamed tiles, stage s's copies completing to full[s] and its readers
-// (all 8 warps) to empty[s], and the block's own tiles completing to `own`.
-// Thread 0 issues every copy.
-template <int NS>
+// The copy ring of a block of kWarps consumer warps (two warpgroups by
+// default): NS stages of streamed tiles, stage s's copies completing to
+// full[s] and its readers (every warp) to empty[s], and the block's own
+// tiles completing to `own`. Thread 0 issues every copy.
+template <int NS, int kWarps = 2 * kWarpgroup / 32>
 struct Ring {
   uint64_t* full;
   uint64_t* empty;
@@ -473,7 +473,7 @@ struct Ring {
     if (threadIdx.x == 0) {
       for (int s = 0; s < NS; ++s) {
         bar_init(&full[s], 1);
-        bar_init(&empty[s], 2 * kWarpgroup / 32);  // one arrival a warp
+        bar_init(&empty[s], kWarps);  // one arrival a warp
       }
       bar_init(own, 1);
       bar_fence_init();
@@ -522,8 +522,9 @@ struct TileList {
   }
 
   // Every thread of the block: copy entries [0, count) of `ids` (and
-  // `bits_g`), a tile's valid rows min(sizes[tile], E) (E where `sizes` is
-  // null), and sum the walk's units. Holds two __syncthreads().
+  // `bits_g`; null: every entry is kept by the group's one tile), a tile's
+  // valid rows min(sizes[tile], E) (E where `sizes` is null), and sum the
+  // walk's units. Holds two __syncthreads().
   __device__ void build(const int* ids, const int* bits_g, int count, const int* sizes, int E) {
     n = count;
     if (threadIdx.x == 0) *total = 0;
@@ -534,7 +535,7 @@ struct TileList {
       const int v = tile < 0 ? 0 : (sizes == nullptr ? E : max(0, min(__ldg(sizes + tile), E)));
       id[t] = tile;
       valid[t] = v;
-      if (bits != nullptr) bits[t] = __ldg(bits_g + t);
+      if (bits != nullptr) bits[t] = bits_g == nullptr ? 1 : __ldg(bits_g + t);
       units += (v + kUnit - 1) / kUnit;
     }
     if (units > 0) atomicAdd(total, units);

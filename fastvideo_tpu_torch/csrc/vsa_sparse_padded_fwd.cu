@@ -1,16 +1,16 @@
 // Block-sparse attention forward over PADDED tiles for Hopper (sm_90a).
 //
 // Replaces two Pallas kernels of fastvideo_tpu/ops/vsa.py that compute the
-// same function: _sparse_fwd_lse_kernel (reached through
+// same function: _sparse_fwd_lse_kernel (K7 fwd, reached through
 // block_sparse_attention_trainable; output and log-sum-exp) and
-// _sparse_kernel (reached through block_sparse_attention; output only,
-// serving STA and SLA). One entry point: a null lse pointer is the second.
+// _sparse_kernel (K8, reached through block_sparse_attention; output only,
+// serving STA and SLA). One function: a null lse pointer is the second.
 //
 // q/k/v are [B, H, nB*E, D] in tile-major token order; tile t holds
 // block_sizes[t] real tokens followed by padding. indices[b, h, qi, :] lists
 // the K key tiles that query tile qi attends; -1 marks an unused slot.
 //   * a sentinel slot contributes nothing and no tile is read for it;
-//   * keys at or past block_sizes[tile] get no weight and are not read;
+//   * keys at or past block_sizes[tile] get no weight;
 //   * padded QUERY rows are computed like any row (the caller drops them).
 // Masked scores are -inf, so a query row whose every slot is masked keeps
 // l == 0 and stores 0 with an LSE of kEmptyLse. The Pallas kernels mask with
@@ -21,23 +21,45 @@
 //
 // What bounds it: 4*D FLOP per (query row, valid key) pair against bf16
 // reads of S*D*3 plus the gathered tiles, so it is tensor-core bound (at
-// the 480x848 VSA shape: S=43008, K=34, E=256, D=128). Each block owns BQ
-// query rows of one query tile, reads that tile's K indices itself (the
-// TPU's scalar prefetch) and gathers each selected tile from row idx*E in
-// chunks of BK rows, stopping at the tile's valid count. The TPU kernels'
-// (8, 128)-aligned index blocks, DMA rings and [.., 128] LSE lanes have no
-// counterpart here.
-//
-// Grid: (nQ * ceil(E / BQ), H, B), 128 threads.
+// the 480x848 VSA shape: S=43008, K=34, E=256, D=128). Two schedules,
+// chosen by the head alone (padded_route; ops/sparse_schedule.py:
+// sparse_schedule states the same rule; the kernels take bf16 only; no
+// fallback between them):
+//  - a head of 64 or 128, every DiT launch: K9's Hopper forward
+//    (dyn_sparse_fwd_sm90.cuh: wgmma, softmax on the register fragment, a
+//    TMA ring over a 5-D tile-major map that reads zeros past a tile's E
+//    rows) on each query tile's own top-k row, walked as it is (a -1 slot
+//    has no valid row and is skipped); the caller launches the longest
+//    rows first. Tiles of more than 64 rows (E 256, 280) run two
+//    warpgroups a 128-row block (a tile of 280 rows is three blocks, the
+//    third with one live warpgroup); tiles of 64 rows (SLA) one warpgroup
+//    a block over 64-key chunks, so that no tile walks a neighbour's list.
+//    Tiles of fewer rows (the tiny models) group as many as fill 64 rows
+//    over the union of their lists (ops/sparse_schedule.py:grouped_lists,
+//    padded_walk). Whole 64-row units are read; the keys past a
+//    tile's valid count are masked and their V rows zeroed in shared
+//    memory, so those slots may hold anything, as the contract says.
+//  - other heads (the tiny models): the first schedule, kept from the
+//    port's first slice: each block owns 64 query rows of one query tile,
+//    reads that tile's K indices itself (the TPU's scalar prefetch) and
+//    gathers each selected tile from row idx*E in chunks of 64 rows through
+//    attn_tile.cuh (WMMA through shared memory), stopping at the tile's
+//    valid count. Grid: (nQ * ceil(E / 64), H, B), 128 threads.
+// The TPU kernels' (8, 128)-aligned index blocks, DMA rings and [.., 128]
+// LSE lanes have no counterpart here.
 #include "attn_tile.cuh"
+#include "dyn_sparse_fwd_sm90.cuh"
 
 namespace {
 
 using fvt::AttnTile;
 using fvt::bf16;
 
-// the LSE of a row with no valid key: the Pallas kernels' MASK_VALUE
-constexpr float kEmptyLse = -0.7f * 3.4028234663852886e38f;
+using fvt::sm90::kEmptyLse;
+
+// Whether a head of D takes the Hopper schedule (the kernels are bf16
+// only). ops/sparse_schedule.py:sparse_schedule states the same rule.
+bool use_sm90(int D) { return D == 64 || D == 128; }
 
 template <typename T, int BQ, int BK>
 __global__ void __launch_bounds__(fvt::kThreads)
@@ -107,9 +129,90 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, con
   return static_cast<int>(cudaGetLastError());
 }
 
+namespace s9 = fvt::sm90;
+
+template <int D, int kWGs>
+int launch_sm90(s9::DynFwdParams& p, long long blocks, cudaStream_t stream) {
+  const size_t smem = s9::dyn_fwd_smem_bytes<D, kWGs>(p.stride);
+  cudaError_t err = s9::set_smem(s9::vsa_sparse_padded_fwd_sm90<D, kWGs>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  s9::vsa_sparse_padded_fwd_sm90<D, kWGs>
+      <<<static_cast<unsigned>(blocks), kWGs * s9::kWarpgroup, smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// bfloat16 only, D a multiple of 16 up to 128. S = nB * E rows; indices int32
+// 1 when a head of D runs the Hopper schedule (fvt_vsa_sparse_padded_fwd_sm90),
+// 0 when it runs the first one (fvt_vsa_sparse_padded_fwd).
+extern "C" int fvt_vsa_sparse_padded_fwd_route(int D) { return use_sm90(D) ? 1 : 0; }
+
+// The Hopper schedule's dynamic shared memory a block (bytes), for a head
+// of D (64 or 128), wgs warpgroups a block, list rows of `stride` entries.
+extern "C" int fvt_vsa_sparse_padded_fwd_sm90_smem(int D, int wgs, int stride) {
+  if (D == 64)
+    return static_cast<int>(wgs == 1 ? s9::dyn_fwd_smem_bytes<64, 1>(stride)
+                                     : s9::dyn_fwd_smem_bytes<64, 2>(stride));
+  return static_cast<int>(wgs == 1 ? s9::dyn_fwd_smem_bytes<128, 1>(stride)
+                                   : s9::dyn_fwd_smem_bytes<128, 2>(stride));
+}
+
+// The Hopper schedule (a head of 64 or 128). S = nB * E rows. list int32
+// [B, H, nG, stride], one row a group of `group` query tiles. group 1:
+// the indices as they are (stride = topk; -1 slots are skipped), counts
+// and bits null. group > 1: the group's ascending union of its tiles' key
+// tiles, then -1 (stride = nB), counts int32 [B, H, nG] and bits int32
+// [B, H, nG, nB] (bit t set where the group's tile t keeps the entry).
+// order int32 [B * H * nG]: flat (batch, head, group) in launch order;
+// block_sizes int32 [nB]; lse fp32 [B, H, S] contiguous, or null. wgs
+// warpgroups a block: 1 (64 rows, 64-key chunks) where group * E <= 64,
+// else 2 (128 rows, group 1). Strides in elements, of q, k, v and o in
+// turn: batch, head, row.
+extern "C" int fvt_vsa_sparse_padded_fwd_sm90(
+    const void* q, const void* k, const void* v, void* o, void* lse, const void* list,
+    const void* counts, const void* bits, const void* order, const void* block_sizes, int B, int H,
+    int S, int D, int E, int group, int wgs, int stride, long long q_sb, long long q_sh,
+    long long q_ss, long long k_sb, long long k_sh, long long k_ss, long long v_sb, long long v_sh,
+    long long v_ss, long long o_sb, long long o_sh, long long o_ss, float scale, void* stream) {
+  if (!use_sm90(D) || E <= 0 || S % E != 0 || group < 1 || group > 16 || stride <= 0 ||
+      (wgs != 1 && wgs != 2) || (wgs == 2 && group != 1) || (wgs == 1 && group * E > 64) ||
+      (group > 1 && (counts == nullptr || bits == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  s9::DynFwdParams p;
+  const int nB = S / E;
+  if (!s9::map_bshd(&p.q, q, B, S, H, D, q_sb, q_sh, q_ss, 64) ||
+      !s9::map_tiles(&p.k, k, B, H, nB, E, D, k_sb, k_sh, k_ss) ||
+      !s9::map_tiles(&p.v, v, B, H, nB, E, D, v_sb, v_sh, v_ss))
+    return static_cast<int>(cudaErrorInvalidValue);
+  p.o = static_cast<bf16*>(o);
+  p.lse = static_cast<float*>(lse);
+  p.o_sb = o_sb;
+  p.o_sh = o_sh;
+  p.o_ss = o_ss;
+  p.list = static_cast<const int*>(list);
+  p.counts = static_cast<const int*>(counts);
+  p.bits = static_cast<const int*>(bits);
+  p.sizes = static_cast<const int*>(block_sizes);
+  p.order = static_cast<const int*>(order);
+  p.H = H;
+  p.Sq = S;
+  p.E = E;
+  p.rows = E;
+  p.group = group;
+  p.nG = (nB + group - 1) / group;
+  p.n_sub = (group * E + 64 * wgs - 1) / (64 * wgs);
+  p.stride = stride;
+  p.scale_log2 = scale * s9::kLog2e;
+  const long long blocks = static_cast<long long>(B) * H * p.nG * p.n_sub;
+  if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 64)
+    return wgs == 1 ? launch_sm90<64, 1>(p, blocks, s) : launch_sm90<64, 2>(p, blocks, s);
+  return wgs == 1 ? launch_sm90<128, 1>(p, blocks, s) : launch_sm90<128, 2>(p, blocks, s);
+}
+
+// The first schedule (heads other than 64 and 128). bfloat16 only, D a
+// multiple of 16 up to 128. S = nB * E rows; indices int32
 // [B, H, nB, topk] contiguous with -1 sentinels; block_sizes int32 [nB];
 // lse fp32 [B, H, S] contiguous, or null.
 extern "C" int fvt_vsa_sparse_padded_fwd(const void* q, const void* k, const void* v, void* o,
@@ -120,7 +223,7 @@ extern "C" int fvt_vsa_sparse_padded_fwd(const void* q, const void* k, const voi
                                          long long k_ss, long long v_sb, long long v_sh,
                                          long long v_ss, long long o_sb, long long o_sh,
                                          long long o_ss, float scale, void* stream) {
-  if (D % 16 != 0 || D > 128 || E <= 0 || topk <= 0 || S % E != 0)
+  if (D % 16 != 0 || D > 128 || use_sm90(D) || E <= 0 || topk <= 0 || S % E != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long st[12] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss};
   return launch<bf16, 64, 64>(q, k, v, o, static_cast<float*>(lse),

@@ -17,10 +17,10 @@ backward sources hold a dQ and a dK/dV kernel each, ``flash_bwd_dq`` /
 (K6 struct) and ``vsa_sparse_bwd_dq`` / ``vsa_sparse_bwd_dkv`` (K7 bwd);
 ``flash_bwd_dkv_reduce`` adds a split dK/dV launch's partial sums).
 
-The sources with Hopper schedules (the flash and sparse attention kernels)
-compile with ``-Xptxas -v``; :func:`ptxas_report` reads back each of their
-kernels' registers, spills, static shared memory and ptxas warnings (C7518:
-wgmma serialized).
+The sources with Hopper schedules (the flash and sparse attention kernels,
+the conv K3) compile with ``-Xptxas -v``; :func:`ptxas_report` reads back
+each of their kernels' registers, spills, static shared memory and ptxas
+warnings (C7518: wgmma serialized).
 """
 
 from __future__ import annotations
@@ -57,7 +57,8 @@ SOURCE_OF = {**{n: n for n in SOURCES[:5]}, "flash_fwd_kv_mask": "flash_fwd",
              "flash_bwd_dkv_reduce": "flash_bwd"}
 KERNELS = tuple(SOURCE_OF)
 # sources whose ptxas resource report is kept beside their library
-PTXAS_VERBOSE = ("flash_fwd", "flash_bwd", "vsa_sparse_bwd", "dyn_sparse_fwd")
+PTXAS_VERBOSE = ("flash_fwd", "flash_bwd", "vsa_sparse_bwd", "dyn_sparse_fwd",
+                 "vsa_sparse_padded_fwd", "conv3d")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -303,9 +304,28 @@ _SIGNATURES = {
     "fvt_dyn_sparse_qtile_fwd_sm90": [ctypes.c_void_p] * 9 +
     [ctypes.c_int] * 8 + [ctypes.c_longlong] * 12 +
     [ctypes.c_float, ctypes.c_void_p],
+    # q, k, v, o, lse (or null), list, counts and bits (or null), order,
+    # block_sizes, B, H, S, D, E, group, wgs, list stride, 12 strides,
+    # scale, stream
+    "fvt_vsa_sparse_padded_fwd_sm90": [ctypes.c_void_p] * 10 +
+    [ctypes.c_int] * 8 + [ctypes.c_longlong] * 12 +
+    [ctypes.c_float, ctypes.c_void_p],
+    # D: 1 when K8 runs its Hopper schedule; D, wgs, list stride: its
+    # shared memory
+    "fvt_vsa_sparse_padded_fwd_route": [ctypes.c_int],
+    "fvt_vsa_sparse_padded_fwd_sm90_smem": [ctypes.c_int] * 3,
     # x, w, bias, y, dtype, B, T, H, W, C, Co, kt, time_pad, stream
     "fvt_conv3d_ndhwc": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 +
     [ctypes.c_void_p],
+    # x (C % 32 == 0), w [kt * 3 * C / 32, 3, Co_pad, 32], bias, y, B, T,
+    # H, W, C, Co, kt, time_pad, bn, bw, stream
+    "fvt_conv3d_sm90": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 +
+    [ctypes.c_void_p],
+    # dtype, C, Co: 1 when K3 runs its Hopper schedule; Co: its N tile;
+    # Co, bw: its shared memory
+    "fvt_conv3d_route": [ctypes.c_int] * 3,
+    "fvt_conv3d_tile_n": [ctypes.c_int],
+    "fvt_conv3d_sm90_smem": [ctypes.c_int] * 2,
     # xq, w [Co, K], scale, bias, y, out dtype, B, T, H, W, C, Co, kt,
     # time_pad, stream
     "fvt_conv3d_int8_ndhwc": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 +

@@ -9,6 +9,14 @@ kernels of the JAX package ("kf" ``_conv_kernel_thcw_kf`` and "tap"
 every conv mode name the JAX package accepts routes to K3 here. On a CPU
 tensor it runs :func:`conv3d_ndhwc_plain`, a tap-by-tap fp32 sum.
 
+K3 has two schedules, chosen by :func:`conv_schedule` (the CUDA source
+applies the same rule): bf16 runs the Hopper one (``csrc/conv3d_sm90.cuh``:
+wgmma, TMA boxes of x that hold three taps each, a ring of stages), for
+which the wrapper lays the weight out once a call (:func:`sm90_weight`),
+pads the channels to a multiple of 32 (only conv_in's 16 and the tiny
+models') and picks the voxel patch of a block (:func:`conv_tile_w`); fp32
+runs the SIMT one.
+
 The W8A8 modes "kf_int8" and "auto_int8" route as the JAX package does
 (``conv3d_ndhwc``'s int8 branch): where C and Co are multiples of 32 (and,
 for "auto_int8", C >= 64 and W >= 256) the input, after the optional
@@ -42,6 +50,55 @@ CONV3D_MODES = ("auto", "tap", "kf", "thcw", "nb", "dw", "dhw", "full",
 INT8_MODES = ("kf_int8", "auto_int8")
 # operand dtype -> the kernels' dtype code
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# K3's Hopper schedule (csrc/conv3d_sm90.cuh): output voxels a block, the
+# channels of one K stage, the patch widths a block may take
+CONV_BLOCK = 128
+CONV_CHUNK = 32
+CONV_TILE_WIDTHS = (128, 64, 32, 16, 8)
+
+
+def conv_schedule(dtype: torch.dtype, c: int, co: int) -> str:
+    """K3's schedule for operands of ``dtype`` with C in and Co out
+    channels: "sm90" (wgmma, TMA) for bf16, every decoder conv at every
+    width; "simt" for fp32 (wgmma has no fp32 operand). The CUDA source's
+    ``conv_route`` states the same rule; C and Co do not choose it."""
+    del c, co
+    return "sm90" if dtype == torch.bfloat16 else "simt"
+
+
+def conv_tile_n(co: int) -> int:
+    """Output channels of one block of the Hopper schedule (csrc/
+    conv3d_sm90.cuh:conv_tile_n): 8 for conv_out's 3, 128 where it divides
+    Co (384: three tiles), else 96 (96; 192: two tiles)."""
+    return 8 if co <= 8 else (128 if co % 128 == 0 else 96)
+
+
+def conv_tile_w(h: int, w: int) -> int:
+    """Width bw of the bw x (128 / bw) voxel patch a block of the Hopper
+    schedule owns: the one whose patches cover H x W with the fewest
+    padded voxels, the widest among equals (fewer halo columns): 64 x 2 at
+    W = 832, 16 x 8 at W = 848."""
+    best = None
+    for bw in CONV_TILE_WIDTHS:
+        bh = CONV_BLOCK // bw
+        area = -(-w // bw) * bw * (-(-h // bh) * bh)
+        if best is None or area < best[0]:
+            best = (area, bw)
+    return best[1]
+
+
+def sm90_weight(w: torch.Tensor, bn: int) -> torch.Tensor:
+    """w [kt, 3, 3, C, Co] as the Hopper schedule's B operand: [kt * 3 *
+    nC, 3, Co_pad, 32], stage (dt, dh, 32-channel chunk c) at (dt * 3 + dh)
+    * nC + c, then tap dw, output channel, channel; zeros past C (nC =
+    ceil(C / 32)) and past Co (Co_pad a multiple of ``bn``)."""
+    kt, _, _, c, co = w.shape
+    cp = -(-c // CONV_CHUNK) * CONV_CHUNK
+    co_pad = -(-co // bn) * bn
+    wp = F.pad(w, (0, co_pad - co, 0, cp - c))
+    wp = wp.reshape(kt, 3, 3, cp // CONV_CHUNK, CONV_CHUNK, co_pad)
+    return wp.permute(0, 1, 3, 2, 5, 4).reshape(
+        kt * 3 * (cp // CONV_CHUNK), 3, co_pad, CONV_CHUNK).contiguous()
 
 
 def vae_conv3d_mode() -> str:
@@ -225,17 +282,30 @@ def _conv3d_cuda(x, w, b, time_pad, gamma):
         raise _build.KernelError(
             f"conv3d: unsupported kernel {tuple(w.shape)} for input "
             f"{tuple(x.shape)}")
-    x = x.contiguous()
-    if x.data_ptr() % 16:
-        x = x.clone()
-    w = w.contiguous()
-    b = b.contiguous()
     bsz, t, h, wd, _ = x.shape
     t_out = t + time_pad - kt + 1
     y = torch.empty((bsz, t_out, h, wd, co), dtype=x.dtype, device=x.device)
-    _build.launch(NAME, "fvt_conv3d_ndhwc", x.data_ptr(), w.data_ptr(),
-                  b.data_ptr(), y.data_ptr(), _DTYPE_CODES[x.dtype], bsz, t, h,
-                  wd, c, co, kt, time_pad, _build.stream_ptr(x))
+    b = b.contiguous()
+    if conv_schedule(x.dtype, c, co) == "simt":
+        x = x.contiguous()
+        if x.data_ptr() % 16:
+            x = x.clone()
+        _build.launch(NAME, "fvt_conv3d_ndhwc", x.data_ptr(),
+                      w.contiguous().data_ptr(), b.data_ptr(), y.data_ptr(),
+                      _DTYPE_CODES[x.dtype], bsz, t, h, wd, c, co, kt,
+                      time_pad, _build.stream_ptr(x))
+        return y
+    cp = -(-c // CONV_CHUNK) * CONV_CHUNK
+    if cp != c:  # zero channels up to the 32 of a stage (conv_in's 16)
+        x = F.pad(x, (0, cp - c))
+    x = x.contiguous()
+    if x.data_ptr() % 16:
+        x = x.clone()
+    bn = conv_tile_n(co)
+    wb = sm90_weight(w, bn)
+    _build.launch(NAME, "fvt_conv3d_sm90", x.data_ptr(), wb.data_ptr(),
+                  b.data_ptr(), y.data_ptr(), bsz, t, h, wd, cp, co, kt,
+                  time_pad, bn, conv_tile_w(h, wd), _build.stream_ptr(x))
     return y
 
 

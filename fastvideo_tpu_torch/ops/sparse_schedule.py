@@ -1,13 +1,15 @@
-"""Host side of the sparse kernels' schedules (K7 bwd, K9a, K9b).
+"""Host side of the sparse kernels' schedules (K7 bwd, K9a, K9b, and the
+padded forward K8 with its LSE mode K7 fwd).
 
 Each sparse kernel has two schedules, chosen by dtype and head alone
 (``sparse_schedule``; the CUDA sources apply the same rule): bf16 with a
 head of 64 or 128, every DiT launch, runs the Hopper schedule
 (``csrc/vsa_sparse_bwd_sm90.cuh``,
-``csrc/dyn_sparse_fwd_sm90.cuh``: wgmma, registers, a TMA ring, walking a
-list of tiles in 64-row units); other heads run the first one
-(``csrc/attn_bwd_tile.cuh``, ``csrc/attn_tile.cuh``). The kernels take
-bf16 only, so fp32 never reaches either.
+``csrc/dyn_sparse_fwd_sm90.cuh``, which the padded forward shares: wgmma,
+registers, a TMA ring, walking a list of tiles in 64-row units); other
+heads run the first one (``csrc/attn_bwd_tile.cuh``,
+``csrc/attn_tile.cuh``). The kernels take bf16 only, so fp32 never reaches
+either.
 
 The lists the Hopper schedule walks are built here, in plain PyTorch on
 the device, as the JAX package builds its index tables in XLA:
@@ -19,6 +21,8 @@ the device, as the JAX package builds its index tables in XLA:
   rows (two 64-row tiles of K9a, four 32-row tiles of K9b), which walk the
   ascending union of their lists; a per-entry bit set says which of the
   group's tiles keep it, and each row masks the tiles its own does not;
+  K8 / K7 fwd walk each query tile's top-k row as it is, or, for tiles
+  under 64 rows, such unions, in the blocks :func:`padded_walk` gives;
 - :func:`heaviest_first`: the launch order, longest walks first.
 """
 
@@ -86,6 +90,38 @@ def query_group(rows: int) -> int:
     return max(1, min(MAX_GROUP, BLOCK_ROWS // rows))
 
 
+def padded_walk(e: int) -> tuple[int, int]:
+    """(warpgroups a block, query tiles a group) of the padded forward's
+    Hopper schedule for tiles of ``e`` rows: tiles of more than 64 rows (E
+    256, 280) run two warpgroups a 128-row block, one tile each (a tile of
+    280 rows is three blocks); tiles of at most 64 rows (SLA's 64) run one
+    warpgroup a 64-row block, so that a tile of 64 rows walks its own row
+    and not the union with a neighbour's (two 10 % lists of random maps
+    walk close to their sum); smaller tiles group as many as fill it."""
+    if e > UNIT_ROWS:
+        return 2, 1
+    return 1, max(1, UNIT_ROWS // e)
+
+
+def padded_lists(indices: torch.Tensor, n_tiles: int, e: int):
+    """The padded forward's Hopper walk over top-k ``indices`` [B, H, nB,
+    K] (int32, -1 slots) for tiles of ``e`` rows, in the groups of
+    :func:`padded_walk`: (lists, counts, bits, lens). A group of one tile
+    walks its row as it is (the kernel skips the -1 slots): lists =
+    ``indices``, counts and bits None. Larger groups walk
+    :func:`grouped_lists`' unions. ``lens`` [B, H, nG] are the walks' entry
+    counts, for :func:`heaviest_first`."""
+    group = padded_walk(e)[1]
+    if group == 1:
+        return indices, None, None, (indices >= 0).sum(dim=-1,
+                                                       dtype=torch.int32)
+    slots = torch.full(indices.shape[:3], indices.shape[3],
+                       dtype=torch.int32, device=indices.device)
+    lists, lens, bits, _ = grouped_lists(indices, slots, n_tiles, e,
+                                         group=group)
+    return lists, lens, bits, lens
+
+
 def kept_mask(indices: torch.Tensor, counts: torch.Tensor,
               n_k: int) -> torch.Tensor:
     """bool [B, H, nQ, nK]: the key tiles in the first ``counts`` slots of
@@ -101,15 +137,15 @@ def kept_mask(indices: torch.Tensor, counts: torch.Tensor,
 
 
 def grouped_lists(indices: torch.Tensor, counts: torch.Tensor, n_k: int,
-                  rows: int):
-    """K9's Hopper walk: the query tiles in groups of ``query_group(rows)``
-    (the last group padded with tiles that keep nothing), each group's
-    ascending union of its tiles' kept key tiles, then -1 (int32 [B, H, nG,
-    nK]), its length (int32 [B, H, nG]), and per entry the bits of the
-    group's tiles that keep it (int32 [B, H, nG, nK]; bit t: tile
-    g * group + t; 0 past the length). Returns (list, counts, bits,
-    group)."""
-    group = query_group(rows)
+                  rows: int, group: int | None = None):
+    """K9's (and K8's) Hopper walk: the query tiles in groups of ``group``
+    (default ``query_group(rows)``; the last group padded with tiles that
+    keep nothing), each group's ascending union of its tiles' kept key
+    tiles, then -1 (int32 [B, H, nG, nK]), its length (int32 [B, H, nG]),
+    and per entry the bits of the group's tiles that keep it (int32 [B, H,
+    nG, nK]; bit t: tile g * group + t; 0 past the length). Returns (list,
+    counts, bits, group)."""
+    group = query_group(rows) if group is None else group
     mask = kept_mask(indices, counts, n_k)
     b, h, nq, _ = mask.shape
     ng = -(-nq // group)

@@ -10,8 +10,12 @@ The block-sparse branch over full tiles is K2: on a CUDA tensor
 (replacing the Pallas ``_sparse_fast_kernel``). Grids with no exact tile,
 STA and SLA go through :func:`block_sparse_attention` over padded tiles with
 per-tile valid counts and ``-1`` index sentinels: on a CUDA tensor it
-launches ``csrc/vsa_sparse_padded_fwd.cu`` (replacing the Pallas
-``_sparse_fwd_lse_kernel`` and ``_sparse_kernel``). On a CPU tensor both run
+launches ``csrc/vsa_sparse_padded_fwd.cu`` (K8, and K7 fwd in its LSE mode,
+replacing the Pallas ``_sparse_kernel`` and ``_sparse_fwd_lse_kernel``). A
+head of 64 or 128 runs its Hopper schedule, K9's forward on each query
+tile's own top-k row (``sparse_schedule.padded_lists``, ``padded_walk``
+for the block; tiles under 64 rows walk unions), longest rows first; other
+heads run the first one. On a CPU tensor both run
 :func:`block_sparse_attention_plain`; there is no fallback between kernel
 and plain version.
 
@@ -45,6 +49,9 @@ from fastvideo_tpu_torch.ops import _build
 from fastvideo_tpu_torch.ops.flash_attention import (attn_operand,
                                                      check_bwd_operands)
 from fastvideo_tpu_torch.ops.sparse_schedule import (heaviest_first,
+                                                     padded_lists,
+                                                     padded_walk,
+                                                     sparse_schedule,
                                                      transposed_lists)
 
 NAME = "vsa_sparse_fwd"
@@ -323,11 +330,25 @@ def _block_sparse_padded_cuda(q, k, v, indices, block_sizes, scale,
     sizes = block_sizes.to(device=q.device, dtype=torch.int32).contiguous()
     lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
            if return_lse else None)
-    _build.launch(PADDED_NAME, "fvt_vsa_sparse_padded_fwd", q.data_ptr(),
-                  k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                  lse.data_ptr() if return_lse else None, idx.data_ptr(),
-                  sizes.data_ptr(), b, h, s, d, tile_elems, idx.shape[3],
-                  *st, float(scale), _build.stream_ptr(q))
+    lse_ptr = lse.data_ptr() if return_lse else None
+    if sparse_schedule(q.dtype, d) == "sm90":
+        wgs, group = padded_walk(tile_elems)
+        lists, counts, bits, lens = padded_lists(idx, s // tile_elems,
+                                                 tile_elems)
+        _build.launch(PADDED_NAME, "fvt_vsa_sparse_padded_fwd_sm90",
+                      q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      out.data_ptr(), lse_ptr, lists.data_ptr(),
+                      None if counts is None else counts.data_ptr(),
+                      None if bits is None else bits.data_ptr(),
+                      heaviest_first(lens).data_ptr(), sizes.data_ptr(), b,
+                      h, s, d, tile_elems, group, wgs, lists.shape[-1], *st,
+                      float(scale), _build.stream_ptr(q))
+    else:
+        _build.launch(PADDED_NAME, "fvt_vsa_sparse_padded_fwd", q.data_ptr(),
+                      k.data_ptr(), v.data_ptr(), out.data_ptr(), lse_ptr,
+                      idx.data_ptr(), sizes.data_ptr(), b, h, s, d,
+                      tile_elems, idx.shape[3], *st, float(scale),
+                      _build.stream_ptr(q))
     return (out, lse) if return_lse else out
 
 

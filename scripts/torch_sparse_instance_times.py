@@ -1,16 +1,22 @@
-"""Time the port's sparse attention kernels K7 bwd, K9a and K9b at their
-main-path shapes, on one card, for the checkout at --root:
+"""Time the port's sparse attention kernels K7 fwd, K8, K7 bwd, K9a and
+K9b at their main-path shapes, on one card, for the checkout at --root:
 
     python3 scripts/torch_sparse_instance_times.py --root DIR [--reps N]
 
 Each row is one call of the public wrapper on bf16 tensors made from a
 seed, timed with CUDA events over N calls after a warm-up:
 
-- K7 bwd (dQ and dK/dV with delta = rowsum(dO * O) and the lists the
-  wrapper builds): the SFT self-attention q/k/v/dO [1,12,32760,128], 117
-  exact tiles of 280 rows, a top-24 chosen per group of 3 query tiles and
-  expanded per tile (4i); and the 480x848 padded grid [1,12,43008,128],
-  168 tiles of 256 with their valid counts, top-34;
+- K7 fwd (the padded forward with its LSE, and the lists the wrapper
+  builds) and K7 bwd (dQ and dK/dV with delta = rowsum(dO * O) and the
+  lists the wrapper builds): the SFT self-attention q/k/v/dO
+  [1,12,32760,128], 117 exact tiles of 280 rows, a top-24 chosen per group
+  of 3 query tiles and expanded per tile (4i); and the 480x848 padded grid
+  [1,12,43008,128], 168 tiles of 256 with their valid counts, top-34 (the
+  VSA step of 4c);
+- K8 (the padded forward without LSE): STA's (3, 3, 3)-tile windows on
+  that grid (4d), and SLA at q/k/v [1,12,24960,128], 390 tiles of 64, top
+  10 % of sla_block_map's blocks (4f); with the lists alone where the
+  checkout builds them (``k8_sla_lists``);
 - K9a: q/k/v [1,12,24960,128] (390 tiles of 64) under the NABLA mask
   nabla_block_mask builds from the seeded q/k at thr 0.9 (4k), and under a
   mask whose per-row counts run 1..390;
@@ -67,7 +73,7 @@ def main() -> int:
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
 
-    from fastvideo_tpu_torch.ops import bsa, nabla, vsa
+    from fastvideo_tpu_torch.ops import bsa, nabla, sla, sta, vsa
     from fastvideo_tpu_torch.ops import flash_attention as fa
     try:
         from fastvideo_tpu_torch.ops import sparse_schedule as ss
@@ -105,6 +111,10 @@ def main() -> int:
         kw = dict(scale=scale, tile_elems=e)
         out, lse = vsa.block_sparse_attention(q, k, v, idx, sizes,
                                               return_lse=True, **kw)
+        ms[label.replace("bwd", "fwd")] = events_ms(
+            lambda: vsa.block_sparse_attention(q, k, v, idx, sizes,
+                                               return_lse=True, **kw),
+            args.reps)
         ms[label] = events_ms(lambda: vsa.block_sparse_attention_bwd(
             q, k, v, idx, sizes, out, lse, do, **kw), args.reps)
         if grid is None:
@@ -113,8 +123,26 @@ def main() -> int:
             if ss is not None:
                 ms["k7_bwd_sft_lists"] = events_ms(lambda: ss.heaviest_first(
                     ss.transposed_lists(idx, nb)[1]), args.reps)
+        if grid is not None:  # K8: STA's windows on the same grid
+            widx = torch.as_tensor(sta.sta_window_indices(
+                grid, (4, 8, 8), ((3, 3, 3),) * h), device=dev)[None]
+            ms["k8_sta_848"] = events_ms(lambda: vsa.block_sparse_attention(
+                q, k, v, widx, sizes, **kw), args.reps)
         del q, k, v, do, out, lse
         torch.cuda.empty_cache()
+
+    # K8 at SLA's shape
+    s, nb = 24960, 390
+    q, k, v = (rnd(1, h, s, d) for _ in range(3))
+    lut, _ = sla.sla_block_map(q, k, 0.1)
+    full = torch.full((nb,), 64, dtype=torch.int32, device=dev)
+    ms["k8_sla"] = events_ms(lambda: vsa.block_sparse_attention(
+        q, k, v, lut, full, scale=scale), args.reps)
+    if ss is not None and hasattr(ss, "padded_lists"):
+        ms["k8_sla_lists"] = events_ms(lambda: ss.heaviest_first(
+            ss.padded_lists(lut.int(), nb, 64)[3]), args.reps)
+    del q, k, v
+    torch.cuda.empty_cache()
 
     # K9a
     s, nb = 24960, 390

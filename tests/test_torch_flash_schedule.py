@@ -118,7 +118,8 @@ def test_host_rules_match_the_sources():
     assert "flash_bwd_dkv_reduce" in _build.KERNELS
     assert _build.SOURCE_OF["flash_bwd_dkv_reduce"] == "flash_bwd"
     assert set(_build.PTXAS_VERBOSE) == {"flash_fwd", "flash_bwd",
-                                         "vsa_sparse_bwd", "dyn_sparse_fwd"}
+                                         "vsa_sparse_bwd", "dyn_sparse_fwd",
+                                         "vsa_sparse_padded_fwd", "conv3d"}
 
 
 def test_ptxas_report_parses_a_log(tmp_path, monkeypatch):

@@ -1116,3 +1116,76 @@ def test_sparse_sm90_unaligned_view_raises(dev):
                       nk * e, d, e, 1, *st[:3], *st[3:6], *st[6:9], *st[3:6],
                       *st[9:], 0.125, _build.stream_ptr(x))
     assert _build.LAUNCHES == before
+
+
+# -- the padded forward's (K8 / K7 fwd) and the conv's (K3) Hopper schedules --
+
+
+@pytest.mark.parametrize("e,nb,topk,d", [
+    (280, 6, 4, 128),  # 4i's exact tile: its third block holds 24 rows
+    (256, 5, 3, 64),   # the padded (4, 8, 8) tile, a head of 64
+    (64, 11, 4, 128),  # SLA's tile: one warpgroup a 64-row block
+    (32, 9, 3, 64),    # two 32-row tiles walk one 64-row block's union
+])
+def test_vsa_sparse_padded_sm90_matches_plain(dev, e, nb, topk, d):
+    """K8 / K7 fwd on the Hopper schedule against the plain version: out
+    and LSE, ragged valid counts with non-finite padded key slots, -1
+    slots, and a query tile with no key (exactly 0, LSE MASK_VALUE); the
+    library takes that schedule and the launch is counted."""
+    assert _build.query("vsa_sparse_padded_fwd",
+                        "fvt_vsa_sparse_padded_fwd_route", d) == 1
+    assert ss.sparse_schedule(torch.bfloat16, d) == "sm90"
+    q, k, v, idx, sizes = _padded_case(dev, 1, 2, nb, e, d, topk, seed=40)
+    idx[0, 1, 2] = -1
+    before = _build.LAUNCHES["vsa_sparse_padded_fwd"]
+    plain = dict(_build.PLAIN_CALLS)
+    out, lse = vsa.block_sparse_attention(q, k, v, idx, sizes, tile_elems=e,
+                                          return_lse=True)
+    assert _build.LAUNCHES["vsa_sparse_padded_fwd"] == before + 1
+    assert _build.PLAIN_CALLS == plain
+    ref, ref_lse = _plain_padded(q, k, v, idx, sizes, e, return_lse=True)
+    torch.cuda.synchronize()
+    assert (out[0, 1, 2 * e:3 * e] == 0).all()
+    assert (lse[0, 1, 2 * e:3 * e] == vsa.MASK_VALUE).all()
+    _close(out, ref, torch.bfloat16)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-4)
+    assert torch.equal(vsa.block_sparse_attention(q, k, v, idx, sizes,
+                                                  tile_elems=e), out)
+
+
+@pytest.mark.parametrize("c,co,kt,time_pad,t,h,w", [
+    (96, 96, 3, 0, 4, 6, 70),     # up3's conv: a W tail (16 x 8 patches)
+    (96, 96, 3, 2, 1, 2, 64),     # the first chunk: 2 pad taps skipped
+    (16, 384, 3, 2, 2, 5, 20),    # conv_in: channels padded to 32
+    (96, 3, 3, 0, 3, 9, 24),      # conv_out: an N tile of 8, odd Co
+    (192, 384, 3, 0, 3, 4, 16),   # three N tiles of 128
+    (384, 192, 1, 0, 2, 8, 24),   # a resample: kt 1, two N tiles of 96
+    (192, 192, 3, 1, 2, 1, 128),  # 128 x 1 patches, one pad frame
+    (32, 40, 3, 0, 3, 60, 104),   # 8 x 16 patches, a Co tail
+])
+def test_conv3d_sm90_matches_plain(dev, c, co, kt, time_pad, t, h, w):
+    """K3's Hopper schedule against the plain conv at the decoder's edges:
+    each N tile width, each patch shape, W, H and Co tails, padded
+    channels, the causal pad; the library's route and N tile are the host
+    rule's."""
+    assert _build.query("conv3d", "fvt_conv3d_route", 1, c, co) == 1
+    assert conv3d.conv_schedule(torch.bfloat16, c, co) == "sm90"
+    assert _build.query("conv3d", "fvt_conv3d_tile_n", co) == \
+        conv3d.conv_tile_n(co)
+    g = torch.Generator(device=dev).manual_seed(41)
+    x = torch.randn(1, t, h, w, c, generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    wt = (torch.randn(kt, 3, 3, c, co, generator=g, device=dev) *
+          (kt * 9 * c)**-0.5).to(torch.bfloat16)
+    b = torch.randn(co, generator=g, device=dev).to(torch.bfloat16)
+    before = _build.LAUNCHES["conv3d"]
+    out = conv3d.conv3d_ndhwc(x, wt, b, time_pad=time_pad)
+    assert _build.LAUNCHES["conv3d"] == before + 1
+    ref = conv3d.conv3d_ndhwc_plain(x, wt, b, time_pad=time_pad)
+    assert out.shape == ref.shape
+    _close(out, ref, torch.bfloat16, attention=False)
+
+
+def test_conv3d_fp32_keeps_the_simt_schedule(dev):
+    assert _build.query("conv3d", "fvt_conv3d_route", 0, 96, 96) == 0
+    assert conv3d.conv_schedule(torch.float32, 96, 96) == "simt"
