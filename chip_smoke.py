@@ -9,16 +9,17 @@ Phases, each printing its own lines:
   2. kernel build: nvcc for sm_90a from fastvideo_tpu_torch/csrc, and
      the registers, spills, shared memory and ptxas warnings of each
      Hopper instance of the flash, sparse and conv kernels (from -Xptxas
-     -v; a spill at a head of 128 or in a conv instance of 96 or 128
-     output channels fails, and so does a serialized wgmma, C7518, in a
-     head-of-128 instance of K7 bwd, K9 or K8 / K7 fwd, or in those conv
-     instances);
+     -v; a spill at a head of 128, in a K3 instance of 96 or 128 output
+     channels or in a K4 instance fails, and so does a serialized wgmma,
+     C7518, in a head-of-128 instance of K2, K7 bwd, K9 or K8 / K7 fwd, or
+     in those conv instances);
   3. kernel checks: each kernel against its plain PyTorch version on the
      card at the main paths' shapes, with kernel, plain, library and bound
      times; each flash, K7 bwd, K9, K8 / K7 fwd and conv case prints the
      schedule it takes (a bf16 case with a head of 128 and every bf16 conv
      must take the Hopper one, and the profiler must name K1's and K6's
-     Hopper kernels), and K6's split dK/dV reduction is held
+     Hopper kernels; K2 also prints its key walk, and K4 must equal its
+     plain version bit for bit), and K6's split dK/dV reduction is held
      to its plain version at the cross-attention's scratch shape (the
      padded sparse kernel at its VSA, STA and SLA shapes, with the walked
      fraction of SLA's block map, and in its LSE mode at 4i's E 280 /
@@ -160,11 +161,15 @@ SM90_KERNELS = {"flash_fwd_sm90": {"0": "K1", "1": "K5", "2": "K1 struct"},
 SPARSE_SM90 = {"vsa_sparse_bwd_dq_sm90": {"0": "K7 bwd dQ"},
                "vsa_sparse_bwd_dkv_sm90": {"0": "K7 bwd dK/dV"},
                "dyn_sparse_fwd_sm90": {"0": "K9a", "1": "K9b"},
+               "vsa_sparse_fwd_sm90": {"0": "K2, per-tile walk",
+                                       "1": "K2, key stream"},
                "vsa_sparse_padded_fwd_sm90": {"1": "K8 / K7 fwd, E <= 64",
                                               "2": "K8 / K7 fwd"}}
-# the conv's Hopper instances by their N tile, and the convs they take
+# the convs' Hopper instances by their N tile, and the convs they take
 CONV_SM90 = {"8": "K3 conv_out (Co 3)", "96": "K3 (Co 96: up3, the hot "
              "conv; Co 192)", "128": "K3 (Co 384)"}
+CONV8_SM90 = {"96": "K4 (Co 96: up3, the hot conv)",
+              "192": "K4 (Co 192; 384)"}
 
 
 def card_line() -> str:
@@ -243,14 +248,17 @@ def sm90_instance(kernel: str):
         stem, d, mode = m.group(1), int(m.group(2)), m.group(3)
         return SM90_KERNELS[stem][mode], stem, d, int(mode)
     m = re.search(r"(vsa_sparse_bwd_d(?:q|kv)_sm90|dyn_sparse_fwd_sm90|"
-                  r"vsa_sparse_padded_fwd_sm90)ILi(\d+)E(?:L[bi](\d)E)?",
-                  kernel)
+                  r"vsa_sparse_padded_fwd_sm90|vsa_sparse_fwd_sm90)ILi(\d+)E"
+                  r"(?:L[bi](\d)E)?", kernel)
     if m:
         stem, d, mode = m.group(1), int(m.group(2)), m.group(3) or "0"
         return SPARSE_SM90[stem][mode], stem, d, int(mode)
     m = re.search(r"conv3d_sm90ILi(\d+)E", kernel)
     if m:
         return CONV_SM90[m.group(1)], "conv3d_sm90", int(m.group(1)), 0
+    m = re.search(r"conv3d_int8_sm90ILi(\d+)E", kernel)
+    if m:
+        return CONV8_SM90[m.group(1)], "conv3d_int8_sm90", int(m.group(1)), 0
     return None
 
 
@@ -260,10 +268,11 @@ def report_sm90_build() -> None:
     -Xptxas -v log of their build (the dynamic shared memory from the
     library, K5's at the 32,760-key window, K7 bwd's at 4i's top-24 over
     117 tiles, K9's over 4j's 672 key tiles, K8's at VSA's top-34 and
-    SLA's top-39 rows, K3's at W = 832's 64 x 2 patches). Fails on a
-    spill in an instance with a head of 128 or in a conv instance of 96 or
-    128 output channels, and on a serialized-wgmma warning (C7518) in a
-    head-of-128 instance of the sparse kernels or in those conv instances;
+    SLA's top-39 rows, K2's at the top-24, K3's and K4's at W = 832's 64 x
+    2 patches). Fails on a spill in an instance with a head of 128, in a
+    K3 instance of 96 or 128 output channels or in a K4 instance, and on a
+    serialized-wgmma warning (C7518) in a head-of-128 instance of the
+    sparse kernels or in those conv instances;
     the flash kernels' warnings (the head-of-64 struct dQ's C7518) are
     reported."""
     from fastvideo_tpu_torch.ops import _build
@@ -289,9 +298,15 @@ def report_sm90_build() -> None:
                     dyn = _build.query(src,
                                        "fvt_vsa_sparse_padded_fwd_sm90_smem",
                                        d, mode, 39 if mode == 1 else 34)
+                elif stem == "vsa_sparse_fwd_sm90":
+                    dyn = _build.query(src, "fvt_vsa_sparse_fwd_sm90_smem", d,
+                                       24)
                 elif stem == "conv3d_sm90":  # d is the N tile
                     dyn = _build.query(src, "fvt_conv3d_sm90_smem",
                                        {8: 3, 96: 96, 128: 384}[d], 64)
+                elif stem == "conv3d_int8_sm90":  # d is the N tile
+                    dyn = _build.query(src, "fvt_conv3d_int8_sm90_smem", d,
+                                       64)
                 else:
                     dyn = _build.query(src, "fvt_dyn_sparse_fwd_sm90_smem", d,
                                        672)
@@ -307,14 +322,13 @@ def report_sm90_build() -> None:
                   f"loaded), {r['stack']} bytes stack, {dyn + r['smem']} "
                   f"bytes shared memory; ptxas warnings: "
                   f"{r['warnings'] or 'none'}", flush=True)
-            hot = (stem == "conv3d_sm90" and d >= 96) or (
-                stem != "conv3d_sm90" and d == 128)
+            conv = stem in ("conv3d_sm90", "conv3d_int8_sm90")
+            hot = (conv and d >= 96) or (not conv and d == 128)
             if hot and spills:
                 raise SystemExit(f"{label}: ptxas reports {spills} spill "
                                  "bytes in a head-of-128 or hot conv "
                                  "instance")
-            if hot and serial and (stem in SPARSE_SM90
-                                   or stem == "conv3d_sm90"):
+            if hot and serial and (stem in SPARSE_SM90 or conv):
                 raise SystemExit(f"{label}: ptxas serialized the wgmma of a "
                                  f"head-of-128 or hot conv instance: "
                                  f"{serial}")
@@ -346,8 +360,8 @@ def check_schedule(label: str, dtype, d: int, backward: bool = False) -> str:
 
 
 def check_sparse_schedule(label: str, kernel: str, d: int) -> str:
-    """The schedule the sparse library of ``kernel`` (K7 bwd, K9 or K8 / K7
-    fwd) takes
+    """The schedule the sparse library of ``kernel`` (K2, K7 bwd, K9 or K8
+    / K7 fwd) takes
     for a bf16 head of d: it must be the host rule's
     (sparse_schedule.sparse_schedule), and a head of 128 must take the
     Hopper one."""
@@ -359,6 +373,7 @@ def check_sparse_schedule(label: str, kernel: str, d: int) -> str:
     fn = ("fvt_vsa_sparse_bwd_sm90" if kernel.startswith("vsa_sparse_bwd")
           else "fvt_vsa_sparse_padded_fwd_route"
           if kernel == "vsa_sparse_padded_fwd"
+          else "fvt_vsa_sparse_fwd_route" if kernel == "vsa_sparse_fwd"
           else "fvt_dyn_sparse_fwd_sm90_route")
     took = "sm90" if _build.query(kernel, fn, d) else "tile"
     want = sparse_schedule(torch.bfloat16, d)
@@ -516,10 +531,18 @@ def check_vsa(dev, results: dict) -> None:
     import torch
     from torch.nn.attention.flex_attention import flex_attention
 
-    from fastvideo_tpu_torch.ops import vsa
+    from fastvideo_tpu_torch.ops import _build, vsa
+    from fastvideo_tpu_torch.ops.sparse_schedule import (FAST_WALKS,
+                                                         fast_key_walk)
 
     g = torch.Generator(device=dev).manual_seed(1)
     b, h, d, e, nb, qg, topk = 1, 12, 128, 280, 117, 3, 24
+    sched = check_sparse_schedule("vsa_sparse_fwd[480p]", vsa.NAME, d)
+    walk = FAST_WALKS[_build.query(vsa.NAME, "fvt_vsa_sparse_fwd_walk", e)]
+    print(f"  vsa_sparse_fwd[480p]: key walk {walk}", flush=True)
+    if walk != fast_key_walk(e):
+        raise SystemExit(f"vsa_sparse_fwd: the library walks {walk}, the "
+                         f"host rule {fast_key_walk(e)}")
     s, ng = nb * e, nb // qg
     q, k, v = (torch.randn(b, h, s, d, generator=g, device=dev,
                            dtype=torch.bfloat16) for _ in range(3))
@@ -549,9 +572,11 @@ def check_vsa(dev, results: dict) -> None:
     bms, by = bound_ms(flops, nbytes)
     results["vsa_sparse_fwd"] = dict(
         max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
-        library_ms=lib, shape=f"q{[b, h, s, d]} E{e} groups{ng} topk{topk}")
-    print(f"  vsa_sparse_fwd[480p]: {ms:.3f} ms kernel, {plain:.3f} ms plain,"
-          f" {lib:.3f} ms flex_attention, bound {bms:.3f} ms ({by}, "
+        library_ms=lib, schedule=f"{sched}, key walk {walk}",
+        shape=f"q{[b, h, s, d]} E{e} groups{ng} topk{topk}")
+    print(f"  vsa_sparse_fwd[480p]: {ms:.3f} ms kernel "
+          f"({flops / ms / 1e9:.1f} TFLOP/s of needed work), {plain:.3f} ms "
+          f"plain, {lib:.3f} ms flex_attention, bound {bms:.3f} ms ({by}, "
           f"{flops:.3e} FLOP)", flush=True)
 
 
@@ -1157,6 +1182,10 @@ def check_conv_int8(dev, results: dict) -> None:
         out = conv3d.conv3d_int8(*args, **kw)
         ref = conv3d.conv3d_int8_plain(*args, **kw)
         errs.append(check_ulp(f"conv3d_int8[{label}]", out, ref))
+        if not torch.equal(out, ref):
+            raise SystemExit(f"conv3d_int8[{label}]: K4 is not bit for bit "
+                             "its plain version (exact int32 sums, the same "
+                             "epilogue roundings)")
         if not torch.equal(routed, out):
             raise SystemExit(f"conv3d_int8[{label}]: conv3d_ndhwc's int8 "
                              "route differs from K4 on its own operands")

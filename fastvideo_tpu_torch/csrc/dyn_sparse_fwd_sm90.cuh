@@ -31,6 +31,23 @@
 // MASK_VALUE). Its tiles of 64 rows (SLA) run one warpgroup a block over
 // 64-key chunks (kWGs = 1), so each tile walks its own list: a group of
 // two 10 % lists walks close to their sum.
+//
+// The VSA forward on full tiles (K2, vsa_sparse_fwd.cu) runs it too, on
+// each query group's top-k row, with two cuts its contract allows: a
+// block's 128 rows tile the group's G E rows back to back (`rows` = G E,
+// so a group of 840 rows is 7 blocks, the last 72 rows deep), and, where E
+// is a multiple of 8, the keys are walked as ONE stream (kStream): the
+// group's K full tiles back to back, K E keys in 64-key units, each unit
+// one {64, 64} box where it lies in one tile and eight {64, 8} boxes
+// where it crosses a tile's end (an 8-row box never does), so only the
+// stream's last unit is ragged. The stream's copies are issued by a
+// producer warpgroup of their own (one warp of it, one box a lane; 384
+// threads a block), so no copy code sits between a consumer's products
+// and their wait (issued from a consumer warp, it made ptxas serialize the
+// wgmma, C7518); the producer gives its registers to the consumers
+// (setmaxnreg: 40 and 232 a thread; with 288 threads ptxas capped every
+// thread at 168 and spilled). Its padded slots are real, finite rows
+// (never zeroed: their weight is exactly 0).
 #pragma once
 
 #include "flash_fwd_sm90.cuh"
@@ -48,7 +65,9 @@ constexpr float kEmptyLse = -0.7f * 3.4028234663852886e38f;
 
 struct DynFwdParams {
   CUtensorMap q;     // map_bshd over [B, H, Sq, D], box {64, 64}
-  CUtensorMap k, v;  // map_tiles over [B, H, nK, E, D], box {64, kUnit}
+  CUtensorMap k, v;  // map_tiles over [B, H, nK, E, D], box {64, kUnit};
+                     // K2's stream: map_bshd over [B, H, S, D], box {64, 64}
+  CUtensorMap k8, v8;  // K2's stream: map_bshd, box {64, 8}
   bf16* o;
   float* lse;  // [B, H, Sq] or null
   long long o_sb, o_sh, o_ss;
@@ -57,7 +76,8 @@ struct DynFwdParams {
   const int* bits;    // [B, H, nG, stride] the group's tiles that keep each
                       // entry, or null: a group of one tile keeps every entry
   const int* sizes;   // [nK]
-  const int* order;   // [B * H * nG] flat (batch, head, group) in launch order
+  const int* order;   // [B * H * nG] flat (batch, head, group) in launch
+                      // order, or null: in order
   int H, Sq, E, rows, group, nG, n_sub;
   int stride;  // entries a list row holds (nK for a union list)
   float scale_log2;
@@ -79,7 +99,7 @@ __host__ __device__ constexpr size_t dyn_fwd_smem_bytes(int stride) {
          Ring<kDynStages, 4 * kWGs>::bytes() + TileList::bytes(stride, true);
 }
 
-template <int D, int kWGs>
+template <int D, int kWGs, bool kStream = false>
 __device__ __forceinline__ void dyn_fwd_body(const DynFwdParams& p) {
   constexpr int BQ = 64 * kWGs, BK = dyn_chunk_keys<kWGs>(), NS = kDynStages;
   constexpr int U = BK / kUnit;  // units a chunk
@@ -91,7 +111,8 @@ __device__ __forceinline__ void dyn_fwd_body(const DynFwdParams& p) {
   const Ring<NS, 4 * kWGs> ring(carve);
   TileList list(carve, p.stride, true);
 
-  const int flat = p.order[blockIdx.x / p.n_sub];  // (batch, head, group)
+  const int flat = p.order == nullptr ? blockIdx.x / p.n_sub
+                                      : p.order[blockIdx.x / p.n_sub];  // (batch, head, group)
   const int sub = blockIdx.x % p.n_sub;
   const int g = flat % p.nG;
   const int h = (flat / p.nG) % p.H;
@@ -103,10 +124,17 @@ __device__ __forceinline__ void dyn_fwd_body(const DynFwdParams& p) {
   const int live_wgs = max(0, min(kWGs, (min(span, p.Sq - base) - r0 + 63) / 64));
 
   const long long row = static_cast<long long>(flat) * p.stride;
-  list.build(p.list + row, p.bits == nullptr ? nullptr : p.bits + row,
-             live_wgs == 0 ? 0 : p.counts == nullptr ? p.stride : p.counts[flat], p.sizes,
-             p.E);
-  const int units = *list.total;
+  const int count = live_wgs == 0 ? 0 : p.counts == nullptr ? p.stride : p.counts[flat];
+  int units, keys = 0;  // the walk's units; the stream's keys
+  if constexpr (kStream) {
+    for (int t = threadIdx.x; t < count; t += blockDim.x) list.id[t] = __ldg(p.list + row + t);
+    __syncthreads();
+    keys = count * p.E;
+    units = (keys + kUnit - 1) / kUnit;
+  } else {
+    list.build(p.list + row, p.bits == nullptr ? nullptr : p.bits + row, count, p.sizes, p.E);
+    units = *list.total;
+  }
   const int n_steps = (units + U - 1) / U;
 
   Cursor fill;
@@ -114,6 +142,34 @@ __device__ __forceinline__ void dyn_fwd_body(const DynFwdParams& p) {
   int filled = 0;  // units issued
   auto issue = [&](int i) {
     const int s = i % NS;
+    if constexpr (kStream) {  // every lane of the producer warp
+      const int lane = threadIdx.x % 32;
+      if (lane == 0) bar_expect(&ring.full[s], 2 * BK * D * 2);
+      __syncwarp();
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int k0 = min(i * U + u, units - 1) * kUnit;  // past the walk: the last unit again
+        const int j = k0 / p.E, r0 = k0 - j * p.E;
+        const int at = s * BK * D + u * kUnit * 64;
+        if (r0 + kUnit <= p.E) {  // in one tile: a box a half of D, of K and of V
+          if (lane < 2 * (D / 64)) {
+            const int nb = lane % (D / 64);
+            const bool is_v = lane >= D / 64;
+            tma_load_4d((is_v ? sv : sk) + at + nb * BK * 64, is_v ? &p.v : &p.k,
+                        &ring.full[s], nb * 64, list.id[j] * p.E + r0, h, b);
+          }
+        } else if (lane < 16 * (D / 64)) {  // across a tile's end: 8-row boxes
+          const int bx = lane % 8, nb = (lane / 8) % (D / 64);
+          const bool is_v = lane >= 8 * (D / 64);
+          const int kk = min(k0 + 8 * bx, keys - 8);  // past the stream: a real row, masked
+          const int jj = kk / p.E;
+          tma_load_4d((is_v ? sv : sk) + at + nb * BK * 64 + 8 * bx * 64, is_v ? &p.v8 : &p.k8,
+                      &ring.full[s], nb * 64, list.id[jj] * p.E + kk - jj * p.E, h, b);
+        }
+      }
+      __syncwarp();
+      return;
+    }
     bar_expect(&ring.full[s], 2 * BK * D * 2);
     int kt = 0, c0 = 0;
 #pragma unroll
@@ -139,13 +195,32 @@ __device__ __forceinline__ void dyn_fwd_body(const DynFwdParams& p) {
       for (int nb = 0; nb < D / 64; ++nb)
         tma_load_4d(sq + nb * BQ * 64 + w * 64 * 64, &p.q, ring.own, nb * 64, base + r0 + 64 * w,
                     h, b);
+  }
+  if constexpr (kStream) {
+    if (wg == kWGs) {  // the producer: chunk i once its stage is free
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+      if (threadIdx.x < kWGs * kWarpgroup + 32)
+        for (int i = 0; i < n_steps; ++i) {
+          if (i >= NS) bar_wait(&ring.empty[i % NS], (i / NS - 1) & 1);
+          issue(i);
+        }
+      return;
+    }
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  } else if (threadIdx.x == 0) {
     for (int i = 0; i < min(NS, n_steps); ++i) issue(i);
   }
+  auto release = [&](int i) {
+    if constexpr (kStream)
+      ring.arrive(i);
+    else
+      ring.release(i, n_steps, issue);
+  };
 
   if (wg >= live_wgs) {  // rows past the group: release the stages
     for (int i = 0; i < n_steps; ++i) {
       ring.wait(i);
-      ring.release(i, n_steps, issue);
+      release(i);
     }
     return;
   }
@@ -183,7 +258,7 @@ __device__ __forceinline__ void dyn_fwd_body(const DynFwdParams& p) {
     if (i > 0) {  // the previous chunk's P V is done: its stage is free
       mma_wait<1>();
       fence_regs(o);
-      ring.release(i - 1, n_steps, issue);
+      release(i - 1);
     }
     // the visible keys of each unit for each row: below lim[r][u]
     int lim[2][U], valid[U];
@@ -193,9 +268,14 @@ __device__ __forceinline__ void dyn_fwd_body(const DynFwdParams& p) {
       int nk = 0;
       unsigned keep = 0;
       if (used < units) {
-        nk = at.rows(list);
-        keep = static_cast<unsigned>(list.bits[at.j]);
-        at.next(list);
+        if constexpr (kStream) {
+          nk = min(kUnit, keys - used * kUnit);
+          keep = 1u;
+        } else {
+          nk = at.rows(list);
+          keep = static_cast<unsigned>(list.bits[at.j]);
+          at.next(list);
+        }
         ++used;
       }
       valid[u] = nk;
@@ -203,7 +283,7 @@ __device__ __forceinline__ void dyn_fwd_body(const DynFwdParams& p) {
 #pragma unroll
       for (int r = 0; r < 2; ++r) lim[r][u] = (keep & mine[r]) ? nk : 0;
     }
-    if (ragged) {  // the same for every thread of the block
+    if (!kStream && ragged) {  // the same for every thread of the block
       // V rows past a unit's valid keys may hold anything (a tile's padded
       // slots): zero them, so that their zero weights give 0, not NaN
       bf16* vz = sv + st * BK * D;
@@ -260,7 +340,7 @@ __device__ __forceinline__ void dyn_fwd_body(const DynFwdParams& p) {
   if (n_steps > 0) {
     mma_wait<0>();
     fence_regs(o);
-    ring.release(n_steps - 1, n_steps, issue);
+    release(n_steps - 1);
   }
 
   // epilogue: O / l in bf16 (0 for a row that saw no key), and the LSE

@@ -494,6 +494,13 @@ struct Ring {
     }
     __syncwarp();
   }
+
+  // This warp is done reading chunk i's stage; a producer warp of its own
+  // refills it.
+  __device__ void arrive(int i) const {
+    if (threadIdx.x % 32 == 0) bar_arrive(&empty[i % NS]);
+    __syncwarp();
+  }
 };
 
 // -- walking a list of tiles (the sparse kernels) -----------------------------

@@ -9,16 +9,34 @@
 //
 // What bounds it: 4*B*H*S*K*E*D FLOP (1.35e12 per launch at the 480p main
 // path: S=32760, K=24, E=280, D=128) against S*D*(3 + K/G) bf16 reads, so it
-// is tensor-core bound. The design gives each block BQ query rows of one
-// group; the block reads its own K indices and gathers each selected key
-// tile at row idx*E in chunks of BK rows. E=280 is not a multiple of BK, so
-// the ragged last chunk of each tile is masked inside the kernel (rows past
-// E are zero-filled and their scores are -inf) rather than padding the
-// tensors. The Pallas kernel's unroll and duplicate-index padding exist for
-// Mosaic's grid-step cost and have no counterpart here.
-//
-// Grid: (nG * ceil(G*E / BQ), H, B), 128 threads.
+// is tensor-core bound. Two schedules, chosen by the head alone (use_sm90;
+// ops/sparse_schedule.py:sparse_schedule states the same rule; bf16 only;
+// no fallback between them):
+//  - a head of 64 or 128, every DiT launch: the list-walk forward of K8
+//    and K9 (dyn_sparse_fwd_sm90.cuh: wgmma, the online softmax on the
+//    register fragment, P as the register A operand of P V, a TMA ring of
+//    128-key chunks; instances vsa_sparse_fwd_sm90<D, stream>) on each
+//    group's top-k row, with the two cuts K2's full tiles allow. Rows: a
+//    block's 128 rows tile the group's G E rows back to back (840 rows: 7
+//    blocks, 896 row slots; K8's per-tile blocks would take 1,152). Keys:
+//    where E % 8 == 0 (stream_walk; ops/sparse_schedule.py:fast_key_walk)
+//    the group's K tiles are walked as one stream of K E keys in 64-key
+//    units, each a {64, 64} box inside one tile or eight {64, 8} boxes
+//    across a tile's end, so 6,720 keys are 105 units and only the last is
+//    ragged (K8's walk of a 280-row tile in 64-row units reads 320 rows);
+//    other E walk each tile in 64-row units of a 5-D tile map that reads
+//    zeros past E, as K8 does. All lists have K valid slots, so the blocks
+//    run in order and need no bit sets.
+//  - other heads (the tiny models): the first schedule, kept from the
+//    port's first slice: each block owns BQ query rows of one group, reads
+//    its own K indices and gathers each selected key tile at row idx*E in
+//    chunks of BK rows through attn_tile.cuh (WMMA through shared memory);
+//    the ragged last chunk of each tile is masked inside the kernel. Grid:
+//    (nG * ceil(G*E / BQ), H, B), 128 threads.
+// The Pallas kernel's unroll and duplicate-index padding exist for Mosaic's
+// grid-step cost and have no counterpart here.
 #include "attn_tile.cuh"
+#include "dyn_sparse_fwd_sm90.cuh"
 
 namespace {
 
@@ -85,10 +103,125 @@ int launch(const void* q, const void* k, const void* v, void* o, const int* indi
   return static_cast<int>(cudaGetLastError());
 }
 
+// Whether a head of D takes the Hopper schedule (the kernels are bf16
+// only). ops/sparse_schedule.py:sparse_schedule states the same rule.
+bool use_sm90(int D) { return D == 64 || D == 128; }
+
+// Whether the Hopper schedule walks the keys as one stream (else per
+// tile): a tile's rows split into 8-row boxes. ops/sparse_schedule.py:
+// fast_key_walk states the same rule.
+bool stream_walk(int E) { return E % 8 == 0; }
+
 }  // namespace
 
-// bfloat16 only, D a multiple of 16 up to 128 (the main path's D is 128).
-// S = nB * E rows, ng divides nB; indices int32 [B, H, ng, topk], contiguous.
+namespace fvt {
+namespace sm90 {
+
+// Threads a block of K2's Hopper instances: two consumer warpgroups, and a
+// producer warpgroup for the key stream.
+template <bool kStream>
+constexpr int fast_threads() {
+  return kFwdThreads + (kStream ? kWarpgroup : 0);
+}
+
+// K2's Hopper instances: kStream walks the keys as one stream, else per tile.
+template <int D, bool kStream>
+__global__ void __launch_bounds__(fast_threads<kStream>(), 1)
+    vsa_sparse_fwd_sm90(const __grid_constant__ DynFwdParams p) {
+  dyn_fwd_body<D, 2, kStream>(p);
+}
+
+}  // namespace sm90
+}  // namespace fvt
+
+namespace {
+
+namespace s9 = fvt::sm90;
+
+template <int D, bool kStream>
+int launch_sm90(s9::DynFwdParams& p, long long blocks, cudaStream_t stream) {
+  const size_t smem = s9::dyn_fwd_smem_bytes<D, 2>(p.stride);
+  cudaError_t err = s9::set_smem(s9::vsa_sparse_fwd_sm90<D, kStream>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  s9::vsa_sparse_fwd_sm90<D, kStream>
+      <<<static_cast<unsigned>(blocks), s9::fast_threads<kStream>(), smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// 1 when a head of D runs the Hopper schedule (fvt_vsa_sparse_fwd_sm90), 0
+// when it runs the first one (fvt_vsa_sparse_fwd).
+extern "C" int fvt_vsa_sparse_fwd_route(int D) { return use_sm90(D) ? 1 : 0; }
+
+// The Hopper schedule's key walk for tiles of E rows: 1 the stream, 0 per
+// tile.
+extern "C" int fvt_vsa_sparse_fwd_walk(int E) { return stream_walk(E) ? 1 : 0; }
+
+// The Hopper schedule's dynamic shared memory a block (bytes), for a head
+// of D (64 or 128) and top-k lists of topk tiles.
+extern "C" int fvt_vsa_sparse_fwd_sm90_smem(int D, int topk) {
+  return static_cast<int>(D == 64 ? s9::dyn_fwd_smem_bytes<64, 2>(topk)
+                                  : s9::dyn_fwd_smem_bytes<128, 2>(topk));
+}
+
+// The Hopper schedule (a head of 64 or 128). S = nB * E rows, ng divides
+// nB; indices int32 [B, H, ng, topk] contiguous, every slot a tile id.
+// walk: 1 the key stream (E % 8 == 0), 0 per tile (any E). Strides in
+// elements, of q, k, v and o in turn: batch, head, row.
+extern "C" int fvt_vsa_sparse_fwd_sm90(const void* q, const void* k, const void* v, void* o,
+                                       const void* indices, int B, int H, int S, int D, int E,
+                                       int ng, int topk, int walk, long long q_sb,
+                                       long long q_sh, long long q_ss, long long k_sb,
+                                       long long k_sh, long long k_ss, long long v_sb,
+                                       long long v_sh, long long v_ss, long long o_sb,
+                                       long long o_sh, long long o_ss, float scale,
+                                       void* stream) {
+  if (!use_sm90(D) || E <= 0 || ng <= 0 || topk <= 0 || S % E != 0 || (S / E) % ng != 0 ||
+      (walk != 0 && walk != 1) || (walk == 1 && !stream_walk(E)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  s9::DynFwdParams p;
+  const int nB = S / E;
+  const bool ok =
+      s9::map_bshd(&p.q, q, B, S, H, D, q_sb, q_sh, q_ss, 64) &&
+      (walk == 1 ? s9::map_bshd(&p.k, k, B, S, H, D, k_sb, k_sh, k_ss, s9::kUnit) &&
+                       s9::map_bshd(&p.v, v, B, S, H, D, v_sb, v_sh, v_ss, s9::kUnit) &&
+                       s9::map_bshd(&p.k8, k, B, S, H, D, k_sb, k_sh, k_ss, 8) &&
+                       s9::map_bshd(&p.v8, v, B, S, H, D, v_sb, v_sh, v_ss, 8)
+                 : s9::map_tiles(&p.k, k, B, H, nB, E, D, k_sb, k_sh, k_ss) &&
+                       s9::map_tiles(&p.v, v, B, H, nB, E, D, v_sb, v_sh, v_ss));
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  p.o = static_cast<bf16*>(o);
+  p.lse = nullptr;
+  p.o_sb = o_sb;
+  p.o_sh = o_sh;
+  p.o_ss = o_ss;
+  p.list = static_cast<const int*>(indices);
+  p.counts = nullptr;
+  p.bits = nullptr;
+  p.sizes = nullptr;
+  p.order = nullptr;
+  p.H = H;
+  p.Sq = S;
+  p.E = E;
+  p.rows = (nB / ng) * E;  // a group's rows, tiled by the blocks back to back
+  p.group = 1;
+  p.nG = ng;
+  p.n_sub = (p.rows + s9::kDynBQ - 1) / s9::kDynBQ;
+  p.stride = topk;
+  p.scale_log2 = scale * s9::kLog2e;
+  const long long blocks = static_cast<long long>(B) * H * ng * p.n_sub;
+  if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 64)
+    return walk == 1 ? launch_sm90<64, true>(p, blocks, s) : launch_sm90<64, false>(p, blocks, s);
+  return walk == 1 ? launch_sm90<128, true>(p, blocks, s)
+                   : launch_sm90<128, false>(p, blocks, s);
+}
+
+// The first schedule (heads other than 64 and 128). bfloat16 only, D a
+// multiple of 16 up to 128. S = nB * E rows, ng divides nB; indices int32
+// [B, H, ng, topk], contiguous.
 extern "C" int fvt_vsa_sparse_fwd(const void* q, const void* k, const void* v, void* o,
                                   const void* indices, int B, int H, int S, int D, int E,
                                   int ng, int topk, long long q_sb, long long q_sh,
@@ -96,7 +229,7 @@ extern "C" int fvt_vsa_sparse_fwd(const void* q, const void* k, const void* v, v
                                   long long k_ss, long long v_sb, long long v_sh,
                                   long long v_ss, long long o_sb, long long o_sh,
                                   long long o_ss, float scale, void* stream) {
-  if (D % 16 != 0 || D > 128 || E <= 0 || ng <= 0 || topk <= 0 || S % E != 0 ||
+  if (D % 16 != 0 || D > 128 || use_sm90(D) || E <= 0 || ng <= 0 || topk <= 0 || S % E != 0 ||
       (S / E) % ng != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long st[12] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss};

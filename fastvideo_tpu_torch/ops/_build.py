@@ -18,7 +18,7 @@ backward sources hold a dQ and a dK/dV kernel each, ``flash_bwd_dq`` /
 ``flash_bwd_dkv_reduce`` adds a split dK/dV launch's partial sums).
 
 The sources with Hopper schedules (the flash and sparse attention kernels,
-the conv K3) compile with ``-Xptxas -v``; :func:`ptxas_report` reads back
+the convs K3 and K4) compile with ``-Xptxas -v``; :func:`ptxas_report` reads back
 each of their kernels' registers, spills, static shared memory and ptxas
 warnings (C7518: wgmma serialized).
 """
@@ -58,7 +58,8 @@ SOURCE_OF = {**{n: n for n in SOURCES[:5]}, "flash_fwd_kv_mask": "flash_fwd",
 KERNELS = tuple(SOURCE_OF)
 # sources whose ptxas resource report is kept beside their library
 PTXAS_VERBOSE = ("flash_fwd", "flash_bwd", "vsa_sparse_bwd", "dyn_sparse_fwd",
-                 "vsa_sparse_padded_fwd", "conv3d")
+                 "vsa_sparse_padded_fwd", "conv3d", "vsa_sparse_fwd",
+                 "conv3d_int8")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -249,6 +250,14 @@ _SIGNATURES = {
     # stream
     "fvt_vsa_sparse_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 +
     [ctypes.c_longlong] * 12 + [ctypes.c_float, ctypes.c_void_p],
+    # the same with the key walk (0 per tile, 1 the stream) after topk
+    "fvt_vsa_sparse_fwd_sm90": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 +
+    [ctypes.c_longlong] * 12 + [ctypes.c_float, ctypes.c_void_p],
+    # D: 1 when K2 runs its Hopper schedule; E: 1 when it walks the keys
+    # as one stream; D, topk: its shared memory
+    "fvt_vsa_sparse_fwd_route": [ctypes.c_int],
+    "fvt_vsa_sparse_fwd_walk": [ctypes.c_int],
+    "fvt_vsa_sparse_fwd_sm90_smem": [ctypes.c_int] * 2,
     # q, k, v, o, lse (or null), indices, block_sizes, B, H, S, D, E, topk,
     # 12 strides, scale, stream
     "fvt_vsa_sparse_padded_fwd": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 +
@@ -326,10 +335,13 @@ _SIGNATURES = {
     "fvt_conv3d_route": [ctypes.c_int] * 3,
     "fvt_conv3d_tile_n": [ctypes.c_int],
     "fvt_conv3d_sm90_smem": [ctypes.c_int] * 2,
-    # xq, w [Co, K], scale, bias, y, out dtype, B, T, H, W, C, Co, kt,
-    # time_pad, stream
-    "fvt_conv3d_int8_ndhwc": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 +
+    # xq, w [kt * 3 * C / 32, 3, Co_pad, 32], scale, bias, y, out dtype, B,
+    # T, H, W, C, Co, kt, time_pad, bn, bw, stream
+    "fvt_conv3d_int8_sm90": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 +
     [ctypes.c_void_p],
+    # Co: K4's N tile; Co, bw: its shared memory
+    "fvt_conv3d_int8_tile_n": [ctypes.c_int],
+    "fvt_conv3d_int8_sm90_smem": [ctypes.c_int] * 2,
 }
 
 

@@ -5,9 +5,11 @@ fastvideo_tpu/ops/conv3d.py).
 w [kt, 3, 3, C, Co]. On a CUDA tensor it launches the hand-written sm_90a
 implicit-GEMM kernel ``csrc/conv3d.cu`` (K3), which replaces both Pallas
 kernels of the JAX package ("kf" ``_conv_kernel_thcw_kf`` and "tap"
-``_conv_kernel``): on the TPU they are two layouts of one function, so
-every conv mode name the JAX package accepts routes to K3 here. On a CPU
-tensor it runs :func:`conv3d_ndhwc_plain`, a tap-by-tap fp32 sum.
+``_conv_kernel``): on the TPU they are layouts of one function, so every
+direct conv mode name the JAX package accepts routes to K3 here. On a CPU
+tensor it runs :func:`conv3d_ndhwc_plain`, a tap-by-tap fp32 sum. The
+"wino" mode is another function, an XLA Winograd conv in JAX: it runs
+``ops/winograd.py`` in plain PyTorch on both devices.
 
 K3 has two schedules, chosen by :func:`conv_schedule` (the CUDA source
 applies the same rule): bf16 runs the Hopper one (``csrc/conv3d_sm90.cuh``:
@@ -24,9 +26,13 @@ RMSNorm+SiLU prologue, is quantized with one fp32 scale for the whole
 tensor and the weight with one scale per Co; :func:`conv3d_int8` then
 accumulates int8 x int8 in int32 and writes ``acc * (sw * sx) + b`` in fp32,
 cast to the input dtype. On a CUDA tensor that is the hand-written kernel
-``csrc/conv3d_int8.cu`` (K4, replacing ``_conv_kernel_thcw_kf_int8``), on a
-CPU tensor :func:`conv3d_int8_plain`. Every other conv keeps K3, as JAX
-keeps its bf16 kernel.
+``csrc/conv3d_int8.cu`` (K4, replacing ``_conv_kernel_thcw_kf_int8``): K3's
+Hopper schedule with s8 wgmma and int32 sums, for which the wrapper lays
+the int8 weight out in bulk-copy blocks (:func:`sm90_weight_int8`) and
+picks the patch
+(:func:`conv_tile_w`) and the N tile (:func:`conv_int8_tile_n`); on a CPU
+tensor :func:`conv3d_int8_plain`. Every other conv keeps K3, as JAX keeps
+its bf16 kernel.
 
 Both kernels serve an fp32 decode (``vae_decode_precision="fp32"``) as the
 JAX kernels do: K3 takes fp32 operands (fp32 FMAs, fp32 output) and K4
@@ -44,7 +50,8 @@ from fastvideo_tpu_torch.ops import _build
 
 NAME = "conv3d"
 NAME_INT8 = "conv3d_int8"
-# FASTVIDEO_VAE_CONV3D values: each names a TPU layout of the same conv
+# FASTVIDEO_VAE_CONV3D values: the direct ones name TPU layouts of one conv
+# (K3); "wino" is the Winograd conv of ops/winograd.py
 CONV3D_MODES = ("auto", "tap", "kf", "thcw", "nb", "dw", "dhw", "full",
                 "hoist", "dma", "shift3", "tfold", "wino")
 INT8_MODES = ("kf_int8", "auto_int8")
@@ -73,6 +80,14 @@ def conv_tile_n(co: int) -> int:
     return 8 if co <= 8 else (128 if co % 128 == 0 else 96)
 
 
+def conv_int8_tile_n(co: int) -> int:
+    """Output channels of one block of K4's Hopper schedule (csrc/
+    conv3d_int8.cu:conv8_tile_n), for Co a multiple of 32: 192 where it
+    divides Co (192; 384: two tiles), else 96 (96; the route's edges 32
+    and 64 pad to 96)."""
+    return 192 if co % 192 == 0 else 96
+
+
 def conv_tile_w(h: int, w: int) -> int:
     """Width bw of the bw x (128 / bw) voxel patch a block of the Hopper
     schedule owns: the one whose patches cover H x W with the fewest
@@ -88,10 +103,13 @@ def conv_tile_w(h: int, w: int) -> int:
 
 
 def sm90_weight(w: torch.Tensor, bn: int) -> torch.Tensor:
-    """w [kt, 3, 3, C, Co] as the Hopper schedule's B operand: [kt * 3 *
+    """w [kt, 3, 3, C, Co] as the Hopper schedules' B operand: [kt * 3 *
     nC, 3, Co_pad, 32], stage (dt, dh, 32-channel chunk c) at (dt * 3 + dh)
     * nC + c, then tap dw, output channel, channel; zeros past C (nC =
-    ceil(C / 32)) and past Co (Co_pad a multiple of ``bn``)."""
+    ceil(C / 32)) and past Co (Co_pad a multiple of ``bn``): each output
+    channel's 32 channels of a stage are contiguous, the K-major B of
+    wgmma. K3 takes it in bf16; K4 regroups the int8 form
+    (:func:`sm90_weight_int8`)."""
     kt, _, _, c, co = w.shape
     cp = -(-c // CONV_CHUNK) * CONV_CHUNK
     co_pad = -(-co // bn) * bn
@@ -99,6 +117,27 @@ def sm90_weight(w: torch.Tensor, bn: int) -> torch.Tensor:
     wp = wp.reshape(kt, 3, 3, cp // CONV_CHUNK, CONV_CHUNK, co_pad)
     return wp.permute(0, 1, 3, 2, 5, 4).reshape(
         kt * 3 * (cp // CONV_CHUNK), 3, co_pad, CONV_CHUNK).contiguous()
+
+
+def sm90_weight_int8(wq: torch.Tensor, bn: int) -> torch.Tensor:
+    """int8 wq [kt, 3, 3, C, Co] as K4's B operand: [Co_pad / bn, kt * nC,
+    9, bn, 32], N tile, stage (dt, 32-channel chunk c) at dt * nC + c, tap
+    (dh, dw) at 3 dh + dw, output channel, channel (zeros past Co, Co_pad a
+    multiple of ``bn``), so that each (N tile, stage) is one contiguous
+    block of 9 bn 32 bytes that one bulk copy brings into shared memory as
+    it is; hence the 32-byte swizzle the kernel's descriptors read is
+    applied here: in each 8-row group the 16-byte halves of rows 4..7 are
+    swapped (chunk c of row r at c ^ bit 2 of r; csrc/conv3d_int8.cu:
+    desc32)."""
+    kt, c = wq.shape[0], wq.shape[3]
+    nc = -(-c // CONV_CHUNK)
+    wb = sm90_weight(wq, bn)  # [kt * 3 * nC, 3, Co_pad, 32], (dt, dh, c)
+    co_pad = wb.shape[2]
+    wb = wb.reshape(kt, 3, nc, 3, co_pad // bn, bn // 8, 2, 4, 2, 16)
+    wb = torch.cat([wb[..., :1, :, :, :], wb[..., 1:, :, :, :].flip(-2)],
+                   dim=6)
+    return wb.permute(4, 0, 2, 1, 3, 5, 6, 7, 8, 9).reshape(
+        co_pad // bn, kt * nc, 9, bn, 32).contiguous()
 
 
 def vae_conv3d_mode() -> str:
@@ -120,11 +159,16 @@ def supports(kernel_size: tuple[int, int, int], stride: tuple[int, int, int],
              padding: tuple[int, int, int], cin: int, cout: int,
              w_dim: int | None = None, mode: str | None = None,
              h_dim: int | None = None) -> bool:
-    """Convs that go through K3, as in the JAX package's ``supports``;
-    everything else stays a plain PyTorch conv. Co not a multiple of 8
-    (conv_out's 3 channels) is taken in the modes whose TPU kernel streams
-    Co on the M dim, at W >= 256 and C >= 64."""
-    del h_dim
+    """Convs that go through :func:`conv3d_ndhwc`, as in the JAX package's
+    ``supports``; everything else stays a plain PyTorch conv. "wino" takes
+    ``winograd.supports``. Co not a multiple of 8 (conv_out's 3 channels)
+    is taken in the modes whose TPU kernel streams Co on the M dim, at W >=
+    256 and C >= 64."""
+    if mode == "wino":
+        from fastvideo_tpu_torch.ops import winograd
+
+        return winograd.supports(kernel_size, stride, padding, cin, cout,
+                                 h_dim=h_dim, w_dim=w_dim)
     kt, kh, kw = kernel_size
     base = (kh == 3 and kw == 3 and kt in (1, 3) and tuple(stride) == (1, 1, 1)
             and padding[1] == 1 and padding[2] == 1 and cin % 8 == 0)
@@ -238,16 +282,17 @@ def _conv3d_int8_cuda(xq, wq, scale, bias, time_pad, out_dtype):
     xq = xq.contiguous()
     if xq.data_ptr() % 16:
         xq = xq.clone()
-    w_nk = wq.permute(4, 0, 1, 2, 3).contiguous()  # [Co, kt*9*C]
+    bn = conv_int8_tile_n(co)
+    wb = sm90_weight_int8(wq, bn)
     bsz, t, h, wd, _ = xq.shape
     t_out = t + time_pad - kt + 1
     y = torch.empty((bsz, t_out, h, wd, co), dtype=out_dtype,
                     device=xq.device)
-    _build.launch(NAME_INT8, "fvt_conv3d_int8_ndhwc", xq.data_ptr(),
-                  w_nk.data_ptr(), scale.contiguous().data_ptr(),
+    _build.launch(NAME_INT8, "fvt_conv3d_int8_sm90", xq.data_ptr(),
+                  wb.data_ptr(), scale.contiguous().data_ptr(),
                   bias.contiguous().data_ptr(), y.data_ptr(),
                   _DTYPE_CODES[out_dtype], bsz, t, h, wd, c, co, kt, time_pad,
-                  _build.stream_ptr(xq))
+                  bn, conv_tile_w(h, wd), _build.stream_ptr(xq))
     return y
 
 
@@ -316,13 +361,20 @@ def conv3d_ndhwc(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
 
     ``time_pad`` zero frames go in front (causal); spatial padding is SAME.
     With ``gamma``, computes ``conv(silu(rmsnorm(x) * sqrt(C) * gamma))``.
-    ``mode`` is any FASTVIDEO_VAE_CONV3D name: the int8 modes take K4 where
-    :func:`int8_ok` allows (the prologue runs before the quantization),
-    every other conv goes through K3.
+    ``mode`` is any FASTVIDEO_VAE_CONV3D name: "wino" computes the
+    Winograd conv of ``ops/winograd.py`` on either device (JAX falls back
+    to "auto" where XLA fails to compile it on the TPU; eager PyTorch has
+    no such failure, and ``winograd.supports`` keeps JAX's routing); the
+    int8 modes take K4 where :func:`int8_ok` allows (the prologue runs
+    before the quantization); every other conv goes through K3.
     """
     if mode not in CONV3D_MODES + INT8_MODES:
         raise ValueError(f"conv3d_ndhwc: mode {mode!r} is not one of "
                          f"{CONV3D_MODES + INT8_MODES}")
+    if mode == "wino":
+        from fastvideo_tpu_torch.ops.winograd import conv3d_winograd_ndhwc
+
+        return conv3d_winograd_ndhwc(x, w, b, time_pad=time_pad, gamma=gamma)
     if mode in INT8_MODES and int8_ok(x.shape[-1], w.shape[-1], x.shape[3],
                                       mode):
         if x.is_cuda:  # the quantization would cut the graph before K4

@@ -1,5 +1,6 @@
-"""Host side of the sparse kernels' schedules (K7 bwd, K9a, K9b, and the
-padded forward K8 with its LSE mode K7 fwd).
+"""Host side of the sparse kernels' schedules (K7 bwd, K9a, K9b, the
+padded forward K8 with its LSE mode K7 fwd, and the VSA forward on full
+tiles K2).
 
 Each sparse kernel has two schedules, chosen by dtype and head alone
 (``sparse_schedule``; the CUDA sources apply the same rule): bf16 with a
@@ -24,6 +25,12 @@ the device, as the JAX package builds its index tables in XLA:
   K8 / K7 fwd walk each query tile's top-k row as it is, or, for tiles
   under 64 rows, such unions, in the blocks :func:`padded_walk` gives;
 - :func:`heaviest_first`: the launch order, longest walks first.
+
+K2 walks each query group's top-k row as it is (every slot valid, all
+rows of one length, so no list is built and the blocks run in order):
+its blocks tile the group's rows back to back (:func:`fast_blocks`), and
+its keys are one stream of 8-row boxes or per-tile units
+(:func:`fast_key_walk`).
 """
 
 from __future__ import annotations
@@ -38,6 +45,11 @@ UNIT_ROWS = 64
 BLOCK_ROWS = 128
 # the most query tiles one K9 block groups (32-bit masks of 8-row tiles)
 MAX_GROUP = 16
+# rows of the small boxes K2's key stream assembles a unit from where it
+# crosses a tile's end (csrc/dyn_sparse_fwd_sm90.cuh: the {64, 8} maps)
+STREAM_BOX_ROWS = 8
+# K2's key walks, by the code its C entry takes
+FAST_WALKS = ("tiles", "stream")
 
 
 # The schedule a sparse kernel (K7 bwd, K9a, K9b) runs for operands of
@@ -88,6 +100,24 @@ def heaviest_first(counts: torch.Tensor) -> torch.Tensor:
 def query_group(rows: int) -> int:
     """Query tiles of ``rows`` rows that one K9 block of 128 rows runs."""
     return max(1, min(MAX_GROUP, BLOCK_ROWS // rows))
+
+
+def fast_key_walk(e: int) -> str:
+    """K2's key walk for full tiles of ``e`` rows (csrc/vsa_sparse_fwd.cu:
+    stream_walk): "stream" where ``e`` is a multiple of 8 (the group's K
+    tiles back to back, K e keys in 64-key units: one 64-row box inside a
+    tile, eight 8-row boxes across a tile's end, so only the stream's last
+    unit is ragged), else "tiles" (each tile in 64-row units, reading zeros
+    past e, as K8 walks). A schedule choice, not a fallback: both compute
+    the same function."""
+    return "stream" if e % STREAM_BOX_ROWS == 0 else "tiles"
+
+
+def fast_blocks(e: int, group_tiles: int) -> int:
+    """Blocks of K2's Hopper schedule a query group of ``group_tiles``
+    tiles of ``e`` rows takes: its rows tiled back to back by 128-row
+    blocks (840 rows: 7 blocks, the last 72 rows deep)."""
+    return -(-group_tiles * e // BLOCK_ROWS)
 
 
 def padded_walk(e: int) -> tuple[int, int]:

@@ -7,7 +7,11 @@ branch over the selected tiles, and ``out_c * gate + out_s``.
 
 The block-sparse branch over full tiles is K2: on a CUDA tensor
 :func:`block_sparse_attention_fast` launches ``csrc/vsa_sparse_fwd.cu``
-(replacing the Pallas ``_sparse_fast_kernel``). Grids with no exact tile,
+(replacing the Pallas ``_sparse_fast_kernel``); a head of 64 or 128 runs
+its Hopper schedule, K8's list-walk body on each group's top-k row with
+the group's rows tiled back to back and the keys walked as one stream
+(``sparse_schedule.fast_key_walk``, ``fast_blocks``), other heads the
+first one. Grids with no exact tile,
 STA and SLA go through :func:`block_sparse_attention` over padded tiles with
 per-tile valid counts and ``-1`` index sentinels: on a CUDA tensor it
 launches ``csrc/vsa_sparse_padded_fwd.cu`` (K8, and K7 fwd in its LSE mode,
@@ -48,7 +52,9 @@ import torch
 from fastvideo_tpu_torch.ops import _build
 from fastvideo_tpu_torch.ops.flash_attention import (attn_operand,
                                                      check_bwd_operands)
-from fastvideo_tpu_torch.ops.sparse_schedule import (heaviest_first,
+from fastvideo_tpu_torch.ops.sparse_schedule import (FAST_WALKS,
+                                                     fast_key_walk,
+                                                     heaviest_first,
                                                      padded_lists,
                                                      padded_walk,
                                                      sparse_schedule,
@@ -280,14 +286,24 @@ def sparse_cuda_operands(name: str, q, k, v, indices):
     return q, k, v, idx, out, st
 
 
-def _block_sparse_attention_cuda(q, k, v, indices, scale, tile_elems):
+def _block_sparse_attention_cuda(q, k, v, indices, scale, tile_elems,
+                                 walk=None):
+    """K2's launch; ``walk`` ("tiles" or "stream") overrides the Hopper
+    schedule's key walk, which ``fast_key_walk`` chooses otherwise (the
+    card tests and the timing script run both)."""
     _build.refuse_grad(NAME, q, k, v, use="block_sparse_attention_trainable")
     q, k, v, idx, out, st = sparse_cuda_operands(NAME, q, k, v, indices)
     b, h, s, d = q.shape
-    _build.launch(NAME, "fvt_vsa_sparse_fwd", q.data_ptr(), k.data_ptr(),
-                  v.data_ptr(), out.data_ptr(), idx.data_ptr(), b, h, s,
-                  d, tile_elems, idx.shape[2], idx.shape[3], *st,
-                  float(scale), _build.stream_ptr(q))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            idx.data_ptr(), b, h, s, d, tile_elems, idx.shape[2],
+            idx.shape[3])
+    if sparse_schedule(q.dtype, d) == "sm90":
+        walk = FAST_WALKS.index(walk or fast_key_walk(tile_elems))
+        _build.launch(NAME, "fvt_vsa_sparse_fwd_sm90", *args, walk, *st,
+                      float(scale), _build.stream_ptr(q))
+    else:
+        _build.launch(NAME, "fvt_vsa_sparse_fwd", *args, *st, float(scale),
+                      _build.stream_ptr(q))
     return out
 
 

@@ -1,5 +1,5 @@
-"""Time the port's bf16 decode conv K3 at its main-path shapes, on one
-card, for the checkout at --root:
+"""Time the port's decode convs K3 (bf16) and K4 (int8) at their main-path
+shapes, on one card, for the checkout at --root:
 
     python3 scripts/torch_conv_instance_times.py --root DIR [--reps N]
 
@@ -18,9 +18,14 @@ channels, kt 3, the hottest conv of a decode:
   2 pad frames in front;
 - ``k3_conv_out_832``: conv_out, 96 -> 3 channels, on the 2-frame chunk;
 
-and, the same for every checkout, cuDNN's ``F.conv3d`` on the first row's
-inputs (``cudnn_up3_832``, the library yardstick) and at the stream's
-chunk (``cudnn_up3_stream``).
+and K4, ``conv3d_int8`` on the same conv's int8 operands (``k4_up3_832``:
+xq [1,10,480,832,96], per-tensor and per-Co scales, as the ``auto_int8``
+decode of 4e and 4f runs it) and at the stream's chunk
+(``k4_up3_stream``); and, the same for every checkout, cuDNN's
+``F.conv3d`` on the first row's inputs (``cudnn_up3_832``, the library
+yardstick) and at the stream's chunk (``cudnn_up3_stream``), and the
+per-tensor quantize pass of the int8 route on the first row's x
+(``quantize_up3_832``, a control: plain PyTorch, unchanged).
 
 Prints one JSON line: the card and power limit, and each row's ms. Run it
 for two checkouts in turns (A, B, B, A) inside one call to compare them on
@@ -101,6 +106,17 @@ def main() -> int:
         if label in ("k3_up3_832", "k3_up3_stream"):
             ms[label.replace("k3", "cudnn")] = events_ms(
                 cudnn(x, wt, b, tp), args.reps)
+            xq, sx = conv3d.quantize_int8(x)
+            wq, sw = conv3d.quantize_int8(wt, dims=(0, 1, 2, 3))
+            scale = sw.reshape(-1) * sx.reshape(())
+            ms[label.replace("k3", "k4")] = events_ms(
+                lambda: conv3d.conv3d_int8(xq, wq, scale, b.float(),
+                                           time_pad=tp, out_dtype=bf),
+                args.reps)
+            if label == "k3_up3_832":
+                ms["quantize_up3_832"] = events_ms(
+                    lambda: conv3d.quantize_int8(x), args.reps)
+            del xq, wq
         del x, wt, b
         torch.cuda.empty_cache()
 

@@ -1,11 +1,19 @@
-"""Time the port's sparse attention kernels K7 fwd, K8, K7 bwd, K9a and
-K9b at their main-path shapes, on one card, for the checkout at --root:
+"""Time the port's sparse attention kernels K2, K7 fwd, K8, K7 bwd, K9a
+and K9b at their main-path shapes, on one card, for the checkout at --root:
 
     python3 scripts/torch_sparse_instance_times.py --root DIR [--reps N]
 
 Each row is one call of the public wrapper on bf16 tensors made from a
 seed, timed with CUDA events over N calls after a warm-up:
 
+- K2 (``k2_fastwan``): the VSA forward on full tiles at the FastWan main
+  path's q/k/v [1,12,32760,128], 117 tiles of 280 rows, a random top-24
+  per group of 3 tiles (4b, 4e); where the checkout has K2's Hopper key
+  walks, also the same call walking each tile in 64-row units
+  (``k2_fastwan_tiles``, the rows cut alone) beside the key stream (the
+  rule's choice at E 280: both cuts); and, in every checkout, the same
+  function through K8 on the indices expanded per tile with full valid
+  counts (``k2_fastwan_as_k8``: K8's walk, neither cut);
 - K7 fwd (the padded forward with its LSE, and the lists the wrapper
   builds) and K7 bwd (dQ and dK/dV with delta = rowsum(dO * O) and the
   lists the wrapper builds): the SFT self-attention q/k/v/dO
@@ -91,6 +99,26 @@ def main() -> int:
 
     def rnd(*shape):
         return torch.randn(*shape, generator=g, device=dev, dtype=bf)
+
+    # K2
+    e, nb, q_group, topk = 280, 117, 3, 24
+    q, k, v = (rnd(1, h, nb * e, d) for _ in range(3))
+    idx = torch.rand(1, h, nb // q_group, nb, generator=g,
+                     device=dev).topk(topk, dim=-1).indices.int()
+    kw = dict(scale=scale, tile_elems=e)
+    ms["k2_fastwan"] = events_ms(lambda: vsa.block_sparse_attention_fast(
+        q, k, v, idx, **kw), args.reps)
+    if ss is not None and hasattr(ss, "fast_key_walk"):
+        ms["k2_fastwan_tiles"] = events_ms(
+            lambda: vsa._block_sparse_attention_cuda(q, k, v, idx, scale, e,
+                                                     walk="tiles"),
+            args.reps)
+    per_tile = idx.repeat_interleave(q_group, dim=2)
+    full = torch.full((nb,), e, dtype=torch.int32, device=dev)
+    ms["k2_fastwan_as_k8"] = events_ms(lambda: vsa.block_sparse_attention(
+        q, k, v, per_tile, full, **kw), args.reps)
+    del q, k, v
+    torch.cuda.empty_cache()
 
     # K7 bwd
     for label, e, nb, topk, q_group, grid in (

@@ -119,7 +119,8 @@ def test_host_rules_match_the_sources():
     assert _build.SOURCE_OF["flash_bwd_dkv_reduce"] == "flash_bwd"
     assert set(_build.PTXAS_VERBOSE) == {"flash_fwd", "flash_bwd",
                                          "vsa_sparse_bwd", "dyn_sparse_fwd",
-                                         "vsa_sparse_padded_fwd", "conv3d"}
+                                         "vsa_sparse_padded_fwd", "conv3d",
+                                         "vsa_sparse_fwd", "conv3d_int8"}
 
 
 def test_ptxas_report_parses_a_log(tmp_path, monkeypatch):

@@ -1189,3 +1189,116 @@ def test_conv3d_sm90_matches_plain(dev, c, co, kt, time_pad, t, h, w):
 def test_conv3d_fp32_keeps_the_simt_schedule(dev):
     assert _build.query("conv3d", "fvt_conv3d_route", 0, 96, 96) == 0
     assert conv3d.conv_schedule(torch.float32, 96, 96) == "simt"
+
+
+# -- the VSA forward's (K2) and the int8 conv's (K4) Hopper schedules --------
+
+
+@pytest.mark.parametrize("e,nb,qg,topk,d,walk", [
+    (280, 9, 3, 4, 128, None),    # the main path's tile: 840-row groups, a
+                                  # 72-row last block, the key stream
+    (280, 9, 3, 4, 128, "tiles"),  # the same walked per tile
+    (280, 6, 1, 2, 64, None),     # a 24-row last block: one live warpgroup
+    (256, 6, 1, 3, 64, None),     # E 256: whole 64-row units only
+    (256, 9, 3, 5, 128, "tiles"),
+    (96, 8, 2, 3, 128, None),     # 64-key units across every tile's end
+    (100, 6, 2, 3, 128, None),    # E % 8 != 0: the rule walks per tile
+])
+def test_vsa_sparse_sm90_matches_plain(dev, e, nb, qg, topk, d, walk):
+    """K2 on the Hopper schedule against the plain version: each key walk,
+    ragged last blocks and units, heads of 64 and 128; the library takes
+    that schedule and the host's key-walk rule, and the launch is
+    counted."""
+    assert _build.query("vsa_sparse_fwd", "fvt_vsa_sparse_fwd_route", d) == 1
+    assert ss.sparse_schedule(torch.bfloat16, d) == "sm90"
+    assert ss.FAST_WALKS[_build.query("vsa_sparse_fwd",
+                                      "fvt_vsa_sparse_fwd_walk", e)] == \
+        ss.fast_key_walk(e)
+    g = torch.Generator(device=dev).manual_seed(50)
+    b, h = 2, 3
+    q, k, v = (torch.randn(b, h, nb * e, d, generator=g, device=dev,
+                           dtype=torch.bfloat16) for _ in range(3))
+    ng = nb // qg
+    idx = torch.stack([torch.randperm(nb, generator=g, device=dev)[:topk]
+                       for _ in range(b * h * ng)]).reshape(b, h, ng, topk)
+    before = _build.LAUNCHES["vsa_sparse_fwd"]
+    plain = dict(_build.PLAIN_CALLS)
+    if walk is None:
+        out = vsa.block_sparse_attention_fast(q, k, v, idx, tile_elems=e)
+    else:
+        out = vsa._block_sparse_attention_cuda(q, k, v, idx, d**-0.5, e,
+                                               walk=walk)
+    assert _build.LAUNCHES["vsa_sparse_fwd"] == before + 1
+    assert _build.PLAIN_CALLS == plain
+    ref = vsa.block_sparse_attention_plain(q, k, v, idx, scale=d**-0.5,
+                                           tile_elems=e)
+    _close(out, ref, torch.bfloat16)
+
+
+def test_vsa_sparse_first_schedule_at_other_heads(dev):
+    """A head of 32 keeps K2's first schedule, whose entry refuses the
+    Hopper heads; the Hopper entry refuses it and a stream walk of tiles
+    that are not a multiple of 8 rows."""
+    assert _build.query("vsa_sparse_fwd", "fvt_vsa_sparse_fwd_route", 32) == 0
+    assert ss.sparse_schedule(torch.bfloat16, 32) == "tile"
+    g = torch.Generator(device=dev).manual_seed(51)
+    q, k, v = (torch.randn(1, 2, 6 * 96, 32, generator=g, device=dev,
+                           dtype=torch.bfloat16) for _ in range(3))
+    idx = torch.randint(0, 6, (1, 2, 3, 2), generator=g, device=dev,
+                        dtype=torch.int32)
+    out = vsa.block_sparse_attention_fast(q, k, v, idx, tile_elems=96)
+    _close(out, vsa.block_sparse_attention_plain(
+        q, k, v, idx, scale=32**-0.5, tile_elems=96), torch.bfloat16)
+    q128 = torch.zeros(1, 1, 2 * 100, 128, device=dev, dtype=torch.bfloat16)
+    idx1 = torch.zeros(1, 1, 1, 1, device=dev, dtype=torch.int32)
+    with pytest.raises(_build.KernelError, match="launch failed"):
+        vsa._block_sparse_attention_cuda(q128, q128, q128, idx1, 1.0, 100,
+                                         walk="stream")
+    with pytest.raises(_build.KernelError, match="launch failed"):
+        _build.launch("vsa_sparse_fwd", "fvt_vsa_sparse_fwd", q128.data_ptr(),
+                      q128.data_ptr(), q128.data_ptr(), q128.data_ptr(),
+                      idx1.data_ptr(), 1, 1, 200, 128, 100, 1, 1,
+                      *([0] * 12), 1.0, _build.stream_ptr(q128))
+
+
+@pytest.mark.parametrize("c,co,kt,time_pad,t,h,w,out", [
+    (96, 96, 3, 0, 4, 6, 70, torch.bfloat16),    # up3's conv, a W tail
+    (96, 96, 3, 2, 1, 2, 64, torch.bfloat16),    # the first chunk: 2 pad taps
+    (96, 96, 3, 1, 2, 5, 24, torch.float32),     # one pad frame, fp32 store
+    (192, 192, 3, 0, 3, 4, 16, torch.bfloat16),  # an N tile of 192
+    (192, 384, 3, 2, 2, 3, 20, torch.float32),   # two N tiles of 192
+    (384, 384, 1, 0, 2, 8, 24, torch.bfloat16),  # kt 1, two N tiles
+    (64, 96, 1, 2, 2, 1, 128, torch.float32),    # kt 1 behind pad frames,
+                                                 # 128 x 1 patches
+    (32, 32, 3, 2, 3, 60, 104, torch.bfloat16),  # the smallest route: an
+                                                 # N tile of 96 for 32
+])
+def test_conv3d_int8_sm90_bit_for_bit(dev, c, co, kt, time_pad, t, h, w,
+                                      out):
+    """K4's Hopper schedule equals the plain version bit for bit (exact
+    int32 sums, the same epilogue roundings) at each N tile, both stores,
+    kt 1 and 3, 0 to 2 pad frames, W and H tails; the library's N tile is
+    the host rule's and the launch is counted."""
+    assert _build.query("conv3d_int8", "fvt_conv3d_int8_tile_n", co) == \
+        conv3d.conv_int8_tile_n(co)
+    xq, wq, scale, bias = _int8_case(dev, 1, t, h, w, c, co, kt, seed=52)
+    kw = dict(time_pad=time_pad, out_dtype=out)
+    before = _build.LAUNCHES["conv3d_int8"]
+    got = conv3d.conv3d_int8(xq, wq, scale, bias, **kw)
+    assert _build.LAUNCHES["conv3d_int8"] == before + 1
+    want = conv3d.conv3d_int8_plain(xq, wq, scale, bias, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == out and got.shape == want.shape
+    assert torch.equal(got, want)
+
+
+def test_conv3d_int8_sm90_non_contiguous_input(dev):
+    xq, wq, scale, bias = _int8_case(dev, 2, 3, 5, 13, 96, 192, 3, seed=53)
+    wide = torch.cat([xq, xq], dim=-1)[..., 96:]  # strided channels
+    assert not wide.is_contiguous()
+    kw = dict(time_pad=2, out_dtype=torch.bfloat16)
+    got = conv3d.conv3d_int8(wide, wq, scale, bias, **kw)
+    want = conv3d.conv3d_int8_plain(xq, wq, scale, bias, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
