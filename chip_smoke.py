@@ -9,10 +9,11 @@ Phases, each printing its own lines:
   2. kernel build: nvcc for sm_90a from fastvideo_tpu_torch/csrc, and
      the registers, spills, shared memory and ptxas warnings of each
      Hopper instance of the flash, sparse and conv kernels (from -Xptxas
-     -v; a spill at a head of 128, in a K3 instance of 96 or 128 output
-     channels or in a K4 instance fails, and so does a serialized wgmma,
-     C7518, in a head-of-128 instance of K2, K7 bwd, K9 or K8 / K7 fwd, or
-     in those conv instances);
+     -v; a spill at a head of 128, in a wide K1 instance (head 384), in a
+     K3 instance of 96 or 128 output channels (bf16 or 3xTF32) or in a K4
+     instance fails, and so does a serialized wgmma, C7518 or C7513, in a
+     head-of-128 instance of K2, K7 bwd, K9 or K8 / K7 fwd, in a wide K1
+     instance or in those conv instances);
   3. kernel checks: each kernel against its plain PyTorch version on the
      card at the main paths' shapes, with kernel, plain, library and bound
      times; each flash, K7 bwd, K9, K8 / K7 fwd and conv case prints the
@@ -28,7 +29,13 @@ Phases, each printing its own lines:
      block, fourth block and full window; the fp32 decode's K3, K4 and K1
      forms; the backward kernels K6 at the training cross-attention and K7
      bwd at the training self-attention, 117 exact tiles of 280 with a real
-     coarse top-24, and at the 480x848 padded shape; the count-driven
+     coarse top-24, and at the 480x848 padded shape; K1 at the VAE
+     attention's head of 384 (the wide schedule, q/k/v column views of one
+     qkv tensor) at the first decode chunk, a 2-frame chunk and 480x848's,
+     timed beside its plain version, SDPA (naming its backend) and its
+     bound, and its key-split merge flash_fwd_combine against its plain
+     version; K3's fp32 form (3xTF32) beside the error one TF32 product
+     would leave; the count-driven
      sparse kernels K9a at 4k's NABLA shape, under nabla_block_mask's mask
      and under a ramp of per-row counts 1..390, and K9b at 4j's BSA shape,
      32 pruned queries a tile, under select_kv_blocks' mask);
@@ -42,7 +49,10 @@ Phases, each printing its own lines:
      FastWan2.1-T2V-1.3B-shaped diffusers checkpoint written with the
      port's own safetensors writer, loaded by
      VideoGenerator.from_pretrained(VSA_sparsity=0.8) and run by
-     generate_video at 81x480x832, seed 42 (warm-up, then timed);
+     generate_video at 81x480x832, seed 42 (warm-up, then timed), then
+     the same clip once more with vae_decode_precision="fp32" (every
+     decode conv on K3's 3xTF32 form: its DecodingStage seconds and
+     launches);
      c, d: the Wan2.1-T2V-1.3B multistep path at full width and depth,
      81x480x848 (token grid (21, 30, 53), no exact VSA tile), FlowUniPC
      steps with classifier-free guidance: with VIDEO_SPARSE_ATTN at
@@ -99,7 +109,8 @@ import sys
 import time
 
 # the card's published dense peaks (NVIDIA H100 SXM data sheet)
-PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12, "int8": 1979e12}
+PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12, "int8": 1979e12,
+              "tf32": 495e12}
 PEAK_BYTES = 3.35e12
 
 # kernel -> the Pallas function it replaces (file:line)
@@ -131,6 +142,9 @@ REPLACES = {
     "flash_bwd_dkv_reduce": "fastvideo_tpu/ops/flash_attention.py:355 (the "
     "sum over the query grid axis that _bwd_dkv_kernel carries in scratch; "
     "call :459)",
+    "flash_fwd_combine": "fastvideo_tpu/ops/flash_attention.py:93 (the "
+    "online softmax's merge over the key grid axis that _fwd_kernel carries "
+    "in scratch; call :222)",
 }
 SOURCES = {
     "flash_fwd": "fastvideo_tpu_torch/csrc/flash_fwd.cu",
@@ -150,6 +164,7 @@ SOURCES = {
     "flash_bwd_struct_dq": "fastvideo_tpu_torch/csrc/flash_bwd.cu",
     "flash_bwd_struct_dkv": "fastvideo_tpu_torch/csrc/flash_bwd.cu",
     "flash_bwd_dkv_reduce": "fastvideo_tpu_torch/csrc/flash_bwd.cu",
+    "flash_fwd_combine": "fastvideo_tpu_torch/csrc/flash_fwd.cu",
 }
 # the flash kernels' Hopper instances by their mangled names' stem
 SM90_KERNELS = {"flash_fwd_sm90": {"0": "K1", "1": "K5", "2": "K1 struct"},
@@ -170,6 +185,15 @@ CONV_SM90 = {"8": "K3 conv_out (Co 3)", "96": "K3 (Co 96: up3, the hot "
              "conv; Co 192)", "128": "K3 (Co 384)"}
 CONV8_SM90 = {"96": "K4 (Co 96: up3, the hot conv)",
               "192": "K4 (Co 192; 384)"}
+# the 3xTF32 conv instances by their N tile
+TF32_SM90 = {"8": "K3 fp32 conv_out (Co 3)", "96": "K3 fp32 (Co 96, 192, 384)"}
+# K1's schedule by the library's code (fvt_flash_fwd_sm90)
+FLASH_SCHEDULES = ("tile", "sm90", "sm90_wide")
+# kernels a profiled generation reports whatever their rank: the VAE
+# attention's wide K1 and merge, and the first schedule's bf16 K1 instance
+# (attn_tile.cuh) that ran it before
+PROFILE_WATCH = ("flash_fwd_wide_sm90", "flash_fwd_combine",
+                 "flash_fwd_kernel<__nv_bfloat16, 64, 32, 0>")
 
 
 def card_line() -> str:
@@ -259,6 +283,11 @@ def sm90_instance(kernel: str):
     m = re.search(r"conv3d_int8_sm90ILi(\d+)E", kernel)
     if m:
         return CONV8_SM90[m.group(1)], "conv3d_int8_sm90", int(m.group(1)), 0
+    if "flash_fwd_wide_sm90" in kernel:
+        return "K1 wide (head 384)", "flash_fwd_wide_sm90", 384, 0
+    m = re.search(r"conv3d_tf32_sm90ILi(\d+)E", kernel)
+    if m:
+        return TF32_SM90[m.group(1)], "conv3d_tf32_sm90", int(m.group(1)), 0
     return None
 
 
@@ -307,28 +336,38 @@ def report_sm90_build() -> None:
                 elif stem == "conv3d_int8_sm90":  # d is the N tile
                     dyn = _build.query(src, "fvt_conv3d_int8_sm90_smem", d,
                                        64)
+                elif stem == "flash_fwd_wide_sm90":
+                    dyn = _build.query(src, "fvt_flash_fwd_wide_smem")
+                elif stem == "conv3d_tf32_sm90":  # d is the N tile
+                    dyn = _build.query(src, "fvt_conv3d_tf32_smem",
+                                       {8: 3, 96: 96}[d], 64)
                 else:
                     dyn = _build.query(src, "fvt_dyn_sparse_fwd_sm90_smem", d,
                                        672)
             elif "flash_bwd_dkv_reduce" in r["kernel"]:
                 label, stem, d, dyn = "flash_bwd_dkv_reduce", "", 0, 0
+            elif "flash_fwd_combine" in r["kernel"]:
+                label, stem, d, dyn = "flash_fwd_combine", "", 0, 0
             else:
                 continue
             spills = r["spill_stores"] + r["spill_loads"]
-            serial = [w for w in r["warnings"] if w.startswith("C7518")
+            serial = [w for w in r["warnings"] if w.startswith(("C7518",
+                                                                "C7513"))
                       or "serialized" in w]
             print(f"  {label}: {r['registers']} registers, {spills} spill "
                   f"bytes ({r['spill_stores']} stored, {r['spill_loads']} "
                   f"loaded), {r['stack']} bytes stack, {dyn + r['smem']} "
                   f"bytes shared memory; ptxas warnings: "
                   f"{r['warnings'] or 'none'}", flush=True)
-            conv = stem in ("conv3d_sm90", "conv3d_int8_sm90")
-            hot = (conv and d >= 96) or (not conv and d == 128)
+            conv = stem in ("conv3d_sm90", "conv3d_int8_sm90",
+                            "conv3d_tf32_sm90")
+            wide = stem == "flash_fwd_wide_sm90"
+            hot = (conv and d >= 96) or (not conv and d == 128) or wide
             if hot and spills:
                 raise SystemExit(f"{label}: ptxas reports {spills} spill "
-                                 "bytes in a head-of-128 or hot conv "
+                                 "bytes in a head-of-128, wide or hot conv "
                                  "instance")
-            if hot and serial and (stem in SPARSE_SM90 or conv):
+            if hot and serial and (stem in SPARSE_SM90 or conv or wide):
                 raise SystemExit(f"{label}: ptxas serialized the wgmma of a "
                                  f"head-of-128 or hot conv instance: "
                                  f"{serial}")
@@ -345,16 +384,20 @@ def check_schedule(label: str, dtype, d: int, backward: bool = False) -> str:
 
     if backward:
         lib = _build.query(fa.NAME_BWD_DQ, "fvt_flash_bwd_sm90", d)
+        took, want = ("sm90" if lib else "tile"), fa.flash_bwd_schedule(d)
     else:
         lib = _build.query(fa.NAME, "fvt_flash_fwd_sm90",
                            int(dtype == torch.bfloat16), d)
-    took = "sm90" if lib else "tile"
+        took, want = FLASH_SCHEDULES[lib], fa.flash_schedule(dtype, d)
     print(f"  {label}: schedule {took}", flush=True)
-    if took != fa.flash_schedule(dtype, d):
+    if took != want:
         raise SystemExit(f"{label}: the library takes schedule {took}, the "
-                         f"host rule {fa.flash_schedule(dtype, d)}")
+                         f"host rule {want}")
     if dtype == torch.bfloat16 and d == 128 and took != "sm90":
         raise SystemExit(f"{label}: a bf16 case with a head of 128 reached "
+                         "the first schedule")
+    if dtype == torch.bfloat16 and d == 384 and took != "sm90_wide":
+        raise SystemExit(f"{label}: a bf16 case with a head of 384 reached "
                          "the first schedule")
     return took
 
@@ -450,11 +493,17 @@ def check_flash(dev, results: dict) -> None:
         vsa.tile_valid_mask((21, 30, 53), (4, 8, 8)), device=dev)
     errs = []
     for label, (b, sq, h, d), skv, dtype, causal in cases:
-        q = rnd(b, sq, h, d, dtype=dtype)
-        if sq == padded_valid.numel():
-            q = q * padded_valid[None, :, None, None]
-        k = rnd(b, skv, h, d, dtype=dtype)
-        v = rnd(b, skv, h, d, dtype=dtype)
+        if label.startswith("vae_mid_attn"):
+            # q, k and v as the VAE passes them: column views of one qkv
+            qkv = rnd(b, sq, h, 3 * d, dtype=dtype)
+            q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
+            del qkv
+        else:
+            q = rnd(b, sq, h, d, dtype=dtype)
+            if sq == padded_valid.numel():
+                q = q * padded_valid[None, :, None, None]
+            k = rnd(b, skv, h, d, dtype=dtype)
+            v = rnd(b, skv, h, d, dtype=dtype)
         kv_valid = skv - 13 if causal else skv
         kw = dict(scale=d**-0.5, causal=causal, kv_valid=kv_valid)
         check_schedule(f"flash_fwd[{label}]", dtype, d)
@@ -463,6 +512,8 @@ def check_flash(dev, results: dict) -> None:
         errs.append(check(f"flash_fwd[{label}]", out, ref,
                           *attn_tol(ref, dtype)))
         check(f"flash_fwd[{label}] lse", lse, ref_lse, 1e-3)
+        if label.startswith("vae_mid_attn"):
+            time_vae_attn(label, q, k, v, results["flash_fwd"])
         if label not in ("cross_attn", "cross_attn 4f", "cross_attn causal"):
             del q, k, v, out, ref, lse, ref_lse
             continue
@@ -493,6 +544,104 @@ def check_flash(dev, results: dict) -> None:
               f"plain, {lib:.3f} ms sdpa, bound {bms:.3f} ms ({by}, "
               f"{flops:.3e} FLOP)", flush=True)
     results["flash_fwd"]["max_abs_err"] = max(errs)  # over every case
+
+
+def sdpa_ms(q, k, v) -> tuple[float, str]:
+    """The library yardstick of an attention over [B, S, H, D] views, timed
+    here only: one scaled_dot_product_attention call, on the first of
+    PyTorch's fused backends that takes the shape (flash and cuDNN stop at
+    a head of 256), as (ms, backend)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([backend]):
+                return time_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt)), backend.name.lower()
+        except RuntimeError:
+            continue
+    raise SystemExit("scaled_dot_product_attention took no backend")
+
+
+def time_vae_attn(label: str, q, k, v, results: dict) -> None:
+    """K1 at the VAE attention's shape (bf16, a head of 384 on the wide
+    schedule): kernel, plain and SDPA times and the bound, the key splits,
+    and the profiler's name for the kernel that ran."""
+    from fastvideo_tpu_torch.ops import _build
+    from fastvideo_tpu_torch.ops import flash_attention as fa
+
+    b, sq, h, d = q.shape
+    key = {"vae_mid_attn first chunk": "vae_first"}.get(
+        label, "vae_848" if "480x848" in label else "vae_chunk")
+    ms = time_ms(lambda: fa.flash_attention(q, k, v))
+    plain = time_ms(lambda: fa.flash_attention_plain(q, k, v,
+                                                     scale=d**-0.5), 2)
+    lib, backend = sdpa_ms(q, k, v)
+    flops = 4.0 * b * h * sq * sq * d
+    bms, by = bound_ms(flops, 2.0 * 4 * b * sq * h * d + 4 * b * h * sq)
+    splits = fa.wide_splits(b, h, sq, sq, _build.num_sms(q.device))
+    dev_ms = kernel_device_ms(lambda: fa.flash_attention(q, k, v),
+                              {"K1 wide": "flash_fwd_wide_sm90",
+                               "combine": "flash_fwd_combine"})
+    results.update({f"{key}_ms": ms, f"{key}_plain_ms": plain,
+                    f"{key}_bound_ms": bms, f"{key}_library_ms": lib,
+                    f"{key}_library": backend, f"{key}_splits": splits,
+                    f"{key}_device_ms": dev_ms})
+    print(f"  flash_fwd[{label}]: {ms:.3f} ms kernel and combine "
+          f"({splits} key splits; profiler: "
+          f"flash_fwd_wide_sm90 {dev_ms['K1 wide']:.3f} ms, "
+          f"flash_fwd_combine {dev_ms['combine']:.3f} ms), {plain:.3f} ms "
+          f"plain, {lib:.3f} ms sdpa ({backend}), bound {bms:.3f} ms ({by}, "
+          f"{flops:.3e} FLOP)", flush=True)
+
+
+def check_flash_combine(dev, results: dict) -> None:
+    """flash_fwd_combine against its plain version at the 2-frame decode
+    chunk's partials ([4, 2, 1, 6240, 384]), with rows empty in a split
+    and in every split; its time, the plain version's and the bound (the
+    partials read once, O and the LSE written once)."""
+    import torch
+
+    from fastvideo_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(14)
+    chunk = decode_chunk_frames(latent_of(CLIP_480P))
+    sq, d = 6240, fa.WIDE_HEAD
+    splits = fa.wide_splits(chunk, 1, sq, sq, 132)
+    part = torch.randn(splits, chunk, 1, sq, d, generator=g, device=dev)
+    lse_part = torch.randn(splits, chunk, 1, sq, generator=g,
+                           device=dev) * 4
+    lse_part[0, :, :, :64] = float("-inf")
+    lse_part[:, 0, 0, 100:103] = float("-inf")
+    part[lse_part.isinf()] = 0
+    out = torch.empty(chunk, sq, 1, d, device=dev, dtype=torch.bfloat16)
+    lse = torch.empty(chunk, 1, sq, device=dev)
+    fa.wide_combine(part, lse_part, out, lse)
+    ref, ref_lse = fa.wide_combine_plain(part, lse_part)
+    # both round the same fp32 merge to bf16 once: one bf16 ulp apart at
+    # most, where the two sums' orders differ in the last fp32 bit
+    err = check(f"flash_fwd_combine[{splits} splits, {chunk}-frame chunk]",
+                out, ref, 0.0, 2.0**-7)
+    fin = torch.isfinite(ref_lse)
+    if not torch.equal(fin, torch.isfinite(lse)) or not bool(
+            (out[0, 100:103, 0] == 0).all()):
+        raise SystemExit("flash_fwd_combine: empty rows differ from plain")
+    check("flash_fwd_combine lse", lse[fin], ref_lse[fin], 1e-5)
+    ms = time_ms(lambda: fa.wide_combine(part, lse_part, out, lse))
+    plain = time_ms(lambda: fa.wide_combine_plain(part, lse_part), 2)
+    nbytes = 4.0 * (part.numel() + lse_part.numel() + lse.numel()) + \
+        2.0 * out.numel()
+    bms, by = bound_ms(0.0, nbytes)
+    results["flash_fwd_combine"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+        library_ms=None,
+        shape=f"part{list(part.shape)} -> out{list(out.shape)} bf16")
+    print(f"  flash_fwd_combine: {ms:.3f} ms kernel, {plain:.3f} ms plain, "
+          f"bound {bms:.3f} ms ({by}); no single PyTorch call merges "
+          f"softmax partials", flush=True)
 
 
 def vsa_block_mask(idx, s: int, e: int, group_rows: int, block: int = 128):
@@ -974,9 +1123,13 @@ def is_hot(label: str) -> bool:
 
 def real_taps(t_out: int, kt: int, time_pad: int) -> int:
     """(output frame, time tap) pairs of a causal conv that read a real
-    input frame: the taps on the zero pad in front add nothing and are not
-    work the conv needs."""
-    return sum(min(kt, max(0, o + kt - time_pad)) for o in range(t_out))
+    input frame (the taps K3 walks): the taps on the zero pad in front add
+    nothing and are not work the conv needs."""
+    from fastvideo_tpu_torch.ops.conv3d import live_time_taps
+
+    t_in = t_out + kt - 1 - time_pad
+    return sum(len(live_time_taps(o, kt, time_pad, t_in))
+               for o in range(t_out))
 
 
 def cudnn_conv(x, wt, bias, tp: int):
@@ -1322,15 +1475,19 @@ def check_flash_kv_mask(dev, results: dict) -> None:
 
 def check_fp32_decode(dev, results: dict) -> None:
     """The fp32 decode's kernels (vae_decode_precision="fp32") at 480x832:
-    K3's fp32 form at up3's 96x96 conv in the first decode chunk (one output
-    frame, two of its three time taps on the causal pad) and in a 2-frame
-    chunk (8 output frames, every tap real), and at conv_out's 96->3 tail;
-    K4 storing fp32 (bit for bit with its plain version), and K1 in fp32 at
-    the VAE attention's head of 384. The bounds count the real taps only."""
+    K3's fp32 form (the 3xTF32 schedule) at up3's 96x96 conv in the first
+    decode chunk (one output frame, two of its three time taps on the
+    causal pad) and in a 2-frame chunk (8 output frames, every tap real),
+    each beside the error of one TF32 product (the plain conv with TF32
+    matmuls), which the gate would refuse, and at conv_out's 96->3 tail; K4
+    storing fp32 (bit for bit with its plain version), and K1 in fp32 at
+    the VAE attention's head of 384 beside SDPA in fp32. The bounds count
+    the real taps only: three TF32 products a pair at 495 TFLOP/s, and,
+    for reference, fp32 FMAs at 67."""
     import torch
     import torch.nn.functional as F
 
-    from fastvideo_tpu_torch.ops import conv3d
+    from fastvideo_tpu_torch.ops import _build, conv3d
     from fastvideo_tpu_torch.ops import flash_attention as fa
 
     g = torch.Generator(device=dev).manual_seed(13)
@@ -1345,14 +1502,33 @@ def check_fp32_decode(dev, results: dict) -> None:
         wt = torch.randn(3, 3, 3, 96, co, generator=g, device=dev) * (
             27 * 96)**-0.5
         b = torch.randn(co, generator=g, device=dev)
+        if conv3d.conv_schedule(x.dtype, 96, co) != "tf32x3" or \
+                _build.query(conv3d.NAME, "fvt_conv3d_route", 0, 96, co) != 2:
+            raise SystemExit(f"conv3d fp32[{label}]: the library or the host "
+                             "rule does not take the 3xTF32 schedule")
         out = conv3d.conv3d_ndhwc(x, wt, b, time_pad=tp)
         ref = conv3d.conv3d_ndhwc_plain(x, wt, b, time_pad=tp)
-        # fp32: the kernel's one FMA chain against the plain version's
-        # tap-by-tap sums over K = 2592 products of order-1 outputs
-        errs.append(check(f"conv3d fp32[{label}]", out, ref, 5e-5, 1e-5))
-        del out, ref
-        if key is None:
+        # fp32: three TF32 products a pair (the lo-lo product, about 2^-22
+        # of each, left out) summed a stage at a time, against the plain
+        # version's tap-by-tap fp32 sums over K = 2592 products of order-1
+        # outputs
+        errs.append(check(f"conv3d fp32[{label}] (tf32x3)", out, ref, 5e-5,
+                          1e-5))
+        del out
+        if key is None:  # cuBLAS takes no TF32 path for conv_out's 3 columns
+            del ref
             continue
+        # one TF32 product a pair, for the record: the plain conv with
+        # TF32 matmuls (what the 3xTF32 split avoids)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        one = conv3d.conv3d_ndhwc_plain(x, wt, b, time_pad=tp)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        one_err = (one - ref).abs().max().item()
+        gate = ((one - ref).abs() / (5e-5 + 1e-5 * ref.abs())).max().item()
+        print(f"  conv3d fp32[{label}]: one TF32 product a pair would err "
+              f"{one_err:.3e}, {gate:.1f}x the gate", flush=True)
+        results["conv3d"][f"{key}_tf32x1_err"] = one_err
+        del one, ref
         ms = time_ms(lambda: conv3d.conv3d_ndhwc(x, wt, b, time_pad=tp))
         plain = time_ms(lambda: conv3d.conv3d_ndhwc_plain(x, wt, b,
                                                           time_pad=tp), 2)
@@ -1364,13 +1540,16 @@ def check_fp32_decode(dev, results: dict) -> None:
         t_out = t + tp - 2
         flops = 2.0 * real_taps(t_out, 3, tp) * 480 * 832 * 96 * 96 * 9
         nbytes = 4.0 * ((t + t_out) * 480 * 832 * 96 + wt.numel() + 96)
-        bms, by = bound_ms(flops, nbytes, "fp32")
+        bms, by = bound_ms(3 * flops, nbytes, "tf32")
+        fp32_bms, _ = bound_ms(flops, nbytes, "fp32")
         results["conv3d"].update({f"{key}_ms": ms, f"{key}_plain_ms": plain,
                                   f"{key}_bound_ms": bms,
+                                  f"{key}_fp32_fma_bound_ms": fp32_bms,
                                   f"{key}_library_ms": lib})
         print(f"  conv3d fp32[{label}]: {ms:.3f} ms kernel, {plain:.3f} ms "
               f"plain, {lib:.3f} ms cudnn fp32 (TF32 off), bound {bms:.3f} "
-              f"ms ({by} at 67 TFLOP/s, {flops:.3e} FLOP on real taps)",
+              f"ms ({by}: 3 x {flops:.3e} TF32 FLOP on real taps at 495 "
+              f"TFLOP/s; fp32 FMAs at 67 TFLOP/s: {fp32_bms:.3f} ms)",
               flush=True)
         del x
     results["conv3d"]["fp32_max_abs_err"] = max(errs)
@@ -1403,9 +1582,12 @@ def check_fp32_decode(dev, results: dict) -> None:
     err = check("flash_fwd fp32[vae_mid_attn first chunk, head 384]", out,
                 ref, *attn_tol(ref, torch.float32))
     ms = time_ms(lambda: fa.flash_attention(q, k, v))
-    results["flash_fwd"].update(fp32_vae_ms=ms, fp32_vae_max_abs_err=err)
-    print(f"  flash_fwd fp32[vae_mid_attn first chunk]: {ms:.3f} ms",
-          flush=True)
+    lib, backend = sdpa_ms(q, k, v)
+    results["flash_fwd"].update(fp32_vae_ms=ms, fp32_vae_max_abs_err=err,
+                                fp32_vae_library_ms=lib,
+                                fp32_vae_library=backend)
+    print(f"  flash_fwd fp32[vae_mid_attn first chunk]: {ms:.3f} ms, "
+          f"{lib:.3f} ms sdpa fp32 ({backend})", flush=True)
 
 
 # -- phase 3, the backward kernels (K6, K7 bwd) at the training shapes -------
@@ -1861,6 +2043,7 @@ def run_kernel_checks(dev) -> dict:
     torch._dynamo.config.recompile_limit = 64
     results: dict = {}
     check_flash(dev, results)
+    check_flash_combine(dev, results)
     check_vsa(dev, results)
     check_vsa_padded(dev, results)
     torch.cuda.empty_cache()
@@ -2251,10 +2434,41 @@ def run_main_path(work: str, profile_dir: str | None = None) -> dict:
           f"{json.dumps(plain)}", flush=True)
     check_generation("FastWan 480x832", result, CLIP_480P, launches, plain,
                      {"flash_fwd": None, "vsa_sparse_fwd": None,
-                      "conv3d": None})
+                      "conv3d": None,
+                      "flash_fwd_combine": vae_chunks(CLIP_480P)})
+    fp32 = run_fp32_decode(gen, kw, result["stage_times"]["DecodingStage"])
     if profile_dir:
         profile_generation(gen, kw, profile_dir, "fastwan_480x832")
-    return launches
+    return dict(launches, fp32_decode=fp32)
+
+
+def run_fp32_decode(gen, kw: dict, bf16_decode_s: float) -> dict:
+    """4b's clip once more with vae_decode_precision="fp32" (same seed, so
+    the same latents): every 3x3 conv of the decode through K3's fp32 form
+    (the 3xTF32 schedule) and the VAE attention through K1 in fp32. Its
+    DecodingStage seconds against the bf16 decode's, its launch counts and
+    its frames."""
+    cfg = gen.pipeline.decoding_stage.pipeline_config
+    cfg.vae_decode_precision = "fp32"
+    try:
+        result, launches, plain, peak = timed_generation(gen, kw)
+    finally:
+        cfg.vae_decode_precision = "bf16"
+    times = {k: round(v, 4) for k, v in result["stage_times"].items()}
+    convs = vae_chunks(CLIP_480P) * sum(
+        n for _, n, *_ in decoder_conv_shapes(latent_of(CLIP_480P)))
+    print(f"  the same clip decoded in fp32: DecodingStage "
+          f"{times['DecodingStage']:.3f} s (bf16 {bf16_decode_s:.3f} s); "
+          f"stage seconds {json.dumps(times)}; peak memory {peak:.1f} GiB; "
+          f"kernel launches {json.dumps(launches)} (conv3d: {convs} on the "
+          f"3xTF32 schedule)", flush=True)
+    check_generation("FastWan 480x832, fp32 decode", result, CLIP_480P,
+                     launches, plain, {"flash_fwd": None,
+                                       "vsa_sparse_fwd": None,
+                                       "conv3d": convs})
+    return dict(decode_s=times["DecodingStage"],
+                conv3d_launches=launches["conv3d"],
+                flash_fwd_launches=launches["flash_fwd"])
 
 
 @contextlib.contextmanager
@@ -2330,7 +2544,8 @@ def run_wan_path(work: str, backend: str, steps: int, from_kw: dict,
           flush=True)
     check_generation(label, result, size, launches, plain,
                      {"flash_fwd": None, "conv3d": None,
-                      kernel: layers * 2 * steps})
+                      kernel: layers * 2 * steps,
+                      "flash_fwd_combine": vae_chunks(size)})
     if profile_dir:
         profile_generation(gen, kw, profile_dir,
                            f"wan_{size['height']}x{size['width']}_"
@@ -2354,15 +2569,24 @@ def latent_of(size: dict) -> tuple[int, int, int]:
             size["width"] // 8)
 
 
+def vae_chunks(size: dict) -> int:
+    """Chunks of the dispatched decode at ``size``: the first latent frame
+    alone, then chunks, or one pass if none is needed. Each runs the VAE's
+    attention once (K1 at a head of 384, whose key splits one
+    flash_fwd_combine merges)."""
+    latent = latent_of(size)
+    t = latent[0]
+    chunk = decode_chunk_frames(latent)
+    return 1 if t <= chunk else 1 + -(-(t - 1) // chunk)
+
+
 def int8_decode_launches(size: dict) -> tuple[int, int]:
     """(K4, K3) launches of one auto_int8 decode at ``size``: the convs of
     a chunk that meet the int8 rule, and the rest, times the chunks of the
     dispatched decode."""
     latent = latent_of(size)
-    t = latent[0]
     chunk = decode_chunk_frames(latent)
-    # the first latent frame alone, then chunks; one pass if none is needed
-    chunks = 1 if t <= chunk else 1 + -(-(t - 1) // chunk)
+    chunks = vae_chunks(size)
     k4, k3 = int8_route_split(latent)
     split = (f"{chunks} chunks (the first latent frame, then {chunk} at a "
              f"time)" if chunks > 1 else "one pass")
@@ -2469,7 +2693,8 @@ def run_int8_fastwan(work: str, profile_dir: str | None = None) -> dict:
     check_generation("FastWan int8 480x832", result, CLIP_480P,
                      launches, plain,
                      {"flash_fwd": None, "vsa_sparse_fwd": None,
-                      "conv3d": k3, "conv3d_int8": k4})
+                      "conv3d": k3, "conv3d_int8": k4,
+                      "flash_fwd_combine": vae_chunks(CLIP_480P)})
     if not all(int8.FORWARD_CALLS.values()):
         raise SystemExit(f"4e: an int8 linear form did not run: "
                          f"{int8.FORWARD_CALLS}")
@@ -2524,7 +2749,8 @@ def run_turbo_path(work: str, profile_dir: str | None = None) -> dict:
     check_generation("TurboDiffusion 61x480x832", result, TURBO_SIZE,
                      launches, plain,
                      {"flash_fwd": None, "vsa_sparse_padded_fwd":
-                      layers * steps, "conv3d": k3, "conv3d_int8": k4})
+                      layers * steps, "conv3d": k3, "conv3d_int8": k4,
+                      "flash_fwd_combine": vae_chunks(TURBO_SIZE)})
     w8a8 = int8.FORWARD_CALLS["int8_w8a8"]
     if w8a8 != (4 * layers + 1) * steps:
         raise SystemExit(f"4f: {w8a8} W8A8 linear calls, expected "
@@ -2587,7 +2813,8 @@ def run_causal_path(work: str, profile_dir: str | None = None):
           f"{json.dumps(plain)}", flush=True)
     check_generation("causal Wan 480x832", result, CLIP_480P, launches, plain,
                      {"flash_fwd_kv_mask": k5, "flash_fwd": None,
-                      "conv3d": None})
+                      "conv3d": None,
+                      "flash_fwd_combine": vae_chunks(CLIP_480P)})
     if profile_dir:
         profile_generation(gen, kw, profile_dir, "causal_wan_480x832")
     del result
@@ -2650,8 +2877,12 @@ def run_streaming(gen, spec: dict) -> tuple[dict, dict]:
           f"calls {json.dumps(plain)}", flush=True)
     if frames != [9] + [12] * (STREAM_BLOCKS - 1):
         raise SystemExit(f"4h: frames per block {frames}")
+    # one VAE attention (one split K1 at a head of 384, so one combine)
+    # a one-latent-frame decode, the rest of K1 the blocks' cross-attention
+    decodes = launches["flash_fwd"] - layers * STREAM_BLOCKS * (
+        CAUSAL_STEPS + 1)
     if launches["flash_fwd_kv_mask"] != k5 or not launches["conv3d"] or \
-            not launches["flash_fwd"]:
+            decodes <= 0 or launches["flash_fwd_combine"] != decodes:
         raise SystemExit(f"4h: kernel launches {launches}")
     if any(plain.values()):
         raise SystemExit(f"4h: the stream reached a plain version: {plain}")
@@ -3131,6 +3362,14 @@ def profile_generation(gen, kw: dict, out_dir: str, label: str) -> None:
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:20]:
         print(f"    {e.self_device_time_total / 1e3:10.1f} ms  "
               f"{e.count:6d}x  {e.key[:110]}", flush=True)
+    # the VAE attention's kernels, whatever their rank: the wide K1 and its
+    # merge, and the first schedule's instance that ran it before
+    for sub in PROFILE_WATCH:
+        hits = [e for e in events if sub in e.key]
+        got = (f"{sum(e.self_device_time_total for e in hits) / 1e3:.1f} ms "
+               f"in {sum(e.count for e in hits)} launches" if hits
+               else "absent")
+        print(f"    watched {sub}: {got}", flush=True)
     os.makedirs(out_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(out_dir, f"{label}_trace.json"))
 
@@ -3197,6 +3436,7 @@ def main() -> int:
     phase("# phase 4b: FastWan main path at full width, 81x480x832, 3 DMD "
           "steps, VSA sparsity 0.8")
     launches = run_main_path(work, args.profile)
+    results["conv3d"]["fp32_decode"] = launches.pop("fp32_decode")
     phase(f"# phase 4c: Wan2.1-T2V-1.3B at full width and depth, 81x480x848, "
           f"{args.vsa_steps} FlowUniPC steps with CFG, VSA sparsity 0.8 on "
           f"padded tiles")
@@ -3259,6 +3499,8 @@ def main() -> int:
     results["vsa_sparse_padded_fwd"]["sla_launches"] = turbo_launches[
         "vsa_sparse_padded_fwd"]
     launches["conv3d_int8"] = int8_launches["conv3d_int8"]
+    results["flash_fwd"]["vae_attention_launches"] = launches[
+        "flash_fwd_combine"]
     results["conv3d_int8"]["turbo_launches"] = turbo_launches["conv3d_int8"]
     launches["flash_fwd_kv_mask"] = causal_launches["flash_fwd_kv_mask"]
     results["flash_fwd_kv_mask"].update(

@@ -1,6 +1,6 @@
 // The causal conv's Hopper schedule (K3 at bf16): conv3d.cu launches it
-// for every bf16 conv and keeps its SIMT kernel for fp32 (wgmma has no fp32
-// operand). It computes what the Pallas kernels _conv_kernel_thcw_kf and
+// for every bf16 conv (fp32 takes its 3xTF32 form, conv3d_tf32_sm90.cuh,
+// on this frame). It computes what the Pallas kernels _conv_kernel_thcw_kf and
 // _conv_kernel compute (fastvideo_tpu/ops/conv3d.py:180, :55): y = conv(x,
 // w) + bias over channels-last x [B, T, H, W, C], w [kt, 3, 3, C, Co],
 // `time_pad` zero frames in front and SAME spatial padding, fp32 sums, a

@@ -32,7 +32,7 @@
 // What bounds it: at the main path's shapes it is tensor-core bound, 4 * B *
 // H * Sq * Skv_visible * D FLOP against ~3 bytes of unique input per FLOP
 // at the DiT cross-attention [1,32760,12,128] x [1,512,12,128], and far
-// less at the self-attention shapes of K5 and K1 struct (32,760 keys). Two
+// less at the self-attention shapes of K5 and K1 struct (32,760 keys). Three
 // schedules, chosen by shape alone (fvt_flash_fwd_sm90 says which; there is
 // no fallback between them):
 //  - bf16 with a head of 64 or 128, every DiT launch: flash_fwd_sm90.cuh,
@@ -40,14 +40,20 @@
 //    copies through a two-stage ring, two warpgroups a block. The first
 //    schedule lost its time in shared-memory round trips of S, P and O,
 //    in one-row-at-a-time softmax rounds, and in synchronous loads.
-//  - fp32, and bf16 with other heads (the VAE's 384, the tiny models' 16
-//    and 32): attn_tile.cuh's schedule, WMMA 16x16x16 (bf16) or scalar FMA
-//    (fp32) through shared memory, one 64-row (fp32: 32-row) tile a block.
+//  - K1 at bf16 with a head of 384, the VAE's mid-block attention:
+//    flash_fwd_wide_sm90.cuh, the same products with O split over two
+//    warpgroups' registers and the keys over blocks (fvt_flash_fwd_wide,
+//    which also launches flash_fwd_combine, the merge of the splits).
+//  - fp32, bf16 K1 with other heads (the tiny models' 16 and 32), and K5
+//    and K1 struct at heads other than 64 and 128: attn_tile.cuh's
+//    schedule, WMMA 16x16x16 (bf16) or scalar FMA (fp32) through shared
+//    memory, one 64-row (fp32: 32-row) tile a block.
 //
 // Strides are in elements and let the caller pass [B, S, H, D] views
 // without a transpose copy.
 #include "attn_tile.cuh"
 #include "flash_fwd_sm90.cuh"
+#include "flash_fwd_wide_sm90.cuh"
 #include "struct_mask.cuh"
 
 namespace {
@@ -57,6 +63,7 @@ using fvt::bf16;
 using fvt::kKvMask;
 using fvt::kPlain;
 using fvt::kStruct;
+namespace s9w = fvt::sm90;
 
 // The mask mode is a compile-time parameter: K1's instance (kPlain) has no
 // mask code beyond kv_valid and causal, and K5's (kKvMask) and K1 struct's
@@ -218,6 +225,48 @@ int launch_sm90(const void* q, const void* k, const void* v, void* o, void* lse,
 // 128. ops/flash_attention.py:flash_schedule states the same rule.
 bool use_sm90(int dtype, int D) { return dtype == 1 && (D == 64 || D == 128); }
 
+// Whether K1 at (dtype, D) takes the wide Hopper schedule: bf16 with a head
+// of 384 (flash_schedule's "sm90_wide").
+bool use_wide(int dtype, int D) { return dtype == 1 && D == s9w::kWideD; }
+
+// The wide schedule with `splits` key ranges; one split writes O and the
+// LSE, more write the fp32 partials.
+int wide(const void* q, const void* k, const void* v, void* o, void* lse, void* part,
+         void* lse_part, int B, int H, int Sq, int Skv, const long long* st, float scale,
+         int causal, int kv_valid, int splits, cudaStream_t stream) {
+  constexpr int D = s9w::kWideD;
+  if (Sq <= 0 || B <= 0 || H <= 0 || splits < 1 || splits > s9w::kWideMaxSplits ||
+      (splits > 1 && (part == nullptr || lse_part == nullptr)) || B > 65535 || H > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  s9w::WideParams p;
+  if (!s9w::map_bshd(&p.q, q, B, Sq, H, D, st[0], st[1], st[2], s9w::kWideBQ) ||
+      !s9w::map_bshd(&p.k, k, B, Skv, H, D, st[3], st[4], st[5], s9w::kWideBK) ||
+      !s9w::map_bshd(&p.v, v, B, Skv, H, D, st[6], st[7], st[8], s9w::kWideBK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  p.o = static_cast<bf16*>(o);
+  p.lse = static_cast<float*>(lse);
+  p.o_sb = st[9];
+  p.o_sh = st[10];
+  p.o_ss = st[11];
+  p.part = static_cast<float*>(part);
+  p.lse_part = static_cast<float*>(lse_part);
+  p.B = B;
+  p.H = H;
+  p.Sq = Sq;
+  p.Skv = Skv;
+  p.n_qtiles = (Sq + s9w::kWideBQ - 1) / s9w::kWideBQ;
+  p.splits = splits;
+  p.scale_log2 = scale * s9w::kLog2e;
+  p.causal = causal;
+  p.kv_valid = kv_valid;
+  const size_t smem = s9w::wide_smem_bytes();
+  cudaError_t err = s9w::set_smem(s9w::flash_fwd_wide_sm90, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(p.n_qtiles * splits, H, B);
+  s9w::flash_fwd_wide_sm90<<<grid, s9w::kWideThreads, smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int kMode>
 int dispatch(const void* q, const void* k, const void* v, void* o, void* lse, int dtype, int B,
              int H, int Sq, int Skv, int D, const long long* st, float scale, const MaskArgs& m,
@@ -227,6 +276,9 @@ int dispatch(const void* q, const void* k, const void* v, void* o, void* lse, in
     if (D == 64) return launch_sm90<64, kMode>(q, k, v, o, lse, B, H, Sq, Skv, st, scale, m, s);
     return launch_sm90<128, kMode>(q, k, v, o, lse, B, H, Sq, Skv, st, scale, m, s);
   }
+  if (kMode == kPlain && use_wide(dtype, D))  // one split: no partials
+    return wide(q, k, v, o, lse, nullptr, nullptr, B, H, Sq, Skv, st, scale, m.causal,
+                m.kv_valid, 1, s);
   if (dtype == 1) {
     if (D <= 128)
       return launch<bf16, 64, 64, kMode>(q, k, v, o, lse, B, H, Sq, Skv, D, st, scale, m, s);
@@ -239,9 +291,23 @@ int dispatch(const void* q, const void* k, const void* v, void* o, void* lse, in
 
 }  // namespace
 
-// 1 when (dtype, D) runs the Hopper schedule (flash_fwd_sm90.cuh), 0 when it
-// runs attn_tile.cuh's.
-extern "C" int fvt_flash_fwd_sm90(int dtype, int D) { return use_sm90(dtype, D) ? 1 : 0; }
+// K1's schedule at (dtype, D): 1 the Hopper one (flash_fwd_sm90.cuh), 2 the
+// wide Hopper one (flash_fwd_wide_sm90.cuh), 0 attn_tile.cuh's.
+extern "C" int fvt_flash_fwd_sm90(int dtype, int D) {
+  return use_sm90(dtype, D) ? 1 : (use_wide(dtype, D) ? 2 : 0);
+}
+
+// The wide schedule's key splits for B x H heads of Sq query rows over
+// min(kv_valid, Skv) keys on `sms` SMs.
+extern "C" int fvt_flash_fwd_wide_splits(int B, int H, int Sq, int Skv, int kv_valid, int sms) {
+  constexpr int bq = s9w::kWideBQ, bk = s9w::kWideBK;
+  const int keys = kv_valid < Skv ? kv_valid : Skv;
+  const long long blocks = static_cast<long long>(B) * H * ((Sq + bq - 1) / bq);
+  return s9w::wide_splits(blocks, keys > 0 ? (keys + bk - 1) / bk : 0, sms);
+}
+
+// The wide schedule's dynamic shared memory a block (bytes).
+extern "C" int fvt_flash_fwd_wide_smem() { return static_cast<int>(s9w::wide_smem_bytes()); }
 
 // The Hopper schedule's dynamic shared memory a block (bytes) for a head of
 // D (64 or 128), mask mode `mode` (0 K1, 1 K5, 2 K1 struct) and Skv keys.
@@ -308,4 +374,38 @@ extern "C" int fvt_flash_fwd_struct(const void* q, const void* k, const void* v,
   return dispatch<kStruct>(q, k, v, o, lse, dtype, B, H, Sq, Skv, D, st, scale,
                            MaskArgs{0, kv_valid, nullptr, chunk_tokens, tf_clean_len},
                            static_cast<cudaStream_t>(stream));
+}
+
+// K1 at bf16 with a head of 384 on the wide schedule: as fvt_flash_fwd with
+// `splits` key ranges (1..8). With one
+// split it writes o and lse (which may be null); with more it writes the
+// fp32 partials part [splits, B, H, Sq, 384] and lse_part [splits, B, H,
+// Sq], which fvt_flash_fwd_combine merges into o and lse.
+extern "C" int fvt_flash_fwd_wide(const void* q, const void* k, const void* v, void* o,
+                                  void* lse, void* part, void* lse_part, int B, int H, int Sq,
+                                  int Skv, long long q_sb, long long q_sh, long long q_ss,
+                                  long long k_sb, long long k_sh, long long k_ss,
+                                  long long v_sb, long long v_sh, long long v_ss,
+                                  long long o_sb, long long o_sh, long long o_ss, float scale,
+                                  int causal, int kv_valid, int splits, void* stream) {
+  const long long st[12] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss};
+  return wide(q, k, v, o, lse, part, lse_part, B, H, Sq, Skv, st, scale, causal, kv_valid, splits,
+              static_cast<cudaStream_t>(stream));
+}
+
+// The merge of a split wide launch: o (bf16 [B, Sq, H, 384], element
+// strides o_sb, o_sh, o_ss; 8-byte aligned rows) and lse ([B, H, Sq] or
+// null) from part and lse_part.
+extern "C" int fvt_flash_fwd_combine(const void* part, const void* lse_part, void* o, void* lse,
+                                     int splits, int B, int H, int Sq, long long o_sb,
+                                     long long o_sh, long long o_ss, void* stream) {
+  if (splits < 1 || B <= 0 || H <= 0 || Sq <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long rows = static_cast<long long>(B) * H * Sq;
+  const long long blocks = (rows + s9w::kCombineRows - 1) / s9w::kCombineRows;
+  if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  s9w::flash_fwd_combine<<<static_cast<unsigned>(blocks), s9w::kCombineRows * s9w::kWideD / 4, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(part), static_cast<const float*>(lse_part), static_cast<bf16*>(o),
+      static_cast<float*>(lse), splits, H, Sq, rows, o_sb, o_sh, o_ss);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -15,7 +15,8 @@ and K1 struct, ``flash_fwd_struct``, are entries of ``flash_fwd.cu``; the
 backward sources hold a dQ and a dK/dV kernel each, ``flash_bwd_dq`` /
 ``flash_bwd_dkv`` (K6), ``flash_bwd_struct_dq`` / ``flash_bwd_struct_dkv``
 (K6 struct) and ``vsa_sparse_bwd_dq`` / ``vsa_sparse_bwd_dkv`` (K7 bwd);
-``flash_bwd_dkv_reduce`` adds a split dK/dV launch's partial sums).
+``flash_bwd_dkv_reduce`` adds a split dK/dV launch's partial sums, and
+``flash_fwd_combine`` merges a split wide K1 launch's partials).
 
 The sources with Hopper schedules (the flash and sparse attention kernels,
 the convs K3 and K4) compile with ``-Xptxas -v``; :func:`ptxas_report` reads back
@@ -54,7 +55,8 @@ SOURCE_OF = {**{n: n for n in SOURCES[:5]}, "flash_fwd_kv_mask": "flash_fwd",
              "flash_fwd_struct": "flash_fwd",
              "flash_bwd_struct_dq": "flash_bwd",
              "flash_bwd_struct_dkv": "flash_bwd",
-             "flash_bwd_dkv_reduce": "flash_bwd"}
+             "flash_bwd_dkv_reduce": "flash_bwd",
+             "flash_fwd_combine": "flash_fwd"}
 KERNELS = tuple(SOURCE_OF)
 # sources whose ptxas resource report is kept beside their library
 PTXAS_VERBOSE = ("flash_fwd", "flash_bwd", "vsa_sparse_bwd", "dyn_sparse_fwd",
@@ -216,8 +218,21 @@ def num_sms(device: torch.device) -> int:
     return _SMS[idx]
 
 _SIGNATURES = {
-    # dtype, D: 1 when the flash forward runs its Hopper schedule
+    # dtype, D: K1's schedule (1 the Hopper one, 2 the wide one, 0 the
+    # first)
     "fvt_flash_fwd_sm90": [ctypes.c_int] * 2,
+    # B, H, Sq, Skv, kv_valid, SMs: the wide schedule's key splits; its
+    # shared memory
+    "fvt_flash_fwd_wide_splits": [ctypes.c_int] * 6,
+    "fvt_flash_fwd_wide_smem": [],
+    # q, k, v, o, lse, part, lse_part, B, H, Sq, Skv, 12 strides, scale,
+    # causal, kv_valid, splits, stream
+    "fvt_flash_fwd_wide": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 +
+    [ctypes.c_longlong] * 12 + [ctypes.c_float] + [ctypes.c_int] * 3 +
+    [ctypes.c_void_p],
+    # part, lse_part, o, lse, splits, B, H, Sq, 3 strides, stream
+    "fvt_flash_fwd_combine": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 +
+    [ctypes.c_longlong] * 3 + [ctypes.c_void_p],
     # D: 1 when the flash backward runs its Hopper schedule
     "fvt_flash_bwd_sm90": [ctypes.c_int],
     # D, mode (0 K1, 1 K5, 2 K1 struct), Skv: the Hopper forward's dynamic
@@ -323,14 +338,19 @@ _SIGNATURES = {
     # shared memory
     "fvt_vsa_sparse_padded_fwd_route": [ctypes.c_int],
     "fvt_vsa_sparse_padded_fwd_sm90_smem": [ctypes.c_int] * 3,
-    # x, w, bias, y, dtype, B, T, H, W, C, Co, kt, time_pad, stream
-    "fvt_conv3d_ndhwc": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 +
+    # x (C % 16 == 0), w_hi, w_lo [kt * 3 * C / 16, 3, Co_pad, 16], bias, y,
+    # B, T, H, W, C, Co, kt, time_pad, bn, bw, stream
+    "fvt_conv3d_tf32": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 +
     [ctypes.c_void_p],
+    # Co: the 3xTF32 schedule's N tile; Co, bw: its shared memory
+    "fvt_conv3d_tf32_tile_n": [ctypes.c_int],
+    "fvt_conv3d_tf32_smem": [ctypes.c_int] * 2,
     # x (C % 32 == 0), w [kt * 3 * C / 32, 3, Co_pad, 32], bias, y, B, T,
     # H, W, C, Co, kt, time_pad, bn, bw, stream
     "fvt_conv3d_sm90": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 +
     [ctypes.c_void_p],
-    # dtype, C, Co: 1 when K3 runs its Hopper schedule; Co: its N tile;
+    # dtype, C, Co: K3's schedule (1 the bf16 one, 2 the 3xTF32 one); Co:
+    # the bf16 one's N tile;
     # Co, bw: its shared memory
     "fvt_conv3d_route": [ctypes.c_int] * 3,
     "fvt_conv3d_tile_n": [ctypes.c_int],

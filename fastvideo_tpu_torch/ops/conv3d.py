@@ -17,7 +17,13 @@ wgmma, TMA boxes of x that hold three taps each, a ring of stages), for
 which the wrapper lays the weight out once a call (:func:`sm90_weight`),
 pads the channels to a multiple of 32 (only conv_in's 16 and the tiny
 models') and picks the voxel patch of a block (:func:`conv_tile_w`); fp32
-runs the SIMT one.
+runs the same frame with 3xTF32 products ("tf32x3", ``csrc/
+conv3d_tf32_sm90.cuh``): each operand split into a TF32 head and tail
+(:func:`tf32_round`; the weight on the host, :func:`sm90_weight_tf32`),
+three TF32 products a pair, each stage's sum drained into an fp32 total,
+which hold the fp32 sum where one TF32 product leaves it by about 1e-3.
+Both skip the time taps that read only the causal pad
+(:func:`live_time_taps`).
 
 The W8A8 modes "kf_int8" and "auto_int8" route as the JAX package does
 (``conv3d_ndhwc``'s int8 branch): where C and Co are multiples of 32 (and,
@@ -35,8 +41,8 @@ tensor :func:`conv3d_int8_plain`. Every other conv keeps K3, as JAX keeps
 its bf16 kernel.
 
 Both kernels serve an fp32 decode (``vae_decode_precision="fp32"``) as the
-JAX kernels do: K3 takes fp32 operands (fp32 FMAs, fp32 output) and K4
-writes fp32 when the input is fp32.
+JAX kernels do: K3 takes fp32 operands (3xTF32 products, fp32 sums and
+output) and K4 writes fp32 when the input is fp32.
 """
 
 from __future__ import annotations
@@ -62,15 +68,66 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 CONV_BLOCK = 128
 CONV_CHUNK = 32
 CONV_TILE_WIDTHS = (128, 64, 32, 16, 8)
+# the fp32 channels of one K stage of the 3xTF32 schedule (csrc/
+# conv3d_tf32_sm90.cuh: kConvChunkF32), and the low bits TF32 drops
+CONV_CHUNK_F32 = 16
+TF32_DROPPED_BITS = 13
 
 
 def conv_schedule(dtype: torch.dtype, c: int, co: int) -> str:
     """K3's schedule for operands of ``dtype`` with C in and Co out
     channels: "sm90" (wgmma, TMA) for bf16, every decoder conv at every
-    width; "simt" for fp32 (wgmma has no fp32 operand). The CUDA source's
-    ``conv_route`` states the same rule; C and Co do not choose it."""
+    width; "tf32x3" for fp32 (the same frame with three TF32 products a
+    pair, as wgmma has no fp32 operand). The CUDA source's ``conv_route``
+    states the same rule; C and Co do not choose it."""
     del c, co
-    return "sm90" if dtype == torch.bfloat16 else "simt"
+    return "sm90" if dtype == torch.bfloat16 else "tf32x3"
+
+
+def conv_tf32_tile_n(co: int) -> int:
+    """Output channels of one block of the 3xTF32 schedule (csrc/
+    conv3d_tf32_sm90.cuh:conv_tf32_tile_n): 8 for conv_out's 3, else 96
+    (96; 192 and 384: two and four tiles)."""
+    return 8 if co <= 8 else 96
+
+
+def live_time_taps(t: int, kt: int, time_pad: int, t_in: int) -> range:
+    """The time taps dt of output frame ``t`` that read a real input frame
+    (t + dt - time_pad in [0, t_in)); the kernels skip the others, which
+    read only the causal pad (or past the end) and add nothing."""
+    return range(max(0, time_pad - t), min(kt, t_in + time_pad - t))
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """fp32 ``x`` rounded to TF32 (10 mantissa bits), to nearest with ties
+    away from zero, as ``cvt.rna.tf32.f32`` does: the low 13 bits cleared
+    after adding half of their range to the magnitude."""
+    half = 1 << (TF32_DROPPED_BITS - 1)
+    mask = -(1 << TF32_DROPPED_BITS)
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + half) & mask).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) = (tf32(x), tf32(x - tf32(x))): the 3xTF32 schedule's head
+    and tail of an fp32 operand; hi + lo holds x to about 2^-22."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x.float() - hi)
+
+
+def conv3d_tf32x3_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                        *, time_pad: int, products: int = 3) -> torch.Tensor:
+    """Plain emulation of the 3xTF32 schedule's arithmetic: the conv of the
+    TF32 heads and tails, hi_x hi_w + hi_x lo_w + lo_x hi_w (``products``
+    1: hi_x hi_w alone, a single TF32 product), each product exact and
+    summed in fp64, plus the bias; fp32 out."""
+    xh, xl = tf32_split(x)
+    wh, wl = tf32_split(w)
+    pairs = [(xh, wh), (xh, wl), (xl, wh)][:products]
+    acc = 0.0
+    for xa, wa in pairs:
+        acc = acc + _conv_taps(xa.double(), wa.double(), time_pad)
+    return (acc + b.double()).float()
 
 
 def conv_tile_n(co: int) -> int:
@@ -117,6 +174,28 @@ def sm90_weight(w: torch.Tensor, bn: int) -> torch.Tensor:
     wp = wp.reshape(kt, 3, 3, cp // CONV_CHUNK, CONV_CHUNK, co_pad)
     return wp.permute(0, 1, 3, 2, 5, 4).reshape(
         kt * 3 * (cp // CONV_CHUNK), 3, co_pad, CONV_CHUNK).contiguous()
+
+
+def sm90_weight_tf32(w: torch.Tensor, bn: int
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """fp32 w [kt, 3, 3, C, Co] as the 3xTF32 schedule's two B operands,
+    its TF32 heads and tails (:func:`tf32_split`), each [kt * 3 * nC, 3,
+    Co_pad, 16]: stage (dt, dh, 16-channel chunk c) at (dt * 3 + dh) * nC +
+    c, then tap dw, output channel, channel, zeros past C (nC = ceil(C /
+    16)) and past Co (Co_pad a multiple of ``bn``): :func:`sm90_weight`'s
+    layout with 16 fp32 channels to a 64-byte row in place of 32 bf16."""
+    kt, _, _, c, co = w.shape
+    cp = -(-c // CONV_CHUNK_F32) * CONV_CHUNK_F32
+    co_pad = -(-co // bn) * bn
+    out = []
+    for part in tf32_split(w):
+        wp = F.pad(part, (0, co_pad - co, 0, cp - c))
+        wp = wp.reshape(kt, 3, 3, cp // CONV_CHUNK_F32, CONV_CHUNK_F32,
+                        co_pad)
+        out.append(wp.permute(0, 1, 3, 2, 5, 4).reshape(
+            kt * 3 * (cp // CONV_CHUNK_F32), 3, co_pad,
+            CONV_CHUNK_F32).contiguous())
+    return out[0], out[1]
 
 
 def sm90_weight_int8(wq: torch.Tensor, bn: int) -> torch.Tensor:
@@ -197,20 +276,27 @@ def conv3d_ndhwc_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
     _build.count_plain(NAME)
     if gamma is not None:
         x = rms_silu_prologue(x, gamma)
+    acc = _conv_taps(x.float(), w.float(), time_pad)
+    return (acc + b.float()).to(x.dtype)
+
+
+def _conv_taps(x: torch.Tensor, w: torch.Tensor,
+               time_pad: int) -> torch.Tensor:
+    """The sum over the kt*9 taps of [voxels, C] @ [C, Co] products, in
+    x's dtype: the causal conv without its bias."""
     kt = w.shape[0]
     bsz, t, h, wd, c = x.shape
     co = w.shape[-1]
     t_out = t + time_pad - kt + 1
-    xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1, time_pad, 0))
-    wf = w.float()
-    acc = torch.zeros((bsz, t_out, h, wd, co), dtype=torch.float32,
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1, time_pad, 0))
+    acc = torch.zeros((bsz, t_out, h, wd, co), dtype=x.dtype,
                       device=x.device)
     for dt in range(kt):
         for dh in range(3):
             for dw in range(3):
                 tap = xp[:, dt:dt + t_out, dh:dh + h, dw:dw + wd]
-                acc += torch.matmul(tap, wf[dt, dh, dw])
-    return (acc + b.float()).to(x.dtype)
+                acc += torch.matmul(tap, w[dt, dh, dw])
+    return acc
 
 
 def quantize_int8(x: torch.Tensor, dims: tuple[int, ...] | None = None
@@ -331,14 +417,19 @@ def _conv3d_cuda(x, w, b, time_pad, gamma):
     t_out = t + time_pad - kt + 1
     y = torch.empty((bsz, t_out, h, wd, co), dtype=x.dtype, device=x.device)
     b = b.contiguous()
-    if conv_schedule(x.dtype, c, co) == "simt":
+    if conv_schedule(x.dtype, c, co) == "tf32x3":
+        cp = -(-c // CONV_CHUNK_F32) * CONV_CHUNK_F32
+        if cp != c:  # zero channels up to the 16 of a stage (tiny models)
+            x = F.pad(x, (0, cp - c))
         x = x.contiguous()
         if x.data_ptr() % 16:
             x = x.clone()
-        _build.launch(NAME, "fvt_conv3d_ndhwc", x.data_ptr(),
-                      w.contiguous().data_ptr(), b.data_ptr(), y.data_ptr(),
-                      _DTYPE_CODES[x.dtype], bsz, t, h, wd, c, co, kt,
-                      time_pad, _build.stream_ptr(x))
+        bn = conv_tf32_tile_n(co)
+        w_hi, w_lo = sm90_weight_tf32(w, bn)
+        _build.launch(NAME, "fvt_conv3d_tf32", x.data_ptr(), w_hi.data_ptr(),
+                      w_lo.data_ptr(), b.data_ptr(), y.data_ptr(), bsz, t, h,
+                      wd, cp, co, kt, time_pad, bn, conv_tile_w(h, wd),
+                      _build.stream_ptr(x))
         return y
     cp = -(-c // CONV_CHUNK) * CONV_CHUNK
     if cp != c:  # zero channels up to the 32 of a stage (conv_in's 16)

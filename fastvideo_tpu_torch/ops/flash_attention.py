@@ -42,12 +42,24 @@ Each kernel has two schedules, chosen by shape alone (:func:`flash_schedule`;
 the CUDA sources apply the same rule): bf16 with a head of 64 or 128, every
 DiT launch, runs the Hopper schedule (``csrc/flash_fwd_sm90.cuh``,
 ``csrc/flash_bwd_sm90.cuh``: wgmma, registers, TMA); fp32 and other heads
-run the first one (``csrc/attn_tile.cuh``, ``csrc/attn_bwd_tile.cuh``).
+run the first one (``csrc/attn_tile.cuh``, ``csrc/attn_bwd_tile.cuh``),
+apart from K1's third, below.
 Where the dK/dV grid of the Hopper schedule would leave the card's SMs
 idle (the cross-attention's 512 keys), :func:`dkv_splits` cuts the query
 rows over more blocks: each writes fp32 partial sums to a scratch
 [splits, B, H, Skv, D], and ``flash_bwd_dkv_reduce`` (its own counter) adds
 them in split order (:func:`dkv_reduce_plain` is its plain version).
+
+K1 at bf16 with a head of 384, the VAE's mid-block attention, runs a third
+schedule (``csrc/flash_fwd_wide_sm90.cuh``, :func:`flash_schedule`'s
+"sm90_wide"): a warpgroup's 64 query rows keep all 384 columns of O in
+registers, and the keys of each query tile are cut into
+:func:`wide_splits` ranges so that a batch of one or two frames fills the
+card. A split launch writes fp32 partials (O / l
+and the LSE of each range) that ``flash_fwd_combine`` (its own counter)
+merges into the output; :func:`wide_partials_plain` and
+:func:`wide_combine_plain` are their plain versions. No backward runs at a
+head above 128 (:func:`flash_bwd_schedule`).
 
 Numerics follow the JAX kernel: fp32 scores and softmax statistics, the
 probabilities rounded to the value dtype before the P@V product, and a row
@@ -73,6 +85,7 @@ NAME_STRUCT = "flash_fwd_struct"
 NAME_BWD_STRUCT_DQ = "flash_bwd_struct_dq"
 NAME_BWD_STRUCT_DKV = "flash_bwd_struct_dkv"
 NAME_BWD_REDUCE = "flash_bwd_dkv_reduce"
+NAME_COMBINE = "flash_fwd_combine"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the Hopper schedule's heads, and the keys a dK/dV block owns and the query
 # rows it streams a step (csrc/flash_bwd_sm90.cuh: kBwdOwn, kBwdStep)
@@ -83,14 +96,142 @@ DKV_STEP_ROWS = 64
 DKV_SPLIT_WAVES = 4
 # the most fp32 scores a plain version holds at once
 SLAB_BYTES = 1 << 30
+# the wide schedule (csrc/flash_fwd_wide_sm90.cuh: kWideD, kWideBQ,
+# kWideBK, kWideMaxSplits): its head, query rows a block, keys a chunk,
+# and the most key splits
+WIDE_HEAD = 384
+WIDE_BLOCK_ROWS = 128
+WIDE_CHUNK_KEYS = 32
+WIDE_MAX_SPLITS = 8
 
 
 def flash_schedule(dtype: torch.dtype, d: int) -> str:
-    """The schedule a flash kernel runs for operands of ``dtype`` with a
-    head of ``d``: "sm90" (wgmma and TMA) for bf16 with a head of 64 or
-    128, else "tile" (the first, WMMA or scalar, schedule). The backward
-    takes bf16 only, so its rule is this one at bf16."""
-    return "sm90" if dtype == torch.bfloat16 and d in SM90_HEADS else "tile"
+    """The schedule K1 runs for operands of ``dtype`` with a head of ``d``:
+    "sm90" (wgmma and TMA) for bf16 with a head of 64 or 128 (K5 and K1
+    struct too), "sm90_wide" for bf16 with a head of 384 (the VAE's
+    attention; K1 only), else "tile" (the first, WMMA or scalar,
+    schedule)."""
+    if dtype == torch.bfloat16 and d in SM90_HEADS:
+        return "sm90"
+    if dtype == torch.bfloat16 and d == WIDE_HEAD:
+        return "sm90_wide"
+    return "tile"
+
+
+def flash_bwd_schedule(d: int) -> str:
+    """The schedule K6 (bf16 only) runs with a head of ``d``: "sm90" at 64
+    and 128, else "tile". There is no backward at a head above 128
+    (:func:`check_bwd_operands` refuses it), so none reaches the wide
+    forward's schedule."""
+    return "sm90" if d in SM90_HEADS else "tile"
+
+
+def wide_splits(b: int, h: int, sq: int, keys: int, num_sms: int) -> int:
+    """Key ranges the wide schedule cuts each query tile's ``keys`` into
+    (csrc/flash_fwd_wide_sm90.cuh:wide_splits): the fewest, up to
+    ``WIDE_MAX_SPLITS`` and the tile's chunks, whose waves of blocks fill
+    the card's ``num_sms`` SMs to 90 %, else the fullest. At the VAE's
+    6,240 rows (49 query tiles a frame) on 132 SMs: 5 splits for one frame,
+    4 for two."""
+    blocks = b * h * -(-sq // WIDE_BLOCK_ROWS)
+    chunks = -(-keys // WIDE_CHUNK_KEYS) if keys > 0 else 0
+    best, best_n, best_cap = 1, 0, 1
+    for s in range(1, max(1, min(WIDE_MAX_SPLITS, chunks)) + 1):
+        n = blocks * s
+        cap = -(-n // num_sms) * num_sms
+        if 10 * n >= 9 * cap:
+            return s
+        if n * best_cap > best_n * cap:
+            best, best_n, best_cap = s, n, cap
+    return best
+
+
+def wide_chunk_ranges(keys: int, splits: int) -> list[range]:
+    """The key range of each split: whole chunks of ``WIDE_CHUNK_KEYS``,
+    split z taking chunks [z n / splits, (z + 1) n / splits) of the n that
+    cover ``keys`` (some may be empty)."""
+    bk = WIDE_CHUNK_KEYS
+    n = -(-keys // bk) if keys > 0 else 0
+    return [range(min(z * n // splits * bk, keys),
+                  min((z + 1) * n // splits * bk, keys))
+            for z in range(splits)]
+
+
+def wide_partials_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, scale: float, splits: int,
+                        kv_valid: int | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of a split wide launch (no causal mask, as the VAE
+    calls it): (part fp32 [splits, B, H, Sq, D], lse_part fp32 [splits, B,
+    H, Sq]), each split's softmax attention over its keys alone, with K1's
+    rounding (P relative to the split's own maximum, rounded to the value
+    dtype before P V); a split with no key gives 0 and -inf."""
+    skv = k.shape[1]
+    keys = min(skv if kv_valid is None else kv_valid, skv)
+    b, sq, h, d = q.shape
+    parts, lses = [], []
+    for keys_z in wide_chunk_ranges(keys, splits):
+        if len(keys_z) == 0:
+            parts.append(torch.zeros((b, h, sq, d), device=q.device))
+            lses.append(torch.full((b, h, sq), float("-inf"),
+                                   device=q.device))
+            continue
+        sl = slice(keys_z.start, keys_z.stop)
+        out, lse = [], []
+        for rows in _row_slabs(q, len(keys_z)):
+            mask = torch.ones((1, len(keys_z)), dtype=torch.bool,
+                              device=q.device)
+            o_r, lse_r = _masked_attention(q[:, rows.start:rows.stop],
+                                           k[:, sl], v[:, sl], mask, scale,
+                                           out_dtype=torch.float32)
+            out.append(o_r.transpose(1, 2))
+            lse.append(lse_r)
+        parts.append(torch.cat(out, dim=2))
+        lses.append(torch.cat(lse, dim=2))
+    return torch.stack(parts), torch.stack(lses)
+
+
+def wide_combine_plain(part: torch.Tensor, lse_part: torch.Tensor,
+                       dtype: torch.dtype = torch.bfloat16
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of ``flash_fwd_combine``: (out [B, Sq, H, D] in
+    ``dtype``, lse fp32 [B, H, Sq]) from the partials of a split launch,
+    each weighted by exp(lse_z - max_z lse_z); a row with no key in any
+    split gives 0 and -inf."""
+    _build.count_plain(NAME_COMBINE)
+    m = lse_part.amax(dim=0)
+    m_safe = torch.where(torch.isinf(m), torch.zeros_like(m), m)
+    w = torch.exp(lse_part - m_safe)
+    tot = w.sum(dim=0)
+    out = (w[..., None] * part).sum(dim=0) / torch.where(
+        tot == 0, torch.ones_like(tot), tot)[..., None]
+    lse = torch.where(tot == 0, torch.full_like(tot, float("-inf")),
+                      m_safe + torch.log(tot))
+    return out.to(dtype).transpose(1, 2), lse
+
+
+def wide_combine(part: torch.Tensor, lse_part: torch.Tensor,
+                 out: torch.Tensor, lse: torch.Tensor | None) -> None:
+    """``flash_fwd_combine``: out (bf16 [B, Sq, H, 384], written in place)
+    and lse (fp32 [B, H, Sq] or None) from a split launch's partials
+    ([splits, B, H, Sq, 384], [splits, B, H, Sq], fp32, contiguous)."""
+    _build.check_device(part, NAME_COMBINE)
+    splits, b, h, sq, d = part.shape
+    if (d != WIDE_HEAD or lse_part.shape != part.shape[:-1] or any(
+            t.dtype != torch.float32 or not t.is_contiguous()
+            for t in (part, lse_part)) or out.dtype != torch.bfloat16
+            or out.shape != (b, sq, h, d) or out.stride(-1) != 1
+            or out.data_ptr() % 8 or any(st % 4 for st in out.stride()[:-1])
+            or (lse is not None and (lse.shape != (b, h, sq)
+                                     or not lse.is_contiguous()))):
+        raise _build.KernelError(
+            f"{NAME_COMBINE}: takes contiguous fp32 partials [splits, B, H, "
+            f"Sq, {WIDE_HEAD}] and [splits, B, H, Sq], a bf16 out [B, Sq, H, "
+            f"{WIDE_HEAD}] and an fp32 lse [B, H, Sq] or None")
+    _build.launch(NAME_COMBINE, "fvt_flash_fwd_combine", part.data_ptr(),
+                  lse_part.data_ptr(), out.data_ptr(),
+                  None if lse is None else lse.data_ptr(), splits, b, h, sq,
+                  *bhs(out), _build.stream_ptr(part))
 
 
 def dkv_splits(b: int, h: int, sq: int, skv: int, d: int,
@@ -100,7 +241,7 @@ def dkv_splits(b: int, h: int, sq: int, skv: int, d: int,
     runs), else enough to give about ``DKV_SPLIT_WAVES`` waves, at most one
     a streamed step of rows. At the cross-attention's 512 keys and 12
     heads on 132 SMs: 48 blocks, 11 splits, 528 blocks."""
-    if flash_schedule(torch.bfloat16, d) != "sm90":
+    if flash_bwd_schedule(d) != "sm90":
         return 1
     blocks = b * h * -(-skv // DKV_BLOCK_KEYS)
     if blocks >= num_sms:
@@ -227,9 +368,10 @@ def flash_attention_kv_mask_plain(q: torch.Tensor, k: torch.Tensor,
     return _masked_attention(q, k, v, mask, scale)[0]
 
 
-def _masked_attention(q, k, v, mask, scale):
+def _masked_attention(q, k, v, mask, scale, out_dtype=None):
     """Softmax attention over [B, S, H, D] where ``mask`` [Sq or 1, Skv]
-    says which keys a query row sees."""
+    says which keys a query row sees: (out [B, Sq, H, D] in ``out_dtype``,
+    default q's, lse [B, H, Sq])."""
     qf = q.float().transpose(1, 2)
     kf = k.float().transpose(1, 2)
     s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
@@ -242,7 +384,7 @@ def _masked_attention(q, k, v, mask, scale):
     out = pv / torch.where(l == 0, torch.ones_like(l), l)
     lse = torch.where(l == 0, torch.full_like(l, float("-inf")),
                       m_safe + torch.log(l))
-    return out.to(q.dtype).transpose(1, 2), lse[..., 0]
+    return out.to(out_dtype or q.dtype).transpose(1, 2), lse[..., 0]
 
 
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
@@ -317,6 +459,32 @@ def bhs(t):
     return t.stride(0), t.stride(2), t.stride(1)
 
 
+def _flash_attention_wide_cuda(q, k, v, *, scale, causal, kv_valid):
+    """K1 on the wide schedule: one launch over ``wide_splits`` key ranges,
+    then ``flash_fwd_combine`` where there is more than one."""
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    splits = wide_splits(b, h, sq, min(kv_valid, skv),
+                         _build.num_sms(q.device))
+    part = lse_part = None
+    if splits > 1:
+        part = torch.empty((splits, b, h, sq, d), dtype=torch.float32,
+                           device=q.device)
+        lse_part = torch.empty((splits, b, h, sq), dtype=torch.float32,
+                               device=q.device)
+    _build.launch(NAME, "fvt_flash_fwd_wide", q.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                  None if part is None else part.data_ptr(),
+                  None if lse_part is None else lse_part.data_ptr(), b, h,
+                  sq, skv, *bhs(q), *bhs(k), *bhs(v), *bhs(out), float(scale),
+                  int(causal), int(kv_valid), splits, _build.stream_ptr(q))
+    if splits > 1:
+        wide_combine(part, lse_part, out, lse)
+    return out, lse
+
+
 def _flash_attention_cuda(q, k, v, *, scale, causal, kv_valid, chunk_tokens,
                           tf_clean_len):
     struct = chunk_tokens > 0
@@ -324,6 +492,9 @@ def _flash_attention_cuda(q, k, v, *, scale, causal, kv_valid, chunk_tokens,
     dtype = _check_cuda_operands(name, q, k, v)
     q, k, v = attn_operand(q), attn_operand(k), attn_operand(v)
     b, sq, h, d = q.shape
+    if not struct and flash_schedule(q.dtype, d) == "sm90_wide":
+        return _flash_attention_wide_cuda(q, k, v, scale=scale,
+                                          causal=causal, kv_valid=kv_valid)
     skv = k.shape[1]
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)

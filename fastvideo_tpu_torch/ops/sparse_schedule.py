@@ -37,7 +37,7 @@ from __future__ import annotations
 
 import torch
 
-from fastvideo_tpu_torch.ops.flash_attention import flash_schedule
+from fastvideo_tpu_torch.ops.flash_attention import flash_bwd_schedule
 
 # rows of a tile a list walk takes at a time (csrc/sm90.cuh: kUnit)
 UNIT_ROWS = 64
@@ -52,10 +52,13 @@ STREAM_BOX_ROWS = 8
 FAST_WALKS = ("tiles", "stream")
 
 
-# The schedule a sparse kernel (K7 bwd, K9a, K9b) runs for operands of
-# (dtype, head d): the flash kernels' rule, "sm90" for bf16 with a head of
-# 64 or 128, else "tile" (the first schedule; the kernels refuse fp32).
-sparse_schedule = flash_schedule
+
+def sparse_schedule(dtype: torch.dtype, d: int) -> str:
+    """The schedule a sparse kernel (K2, K7 bwd, K8 / K7 fwd, K9a, K9b)
+    runs for operands of (dtype, head d): the flash backward's rule, "sm90"
+    for bf16 with a head of 64 or 128, else "tile" (the first schedule;
+    the kernels refuse fp32)."""
+    return flash_bwd_schedule(d) if dtype == torch.bfloat16 else "tile"
 
 
 def mask_indices(mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

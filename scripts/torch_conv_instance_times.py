@@ -27,6 +27,15 @@ yardstick) and at the stream's chunk (``cudnn_up3_stream``), and the
 per-tensor quantize pass of the int8 route on the first row's x
 (``quantize_up3_832``, a control: plain PyTorch, unchanged).
 
+K3's fp32 form (a decode with ``vae_decode_precision="fp32"``) at the
+same conv on fp32 tensors: the 2-frame chunk (``k3_fp32_up3_832``) and the
+first latent frame alone with its 2 pad frames (``k3_fp32_up3_first``),
+beside cuDNN's fp32 ``F.conv3d`` with TF32 off (``cudnn_fp32_up3_832``,
+``cudnn_fp32_up3_first``), and one whole fp32 decode of a [1, 16, 21,
+60, 104] latent (81x480x832) by the port's VAE with its default init
+from a seed, in the dispatched decode's chunks (``fp32_decode_832``, one
+decode after a warm-up).
+
 Prints one JSON line: the card and power limit, and each row's ms. Run it
 for two checkouts in turns (A, B, B, A) inside one call to compare them on
 one card, e.g. with the parent under build/parent:
@@ -119,6 +128,33 @@ def main() -> int:
             del xq, wq
         del x, wt, b
         torch.cuda.empty_cache()
+
+    gf = torch.Generator(device=dev).manual_seed(16)
+    for label, t, tp in (("up3_832", 10, 0), ("up3_first", 1, 2)):
+        x = torch.randn(1, t, 480, 832, 96, generator=gf, device=dev)
+        wt = torch.randn(3, 3, 3, 96, 96, generator=gf, device=dev) * (
+            27 * 96)**-0.5
+        b = torch.randn(96, generator=gf, device=dev)
+        ms[f"k3_fp32_{label}"] = events_ms(lambda: conv3d.conv3d_ndhwc(
+            x, wt, b, time_pad=tp), args.reps)
+        ms[f"cudnn_fp32_{label}"] = events_ms(cudnn(x, wt, b, tp), args.reps)
+        del x, wt, b
+        torch.cuda.empty_cache()
+
+    from fastvideo_tpu_torch.configs.models.vaes.wan import WanVAEArchConfig
+    from fastvideo_tpu_torch.models.vaes.wan import AutoencoderKLWan
+    from fastvideo_tpu_torch.pipelines.stages.decoding import (
+        dispatched_chunk_frames)
+
+    torch.manual_seed(17)
+    cfg = WanVAEArchConfig()
+    vae = AutoencoderKLWan(cfg, device=dev, dtype=torch.float32)
+    z = torch.randn(1, 16, 21, 60, 104, generator=gf, device=dev)
+    chunk = dispatched_chunk_frames(z, cfg)
+    with torch.no_grad():
+        ms["fp32_decode_832"] = events_ms(
+            lambda: vae.decode(z, chunk_frames=chunk), 1)
+    del vae, z
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

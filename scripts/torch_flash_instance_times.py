@@ -18,7 +18,13 @@ grid is split, the reduction of its partial sums):
   over [1,65520,12,128] (clean length 32,760);
 - the K6 backward at the SFT cross-attention (q/dO as K1's, k/v 512 keys);
 - K7 bwd, a kernel this comparison does not change, as a control:
-  [1,12,32760,128], 117 tiles of 280, 24 key tiles a query tile.
+  [1,12,32760,128], 117 tiles of 280, 24 key tiles a query tile;
+- K1 at the VAE's mid-block attention, one head of 384 with q, k and v
+  column views of one qkv tensor as the VAE passes them: the first decode
+  chunk q [1,6240,1,384] (``k1_vae_first``), a 2-frame chunk
+  [2,6240,1,384] (``k1_vae_chunk``), a 2-frame chunk at 480x848
+  [2,6360,1,384] (``k1_vae_848``), and in fp32 at the first chunk
+  (``k1_vae_first_fp32``).
 
 Prints one JSON line: the card and power limit, and each row's ms. Run it
 for two checkouts in turns (A, B, B, A) inside one call to compare them
@@ -130,6 +136,20 @@ def main() -> int:
                                           return_lse=True, **kw)
     ms["k7_bwd_control"] = events_ms(lambda: vsa.block_sparse_attention_bwd(
         q, k, v, idx, sizes, out, lse, do, **kw), args.reps)
+
+    del q, k, v, do, out, lse
+    torch.cuda.empty_cache()
+    for label, b, s_len, dtype in (
+            ("k1_vae_first", 1, 6240, torch.bfloat16),
+            ("k1_vae_chunk", 2, 6240, torch.bfloat16),
+            ("k1_vae_848", 2, 6360, torch.bfloat16),
+            ("k1_vae_first_fp32", 1, 6240, torch.float32)):
+        qkv = torch.randn(b, s_len, 1, 3 * 384, generator=g, device=dev,
+                          dtype=dtype)
+        q, k, v = qkv[..., :384], qkv[..., 384:768], qkv[..., 768:]
+        ms[label] = events_ms(lambda: fa.flash_attention(q, k, v),
+                              args.reps)
+        del qkv, q, k, v
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

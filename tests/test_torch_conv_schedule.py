@@ -155,10 +155,10 @@ def test_host_rules_match_the_sources():
     sources' own, and the entries take the arguments the wrapper passes."""
     cu, cuh = _source("conv3d.cu"), _source("conv3d_sm90.cuh")
     route = re.search(r"int conv_route\(int dtype\) \{ return dtype == 1 "
-                      r"\? 1 : 0; \}", cu)
+                      r"\? 1 : 2; \}", cu)
     assert route is not None
     assert tconv.conv_schedule(torch.bfloat16, 96, 96) == "sm90"
-    assert tconv.conv_schedule(torch.float32, 96, 96) == "simt"
+    assert tconv.conv_schedule(torch.float32, 96, 96) == "tf32x3"
     assert tconv._DTYPE_CODES[torch.bfloat16] == 1
     m = re.search(r"return Co <= (\d+) \? (\d+) : \(Co % (\d+) == 0 \? (\d+) "
                   r": (\d+)\);", cuh)
@@ -174,7 +174,7 @@ def test_host_rules_match_the_sources():
     assert (min(tconv.CONV_TILE_WIDTHS), max(tconv.CONV_TILE_WIDTHS)) == \
         (8, 128)
     assert "conv3d" in _build.PTXAS_VERBOSE
-    for entry in ("fvt_conv3d_sm90", "fvt_conv3d_ndhwc"):
+    for entry in ("fvt_conv3d_sm90", "fvt_conv3d_tf32"):
         n_args = len(_build._SIGNATURES[entry])
         decl = re.search(r'extern "C" int ' + entry + r"\((.*?)\)\s*\{", cu,
                          re.S).group(1)
@@ -196,7 +196,8 @@ class _CudaTyped(torch.Tensor):
 def test_cuda_call_takes_its_schedules_entry(dtype, c, co, monkeypatch):
     """On a CUDA tensor a bf16 conv launches the Hopper entry with the laid
     out weight, channels padded to 32, the host's N tile and patch; fp32
-    the SIMT entry; counted as K3; the plain version never runs."""
+    the 3xTF32 entry with the weight's TF32 heads and tails, channels
+    padded to 16; counted as K3; the plain version never runs."""
     seen = []
 
     def fake_launch(name, fn, *args):
@@ -222,4 +223,9 @@ def test_cuda_call_takes_its_schedules_entry(dtype, c, co, monkeypatch):
                               tconv.conv_tile_n(co),
                               tconv.conv_tile_w(6, 20))
     else:
-        assert fn == "fvt_conv3d_ndhwc"
+        assert fn == "fvt_conv3d_tf32"
+        # x, w_hi, w_lo, bias, y, B, T, H, W, C (padded), Co, kt,
+        # time_pad, bn, bw
+        assert args[5:15] == (1, 3, 6, 20, max(c, 16), co, 3, 2,
+                              tconv.conv_tf32_tile_n(co),
+                              tconv.conv_tile_w(6, 20))

@@ -28,7 +28,7 @@ def _source(name: str) -> str:
     (torch.bfloat16, 16, "tile"),     # the tiny models
     (torch.bfloat16, 32, "tile"),
     (torch.bfloat16, 96, "tile"),
-    (torch.bfloat16, 384, "tile"),    # the VAE's attention
+    (torch.bfloat16, 384, "sm90_wide"),  # the VAE's attention
     (torch.float32, 64, "tile"),      # fp32 forms
     (torch.float32, 128, "tile"),
     (torch.float32, 384, "tile"),     # an fp32 decode

@@ -9,7 +9,8 @@ at its edges: ragged tiles and ring stages, strided views, heads of 64 and
 dK/dV and its reduction, rows with no key; the sparse kernels' Hopper
 schedule: K7 bwd's ragged units, empty tiles and -1 slots, K9's groups of
 query tiles and ragged key units, the first schedule at other heads, and
-an unaligned operand that raises). Marked ``cuda``: they
+an unaligned operand that raises; K1's wide schedule at a head of 384 and
+its split merge, and K3's 3xTF32 form). Marked ``cuda``: they
 skip without an sm_90 card. On the card
 (which has no JAX, so without the suite's conftest):
 
@@ -936,11 +937,13 @@ def test_flash_bwd_split_dkv_and_reduce(dev):
 def test_flash_library_schedule_is_the_host_rule(dev, dtype, d):
     fwd = _build.query("flash_fwd", "fvt_flash_fwd_sm90",
                        int(dtype == torch.bfloat16), d)
-    assert ("sm90" if fwd else "tile") == flash_attention.flash_schedule(
-        dtype, d)
+    assert ("tile", "sm90", "sm90_wide")[fwd] == \
+        flash_attention.flash_schedule(dtype, d)
     if dtype == torch.bfloat16 and d <= 128:
         bwd = _build.query("flash_bwd", "fvt_flash_bwd_sm90", d)
         assert bool(bwd) == bool(fwd)
+        assert ("sm90" if bwd else "tile") == \
+            flash_attention.flash_bwd_schedule(d)
 
 
 # -- the sparse kernels' Hopper schedule (K7 bwd, K9a, K9b) -------------------
@@ -1187,8 +1190,10 @@ def test_conv3d_sm90_matches_plain(dev, c, co, kt, time_pad, t, h, w):
 
 
 def test_conv3d_fp32_keeps_the_simt_schedule(dev):
-    assert _build.query("conv3d", "fvt_conv3d_route", 0, 96, 96) == 0
-    assert conv3d.conv_schedule(torch.float32, 96, 96) == "simt"
+    """fp32 takes its own schedule, the 3xTF32 one since it replaced the
+    SIMT kernel, by the library's rule and the host's alike."""
+    assert _build.query("conv3d", "fvt_conv3d_route", 0, 96, 96) == 2
+    assert conv3d.conv_schedule(torch.float32, 96, 96) == "tf32x3"
 
 
 # -- the VSA forward's (K2) and the int8 conv's (K4) Hopper schedules --------
@@ -1302,3 +1307,123 @@ def test_conv3d_int8_sm90_non_contiguous_input(dev):
     torch.cuda.synchronize()
     assert torch.equal(got, want)
 
+
+
+# -- K1 at a head of 384 (the VAE attention) and K3's fp32 form -------------
+
+
+@pytest.mark.parametrize("b,sq,skv,h,causal,kv_valid,qkv", [
+    (1, 6240, 6240, 1, False, None, True),   # the first decode chunk
+    (2, 1000, 1000, 1, False, None, True),   # a ragged tile, 2 frames
+    (2, 77, 130, 3, False, 60, False),       # kv_valid inside a chunk
+    (1, 300, 333, 2, True, None, False),     # causal, ragged chunks
+    (1, 4000, 130, 8, False, None, False),   # one split: O written direct
+    (1, 64, 96, 2, False, 0, False),         # every row empty
+])
+def test_flash_wide_matches_plain(dev, b, sq, skv, h, causal, kv_valid,
+                                  qkv):
+    """K1 on the wide schedule (bf16, head 384) against the plain version:
+    out within the attention tolerance, the LSE within 1e-3 (-inf on empty
+    rows), from q/k/v column views of one qkv tensor as the VAE passes
+    them; the library's split rule is the host's, and a split launch also
+    counts its combine."""
+    d = 384
+    g = torch.Generator(device=dev).manual_seed(61)
+    if qkv:
+        t = torch.randn(b, sq, h, 3 * d, generator=g, device=dev,
+                        dtype=torch.bfloat16)
+        q, k, v = t[..., :d], t[..., d:2 * d], t[..., 2 * d:]
+    else:
+        q, k, v = (torch.randn(b, s, h, d, generator=g, device=dev,
+                               dtype=torch.bfloat16) for s in (sq, skv, skv))
+    kw = dict(scale=d**-0.5, causal=causal,
+              kv_valid=skv if kv_valid is None else kv_valid)
+    splits = flash_attention.wide_splits(
+        b, h, sq, min(kw["kv_valid"], skv), _build.num_sms(dev))
+    assert _build.query("flash_fwd", "fvt_flash_fwd_wide_splits", b, h, sq,
+                        skv, kw["kv_valid"], _build.num_sms(dev)) == splits
+    before = dict(_build.LAUNCHES)
+    out, lse = flash_attention.flash_attention(q, k, v, return_lse=True,
+                                               **kw)
+    assert _build.LAUNCHES["flash_fwd"] == before["flash_fwd"] + 1
+    assert _build.LAUNCHES["flash_fwd_combine"] == \
+        before["flash_fwd_combine"] + (splits > 1)
+    ref, ref_lse = flash_attention.flash_attention_plain(q, k, v, **kw)
+    finite = torch.isfinite(ref_lse)
+    torch.cuda.synchronize()
+    assert torch.equal(finite, torch.isfinite(lse))
+    if kv_valid == 0:
+        assert torch.all(out == 0)
+        return
+    _close(out, ref, torch.bfloat16)
+    torch.testing.assert_close(lse[finite], ref_lse[finite], atol=1e-3,
+                               rtol=0)
+
+
+def test_flash_wide_combine_matches_plain(dev):
+    """flash_fwd_combine against its plain version: rows empty in some
+    splits, in every split, and a strided bf16 output."""
+    g = torch.Generator(device=dev).manual_seed(62)
+    splits, b, h, sq, d = 3, 2, 2, 50, 384
+    part = torch.randn(splits, b, h, sq, d, generator=g, device=dev)
+    lse_part = torch.randn(splits, b, h, sq, generator=g, device=dev) * 4
+    lse_part[0, :, :, :10] = float("-inf")
+    lse_part[:, 1, 0, 20:23] = float("-inf")
+    part[lse_part.isinf()] = 0
+    buf = torch.empty(b, sq, h, 2 * d, device=dev, dtype=torch.bfloat16)
+    out = buf[..., d:]
+    lse = torch.empty(b, h, sq, device=dev)
+    flash_attention.wide_combine(part, lse_part, out, lse)
+    ref, ref_lse = flash_attention.wide_combine_plain(part, lse_part)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), atol=0,
+                               rtol=2.0**-7)
+    assert torch.equal(torch.isinf(lse), torch.isinf(ref_lse))
+    fin = torch.isfinite(ref_lse)
+    torch.testing.assert_close(lse[fin], ref_lse[fin], atol=1e-5, rtol=0)
+    assert torch.all(out[1, 20:23, 0] == 0)
+
+
+def test_flash_wide_fp32_and_backward_keep_their_schedules(dev):
+    """At a head of 384 fp32 keeps the first schedule and no backward
+    runs: a bf16 call under grad raises before any launch."""
+    assert _build.query("flash_fwd", "fvt_flash_fwd_sm90", 0, 384) == 0
+    assert flash_attention.flash_bwd_schedule(384) == "tile"
+    q = torch.randn(1, 64, 1, 384, device=dev, dtype=torch.bfloat16,
+                    requires_grad=True)
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(_build.KernelError, match="backward"):
+        flash_attention.flash_attention(q, q, q)
+    assert _build.LAUNCHES == before
+
+
+@pytest.mark.parametrize("c,co,kt,time_pad,t,h,w", [
+    (96, 96, 3, 0, 4, 6, 70),     # up3's conv: a W tail (16 x 8 patches)
+    (96, 96, 3, 2, 1, 2, 64),     # the first chunk: 2 pad taps skipped
+    (16, 384, 3, 2, 2, 5, 20),    # conv_in: four N tiles of 96
+    (96, 3, 3, 0, 3, 9, 24),      # conv_out: an N tile of 8, odd Co
+    (384, 192, 1, 0, 2, 8, 24),   # a resample: kt 1, two N tiles
+    (192, 192, 3, 1, 2, 1, 128),  # 128 x 1 patches, one pad frame
+    (8, 40, 3, 0, 3, 60, 104),    # channels padded to 16, a Co tail
+])
+def test_conv3d_tf32_matches_plain(dev, c, co, kt, time_pad, t, h, w):
+    """K3's 3xTF32 schedule against the plain fp32 conv within chip_smoke's
+    gate, 5e-5 + 1e-5 |plain|, at each N tile, patch shape and tail; the
+    library's route and N tile are the host rule's, and the launch is
+    counted."""
+    assert _build.query("conv3d", "fvt_conv3d_route", 0, c, co) == 2
+    assert _build.query("conv3d", "fvt_conv3d_tf32_tile_n", co) == \
+        conv3d.conv_tf32_tile_n(co)
+    g = torch.Generator(device=dev).manual_seed(63)
+    x = torch.randn(1, t, h, w, c, generator=g, device=dev)
+    wt = torch.randn(kt, 3, 3, c, co, generator=g, device=dev) * (
+        kt * 9 * c)**-0.5
+    b = torch.randn(co, generator=g, device=dev)
+    before = _build.LAUNCHES["conv3d"]
+    out = conv3d.conv3d_ndhwc(x, wt, b, time_pad=time_pad)
+    assert _build.LAUNCHES["conv3d"] == before + 1
+    ref = conv3d.conv3d_ndhwc_plain(x, wt, b, time_pad=time_pad)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape and out.dtype == torch.float32
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out, ref, atol=5e-5, rtol=1e-5)

@@ -104,6 +104,9 @@ def _calls():
     lse = torch.zeros(1, 2, 64)
     lse_t = torch.zeros(1, 2, 128)
     part = torch.zeros(2, 1, 2, 64, 32)  # dK/dV partial sums of 2 splits
+    # the wide K1's partials of 2 key splits at a head of 384, and its output
+    wide = torch.zeros(2, 1, 2, 64, 384), torch.zeros(2, 1, 2, 64)
+    wide_out = torch.zeros(1, 64, 2, 384, dtype=bf)
     c = _cuda_typed
 
     def flash_bwd():
@@ -147,6 +150,8 @@ def _calls():
         "flash_bwd_struct_dkv": flash_bwd_struct,
         "flash_bwd_dkv_reduce": lambda: flash_attention.dkv_reduce(
             c(part), c(part), c(q), c(q)),
+        "flash_fwd_combine": lambda: flash_attention.wide_combine(
+            c(wide[0]), c(wide[1]), c(wide_out), None),
     }
 
 
