@@ -27,9 +27,12 @@ Phases, each printing its own lines:
      top-24; the decode convs in the dispatched decode's chunks: the first
      latent frame alone, then 2 at a time, and the stream's one frame; K5 at the causal stream's first
      block, fourth block and full window; the fp32 decode's K3, K4 and K1
-     forms; the backward kernels K6 at the training cross-attention and K7
-     bwd at the training self-attention, 117 exact tiles of 280 with a real
-     coarse top-24, and at the 480x848 padded shape; K1 at the VAE
+     forms (K1 at both decode chunks on its 3xTF32 schedule, held to 1e-5
+     + 1e-4 |plain|, which one TF32 pass must miss, with its pre-pass and
+     its fp32 merge); the backward kernels K6 at the training
+     cross-attention and K7 bwd at the training self-attention, 117 exact
+     tiles of 280 with a real coarse top-24, and at the 480x848 padded
+     shape; K1 at the VAE
      attention's head of 384 (the wide schedule, q/k/v column views of one
      qkv tensor) at the first decode chunk, a 2-frame chunk and 480x848's,
      timed beside its plain version, SDPA (naming its backend) and its
@@ -51,8 +54,8 @@ Phases, each printing its own lines:
      VideoGenerator.from_pretrained(VSA_sparsity=0.8) and run by
      generate_video at 81x480x832, seed 42 (warm-up, then timed), then
      the same clip once more with vae_decode_precision="fp32" (every
-     decode conv on K3's 3xTF32 form: its DecodingStage seconds and
-     launches);
+     decode conv on K3's 3xTF32 form, every VAE attention on K1's: its
+     DecodingStage seconds and launches);
      c, d: the Wan2.1-T2V-1.3B multistep path at full width and depth,
      81x480x848 (token grid (21, 30, 53), no exact VSA tile), FlowUniPC
      steps with classifier-free guidance: with VIDEO_SPARSE_ATTN at
@@ -145,6 +148,12 @@ REPLACES = {
     "flash_fwd_combine": "fastvideo_tpu/ops/flash_attention.py:93 (the "
     "online softmax's merge over the key grid axis that _fwd_kernel carries "
     "in scratch; call :222)",
+    "flash_fwd_tf32": "fastvideo_tpu/ops/flash_attention.py:93 (fp32 "
+    "operands at a head of 384, the VAE attention of an fp32 decode; call "
+    ":222)",
+    "flash_fwd_tf32_split": "fastvideo_tpu/ops/flash_attention.py:93 (the "
+    "K and V operands of its fp32 form at a head of 384, split into TF32 "
+    "heads and tails; call :222)",
 }
 SOURCES = {
     "flash_fwd": "fastvideo_tpu_torch/csrc/flash_fwd.cu",
@@ -165,6 +174,9 @@ SOURCES = {
     "flash_bwd_struct_dkv": "fastvideo_tpu_torch/csrc/flash_bwd.cu",
     "flash_bwd_dkv_reduce": "fastvideo_tpu_torch/csrc/flash_bwd.cu",
     "flash_fwd_combine": "fastvideo_tpu_torch/csrc/flash_fwd.cu",
+    "flash_fwd_tf32": "fastvideo_tpu_torch/csrc/flash_fwd_wide_tf32_sm90.cuh",
+    "flash_fwd_tf32_split":
+    "fastvideo_tpu_torch/csrc/flash_fwd_wide_tf32_sm90.cuh",
 }
 # the flash kernels' Hopper instances by their mangled names' stem
 SM90_KERNELS = {"flash_fwd_sm90": {"0": "K1", "1": "K5", "2": "K1 struct"},
@@ -188,7 +200,7 @@ CONV8_SM90 = {"96": "K4 (Co 96: up3, the hot conv)",
 # the 3xTF32 conv instances by their N tile
 TF32_SM90 = {"8": "K3 fp32 conv_out (Co 3)", "96": "K3 fp32 (Co 96, 192, 384)"}
 # K1's schedule by the library's code (fvt_flash_fwd_sm90)
-FLASH_SCHEDULES = ("tile", "sm90", "sm90_wide")
+FLASH_SCHEDULES = ("tile", "sm90", "sm90_wide", "sm90_wide_tf32")
 # kernels a profiled generation reports whatever their rank: the VAE
 # attention's wide K1 and merge, and the first schedule's bf16 K1 instance
 # (attn_tile.cuh) that ran it before
@@ -285,6 +297,9 @@ def sm90_instance(kernel: str):
         return CONV8_SM90[m.group(1)], "conv3d_int8_sm90", int(m.group(1)), 0
     if "flash_fwd_wide_sm90" in kernel:
         return "K1 wide (head 384)", "flash_fwd_wide_sm90", 384, 0
+    if "flash_fwd_wide_tf32_sm90" in kernel:
+        return ("K1 wide fp32 (3xTF32, head 384)", "flash_fwd_wide_tf32_sm90",
+                384, 0)
     m = re.search(r"conv3d_tf32_sm90ILi(\d+)E", kernel)
     if m:
         return TF32_SM90[m.group(1)], "conv3d_tf32_sm90", int(m.group(1)), 0
@@ -338,6 +353,8 @@ def report_sm90_build() -> None:
                                        64)
                 elif stem == "flash_fwd_wide_sm90":
                     dyn = _build.query(src, "fvt_flash_fwd_wide_smem")
+                elif stem == "flash_fwd_wide_tf32_sm90":
+                    dyn = _build.query(src, "fvt_flash_fwd_wide_tf32_smem")
                 elif stem == "conv3d_tf32_sm90":  # d is the N tile
                     dyn = _build.query(src, "fvt_conv3d_tf32_smem",
                                        {8: 3, 96: 96}[d], 64)
@@ -347,7 +364,10 @@ def report_sm90_build() -> None:
             elif "flash_bwd_dkv_reduce" in r["kernel"]:
                 label, stem, d, dyn = "flash_bwd_dkv_reduce", "", 0, 0
             elif "flash_fwd_combine" in r["kernel"]:
-                label, stem, d, dyn = "flash_fwd_combine", "", 0, 0
+                out = "fp32" if "combineIf" in r["kernel"] else "bf16"
+                label, stem, d, dyn = f"flash_fwd_combine ({out} out)", "", 0, 0
+            elif "flash_tf32_split" in r["kernel"]:
+                label, stem, d, dyn = "flash_fwd_tf32_split", "", 0, 0
             else:
                 continue
             spills = r["spill_stores"] + r["spill_loads"]
@@ -361,7 +381,7 @@ def report_sm90_build() -> None:
                   f"{r['warnings'] or 'none'}", flush=True)
             conv = stem in ("conv3d_sm90", "conv3d_int8_sm90",
                             "conv3d_tf32_sm90")
-            wide = stem == "flash_fwd_wide_sm90"
+            wide = stem in ("flash_fwd_wide_sm90", "flash_fwd_wide_tf32_sm90")
             hot = (conv and d >= 96) or (not conv and d == 128) or wide
             if hot and spills:
                 raise SystemExit(f"{label}: ptxas reports {spills} spill "
@@ -398,6 +418,9 @@ def check_schedule(label: str, dtype, d: int, backward: bool = False) -> str:
                          "the first schedule")
     if dtype == torch.bfloat16 and d == 384 and took != "sm90_wide":
         raise SystemExit(f"{label}: a bf16 case with a head of 384 reached "
+                         "the first schedule")
+    if dtype == torch.float32 and d == 384 and took != "sm90_wide_tf32":
+        raise SystemExit(f"{label}: an fp32 case with a head of 384 reached "
                          "the first schedule")
     return took
 
@@ -1481,9 +1504,9 @@ def check_fp32_decode(dev, results: dict) -> None:
     each beside the error of one TF32 product (the plain conv with TF32
     matmuls), which the gate would refuse, and at conv_out's 96->3 tail; K4
     storing fp32 (bit for bit with its plain version), and K1 in fp32 at
-    the VAE attention's head of 384 beside SDPA in fp32. The bounds count
-    the real taps only: three TF32 products a pair at 495 TFLOP/s, and,
-    for reference, fp32 FMAs at 67."""
+    the VAE attention's head of 384 (check_fp32_vae_attn). The conv bounds
+    count the real taps only: three TF32 products a pair at 495 TFLOP/s,
+    and, for reference, fp32 FMAs at 67."""
     import torch
     import torch.nn.functional as F
 
@@ -1573,21 +1596,136 @@ def check_fp32_decode(dev, results: dict) -> None:
           f"to its plain version bit for bit; {ms:.3f} ms", flush=True)
     del xq, out, ref
 
-    q, k, v = (torch.randn(1, 6240, 1, 384, generator=g, device=dev)
-               for _ in range(3))
-    check_schedule("flash_fwd fp32[vae_mid_attn first chunk, head 384]",
-                   torch.float32, 384)
-    out = fa.flash_attention(q, k, v)
-    ref, _ = fa.flash_attention_plain(q, k, v, scale=384**-0.5)
-    err = check("flash_fwd fp32[vae_mid_attn first chunk, head 384]", out,
-                ref, *attn_tol(ref, torch.float32))
-    ms = time_ms(lambda: fa.flash_attention(q, k, v))
-    lib, backend = sdpa_ms(q, k, v)
-    results["flash_fwd"].update(fp32_vae_ms=ms, fp32_vae_max_abs_err=err,
-                                fp32_vae_library_ms=lib,
-                                fp32_vae_library=backend)
-    print(f"  flash_fwd fp32[vae_mid_attn first chunk]: {ms:.3f} ms, "
-          f"{lib:.3f} ms sdpa fp32 ({backend})", flush=True)
+    check_fp32_vae_attn(dev, results)
+
+
+def check_fp32_vae_attn(dev, results: dict) -> None:
+    """K1 in fp32 at the VAE attention's head of 384 (the 3xTF32 wide
+    schedule) at the first decode chunk [1,6240,1,384] and a 2-frame chunk,
+    q/k/v column views of one qkv tensor: held to the plain fp32 version
+    within 1e-5 + 1e-4 |plain| (an output is about 0.02, at most about 0.1),
+    beside the error one TF32 pass (the plain version with TF32 matmuls)
+    would leave, which must miss that gate; its time beside SDPA in fp32,
+    the 3xTF32 bound (three TF32 products a pair at 495 TFLOP/s) and fp32
+    FMAs' at 67. Its pre-pass (bit for bit with its plain version) and its
+    fp32 merge (flash_fwd_combine's fp32 instance) are held and timed at
+    the 2-frame chunk."""
+    import torch
+
+    from fastvideo_tpu_torch.ops import _build
+    from fastvideo_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(15)
+    chunk = decode_chunk_frames(latent_of(CLIP_480P))
+    sq, d = 6240, fa.WIDE_HEAD
+    atol, rtol = 1e-5, 1e-4
+    rec, errs = {}, []
+    for key, b in (("first", 1), ("chunk", chunk)):
+        label = ("vae_mid_attn first chunk" if b == 1 else
+                 f"vae_mid_attn {b}-frame chunk")
+        qkv = torch.randn(b, sq, 1, 3 * d, generator=g, device=dev)
+        q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
+        check_schedule(f"flash_fwd fp32[{label}, head 384]", torch.float32,
+                       d)
+        out, lse = fa.flash_attention(q, k, v, return_lse=True)
+        ref, ref_lse = fa.flash_attention_plain(q, k, v, scale=d**-0.5)
+        errs.append(check(f"flash_fwd_tf32[{label}] (3xTF32)", out, ref,
+                          atol, rtol))
+        check(f"flash_fwd_tf32[{label}] lse", lse, ref_lse, 1e-4)
+        # one TF32 pass for the record: the gate must refuse it
+        torch.backends.cuda.matmul.allow_tf32 = True
+        one, _ = fa.flash_attention_plain(q, k, v, scale=d**-0.5)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        one_err = (one - ref).abs().max().item()
+        one_x = ((one - ref).abs() / (atol + rtol * ref.abs())).max().item()
+        print(f"  flash_fwd_tf32[{label}]: one TF32 pass would err "
+              f"{one_err:.3e}, {one_x:.1f}x the gate", flush=True)
+        if one_x <= 1.0:
+            raise SystemExit(f"flash_fwd_tf32[{label}]: the gate would take "
+                             "one TF32 pass for an fp32 result")
+        del one, out, lse, ref_lse
+        ms = time_ms(lambda: fa.flash_attention(q, k, v))
+        plain = time_ms(lambda: fa.flash_attention_plain(q, k, v,
+                                                         scale=d**-0.5), 2)
+        lib, backend = sdpa_ms(q, k, v)
+        flops = 4.0 * b * sq * sq * d
+        nbytes = 4.0 * 4 * b * sq * d + 4.0 * b * sq  # q, k, v, out, lse
+        bms, by = bound_ms(3 * flops, nbytes, "tf32")
+        fma_bms, _ = bound_ms(flops, nbytes, "fp32")
+        splits = fa.wide_splits(b, 1, sq, sq, _build.num_sms(dev),
+                                fa.TF32_BLOCK_ROWS)
+        rec[key] = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+                        fp32_fma_bound_ms=fma_bms, library_ms=lib,
+                        library=backend, splits=splits,
+                        max_abs_err=errs[-1], tf32x1_err=one_err,
+                        tf32x1_gate_x=one_x)
+        print(f"  flash_fwd_tf32[{label}]: {ms:.3f} ms pre-pass, kernel and "
+              f"merge ({splits} key splits), "
+              f"{plain:.3f} ms plain, {lib:.3f} ms sdpa fp32 ({backend}), "
+              f"bound {bms:.3f} ms ({by}: 3 x {flops:.3e} TF32 FLOP at 495 "
+              f"TFLOP/s; fp32 FMAs at 67 TFLOP/s: {fma_bms:.3f} ms)",
+              flush=True)
+        del ref
+        if key == "first":
+            del qkv, q, k, v
+    results["flash_fwd_tf32"] = dict(
+        max_abs_err=max(errs), ms=rec["chunk"]["ms"],
+        plain_ms=rec["chunk"]["plain_ms"],
+        bound_ms=rec["chunk"]["bound_ms"],
+        bound_by=rec["chunk"]["bound_by"],
+        library_ms=rec["chunk"]["library_ms"],
+        shape=f"q/k/v[{chunk}, {sq}, 1, {d}] fp32, views of one qkv",
+        gate=f"{atol} + {rtol} * |plain|", first_chunk=rec["first"],
+        chunk=rec["chunk"])
+
+    # the pre-pass at the 2-frame chunk: bit for bit with its plain version
+    got = fa.tf32_split_kv(k, v)
+    want = fa.tf32_split_plain(k, v)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, w) for a, w in zip(got, want)):
+        raise SystemExit("flash_fwd_tf32_split: differs from its plain "
+                         "version")
+    del got, want
+    ms = time_ms(lambda: fa.tf32_split_kv(k, v))
+    plain = time_ms(lambda: fa.tf32_split_plain(k, v), 2)
+    pad = fa.tf32_keys_padded(sq)
+    nbytes = 4.0 * (2 * chunk * sq * d + 4 * chunk * pad * d)
+    bms, by = bound_ms(0.0, nbytes)
+    results["flash_fwd_tf32_split"] = dict(
+        max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+        library_ms=None,
+        shape=f"k/v[{chunk}, {sq}, 1, {d}] fp32 -> 4 x [{chunk}, 1, {pad}, "
+        f"{d}]")
+    print(f"  flash_fwd_tf32_split[{chunk}-frame chunk]: equal to its plain "
+          f"version bit for bit; {ms:.3f} ms kernel, {plain:.3f} ms plain, "
+          f"bound {bms:.3f} ms ({by}); no single PyTorch call splits fp32 "
+          f"into TF32 heads and tails", flush=True)
+    del qkv, q, k, v
+
+    # the fp32 merge at the 2-frame chunk's partials
+    splits = fa.wide_splits(chunk, 1, sq, sq, 132, fa.TF32_BLOCK_ROWS)
+    part = torch.randn(splits, chunk, 1, sq, d, generator=g, device=dev)
+    lse_part = torch.randn(splits, chunk, 1, sq, generator=g,
+                           device=dev) * 4
+    lse_part[0, :, :, :64] = float("-inf")
+    lse_part[:, 0, 0, 100:103] = float("-inf")
+    part[lse_part.isinf()] = 0
+    out = torch.empty(chunk, sq, 1, d, device=dev)
+    lse = torch.empty(chunk, 1, sq, device=dev)
+    fa.wide_combine(part, lse_part, out, lse)
+    ref, ref_lse = fa.wide_combine_plain(part, lse_part, torch.float32)
+    # the same fp32 merge, its sums in another order: a few fp32 ulps
+    check(f"flash_fwd_combine fp32[{splits} splits, {chunk}-frame chunk]",
+          out, ref, 1e-6, 1e-5)
+    fin = torch.isfinite(ref_lse)
+    if not torch.equal(fin, torch.isfinite(lse)) or not bool(
+            (out[0, 100:103, 0] == 0).all()):
+        raise SystemExit("flash_fwd_combine fp32: empty rows differ from "
+                         "plain")
+    ms = time_ms(lambda: fa.wide_combine(part, lse_part, out, lse))
+    results["flash_fwd_combine"]["fp32_ms"] = ms
+    print(f"  flash_fwd_combine fp32[{splits} splits]: {ms:.3f} ms kernel",
+          flush=True)
 
 
 # -- phase 3, the backward kernels (K6, K7 bwd) at the training shapes -------
@@ -2445,7 +2583,8 @@ def run_main_path(work: str, profile_dir: str | None = None) -> dict:
 def run_fp32_decode(gen, kw: dict, bf16_decode_s: float) -> dict:
     """4b's clip once more with vae_decode_precision="fp32" (same seed, so
     the same latents): every 3x3 conv of the decode through K3's fp32 form
-    (the 3xTF32 schedule) and the VAE attention through K1 in fp32. Its
+    (the 3xTF32 schedule) and every VAE attention through K1's (its
+    pre-pass, the kernel, and a merge where its keys split). Its
     DecodingStage seconds against the bf16 decode's, its launch counts and
     its frames."""
     cfg = gen.pipeline.decoding_stage.pipeline_config
@@ -2457,18 +2596,49 @@ def run_fp32_decode(gen, kw: dict, bf16_decode_s: float) -> dict:
     times = {k: round(v, 4) for k, v in result["stage_times"].items()}
     convs = vae_chunks(CLIP_480P) * sum(
         n for _, n, *_ in decoder_conv_shapes(latent_of(CLIP_480P)))
+    attns, merges = fp32_vae_attn_launches(CLIP_480P)
     print(f"  the same clip decoded in fp32: DecodingStage "
           f"{times['DecodingStage']:.3f} s (bf16 {bf16_decode_s:.3f} s); "
           f"stage seconds {json.dumps(times)}; peak memory {peak:.1f} GiB; "
           f"kernel launches {json.dumps(launches)} (conv3d: {convs} on the "
-          f"3xTF32 schedule)", flush=True)
+          f"3xTF32 schedule; the VAE attention: {attns} of flash_fwd_tf32 and "
+          f"of its pre-pass, {merges} merges)", flush=True)
     check_generation("FastWan 480x832, fp32 decode", result, CLIP_480P,
                      launches, plain, {"flash_fwd": None,
                                        "vsa_sparse_fwd": None,
-                                       "conv3d": convs})
+                                       "conv3d": convs,
+                                       "flash_fwd_tf32": attns,
+                                       "flash_fwd_tf32_split": attns,
+                                       "flash_fwd_combine": merges})
     return dict(decode_s=times["DecodingStage"],
                 conv3d_launches=launches["conv3d"],
-                flash_fwd_launches=launches["flash_fwd"])
+                flash_fwd_launches=launches["flash_fwd"],
+                flash_fwd_tf32_launches=launches["flash_fwd_tf32"],
+                flash_fwd_tf32_split_launches=launches[
+                    "flash_fwd_tf32_split"],
+                flash_fwd_combine_launches=launches["flash_fwd_combine"])
+
+
+def fp32_vae_attn_launches(size: dict) -> tuple[int, int]:
+    """(attentions, merges) of an fp32 decode at ``size``: one 3xTF32 K1
+    (and its pre-pass) a decode chunk, over that chunk's frames, and a merge
+    where the chunk's launch splits its keys (wide_splits at the 3xTF32
+    schedule's rows a block on this card)."""
+    import torch
+
+    from fastvideo_tpu_torch.ops import _build
+    from fastvideo_tpu_torch.ops import flash_attention as fa
+
+    t, h, w = latent_of(size)
+    step = decode_chunk_frames((t, h, w))
+    frames = [1] + [min(step, t - f) for f in range(1, t, step)]
+    if t <= step:
+        frames = [t]
+    sms = _build.num_sms(torch.device("cuda", 0))
+    tokens = h * w
+    merges = sum(fa.wide_splits(f, 1, tokens, tokens, sms,
+                                fa.TF32_BLOCK_ROWS) > 1 for f in frames)
+    return len(frames), merges
 
 
 @contextlib.contextmanager
@@ -3437,6 +3607,11 @@ def main() -> int:
           "steps, VSA sparsity 0.8")
     launches = run_main_path(work, args.profile)
     results["conv3d"]["fp32_decode"] = launches.pop("fp32_decode")
+    # K1's fp32 form and its pre-pass run in 4b's fp32 decode
+    for name in ("flash_fwd_tf32", "flash_fwd_tf32_split"):
+        launches[name] = results["conv3d"]["fp32_decode"][f"{name}_launches"]
+    results["flash_fwd_tf32"]["fp32_decode_s"] = results["conv3d"][
+        "fp32_decode"]["decode_s"]
     phase(f"# phase 4c: Wan2.1-T2V-1.3B at full width and depth, 81x480x848, "
           f"{args.vsa_steps} FlowUniPC steps with CFG, VSA sparsity 0.8 on "
           f"padded tiles")

@@ -95,13 +95,6 @@ __device__ __forceinline__ uint64_t desc64(const void* p) {
          static_cast<uint64_t>(512 >> 4) << 32 | 2ull << 62;
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
 // D[64 x N] (+)= A B, A a 64 x 16 bf16 fragment in registers, B in shared
 // memory, K-major with the 64-byte swizzle (desc64).
 __device__ __forceinline__ void mma_rs_k_n8(float (&d)[4], const uint32_t (&a)[4],

@@ -75,12 +75,6 @@ struct ConvTf32Params {
   int a_bytes, a_stride;
 };
 
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
 // D[64 x 8] (+)= A B in TF32: A a 64 x 8 fragment in registers (four
 // 32-bit values a thread: rows g, g + 8 and columns t, t + 4 of the warp's
 // 16 x 8 step), B in shared memory, K-major with the 64-byte swizzle.

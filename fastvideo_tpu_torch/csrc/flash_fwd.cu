@@ -44,16 +44,22 @@
 //    flash_fwd_wide_sm90.cuh, the same products with O split over two
 //    warpgroups' registers and the keys over blocks (fvt_flash_fwd_wide,
 //    which also launches flash_fwd_combine, the merge of the splits).
-//  - fp32, bf16 K1 with other heads (the tiny models' 16 and 32), and K5
-//    and K1 struct at heads other than 64 and 128: attn_tile.cuh's
-//    schedule, WMMA 16x16x16 (bf16) or scalar FMA (fp32) through shared
-//    memory, one 64-row (fp32: 32-row) tile a block.
+//  - K1 at fp32 with a head of 384, the VAE attention of an fp32 decode:
+//    flash_fwd_wide_tf32_sm90.cuh, 3xTF32 wgmma products on K and V^T
+//    split into TF32 heads and tails by a pre-pass (fvt_flash_tf32_split,
+//    then fvt_flash_fwd_wide_tf32 and, where it splits the keys,
+//    fvt_flash_fwd_combine_f32). fvt_flash_fwd refuses this case.
+//  - fp32 at other heads, bf16 K1 with other heads (the tiny models' 16
+//    and 32), and K5 and K1 struct at heads other than 64 and 128:
+//    attn_tile.cuh's schedule, WMMA 16x16x16 (bf16) or scalar FMA (fp32)
+//    through shared memory, one 64-row (fp32: 32-row) tile a block.
 //
 // Strides are in elements and let the caller pass [B, S, H, D] views
 // without a transpose copy.
 #include "attn_tile.cuh"
 #include "flash_fwd_sm90.cuh"
 #include "flash_fwd_wide_sm90.cuh"
+#include "flash_fwd_wide_tf32_sm90.cuh"
 #include "struct_mask.cuh"
 
 namespace {
@@ -229,6 +235,10 @@ bool use_sm90(int dtype, int D) { return dtype == 1 && (D == 64 || D == 128); }
 // of 384 (flash_schedule's "sm90_wide").
 bool use_wide(int dtype, int D) { return dtype == 1 && D == s9w::kWideD; }
 
+// Whether K1 at (dtype, D) takes the 3xTF32 wide schedule: fp32 with a head
+// of 384 (flash_schedule's "sm90_wide_tf32").
+bool use_wide_tf32(int dtype, int D) { return dtype == 0 && D == s9w::kWideD; }
+
 // The wide schedule with `splits` key ranges; one split writes O and the
 // LSE, more write the fp32 partials.
 int wide(const void* q, const void* k, const void* v, void* o, void* lse, void* part,
@@ -279,6 +289,8 @@ int dispatch(const void* q, const void* k, const void* v, void* o, void* lse, in
   if (kMode == kPlain && use_wide(dtype, D))  // one split: no partials
     return wide(q, k, v, o, lse, nullptr, nullptr, B, H, Sq, Skv, st, scale, m.causal,
                 m.kv_valid, 1, s);
+  // the 3xTF32 schedule reads the pre-pass's split K and V^T: its own entry
+  if (kMode == kPlain && use_wide_tf32(dtype, D)) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 1) {
     if (D <= 128)
       return launch<bf16, 64, 64, kMode>(q, k, v, o, lse, B, H, Sq, Skv, D, st, scale, m, s);
@@ -292,22 +304,41 @@ int dispatch(const void* q, const void* k, const void* v, void* o, void* lse, in
 }  // namespace
 
 // K1's schedule at (dtype, D): 1 the Hopper one (flash_fwd_sm90.cuh), 2 the
-// wide Hopper one (flash_fwd_wide_sm90.cuh), 0 attn_tile.cuh's.
+// wide Hopper one (flash_fwd_wide_sm90.cuh), 3 the 3xTF32 wide one
+// (flash_fwd_wide_tf32_sm90.cuh), 0 attn_tile.cuh's.
 extern "C" int fvt_flash_fwd_sm90(int dtype, int D) {
-  return use_sm90(dtype, D) ? 1 : (use_wide(dtype, D) ? 2 : 0);
+  return use_sm90(dtype, D) ? 1 : (use_wide(dtype, D) ? 2 : (use_wide_tf32(dtype, D) ? 3 : 0));
 }
 
-// The wide schedule's key splits for B x H heads of Sq query rows over
-// min(kv_valid, Skv) keys on `sms` SMs.
-extern "C" int fvt_flash_fwd_wide_splits(int B, int H, int Sq, int Skv, int kv_valid, int sms) {
-  constexpr int bq = s9w::kWideBQ, bk = s9w::kWideBK;
+namespace {
+
+// A wide launch's key splits for B x H heads of Sq query rows over
+// min(kv_valid, Skv) keys on `sms` SMs, bq rows a block and bk keys a chunk.
+int splits_of(int B, int H, int Sq, int Skv, int kv_valid, int sms, int bq, int bk) {
   const int keys = kv_valid < Skv ? kv_valid : Skv;
   const long long blocks = static_cast<long long>(B) * H * ((Sq + bq - 1) / bq);
   return s9w::wide_splits(blocks, keys > 0 ? (keys + bk - 1) / bk : 0, sms);
 }
 
+}  // namespace
+
+// The wide schedule's key splits.
+extern "C" int fvt_flash_fwd_wide_splits(int B, int H, int Sq, int Skv, int kv_valid, int sms) {
+  return splits_of(B, H, Sq, Skv, kv_valid, sms, s9w::kWideBQ, s9w::kWideBK);
+}
+
 // The wide schedule's dynamic shared memory a block (bytes).
 extern "C" int fvt_flash_fwd_wide_smem() { return static_cast<int>(s9w::wide_smem_bytes()); }
+
+// The 3xTF32 wide schedule's key splits (64 query rows a block) and its
+// dynamic shared memory a block.
+extern "C" int fvt_flash_fwd_wide_tf32_splits(int B, int H, int Sq, int Skv, int kv_valid,
+                                              int sms) {
+  return splits_of(B, H, Sq, Skv, kv_valid, sms, s9w::kTf32BQ, s9w::kTf32BK);
+}
+extern "C" int fvt_flash_fwd_wide_tf32_smem() {
+  return static_cast<int>(s9w::wide_tf32_smem_bytes());
+}
 
 // The Hopper schedule's dynamic shared memory a block (bytes) for a head of
 // D (64 or 128), mask mode `mode` (0 K1, 1 K5, 2 K1 struct) and Skv keys.
@@ -403,9 +434,100 @@ extern "C" int fvt_flash_fwd_combine(const void* part, const void* lse_part, voi
   const long long rows = static_cast<long long>(B) * H * Sq;
   const long long blocks = (rows + s9w::kCombineRows - 1) / s9w::kCombineRows;
   if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
-  s9w::flash_fwd_combine<<<static_cast<unsigned>(blocks), s9w::kCombineRows * s9w::kWideD / 4, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(part), static_cast<const float*>(lse_part), static_cast<bf16*>(o),
-      static_cast<float*>(lse), splits, H, Sq, rows, o_sb, o_sh, o_ss);
+  s9w::flash_fwd_combine<bf16>
+      <<<static_cast<unsigned>(blocks), s9w::kCombineRows * s9w::kWideD / 4, 0,
+         static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const float*>(part), static_cast<const float*>(lse_part),
+          static_cast<bf16*>(o), static_cast<float*>(lse), splits, H, Sq, rows, o_sb, o_sh, o_ss);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same merge into an fp32 o (16-byte aligned rows): the 3xTF32
+// schedule's.
+extern "C" int fvt_flash_fwd_combine_f32(const void* part, const void* lse_part, void* o,
+                                         void* lse, int splits, int B, int H, int Sq,
+                                         long long o_sb, long long o_sh, long long o_ss,
+                                         void* stream) {
+  if (splits < 1 || B <= 0 || H <= 0 || Sq <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long rows = static_cast<long long>(B) * H * Sq;
+  const long long blocks = (rows + s9w::kCombineRows - 1) / s9w::kCombineRows;
+  if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  s9w::flash_fwd_combine<float>
+      <<<static_cast<unsigned>(blocks), s9w::kCombineRows * s9w::kWideD / 4, 0,
+         static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const float*>(part), static_cast<const float*>(lse_part),
+          static_cast<float*>(o), static_cast<float*>(lse), splits, H, Sq, rows, o_sb, o_sh, o_ss);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The 3xTF32 schedule's pre-pass: k_hi, k_lo (fp32 [B, H, Skv_pad, 384])
+// and vt_hi, vt_lo (fp32 [B, H, 384, Skv_pad], the keys of each group of 8
+// in the order 0 2 4 6 1 3 5 7), zero past Skv, from fp32 [B, Skv, H, 384]
+// views k and v (element strides as batch, head, row). Skv_pad is a
+// multiple of 32 at least Skv.
+extern "C" int fvt_flash_tf32_split(const void* k, const void* v, void* k_hi, void* k_lo,
+                                    void* vt_hi, void* vt_lo, int B, int H, int Skv, int Skv_pad,
+                                    long long k_sb, long long k_sh, long long k_ss, long long v_sb,
+                                    long long v_sh, long long v_ss, void* stream) {
+  constexpr int T = s9w::kSplitTile;
+  if (B <= 0 || H <= 0 || Skv < 0 || Skv_pad <= 0 || Skv_pad % T != 0 || Skv_pad < Skv ||
+      static_cast<long long>(B) * H > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid(Skv_pad / T, s9w::kWideD / T, B * H);
+  s9w::flash_tf32_split<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(k), static_cast<const float*>(v), static_cast<float*>(k_hi),
+      static_cast<float*>(k_lo), static_cast<float*>(vt_hi), static_cast<float*>(vt_lo), H, Skv,
+      Skv_pad, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K1 at fp32 with a head of 384 on the 3xTF32 wide schedule: q an fp32 [B,
+// Sq, H, 384] view (element strides), k_hi .. vt_lo the pre-pass's output
+// at Skv_pad keys, `splits` key ranges (1..8). With one split it writes o
+// (fp32 [B, Sq, H, 384], 8-byte aligned rows) and lse (which may be null);
+// with more it writes the partials part [splits, B, H, Sq, 384] and
+// lse_part [splits, B, H, Sq], which fvt_flash_fwd_combine_f32 merges.
+extern "C" int fvt_flash_fwd_wide_tf32(const void* q, const void* k_hi, const void* k_lo,
+                                       const void* vt_hi, const void* vt_lo, void* o, void* lse,
+                                       void* part, void* lse_part, int B, int H, int Sq, int Skv,
+                                       int Skv_pad, long long q_sb, long long q_sh, long long q_ss,
+                                       long long o_sb, long long o_sh, long long o_ss, float scale,
+                                       int causal, int kv_valid, int splits, void* stream) {
+  constexpr int D = s9w::kWideD;
+  if (Sq <= 0 || B <= 0 || H <= 0 || splits < 1 || splits > s9w::kWideMaxSplits ||
+      Skv_pad <= 0 || Skv_pad % s9w::kTf32BK != 0 || Skv_pad < Skv ||
+      (splits > 1 && (part == nullptr || lse_part == nullptr)) ||
+      (splits == 1 && o == nullptr) || B > 65535 || H > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  s9w::Tf32Params p;
+  const long long kh = static_cast<long long>(Skv_pad) * D;  // a head of k_hi / vt_hi
+  if (!s9w::map_bshd_f32(&p.q, q, B, Sq, H, D, q_sb, q_sh, q_ss, s9w::kTf32BQ) ||
+      !s9w::map_bshd_f32(&p.k_hi, k_hi, B, Skv_pad, H, D, H * kh, kh, D, s9w::kTf32BK) ||
+      !s9w::map_bshd_f32(&p.k_lo, k_lo, B, Skv_pad, H, D, H * kh, kh, D, s9w::kTf32BK) ||
+      !s9w::map_bshd_f32(&p.vt_hi, vt_hi, B, D, H, Skv_pad, H * kh, kh, Skv_pad, s9w::kTf32Half) ||
+      !s9w::map_bshd_f32(&p.vt_lo, vt_lo, B, D, H, Skv_pad, H * kh, kh, Skv_pad, s9w::kTf32Half))
+    return static_cast<int>(cudaErrorInvalidValue);
+  p.o = static_cast<float*>(o);
+  p.lse = static_cast<float*>(lse);
+  p.o_sb = o_sb;
+  p.o_sh = o_sh;
+  p.o_ss = o_ss;
+  p.part = static_cast<float*>(part);
+  p.lse_part = static_cast<float*>(lse_part);
+  p.B = B;
+  p.H = H;
+  p.Sq = Sq;
+  p.Skv = Skv;
+  p.n_qtiles = (Sq + s9w::kTf32BQ - 1) / s9w::kTf32BQ;
+  p.splits = splits;
+  p.scale_log2 = scale * s9w::kLog2e;
+  p.causal = causal;
+  p.kv_valid = kv_valid;
+  const size_t smem = s9w::wide_tf32_smem_bytes();
+  cudaError_t err = s9w::set_smem(s9w::flash_fwd_wide_tf32_sm90, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(p.n_qtiles * splits, H, B);
+  s9w::flash_fwd_wide_tf32_sm90<<<grid, s9w::kTf32Threads, smem,
+                                  static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,7 +1,8 @@
 // The flash attention forward's Hopper schedule at a head of 384 (K1 at
 // bf16, the VAE's mid-block attention): flash_fwd.cu launches it for K1
-// with bf16 operands and D = 384, and keeps attn_tile.cuh for fp32 at 384
-// and for K5 and K1 struct at heads other than 64 and 128. It replaces the
+// with bf16 operands and D = 384 (fp32 at 384 runs the 3xTF32 form,
+// flash_fwd_wide_tf32_sm90.cuh), and keeps attn_tile.cuh for K5 and K1
+// struct at heads other than 64 and 128. It replaces the
 // Pallas _fwd_kernel (fastvideo_tpu/ops/flash_attention.py:93, call :222)
 // as JAX's VAE calls it (fastvideo_tpu/models/vaes/wan.py:296-308): one
 // head of 384 over the 6,240 (480x848: 6,360) tokens of a latent frame, a
@@ -324,14 +325,27 @@ __global__ void __launch_bounds__(kWideThreads, 1)
   }
 }
 
+// A merged row's four columns, stored as the output's type.
+__device__ __forceinline__ void store4(bf16* dst, float4 a) {
+  uint2 packed;
+  packed.x = pack_bf16(a.x, a.y);
+  packed.y = pack_bf16(a.z, a.w);
+  *reinterpret_cast<uint2*>(dst) = packed;
+}
+__device__ __forceinline__ void store4(float* dst, float4 a) {
+  *reinterpret_cast<float4*>(dst) = a;
+}
+
 // The merge of a split launch's partials: per row, with M the largest
 // partial LSE, O = sum_z exp(lse_z - M) O_z / sum_z exp(lse_z - M) and LSE
 // = M + ln of that sum, summed in split order; a row whose every partial
-// is empty (-inf) outputs 0 and -inf. 96 threads a row, 4 columns each.
-// Bound by bytes: it reads the partials once and writes O.
+// is empty (-inf) outputs 0 and -inf. 96 threads a row, 4 columns each. T
+// is the output's type: bf16 for the bf16 wide schedule, fp32 for the
+// 3xTF32 one. Bound by bytes: it reads the partials once and writes O.
+template <typename T>
 __global__ void __launch_bounds__(kCombineRows * kWideD / 4)
     flash_fwd_combine(const float* __restrict__ part, const float* __restrict__ lse_part,
-                      bf16* __restrict__ o, float* __restrict__ lse, int splits, int H, int Sq,
+                      T* __restrict__ o, float* __restrict__ lse, int splits, int H, int Sq,
                       long long rows, long long o_sb, long long o_sh, long long o_ss) {
   const long long row = static_cast<long long>(blockIdx.x) * kCombineRows + threadIdx.x / 96;
   if (row >= rows) return;
@@ -354,11 +368,8 @@ __global__ void __launch_bounds__(kCombineRows * kWideD / 4)
   const float inv = tot == 0.f ? 0.f : 1.f / tot;
   const int s = static_cast<int>(row % Sq);
   const long long bh = row / Sq;
-  bf16* dst = o + (bh / H) * o_sb + (bh % H) * o_sh + s * o_ss + c;
-  uint2 packed;
-  packed.x = pack_bf16(acc.x * inv, acc.y * inv);
-  packed.y = pack_bf16(acc.z * inv, acc.w * inv);
-  *reinterpret_cast<uint2*>(dst) = packed;
+  store4(o + (bh / H) * o_sb + (bh % H) * o_sh + s * o_ss + c,
+         make_float4(acc.x * inv, acc.y * inv, acc.z * inv, acc.w * inv));
   if (lse != nullptr && c == 0) lse[row] = tot == 0.f ? -CUDART_INF_F : mx + logf(tot);
 }
 

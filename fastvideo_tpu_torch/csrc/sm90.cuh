@@ -282,6 +282,24 @@ __device__ __forceinline__ void mma_rs(float (&d)[N / 2], const uint32_t (&a)[4]
     mma_rs_n128(d, a, db, acc);
 }
 
+// Four 8 x 8 matrices of 16-bit values from shared memory (each lane gives
+// one row address); a 32-bit value moves as a pair of halves, so four
+// matrices of 8 rows x 4 fp32 are a TF32 A fragment.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// fp32 rounded to TF32, to nearest with ties away from zero (low 13 bits
+// cleared).
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
 // Row and column of accumulator element i in this thread (warpgroup-relative).
 __device__ __forceinline__ int frag_row(int i) {
   const int t = threadIdx.x % kWarpgroup;

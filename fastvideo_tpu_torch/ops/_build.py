@@ -15,8 +15,10 @@ and K1 struct, ``flash_fwd_struct``, are entries of ``flash_fwd.cu``; the
 backward sources hold a dQ and a dK/dV kernel each, ``flash_bwd_dq`` /
 ``flash_bwd_dkv`` (K6), ``flash_bwd_struct_dq`` / ``flash_bwd_struct_dkv``
 (K6 struct) and ``vsa_sparse_bwd_dq`` / ``vsa_sparse_bwd_dkv`` (K7 bwd);
-``flash_bwd_dkv_reduce`` adds a split dK/dV launch's partial sums, and
-``flash_fwd_combine`` merges a split wide K1 launch's partials).
+``flash_bwd_dkv_reduce`` adds a split dK/dV launch's partial sums,
+``flash_fwd_combine`` merges a split wide K1 launch's partials, and K1's
+fp32 form at a head of 384 counts as ``flash_fwd_tf32``, its pre-pass as
+``flash_fwd_tf32_split``).
 
 The sources with Hopper schedules (the flash and sparse attention kernels,
 the convs K3 and K4) compile with ``-Xptxas -v``; :func:`ptxas_report` reads back
@@ -56,7 +58,9 @@ SOURCE_OF = {**{n: n for n in SOURCES[:5]}, "flash_fwd_kv_mask": "flash_fwd",
              "flash_bwd_struct_dq": "flash_bwd",
              "flash_bwd_struct_dkv": "flash_bwd",
              "flash_bwd_dkv_reduce": "flash_bwd",
-             "flash_fwd_combine": "flash_fwd"}
+             "flash_fwd_combine": "flash_fwd",
+             "flash_fwd_tf32": "flash_fwd",
+             "flash_fwd_tf32_split": "flash_fwd"}
 KERNELS = tuple(SOURCE_OF)
 # sources whose ptxas resource report is kept beside their library
 PTXAS_VERBOSE = ("flash_fwd", "flash_bwd", "vsa_sparse_bwd", "dyn_sparse_fwd",
@@ -218,8 +222,8 @@ def num_sms(device: torch.device) -> int:
     return _SMS[idx]
 
 _SIGNATURES = {
-    # dtype, D: K1's schedule (1 the Hopper one, 2 the wide one, 0 the
-    # first)
+    # dtype, D: K1's schedule (1 the Hopper one, 2 the wide one, 3 the
+    # 3xTF32 wide one, 0 the first)
     "fvt_flash_fwd_sm90": [ctypes.c_int] * 2,
     # B, H, Sq, Skv, kv_valid, SMs: the wide schedule's key splits; its
     # shared memory
@@ -230,9 +234,24 @@ _SIGNATURES = {
     "fvt_flash_fwd_wide": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 +
     [ctypes.c_longlong] * 12 + [ctypes.c_float] + [ctypes.c_int] * 3 +
     [ctypes.c_void_p],
-    # part, lse_part, o, lse, splits, B, H, Sq, 3 strides, stream
+    # part, lse_part, o, lse, splits, B, H, Sq, 3 strides, stream (bf16 o;
+    # _f32: fp32 o)
     "fvt_flash_fwd_combine": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 +
     [ctypes.c_longlong] * 3 + [ctypes.c_void_p],
+    "fvt_flash_fwd_combine_f32": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 +
+    [ctypes.c_longlong] * 3 + [ctypes.c_void_p],
+    # B, H, Sq, Skv, kv_valid, SMs: the 3xTF32 wide schedule's key splits;
+    # its shared memory
+    "fvt_flash_fwd_wide_tf32_splits": [ctypes.c_int] * 6,
+    "fvt_flash_fwd_wide_tf32_smem": [],
+    # k, v, k_hi, k_lo, vt_hi, vt_lo, B, H, Skv, Skv_pad, 6 strides, stream
+    "fvt_flash_tf32_split": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 +
+    [ctypes.c_longlong] * 6 + [ctypes.c_void_p],
+    # q, k_hi, k_lo, vt_hi, vt_lo, o, lse, part, lse_part, B, H, Sq, Skv,
+    # Skv_pad, 6 strides, scale, causal, kv_valid, splits, stream
+    "fvt_flash_fwd_wide_tf32": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 +
+    [ctypes.c_longlong] * 6 + [ctypes.c_float] + [ctypes.c_int] * 3 +
+    [ctypes.c_void_p],
     # D: 1 when the flash backward runs its Hopper schedule
     "fvt_flash_bwd_sm90": [ctypes.c_int],
     # D, mode (0 K1, 1 K5, 2 K1 struct), Skv: the Hopper forward's dynamic

@@ -43,7 +43,7 @@ the CUDA sources apply the same rule): bf16 with a head of 64 or 128, every
 DiT launch, runs the Hopper schedule (``csrc/flash_fwd_sm90.cuh``,
 ``csrc/flash_bwd_sm90.cuh``: wgmma, registers, TMA); fp32 and other heads
 run the first one (``csrc/attn_tile.cuh``, ``csrc/attn_bwd_tile.cuh``),
-apart from K1's third, below.
+apart from K1's third and fourth, below.
 Where the dK/dV grid of the Hopper schedule would leave the card's SMs
 idle (the cross-attention's 512 keys), :func:`dkv_splits` cuts the query
 rows over more blocks: each writes fp32 partial sums to a scratch
@@ -61,6 +61,19 @@ merges into the output; :func:`wide_partials_plain` and
 :func:`wide_combine_plain` are their plain versions. No backward runs at a
 head above 128 (:func:`flash_bwd_schedule`).
 
+K1 at fp32 with a head of 384, the VAE attention of an fp32 decode, runs a
+fourth schedule (``csrc/flash_fwd_wide_tf32_sm90.cuh``, "sm90_wide_tf32",
+its own counter ``flash_fwd_tf32``): each product split into three TF32
+wgmma products (hi hi + hi lo + lo hi) with fp32 sums, 64 query rows a
+block. TF32 wgmma takes K-major operands only, so a pre-pass
+(``flash_fwd_tf32_split``, :func:`tf32_split_kv`; plain version
+:func:`tf32_split_plain`) writes K's TF32 heads and tails and V^T's, the
+keys of each group of 8 in :func:`tf32_key_order`. The key splits follow
+:func:`wide_splits` at 64 rows a block and ``flash_fwd_combine`` merges
+them into the fp32 output. :func:`flash_attention_tf32x3_plain` emulates
+the kernel's arithmetic on the CPU (the tests hold it to the JAX kernel);
+the main path never calls it.
+
 Numerics follow the JAX kernel: fp32 scores and softmax statistics, the
 probabilities rounded to the value dtype before the P@V product, and a row
 with no valid key outputs 0. Masked keys are excluded exactly (-inf), so
@@ -76,6 +89,7 @@ import math
 import torch
 
 from fastvideo_tpu_torch.ops import _build
+from fastvideo_tpu_torch.ops.conv3d import tf32_split
 
 NAME = "flash_fwd"
 NAME_KV_MASK = "flash_fwd_kv_mask"
@@ -86,6 +100,8 @@ NAME_BWD_STRUCT_DQ = "flash_bwd_struct_dq"
 NAME_BWD_STRUCT_DKV = "flash_bwd_struct_dkv"
 NAME_BWD_REDUCE = "flash_bwd_dkv_reduce"
 NAME_COMBINE = "flash_fwd_combine"
+NAME_TF32 = "flash_fwd_tf32"
+NAME_TF32_SPLIT = "flash_fwd_tf32_split"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the Hopper schedule's heads, and the keys a dK/dV block owns and the query
 # rows it streams a step (csrc/flash_bwd_sm90.cuh: kBwdOwn, kBwdStep)
@@ -103,18 +119,26 @@ WIDE_HEAD = 384
 WIDE_BLOCK_ROWS = 128
 WIDE_CHUNK_KEYS = 32
 WIDE_MAX_SPLITS = 8
+# the 3xTF32 wide schedule (csrc/flash_fwd_wide_tf32_sm90.cuh: kTf32BQ,
+# kTf32BK): query rows a block, keys a chunk (the pre-pass pads the keys to
+# whole chunks; wide_splits counts chunks of WIDE_CHUNK_KEYS, the same)
+TF32_BLOCK_ROWS = 64
+TF32_CHUNK_KEYS = 32
 
 
 def flash_schedule(dtype: torch.dtype, d: int) -> str:
     """The schedule K1 runs for operands of ``dtype`` with a head of ``d``:
     "sm90" (wgmma and TMA) for bf16 with a head of 64 or 128 (K5 and K1
     struct too), "sm90_wide" for bf16 with a head of 384 (the VAE's
-    attention; K1 only), else "tile" (the first, WMMA or scalar,
-    schedule)."""
+    attention; K1 only), "sm90_wide_tf32" for fp32 with a head of 384 (the
+    VAE attention of an fp32 decode; K1 only), else "tile" (the first,
+    WMMA or scalar, schedule)."""
     if dtype == torch.bfloat16 and d in SM90_HEADS:
         return "sm90"
     if dtype == torch.bfloat16 and d == WIDE_HEAD:
         return "sm90_wide"
+    if dtype == torch.float32 and d == WIDE_HEAD:
+        return "sm90_wide_tf32"
     return "tile"
 
 
@@ -126,14 +150,16 @@ def flash_bwd_schedule(d: int) -> str:
     return "sm90" if d in SM90_HEADS else "tile"
 
 
-def wide_splits(b: int, h: int, sq: int, keys: int, num_sms: int) -> int:
+def wide_splits(b: int, h: int, sq: int, keys: int, num_sms: int,
+                block_rows: int = WIDE_BLOCK_ROWS) -> int:
     """Key ranges the wide schedule cuts each query tile's ``keys`` into
     (csrc/flash_fwd_wide_sm90.cuh:wide_splits): the fewest, up to
     ``WIDE_MAX_SPLITS`` and the tile's chunks, whose waves of blocks fill
     the card's ``num_sms`` SMs to 90 %, else the fullest. At the VAE's
     6,240 rows (49 query tiles a frame) on 132 SMs: 5 splits for one frame,
-    4 for two."""
-    blocks = b * h * -(-sq // WIDE_BLOCK_ROWS)
+    4 for two. The 3xTF32 form's tiles are ``TF32_BLOCK_ROWS`` rows (98 a
+    frame): 4 splits for one frame, 2 for two."""
+    blocks = b * h * -(-sq // block_rows)
     chunks = -(-keys // WIDE_CHUNK_KEYS) if keys > 0 else 0
     best, best_n, best_cap = 1, 0, 1
     for s in range(1, max(1, min(WIDE_MAX_SPLITS, chunks)) + 1):
@@ -212,26 +238,150 @@ def wide_combine_plain(part: torch.Tensor, lse_part: torch.Tensor,
 
 def wide_combine(part: torch.Tensor, lse_part: torch.Tensor,
                  out: torch.Tensor, lse: torch.Tensor | None) -> None:
-    """``flash_fwd_combine``: out (bf16 [B, Sq, H, 384], written in place)
-    and lse (fp32 [B, H, Sq] or None) from a split launch's partials
+    """``flash_fwd_combine``: out (bf16 or fp32 [B, Sq, H, 384], written in
+    place) and lse (fp32 [B, H, Sq] or None) from a split launch's partials
     ([splits, B, H, Sq, 384], [splits, B, H, Sq], fp32, contiguous)."""
     _build.check_device(part, NAME_COMBINE)
     splits, b, h, sq, d = part.shape
+    align = 16 if out.dtype == torch.float32 else 8  # 4 columns a store
     if (d != WIDE_HEAD or lse_part.shape != part.shape[:-1] or any(
             t.dtype != torch.float32 or not t.is_contiguous()
-            for t in (part, lse_part)) or out.dtype != torch.bfloat16
+            for t in (part, lse_part))
+            or out.dtype not in (torch.bfloat16, torch.float32)
             or out.shape != (b, sq, h, d) or out.stride(-1) != 1
-            or out.data_ptr() % 8 or any(st % 4 for st in out.stride()[:-1])
+            or out.data_ptr() % align
+            or any(st % 4 for st in out.stride()[:-1])
             or (lse is not None and (lse.shape != (b, h, sq)
                                      or not lse.is_contiguous()))):
         raise _build.KernelError(
             f"{NAME_COMBINE}: takes contiguous fp32 partials [splits, B, H, "
-            f"Sq, {WIDE_HEAD}] and [splits, B, H, Sq], a bf16 out [B, Sq, H, "
-            f"{WIDE_HEAD}] and an fp32 lse [B, H, Sq] or None")
-    _build.launch(NAME_COMBINE, "fvt_flash_fwd_combine", part.data_ptr(),
+            f"Sq, {WIDE_HEAD}] and [splits, B, H, Sq], a bf16 or fp32 out "
+            f"[B, Sq, H, {WIDE_HEAD}] and an fp32 lse [B, H, Sq] or None")
+    entry = ("fvt_flash_fwd_combine_f32" if out.dtype == torch.float32 else
+             "fvt_flash_fwd_combine")
+    _build.launch(NAME_COMBINE, entry, part.data_ptr(),
                   lse_part.data_ptr(), out.data_ptr(),
                   None if lse is None else lse.data_ptr(), splits, b, h, sq,
                   *bhs(out), _build.stream_ptr(part))
+
+
+def tf32_keys_padded(skv: int) -> int:
+    """Keys of the 3xTF32 pre-pass's output: ``skv`` rounded up to whole
+    chunks of ``TF32_CHUNK_KEYS`` (at least one)."""
+    return max(1, -(-skv // TF32_CHUNK_KEYS)) * TF32_CHUNK_KEYS
+
+
+def tf32_key_order(n: int) -> torch.Tensor:
+    """The key each of V^T's ``n`` positions holds (n a multiple of 8):
+    within each group of 8 the keys 0 2 4 6 1 3 5 7, the order in which
+    the S accumulator's fragment (columns 2t, 2t + 1 of thread t) is the
+    TF32 A fragment of P V (columns t, t + 4)."""
+    c = torch.arange(n)
+    low = c % 8
+    return c - low + torch.where(low < 4, 2 * low, 2 * low - 7)
+
+
+def tf32_split_plain(k: torch.Tensor, v: torch.Tensor
+                     ) -> tuple[torch.Tensor, ...]:
+    """Plain version of ``flash_fwd_tf32_split``: from fp32 k, v [B, Skv,
+    H, 384], K's TF32 heads and tails [B, H, Skv_pad, 384] and V^T's [B, H,
+    384, Skv_pad] (keys in :func:`tf32_key_order`), zero past Skv, with
+    Skv_pad = :func:`tf32_keys_padded` (Skv)."""
+    _build.count_plain(NAME_TF32_SPLIT)
+    b, skv, h, d = k.shape
+    pad = tf32_keys_padded(skv)
+    kp = k.new_zeros((b, h, pad, d))
+    kp[:, :, :skv] = k.float().transpose(1, 2)
+    vp = v.new_zeros((b, h, pad, d))
+    vp[:, :, :skv] = v.float().transpose(1, 2)
+    vt = vp[:, :, tf32_key_order(pad).to(v.device)].transpose(2, 3)
+    return (*tf32_split(kp), *tf32_split(vt.contiguous()))
+
+
+def tf32_split_kv(k: torch.Tensor, v: torch.Tensor
+                  ) -> tuple[torch.Tensor, ...]:
+    """``flash_fwd_tf32_split``, the 3xTF32 schedule's pre-pass: (k_hi,
+    k_lo, vt_hi, vt_lo) as :func:`tf32_split_plain` gives them, from fp32
+    [B, Skv, H, 384] views (any strides, unit stride along the head). CUDA
+    tensors launch the kernel, CPU tensors run the plain version."""
+    if not k.is_cuda:
+        if k.device.type == "cpu":
+            return tf32_split_plain(k, v)
+        raise _build.KernelError(
+            f"{NAME_TF32_SPLIT}: unsupported device {k.device}")
+    _build.check_device(k, NAME_TF32_SPLIT)
+    b, skv, h, d = k.shape
+    if (d != WIDE_HEAD or v.shape != k.shape or any(
+            t.dtype != torch.float32 or t.stride(-1) != 1 or
+            t.device != k.device for t in (k, v))):
+        raise _build.KernelError(
+            f"{NAME_TF32_SPLIT}: takes fp32 k and v [B, Skv, H, "
+            f"{WIDE_HEAD}] with a unit stride along the head, got "
+            f"{k.dtype} {tuple(k.shape)} and {v.dtype} {tuple(v.shape)}")
+    pad = tf32_keys_padded(skv)
+    k_hi, k_lo = (torch.empty((b, h, pad, d), dtype=torch.float32,
+                              device=k.device) for _ in range(2))
+    vt_hi, vt_lo = (torch.empty((b, h, d, pad), dtype=torch.float32,
+                                device=k.device) for _ in range(2))
+    _build.launch(NAME_TF32_SPLIT, "fvt_flash_tf32_split", k.data_ptr(),
+                  v.data_ptr(), k_hi.data_ptr(), k_lo.data_ptr(),
+                  vt_hi.data_ptr(), vt_lo.data_ptr(), b, h, skv, pad,
+                  *bhs(k), *bhs(v), _build.stream_ptr(k))
+    return k_hi, k_lo, vt_hi, vt_lo
+
+
+def flash_attention_tf32x3_plain(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, *, scale: float,
+                                 causal: bool = False,
+                                 kv_valid: int | None = None,
+                                 products: int = 3, splits: int = 1
+                                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """CPU emulation of the 3xTF32 schedule's arithmetic (tests only): q,
+    k, v, and P split into TF32 heads and tails, S = Q K^T and O = P V as
+    hi hi + hi lo + lo hi (``products`` 1: hi hi alone, one TF32 pass),
+    each product exact and summed in fp64, S and the softmax in fp32, the
+    keys cut into ``splits`` ranges of whole chunks as the kernel cuts them
+    (no causal mask then) and merged as ``flash_fwd_combine`` merges them.
+    Returns (out fp32 [B, Sq, H, D], lse [B, H, Sq])."""
+    if causal and splits > 1:
+        raise ValueError("the emulation splits the keys of unmasked "
+                         "attention only")
+    _build.count_plain(NAME_TF32)
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    kv_valid = skv if kv_valid is None else kv_valid
+    keys = max(0, min(kv_valid, skv))
+    mask = _structural_mask(range(sq), skv, kv_valid, causal, q.device)
+    qs, ks, vs = (tf32_split(t.float().transpose(1, 2)) for t in (q, k, v))
+
+    def product(a, b_):
+        """sum over ``products`` of the split pairs of a @ b_, in fp64."""
+        pairs = [(0, 0), (0, 1), (1, 0)][:products]
+        return sum(a[i].double() @ b_[j].double() for i, j in pairs)
+
+    parts, lses = [], []
+    for keys_z in wide_chunk_ranges(keys, splits):
+        sl = slice(keys_z.start, keys_z.stop)
+        if len(keys_z) == 0:
+            parts.append(q.new_zeros((b, h, sq, d), dtype=torch.float32))
+            lses.append(q.new_full((b, h, sq), float("-inf"),
+                                   dtype=torch.float32))
+            continue
+        s = product(qs, [t[:, :, sl].transpose(-1, -2) for t in ks])
+        s = (s.float() * scale).masked_fill(~mask[:, sl], float("-inf"))
+        m = s.amax(dim=-1, keepdim=True)
+        m_safe = torch.where(torch.isinf(m), torch.zeros_like(m), m)
+        p = torch.exp(s - m_safe)
+        l = p.double().sum(dim=-1, keepdim=True)
+        pv = product(tf32_split(p), [t[:, :, sl] for t in vs])
+        parts.append((pv / torch.where(l == 0, torch.ones_like(l), l)
+                      ).float())
+        lses.append(torch.where(l == 0, torch.full_like(m, float("-inf")),
+                                m_safe + torch.log(l).float())[..., 0])
+    if splits == 1:
+        return parts[0].transpose(1, 2), lses[0]
+    return wide_combine_plain(torch.stack(parts), torch.stack(lses),
+                              torch.float32)
 
 
 def dkv_splits(b: int, h: int, sq: int, skv: int, d: int,
@@ -485,6 +635,35 @@ def _flash_attention_wide_cuda(q, k, v, *, scale, causal, kv_valid):
     return out, lse
 
 
+def _flash_attention_tf32_cuda(q, k, v, *, scale, causal, kv_valid):
+    """K1 on the 3xTF32 wide schedule: the pre-pass, one launch over
+    ``wide_splits`` key ranges (``TF32_BLOCK_ROWS`` rows a block), then
+    ``flash_fwd_combine`` where there is more than one."""
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    k_hi, k_lo, vt_hi, vt_lo = tf32_split_kv(k, v)
+    out = torch.empty((b, sq, h, d), dtype=torch.float32, device=q.device)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    splits = wide_splits(b, h, sq, min(kv_valid, skv),
+                         _build.num_sms(q.device), TF32_BLOCK_ROWS)
+    part = lse_part = None
+    if splits > 1:
+        part = torch.empty((splits, b, h, sq, d), dtype=torch.float32,
+                           device=q.device)
+        lse_part = torch.empty((splits, b, h, sq), dtype=torch.float32,
+                               device=q.device)
+    _build.launch(NAME_TF32, "fvt_flash_fwd_wide_tf32", q.data_ptr(),
+                  k_hi.data_ptr(), k_lo.data_ptr(), vt_hi.data_ptr(),
+                  vt_lo.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                  None if part is None else part.data_ptr(),
+                  None if lse_part is None else lse_part.data_ptr(), b, h,
+                  sq, skv, k_hi.shape[2], *bhs(q), *bhs(out), float(scale),
+                  int(causal), int(kv_valid), splits, _build.stream_ptr(q))
+    if splits > 1:
+        wide_combine(part, lse_part, out, lse)
+    return out, lse
+
+
 def _flash_attention_cuda(q, k, v, *, scale, causal, kv_valid, chunk_tokens,
                           tf_clean_len):
     struct = chunk_tokens > 0
@@ -492,8 +671,12 @@ def _flash_attention_cuda(q, k, v, *, scale, causal, kv_valid, chunk_tokens,
     dtype = _check_cuda_operands(name, q, k, v)
     q, k, v = attn_operand(q), attn_operand(k), attn_operand(v)
     b, sq, h, d = q.shape
-    if not struct and flash_schedule(q.dtype, d) == "sm90_wide":
+    schedule = flash_schedule(q.dtype, d)
+    if not struct and schedule == "sm90_wide":
         return _flash_attention_wide_cuda(q, k, v, scale=scale,
+                                          causal=causal, kv_valid=kv_valid)
+    if not struct and schedule == "sm90_wide_tf32":
+        return _flash_attention_tf32_cuda(q, k, v, scale=scale,
                                           causal=causal, kv_valid=kv_valid)
     skv = k.shape[1]
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)

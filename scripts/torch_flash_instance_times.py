@@ -23,8 +23,10 @@ grid is split, the reduction of its partial sums):
   column views of one qkv tensor as the VAE passes them: the first decode
   chunk q [1,6240,1,384] (``k1_vae_first``), a 2-frame chunk
   [2,6240,1,384] (``k1_vae_chunk``), a 2-frame chunk at 480x848
-  [2,6360,1,384] (``k1_vae_848``), and in fp32 at the first chunk
-  (``k1_vae_first_fp32``).
+  [2,6360,1,384] (``k1_vae_848``), and in fp32 (an fp32 decode's, with the
+  3xTF32 schedule's pre-pass and merge where the checkout has them) at the
+  first chunk (``k1_vae_first_fp32``) and at a 2-frame chunk
+  (``k1_vae_chunk_fp32``).
 
 Prints one JSON line: the card and power limit, and each row's ms. Run it
 for two checkouts in turns (A, B, B, A) inside one call to compare them
@@ -143,7 +145,8 @@ def main() -> int:
             ("k1_vae_first", 1, 6240, torch.bfloat16),
             ("k1_vae_chunk", 2, 6240, torch.bfloat16),
             ("k1_vae_848", 2, 6360, torch.bfloat16),
-            ("k1_vae_first_fp32", 1, 6240, torch.float32)):
+            ("k1_vae_first_fp32", 1, 6240, torch.float32),
+            ("k1_vae_chunk_fp32", 2, 6240, torch.float32)):
         qkv = torch.randn(b, s_len, 1, 3 * 384, generator=g, device=dev,
                           dtype=dtype)
         q, k, v = qkv[..., :384], qkv[..., 384:768], qkv[..., 768:]

@@ -31,7 +31,7 @@ def _source(name: str) -> str:
     (torch.bfloat16, 384, "sm90_wide"),  # the VAE's attention
     (torch.float32, 64, "tile"),      # fp32 forms
     (torch.float32, 128, "tile"),
-    (torch.float32, 384, "tile"),     # an fp32 decode
+    (torch.float32, 384, "sm90_wide_tf32"),  # an fp32 decode
 ])
 def test_flash_schedule(dtype, d, want):
     assert fa.flash_schedule(dtype, d) == want

@@ -10,7 +10,8 @@ dK/dV and its reduction, rows with no key; the sparse kernels' Hopper
 schedule: K7 bwd's ragged units, empty tiles and -1 slots, K9's groups of
 query tiles and ragged key units, the first schedule at other heads, and
 an unaligned operand that raises; K1's wide schedule at a head of 384 and
-its split merge, and K3's 3xTF32 form). Marked ``cuda``: they
+its split merge, and K3's 3xTF32 form; K1's fp32 form at a head of 384 on
+its 3xTF32 schedule, its pre-pass and its fp32 merge). Marked ``cuda``: they
 skip without an sm_90 card. On the card
 (which has no JAX, so without the suite's conftest):
 
@@ -933,11 +934,12 @@ def test_flash_bwd_split_dkv_and_reduce(dev):
                                      (torch.bfloat16, 128),
                                      (torch.bfloat16, 16),
                                      (torch.bfloat16, 384),
-                                     (torch.float32, 128)])
+                                     (torch.float32, 128),
+                                     (torch.float32, 384)])
 def test_flash_library_schedule_is_the_host_rule(dev, dtype, d):
     fwd = _build.query("flash_fwd", "fvt_flash_fwd_sm90",
                        int(dtype == torch.bfloat16), d)
-    assert ("tile", "sm90", "sm90_wide")[fwd] == \
+    assert ("tile", "sm90", "sm90_wide", "sm90_wide_tf32")[fwd] == \
         flash_attention.flash_schedule(dtype, d)
     if dtype == torch.bfloat16 and d <= 128:
         bwd = _build.query("flash_bwd", "fvt_flash_bwd_sm90", d)
@@ -1385,9 +1387,9 @@ def test_flash_wide_combine_matches_plain(dev):
 
 
 def test_flash_wide_fp32_and_backward_keep_their_schedules(dev):
-    """At a head of 384 fp32 keeps the first schedule and no backward
-    runs: a bf16 call under grad raises before any launch."""
-    assert _build.query("flash_fwd", "fvt_flash_fwd_sm90", 0, 384) == 0
+    """At a head of 384 fp32 takes its own (3xTF32) schedule and no
+    backward runs: a bf16 call under grad raises before any launch."""
+    assert _build.query("flash_fwd", "fvt_flash_fwd_sm90", 0, 384) == 3
     assert flash_attention.flash_bwd_schedule(384) == "tile"
     q = torch.randn(1, 64, 1, 384, device=dev, dtype=torch.bfloat16,
                     requires_grad=True)
@@ -1427,3 +1429,114 @@ def test_conv3d_tf32_matches_plain(dev, c, co, kt, time_pad, t, h, w):
     assert out.shape == ref.shape and out.dtype == torch.float32
     assert torch.isfinite(out).all()
     torch.testing.assert_close(out, ref, atol=5e-5, rtol=1e-5)
+
+
+# -- K1's fp32 form at a head of 384 (3xTF32) ----------------------------------
+
+
+@pytest.mark.parametrize("b,sq,skv,h,causal,kv_valid,qkv", [
+    (1, 6240, 6240, 1, False, None, True),   # the first decode chunk
+    (2, 1000, 1000, 1, False, None, True),   # a ragged tile, 2 frames
+    (2, 77, 130, 3, False, 60, False),       # kv_valid inside a chunk, B H 6
+    (1, 300, 333, 2, True, None, False),     # causal, ragged chunks
+    (1, 4000, 130, 8, False, None, False),   # one split: O written direct
+    (1, 64, 96, 2, False, 0, False),         # every row empty
+    (1, 100, 90, 1, False, None, False),     # keys past the last chunk
+])
+def test_flash_wide_tf32_matches_plain(dev, b, sq, skv, h, causal, kv_valid,
+                                       qkv):
+    """K1 on the 3xTF32 wide schedule (fp32, head 384) against the plain
+    fp32 version within chip_smoke's gate, 1e-5 + 1e-4 |plain|, the LSE
+    within 1e-4 (-inf on empty rows), from q/k/v column views of one qkv
+    tensor as the VAE passes them or from strided views; the library's
+    split rule is the host's, and the pre-pass, the kernel and (split)
+    the merge each count one launch."""
+    d = 384
+    g = torch.Generator(device=dev).manual_seed(71)
+    if qkv:
+        t = torch.randn(b, sq, h, 3 * d, generator=g, device=dev)
+        q, k, v = t[..., :d], t[..., d:2 * d], t[..., 2 * d:]
+    else:
+        q = torch.randn(b, sq, h, d, generator=g, device=dev)
+        kv = torch.randn(b, skv, h, 2 * d, generator=g, device=dev)
+        k, v = kv[..., d:], kv[..., :d]
+    kw = dict(scale=d**-0.5, causal=causal,
+              kv_valid=skv if kv_valid is None else kv_valid)
+    splits = flash_attention.wide_splits(
+        b, h, sq, min(kw["kv_valid"], skv), _build.num_sms(dev),
+        flash_attention.TF32_BLOCK_ROWS)
+    assert _build.query("flash_fwd", "fvt_flash_fwd_wide_tf32_splits", b, h,
+                        sq, skv, kw["kv_valid"], _build.num_sms(dev)) == splits
+    before = dict(_build.LAUNCHES)
+    out, lse = flash_attention.flash_attention(q, k, v, return_lse=True,
+                                               **kw)
+    for name, n in (("flash_fwd_tf32", 1), ("flash_fwd_tf32_split", 1),
+                    ("flash_fwd_combine", int(splits > 1)),
+                    ("flash_fwd", 0)):
+        assert _build.LAUNCHES[name] == before[name] + n, name
+    ref, ref_lse = flash_attention.flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and torch.isfinite(out).all()
+    finite = torch.isfinite(ref_lse)
+    assert torch.equal(finite, torch.isfinite(lse))
+    if kv_valid == 0:
+        assert torch.all(out == 0)
+        return
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-4)
+    torch.testing.assert_close(lse[finite], ref_lse[finite], atol=1e-4,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("b,skv,h", [(2, 333, 3), (1, 6240, 1), (1, 8, 2)])
+def test_flash_tf32_split_matches_plain(dev, b, skv, h):
+    """The pre-pass equals its plain version bit for bit from strided
+    views: K's and V^T's TF32 heads and tails, V^T's keys in
+    tf32_key_order, zero past Skv."""
+    g = torch.Generator(device=dev).manual_seed(72)
+    kv = torch.randn(b, skv, h, 3 * 384, generator=g, device=dev)
+    k, v = kv[..., 384:768], kv[..., 768:]
+    before = _build.LAUNCHES["flash_fwd_tf32_split"]
+    got = flash_attention.tf32_split_kv(k, v)
+    assert _build.LAUNCHES["flash_fwd_tf32_split"] == before + 1
+    want = flash_attention.tf32_split_plain(k, v)
+    torch.cuda.synchronize()
+    for a, w in zip(got, want):
+        assert a.shape == w.shape and torch.equal(a, w)
+
+
+def test_flash_wide_combine_f32_matches_plain(dev):
+    """flash_fwd_combine's fp32 instance against its plain version: rows
+    empty in some splits, in every split, and a strided fp32 output."""
+    g = torch.Generator(device=dev).manual_seed(73)
+    splits, b, h, sq, d = 3, 2, 2, 50, 384
+    part = torch.randn(splits, b, h, sq, d, generator=g, device=dev)
+    lse_part = torch.randn(splits, b, h, sq, generator=g, device=dev) * 4
+    lse_part[0, :, :, :10] = float("-inf")
+    lse_part[:, 1, 0, 20:23] = float("-inf")
+    part[lse_part.isinf()] = 0
+    buf = torch.empty(b, sq, h, 2 * d, device=dev)
+    out = buf[..., d:]
+    lse = torch.empty(b, h, sq, device=dev)
+    flash_attention.wide_combine(part, lse_part, out, lse)
+    ref, ref_lse = flash_attention.wide_combine_plain(part, lse_part,
+                                                      torch.float32)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, atol=1e-6, rtol=1e-5)
+    assert torch.equal(torch.isinf(lse), torch.isinf(ref_lse))
+    fin = torch.isfinite(ref_lse)
+    torch.testing.assert_close(lse[fin], ref_lse[fin], atol=1e-5, rtol=0)
+    assert torch.all(out[1, 20:23, 0] == 0)
+
+
+def test_flash_fwd_entry_refuses_the_tf32_case(dev):
+    """fp32 at a head of 384 has no other schedule: the plain entry
+    fvt_flash_fwd refuses it (the wrapper routes it to the 3xTF32 one), so
+    nothing falls back to attn_tile.cuh."""
+    q = torch.zeros(1, 64, 1, 384, device=dev)
+    o = torch.empty_like(q)
+    st = flash_attention.bhs(q)
+    err = _build.load("flash_fwd").fvt_flash_fwd(
+        q.data_ptr(), q.data_ptr(), q.data_ptr(), o.data_ptr(), None, 0, 1,
+        1, 64, 64, 384, *st, *st, *st, *st, 384**-0.5, 0, 64,
+        _build.stream_ptr(q))
+    assert err != 0

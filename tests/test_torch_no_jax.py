@@ -107,6 +107,7 @@ def _calls():
     # the wide K1's partials of 2 key splits at a head of 384, and its output
     wide = torch.zeros(2, 1, 2, 64, 384), torch.zeros(2, 1, 2, 64)
     wide_out = torch.zeros(1, 64, 2, 384, dtype=bf)
+    q384 = torch.zeros(1, 64, 1, 384)  # the fp32 VAE attention's head
     c = _cuda_typed
 
     def flash_bwd():
@@ -152,6 +153,10 @@ def _calls():
             c(part), c(part), c(q), c(q)),
         "flash_fwd_combine": lambda: flash_attention.wide_combine(
             c(wide[0]), c(wide[1]), c(wide_out), None),
+        "flash_fwd_tf32": lambda: flash_attention.flash_attention(
+            c(q384), c(q384), c(q384)),
+        "flash_fwd_tf32_split": lambda: flash_attention.tf32_split_kv(
+            c(q384), c(q384)),
     }
 
 

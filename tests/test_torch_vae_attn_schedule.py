@@ -43,11 +43,11 @@ def _qkv(seed, b, sq, skv, h, d=384):
 
 
 def test_route_rule_at_a_head_of_384(monkeypatch):
-    """bf16 K1 takes the wide schedule; fp32 keeps the first one; the
+    """bf16 K1 takes the wide schedule; fp32 takes its 3xTF32 form; the
     backward and the sparse kernels keep their own rule, which has no
     wide schedule, and the backward is refused at a head above 128."""
     assert fa.flash_schedule(torch.bfloat16, 384) == "sm90_wide"
-    assert fa.flash_schedule(torch.float32, 384) == "tile"
+    assert fa.flash_schedule(torch.float32, 384) == "sm90_wide_tf32"
     assert fa.flash_schedule(torch.bfloat16, 128) == "sm90"
     assert fa.flash_bwd_schedule(384) == "tile"
     assert fa.flash_bwd_schedule(128) == "sm90"
