@@ -41,13 +41,14 @@ Phases, each printing its own lines:
      would leave; the count-driven
      sparse kernels K9a at 4k's NABLA shape, under nabla_block_mask's mask
      and under a ramp of per-row counts 1..390, and K9b at 4j's BSA shape,
-     32 pruned queries a tile, under select_kv_blocks' mask);
+     32 pruned queries a tile, under select_kv_blocks' mask; K2, K7 fwd
+     and K7 bwd at DMD2's top-117 of 117 tiles, beside SDPA);
   4. a: tiny models, the card's whole path against the CPU's plain path
      (FastWan DMD, also with an fp32 decode; Wan UniPC + CFG with VSA and
      with STA on a padded grid, and on every other self-attention backend:
      BSA, NABLA, TORCH_SDPA, SAGE_ATTN, VMOBA_ATTN, ATTN_QAT_TRAIN;
      TurboDiffusion; the causal Wan with a head of 128, a sink and a window
-     of 1,280 keys that evicts);
+     of 1,280 keys that evicts; one SFT, dfsft, tfsft and DMD2 step);
      b: the FastWan main path at full width: a random-weight
      FastWan2.1-T2V-1.3B-shaped diffusers checkpoint written with the
      port's own safetensors writer, loaded by
@@ -91,6 +92,17 @@ Phases, each printing its own lines:
      with CFG each, on checkpoints without VSA gate weights: stage times,
      seconds a step, peak memory, the mean kept fraction of the block
      masks and the launch counts;
+     l, m: dfsft and tfsft of CausalWan-1.3B on 4g's checkpoint (4i's
+     latents, 3-frame chunks): a warm-up step, then --df-steps timed ones;
+     n: DMD2 distillation of Wan2.1-T2V-1.3B through build_from_config
+     (method dmd2, a Parquet data.path): the 4b checkpoint's DiT as
+     generator, teacher and critic in fp32 masters, on a Snappy shard of 2
+     records (81x480x832 latents, 512 text tokens) that the port writes
+     and reads, a generator and a critic update a step, VSA at sparsity 0
+     (top-117 of 117 tiles): a warm-up step, then --dmd-steps timed ones;
+     seconds a step, losses and grad norms, peak memory, the teacher's
+     checksum, the launch counts and the reader's MB/s on a random and on
+     a zero-padded record;
   5. the kernels line, the card line and the result line.
 
 Each phase header ends with the seconds since the start.
@@ -2170,6 +2182,96 @@ def check_vsa_bwd(dev, results: dict) -> None:
         results[name]["max_abs_err"] = max(errs)
 
 
+def check_vsa_dense(dev, results: dict) -> None:
+    """K2, K7 fwd (LSE mode) and K7 bwd at DMD2's shape (4n): VSA at
+    sparsity 0 on 4i's grid, every one of the 117 exact tiles of 280 for
+    every query tile (K2's rows for each of its 39 groups of 3), each
+    against its plain version, timed beside SDPA (over every key it computes
+    the same function) and the dense bounds."""
+    import torch
+    import torch.nn.functional as F
+
+    from fastvideo_tpu_torch.ops import vsa
+
+    g = torch.Generator(device=dev).manual_seed(17)
+    b, h, d, e, nb, qg = 1, 12, 128, 280, 117, 3
+    s = nb * e
+    q, k, v, do = (torch.randn(b, h, s, d, generator=g, device=dev,
+                               dtype=torch.bfloat16) for _ in range(4))
+    scale = d**-0.5
+    tiles = torch.arange(nb, device=dev, dtype=torch.int32)
+    idx_g = tiles.expand(b, h, nb // qg, nb).contiguous()
+    idx_t = tiles.expand(b, h, nb, nb).contiguous()
+    sizes = torch.full((nb,), e, dtype=torch.int32, device=dev)
+    kw = dict(scale=scale, tile_elems=e)
+    label = f"top-{nb}"
+    out = vsa.block_sparse_attention_fast(q, k, v, idx_g, **kw)
+    ref = vsa.block_sparse_attention_plain(q, k, v, idx_g, **kw)
+    k2_err = check(f"vsa_sparse_fwd[{label}]", out, ref,
+                   *attn_tol(ref, torch.bfloat16))
+    del out, ref
+    k2_ms = time_ms(lambda: vsa.block_sparse_attention_fast(
+        q, k, v, idx_g, **kw))
+    k2_plain = time_ms(lambda: vsa.block_sparse_attention_plain(
+        q, k, v, idx_g, **kw), 1, 0)
+    sdpa = time_ms(lambda: F.scaled_dot_product_attention(q, k, v,
+                                                          scale=scale))
+    errs, fwd_errs, _ = sparse_bwd_case(label, q, k, v, do, idx_t, sizes, e)
+    out, lse = vsa.block_sparse_attention(q, k, v, idx_t, sizes,
+                                          return_lse=True, **kw)
+    fwd_ms = time_ms(lambda: vsa.block_sparse_attention(
+        q, k, v, idx_t, sizes, return_lse=True, **kw))
+    fwd_plain = time_ms(lambda: vsa.block_sparse_attention_plain(
+        q, k, v, idx_t, sizes, return_lse=True, **kw), 1, 0)
+    ms = kernel_device_ms(
+        lambda: vsa.block_sparse_attention_bwd(q, k, v, idx_t, sizes, out,
+                                               lse, do, **kw),
+        {"dq": "vsa_sparse_bwd_dq", "dkv": "vsa_sparse_bwd_dkv"})
+    whole = time_ms(lambda: vsa.block_sparse_attention_bwd(
+        q, k, v, idx_t, sizes, out, lse, do, **kw))
+    bwd_plain = time_ms(lambda: vsa.block_sparse_attention_bwd_plain(
+        q, k, v, idx_t, sizes, out, lse, do, **kw), 1, 0)
+    sdpa_bwd = library_backward_ms(
+        lambda a, b_, c: F.scaled_dot_product_attention(a, b_, c,
+                                                        scale=scale),
+        (q, k, v), do)
+    flops, nbytes = padded_bound(idx_t, sizes, d)
+    fwd_b, fwd_by = bound_ms(flops, nbytes)
+    k2_b, k2_by = bound_ms(flops, nbytes - 4 * idx_t.numel()
+                           - 4.0 * b * h * s + 4 * idx_g.numel())
+    tokens = b * h * s
+    io = 2.0 * 2 * tokens * d + 8.0 * tokens + 4 * idx_t.numel()
+    (dq_b, _), (dkv_b, _), (all_b, _) = bwd_bounds(
+        flops / 2, io + 2.0 * 3 * tokens * d, io + 2.0 * 4 * tokens * d)
+    results["vsa_sparse_fwd"].update(
+        top117_ms=k2_ms, top117_plain_ms=k2_plain, top117_bound_ms=k2_b,
+        top117_library_ms=sdpa, top117_max_abs_err=k2_err)
+    results["vsa_sparse_padded_fwd"].update(
+        top117_lse_ms=fwd_ms, top117_plain_ms=fwd_plain,
+        top117_bound_ms=fwd_b, top117_library_ms=sdpa,
+        top117_max_abs_err=fwd_errs[0], top117_lse_max_abs_err=fwd_errs[1])
+    for name, t, bnd, err in (("vsa_sparse_bwd_dq", ms["dq"], dq_b, errs[0]),
+                              ("vsa_sparse_bwd_dkv", ms["dkv"], dkv_b,
+                               max(errs[1:]))):
+        results[name].update(
+            top117_ms=t, top117_bound_ms=bnd, top117_backward_ms=whole,
+            top117_backward_bound_ms=all_b, top117_plain_ms=bwd_plain,
+            top117_library_ms=sdpa_bwd, top117_max_abs_err=err)
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+    for name, err in (("vsa_sparse_fwd", k2_err),
+                      ("vsa_sparse_padded_fwd", fwd_errs[0])):
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+    print(f"  {label} of {nb} tiles, q/k/v[{b},{h},{s},{d}] (dense, "
+          f"{flops:.3e} FLOP): K2 {k2_ms:.3f} ms (bound {k2_b:.3f}, "
+          f"{k2_by}; plain {k2_plain:.3f}); K7 fwd with LSE {fwd_ms:.3f} ms "
+          f"(bound {fwd_b:.3f}, {fwd_by}; plain {fwd_plain:.3f}); SDPA "
+          f"{sdpa:.3f} ms; K7 bwd dQ {ms['dq']:.3f} ms (bound {dq_b:.3f}), "
+          f"dK/dV {ms['dkv']:.3f} ms (bound {dkv_b:.3f}), the backward "
+          f"{whole:.3f} ms with delta and the lists (bound {all_b:.3f}; "
+          f"plain {bwd_plain:.3f}), SDPA's backward {sdpa_bwd:.3f} ms",
+          flush=True)
+
+
 def run_kernel_checks(dev) -> dict:
     import torch
 
@@ -2192,6 +2294,8 @@ def run_kernel_checks(dev) -> dict:
     check_flash_struct(dev, results)
     torch.cuda.empty_cache()
     check_vsa_bwd(dev, results)
+    torch.cuda.empty_cache()
+    check_vsa_dense(dev, results)
     torch.cuda.empty_cache()
     check_conv(dev, results)
     torch.cuda.empty_cache()
@@ -3114,23 +3218,40 @@ def train_loader(latents_shape, embeds_shape, seed: int = 0):
 
 
 def build_method(method: str, ckpt: str, out_dir: str, device: str,
-                 training: dict, method_config: dict | None = None):
+                 training: dict, method_config: dict | None = None,
+                 dmd: dict | None = None, data_path: str = ""):
     """A training method through the training entry point's own calls
-    (build_from_config: resolve_method(method), its from_config)."""
+    (build_from_config: resolve_method(method), its from_config, and the
+    Parquet dataloader of ``data_path``). Returns (method, loader); the
+    loader is None without a ``data_path``."""
     from fastvideo_tpu_torch.entrypoints.cli.train import build_from_config
-    from fastvideo_tpu_torch.training.run_config import (ModelSpec,
+    from fastvideo_tpu_torch.training.run_config import (DataSpec, DMDSpec,
+                                                         ModelSpec,
                                                          TrainRunConfig)
 
     cfg = TrainRunConfig(
         method=method,
         model=ModelSpec(pretrained_model_path=ckpt, dit_precision="fp32"),
+        data=DataSpec(path=data_path),
         training=dict(training, output_dir=out_dir, device=device),
+        dmd=DMDSpec(**(dmd or {})),
         method_config=method_config or {})
     m, loader = build_from_config(cfg)
-    if loader is not None:
-        raise SystemExit("the config names no data path")
+    if (loader is None) != (not data_path):
+        raise SystemExit(f"data path {data_path!r} gave loader {loader}")
     m.pipeline.tracker = StepRecorder()
-    return m
+    return m, loader
+
+
+def capture_grads(optimizer, params, into: dict, role: str) -> None:
+    """Keep, on the host, the gradients ``optimizer`` is handed."""
+    step = optimizer.step
+
+    def capture(*a, **k):
+        into[role] = [p.grad.float().cpu() for p in params]
+        return step(*a, **k)
+
+    optimizer.step = capture
 
 
 def step_with_grads(pipe, batch, **kw) -> tuple[dict, list, dict, dict]:
@@ -3140,19 +3261,14 @@ def step_with_grads(pipe, batch, **kw) -> tuple[dict, list, dict, dict]:
 
     from fastvideo_tpu_torch.ops import _build
 
-    seen = []
-    step = pipe.optimizer.step
-
-    def capture(*a, **k):
-        seen.append([p.grad.float().cpu() for p in pipe.params])
-        return step(*a, **k)
-
-    pipe.optimizer.step = capture
+    grads: dict = {}
+    capture_grads(pipe.optimizer, pipe.params, grads, "step")
     _build.reset_counts()
     out = pipe.train_one_step(*batch, **kw)
     if pipe.device.type == "cuda":
         torch.cuda.synchronize()
-    return out, seen[0], dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
+    return out, grads["step"], dict(_build.LAUNCHES), dict(
+        _build.PLAIN_CALLS)
 
 
 def split_backwards(cfg: dict, shapes) -> int:
@@ -3192,6 +3308,32 @@ def check_launches(label: str, launches: dict, plain: dict,
                          f"{plain}")
 
 
+def adamw_agreement(card_grads, cpu_grads, card_params, cpu_params
+                    ) -> tuple[float, float, float, int, int]:
+    """Card against CPU after one AdamW update from the same start: the
+    gradients' relative L2, the largest parameter difference, the largest
+    where the two gradients agree in sign and are at least 1e-5 (there the
+    first update, lr times the sign, is the same), the count of elements
+    where they do not, and the count of elements."""
+    import torch
+
+    gc, gp = (torch.cat([g.flatten() for g in gs])
+              for gs in (card_grads, cpu_grads))
+    rel = ((gc - gp).norm() / gp.norm()).item()
+    worst_all = worst_sure = 0.0
+    flips = 0
+    for a, b, g_card, g_cpu in zip(card_params, cpu_params, card_grads,
+                                   cpu_grads):
+        diff = (a - b).abs()
+        worst_all = max(worst_all, diff.max().item())
+        sure = (torch.sign(g_card) == torch.sign(g_cpu)) & (
+            torch.minimum(g_card.abs(), g_cpu.abs()) >= 1e-5)
+        flips += int((~sure).sum())
+        if sure.any():
+            worst_sure = max(worst_sure, diff[sure].max().item())
+    return rel, worst_all, worst_sure, flips, gc.numel()
+
+
 def check_small_training(work: str) -> None:
     """One SFT step of a tiny VSA Wan (heads of 16, 2 layers) on the card
     against the same step on the CPU's plain path: the same checkpoint,
@@ -3215,8 +3357,8 @@ def check_small_training(work: str) -> None:
     lr = 1e-3
     runs = {}
     for device in ("cuda", "cpu"):
-        method = build_method("sft", ckpt, "", device,
-                              dict(TRAIN_KW, learning_rate=lr))
+        method, _ = build_method("sft", ckpt, "", device,
+                                 dict(TRAIN_KW, learning_rate=lr))
         pipe = method.pipeline
         out, grads, counts, plain_counts = step_with_grads(
             pipe, batch, vsa_sparsity=0.8)
@@ -3231,18 +3373,8 @@ def check_small_training(work: str) -> None:
         layers, 1, split_backwards(TINY_DIT_CFG,
                                    [(tokens, TINY_TRAIN_EMBEDS[2])])))
     (c_out, c_g, c_p), (p_out, p_g, p_p) = runs["cuda"], runs["cpu"]
-    gc, gp = (torch.cat([g.flatten() for g in gs]) for gs in (c_g, p_g))
-    rel = ((gc - gp).norm() / gp.norm()).item()
-    worst_all = worst_sure = 0.0
-    flips = 0
-    for a, b, g_card, g_cpu in zip(c_p, p_p, c_g, p_g):
-        diff = (a - b).abs()
-        worst_all = max(worst_all, diff.max().item())
-        sure = (torch.sign(g_card) == torch.sign(g_cpu)) & (
-            torch.minimum(g_card.abs(), g_cpu.abs()) >= 1e-5)
-        flips += int((~sure).sum())
-        if sure.any():
-            worst_sure = max(worst_sure, diff[sure].max().item())
+    rel, worst_all, worst_sure, flips, n = adamw_agreement(c_g, p_g, c_p,
+                                                           p_p)
     loss_rel = abs(c_out["loss"] - p_out["loss"]) / abs(p_out["loss"])
     print(f"  tiny train step, card vs CPU plain: loss {c_out['loss']:.5f} "
           f"/ {p_out['loss']:.5f} (rel {loss_rel:.2e}, bar 1e-2), grad_norm "
@@ -3251,7 +3383,7 @@ def check_small_training(work: str) -> None:
           f"{worst_all:.2e} (no bar: a first AdamW update is +-lr), "
           f"{worst_sure:.2e} where the gradients agree in sign and are "
           f">= 1e-5 (bar 2e-6; {flips} of "
-          f"{gc.numel()} elements are not); card launches "
+          f"{n} elements are not); card launches "
           f"{json.dumps({k: v for k, v in launches.items() if v})}",
           flush=True)
     if not (math.isfinite(c_out["loss"]) and loss_rel < 1e-2 and rel < 3e-2
@@ -3273,10 +3405,10 @@ def run_training(work: str, steps: int, profile_dir: str | None = None
     os.environ["FASTVIDEO_ATTENTION_BACKEND"] = "VIDEO_SPARSE_ATTN"
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    method = build_method("sft",
-                          os.path.join(work, "FastWan2.1-T2V-1.3B-Diffusers"),
-                          os.path.join(work, "train_out"), "cuda",
-                          dict(TRAIN_KW, max_train_steps=1 + steps))
+    method, _ = build_method(
+        "sft", os.path.join(work, "FastWan2.1-T2V-1.3B-Diffusers"),
+        os.path.join(work, "train_out"), "cuda",
+        dict(TRAIN_KW, max_train_steps=1 + steps))
     pipe = method.pipeline
     n_params = sum(p.numel() for p in pipe.params)
     print(f"  SFTMethod built in {time.perf_counter() - t0:.1f} s: "
@@ -3388,8 +3520,8 @@ def check_small_df_training(work: str) -> None:
     for method in ("dfsft", "tfsft"):
         runs = {}
         for device in ("cuda", "cpu"):
-            m = build_method(method, ckpt, "", device,
-                             dict(DF_KW, learning_rate=1e-3), chunk)
+            m, _ = build_method(method, ckpt, "", device,
+                                dict(DF_KW, learning_rate=1e-3), chunk)
             out, grads, counts, plain_counts = step_with_grads(m.pipeline,
                                                                batch)
             if device == "cuda":
@@ -3429,7 +3561,7 @@ def run_df_training(work: str, method: str, steps: int,
     os.environ["FASTVIDEO_ATTENTION_BACKEND"] = "FLASH_ATTN"
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    m = build_method(
+    m, _ = build_method(
         method, os.path.join(work, "causal", "SelfForcing-Wan2.1-T2V-1.3B"),
         os.path.join(work, f"{method}_out"), "cuda",
         dict(DF_KW, max_train_steps=1 + steps),
@@ -3484,6 +3616,259 @@ def run_df_training(work: str, method: str, steps: int,
     return dict(launches=launches, step_s=wall / steps, peak_gib=peak,
                 loss=[r["loss"] for r in rows],
                 grad_norm=[r["grad_norm"] for r in rows])
+
+
+# -- 4a (DMD2) and 4n: DMD2 distillation of the Wan DiT ----------------------
+
+# 4n: the 4b checkpoint's DiT three times (generator, real score, fake
+# score) in fp32 masters, full remat, AdamW, a generator and a critic update
+# every step, on a Snappy shard of 2 records that the port writes and reads
+# (latents [16, 21, 60, 104] of 81x480x832, 512 text tokens of 4096)
+DMD_KW = dict(selective_checkpointing="full", learning_rate=1e-5,
+              max_grad_norm=1.0, seed=0, gradient_accumulation_steps=1,
+              checkpointing_steps=0)
+DMD_SPEC = dict(dfake_gen_update_ratio=1)
+# the prompt's tokens in a padded text embedding; rows past them are zero
+PROMPT_TOKENS = 16
+
+
+def dmd2_launches(layers: int, reduces: int, steps: int = 1) -> dict:
+    """Launches of DMD2 steps that each update the generator and the critic
+    with VSA at sparsity 0 (no forward context, as in JAX: every tile of
+    every query tile) under full remat. No-grad forwards run K2 and K1 once
+    a block: the generator update's rollout (2) and its fake, real and
+    unconditional real scores (3), the critic update's rollout (3). Each
+    update's gradient forward runs K7 fwd (LSE) and K1 twice a block (the
+    forward and its recompute), each backward kernel once, and
+    ``reduces`` of a block's flash backwards split dK/dV."""
+    no_grad, grad = 8, 2
+    return {"flash_fwd": (no_grad + 2 * grad) * layers * steps,
+            "vsa_sparse_fwd": no_grad * layers * steps,
+            "vsa_sparse_padded_fwd": 2 * grad * layers * steps,
+            "flash_bwd_dq": grad * layers * steps,
+            "flash_bwd_dkv": grad * layers * steps,
+            "flash_bwd_dkv_reduce": grad * reduces * layers * steps,
+            "vsa_sparse_bwd_dq": grad * layers * steps,
+            "vsa_sparse_bwd_dkv": grad * layers * steps}
+
+
+def check_small_dmd2(work: str) -> None:
+    """One DMD2 step (a generator and a critic update) of a tiny VSA Wan on
+    the card against the same step on the CPU's plain path: the same
+    checkpoint, seed and embeddings, so the same draws (a CPU generator on
+    both). Each role is held to the tiny SFT step's bars: loss within 1e-2
+    relative, gradients within 3e-2 relative L2, parameters after AdamW
+    within 2e-6 where the two gradients agree in sign and are >= 1e-5; and
+    the teacher unchanged."""
+    import numpy as np
+    import torch
+
+    from fastvideo_tpu_torch.ops import _build
+
+    os.environ["FASTVIDEO_ATTENTION_BACKEND"] = "VIDEO_SPARSE_ATTN"
+    ckpt = write_checkpoint(os.path.join(work, "dmd2", "Wan2.1-T2V-tiny"),
+                            TINY_DIT_CFG, TINY_VAE_CFG, TINY_T5_CFG, seed=9)
+    emb = np.random.default_rng(9).standard_normal(
+        TINY_TRAIN_EMBEDS[1:]).astype(np.float32)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        method, _ = build_method("dmd2", ckpt, "", device,
+                                 dict(DMD_KW, learning_rate=1e-3),
+                                 dmd=DMD_SPEC)
+        pipe = method.pipeline
+        teacher = [p.detach().clone() for p in pipe.real_score.parameters()]
+        grads: dict = {}
+        capture_grads(pipe.gen_opt, pipe.gen_params, grads, "generator")
+        capture_grads(pipe.fake_opt, pipe.fake_params, grads, "critic")
+        _build.reset_counts()
+        out = pipe.train_one_step(emb, np.zeros_like(emb),
+                                  TINY_TRAIN_LATENTS[1:])
+        if device == "cuda":
+            torch.cuda.synchronize()
+            launches, plain = dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
+        if not all(torch.equal(a, b) for a, b in
+                   zip(teacher, pipe.real_score.parameters())):
+            raise SystemExit(f"tiny DMD2 step ({device}): the teacher moved")
+        params = {"generator": [p.detach().float().cpu()
+                                for p in pipe.gen_params],
+                  "critic": [p.detach().float().cpu()
+                             for p in pipe.fake_params]}
+        runs[device] = (out, grads, params)
+        del method, pipe
+    tokens = math.prod(TINY_TRAIN_LATENTS[-3:]) // 4
+    check_launches("tiny DMD2 step", launches, plain, dmd2_launches(
+        TINY_DIT_CFG["num_layers"], split_backwards(
+            TINY_DIT_CFG, [(tokens, TINY_TRAIN_EMBEDS[2])])))
+    (c_out, c_g, c_p), (p_out, p_g, p_p) = runs["cuda"], runs["cpu"]
+    ok = True
+    for role in ("generator", "critic"):
+        rel, worst_all, worst_sure, flips, n = adamw_agreement(
+            c_g[role], p_g[role], c_p[role], p_p[role])
+        loss, norm = f"{role}_loss", f"{role}_grad_norm"
+        loss_rel = abs(c_out[loss] - p_out[loss]) / abs(p_out[loss])
+        print(f"  tiny DMD2 step, {role}, card vs CPU plain: loss "
+              f"{c_out[loss]:.6f} / {p_out[loss]:.6f} (rel {loss_rel:.2e}, "
+              f"bar 1e-2), grad_norm {c_out[norm]:.5f} / {p_out[norm]:.5f}, "
+              f"gradients rel L2 {rel:.2e} (bar 3e-2), parameters after "
+              f"AdamW: max diff {worst_all:.2e}, {worst_sure:.2e} where the "
+              f"gradients agree in sign and are >= 1e-5 (bar 2e-6; {flips} "
+              f"of {n} elements are not)", flush=True)
+        ok = ok and (math.isfinite(c_out[loss]) and loss_rel < 1e-2
+                     and rel < 3e-2 and worst_sure <= 2e-6)
+    print(f"  tiny DMD2 step card launches "
+          f"{json.dumps({k: v for k, v in launches.items() if v})}",
+          flush=True)
+    if not ok:
+        raise SystemExit("tiny DMD2 step: the card disagrees with the plain "
+                         "path")
+
+
+def shard_read_rate(path: str, columns: list[str]) -> tuple[float, float]:
+    """(MB/s, seconds) of the port's reader over ``columns`` of one shard:
+    the values' bytes over the wall time of read_table (a warm file)."""
+    from fastvideo_tpu_torch.dataset import parquet_io
+
+    t0 = time.perf_counter()
+    table = parquet_io.read_table(path, columns)
+    dt = time.perf_counter() - t0
+    nbytes = sum(len(v) for c in columns for v in table[c]
+                 if isinstance(v, bytes))
+    return nbytes / dt / 1e6, dt
+
+
+def write_dmd2_data(work: str) -> tuple[str, dict]:
+    """The 4n shard (2 random fp32 records) and the reader's rates on it
+    and on a compressible record (a text embedding zero past its prompt's
+    tokens, as a padded prompt's is), each written by the port's writer
+    with Snappy."""
+    import numpy as np
+
+    from fastvideo_tpu_torch.dataset.parquet import (record_from_sample,
+                                                     write_parquet_dataset)
+
+    rng = np.random.default_rng(0)
+    latent, text = TRAIN_LATENTS[2:], TRAIN_EMBEDS[2:]
+
+    def record(i, txt):
+        return record_from_sample(
+            f"r{i}", rng.standard_normal(latent, dtype=np.float32), txt,
+            caption=PROMPT, width=832, height=480, num_frames=81, fps=16.0,
+            duration=81 / 16)
+
+    data = os.path.join(work, "dmd2_data")
+    t0 = time.perf_counter()
+    write_parquet_dataset([record(i, rng.standard_normal(
+        text, dtype=np.float32)) for i in range(2)], data)
+    write_s = time.perf_counter() - t0
+    padded = np.zeros(text, np.float32)
+    padded[:PROMPT_TOKENS] = rng.standard_normal((PROMPT_TOKENS, text[1]))
+    other = os.path.join(work, "dmd2_padded")
+    write_parquet_dataset([record(2, padded)], other)
+    shard = os.path.join(data, "data_00000.parquet")
+    cols = ["latents", "text_embedding"]
+    rand_rate, rand_s = shard_read_rate(shard, cols)
+    pad_rate, pad_s = shard_read_rate(
+        os.path.join(other, "data_00000.parquet"), ["text_embedding"])
+    rates = dict(write_s=write_s, shard_bytes=os.path.getsize(shard),
+                 random_mb_s=rand_rate, random_s=rand_s,
+                 padded_text_mb_s=pad_rate, padded_text_s=pad_s,
+                 padded_text_bytes=os.path.getsize(
+                     os.path.join(other, "data_00000.parquet")))
+    print(f"  shard of 2 records written in {write_s:.2f} s "
+          f"({rates['shard_bytes'] / 1e6:.1f} MB, Snappy); the port's "
+          f"reader: {rand_rate:.1f} MB/s on the random records (latents and "
+          f"text, {rand_s:.3f} s), {pad_rate:.1f} MB/s on a text embedding "
+          f"zero past {PROMPT_TOKENS} tokens ({pad_s:.3f} s, "
+          f"{rates['padded_text_bytes'] / 1e6:.2f} MB on disk)", flush=True)
+    return data, rates
+
+
+def checksum(module) -> float:
+    import torch
+
+    with torch.no_grad():
+        return math.fsum(p.double().sum().item() + p.double().abs().sum()
+                         .item() for p in module.parameters())
+
+
+def run_dmd2(work: str, steps: int, profile_dir: str | None = None) -> dict:
+    """Phase 4n: DMD2Method through build_from_config (method dmd2, a
+    Parquet data.path) on the 4b checkpoint's Wan2.1-T2V-1.3B-shaped DiT,
+    three times in fp32 masters, then method.train over the port's
+    Parquet dataloader: one warm-up step, then ``steps`` timed ones."""
+    import torch
+
+    from fastvideo_tpu_torch.attention.backends.vsa import vsa_topk
+    from fastvideo_tpu_torch.ops import _build
+
+    os.environ["FASTVIDEO_ATTENTION_BACKEND"] = "VIDEO_SPARSE_ATTN"
+    torch.cuda.empty_cache()
+    data, rates = write_dmd2_data(work)
+    t0 = time.perf_counter()
+    method, loader = build_method(
+        "dmd2", os.path.join(work, "FastWan2.1-T2V-1.3B-Diffusers"),
+        os.path.join(work, "dmd2_out"), "cuda",
+        dict(DMD_KW, max_train_steps=1 + steps), dmd=DMD_SPEC,
+        data_path=data)
+    pipe = method.pipeline
+    n_params = sum(p.numel() for p in pipe.gen_params)
+    tiles = math.prod(TRAIN_LATENTS[-3:]) // 4 // 280
+    print(f"  DMD2Method built in {time.perf_counter() - t0:.1f} s: 3 x "
+          f"{n_params / 1e9:.3f} B fp32 parameters, remat "
+          f"{pipe.args.selective_checkpointing}, ratio "
+          f"{pipe.dmd.dfake_gen_update_ratio}, steps "
+          f"{list(pipe.dmd.dmd_denoising_steps)}; VSA top-"
+          f"{vsa_topk(0.0, tiles)} of {tiles} tiles (no forward context)",
+          flush=True)
+    teacher = checksum(pipe.real_score)
+    try:
+        t0 = time.perf_counter()
+        method.train(loader, max_steps=1)
+        torch.cuda.synchronize()
+        print(f"  warm-up step {time.perf_counter() - t0:.2f} s; peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+              flush=True)
+        watch = [{n: p.detach().clone() for n, p in
+                  list(m.named_parameters())[:4]}
+                 for m in (pipe.generator, pipe.fake_score)]
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_counts()
+        t0 = time.perf_counter()
+        method.train(loader, max_steps=1 + steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, plain = dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        rows = pipe.tracker.rows[-steps:]
+        if profile_dir:
+            profile_train_step(method, loader, profile_dir, "dmd2_480x832")
+    finally:
+        loader.shutdown()
+    moved = [not torch.equal(w[n], dict(m.named_parameters())[n])
+             for w, m in zip(watch, (pipe.generator, pipe.fake_score))
+             for n in w]
+    teacher_same = checksum(pipe.real_score) == teacher
+    keys = ("generator_loss", "generator_grad_norm", "critic_loss",
+            "critic_grad_norm")
+    print(f"  {steps} steps in {wall:.3f} s: {wall / steps:.3f} s a step; "
+          + "; ".join(f"{k} {[round(r[k], 6) for r in rows]}" for k in keys)
+          + f"; peak memory {peak:.2f} GiB; teacher unchanged "
+          f"{teacher_same}", flush=True)
+    layers = DIT_CFG["num_layers"]
+    print(f"  kernel launches {json.dumps(launches)} ({layers} layers x "
+          f"{steps} steps); plain calls {json.dumps(plain)}", flush=True)
+    check_launches("DMD2 480x832", launches, plain, dmd2_launches(
+        layers, split_backwards(DIT_CFG, [(math.prod(TRAIN_LATENTS[-3:]) // 4,
+                                           TRAIN_EMBEDS[2])]), steps))
+    if not (all(math.isfinite(r[k]) for r in rows for k in keys)
+            and all(moved) and teacher_same):
+        raise SystemExit(f"DMD2 480x832: a loss or grad norm not finite, "
+                         f"parameters not moved ({moved}) or the teacher "
+                         f"changed ({teacher_same})")
+    del method, pipe
+    torch.cuda.empty_cache()
+    return dict(launches=launches, step_s=wall / steps, peak_gib=peak,
+                **{k: [r[k] for r in rows] for k in keys}, reader=rates)
 
 
 def profile_train_step(method, loader, out_dir: str,
@@ -3561,11 +3946,14 @@ def main() -> int:
     parser.add_argument("--df-steps", type=int, default=1,
                         help="timed dfsft and tfsft steps of phases 4l and "
                         "4m, each after one warm-up step (at least 1)")
+    parser.add_argument("--dmd-steps", type=int, default=1,
+                        help="timed DMD2 steps of phase 4n, after one "
+                        "warm-up step (at least 1)")
     args = parser.parse_args()
     if (args.vsa_steps < 4 or args.sta_steps < 2 or args.train_steps < 1
-            or args.df_steps < 1):
+            or args.df_steps < 1 or args.dmd_steps < 1):
         parser.error("--vsa-steps must be at least 4, --sta-steps 2, "
-                     "--train-steps 1 and --df-steps 1")
+                     "--train-steps 1, --df-steps 1 and --dmd-steps 1")
 
     import torch
 
@@ -3603,6 +3991,7 @@ def main() -> int:
     check_small_paths(work)
     check_small_training(work)
     check_small_df_training(work)
+    check_small_dmd2(work)
     phase("# phase 4b: FastWan main path at full width, 81x480x832, 3 DMD "
           "steps, VSA sparsity 0.8")
     launches = run_main_path(work, args.profile)
@@ -3666,6 +4055,13 @@ def main() -> int:
               f"master weights): 1 warm-up + {args.df_steps} timed steps")
         df_runs[method] = run_df_training(work, method, args.df_steps,
                                           args.profile)
+    phase(f"# phase 4n: DMD2 distillation of Wan2.1-T2V-1.3B at full width "
+          f"and depth (method dmd2 through build_from_config: the 4b "
+          f"checkpoint's DiT as generator, real and fake score in fp32 "
+          f"masters, full remat, AdamW, a generator and a critic update a "
+          f"step, VSA at sparsity 0) on a Parquet shard the port writes and "
+          f"reads: 1 warm-up + {args.dmd_steps} timed steps")
+    dmd2 = run_dmd2(work, args.dmd_steps, args.profile)
     shutil.rmtree(work, ignore_errors=True)
     # each kernel's count comes from the path that runs it
     launches["vsa_sparse_padded_fwd"] = vsa_launches["vsa_sparse_padded_fwd"]
@@ -3707,6 +4103,13 @@ def main() -> int:
             dfsft_step_s=df_runs["dfsft"]["step_s"],
             tfsft_launches=df_runs["tfsft"]["launches"][name],
             tfsft_step_s=df_runs["tfsft"]["step_s"])
+    # DMD2's launches a step and seconds a step, from 4n
+    for name in ("flash_fwd", "vsa_sparse_fwd", "vsa_sparse_padded_fwd",
+                 "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_dkv_reduce",
+                 "vsa_sparse_bwd_dq", "vsa_sparse_bwd_dkv"):
+        results[name].update(
+            dmd2_launches=dmd2["launches"][name] // args.dmd_steps,
+            dmd2_step_s=dmd2["step_s"])
     phase("# phase 5: the kernels line, the card line, the result line")
 
     kernels = []

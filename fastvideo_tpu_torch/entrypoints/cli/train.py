@@ -5,24 +5,31 @@
 The config tree (JSON, or the simple YAML subset of ``api/parser.py``;
 unknown keys are errors):
 
-    method: sft                 # or dfsft / tfsft (a causal checkpoint)
+    method: sft                 # or dmd2, or dfsft / tfsft (a causal
+                                # checkpoint)
     model:
       pretrained_model_path: /path/to/Diffusers-dir   # transformer/ inside
       dit_precision: fp32
     data:
-      path: /path/to/parquet    # not readable yet: no Parquet reader
+      path: /path/to/parquet    # latents shards (data_00000.parquet ...)
       batch_size: 1
+      text_drop_rate: 0.0
     training:                   # any TrainingArgs field
       learning_rate: 1e-5
       max_train_steps: 1000
       device: cuda              # or cpu
+    dmd:                        # dmd2 only
+      dmd_denoising_steps: [1000, 757, 522]
+      real_score_guidance_scale: 3.5
+      dfake_gen_update_ratio: 5
+      timestep_shift: 8.0
     method_config: {}           # dfsft / tfsft: chunk_size,
                                 # min_timestep_ratio, max_timestep_ratio,
                                 # precondition_outputs
 
-``method`` resolves through the plugin registry. A ``data.path`` raises
-until the port reads Parquet; a caller drives ``method.train`` with a
-``PrefetchingLoader`` of its own batches meanwhile.
+``method`` resolves through the plugin registry; ``data.path`` is read by
+``dataset/parquet.py:build_parquet_dataloader`` (the port's own Parquet
+reader).
 """
 
 from __future__ import annotations

@@ -7,10 +7,12 @@
   ``fastvideo_tpu.models.loader.export.make_word_level_tokenizer`` writes;
 * :class:`UnigramTokenizer`: the SentencePiece Unigram model (Viterbi over
   the vocabulary's log-probabilities, ``unk_id``, byte fallback off) with
-  the ``Metaspace`` pre-tokenizer, ``NFKC`` / ``Sequence`` normalizers and a
+  the ``Metaspace`` pre-tokenizer, the ``NFKC``, ``Precompiled`` (the
+  binary character map of SentencePiece files,
+  :class:`PrecompiledNormalizer`), ``Strip``, ``Replace`` and ``Sequence``
+  normalizers, and a
   ``TemplateProcessing`` post-processor (the ``</s>`` a T5 tokenizer
-  appends). The ``Precompiled`` normalizer of the published UMT5 file (a
-  binary character map inside the file) raises.
+  appends).
 
 Both take the special tokens of ``tokenizer_config.json`` and the file's
 ``added_tokens``, and calling one mirrors a Hugging Face fast tokenizer
@@ -22,13 +24,17 @@ post-processor raises with its name.
 
 from __future__ import annotations
 
+import base64
 import json
 import math
 import os
 import re
+import struct
 import unicodedata
 
 import numpy as np
+
+from fastvideo_tpu_torch.models.loader.graphemes import grapheme_clusters
 
 # the Whitespace pre-tokenizer's pattern
 _WHITESPACE_SPLIT = re.compile(r"\w+|[^\w\s]+")
@@ -166,10 +172,98 @@ def _normalizer(spec: dict | None):
 
         return run
     if kind == "Precompiled":
-        raise NotImplementedError(
-            "the Precompiled normalizer (SentencePiece's binary character "
-            "map, as in the published UMT5 tokenizer.json) is not ported")
+        return PrecompiledNormalizer(
+            base64.b64decode(spec["precompiled_charsmap"]))
+    if kind == "Strip":
+        left, right = spec.get("strip_left", False), spec.get(
+            "strip_right", False)
+
+        def strip(text):
+            if left:
+                text = text.lstrip(_WHITE_SPACE)
+            return text.rstrip(_WHITE_SPACE) if right else text
+
+        return strip
+    if kind == "Replace":
+        pattern, content = spec["pattern"], spec["content"]
+        if "String" in pattern:
+            return lambda text: text.replace(pattern["String"], content)
+        regex = re.compile(pattern["Regex"])
+        return lambda text: regex.sub(lambda m: content, text)
     raise NotImplementedError(f"tokenizer normalizer {kind!r} is not ported")
+
+
+# Unicode White_Space, which the Strip normalizer strips (Rust's
+# char::is_whitespace; Python's str.strip() also strips U+001C-001F)
+_WHITE_SPACE = ("\t\n\v\f\r \x85\xa0\u1680\u2000\u2001\u2002\u2003"
+                "\u2004\u2005\u2006\u2007\u2008\u2009\u200a\u2028\u2029"
+                "\u202f\u205f\u3000")
+
+
+class PrecompiledNormalizer:
+    """SentencePiece's precompiled character map (``Precompiled`` in
+    tokenizer.json, as transformers' SpmConverter writes it).
+
+    The map: a u32 little-endian trie size in bytes, a Darts-clone double
+    array of that many bytes of u32 units, then NUL-terminated replacement
+    strings. The text is cut into extended grapheme clusters; a cluster
+    shorter than 6 UTF-8 bytes is looked up whole, and on a match the whole
+    cluster becomes the replacement of the *shortest* key that is a prefix
+    of its bytes; otherwise each code point is looked up alone and kept
+    where no key is its prefix.
+    """
+
+    def __init__(self, charsmap: bytes):
+        (size,) = struct.unpack_from("<I", charsmap, 0)
+        if size % 4 or 4 + size > len(charsmap):
+            raise ValueError(f"precompiled charsmap: a trie of {size} bytes "
+                             f"in a map of {len(charsmap)}")
+        self.units = struct.unpack_from(f"<{size // 4}I", charsmap, 4)
+        self.normalized = charsmap[4 + size:]
+
+    @staticmethod
+    def _offset(unit: int) -> int:
+        return (unit >> 10) << ((unit & 0x200) >> 6)
+
+    def _shortest_match(self, key: bytes) -> int | None:
+        """The value of the shortest key that is a prefix of ``key``."""
+        units = self.units
+        pos = self._offset(units[0])
+        for c in key:
+            if c == 0:
+                return None
+            pos ^= c
+            if pos >= len(units):
+                return None
+            unit = units[pos]
+            if unit & 0x800000FF != c:  # the label
+                return None
+            pos ^= self._offset(unit)
+            if (unit >> 8) & 1:  # has a leaf: a key ends here
+                return units[pos] & 0x7FFFFFFF
+        return None
+
+    def transform(self, chunk: str) -> str | None:
+        """The replacement of ``chunk``, None where no key matches."""
+        value = self._shortest_match(chunk.encode("utf-8"))
+        if value is None:
+            return None
+        end = self.normalized.find(b"\0", value)
+        return self.normalized[value:end if end >= 0 else None].decode(
+            "utf-8")
+
+    def __call__(self, text: str) -> str:
+        out = []
+        for cluster in grapheme_clusters(text):
+            if len(cluster.encode("utf-8")) < 6:
+                norm = self.transform(cluster)
+                if norm is not None:
+                    out.append(norm)
+                    continue
+            for ch in cluster:
+                norm = self.transform(ch)
+                out.append(ch if norm is None else norm)
+        return "".join(out)
 
 
 class UnigramTokenizer(_Tokenizer):
@@ -224,6 +318,8 @@ class UnigramTokenizer(_Tokenizer):
         """Metaspace: spaces become the replacement character, one is
         prepended per the scheme, and each replacement starts a new word."""
         rep = self.replacement
+        if not text:  # nothing to prepend to (a normalizer stripped it all)
+            return []
         text = text.replace(" ", rep)
         if (self.prepend_scheme == "always" or
                 (self.prepend_scheme == "first" and first)) and \

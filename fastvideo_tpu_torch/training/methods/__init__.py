@@ -1,9 +1,10 @@
 """Training method plugin registry (port of
 fastvideo_tpu/training/methods/__init__.py). Importing this package
-registers the built-in methods the port has: ``sft``, ``dfsft`` and
-``tfsft``."""
+registers the built-in methods the port has: ``sft``, ``dfsft``,
+``tfsft`` and ``dmd2``."""
 
-from fastvideo_tpu_torch.training.methods import fine_tuning  # noqa: F401
+from fastvideo_tpu_torch.training.methods import (  # noqa: F401
+    distribution_matching, fine_tuning)
 from fastvideo_tpu_torch.training.methods.base import (NOT_PORTED,
                                                        PipelineMethod,
                                                        TrainingMethod,

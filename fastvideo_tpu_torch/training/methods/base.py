@@ -2,9 +2,9 @@
 fastvideo_tpu/training/methods/base.py).
 
 A method owns its role models and steps and is resolved by registry name.
-The port registers ``sft``, ``dfsft`` and ``tfsft``; the JAX package's
-other built-in names raise with the ROADMAP item that brings them (and the
-JAX package's dotted ``_target_`` paths are not taken).
+The port registers ``sft``, ``dfsft``, ``tfsft`` and ``dmd2``; the JAX
+package's other built-in names raise with the ROADMAP item that brings
+them (and the JAX package's dotted ``_target_`` paths are not taken).
 """
 
 from __future__ import annotations
@@ -25,7 +25,6 @@ NOT_PORTED = {
     "self_forcing": "ROADMAP Queue 1, causal training methods",
     "streaming_long_tuning": "ROADMAP Queue 1, causal training methods",
     "causal_cd": "ROADMAP Queue 1, causal training methods",
-    "dmd2": "ROADMAP Queue 1, DMD2 distillation",
     "kd": "ROADMAP Queue 1, distillation methods",
     "lora_finetune": "ROADMAP Queue 1, LoRA",
     "anyflow": "ROADMAP Queue 1, distillation methods",

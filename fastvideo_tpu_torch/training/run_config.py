@@ -1,9 +1,9 @@
 """Training run config, the YAML schema (port of
 fastvideo_tpu/training/run_config.py), and the shared component builders.
 
-``method`` resolves through the plugin registry (``training.methods``).
-``build_dataloader`` waits for the port's Parquet reader: the card's
-machine has no ``pyarrow``, which the JAX reader needs.
+``method`` resolves through the plugin registry (``training.methods``);
+``build_dataloader`` reads ``data.path``'s latents Parquet shards with the
+port's own reader.
 """
 
 from __future__ import annotations
@@ -87,12 +87,12 @@ def build_transformer(spec: ModelSpec, device: torch.device | str = "cuda"):
 
 
 def build_dataloader(cfg: TrainRunConfig, training_args: TrainingArgs):
-    """None without ``data.path``. The latents Parquet dataset is not
-    ported: its reader needs pyarrow, which the card's machine lacks, and
-    the port's own Parquet reader is a ROADMAP item of its own."""
+    """The latents Parquet dataloader of ``data.path`` (None without one)."""
     if not cfg.data.path:
         return None
-    raise NotImplementedError(
-        "the Parquet latents dataset (LatentsParquetMapStyleDataset) is not "
-        "ported: the port has no Parquet reader yet (ROADMAP Queue 1); drive "
-        "the trainer with a PrefetchingLoader over your own batches")
+    from fastvideo_tpu_torch.dataset.parquet import build_parquet_dataloader
+
+    return build_parquet_dataloader(
+        cfg.data.path, batch_size=cfg.data.batch_size,
+        accum=training_args.gradient_accumulation_steps,
+        text_drop_rate=cfg.data.text_drop_rate, seed=training_args.seed)

@@ -49,6 +49,27 @@ def test_no_forbidden_import_in_sources():
     assert not bad
 
 
+def test_no_package_the_card_lacks_in_sources():
+    """The card's machine has none of these: the port reads Parquet,
+    safetensors and tokenizer.json files, and splits graphemes, itself."""
+    absent = ("pyarrow", "tokenizers", "regex", "transformers",
+              "safetensors", "sentencepiece")
+    bad = []
+    for path in _port_sources():
+        with open(path) as fh:
+            tree = ast.parse(fh.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [(path, n) for n in names
+                    if n.split(".")[0] in absent]
+    assert not bad
+
+
 BLOCKER = """
 import importlib.abc, pkgutil, sys
 class Block(importlib.abc.MetaPathFinder):

@@ -4,7 +4,10 @@ package on a small SentencePiece-style tokenizer built here: Unigram model
 Sequence normalizer, the Metaspace pre-tokenizer and a TemplateProcessing
 post-processor that appends ``</s>``. Ids and masks must be equal."""
 
+import base64
 import json
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -14,6 +17,14 @@ from fastvideo_tpu_torch.models.loader.tokenizer import (UnigramTokenizer,
                                                          load_tokenizer)
 
 tokenizers = pytest.importorskip("tokenizers")
+
+sys.path.insert(0, os.path.dirname(__file__))
+
+from test_torch_tokenizer_precompiled import build_charsmap  # noqa: E402
+
+# a valid precompiled character map (a double array built by the test)
+CHARSMAP = base64.b64encode(build_charsmap(
+    {"ａ": "a", "ｂ": "b", "ﬁ": "fi", "①": "1", "  ": " "})).decode()
 
 CHARS = "abcdefghij"
 SPACE = "▁"
@@ -105,11 +116,11 @@ def _rewrite(tok_dir, tmp_path, edit):
 
 @pytest.mark.parametrize("edit,match", [
     (lambda s: s.update(normalizer={"type": "Precompiled",
-                                    "precompiled_charsmap": "AAAA"}),
-     "Precompiled"),
+                                    "precompiled_charsmap": CHARSMAP}),
+     None),
     (lambda s: s.update(normalizer={"type": "Sequence", "normalizers": [
         {"type": "NFKC"}, {"type": "Precompiled",
-                           "precompiled_charsmap": "AAAA"}]}), "Precompiled"),
+                           "precompiled_charsmap": CHARSMAP}]}), None),
     (lambda s: s.update(normalizer={"type": "Lowercase"}), "Lowercase"),
     (lambda s: s.update(pre_tokenizer={"type": "ByteLevel"}), "ByteLevel"),
     (lambda s: s["model"].update(byte_fallback=True), "byte fallback"),
@@ -121,8 +132,19 @@ def _rewrite(tok_dir, tmp_path, edit):
         "other_model"])
 def test_unported_pieces_raise_with_their_name(tok_dir, tmp_path, edit,
                                                match):
+    """What the reader does not take raises with its name. The Precompiled
+    normalizer (``match`` None) is ported: alone and in a Sequence, on a
+    valid character map, it loads and tokenizes like ``tokenizers``."""
+    path = _rewrite(tok_dir, tmp_path, edit)
+    if match is None:
+        ours = load_tokenizer(path)
+        ref = tokenizers.Tokenizer.from_file(f"{path}/tokenizer.json")
+        for prompt in _prompts() + ["ａｂ ①  ﬁ", "  ａ  "]:
+            assert ours.encode(prompt) + list(ours.suffix_ids) == \
+                ref.encode(prompt).ids, prompt
+        return
     with pytest.raises(NotImplementedError, match=match):
-        load_tokenizer(_rewrite(tok_dir, tmp_path, edit))
+        load_tokenizer(path)
 
 
 def test_load_tokenizer_still_reads_word_level(tmp_path):

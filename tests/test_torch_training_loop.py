@@ -24,6 +24,7 @@ from fastvideo_tpu_torch.models.loader.safetensors_io import save_file
 from fastvideo_tpu_torch.training.methods import NOT_PORTED, resolve_method
 from fastvideo_tpu_torch.training.methods.fine_tuning import SFTMethod
 from fastvideo_tpu_torch.training.run_config import (build_dataloader,
+                                                     build_training_args,
                                                      load_train_config)
 from fastvideo_tpu_torch.training.trackers import (DummyTracker,
                                                    JsonlTracker,
@@ -249,8 +250,9 @@ def test_what_waits_raises(checkpoint, tmp_path):
         resolve_method("no_such_method")
     cfg = load_train_config(str(_write(tmp_path, dict(
         _config(checkpoint, ""), data={"path": str(tmp_path)}))))
-    with pytest.raises(NotImplementedError, match="Parquet"):
-        build_dataloader(cfg, None)
+    # the Parquet reader is ported: a data path without shards raises
+    with pytest.raises(FileNotFoundError, match="no parquet files"):
+        build_dataloader(cfg, build_training_args(cfg))
     method = build_from_config(load_train_config(str(_write(
         tmp_path, _config(checkpoint, "")))))[0]
     with pytest.raises(NotImplementedError, match="callbacks"):
