@@ -42,13 +42,19 @@ Phases, each printing its own lines:
      sparse kernels K9a at 4k's NABLA shape, under nabla_block_mask's mask
      and under a ramp of per-row counts 1..390, and K9b at 4j's BSA shape,
      32 pruned queries a tile, under select_kv_blocks' mask; K2, K7 fwd
-     and K7 bwd at DMD2's top-117 of 117 tiles, beside SDPA);
+     and K7 bwd at DMD2's top-117 of 117 tiles, beside SDPA; the causal
+     distillation methods' shapes: K5 over a full clip on fresh caches,
+     q = k = [1, 32760, 12, 128], and the KV-cache attention's grad route,
+     K1 and K6 at the generator's last block, q [1, 4680, 12, 128] over
+     32,760 gathered keys, and at a full clip);
   4. a: tiny models, the card's whole path against the CPU's plain path
      (FastWan DMD, also with an fp32 decode; Wan UniPC + CFG with VSA and
      with STA on a padded grid, and on every other self-attention backend:
      BSA, NABLA, TORCH_SDPA, SAGE_ATTN, VMOBA_ATTN, ATTN_QAT_TRAIN;
      TurboDiffusion; the causal Wan with a head of 128, a sink and a window
-     of 1,280 keys that evicts; one SFT, dfsft, tfsft and DMD2 step);
+     of 1,280 keys that evicts; one SFT, dfsft, tfsft and DMD2 step, and
+     one self_forcing step of that causal Wan, so that K5 and the grad
+     route's K1 and K6 run);
      b: the FastWan main path at full width: a random-weight
      FastWan2.1-T2V-1.3B-shaped diffusers checkpoint written with the
      port's own safetensors writer, loaded by
@@ -103,6 +109,17 @@ Phases, each printing its own lines:
      seconds a step, losses and grad norms, peak memory, the teacher's
      checksum, the launch counts and the reader's MB/s on a random and on
      a zero-padded record;
+     o, p, q: the causal distillation methods on 4g's checkpoint and 4n's
+     shard through build_from_config, every role in fp32 masters, full
+     remat: self_forcing (7 blocks, a generator and a critic update a
+     step: SF_STEPS timed steps after a warm-up), streaming_long_tuning
+     (a stream from step 0 in chunks of at most 6 latent frames up to 27,
+     until it starts over) and causal_cd under FLASH_ATTN (CD_STEPS);
+     each step timed, with its CPU seconds, its allocator retries and
+     the card's SM clock, temperature and power draw after it; losses
+     and grad norms, peak memory, the trained roles moved and the frozen
+     ones' checksums unchanged, no K5 call in a pass under grad, and the
+     launches of K5, K1 and K6 against their formulas;
   5. the kernels line, the card line and the result line.
 
 Each phase header ends with the seconds since the start.
@@ -226,6 +243,19 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def card_state() -> str:
+    """The card's SM clock (now / max), temperature and power draw as
+    nvidia-smi reads them, or why they were not read."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,"
+         "temperature.gpu,power.draw", "--format=csv,noheader"],
+        capture_output=True, text=True, check=False, timeout=60)
+    lines = out.stdout.strip().splitlines()
+    return (f"SM clock, max, temperature, power {lines[0]}"
+            if out.returncode == 0 and lines else
+            f"card state not read ({out.stderr.strip()[:80]})")
 
 
 def bound_ms(flops: float, nbytes: float, dtype: str = "bf16"
@@ -1508,6 +1538,127 @@ def check_flash_kv_mask(dev, results: dict) -> None:
     del q, k, v
 
 
+def check_causal_distill(dev, results: dict) -> None:
+    """The causal distillation methods' shapes (4o-4q), bf16, each against
+    its plain version and timed beside SDPA and its bound: K5 over a full
+    clip on fresh caches (q = k = [1, 32760, 12, 128], every key valid:
+    the score models' passes), and the grad route's K1 forward and K6
+    backward at the generator's last block (q [1, 4680, 12, 128] over
+    32,760 gathered keys) and at a full clip (q = k = [1, 32760, 12, 128]:
+    the critic's pass, and causal_cd's student)."""
+    import torch
+    import torch.nn.functional as F
+
+    from fastvideo_tpu_torch.ops import _build
+    from fastvideo_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(21)
+    h, d, skv = 12, 128, CAUSAL_WINDOW_TOKENS
+    scale = d**-0.5
+    bf16 = torch.bfloat16
+
+    def rnd(s):
+        return torch.randn(1, s, h, d, generator=g, device=dev, dtype=bf16)
+
+    def sdpa(*ts):
+        return F.scaled_dot_product_attention(
+            *(t.transpose(1, 2) for t in ts), scale=scale)
+
+    k, v, q_clip = rnd(skv), rnd(skv), rnd(skv)
+    q = q_clip
+    everything = torch.ones(skv, dtype=torch.bool, device=dev)
+    check_schedule("flash_fwd_kv_mask[full clip]", bf16, d)
+    out = fa.flash_attention_kv_mask(q, k, v, everything, scale=scale)
+    ref = fa.flash_attention_kv_mask_plain(q, k, v, everything, scale=scale)
+    err = check(f"flash_fwd_kv_mask[full clip: {skv} of {skv} keys]", out,
+                ref, *attn_tol(ref, bf16))
+    del out, ref
+    ms = time_ms(lambda: fa.flash_attention_kv_mask(q, k, v, everything,
+                                                    scale=scale))
+    plain = time_ms(lambda: fa.flash_attention_kv_mask_plain(
+        q, k, v, everything, scale=scale), 1)
+    lib = time_ms(lambda: sdpa(q, k, v))
+    flops = 4.0 * h * skv * skv * d
+    bms, by = bound_ms(flops, 2.0 * 4 * skv * h * d + skv)
+    r = results["flash_fwd_kv_mask"]
+    r.update(full_clip_ms=ms, full_clip_plain_ms=plain, full_clip_bound_ms=bms,
+             full_clip_library_ms=lib, full_clip_max_abs_err=err,
+             full_clip_shape=f"q/k/v[1, {skv}, {h}, {d}] bf16, every key "
+             "valid")
+    r["max_abs_err"] = max(r["max_abs_err"], err)
+    print(f"  flash_fwd_kv_mask[full clip]: {ms:.3f} ms kernel, {plain:.3f} "
+          f"ms plain, {lib:.3f} ms sdpa, bound {bms:.3f} ms ({by}, "
+          f"{flops:.3e} FLOP)", flush=True)
+    sms = _build.num_sms(dev)
+    for label, sq in (("generator", CAUSAL_BLOCK_TOKENS), ("full_clip", skv)):
+        q, do = (q_clip if sq == skv else rnd(sq)), rnd(sq)
+        kw = dict(scale=scale, causal=False, kv_valid=skv)
+        check_schedule(f"flash_fwd[grad route {label}]", bf16, d)
+        check_schedule(f"flash_bwd[grad route {label}]", bf16, d,
+                       backward=True)
+        out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+        ref, ref_lse = fa.flash_attention_plain(q, k, v, **kw)
+        f_err = check(f"flash_fwd[grad route {label}: q{[1, sq, h, d]} over "
+                      f"{skv} keys]", out, ref, *attn_tol(ref, bf16))
+        check(f"flash_fwd[grad route {label}] lse", lse, ref_lse, 1e-3)
+        del ref, ref_lse
+        f_ms = time_ms(lambda: fa.flash_attention(q, k, v, **kw))
+        f_plain = time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), 1)
+        f_lib = time_ms(lambda: sdpa(q, k, v))
+        f_flops = 4.0 * h * sq * skv * d
+        f_b, f_by = bound_ms(f_flops, 2.0 * (2 * sq * h * d + 2 * skv * h * d)
+                             + 4.0 * h * sq)
+        got = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+        want = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
+        errs = [check(f"flash_bwd[grad route {label}] d{n}", t, w,
+                      *attn_tol(w, bf16)) for n, t, w in zip("qkv", got, want)]
+        del got, want
+        splits = fa.dkv_splits(1, h, sq, skv, d, sms)
+        names = {"dq": "flash_bwd_dq_sm90", "dkv": "flash_bwd_dkv_sm90"}
+        if splits > 1:
+            names["reduce"] = "flash_bwd_dkv_reduce"
+        b_ms = kernel_device_ms(
+            lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, **kw),
+            names)
+        whole = time_ms(lambda: fa.flash_attention_bwd(q, k, v, out, lse, do,
+                                                       **kw))
+        b_plain = time_ms(lambda: fa.flash_attention_bwd_plain(
+            q, k, v, out, lse, do, **kw), 1)
+        b_lib = library_backward_ms(
+            lambda a, b_, c: F.scaled_dot_product_attention(a, b_, c,
+                                                            scale=scale),
+            tuple(t.transpose(1, 2) for t in (q, k, v)), do.transpose(1, 2))
+        product = 2.0 * h * sq * skv * d
+        rows = 2.0 * h * d
+        io = 4 * 2 * h * sq + 2 * rows * skv
+        (dq_b, _), (dkv_b, _), (all_b, all_by) = bwd_bounds(
+            product, io + 3 * rows * sq, io + 2 * rows * sq + 2 * rows * skv)
+        shape = f"q/dO[1, {sq}, {h}, {d}] k/v[1, {skv}, {h}, {d}] bf16"
+        results["flash_fwd"][f"{label}_grad_route"] = dict(
+            ms=f_ms, plain_ms=f_plain, bound_ms=f_b, library_ms=f_lib,
+            max_abs_err=f_err, shape=shape)
+        for name, t, bnd, e in (("flash_bwd_dq", b_ms["dq"], dq_b, errs[0]),
+                                ("flash_bwd_dkv", b_ms["dkv"], dkv_b,
+                                 max(errs[1:]))):
+            results[name][f"{label}_grad_route"] = dict(
+                ms=t, bound_ms=bnd, backward_ms=whole,
+                backward_bound_ms=all_b, plain_ms=b_plain, library_ms=b_lib,
+                max_abs_err=e, splits=splits, shape=shape)
+            results[name]["max_abs_err"] = max(results[name]["max_abs_err"],
+                                               e)
+        results["flash_fwd"]["max_abs_err"] = max(
+            results["flash_fwd"]["max_abs_err"], f_err)
+        print(f"  grad route {label}, {shape}: K1 {f_ms:.3f} ms (bound "
+              f"{f_b:.3f}, {f_by}; plain {f_plain:.3f}; sdpa {f_lib:.3f}); "
+              f"K6 dQ {b_ms['dq']:.3f} ms (bound {dq_b:.3f}), dK/dV "
+              f"{b_ms['dkv']:.3f} ms (bound {dkv_b:.3f}, {splits} splits), "
+              f"the backward {whole:.3f} ms with delta (bound {all_b:.3f}, "
+              f"{all_by}; plain {b_plain:.3f}; sdpa's backward "
+              f"{b_lib:.3f})", flush=True)
+        del out, lse, do
+    del q, q_clip, k, v
+
+
 def check_fp32_decode(dev, results: dict) -> None:
     """The fp32 decode's kernels (vae_decode_precision="fp32") at 480x832:
     K3's fp32 form (the 3xTF32 schedule) at up3's 96x96 conv in the first
@@ -2303,6 +2454,8 @@ def run_kernel_checks(dev) -> dict:
     check_w8a8_linear(dev)
     torch.cuda.empty_cache()
     check_flash_kv_mask(dev, results)
+    torch.cuda.empty_cache()
+    check_causal_distill(dev, results)
     torch.cuda.empty_cache()
     check_fp32_decode(dev, results)
     torch.cuda.empty_cache()
@@ -3652,53 +3805,53 @@ def dmd2_launches(layers: int, reduces: int, steps: int = 1) -> dict:
             "vsa_sparse_bwd_dkv": grad * layers * steps}
 
 
-def check_small_dmd2(work: str) -> None:
-    """One DMD2 step (a generator and a critic update) of a tiny VSA Wan on
-    the card against the same step on the CPU's plain path: the same
-    checkpoint, seed and embeddings, so the same draws (a CPU generator on
-    both). Each role is held to the tiny SFT step's bars: loss within 1e-2
-    relative, gradients within 3e-2 relative L2, parameters after AdamW
-    within 2e-6 where the two gradients agree in sign and are >= 1e-5; and
-    the teacher unchanged."""
+def check_small_distill(label: str, method_name: str, ckpt: str,
+                        latent_shape: tuple, method_config: dict,
+                        expect) -> dict:
+    """One step of a distillation method (a generator and a critic update)
+    of a tiny checkpoint on the card against the same step on the CPU's
+    plain path: the same checkpoint, seed and embeddings, so the same
+    draws (a CPU generator on both). Each role is held to the tiny SFT
+    step's bars: loss within 1e-2 relative, gradients within 3e-2 relative
+    L2, parameters after AdamW within 2e-6 where the two gradients agree in
+    sign and are >= 1e-5; the teacher unchanged; the card's launches equal
+    ``expect(out)`` (of the card's metrics). Returns the card's launches."""
     import numpy as np
     import torch
 
     from fastvideo_tpu_torch.ops import _build
 
-    os.environ["FASTVIDEO_ATTENTION_BACKEND"] = "VIDEO_SPARSE_ATTN"
-    ckpt = write_checkpoint(os.path.join(work, "dmd2", "Wan2.1-T2V-tiny"),
-                            TINY_DIT_CFG, TINY_VAE_CFG, TINY_T5_CFG, seed=9)
     emb = np.random.default_rng(9).standard_normal(
         TINY_TRAIN_EMBEDS[1:]).astype(np.float32)
     runs = {}
     for device in ("cuda", "cpu"):
-        method, _ = build_method("dmd2", ckpt, "", device,
+        method, _ = build_method(method_name, ckpt, "", device,
                                  dict(DMD_KW, learning_rate=1e-3),
-                                 dmd=DMD_SPEC)
+                                 method_config=method_config, dmd=DMD_SPEC)
         pipe = method.pipeline
         teacher = [p.detach().clone() for p in pipe.real_score.parameters()]
         grads: dict = {}
         capture_grads(pipe.gen_opt, pipe.gen_params, grads, "generator")
         capture_grads(pipe.fake_opt, pipe.fake_params, grads, "critic")
         _build.reset_counts()
-        out = pipe.train_one_step(emb, np.zeros_like(emb),
-                                  TINY_TRAIN_LATENTS[1:])
+        with kv_mask_grad_guard() as guard:
+            out = pipe.train_one_step(emb, np.zeros_like(emb), latent_shape)
         if device == "cuda":
             torch.cuda.synchronize()
             launches, plain = dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
+        if guard["grad"]:
+            raise SystemExit(f"{label} ({device}): K5 was called in a pass "
+                             f"under grad {guard['grad']} times")
         if not all(torch.equal(a, b) for a, b in
                    zip(teacher, pipe.real_score.parameters())):
-            raise SystemExit(f"tiny DMD2 step ({device}): the teacher moved")
+            raise SystemExit(f"{label} ({device}): the teacher moved")
         params = {"generator": [p.detach().float().cpu()
                                 for p in pipe.gen_params],
                   "critic": [p.detach().float().cpu()
                              for p in pipe.fake_params]}
         runs[device] = (out, grads, params)
         del method, pipe
-    tokens = math.prod(TINY_TRAIN_LATENTS[-3:]) // 4
-    check_launches("tiny DMD2 step", launches, plain, dmd2_launches(
-        TINY_DIT_CFG["num_layers"], split_backwards(
-            TINY_DIT_CFG, [(tokens, TINY_TRAIN_EMBEDS[2])])))
+    check_launches(label, launches, plain, expect(runs["cuda"][0]))
     (c_out, c_g, c_p), (p_out, p_g, p_p) = runs["cuda"], runs["cpu"]
     ok = True
     for role in ("generator", "critic"):
@@ -3706,7 +3859,7 @@ def check_small_dmd2(work: str) -> None:
             c_g[role], p_g[role], c_p[role], p_p[role])
         loss, norm = f"{role}_loss", f"{role}_grad_norm"
         loss_rel = abs(c_out[loss] - p_out[loss]) / abs(p_out[loss])
-        print(f"  tiny DMD2 step, {role}, card vs CPU plain: loss "
+        print(f"  {label}, {role}, card vs CPU plain: loss "
               f"{c_out[loss]:.6f} / {p_out[loss]:.6f} (rel {loss_rel:.2e}, "
               f"bar 1e-2), grad_norm {c_out[norm]:.5f} / {p_out[norm]:.5f}, "
               f"gradients rel L2 {rel:.2e} (bar 3e-2), parameters after "
@@ -3715,12 +3868,25 @@ def check_small_dmd2(work: str) -> None:
               f"of {n} elements are not)", flush=True)
         ok = ok and (math.isfinite(c_out[loss]) and loss_rel < 1e-2
                      and rel < 3e-2 and worst_sure <= 2e-6)
-    print(f"  tiny DMD2 step card launches "
+    print(f"  {label} card launches "
           f"{json.dumps({k: v for k, v in launches.items() if v})}",
           flush=True)
     if not ok:
-        raise SystemExit("tiny DMD2 step: the card disagrees with the plain "
-                         "path")
+        raise SystemExit(f"{label}: the card disagrees with the plain path")
+    return launches
+
+
+def check_small_dmd2(work: str) -> None:
+    """One DMD2 step of a tiny VSA Wan, card against CPU
+    (:func:`check_small_distill`)."""
+    os.environ["FASTVIDEO_ATTENTION_BACKEND"] = "VIDEO_SPARSE_ATTN"
+    ckpt = write_checkpoint(os.path.join(work, "dmd2", "Wan2.1-T2V-tiny"),
+                            TINY_DIT_CFG, TINY_VAE_CFG, TINY_T5_CFG, seed=9)
+    tokens = math.prod(TINY_TRAIN_LATENTS[-3:]) // 4
+    expect = dmd2_launches(TINY_DIT_CFG["num_layers"], split_backwards(
+        TINY_DIT_CFG, [(tokens, TINY_TRAIN_EMBEDS[2])]))
+    check_small_distill("tiny DMD2 step", "dmd2", ckpt,
+                        TINY_TRAIN_LATENTS[1:], {}, lambda out: expect)
 
 
 def shard_read_rate(path: str, columns: list[str]) -> tuple[float, float]:
@@ -3871,6 +4037,325 @@ def run_dmd2(work: str, steps: int, profile_dir: str | None = None) -> dict:
                 **{k: [r[k] for r in rows] for k in keys}, reader=rates)
 
 
+# -- 4a (self_forcing), 4o, 4p and 4q: the causal distillation methods -------
+
+# 4o-4q: 4g's CausalWan-1.3B checkpoint (3 latent frames a block, a
+# 21-frame window, no sink) as every role, in fp32 masters, full remat,
+# AdamW, on 4n's shard (latents [16, 21, 60, 104], 512 text tokens)
+SF_METHOD = dict(denoise_steps=[1000, 757, 522])
+# 4p: a stream from step 0, chunks of at most 6 latent frames (2 blocks) up
+# to 27, so that it passes the 21-frame window (the caches evict) and then
+# starts over
+STREAM_METHOD = dict(SF_METHOD, multi_phased_distill_schedule=[
+    dict(stage="streaming_long", start_step=0, streaming_max_length=27,
+         streaming_chunk_size=6)])
+STREAM_MAX_STEPS = 10
+# timed steps after the warm-up: 4o's grad block advances a block a step,
+# so its steps differ in work; 4q's steps do the same work
+SF_STEPS = 2
+CD_STEPS = 2
+# 4q: the JAX package's defaults, the EMA updated from the first step
+CD_METHOD = dict(discrete_cd_N=48, guidance_scale=3.0, ema_start_step=0)
+# 4a's tiny self-forcing step: TINY_CAUSAL_DIT_CFG (one head of 128, a
+# 5-frame window of 1,280 keys with a 1-frame sink), 9 latent frames of
+# 16 x 16 tokens: 3 blocks, the full clip longer than the window
+TINY_SF_LATENTS = (1, 4, 9, 32, 32)
+
+
+def attended_keys(tokens_so_far: int, window: int) -> int:
+    """Keys a pass attends once the stream holds ``tokens_so_far`` tokens
+    (its own included): the sink and the window's valid slots, each token
+    once, which is min(tokens, the window's whole budget)."""
+    return min(tokens_so_far, window)
+
+
+def causal_grad_pass_reduces(cfg: dict, passes, text: int) -> int:
+    """split_backwards of the grad passes ``passes`` [(query rows, keys
+    attended)]: each pass's self- and cross-attention backward."""
+    return sum(split_backwards(cfg, [(sq, skv), (sq, text)])
+               for sq, skv in passes)
+
+
+def causal_distill_launches(layers: int, no_grad: int, grad: int,
+                            reduces: int) -> dict:
+    """Launches of causal Wan passes under full remat: a pass without grad
+    runs K5 and K1 (cross-attention) once a block; a grad pass runs the
+    self-attention's grad route (K1) and the cross-attention (K1) twice a
+    block (the forward and its recompute), and K6 for both; ``reduces``
+    (over the whole run) of those backwards split dK/dV."""
+    return {"flash_fwd_kv_mask": no_grad * layers,
+            "flash_fwd": (no_grad + 4 * grad) * layers,
+            "flash_bwd_dq": 2 * grad * layers,
+            "flash_bwd_dkv": 2 * grad * layers,
+            "flash_bwd_dkv_reduce": reduces * layers}
+
+
+def self_forcing_launches(cfg: dict, latents: tuple, text: int, steps: int,
+                          grad_blocks) -> dict:
+    """Launches of self-forcing steps that each update the generator (at
+    the grad block of each in ``grad_blocks``) and the critic. Each
+    rollout runs blocks x (steps + 1) passes, the generator's with one grad
+    pass (the grad block's last); the score models run 3 full-clip passes
+    without grad, the critic one with grad."""
+    frame = latents[-1] * latents[-2] // 4
+    nfpb = cfg["num_frames_per_block"]
+    blocks = latents[-3] // nfpb
+    clip, blk = blocks * nfpb * frame, nfpb * frame
+    window = cfg["local_attn_size"] * frame
+    no_grad = 2 * blocks * (steps + 1) + 2
+    out: dict = {}
+    for g in grad_blocks:
+        reduces = causal_grad_pass_reduces(cfg, [
+            (blk, attended_keys((g + 1) * blk, window)),
+            (clip, attended_keys(clip, window))], text)
+        for name, n in causal_distill_launches(cfg["num_layers"], no_grad, 2,
+                                               reduces).items():
+            out[name] = out.get(name, 0) + n
+    return out
+
+
+def stream_launches(cfg: dict, frame: int, text: int, steps: int,
+                    rows: list) -> dict:
+    """Launches of stream steps (each updating the generator and the
+    critic), from each step's metrics: its chunk's blocks roll out on the
+    live caches with a grad pass at each block's last step, the score
+    models run 3 chunk passes without grad and the critic one with
+    grad."""
+    nfpb = cfg["num_frames_per_block"]
+    window = cfg["local_attn_size"] * frame
+    out: dict = {}
+    for r in rows:
+        nf = r["streaming_new_frames"]
+        start = r["streaming_current_length"] - nf
+        blocks, blk = nf // nfpb, nfpb * frame
+        passes = [(blk, attended_keys((start + (j + 1) * nfpb) * frame,
+                                      window)) for j in range(blocks)]
+        passes.append((nf * frame, attended_keys(nf * frame, window)))
+        for name, n in causal_distill_launches(
+                cfg["num_layers"], blocks * steps + 3, blocks + 1,
+                causal_grad_pass_reduces(cfg, passes, text)).items():
+            out[name] = out.get(name, 0) + n
+    return out
+
+
+def causal_cd_launches(cfg: dict, tokens: int, text: int,
+                       steps: int = 1) -> dict:
+    """Launches of causal_cd steps under FLASH_ATTN and full remat: the
+    teacher's two forwards and the EMA's one run K1 for the self- and the
+    cross-attention once a block; the student's forward twice (and its
+    recompute), K6 for both."""
+    layers = cfg["num_layers"]
+    return {"flash_fwd": 10 * layers * steps,
+            "flash_bwd_dq": 2 * layers * steps,
+            "flash_bwd_dkv": 2 * layers * steps,
+            "flash_bwd_dkv_reduce": causal_grad_pass_reduces(
+                cfg, [(tokens, tokens)], text) * layers * steps}
+
+
+@contextlib.contextmanager
+def kv_mask_grad_guard():
+    """Counts the causal Wan's K5 calls (``calls``) and those made while
+    autograd records (``grad``: a pass under grad, which must take the
+    grad route instead)."""
+    import torch
+
+    from fastvideo_tpu_torch.models.dits import causal_wan
+
+    real = causal_wan.flash_attention_kv_mask
+    seen = {"calls": 0, "grad": 0}
+
+    def counted(*args, **kw):
+        seen["calls"] += 1
+        seen["grad"] += torch.is_grad_enabled()
+        return real(*args, **kw)
+
+    causal_wan.flash_attention_kv_mask = counted
+    try:
+        yield seen
+    finally:
+        causal_wan.flash_attention_kv_mask = real
+
+
+def check_small_self_forcing(work: str) -> None:
+    """One self-forcing step of a tiny causal Wan (one head of 128, 1,280
+    cached keys: K5 on the no-grad passes, the grad route's K1 and K6 on
+    the generator's and the critic's passes) card against CPU
+    (:func:`check_small_distill`)."""
+    os.environ["FASTVIDEO_ATTENTION_BACKEND"] = "FLASH_ATTN"
+    ckpt = write_checkpoint(os.path.join(work, "sf", "SelfForcing-tiny"),
+                            TINY_CAUSAL_DIT_CFG, TINY_VAE_CFG, TINY_T5_CFG,
+                            seed=9, dit_class="CausalWanTransformer3DModel")
+    check_small_distill(
+        "tiny self_forcing step", "self_forcing", ckpt, TINY_SF_LATENTS,
+        SF_METHOD, lambda out: self_forcing_launches(
+            TINY_CAUSAL_DIT_CFG, TINY_SF_LATENTS, TINY_TRAIN_EMBEDS[2],
+            len(SF_METHOD["denoise_steps"]), [out["grad_block"]]))
+
+
+def causal_ckpt(work: str) -> str:
+    return os.path.join(work, "causal", "SelfForcing-Wan2.1-T2V-1.3B")
+
+
+def run_causal_distill(label: str, method_name: str, work: str,
+                       data: str, method_config: dict, warmup: int,
+                       steps: int, expect, roles, frozen,
+                       profile_dir: str | None = None, until=None) -> dict:
+    """A causal distillation method through build_from_config on 4g's
+    checkpoint and 4n's Parquet shard, then method.train: ``warmup``
+    steps, then ``steps`` timed ones (fewer where ``until(rows)`` of the
+    timed steps' metrics holds first), each timed apart, with the
+    process's CPU seconds, the caching allocator's retries and device
+    allocations in it and the card's state after it
+    (:func:`card_state`). Checks finite
+    losses and grad norms, the trained roles (``roles``: attribute names)
+    moved and the frozen ones (``frozen``) bit for bit as they were, no K5
+    call in a pass under grad, and the launches against ``expect(rows)``."""
+    import torch
+
+    from fastvideo_tpu_torch.ops import _build
+
+    os.environ["FASTVIDEO_ATTENTION_BACKEND"] = "FLASH_ATTN"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    method, loader = build_method(
+        method_name, causal_ckpt(work), os.path.join(work, f"{label}_out"),
+        "cuda", dict(DMD_KW, max_train_steps=warmup + steps),
+        method_config=method_config, dmd=DMD_SPEC, data_path=data)
+    pipe = method.pipeline
+    print(f"  {type(method).__name__} built in {time.perf_counter() - t0:.1f}"
+          f" s: roles {roles + frozen}, remat "
+          f"{pipe.args.selective_checkpointing}", flush=True)
+    sums = {r: checksum(getattr(pipe, r)) for r in frozen}
+    try:
+        t0 = time.perf_counter()
+        method.train(loader, max_steps=warmup)
+        torch.cuda.synchronize()
+        print(f"  warm-up ({warmup} step) {time.perf_counter() - t0:.2f} s; "
+              f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+              flush=True)
+        watch = {r: {n: p.detach().clone() for n, p in
+                     list(getattr(pipe, r).named_parameters())[:4]}
+                 for r in roles}
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_counts()
+        times, states = [], []
+        with kv_mask_grad_guard() as guard:
+            for _ in range(steps):
+                before = torch.cuda.memory_stats()
+                t0, cpu0 = time.perf_counter(), time.process_time()
+                method.train(loader, max_steps=pipe.step + 1)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                cpu = time.process_time() - cpu0
+                after = torch.cuda.memory_stats()
+                grew = {k: after[k] - before[k] for k in (
+                    "num_alloc_retries", "num_device_alloc")}
+                states.append(
+                    f"{card_state()}; the process's CPU {cpu:.3f} s; "
+                    f"allocator retries {grew['num_alloc_retries']}, device "
+                    f"allocations {grew['num_device_alloc']}")
+                if until and until(pipe.tracker.rows[warmup:]):
+                    break
+        steps = len(times)
+        launches, plain = dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        rows = pipe.tracker.rows[-steps:]
+        if profile_dir:
+            profile_train_step(method, loader, profile_dir,
+                               f"{label}_480x832")
+    finally:
+        loader.shutdown()
+    moved = {r: all(not torch.equal(w, dict(getattr(pipe, r)
+                                            .named_parameters())[n])
+                    for n, w in watch[r].items()) for r in roles}
+    same = {r: checksum(getattr(pipe, r)) == sums[r] for r in frozen}
+    values = {k: [r[k] for r in rows] for k in rows[0]
+              if k.endswith(("_loss", "_norm")) or k == "loss"}
+    print(f"  {steps} steps in {sum(times):.3f} s: "
+          f"{[round(t, 3) for t in times]} s each, {sum(times) / steps:.3f} "
+          f"s a step; " + "; ".join(f"{k} {[round(x, 6) for x in v]}"
+                                    for k, v in values.items())
+          + f"; peak memory {peak:.2f} GiB; moved {moved}; unchanged {same};"
+          f" K5 calls {guard['calls']}, in a pass under grad {guard['grad']}",
+          flush=True)
+    for i, (t, state) in enumerate(zip(times, states)):
+        print(f"  step {i}: {t:.3f} s; after it {state}", flush=True)
+    print(f"  kernel launches {json.dumps(launches)}; plain calls "
+          f"{json.dumps(plain)}", flush=True)
+    check_launches(f"{label} 480x832", launches, plain, expect(rows))
+    if not (all(math.isfinite(x) for v in values.values() for x in v)
+            and all(moved.values()) and all(same.values())
+            and guard["grad"] == 0):
+        raise SystemExit(f"{label} 480x832: a loss or grad norm not finite "
+                         f"({values}), a trained role not moved ({moved}), a "
+                         f"frozen one changed ({same}) or K5 under grad "
+                         f"({guard['grad']})")
+    del method, pipe
+    torch.cuda.empty_cache()
+    return dict(launches=launches, step_s=sum(times) / steps,
+                step_times=times, step_states=states, peak_gib=peak,
+                rows=rows, **values)
+
+
+def run_self_forcing(work: str, data: str,
+                     profile_dir: str | None = None) -> dict:
+    """Phase 4o: self_forcing at 81x480x832 (7 blocks, denoise steps (1000,
+    757, 522), a generator and a critic update a step)."""
+    cfg = CAUSAL_DIT_CFG
+    latents = (1,) + TRAIN_LATENTS[2:]
+    return run_causal_distill(
+        "self_forcing", "self_forcing", work, data, SF_METHOD, 1, SF_STEPS,
+        lambda rows: self_forcing_launches(
+            dict(cfg, local_attn_size=21), latents, TRAIN_EMBEDS[2],
+            len(SF_METHOD["denoise_steps"]),
+            [r["grad_block"] for r in rows]),
+        ["generator", "fake_score"], ["real_score"], profile_dir)
+
+
+def run_streaming_long(work: str, data: str,
+                       profile_dir: str | None = None) -> dict:
+    """Phase 4p: streaming_long_tuning from step 0: the first chunk (6
+    latent frames) as warm-up, then stream steps until the stream, past
+    the 21-frame window, has started over (at most STREAM_MAX_STEPS)."""
+    frame = TRAIN_LATENTS[-1] * TRAIN_LATENTS[-2] // 4
+
+    def restarted(rows):
+        lengths = [r["streaming_current_length"] for r in rows]
+        return any(b < a for a, b in zip(lengths, lengths[1:]))
+
+    out = run_causal_distill(
+        "streaming_long_tuning", "streaming_long_tuning", work, data,
+        STREAM_METHOD, 1, STREAM_MAX_STEPS,
+        lambda rows: stream_launches(
+            dict(CAUSAL_DIT_CFG, local_attn_size=21), frame,
+            TRAIN_EMBEDS[2], len(SF_METHOD["denoise_steps"]), rows),
+        ["generator", "fake_score"], ["real_score"], profile_dir,
+        until=restarted)
+    rows = out["rows"]
+    lengths = [r["streaming_current_length"] for r in rows]
+    print(f"  stream: stage {[r['distill_stage_index'] for r in rows]}, new "
+          f"frames {[r['streaming_new_frames'] for r in rows]}, length after "
+          f"each step {lengths}", flush=True)
+    if not (max(lengths) > 21 and restarted(rows)):
+        raise SystemExit(f"streaming 480x832: the stream did not pass the "
+                         f"window and start over ({lengths})")
+    return out
+
+
+def run_causal_cd(work: str, data: str,
+                  profile_dir: str | None = None) -> dict:
+    """Phase 4q: causal_cd at 81x480x832 under FLASH_ATTN (the student's,
+    the teacher's and the EMA's full forwards), N 48, guidance 3, the EMA
+    updated every step."""
+    tokens = math.prod(TRAIN_LATENTS[-3:]) // 4
+    return run_causal_distill(
+        "causal_cd", "causal_cd", work, data, CD_METHOD, 1, CD_STEPS,
+        lambda rows: causal_cd_launches(CAUSAL_DIT_CFG, tokens,
+                                        TRAIN_EMBEDS[2], len(rows)),
+        ["student", "ema"], ["teacher"], profile_dir)
+
+
 def profile_train_step(method, loader, out_dir: str,
                        label: str = "sft_480x832") -> None:
     """One more step under torch.profiler: device time by kernel name, the
@@ -3992,6 +4477,7 @@ def main() -> int:
     check_small_training(work)
     check_small_df_training(work)
     check_small_dmd2(work)
+    check_small_self_forcing(work)
     phase("# phase 4b: FastWan main path at full width, 81x480x832, 3 DMD "
           "steps, VSA sparsity 0.8")
     launches = run_main_path(work, args.profile)
@@ -4062,6 +4548,24 @@ def main() -> int:
           f"step, VSA at sparsity 0) on a Parquet shard the port writes and "
           f"reads: 1 warm-up + {args.dmd_steps} timed steps")
     dmd2 = run_dmd2(work, args.dmd_steps, args.profile)
+    data = os.path.join(work, "dmd2_data")
+    causal = ("4g's CausalWan-1.3B checkpoint as every role, fp32 masters, "
+              "full remat, AdamW, on 4n's Parquet shard (81x480x832 "
+              "latents, 512 text tokens)")
+    phase(f"# phase 4o: self_forcing distillation of CausalWan-1.3B at full "
+          f"width and depth ({causal}): 7 blocks, denoise steps "
+          f"{SF_METHOD['denoise_steps']}, a generator and a critic update a "
+          f"step: 1 warm-up + {SF_STEPS} timed steps")
+    sf = run_self_forcing(work, data, args.profile)
+    phase(f"# phase 4p: streaming_long_tuning of CausalWan-1.3B ({causal}): "
+          f"a stream from step 0 in chunks of at most 6 latent frames up to "
+          f"27, past the 21-frame window, until it starts over")
+    stream_run = run_streaming_long(work, data, args.profile)
+    phase(f"# phase 4q: causal_cd of CausalWan-1.3B ({causal}) under "
+          f"FLASH_ATTN: N {CD_METHOD['discrete_cd_N']}, guidance "
+          f"{CD_METHOD['guidance_scale']}, the EMA from step 0: 1 warm-up + "
+          f"{CD_STEPS} timed steps")
+    cd = run_causal_cd(work, data, args.profile)
     shutil.rmtree(work, ignore_errors=True)
     # each kernel's count comes from the path that runs it
     launches["vsa_sparse_padded_fwd"] = vsa_launches["vsa_sparse_padded_fwd"]
@@ -4110,6 +4614,19 @@ def main() -> int:
         results[name].update(
             dmd2_launches=dmd2["launches"][name] // args.dmd_steps,
             dmd2_step_s=dmd2["step_s"])
+    # the causal distillation methods' launches a step and seconds a step,
+    # from 4o (self_forcing), 4p (streaming_long_tuning: the timed steps'
+    # sum) and 4q (causal_cd)
+    for key, run, per in (("self_forcing", sf, SF_STEPS),
+                          ("streaming", stream_run, 1),
+                          ("causal_cd", cd, CD_STEPS)):
+        for name, n in run["launches"].items():
+            if n:
+                results[name].update({f"{key}_launches": n // per,
+                                      f"{key}_step_s": run["step_s"],
+                                      f"{key}_peak_gib": run["peak_gib"]})
+    results["flash_fwd_kv_mask"]["streaming_steps"] = len(
+        stream_run["step_times"])
     phase("# phase 5: the kernels line, the card line, the result line")
 
     kernels = []

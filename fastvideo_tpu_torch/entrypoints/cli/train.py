@@ -5,8 +5,9 @@
 The config tree (JSON, or the simple YAML subset of ``api/parser.py``;
 unknown keys are errors):
 
-    method: sft                 # or dmd2, or dfsft / tfsft (a causal
-                                # checkpoint)
+    method: sft                 # or dmd2; dfsft / tfsft, self_forcing,
+                                # streaming_long_tuning, causal_cd (a
+                                # causal checkpoint)
     model:
       pretrained_model_path: /path/to/Diffusers-dir   # transformer/ inside
       dit_precision: fp32
@@ -18,14 +19,21 @@ unknown keys are errors):
       learning_rate: 1e-5
       max_train_steps: 1000
       device: cuda              # or cpu
-    dmd:                        # dmd2 only
+    dmd:                        # dmd2, self_forcing, streaming_long_tuning
       dmd_denoising_steps: [1000, 757, 522]
       real_score_guidance_scale: 3.5
       dfake_gen_update_ratio: 5
       timestep_shift: 8.0
     method_config: {}           # dfsft / tfsft: chunk_size,
                                 # min_timestep_ratio, max_timestep_ratio,
-                                # precondition_outputs
+                                # precondition_outputs; self_forcing:
+                                # denoise_steps; streaming_long_tuning:
+                                # multi_phased_distill_schedule,
+                                # streaming_chunk_size,
+                                # streaming_max_length, num_latent_t,
+                                # denoise_steps; causal_cd: discrete_cd_N,
+                                # guidance_scale, ema_decay,
+                                # ema_start_step, flow_shift
 
 ``method`` resolves through the plugin registry; ``data.path`` is read by
 ``dataset/parquet.py:build_parquet_dataloader`` (the port's own Parquet

@@ -512,10 +512,13 @@ def flash_attention_kv_mask_plain(q: torch.Tensor, k: torch.Tensor,
                                   v: torch.Tensor, kv_mask: torch.Tensor, *,
                                   scale: float) -> torch.Tensor:
     """Plain PyTorch version of K5: K1's with key j visible where
-    ``kv_mask[j] != 0``. Returns out [B, Sq, H, D]."""
+    ``kv_mask[j] != 0``, in slabs of query rows (``SLAB_BYTES``). Returns
+    out [B, Sq, H, D]."""
     _build.count_plain(NAME_KV_MASK)
     mask = (kv_mask.reshape(1, -1) != 0).to(q.device)
-    return _masked_attention(q, k, v, mask, scale)[0]
+    return torch.cat([_masked_attention(q[:, rows.start:rows.stop], k, v,
+                                        mask, scale)[0]
+                      for rows in _row_slabs(q, k.shape[1])], dim=1)
 
 
 def _masked_attention(q, k, v, mask, scale, out_dtype=None):
@@ -811,7 +814,10 @@ class _FlashAttention(torch.autograd.Function):
 
 
 def _flash_attention_kv_mask_cuda(q, k, v, kv_mask, *, scale):
-    _build.refuse_grad(NAME_KV_MASK, q, k, v)
+    _build.refuse_grad(
+        NAME_KV_MASK, q, k, v,
+        use="flash_attention over the valid keys gathered into one tensor "
+        "(models/dits/causal_wan.py:context_attention)")
     dtype = _check_cuda_operands(NAME_KV_MASK, q, k, v)
     if kv_mask.shape != (k.shape[1],) or kv_mask.device != q.device:
         raise _build.KernelError(

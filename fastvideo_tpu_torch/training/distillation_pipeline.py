@@ -80,6 +80,9 @@ class UpdateDraws:
 
 
 class DMD2DistillationPipeline:
+    # the method's name in the training log
+    label = "dmd2"
+
     def __init__(self, generator: torch.nn.Module,
                  real_score: torch.nn.Module, fake_score: torch.nn.Module,
                  training_args: TrainingArgs,
@@ -308,7 +311,7 @@ class DMD2DistillationPipeline:
             self.tracker.log(metrics, self.step)
             if self.step % log_every == 0:
                 dt = time.perf_counter() - t0
-                logger.info("dmd2 step %d %s (%.2fs/it)", self.step,
+                logger.info("%s step %d %s (%.2fs/it)", self.label, self.step,
                             {k: round(v, 4) for k, v in metrics.items()
                              if isinstance(v, float)}, dt / log_every)
                 t0 = time.perf_counter()

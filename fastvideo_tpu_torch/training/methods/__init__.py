@@ -1,10 +1,11 @@
 """Training method plugin registry (port of
 fastvideo_tpu/training/methods/__init__.py). Importing this package
 registers the built-in methods the port has: ``sft``, ``dfsft``,
-``tfsft`` and ``dmd2``."""
+``tfsft``, ``dmd2``, ``self_forcing``, ``streaming_long_tuning`` and
+``causal_cd``."""
 
 from fastvideo_tpu_torch.training.methods import (  # noqa: F401
-    distribution_matching, fine_tuning)
+    causal_cd, distribution_matching, fine_tuning)
 from fastvideo_tpu_torch.training.methods.base import (NOT_PORTED,
                                                        PipelineMethod,
                                                        TrainingMethod,

@@ -2,9 +2,11 @@
 fastvideo_tpu/training/methods/base.py).
 
 A method owns its role models and steps and is resolved by registry name.
-The port registers ``sft``, ``dfsft``, ``tfsft`` and ``dmd2``; the JAX
-package's other built-in names raise with the ROADMAP item that brings
-them (and the JAX package's dotted ``_target_`` paths are not taken).
+The port registers ``sft``, ``dfsft``, ``tfsft``, ``dmd2``,
+``self_forcing``, ``streaming_long_tuning`` and ``causal_cd``; the JAX
+package's other built-in names (``NOT_PORTED``) raise with the ROADMAP
+item that brings them (and the JAX package's dotted ``_target_`` paths are
+not taken).
 """
 
 from __future__ import annotations
@@ -22,9 +24,6 @@ _METHOD_REGISTRY: dict[str, type["TrainingMethod"]] = {}
 
 # the JAX package's other built-in methods, and what the port waits on
 NOT_PORTED = {
-    "self_forcing": "ROADMAP Queue 1, causal training methods",
-    "streaming_long_tuning": "ROADMAP Queue 1, causal training methods",
-    "causal_cd": "ROADMAP Queue 1, causal training methods",
     "kd": "ROADMAP Queue 1, distillation methods",
     "lora_finetune": "ROADMAP Queue 1, LoRA",
     "anyflow": "ROADMAP Queue 1, distillation methods",

@@ -397,3 +397,15 @@ def test_nabla_and_bsa_reach_their_kernels_on_cuda(backend, monkeypatch):
     with pytest.raises(_build.KernelError, match="nvcc not found"):
         be.forward(q, q, q, grid=(4, 8, 8))
     assert _build.PLAIN_CALLS == before
+
+
+def test_causal_distillation_modules_are_walked():
+    """The causal distillation methods' modules (self-forcing, streaming
+    long tuning, causal consistency distillation and its scheduler) are
+    among the sources the import checks read."""
+    paths = {os.path.relpath(p, PKG) for p in _port_sources()}
+    assert {"training/self_forcing_pipeline.py",
+            "training/streaming_long_pipeline.py",
+            "training/methods/causal_cd.py",
+            "models/schedulers/scheduling_self_forcing_flow_match.py"
+            } <= paths
