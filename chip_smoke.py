@@ -54,7 +54,9 @@ Phases, each printing its own lines:
      TurboDiffusion; the causal Wan with a head of 128, a sink and a window
      of 1,280 keys that evicts; one SFT, dfsft, tfsft and DMD2 step, and
      one self_forcing step of that causal Wan, so that K5 and the grad
-     route's K1 and K6 run);
+     route's K1 and K6 run; the tiny FastWan with a LoRA adapter active,
+     merged and unmerged, and one step each of lora_finetune, kd (its
+     teacher rollout too), anyflow_pretrain and anyflow);
      b: the FastWan main path at full width: a random-weight
      FastWan2.1-T2V-1.3B-shaped diffusers checkpoint written with the
      port's own safetensors writer, loaded by
@@ -120,6 +122,20 @@ Phases, each printing its own lines:
      and grad norms, peak memory, the trained roles moved and the frozen
      ones' checksums unchanged, no K5 call in a pass under grad, and the
      launches of K5, K1 and K6 against their formulas;
+     r: LoRA serving on 4b's checkpoint and prompt: a rank-32 adapter
+     (official names under "diffusion_model.") on the 300 block linears
+     through VideoGenerator.set_lora_adapter, the base, active, merged and
+     unmerged generations (each after a warm-up), merge and unmerge
+     seconds, the adapter's calls and extra launches, merged and unmerged
+     within 8 uint8 levels of active, the weights restored by unmerge;
+     s, t, u, v: the slice's methods through build_from_config on the 4b
+     checkpoint and 4n's shard, a warm-up step, then METHOD_STEPS timed
+     ones: lora_finetune (rank 32, 304 linears, VSA 0.8; the frozen
+     base's checksum), kd (t_list KD_T_LIST, a self-distillation teacher,
+     generate_cache over the shard, a warm teacher rollout, steps from the
+     cache), anyflow_pretrain (VSA 0.8, the copy rule) and anyflow (a
+     4-step flow-map rollout, 4n's roles); seconds a step, peak memory,
+     losses and grad norms, and the launches against their formulas;
   5. the kernels line, the card line and the result line.
 
 Each phase header ends with the seconds since the start.
@@ -2433,32 +2449,20 @@ def run_kernel_checks(dev) -> dict:
     # 8 it would run eagerly, which builds the dense score matrix
     torch._dynamo.config.recompile_limit = 64
     results: dict = {}
-    check_flash(dev, results)
-    check_flash_combine(dev, results)
-    check_vsa(dev, results)
-    check_vsa_padded(dev, results)
-    torch.cuda.empty_cache()
-    check_dyn_sparse(dev, results)
-    torch.cuda.empty_cache()
-    check_flash_bwd(dev, results)
-    torch.cuda.empty_cache()
-    check_flash_struct(dev, results)
-    torch.cuda.empty_cache()
-    check_vsa_bwd(dev, results)
-    torch.cuda.empty_cache()
-    check_vsa_dense(dev, results)
-    torch.cuda.empty_cache()
-    check_conv(dev, results)
-    torch.cuda.empty_cache()
-    check_conv_int8(dev, results)
-    check_w8a8_linear(dev)
-    torch.cuda.empty_cache()
-    check_flash_kv_mask(dev, results)
-    torch.cuda.empty_cache()
-    check_causal_distill(dev, results)
-    torch.cuda.empty_cache()
-    check_fp32_decode(dev, results)
-    torch.cuda.empty_cache()
+    for check in (check_flash, check_flash_combine, check_vsa,
+                  check_vsa_padded, check_dyn_sparse, check_flash_bwd,
+                  check_flash_struct, check_vsa_bwd, check_vsa_dense,
+                  check_conv, check_conv_int8, check_w8a8_linear,
+                  check_flash_kv_mask, check_causal_distill,
+                  check_fp32_decode):
+        t0 = time.perf_counter()
+        if check is check_w8a8_linear:
+            check(dev)
+        else:
+            check(dev, results)
+        torch.cuda.empty_cache()
+        print(f"  [{check.__name__}: {time.perf_counter() - t0:.1f} s]",
+              flush=True)
     decode_bound = decode_conv_bound((21, 60, 104))
     # K1 also runs the VAE mid-block attention: 21 frames x 6240 tokens,
     # one head of 384, once per decode
@@ -3392,7 +3396,7 @@ def build_method(method: str, ckpt: str, out_dir: str, device: str,
     m, loader = build_from_config(cfg)
     if (loader is None) != (not data_path):
         raise SystemExit(f"data path {data_path!r} gave loader {loader}")
-    m.pipeline.tracker = StepRecorder()
+    getattr(m, "pipeline", m).tracker = StepRecorder()
     return m, loader
 
 
@@ -3489,60 +3493,13 @@ def adamw_agreement(card_grads, cpu_grads, card_params, cpu_params
 
 def check_small_training(work: str) -> None:
     """One SFT step of a tiny VSA Wan (heads of 16, 2 layers) on the card
-    against the same step on the CPU's plain path: the same checkpoint,
-    seed and batch, so the same draws (a CPU generator on both). bf16
-    compute, so: loss within 1e-2 relative, the gradients within 3e-2
-    relative L2, and the parameters after AdamW within 2e-6 wherever the
-    two (clipped) gradients agree in sign and are at least 1e-5: AdamW's
-    first update is lr * g / (|g| + 1e-8), lr times the sign where
-    |g| >> 1e-8, and a gradient at the bf16 noise level may take either
-    sign. The largest difference over all elements is printed, not held to
-    a bar: two first updates never differ by more than 2 lr."""
-    import numpy as np
-    import torch
-
-    os.environ["FASTVIDEO_ATTENTION_BACKEND"] = "VIDEO_SPARSE_ATTN"
-    ckpt = write_checkpoint(os.path.join(work, "train", "Wan2.1-T2V-tiny"),
-                            TINY_DIT_CFG, TINY_VAE_CFG, TINY_T5_CFG, seed=8)
-    rng = np.random.default_rng(8)
-    batch = (rng.standard_normal(TINY_TRAIN_LATENTS).astype(np.float32),
-             rng.standard_normal(TINY_TRAIN_EMBEDS).astype(np.float32))
-    lr = 1e-3
-    runs = {}
-    for device in ("cuda", "cpu"):
-        method, _ = build_method("sft", ckpt, "", device,
-                                 dict(TRAIN_KW, learning_rate=lr))
-        pipe = method.pipeline
-        out, grads, counts, plain_counts = step_with_grads(
-            pipe, batch, vsa_sparsity=0.8)
-        if device == "cuda":
-            launches, plain = counts, plain_counts
-        params = [p.detach().float().cpu() for p in pipe.params]
-        runs[device] = (out, grads, params)
-        del method, pipe
+    against the same step on the CPU's plain path
+    (:func:`check_small_pipeline_step`)."""
     layers = TINY_DIT_CFG["num_layers"]
-    tokens = math.prod(TINY_TRAIN_LATENTS[-3:]) // 4
-    check_launches("tiny train step", launches, plain, train_launches(
-        layers, 1, split_backwards(TINY_DIT_CFG,
-                                   [(tokens, TINY_TRAIN_EMBEDS[2])])))
-    (c_out, c_g, c_p), (p_out, p_g, p_p) = runs["cuda"], runs["cpu"]
-    rel, worst_all, worst_sure, flips, n = adamw_agreement(c_g, p_g, c_p,
-                                                           p_p)
-    loss_rel = abs(c_out["loss"] - p_out["loss"]) / abs(p_out["loss"])
-    print(f"  tiny train step, card vs CPU plain: loss {c_out['loss']:.5f} "
-          f"/ {p_out['loss']:.5f} (rel {loss_rel:.2e}, bar 1e-2), grad_norm "
-          f"{c_out['grad_norm']:.5f} / {p_out['grad_norm']:.5f}, gradients "
-          f"rel L2 {rel:.2e} (bar 3e-2), parameters after AdamW: max diff "
-          f"{worst_all:.2e} (no bar: a first AdamW update is +-lr), "
-          f"{worst_sure:.2e} where the gradients agree in sign and are "
-          f">= 1e-5 (bar 2e-6; {flips} of "
-          f"{n} elements are not); card launches "
-          f"{json.dumps({k: v for k, v in launches.items() if v})}",
-          flush=True)
-    if not (math.isfinite(c_out["loss"]) and loss_rel < 1e-2 and rel < 3e-2
-            and worst_sure <= 2e-6):
-        raise SystemExit("tiny train step: the card disagrees with the "
-                         "plain path")
+    check_small_pipeline_step(
+        work, "sft", "sft", {}, lambda tokens: train_launches(
+            layers, 1, split_backwards(TINY_DIT_CFG,
+                                       [(tokens, TINY_TRAIN_EMBEDS[2])])))
 
 
 def run_training(work: str, steps: int, profile_dir: str | None = None
@@ -3785,7 +3742,8 @@ DMD_SPEC = dict(dfake_gen_update_ratio=1)
 PROMPT_TOKENS = 16
 
 
-def dmd2_launches(layers: int, reduces: int, steps: int = 1) -> dict:
+def dmd2_launches(layers: int, reduces: int, steps: int = 1,
+                  no_grad: int = 8) -> dict:
     """Launches of DMD2 steps that each update the generator and the critic
     with VSA at sparsity 0 (no forward context, as in JAX: every tile of
     every query tile) under full remat. No-grad forwards run K2 and K1 once
@@ -3793,8 +3751,9 @@ def dmd2_launches(layers: int, reduces: int, steps: int = 1) -> dict:
     unconditional real scores (3), the critic update's rollout (3). Each
     update's gradient forward runs K7 fwd (LSE) and K1 twice a block (the
     forward and its recompute), each backward kernel once, and
-    ``reduces`` of a block's flash backwards split dK/dV."""
-    no_grad, grad = 8, 2
+    ``reduces`` of a block's flash backwards split dK/dV. AnyFlow's
+    ``no_grad`` passes differ (:func:`anyflow_launches`)."""
+    grad = 2
     return {"flash_fwd": (no_grad + 2 * grad) * layers * steps,
             "vsa_sparse_fwd": no_grad * layers * steps,
             "vsa_sparse_padded_fwd": 2 * grad * layers * steps,
@@ -3949,12 +3908,19 @@ def write_dmd2_data(work: str) -> tuple[str, dict]:
     return data, rates
 
 
-def checksum(module) -> float:
+def checksum(module, frozen_only: bool = False) -> float:
+    """sum(p) + sum(|p|) over the module's parameters in fp64; with
+    ``frozen_only`` over those that do not require grad (a LoRA model's
+    base), of which there must be some."""
     import torch
 
+    params = [p for p in module.parameters()
+              if not (frozen_only and p.requires_grad)]
+    if not params:
+        raise SystemExit(f"{type(module).__name__}: no frozen parameter")
     with torch.no_grad():
         return math.fsum(p.double().sum().item() + p.double().abs().sum()
-                         .item() for p in module.parameters())
+                         .item() for p in params)
 
 
 def run_dmd2(work: str, steps: int, profile_dir: str | None = None) -> dict:
@@ -4196,37 +4162,43 @@ def causal_ckpt(work: str) -> str:
     return os.path.join(work, "causal", "SelfForcing-Wan2.1-T2V-1.3B")
 
 
-def run_causal_distill(label: str, method_name: str, work: str,
+def run_training_phase(label: str, method_name: str, work: str,
                        data: str, method_config: dict, warmup: int,
                        steps: int, expect, roles, frozen,
-                       profile_dir: str | None = None, until=None) -> dict:
-    """A causal distillation method through build_from_config on 4g's
-    checkpoint and 4n's Parquet shard, then method.train: ``warmup``
-    steps, then ``steps`` timed ones (fewer where ``until(rows)`` of the
-    timed steps' metrics holds first), each timed apart, with the
-    process's CPU seconds, the caching allocator's retries and device
-    allocations in it and the card's state after it
-    (:func:`card_state`). Checks finite
-    losses and grad norms, the trained roles (``roles``: attribute names)
-    moved and the frozen ones (``frozen``) bit for bit as they were, no K5
-    call in a pass under grad, and the launches against ``expect(rows)``."""
+                       profile_dir: str | None = None, until=None,
+                       ckpt: str | None = None, backend: str = "FLASH_ATTN",
+                       training: dict = DMD_KW, prepare=None) -> dict:
+    """A training method through build_from_config on ``ckpt`` (default
+    4g's causal checkpoint) and 4n's Parquet shard, then method.train:
+    ``warmup`` steps, then ``steps`` timed ones (fewer where
+    ``until(rows)`` of the timed steps' metrics holds first), each timed
+    apart, with the process's CPU seconds, the caching allocator's retries
+    and device allocations in it and the card's state after it
+    (:func:`card_state`). ``prepare(method, loader)`` runs after the build
+    and returns measurements of its own. Checks finite losses and grad
+    norms, the trained roles (``roles``: attribute names; their trainable
+    parameters where they have any) moved and the frozen parameters of
+    ``frozen`` bit for bit as they were, no K5 call in a pass under grad,
+    and the launches against ``expect(rows)``."""
     import torch
 
     from fastvideo_tpu_torch.ops import _build
 
-    os.environ["FASTVIDEO_ATTENTION_BACKEND"] = "FLASH_ATTN"
+    os.environ["FASTVIDEO_ATTENTION_BACKEND"] = backend
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     method, loader = build_method(
-        method_name, causal_ckpt(work), os.path.join(work, f"{label}_out"),
-        "cuda", dict(DMD_KW, max_train_steps=warmup + steps),
+        method_name, ckpt or causal_ckpt(work),
+        os.path.join(work, f"{label}_out"), "cuda",
+        dict(training, max_train_steps=warmup + steps),
         method_config=method_config, dmd=DMD_SPEC, data_path=data)
-    pipe = method.pipeline
+    pipe = getattr(method, "pipeline", method)
     print(f"  {type(method).__name__} built in {time.perf_counter() - t0:.1f}"
           f" s: roles {roles + frozen}, remat "
           f"{pipe.args.selective_checkpointing}", flush=True)
-    sums = {r: checksum(getattr(pipe, r)) for r in frozen}
+    sums = {r: checksum(getattr(pipe, r), frozen_only=True) for r in frozen}
+    extra = prepare(method, loader) if prepare else {}
     try:
         t0 = time.perf_counter()
         method.train(loader, max_steps=warmup)
@@ -4234,9 +4206,11 @@ def run_causal_distill(label: str, method_name: str, work: str,
         print(f"  warm-up ({warmup} step) {time.perf_counter() - t0:.2f} s; "
               f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
               flush=True)
-        watch = {r: {n: p.detach().clone() for n, p in
-                     list(getattr(pipe, r).named_parameters())[:4]}
-                 for r in roles}
+        watch = {}
+        for r in roles:
+            named = list(getattr(pipe, r).named_parameters())
+            named = [x for x in named if x[1].requires_grad] or named
+            watch[r] = {n: p.detach().clone() for n, p in named[:4]}
         torch.cuda.reset_peak_memory_stats()
         _build.reset_counts()
         times, states = [], []
@@ -4269,7 +4243,8 @@ def run_causal_distill(label: str, method_name: str, work: str,
     moved = {r: all(not torch.equal(w, dict(getattr(pipe, r)
                                             .named_parameters())[n])
                     for n, w in watch[r].items()) for r in roles}
-    same = {r: checksum(getattr(pipe, r)) == sums[r] for r in frozen}
+    same = {r: checksum(getattr(pipe, r), frozen_only=True) == sums[r]
+            for r in frozen}
     values = {k: [r[k] for r in rows] for k in rows[0]
               if k.endswith(("_loss", "_norm")) or k == "loss"}
     print(f"  {steps} steps in {sum(times):.3f} s: "
@@ -4295,7 +4270,7 @@ def run_causal_distill(label: str, method_name: str, work: str,
     torch.cuda.empty_cache()
     return dict(launches=launches, step_s=sum(times) / steps,
                 step_times=times, step_states=states, peak_gib=peak,
-                rows=rows, **values)
+                rows=rows, **values, **extra)
 
 
 def run_self_forcing(work: str, data: str,
@@ -4304,7 +4279,7 @@ def run_self_forcing(work: str, data: str,
     757, 522), a generator and a critic update a step)."""
     cfg = CAUSAL_DIT_CFG
     latents = (1,) + TRAIN_LATENTS[2:]
-    return run_causal_distill(
+    return run_training_phase(
         "self_forcing", "self_forcing", work, data, SF_METHOD, 1, SF_STEPS,
         lambda rows: self_forcing_launches(
             dict(cfg, local_attn_size=21), latents, TRAIN_EMBEDS[2],
@@ -4324,7 +4299,7 @@ def run_streaming_long(work: str, data: str,
         lengths = [r["streaming_current_length"] for r in rows]
         return any(b < a for a, b in zip(lengths, lengths[1:]))
 
-    out = run_causal_distill(
+    out = run_training_phase(
         "streaming_long_tuning", "streaming_long_tuning", work, data,
         STREAM_METHOD, 1, STREAM_MAX_STEPS,
         lambda rows: stream_launches(
@@ -4349,11 +4324,576 @@ def run_causal_cd(work: str, data: str,
     the teacher's and the EMA's full forwards), N 48, guidance 3, the EMA
     updated every step."""
     tokens = math.prod(TRAIN_LATENTS[-3:]) // 4
-    return run_causal_distill(
+    return run_training_phase(
         "causal_cd", "causal_cd", work, data, CD_METHOD, 1, CD_STEPS,
         lambda rows: causal_cd_launches(CAUSAL_DIT_CFG, tokens,
                                         TRAIN_EMBEDS[2], len(rows)),
         ["student", "ema"], ["teacher"], profile_dir)
+
+
+# -- 4a (LoRA, kd, AnyFlow) and 4r-4v: LoRA serving and the slice's methods --
+
+# 4r: a rank-32 adapter in the official naming under "diffusion_model." on
+# every default target of the 30 blocks (300 linears; the embedders' MLPs
+# are converted only where a file names them)
+LORA_RANK = 32
+LORA_MODULES = ("self_attn.q", "self_attn.k", "self_attn.v", "self_attn.o",
+                "cross_attn.q", "cross_attn.k", "cross_attn.v",
+                "cross_attn.o", "ffn.0", "ffn.2")
+# an active adapter's extra launches a call: two thin GEMMs, the scale and
+# the add (LoRALinear.forward)
+LORA_CALL_LAUNCHES = 4
+# 4s: lora_finetune at 4i's shapes, rank 32 (alpha 32), default targets
+LORA_METHOD = dict(rank=LORA_RANK, init_seed=0)
+# 4t: kd at 4i's shapes with a self-distillation teacher, the cache path
+KD_T_LIST = (999, 937, 833, 624)
+# 4v: AnyFlow with 4 rollout steps (the schedule sets the step count; the
+# JAX package checks student_sample_steps and does not read it further)
+ANYFLOW_METHOD = dict(student_sample_steps=4,
+                      t_list_override=[1000.0, 750.0, 500.0, 250.0, 0.0])
+# the timed steps of 4s-4v, each after one warm-up step
+METHOD_STEPS = 1
+
+
+def write_lora_file(path: str, cfg: dict, rank: int, seed: int,
+                    device: str = "cuda") -> int:
+    """A bf16 adapter on every LORA_MODULES linear of ``cfg``'s blocks,
+    written with the port's writer: A ~ N(0, 1/in), B ~ N(0, 0.01/r), so
+    that the delta at the scaling 16 / r is about 5 % of the weight.
+    Returns the file's bytes."""
+    import torch
+
+    from fastvideo_tpu_torch.models.loader.safetensors_io import save_file
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    dim = cfg["num_attention_heads"] * cfg["attention_head_dim"]
+    ffn = cfg["ffn_dim"]
+    tensors = {}
+    for i in range(cfg["num_layers"]):
+        for m in LORA_MODULES:
+            fin = ffn if m == "ffn.2" else dim
+            fout = ffn if m == "ffn.0" else dim
+            key = f"diffusion_model.blocks.{i}.{m}"
+            tensors[f"{key}.lora_A.weight"] = (torch.randn(
+                rank, fin, generator=gen, device=device) / fin**0.5).to(
+                torch.bfloat16)
+            tensors[f"{key}.lora_B.weight"] = (torch.randn(
+                fout, rank, generator=gen, device=device) *
+                (0.1 / rank**0.5)).to(torch.bfloat16)
+    save_file(tensors, path)
+    return os.path.getsize(path)
+
+
+def uint8_diff(a, b) -> int:
+    import numpy as np
+
+    return int(np.abs(a.astype(np.int16) - b.astype(np.int16)).max())
+
+
+def check_small_lora(work: str) -> None:
+    """A rank-4 adapter on the tiny FastWan (VSA): the card's frames
+    against the CPU's plain path with the adapter active, merged and
+    unmerged (PSNR > 35 dB, the tiny paths' bar), and on the card merged
+    and unmerged within 8 uint8 levels of active (JAX's bar)."""
+    from fastvideo_tpu_torch import VideoGenerator
+    from fastvideo_tpu_torch.ops import _build
+
+    os.environ["FASTVIDEO_ATTENTION_BACKEND"] = "VIDEO_SPARSE_ATTN"
+    ckpt = write_checkpoint(os.path.join(work, "lora",
+                                         "FastWan2.1-T2V-tiny-Diffusers"),
+                            TINY_DIT_CFG, TINY_VAE_CFG, TINY_T5_CFG, seed=12)
+    adapter = os.path.join(work, "lora", "adapter.safetensors")
+    write_lora_file(adapter, TINY_DIT_CFG, 4, seed=13)
+    kw = dict(prompt="w1 w2 w3", height=64, width=64, num_frames=9, seed=11,
+              save_video=False)
+    frames = {}
+    for device in ("cuda", "cpu"):
+        _build.reset_counts()
+        gen = VideoGenerator.from_pretrained(ckpt, device=device,
+                                             VSA_sparsity=0.5)
+        gen.set_lora_adapter("tiny", adapter)
+        out = {"active": gen.generate_video(**kw)["frames"][0]}
+        gen.pipeline.merge_lora_weights()
+        out["merged"] = gen.generate_video(**kw)["frames"][0]
+        gen.pipeline.unmerge_lora_weights()
+        out["unmerged"] = gen.generate_video(**kw)["frames"][0]
+        if device == "cuda" and any(_build.PLAIN_CALLS.values()):
+            raise SystemExit(f"tiny LoRA: the card's run reached a plain "
+                             f"version: {_build.PLAIN_CALLS}")
+        frames[device] = out
+        del gen
+    ps = {k: psnr(frames["cuda"][k], frames["cpu"][k]) for k in frames["cpu"]}
+    fold = {k: uint8_diff(frames["cuda"][k], frames["cuda"]["active"])
+            for k in ("merged", "unmerged")}
+    print(f"  tiny LoRA (rank 4 on {10 * TINY_DIT_CFG['num_layers']} "
+          f"linears), card vs CPU plain: frames PSNR "
+          f"{json.dumps({k: round(v, 2) for k, v in ps.items()})} dB (bar "
+          f"> 35); on the card against active: largest uint8 difference "
+          f"{json.dumps(fold)} (bar <= 8)", flush=True)
+    if not (all(v > 35 for v in ps.values())
+            and all(v <= 8 for v in fold.values())):
+        raise SystemExit("tiny LoRA: the card disagrees with the plain path")
+
+
+def pretrain_launches(layers: int, steps: int, reduces: int) -> dict:
+    """An anyflow_pretrain step: an SFT step's launches
+    (:func:`train_launches`) and two no-grad forwards (K2 and K1 a block
+    each: the finite-difference passes under VSA)."""
+    out = train_launches(layers, steps, reduces)
+    out["flash_fwd"] += 2 * layers * steps
+    out["vsa_sparse_fwd"] = 2 * layers * steps
+    return out
+
+
+def kd_rollout_launches(layers: int, passes: int) -> dict:
+    """The teacher rollout: ``passes`` no-grad forwards at sparsity 0."""
+    return {"flash_fwd": passes * layers, "vsa_sparse_fwd": passes * layers}
+
+
+def anyflow_launches(layers: int, reduces: int, steps: int,
+                     rollout: int) -> dict:
+    """AnyFlow steps (a generator and a critic update each) with a
+    ``rollout``-step flow-map rollout: no-grad passes are the generator
+    rollout's steps but its grad one, the fake, real and unconditional real
+    scores, and the critic's whole rollout."""
+    return dmd2_launches(layers, reduces, steps,
+                         no_grad=(rollout - 1) + 3 + rollout)
+
+
+def check_small_pipeline_step(work: str, label: str, method_name: str,
+                              method_config: dict, expect) -> None:
+    """One step of a TrainingPipeline method (sft, lora_finetune,
+    anyflow_pretrain) of a tiny VSA Wan (heads of 16, 2 layers) on the card
+    against the same step on the CPU's plain path: the same checkpoint,
+    seed and batch, so the same draws (a CPU generator on both). bf16
+    compute, so: loss within 1e-2 relative, the trainable parameters'
+    gradients within 3e-2 relative L2, and those parameters after AdamW
+    within 2e-6 wherever the two (clipped) gradients agree in sign and are
+    at least 1e-5: AdamW's first update is lr * g / (|g| + 1e-8), lr times
+    the sign where |g| >> 1e-8, and a gradient at the bf16 noise level may
+    take either sign. The largest difference over all elements is printed,
+    not held to a bar: two first updates never differ by more than 2 lr.
+    The card's launches must equal ``expect(tokens)``."""
+    import numpy as np
+    import torch
+
+    os.environ["FASTVIDEO_ATTENTION_BACKEND"] = "VIDEO_SPARSE_ATTN"
+    ckpt = write_checkpoint(os.path.join(work, label, "Wan2.1-T2V-tiny"),
+                            TINY_DIT_CFG, TINY_VAE_CFG, TINY_T5_CFG, seed=8)
+    rng = np.random.default_rng(8)
+    batch = (rng.standard_normal(TINY_TRAIN_LATENTS).astype(np.float32),
+             rng.standard_normal(TINY_TRAIN_EMBEDS).astype(np.float32))
+    lr = 1e-3
+    runs = {}
+    for device in ("cuda", "cpu"):
+        method, _ = build_method(method_name, ckpt, "", device,
+                                 dict(TRAIN_KW, learning_rate=lr),
+                                 method_config=method_config)
+        pipe = method.pipeline
+        out, grads, counts, plain_counts = step_with_grads(
+            pipe, batch, vsa_sparsity=0.8)
+        if device == "cuda":
+            launches, plain = counts, plain_counts
+        params = [p.detach().float().cpu() for p in pipe.params]
+        runs[device] = (out, grads, params)
+        del method, pipe
+    tokens = math.prod(TINY_TRAIN_LATENTS[-3:]) // 4
+    check_launches(f"tiny {label} step", launches, plain, expect(tokens))
+    (c_out, c_g, c_p), (p_out, p_g, p_p) = runs["cuda"], runs["cpu"]
+    rel, worst_all, worst_sure, flips, n = adamw_agreement(c_g, p_g, c_p,
+                                                           p_p)
+    loss_rel = abs(c_out["loss"] - p_out["loss"]) / abs(p_out["loss"])
+    print(f"  tiny {label} step, card vs CPU plain: loss {c_out['loss']:.5f} "
+          f"/ {p_out['loss']:.5f} (rel {loss_rel:.2e}, bar 1e-2), grad_norm "
+          f"{c_out['grad_norm']:.5f} / {p_out['grad_norm']:.5f}, gradients "
+          f"rel L2 {rel:.2e} (bar 3e-2), parameters after AdamW: max diff "
+          f"{worst_all:.2e} (no bar: a first AdamW update is +-lr), "
+          f"{worst_sure:.2e} where the gradients agree in sign and are "
+          f">= 1e-5 (bar 2e-6; {flips} of {n} elements are not); card "
+          f"launches {json.dumps({k: v for k, v in launches.items() if v})}",
+          flush=True)
+    if not (math.isfinite(c_out["loss"]) and loss_rel < 1e-2 and rel < 3e-2
+            and worst_sure <= 2e-6):
+        raise SystemExit(f"tiny {label} step: the card disagrees with the "
+                         f"plain path")
+
+
+def check_small_kd(work: str) -> None:
+    """kd on a tiny VSA Wan, card against CPU: the teacher's rollout (the
+    DiT of another tiny checkpoint, ``teacher_model_path``) from the same
+    draws (the same seed: a CPU generator on both), held to 1e-2 of its
+    largest magnitude (4 bf16 passes), then one step on both from the
+    CPU's trajectory at check_small_training's bars; the card's launches:
+    the rollout's 4 no-grad passes, then an SFT step's (sparsity 0, no
+    forward context). A teacher other than the student keeps the step's
+    loss off 0, which a self-distillation teacher gives at the last t."""
+    import numpy as np
+    import torch
+
+    from fastvideo_tpu_torch.ops import _build
+
+    os.environ["FASTVIDEO_ATTENTION_BACKEND"] = "VIDEO_SPARSE_ATTN"
+    ckpt = write_checkpoint(os.path.join(work, "kd", "Wan2.1-T2V-tiny"),
+                            TINY_DIT_CFG, TINY_VAE_CFG, TINY_T5_CFG, seed=10)
+    teacher = write_checkpoint(
+        os.path.join(work, "kd", "Wan2.1-T2V-tiny-teacher"), TINY_DIT_CFG,
+        TINY_VAE_CFG, TINY_T5_CFG, seed=14, share=ckpt)
+    emb = np.random.default_rng(10).standard_normal(
+        TINY_TRAIN_EMBEDS[1:]).astype(np.float32)
+    runs, trajs = {}, {}
+    layers = TINY_DIT_CFG["num_layers"]
+    for device in ("cuda", "cpu"):
+        method, _ = build_method("kd", ckpt, "", device,
+                                 dict(DMD_KW, learning_rate=1e-3),
+                                 method_config=dict(
+                                     t_list=KD_T_LIST,
+                                     teacher_model_path=teacher))
+        _build.reset_counts()
+        traj, real = method.teacher_rollout(
+            emb, method.draw(TINY_TRAIN_LATENTS[1:]))
+        if device == "cuda":
+            torch.cuda.synchronize()
+            check_launches("tiny kd rollout", dict(_build.LAUNCHES),
+                           dict(_build.PLAIN_CALLS),
+                           kd_rollout_launches(layers, len(KD_T_LIST)))
+        trajs[device] = (traj.cpu(), real.cpu())
+        runs[device] = method
+    c_traj, p_traj = trajs["cuda"][0], trajs["cpu"][0]
+    roll_err = ((c_traj - p_traj).abs().max() / p_traj.abs().max()).item()
+    steps = {}
+    for device, method in runs.items():
+        grads: dict = {}
+        capture_grads(method.optimizer, method.params, grads, "step")
+        _build.reset_counts()
+        out = method.train_one_step(*trajs["cpu"][:1], emb, trajs["cpu"][1])
+        if device == "cuda":
+            torch.cuda.synchronize()
+            launches, plain = dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
+        steps[device] = (out, grads["step"],
+                         [p.detach().float().cpu() for p in method.params])
+    tokens = math.prod(TINY_TRAIN_LATENTS[-3:]) // 4
+    check_launches("tiny kd step", launches, plain, train_launches(
+        layers, 1, split_backwards(TINY_DIT_CFG,
+                                   [(tokens, TINY_TRAIN_EMBEDS[2])])))
+    (c_out, c_g, c_p), (p_out, p_g, p_p) = steps["cuda"], steps["cpu"]
+    rel, worst_all, worst_sure, flips, n = adamw_agreement(c_g, p_g, c_p,
+                                                           p_p)
+    loss_rel = abs(c_out["kd_loss"] - p_out["kd_loss"]) / abs(
+        p_out["kd_loss"])
+    print(f"  tiny kd, card vs CPU plain: rollout max error "
+          f"{roll_err:.2e} of its largest magnitude (bar 1e-2); step (t "
+          f"index {int(c_out['kd_step_idx'])} / "
+          f"{int(p_out['kd_step_idx'])}): loss {c_out['kd_loss']:.6f} / "
+          f"{p_out['kd_loss']:.6f} (rel {loss_rel:.2e}, bar 1e-2), "
+          f"gradients rel L2 {rel:.2e} (bar 3e-2), parameters after AdamW: "
+          f"max diff {worst_all:.2e}, {worst_sure:.2e} where the gradients "
+          f"agree in sign and are >= 1e-5 (bar 2e-6; {flips} of {n} "
+          f"elements are not)", flush=True)
+    if not (roll_err < 1e-2 and c_out["kd_step_idx"] == p_out["kd_step_idx"]
+            and math.isfinite(c_out["kd_loss"]) and loss_rel < 1e-2
+            and rel < 3e-2 and worst_sure <= 2e-6):
+        raise SystemExit("tiny kd: the card disagrees with the plain path")
+
+
+def check_small_slice(work: str) -> None:
+    """4a's checks of the LoRA / kd / AnyFlow slice: the tiny FastWan with
+    an adapter, one step each of lora_finetune, kd, anyflow_pretrain and
+    anyflow, card against CPU."""
+    layers = TINY_DIT_CFG["num_layers"]
+
+    def reduces(tokens):
+        return split_backwards(TINY_DIT_CFG, [(tokens, TINY_TRAIN_EMBEDS[2])])
+
+    check_small_lora(work)
+    check_small_pipeline_step(
+        work, "lora_finetune", "lora_finetune", dict(rank=4, init_seed=1),
+        lambda tokens: train_launches(layers, 1, reduces(tokens)))
+    check_small_kd(work)
+    check_small_pipeline_step(
+        work, "anyflow_pretrain", "anyflow_pretrain", {},
+        lambda tokens: pretrain_launches(layers, 1, reduces(tokens)))
+    os.environ["FASTVIDEO_ATTENTION_BACKEND"] = "VIDEO_SPARSE_ATTN"
+    ckpt = write_checkpoint(os.path.join(work, "anyflow", "Wan2.1-T2V-tiny"),
+                            TINY_DIT_CFG, TINY_VAE_CFG, TINY_T5_CFG, seed=11)
+    tokens = math.prod(TINY_TRAIN_LATENTS[-3:]) // 4
+    rollout = len(ANYFLOW_METHOD["t_list_override"]) - 1
+    check_small_distill(
+        "tiny AnyFlow step", "anyflow", ckpt, TINY_TRAIN_LATENTS[1:],
+        ANYFLOW_METHOD,
+        lambda out: anyflow_launches(layers, reduces(tokens), 1, rollout))
+
+
+def run_lora_serving(work: str, profile_dir: str | None = None) -> dict:
+    """Phase 4r: the 4b checkpoint through VideoGenerator.from_pretrained
+    (VSA 0.8), then set_lora_adapter with a rank-32 adapter on the 300
+    block linears, merge_lora_weights and unmerge_lora_weights, each
+    generation of 4b's clip and prompt timed after a warm-up: the base,
+    the adapter active, merged and after unmerge. Checks each generation's
+    frames and launches (the same as the base's: an adapter adds no
+    kernel of ours), merged and unmerged within 8 uint8 levels of active,
+    the base unlike active, and the weights after unmerge within the two
+    roundings' bound of the base. With ``profile_dir``, one more base and
+    one more active generation run under torch.profiler. Merged and
+    unmerged are held to active
+    at the golden gate's PSNR > 35 dB (the same function, rounded in other
+    places, as the tiny paths' card against CPU); their largest uint8
+    difference is printed beside JAX's tiny-model bar of 8, which a
+    random-weight model this deep does not keep: unmerge's 1-ulp residue
+    in a few percent of the weights alone moves it by as much."""
+    import torch
+
+    from fastvideo_tpu_torch import VideoGenerator
+    from fastvideo_tpu_torch.pipelines.lora_pipeline import lora_layers
+
+    os.environ["FASTVIDEO_ATTENTION_BACKEND"] = "VIDEO_SPARSE_ATTN"
+    ckpt = os.path.join(work, "FastWan2.1-T2V-1.3B-Diffusers")
+    t0 = time.perf_counter()
+    gen = VideoGenerator.from_pretrained(ckpt, VSA_sparsity=0.8)
+    print(f"  from_pretrained in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    kw = dict(prompt=PROMPT, seed=42, save_video=False, **CLIP_480P)
+    runs = {}
+
+    def run(label):
+        gen.generate_video(**kw)
+        result, launches, plain, peak = timed_generation(gen, kw)
+        runs[label] = dict(frames=result["frames"][0],
+                           s=result["generation_time"], launches=launches,
+                           plain=plain, peak_gib=peak)
+        print(f"  {label}: generation {result['generation_time']:.3f} s, "
+              f"peak {peak:.2f} GiB", flush=True)
+        check_generation(f"LoRA {label} 480x832", result, CLIP_480P,
+                         launches, plain,
+                         {"flash_fwd": None, "vsa_sparse_fwd": None,
+                          "conv3d": None,
+                          "flash_fwd_combine": vae_chunks(CLIP_480P)})
+
+    run("base")
+    if profile_dir:
+        profile_generation(gen, kw, profile_dir, "lora_base_480x832")
+    adapter = os.path.join(work, "lora_rank32.safetensors")
+    t0 = time.perf_counter()
+    nbytes = write_lora_file(adapter, DIT_CFG, LORA_RANK, seed=5)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gen.set_lora_adapter("rank32", adapter)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    dit = gen.pipeline.get_module("transformer")
+    dev = next(dit.parameters()).device
+    layers = lora_layers(dit)
+    active = [m for m in layers if m.lora_active]
+    print(f"  adapter written in {write_s:.2f} s ({nbytes / 1e6:.1f} MB "
+          f"bf16), set_lora_adapter in {load_s:.2f} s: {len(active)} of "
+          f"{len(layers)} LoRA linears active, rank {active[0].rank}, "
+          f"scaling {active[0].scaling}", flush=True)
+    if len(active) != 10 * DIT_CFG["num_layers"]:
+        raise SystemExit(f"LoRA: {len(active)} adapted linears, expected "
+                         f"{10 * DIT_CFG['num_layers']}")
+    calls = [0]
+
+    def count(mod, args, out):
+        calls[0] += mod.lora_active and not mod.merged
+
+    hooks = [m.register_forward_hook(count) for m in active]
+    run("active")
+    for h in hooks:
+        h.remove()
+    calls[0] //= 2  # the warm-up's and the timed generation's
+    if profile_dir:
+        profile_generation(gen, kw, profile_dir, "lora_active_480x832")
+    # the base weights and the merged ones on the host, off the peaks
+    w0 = [m.weight.detach().cpu() for m in active]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gen.pipeline.merge_lora_weights()
+    torch.cuda.synchronize()
+    merge_s = time.perf_counter() - t0
+    merged_w = [m.weight.detach().cpu() for m in active]
+    run("merged")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gen.pipeline.unmerge_lora_weights()
+    torch.cuda.synchronize()
+    unmerge_s = time.perf_counter() - t0
+    run("unmerged")
+    # |u - w| <= ulp(merged) / 2 + ulp(u) / 2 (each step rounds to bf16
+    # once); one ulp of w where neither crosses a power of two
+    def ulp(x):
+        e = torch.floor(torch.log2(x.float().abs().clamp_min(2.0**-126)))
+        return torch.exp2(e - 7)
+
+    worst = 0.0
+    same = total = 0
+    for m, w, mw in zip(active, w0, merged_w):
+        u, w, mw = m.weight.detach(), w.to(dev), mw.to(dev)
+        gap = (u.float() - w.float()).abs()
+        worst = max(worst, (gap / (0.5 * ulp(mw) + 0.5 * ulp(u))).max()
+                    .item())
+        same += int((u == w).sum())
+        total += u.numel()
+    del w0, merged_w
+    diffs = {k: uint8_diff(runs[k]["frames"], runs["active"]["frames"])
+             for k in ("base", "merged", "unmerged")}
+    ps = {k: psnr(runs[k]["frames"], runs["active"]["frames"])
+          for k in ("base", "merged", "unmerged")}
+    extra = calls[0] * LORA_CALL_LAUNCHES
+    print(f"  merge {merge_s * 1e3:.1f} ms, unmerge {unmerge_s * 1e3:.1f} ms "
+          f"({len(active)} fp32 rank-{LORA_RANK} products each); adapter "
+          f"calls a generation {calls[0]}, so {extra} extra launches (2 "
+          f"thin GEMMs, a scale and an add a call); against active: "
+          f"frames PSNR {json.dumps({k: round(v, 2) for k, v in ps.items()})}"
+          f" dB (merged and unmerged bar > 35), largest uint8 difference "
+          f"{json.dumps(diffs)} (base > 0; JAX's tiny-model bar for merged "
+          f"and unmerged: 8, not held here); weights after unmerge: "
+          f"{same / total:.6f} equal to the base, the largest difference "
+          f"{worst:.3f} of the two roundings' bound (bar <= 1)", flush=True)
+    launches = runs["base"]["launches"]
+    for k in ("active", "merged", "unmerged"):
+        if runs[k]["launches"] != launches:
+            raise SystemExit(f"LoRA {k}: launches {runs[k]['launches']} "
+                             f"differ from the base's {launches}")
+    if not (ps["merged"] > 35 and ps["unmerged"] > 35
+            and diffs["base"] > 0 and worst <= 1.0):
+        raise SystemExit("LoRA 480x832: merged or unmerged frames off the "
+                         "active adapter's, the adapter changed nothing, or "
+                         "unmerge did not restore the weights")
+    del gen, dit, layers, active
+    torch.cuda.empty_cache()
+    return dict(launches=runs["active"]["launches"],
+                generation_s={k: v["s"] for k, v in runs.items()},
+                peak_gib={k: v["peak_gib"] for k, v in runs.items()},
+                merge_s=merge_s, unmerge_s=unmerge_s, load_s=load_s,
+                adapter_calls=calls[0], extra_launches=extra,
+                uint8_vs_active=diffs, psnr_vs_active=ps,
+                unmerge_equal=same / total,
+                unmerge_worst_of_bound=worst)
+
+
+def run_lora_finetune(work: str, data: str,
+                      profile_dir: str | None = None) -> dict:
+    """Phase 4s: lora_finetune at 4i's shapes (VSA 0.8, full remat), rank
+    32 on the default targets (304 linears), on 4n's shard: the base
+    frozen (its checksum unchanged), the adapters moved."""
+    layers = DIT_CFG["num_layers"]
+    tokens = math.prod(TRAIN_LATENTS[-3:]) // 4
+
+    def counts(method, loader):
+        pipe = method.pipeline
+        n = sum(p.numel() for p in pipe.params)
+        print(f"  {pipe.n_lora_layers} LoRA linears, {n} trainable "
+              f"parameters ({n * 4 / 2**20:.1f} MiB fp32)", flush=True)
+        if pipe.n_lora_layers != 10 * layers + 4:
+            raise SystemExit(f"lora_finetune: {pipe.n_lora_layers} LoRA "
+                             f"linears, expected {10 * layers + 4}")
+        return dict(lora_layers=pipe.n_lora_layers, trainable=n)
+
+    return run_training_phase(
+        "lora_finetune", "lora_finetune", work, data, LORA_METHOD, 1,
+        METHOD_STEPS, lambda rows: train_launches(
+            layers, len(rows), split_backwards(
+                DIT_CFG, [(tokens, TRAIN_EMBEDS[2])])),
+        ["transformer"], ["transformer"], profile_dir,
+        ckpt=os.path.join(work, "FastWan2.1-T2V-1.3B-Diffusers"),
+        backend="VIDEO_SPARSE_ATTN", training=TRAIN_KW, prepare=counts)
+
+
+def run_kd(work: str, data: str, profile_dir: str | None = None) -> dict:
+    """Phase 4t: kd at 4i's shapes (sparsity 0: no forward context), a
+    self-distillation teacher, t_list KD_T_LIST: generate_cache over 4n's
+    shard (2 samples), one teacher rollout timed warm, then steps read
+    from the cache."""
+    import torch
+
+    from fastvideo_tpu_torch.ops import _build
+
+    layers = DIT_CFG["num_layers"]
+    tokens = math.prod(TRAIN_LATENTS[-3:]) // 4
+    cache = os.path.join(work, "kd_cache")
+
+    def make_cache(method, loader):
+        t0 = time.perf_counter()
+        method.generate_cache(loader, max_samples=2)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        files = sorted(f for f in os.listdir(cache) if f.endswith(".npz"))
+        sample_bytes = os.path.getsize(os.path.join(cache, files[0]))
+        traj, emb, _ = next(method.iter_cache())
+        draws = method.draw(tuple(traj.shape[1:]))
+        _build.reset_counts()
+        t0 = time.perf_counter()
+        method.teacher_rollout(emb, draws)
+        torch.cuda.synchronize()
+        roll_s = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        check_launches("kd rollout 480x832", launches,
+                       dict(_build.PLAIN_CALLS),
+                       kd_rollout_launches(layers, len(KD_T_LIST)))
+        print(f"  cache of {len(files)} samples in {gen_s:.2f} s "
+              f"({sample_bytes / 1e6:.1f} MB a sample; COMPLETE "
+              f"{os.path.exists(os.path.join(cache, 'COMPLETE'))}); a warm "
+              f"teacher rollout ({len(KD_T_LIST)} no-grad passes) "
+              f"{roll_s:.3f} s", flush=True)
+        return dict(cache_s=gen_s, cache_sample_bytes=sample_bytes,
+                    rollout_s=roll_s, rollout_launches=launches)
+
+    return run_training_phase(
+        "kd", "kd", work, data,
+        dict(t_list=list(KD_T_LIST), teacher_path_cache=cache), 1,
+        METHOD_STEPS, lambda rows: train_launches(
+            layers, len(rows), split_backwards(
+                DIT_CFG, [(tokens, TRAIN_EMBEDS[2])])),
+        ["student"], ["teacher"], profile_dir,
+        ckpt=os.path.join(work, "FastWan2.1-T2V-1.3B-Diffusers"),
+        backend="VIDEO_SPARSE_ATTN", prepare=make_cache)
+
+
+def run_anyflow_pretrain(work: str, data: str,
+                         profile_dir: str | None = None) -> dict:
+    """Phase 4u: anyflow_pretrain at 4i's shapes (VSA 0.8, full remat) on
+    the 4b checkpoint, which has no delta weights: every delta_embedder
+    parameter starts equal to its time_embedder one (the copy rule)."""
+    import torch
+
+    layers = DIT_CFG["num_layers"]
+    tokens = math.prod(TRAIN_LATENTS[-3:]) // 4
+
+    def copy_rule(method, loader):
+        ce = method.pipeline.transformer.condition_embedder
+        ok = all(torch.equal(d, t) and d.data_ptr() != t.data_ptr()
+                 for d, t in zip(ce.delta_embedder.parameters(),
+                                 ce.time_embedder.parameters()))
+        print(f"  delta_embedder a copy of time_embedder: {ok}", flush=True)
+        if not ok:
+            raise SystemExit("anyflow_pretrain: the copy rule did not hold")
+        return {}
+
+    return run_training_phase(
+        "anyflow_pretrain", "anyflow_pretrain", work, data, {}, 1,
+        METHOD_STEPS, lambda rows: pretrain_launches(
+            layers, len(rows), split_backwards(
+                DIT_CFG, [(tokens, TRAIN_EMBEDS[2])])),
+        ["transformer"], [], profile_dir,
+        ckpt=os.path.join(work, "FastWan2.1-T2V-1.3B-Diffusers"),
+        backend="VIDEO_SPARSE_ATTN", training=TRAIN_KW, prepare=copy_rule)
+
+
+def run_anyflow(work: str, data: str,
+                profile_dir: str | None = None) -> dict:
+    """Phase 4v: anyflow at 4n's setup (the 4b checkpoint as generator,
+    real and fake score in fp32 masters with the branch grown, full remat,
+    sparsity 0), a 4-step flow-map rollout, a generator and a critic update
+    a step, on 4n's shard."""
+    layers = DIT_CFG["num_layers"]
+    tokens = math.prod(TRAIN_LATENTS[-3:]) // 4
+    rollout = len(ANYFLOW_METHOD["t_list_override"]) - 1
+    return run_training_phase(
+        "anyflow", "anyflow", work, data, ANYFLOW_METHOD, 1, METHOD_STEPS,
+        lambda rows: anyflow_launches(layers, split_backwards(
+            DIT_CFG, [(tokens, TRAIN_EMBEDS[2])]), len(rows), rollout),
+        ["generator", "fake_score"], ["real_score"], profile_dir,
+        ckpt=os.path.join(work, "FastWan2.1-T2V-1.3B-Diffusers"),
+        backend="VIDEO_SPARSE_ATTN")
 
 
 def profile_train_step(method, loader, out_dir: str,
@@ -4363,7 +4903,7 @@ def profile_train_step(method, loader, out_dir: str,
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    pipe = method.pipeline
+    pipe = getattr(method, "pipeline", method)
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -4478,6 +5018,7 @@ def main() -> int:
     check_small_df_training(work)
     check_small_dmd2(work)
     check_small_self_forcing(work)
+    check_small_slice(work)
     phase("# phase 4b: FastWan main path at full width, 81x480x832, 3 DMD "
           "steps, VSA sparsity 0.8")
     launches = run_main_path(work, args.profile)
@@ -4566,6 +5107,32 @@ def main() -> int:
           f"{CD_METHOD['guidance_scale']}, the EMA from step 0: 1 warm-up + "
           f"{CD_STEPS} timed steps")
     cd = run_causal_cd(work, data, args.profile)
+    phase("# phase 4r: LoRA serving on 4b's checkpoint and prompt: a rank-32 "
+          "adapter (official names under diffusion_model.) on the 300 block "
+          "linears through VideoGenerator.set_lora_adapter, then merge and "
+          "unmerge; the base, active, merged and unmerged generations, each "
+          "timed after a warm-up")
+    lora_serving = run_lora_serving(work, args.profile)
+    wan = ("the 4b checkpoint's Wan2.1-T2V-1.3B-shaped DiT in fp32 masters, "
+           "full remat, AdamW, on 4n's shard (81x480x832 latents, 512 text "
+           "tokens)")
+    phase(f"# phase 4s: lora_finetune ({wan}), rank {LORA_RANK} on the "
+          f"default targets, VSA 0.8: 1 warm-up + {METHOD_STEPS} timed")
+    lora_run = run_lora_finetune(work, data, args.profile)
+    phase(f"# phase 4t: kd ({wan}), t_list {list(KD_T_LIST)}, a "
+          f"self-distillation teacher, the cache path (generate_cache over "
+          f"the shard, then steps from the cache), sparsity 0: 1 warm-up + "
+          f"{METHOD_STEPS} timed")
+    kd = run_kd(work, data, args.profile)
+    phase(f"# phase 4u: anyflow_pretrain ({wan}), the r_embedder grown on a "
+          f"checkpoint without delta weights (the copy rule), VSA 0.8: 1 "
+          f"warm-up + {METHOD_STEPS} timed")
+    pretrain = run_anyflow_pretrain(work, data, args.profile)
+    phase(f"# phase 4v: anyflow at 4n's setup ({wan}, the branch on all "
+          f"three roles), a {len(ANYFLOW_METHOD['t_list_override']) - 1}-"
+          f"step flow-map rollout, a generator and a critic update a step, "
+          f"sparsity 0: 1 warm-up + {METHOD_STEPS} timed")
+    anyflow = run_anyflow(work, data, args.profile)
     shutil.rmtree(work, ignore_errors=True)
     # each kernel's count comes from the path that runs it
     launches["vsa_sparse_padded_fwd"] = vsa_launches["vsa_sparse_padded_fwd"]
@@ -4627,6 +5194,22 @@ def main() -> int:
                                       f"{key}_peak_gib": run["peak_gib"]})
     results["flash_fwd_kv_mask"]["streaming_steps"] = len(
         stream_run["step_times"])
+    # LoRA serving's launches a generation (4r), and the slice's methods'
+    # launches, seconds and peak memory a step (4s-4v)
+    for name, n in lora_serving["launches"].items():
+        if n:
+            results[name]["lora_serving_launches"] = n
+    for key, run in (("lora_finetune", lora_run), ("kd", kd),
+                     ("anyflow_pretrain", pretrain), ("anyflow", anyflow)):
+        for name, n in run["launches"].items():
+            if n:
+                results[name].update({f"{key}_launches": n // METHOD_STEPS,
+                                      f"{key}_step_s": run["step_s"],
+                                      f"{key}_peak_gib": run["peak_gib"]})
+    for name, n in kd["rollout_launches"].items():
+        if n:
+            results[name].update(kd_rollout_launches=n,
+                                 kd_rollout_s=kd["rollout_s"])
     phase("# phase 5: the kernels line, the card line, the result line")
 
     kernels = []

@@ -1,7 +1,8 @@
 """Wan DiT architecture config (port of
 fastvideo_tpu/configs/models/dits/wan.py). Defaults are the 14B sizes; the
 checkpoint's config.json resizes them. The causal Wan reads three more
-fields: ``local_attn_size``, ``sink_size`` and ``num_frames_per_block``."""
+fields: ``local_attn_size``, ``sink_size`` and ``num_frames_per_block``;
+AnyFlow's dual-timestep branch four more (``r_embedder*``)."""
 
 from __future__ import annotations
 
@@ -23,6 +24,10 @@ WAN_PARAM_NAMES_MAPPING: dict[str, str] = {
     r"condition_embedder.time_embedder.mlp.fc_in.\1",
     r"^condition_embedder\.time_embedder\.linear_2\.(.*)$":
     r"condition_embedder.time_embedder.mlp.fc_out.\1",
+    r"^condition_embedder\.delta_embedder\.linear_1\.(.*)$":
+    r"condition_embedder.delta_embedder.mlp.fc_in.\1",
+    r"^condition_embedder\.delta_embedder\.linear_2\.(.*)$":
+    r"condition_embedder.delta_embedder.mlp.fc_out.\1",
     r"^condition_embedder\.time_proj\.(.*)$":
     r"condition_embedder.time_modulation.linear.\1",
     r"^blocks\.(\d+)\.attn1\.to_q\.(.*)$": r"blocks.\1.to_q.\2",
@@ -36,6 +41,21 @@ WAN_PARAM_NAMES_MAPPING: dict[str, str] = {
     r"^blocks\.(\d+)\.ffn\.net\.2\.(.*)$": r"blocks.\1.ffn.fc_out.\2",
     r"^blocks\.(\d+)\.norm2\.(.*)$":
     r"blocks.\1.self_attn_residual_norm.norm.\2",
+}
+
+# Official (non-diffusers) LoRA layer names -> diffusers names, applied
+# before the main mapping.
+WAN_LORA_PARAM_NAMES_MAPPING: dict[str, str] = {
+    r"^blocks\.(\d+)\.self_attn\.q\.(.*)$": r"blocks.\1.attn1.to_q.\2",
+    r"^blocks\.(\d+)\.self_attn\.k\.(.*)$": r"blocks.\1.attn1.to_k.\2",
+    r"^blocks\.(\d+)\.self_attn\.v\.(.*)$": r"blocks.\1.attn1.to_v.\2",
+    r"^blocks\.(\d+)\.self_attn\.o\.(.*)$": r"blocks.\1.attn1.to_out.0.\2",
+    r"^blocks\.(\d+)\.cross_attn\.q\.(.*)$": r"blocks.\1.attn2.to_q.\2",
+    r"^blocks\.(\d+)\.cross_attn\.k\.(.*)$": r"blocks.\1.attn2.to_k.\2",
+    r"^blocks\.(\d+)\.cross_attn\.v\.(.*)$": r"blocks.\1.attn2.to_v.\2",
+    r"^blocks\.(\d+)\.cross_attn\.o\.(.*)$": r"blocks.\1.attn2.to_out.0.\2",
+    r"^blocks\.(\d+)\.ffn\.0\.(.*)$": r"blocks.\1.ffn.fc_in.\2",
+    r"^blocks\.(\d+)\.ffn\.2\.(.*)$": r"blocks.\1.ffn.fc_out.\2",
 }
 
 
@@ -64,6 +84,12 @@ class WanArchConfig(DiTArchConfig):
     local_attn_size: int = -1
     sink_size: int = 0
     num_frames_per_block: int = 3
+    # AnyFlow dual-timestep (t, r) conditioning: a second time embedder
+    # (``delta_embedder``) whose output is fused into temb
+    r_embedder: bool = False
+    r_embedder_fusion: str = "additive"  # or "gated"
+    r_embedder_gate_value: float = 0.25
+    r_embedder_deltatime_type: str = "r"  # or "t-r"
 
     @property
     def hidden_size(self) -> int:
@@ -80,3 +106,5 @@ class WanVideoConfig(ModelConfig):
         default_factory=WanArchConfig)
     param_names_mapping: dict[str, str] = dataclasses.field(
         default_factory=lambda: dict(WAN_PARAM_NAMES_MAPPING))
+    lora_param_names_mapping: dict[str, str] = dataclasses.field(
+        default_factory=lambda: dict(WAN_LORA_PARAM_NAMES_MAPPING))

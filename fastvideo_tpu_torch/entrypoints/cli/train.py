@@ -5,9 +5,10 @@
 The config tree (JSON, or the simple YAML subset of ``api/parser.py``;
 unknown keys are errors):
 
-    method: sft                 # or dmd2; dfsft / tfsft, self_forcing,
-                                # streaming_long_tuning, causal_cd (a
-                                # causal checkpoint)
+    method: sft                 # or lora_finetune, kd, anyflow_pretrain,
+                                # dmd2, anyflow; dfsft / tfsft,
+                                # self_forcing, streaming_long_tuning,
+                                # causal_cd (a causal checkpoint)
     model:
       pretrained_model_path: /path/to/Diffusers-dir   # transformer/ inside
       dit_precision: fp32
@@ -19,7 +20,8 @@ unknown keys are errors):
       learning_rate: 1e-5
       max_train_steps: 1000
       device: cuda              # or cpu
-    dmd:                        # dmd2, self_forcing, streaming_long_tuning
+    dmd:                        # dmd2, anyflow, self_forcing,
+                                # streaming_long_tuning
       dmd_denoising_steps: [1000, 757, 522]
       real_score_guidance_scale: 3.5
       dfake_gen_update_ratio: 5
@@ -33,7 +35,17 @@ unknown keys are errors):
                                 # streaming_max_length, num_latent_t,
                                 # denoise_steps; causal_cd: discrete_cd_N,
                                 # guidance_scale, ema_decay,
-                                # ema_start_step, flow_shift
+                                # ema_start_step, flow_shift;
+                                # lora_finetune: rank, alpha,
+                                # target_modules, init_seed; kd: t_list,
+                                # teacher_model_path, teacher_path_cache;
+                                # anyflow_pretrain: diffusion_ratio,
+                                # consistency_ratio, epsilon, weight_type,
+                                # shift, r_embedder_fusion,
+                                # r_embedder_gate_value,
+                                # r_embedder_deltatime_type; anyflow:
+                                # student_sample_steps, t_list_override,
+                                # use_mean_velocity, r_embedder_*
 
 ``method`` resolves through the plugin registry; ``data.path`` is read by
 ``dataset/parquet.py:build_parquet_dataloader`` (the port's own Parquet

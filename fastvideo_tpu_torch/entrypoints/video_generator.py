@@ -11,6 +11,9 @@ runs ``num_inference_steps`` FlowUniPC steps with classifier-free guidance
 1-4 rCM steps. ``from_pretrained(..., transformer_quant="int8",
 text_encoder_quant="int8-weight-only")`` serves the int8 forms, and
 ``FASTVIDEO_VAE_CONV3D=auto_int8`` the int8 decode convs.
+``set_lora_adapter(nickname, path)`` attaches a LoRA adapter
+(``gen.pipeline.merge_lora_weights()`` / ``unmerge_lora_weights()`` fold it
+in and out); ``lora_path`` is stored and not applied, as in JAX.
 
 It runs on the CUDA card unless the caller passes ``device="cpu"``; with
 no CUDA device and no ``device`` it raises.
@@ -132,6 +135,15 @@ class VideoGenerator:
         if param.return_frames:
             return frames
         return result
+
+    def set_lora_adapter(self, lora_nickname: str,
+                         lora_path: str | None = None) -> None:
+        """Load and attach a LoRA adapter to the pipeline's DiT (merge and
+        unmerge through ``self.pipeline``)."""
+        if not hasattr(self.pipeline, "set_lora_adapter"):
+            raise NotImplementedError(
+                "Pipeline does not support LoRA adapters")
+        self.pipeline.set_lora_adapter(lora_nickname, lora_path)
 
     @staticmethod
     def save_video(frames: np.ndarray, param: SamplingParam) -> str:

@@ -27,6 +27,10 @@ class FastVideoArgs:
     # (FASTVIDEO_TRANSFORMER_QUANT / FASTVIDEO_TEXT_ENCODER_QUANT win)
     transformer_quant: str | None = None
     text_encoder_quant: str | None = None
+    # stored and not applied, as in the JAX package: an adapter reaches the
+    # model through VideoGenerator.set_lora_adapter only
+    lora_path: str | None = None
+    lora_nickname: str = "default"
     pipeline_config: Any = None
 
     @classmethod

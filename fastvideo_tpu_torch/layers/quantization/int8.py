@@ -28,6 +28,7 @@ from torch import nn
 
 from fastvideo_tpu_torch.layers.embeddings import PatchEmbed3D
 from fastvideo_tpu_torch.layers.linear import Linear
+from fastvideo_tpu_torch.layers.lora import LoRALinear
 
 logger = logging.getLogger(__name__)
 
@@ -199,7 +200,10 @@ def quantize_model_linears(model: nn.Module,
     def walk(mod: nn.Module, path: str) -> None:
         nonlocal count
         for name, child in list(mod.named_children()):
-            if name.startswith("_") or isinstance(child, Int8Linear):
+            # a LoRA linear keeps its weight (JAX skips a linear that has
+            # lora_A)
+            if name.startswith("_") or isinstance(child,
+                                                  (Int8Linear, LoRALinear)):
                 continue
             full = f"{path}.{name}" if path else name
             if isinstance(child, PatchEmbed3D):

@@ -50,15 +50,35 @@ from fastvideo_tpu_torch.ops.vsa import (tile_tokens, tile_tokens_exact,
 
 
 class WanTimeTextEmbedding(nn.Module):
-    """Time and text conditioning embedder (T2V: no image branch)."""
+    """Time and text conditioning embedder (T2V: no image branch).
+
+    With ``r_embedder`` (AnyFlow's dual-timestep branch) a second
+    ``TimestepEmbedder``, ``delta_embedder``, embeds r (or t - r) and is
+    fused into temb by a fixed gate g: ``additive`` temb + g delta, or
+    ``gated`` (1 - g) temb + g delta."""
 
     def __init__(self, dim: int, time_freq_dim: int, text_embed_dim: int, *,
-                 device=None, dtype=None):
+                 r_embedder: bool = False, r_embedder_fusion: str = "additive",
+                 r_embedder_gate_value: float = 0.25,
+                 r_embedder_deltatime_type: str = "r", device=None,
+                 dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.time_embedder = TimestepEmbedder(
             dim, frequency_embedding_size=time_freq_dim, act_layer="silu",
             **kw)
+        if r_embedder:
+            if r_embedder_fusion not in ("additive", "gated"):
+                raise ValueError(f"bad r_embedder_fusion {r_embedder_fusion}")
+            if r_embedder_deltatime_type not in ("r", "t-r"):
+                raise ValueError("bad r_embedder_deltatime_type "
+                                 f"{r_embedder_deltatime_type}")
+        self.delta_embedder = (TimestepEmbedder(
+            dim, frequency_embedding_size=time_freq_dim, act_layer="silu",
+            **kw) if r_embedder else None)
+        self.r_fusion = r_embedder_fusion
+        self.r_gate = float(r_embedder_gate_value)
+        self.r_deltatime_type = r_embedder_deltatime_type
         self.time_modulation = ModulateProjection(dim, factor=6,
                                                   act_layer="silu", **kw)
         self.text_embedder = MLP(text_embed_dim, dim, dim, bias=True,
@@ -66,13 +86,34 @@ class WanTimeTextEmbedding(nn.Module):
 
     def forward(self, timestep: torch.Tensor,
                 encoder_hidden_states: torch.Tensor,
-                timestep_seq_len: int | None = None):
+                timestep_seq_len: int | None = None,
+                r_timestep: torch.Tensor | None = None):
         """(temb, its 6-way modulation, the text context). With
         ``timestep_seq_len`` the timesteps are per token (B * seq_len of
-        them) and temb is [B, seq_len, C]."""
+        them) and temb is [B, seq_len, C]. ``r_timestep`` reaches temb only
+        when the branch exists."""
         temb = self.time_embedder(timestep, timestep_seq_len)
+        if self.delta_embedder is not None and r_timestep is not None:
+            delta_input = (r_timestep if self.r_deltatime_type == "r" else
+                           timestep - r_timestep)
+            delta = self.delta_embedder(delta_input, timestep_seq_len)
+            if self.r_fusion == "gated":
+                temb = (1.0 - self.r_gate) * temb + self.r_gate * delta
+            else:
+                temb = temb + self.r_gate * delta
         return (temb, self.time_modulation(temb),
                 self.text_embedder(encoder_hidden_states))
+
+
+@torch.no_grad()
+def init_delta_from_time(model: nn.Module) -> None:
+    """The AnyFlow copy rule: ``delta_embedder`` starts as a copy of
+    ``time_embedder`` (a checkpoint without delta weights leaves it
+    unloaded)."""
+    ce = model.condition_embedder
+    ce.delta_embedder.load_state_dict(
+        {k: v.detach().clone() for k, v in
+         ce.time_embedder.state_dict().items()}, strict=True, assign=True)
 
 
 class WanT2VCrossAttention(nn.Module):
@@ -202,6 +243,8 @@ class WanTransformer3DModel(nn.Module):
     # a subclass with its own block class (the causal Wan) never runs in
     # the VSA tile-major order
     block_cls: type[WanTransformerBlock] | None = None
+    # grown by arch overrides, possibly absent from a checkpoint
+    optional_checkpoint_prefixes = ("condition_embedder.delta_embedder.",)
 
     def __init__(self, config: WanArchConfig, *, device=None, dtype=None):
         super().__init__()
@@ -214,7 +257,11 @@ class WanTransformer3DModel(nn.Module):
         self.patch_embedding = PatchEmbed3D(config.in_channels, inner_dim,
                                             config.patch_size, **kw)
         self.condition_embedder = WanTimeTextEmbedding(
-            inner_dim, config.freq_dim, config.text_dim, **kw)
+            inner_dim, config.freq_dim, config.text_dim,
+            r_embedder=config.r_embedder,
+            r_embedder_fusion=config.r_embedder_fusion,
+            r_embedder_gate_value=config.r_embedder_gate_value,
+            r_embedder_deltatime_type=config.r_embedder_deltatime_type, **kw)
         self.vsa_tiled_order = (self.block_cls is None and
                                 resolve_backend_name() == "VIDEO_SPARSE_ATTN")
         block_cls = self.block_cls or (WanTransformerBlockVSA
@@ -238,8 +285,11 @@ class WanTransformer3DModel(nn.Module):
 
     def forward(self, hidden_states: torch.Tensor,
                 encoder_hidden_states: torch.Tensor,
-                timestep: torch.Tensor) -> torch.Tensor:
-        """hidden_states [B, C, T, H, W]; timestep [B] (fp32)."""
+                timestep: torch.Tensor,
+                r_timestep: torch.Tensor | None = None) -> torch.Tensor:
+        """hidden_states [B, C, T, H, W]; timestep [B] (fp32).
+        ``r_timestep`` [B]: AnyFlow's flow-map target time, read only when
+        the config enables ``r_embedder``."""
         cfg = self.config
         _, _, t, h, w = hidden_states.shape
         pt, ph, pw = cfg.patch_size
@@ -260,7 +310,7 @@ class WanTransformer3DModel(nn.Module):
             sin = tile_fn(sin[None], grid, tile)[0]
 
         temb, timestep_proj, context = self.condition_embedder(
-            timestep, encoder_hidden_states)
+            timestep, encoder_hidden_states, r_timestep=r_timestep)
         timestep_proj = timestep_proj.reshape(timestep_proj.shape[0], 6, -1)
         context = context.to(x.dtype)
         remat = self.gradient_checkpointing and torch.is_grad_enabled()

@@ -70,17 +70,25 @@ def _build_arch_config(arch_cls, hf_config: dict):
 def load_model_component(component_dir: str, *, device: torch.device,
                          precision: str = "bf16", model_config=None,
                          quantize_spec: str | None = None,
-                         trainable: bool = False):
+                         trainable: bool = False,
+                         arch_overrides: dict | None = None):
     """Build the component's module and load its weights (strict). With
     ``quantize_spec`` (an int8 alias) its linears are quantized at load.
     With ``trainable`` the module comes back in train mode with every
     parameter requiring grad (the trainer's load), else in eval mode with
-    none."""
+    none. ``arch_overrides`` set arch fields over config.json's; parts they
+    grow (the class's ``optional_checkpoint_prefixes``) may be missing
+    from the checkpoint, and are then left on the meta device for the
+    caller to fill."""
     hf_config = load_json_config(os.path.join(component_dir, "config.json"))
     class_name = hf_config.get("_class_name") or hf_config.get(
         "architectures", ["?"])[0]
     model_cls, arch_cls = resolve_model_cls(class_name)
     arch = _build_arch_config(arch_cls, hf_config)
+    for key, value in (arch_overrides or {}).items():
+        if not hasattr(arch, key):
+            raise ValueError(f"{type(arch).__name__} has no field {key!r}")
+        setattr(arch, key, value)
     mapping = None
     if model_config is not None:
         # the stages read the checkpoint's real dims from the pipeline config
@@ -97,7 +105,10 @@ def load_model_component(component_dir: str, *, device: torch.device,
                      device=device, dtype=dtype,
                      ignore_prefixes=getattr(model_cls,
                                              "ignored_checkpoint_prefixes",
-                                             ()))
+                                             ()),
+                     optional_prefixes=getattr(
+                         model_cls, "optional_checkpoint_prefixes", ())
+                     if arch_overrides else ())
     logger.info("Loaded %d tensors for %s from %s (%d linears int8 at load)",
                 n, class_name, component_dir, count)
     if trainable:

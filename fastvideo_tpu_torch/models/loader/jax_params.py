@@ -8,6 +8,8 @@ and applies the layout rules of ``fastvideo_tpu.models.loader.export``
 * a Linear ``kernel`` [in, out] becomes ``weight`` [out, in], and an
   Int8Linear ``kernel_q`` [in, out] becomes ``weight_q`` [out, in] (its
   ``scale`` [out] keeps its path);
+* a LoRA layer's ``lora_A`` [in, r] and ``lora_B`` [r, out] become the
+  port's (torch / peft) ``lora_A`` [r, in] and ``lora_B`` [out, r];
 * a 5-D conv ``weight`` in DHWIO becomes OIDHW;
 * the PatchEmbed3D matmul kernel ``patch_embedding.proj.kernel``
   [C*pt*ph*pw, O] becomes the 5-D conv weight ``patch_embedding.weight``
@@ -66,6 +68,8 @@ def state_dict_from_jax(flat: Mapping, *,
             path = f"patch_embedding.{'weight' if leaf == 'kernel' else leaf}"
         elif leaf in ("kernel", "kernel_q") and value.ndim == 2:
             path = f"{prefix}.{'weight' if leaf == 'kernel' else 'weight_q'}"
+            value = value.T
+        elif leaf in ("lora_A", "lora_B") and value.ndim == 2:
             value = value.T
         elif leaf == "weight" and value.ndim == 5:
             value = value.transpose(4, 3, 0, 1, 2)

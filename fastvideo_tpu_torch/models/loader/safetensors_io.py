@@ -42,6 +42,11 @@ def _read_header(path: str) -> tuple[dict, int]:
     return header, 8 + n
 
 
+def tensor_names(path: str) -> list[str]:
+    """The tensor names of one file (its header alone is read)."""
+    return list(_read_header(path)[0])
+
+
 def load_file(path: str) -> dict[str, torch.Tensor]:
     """All tensors of one file, as CPU tensors over a memory map."""
     return dict(iterate_file(path))

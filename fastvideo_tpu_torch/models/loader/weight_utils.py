@@ -36,11 +36,14 @@ def load_weights(model: nn.Module,
                  weights: Iterable[tuple[str, torch.Tensor]],
                  param_names_mapping: dict[str, str] | None = None, *,
                  device: torch.device | str, dtype: torch.dtype,
-                 ignore_prefixes: tuple[str, ...] = ()) -> int:
+                 ignore_prefixes: tuple[str, ...] = (),
+                 optional_prefixes: tuple[str, ...] = ()) -> int:
     """Load ``weights`` into ``model`` on ``device``, floating tensors in
     ``dtype``; checkpoint names starting with ``ignore_prefixes`` (after
     mapping) belong to parts the module does not build and are skipped.
-    Returns the number of tensors loaded."""
+    Parameters under ``optional_prefixes`` may be missing from the
+    checkpoint: they are left as built (on the meta device, for the caller
+    to fill). Returns the number of tensors loaded."""
     expected = model.state_dict(keep_vars=True)
     int8_weights = {f"{n}.weight" for n, m in model.named_modules()
                     if isinstance(m, Int8Linear)}
@@ -73,9 +76,10 @@ def load_weights(model: nn.Module,
         state[target] = value.to(
             device=device,
             dtype=dtype if value.is_floating_point() else value.dtype)
-    missing = sorted(set(expected) - set(state))
+    missing = sorted(n for n in set(expected) - set(state)
+                     if not n.startswith(optional_prefixes))
     if missing:
         raise KeyError(f"{type(model).__name__}: {len(missing)} parameters "
                        f"missing from the checkpoint, e.g. {missing[:5]}")
-    model.load_state_dict(state, strict=True, assign=True)
+    model.load_state_dict(state, strict=not optional_prefixes, assign=True)
     return len(state)

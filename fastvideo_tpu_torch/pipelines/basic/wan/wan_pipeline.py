@@ -2,7 +2,7 @@
 fastvideo_tpu/pipelines/basic/wan/wan_pipeline.py): WanPipeline, the 3-step
 DMD WanDMDPipeline and the self-forcing WanCausalDMDPipeline. Wan uses
 FlowUniPC timesteps and the causal Wan flow-match Euler, whatever scheduler
-the checkpoint names."""
+the checkpoint names. Each takes LoRA adapters (``LoRAPipelineMixin``)."""
 
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ from fastvideo_tpu_torch.models.schedulers.flow_match_euler import (
 from fastvideo_tpu_torch.models.schedulers.flow_unipc import (
     FlowUniPCMultistepScheduler)
 from fastvideo_tpu_torch.pipelines.composed import ComposedPipelineBase
+from fastvideo_tpu_torch.pipelines.lora_pipeline import LoRAPipelineMixin
 from fastvideo_tpu_torch.pipelines.stages.causal_denoising import (
     CausalDenoisingStage)
 from fastvideo_tpu_torch.pipelines.stages.decoding import DecodingStage
@@ -27,7 +28,7 @@ from fastvideo_tpu_torch.pipelines.stages.timestep_preparation import (
     TimestepPreparationStage)
 
 
-class WanPipeline(ComposedPipelineBase):
+class WanPipeline(LoRAPipelineMixin, ComposedPipelineBase):
     _required_config_modules = [
         "text_encoder", "tokenizer", "vae", "transformer", "scheduler"
     ]

@@ -188,6 +188,12 @@ class DMD2DistillationPipeline:
         return self._pred_x0(self.generator, x, embeds,
                              self._full_t(steps[-1], b))
 
+    def _update_rollout(self, noise: torch.Tensor, embeds: torch.Tensor,
+                        draws: UpdateDraws) -> torch.Tensor:
+        """An update's rollout from its draws (a subclass with other
+        rollout draws replaces this and :meth:`_update_draws`)."""
+        return self._rollout(noise, embeds, draws.rollout)
+
     def _dmd_timestep(self, t_int: int, batch: int) -> torch.Tensor:
         """The generator's timestep: shifted, then clipped to [min, max]
         of T; one value over the batch."""
@@ -211,7 +217,7 @@ class DMD2DistillationPipeline:
                        neg_embeds: torch.Tensor,
                        draws: UpdateDraws) -> torch.Tensor:
         dmd = self.dmd
-        x0_gen = self._rollout(noise, embeds, draws.rollout)
+        x0_gen = self._update_rollout(noise, embeds, draws)
         t = self._dmd_timestep(draws.t_int, noise.shape[0])
         sigma = self._sigma(t, noise.ndim)
         n = draws.noise.to(self.device)
@@ -230,7 +236,7 @@ class DMD2DistillationPipeline:
     def critic_loss(self, noise: torch.Tensor, embeds: torch.Tensor,
                     draws: UpdateDraws) -> torch.Tensor:
         with torch.no_grad():
-            x0_gen = self._rollout(noise, embeds, draws.rollout)
+            x0_gen = self._update_rollout(noise, embeds, draws)
         t = self._critic_timestep(draws.t_int, noise.shape[0])
         sigma = self._sigma(t, noise.ndim)
         n = draws.noise.to(self.device)
@@ -242,8 +248,14 @@ class DMD2DistillationPipeline:
     def _update(self, loss: torch.Tensor, params, optimizer,
                 count: int) -> float:
         """Backward, clip, AdamW at the schedule's LR of ``count``; the
-        gradients are freed before the other role's backward."""
+        gradients are freed before the other role's backward. A parameter
+        the loss does not reach (a fake score's AnyFlow delta_embedder,
+        which never sees r) gets a zero gradient, as JAX's does: AdamW
+        still decays it and its moments."""
         loss.backward()
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         norm = clip_grad_norm(params, self.args.max_grad_norm)
         lr = self.lr_schedule(count)
         for group in optimizer.param_groups:

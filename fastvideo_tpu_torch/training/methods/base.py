@@ -2,10 +2,11 @@
 fastvideo_tpu/training/methods/base.py).
 
 A method owns its role models and steps and is resolved by registry name.
-The port registers ``sft``, ``dfsft``, ``tfsft``, ``dmd2``,
-``self_forcing``, ``streaming_long_tuning`` and ``causal_cd``; the JAX
-package's other built-in names (``NOT_PORTED``) raise with the ROADMAP
-item that brings them (and the JAX package's dotted ``_target_`` paths are
+The port registers ``sft``, ``dfsft``, ``tfsft``, ``lora_finetune``,
+``dmd2``, ``self_forcing``, ``streaming_long_tuning``, ``causal_cd``,
+``kd``, ``anyflow_pretrain`` and ``anyflow``; the JAX package's other
+built-in name (``NOT_PORTED``: ``diffusion_nft``) raises with the ROADMAP
+item that brings it (and the JAX package's dotted ``_target_`` paths are
 not taken).
 """
 
@@ -24,11 +25,7 @@ _METHOD_REGISTRY: dict[str, type["TrainingMethod"]] = {}
 
 # the JAX package's other built-in methods, and what the port waits on
 NOT_PORTED = {
-    "kd": "ROADMAP Queue 1, distillation methods",
-    "lora_finetune": "ROADMAP Queue 1, LoRA",
-    "anyflow": "ROADMAP Queue 1, distillation methods",
-    "anyflow_pretrain": "ROADMAP Queue 1, distillation methods",
-    "diffusion_nft": "ROADMAP Queue 1, distillation methods",
+    "diffusion_nft": "ROADMAP Queue 1, diffusion_nft",
 }
 
 

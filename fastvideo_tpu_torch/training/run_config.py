@@ -68,9 +68,11 @@ def build_training_args(cfg: TrainRunConfig) -> TrainingArgs:
     return TrainingArgs(**cfg.training)
 
 
-def build_transformer(spec: ModelSpec, device: torch.device | str = "cuda"):
+def build_transformer(spec: ModelSpec, device: torch.device | str = "cuda",
+                      arch_overrides: dict[str, Any] | None = None):
     """The DiT of a diffusers-format directory (its ``transformer/``),
-    loaded trainable in ``spec.dit_precision`` on ``device``."""
+    loaded trainable in ``spec.dit_precision`` on ``device``, with
+    ``arch_overrides`` over its config.json."""
     from fastvideo_tpu_torch.models.loader.component_loader import (
         load_model_component)
     from fastvideo_tpu_torch.registry import get_pipeline_config_cls_for_name
@@ -83,7 +85,8 @@ def build_transformer(spec: ModelSpec, device: torch.device | str = "cuda"):
     tdir = os.path.join(spec.pretrained_model_path, "transformer")
     return load_model_component(tdir, device=torch.device(device),
                                 precision=spec.dit_precision,
-                                model_config=dit_config, trainable=True)
+                                model_config=dit_config, trainable=True,
+                                arch_overrides=arch_overrides)
 
 
 def build_dataloader(cfg: TrainRunConfig, training_args: TrainingArgs):

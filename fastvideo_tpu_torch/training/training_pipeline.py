@@ -290,11 +290,15 @@ class TrainingPipeline:
 
     # -- checkpoints -----------------------------------------------------------
 
+    def checkpoint_state(self) -> dict[str, torch.Tensor]:
+        """The tensors a checkpoint holds and a resume restores in place:
+        the whole model (LoRA training keeps only its adapters)."""
+        return self.transformer.state_dict()
+
     def save_checkpoint(self) -> None:
         if self.checkpoint_manager is None:
             raise ValueError("no output_dir: checkpoints are off")
-        self.checkpoint_manager.save(self.step,
-                                     self.transformer.state_dict(),
+        self.checkpoint_manager.save(self.step, self.checkpoint_state(),
                                      self.optimizer.state_dict(),
                                      self.generator.get_state())
 
@@ -306,7 +310,7 @@ class TrainingPipeline:
         model_state, opt_state, rng, meta = self.checkpoint_manager.restore(
             step)
         with torch.no_grad():
-            for name, t in self.transformer.state_dict().items():
+            for name, t in self.checkpoint_state().items():
                 t.copy_(model_state[name])
         self.optimizer.load_state_dict(opt_state)
         self.step = int(meta["step"])

@@ -1540,3 +1540,50 @@ def test_flash_fwd_entry_refuses_the_tf32_case(dev):
         1, 64, 64, 384, *st, *st, *st, *st, 384**-0.5, 0, 64,
         _build.stream_ptr(q))
     assert err != 0
+
+
+@pytest.mark.parametrize("out_features", [1536, 8960])
+def test_lora_linear_on_the_card_matches_the_cpu(dev, out_features):
+    """``LoRALinear`` (rank 32, bf16 activations, fp32 masters) at a
+    full-width Wan linear (1,536 in; the attention's 1,536 or the FFN's
+    8,960 out) over 4,096 tokens: active, merged and unmerged on the card
+    against the same layer on the CPU. Both sides round the products to
+    bf16 (cuBLAS and the CPU sum in other orders): within 2 bf16 ulps
+    (2^-6) relative plus 2^-6 of the output's std. The merged weight
+    within 1e-6 of the CPU's (fp32), and unmerge restores the card's
+    weight within 1e-6."""
+    from fastvideo_tpu_torch.layers.linear import Linear
+    from fastvideo_tpu_torch.layers.lora import LoRALinear
+
+    g = torch.Generator().manual_seed(0)
+    base = Linear(1536, out_features)
+    with torch.no_grad():
+        base.weight.copy_(torch.randn(base.weight.shape, generator=g)
+                          / 1536**0.5)
+    cpu = LoRALinear.from_linear(base, rank=32, alpha=64.0)
+    cpu.set_adapter(torch.randn(32, 1536, generator=g) / 1536**0.5,
+                    torch.randn(out_features, 32, generator=g) / 8)
+    card = LoRALinear.from_linear(Linear(1536, out_features).to(dev),
+                                  rank=32, alpha=64.0)
+    card.load_state_dict(cpu.state_dict())
+    card.lora_active = True
+    x = torch.randn(1, 4096, 1536, generator=g).to(torch.bfloat16)
+    w0 = card.weight.detach().clone()
+    for stage in ("active", "merged", "unmerged"):
+        if stage == "merged":
+            cpu.merge()
+            card.merge()
+            torch.testing.assert_close(card.weight.cpu(), cpu.weight,
+                                       atol=1e-6, rtol=0)
+        elif stage == "unmerged":
+            cpu.unmerge()
+            card.unmerge()
+            torch.testing.assert_close(card.weight, w0, atol=1e-6, rtol=0)
+        with torch.no_grad():
+            want = cpu(x).float()
+            got = card(x.to(dev)).float()
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all(), stage
+        torch.testing.assert_close(got.cpu(), want,
+                                   atol=2.0**-6 * want.std().item(),
+                                   rtol=2.0**-6, msg=stage)

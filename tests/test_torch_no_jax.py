@@ -70,6 +70,31 @@ def test_no_package_the_card_lacks_in_sources():
     assert not bad
 
 
+# the LoRA / kd / AnyFlow slice: each of its modules stands alone (its
+# own LoRA key mapping, flow-map scheduler and safetensors key reader)
+SLICE_MODULES = [
+    "layers/lora.py", "pipelines/lora_pipeline.py",
+    "training/methods/lora.py", "training/methods/knowledge_distillation.py",
+    "training/methods/anyflow_pretrain.py", "training/methods/anyflow.py",
+    "models/schedulers/scheduling_flow_map_euler.py",
+]
+
+
+@pytest.mark.parametrize("module", SLICE_MODULES)
+def test_slice_module_imports_nothing_forbidden(module):
+    path = os.path.join(PKG, module)
+    with open(path) as fh:
+        tree = ast.parse(fh.read(), path)
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module or "")
+    assert names and not [n for n in names if _forbidden(n)
+                          or n.split(".")[0] == "safetensors"]
+
+
 BLOCKER = """
 import importlib.abc, pkgutil, sys
 class Block(importlib.abc.MetaPathFinder):
