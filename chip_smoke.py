@@ -3,6 +3,8 @@
     python3 chip_smoke.py                     # all phases, one card
     python3 chip_smoke.py --profile DIR       # plus a profiled generation
                                               # of each path and train step
+    python3 chip_smoke.py --flex-struct       # plus compiled flex_attention
+                                              # beside K1 / K6 struct
 
 Phases, each printing its own lines:
   1. environment: torch/CUDA versions and the card's name and power limit;
@@ -56,7 +58,10 @@ Phases, each printing its own lines:
      one self_forcing step of that causal Wan, so that K5 and the grad
      route's K1 and K6 run; the tiny FastWan with a LoRA adapter active,
      merged and unmerged, and one step each of lora_finetune, kd (its
-     teacher rollout too), anyflow_pretrain and anyflow);
+     teacher rollout too), anyflow_pretrain and anyflow; one DiffusionNFT
+     outer step with a tiny CLIP dual tower, one SFT step with the
+     grad_clip and ema callbacks, and on the card one SFT step under
+     selective_checkpointing "ops" against one under "full");
      b: the FastWan main path at full width: a random-weight
      FastWan2.1-T2V-1.3B-shaped diffusers checkpoint written with the
      port's own safetensors writer, loaded by
@@ -93,7 +98,9 @@ Phases, each printing its own lines:
      build_from_config, SFTMethod and method.train over the port's
      PrefetchingLoader: a warm-up step, then --train-steps (default 1)
      timed ones; seconds a step, loss, grad_norm, peak memory and the
-     launch counts of every kernel of the step;
+     launch counts of every kernel of the step; then one timed step under
+     selective_checkpointing="ops" (the linears' outputs saved), its peak
+     memory (at 41 frames if 81 do not fit);
      j, k: the Wan2.1-T2V-1.3B multistep path at full width and depth with
      BSA_ATTN at 81x480x848 (K9b) and with NABLA_ATTN at 61x480x832 (K9a,
      which takes token counts that are multiples of 64), 2 FlowUniPC steps
@@ -114,7 +121,7 @@ Phases, each printing its own lines:
      o, p, q: the causal distillation methods on 4g's checkpoint and 4n's
      shard through build_from_config, every role in fp32 masters, full
      remat: self_forcing (7 blocks, a generator and a critic update a
-     step: SF_STEPS timed steps after a warm-up), streaming_long_tuning
+     step: SF_STEPS timed step after a warm-up), streaming_long_tuning
      (a stream from step 0 in chunks of at most 6 latent frames up to 27,
      until it starts over) and causal_cd under FLASH_ATTN (CD_STEPS);
      each step timed, with its CPU seconds, its allocator retries and
@@ -136,6 +143,15 @@ Phases, each printing its own lines:
      cache), anyflow_pretrain (VSA 0.8, the copy rule) and anyflow (a
      4-step flow-map rollout, 4n's roles); seconds a step, peak memory,
      losses and grad norms, and the launches against their formulas;
+     w: diffusion_nft through build_from_config on the 4b checkpoint's DiT
+     (the student in fp32 masters, old and ref as frozen copies), rewards
+     clipscore + pickscore on a random CLIP dual tower at ViT-L/14 and
+     CLIP-L widths (its text projection 1024 wide), 4b's VAE as decode_fn,
+     4b's UMT5 embedding of its prompt, 1 prompt x 2 videos at 81x480x832
+     latents, 2 sampling steps: a warm-up step, then one timed: seconds
+     by stage (sample, decode, score, update), peak memory, losses,
+     rewards, the student moved, ref unchanged, old moved, the launches
+     against their formula;
   5. the kernels line, the card line and the result line.
 
 Each phase header ends with the seconds since the start.
@@ -2097,13 +2113,14 @@ def struct_mask_mod(ct: int, clean_len: int):
     return mask_mod
 
 
-def check_flash_struct(dev, results: dict) -> None:
+def check_flash_struct(dev, results: dict, flex: bool = False) -> None:
     """K1 struct and K6 struct at the causal Wan's full-width training
     shapes: q/k/v/dO [1, S, 12, 128] bf16 under the dfsft chunk-causal mask
     (S 32,760) and the tfsft teacher-forcing one (S 65,520), against the
-    plain versions (out, LSE, dq, dk, dv), with compiled flex_attention's
-    forward and backward on a BlockMask of the same mask_mod as the library
-    yardstick (timed here only, the port never calls it)."""
+    plain versions (out, LSE, dq, dk, dv); with ``flex`` (``--flex-struct``,
+    about 90 s of compiles), compiled flex_attention's forward and backward
+    on a BlockMask of the same mask_mod as the library yardstick (timed
+    here only, the port never calls it; without it library_ms is null)."""
     import torch
     from torch.nn.attention.flex_attention import (create_block_mask,
                                                    flex_attention)
@@ -2142,23 +2159,26 @@ def check_flash_struct(dev, results: dict) -> None:
                                                        **kw), 3)
         plain_bwd = time_ms(lambda: fa.flash_attention_bwd_plain(
             q, k, v, out, lse, do, **kw), 1)
-        # the library yardstick on [B, H, S, D] views of the same tensors
-        mask = create_block_mask(struct_mask_mod(ct, clean_len), None, None,
-                                 s_len, s_len, device=dev, BLOCK_SIZE=128,
-                                 _compile=True)
-        qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
-        # the timing calls its backward twice on one graph, which a compiled
-        # backward with donated buffers refuses
-        with torch._functorch.config.patch(donated_buffer=False):
-            flex = torch.compile(flex_attention, dynamic=False)
-            check(f"flex_attention[{label}] (library)",
-                  flex(qt, kt, vt, block_mask=mask,
-                       scale=scale).transpose(1, 2), ref, *tol)
-            del ref, ref_lse
-            lib = time_ms(lambda: flex(qt, kt, vt, block_mask=mask,
-                                       scale=scale))
-            lib_bwd = library_backward_ms(lambda a, b_, c: flex(
-                a, b_, c, block_mask=mask, scale=scale), (qt, kt, vt), dot)
+        lib = lib_bwd = mask = None
+        if flex:
+            # the library yardstick on [B, H, S, D] views of the same tensors
+            mask = create_block_mask(struct_mask_mod(ct, clean_len), None,
+                                     None, s_len, s_len, device=dev,
+                                     BLOCK_SIZE=128, _compile=True)
+            qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
+            # the timing calls its backward twice on one graph, which a
+            # compiled backward with donated buffers refuses
+            with torch._functorch.config.patch(donated_buffer=False):
+                flex = torch.compile(flex_attention, dynamic=False)
+                check(f"flex_attention[{label}] (library)",
+                      flex(qt, kt, vt, block_mask=mask,
+                           scale=scale).transpose(1, 2), ref, *tol)
+                lib = time_ms(lambda: flex(qt, kt, vt, block_mask=mask,
+                                           scale=scale))
+                lib_bwd = library_backward_ms(lambda a, b_, c: flex(
+                    a, b_, c, block_mask=mask, scale=scale), (qt, kt, vt),
+                    dot)
+        del ref, ref_lse
         pairs = h * struct_pairs(s_len, ct, clean_len)
         product = 2.0 * d * pairs * b
         rows = 2.0 * b * h * d * s_len  # bytes of one bf16 [B, S, H, D]
@@ -2179,14 +2199,18 @@ def check_flash_struct(dev, results: dict) -> None:
                            bound_by=dq_by, **common)
         dkv_r[label] = dict(max_abs_err=max(errs[1:]), ms=bwd["dkv"],
                             bound_ms=dkv_b, bound_by=dkv_by, **common)
+        flex_fwd, flex_bwd = (
+            (f"{lib:.3f} ms flex_attention", f"{lib_bwd:.3f} ms "
+             "flex_attention's backward") if flex else
+            ("flex_attention not timed (--flex-struct)",) * 2)
         print(f"  flash_struct[{label}]: kept fraction {density:.4f} "
               f"({pairs:.3e} pairs); forward {ms:.3f} ms kernel, {plain:.3f} "
-              f"ms plain, {lib:.3f} ms flex_attention, bound {f_bms:.3f} ms "
+              f"ms plain, {flex_fwd}, bound {f_bms:.3f} ms "
               f"({f_by}, {2 * product:.3e} FLOP); backward dQ {bwd['dq']:.3f}"
               f" ms (bound {dq_b:.3f}), dK/dV {bwd['dkv']:.3f} ms (bound "
               f"{dkv_b:.3f}), {whole:.3f} ms with delta (bound {all_b:.3f}: 5 "
               f"products, {5 * product:.3e} FLOP), {plain_bwd:.3f} ms plain, "
-              f"{lib_bwd:.3f} ms flex_attention's backward", flush=True)
+              f"{flex_bwd}", flush=True)
         del q, k, v, do, out, lse, mask
         torch.cuda.empty_cache()
 
@@ -2439,7 +2463,7 @@ def check_vsa_dense(dev, results: dict) -> None:
           flush=True)
 
 
-def run_kernel_checks(dev) -> dict:
+def run_kernel_checks(dev, flex_struct: bool = False) -> dict:
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2458,6 +2482,8 @@ def run_kernel_checks(dev) -> dict:
         t0 = time.perf_counter()
         if check is check_w8a8_linear:
             check(dev)
+        elif check is check_flash_struct:
+            check(dev, results, flex=flex_struct)
         else:
             check(dev, results)
         torch.cuda.empty_cache()
@@ -2799,6 +2825,7 @@ def check_generation(label: str, result: dict, size: dict, launches: dict,
 
 
 def run_main_path(work: str, profile_dir: str | None = None) -> dict:
+    import numpy as np
     import torch
 
     from fastvideo_tpu_torch import VideoGenerator
@@ -2835,6 +2862,11 @@ def run_main_path(work: str, profile_dir: str | None = None) -> dict:
                      {"flash_fwd": None, "vsa_sparse_fwd": None,
                       "conv3d": None,
                       "flash_fwd_combine": vae_chunks(CLIP_480P)})
+    # 4w's prompt embedding, from this pipeline's UMT5 (freed with it)
+    with torch.inference_mode():
+        emb = gen.pipeline.prompt_encoding_stage._encode_one([PROMPT], 0)
+    np.save(os.path.join(work, "nft_prompt_embeds.npy"),
+            emb.float().cpu().numpy())
     fp32 = run_fp32_decode(gen, kw, result["stage_times"]["DecodingStage"])
     if profile_dir:
         profile_generation(gen, kw, profile_dir, "fastwan_480x832")
@@ -4018,8 +4050,8 @@ STREAM_METHOD = dict(SF_METHOD, multi_phased_distill_schedule=[
 STREAM_MAX_STEPS = 10
 # timed steps after the warm-up: 4o's grad block advances a block a step,
 # so its steps differ in work; 4q's steps do the same work
-SF_STEPS = 2
-CD_STEPS = 2
+SF_STEPS = 1
+CD_STEPS = 1
 # 4q: the JAX package's defaults, the EMA updated from the first step
 CD_METHOD = dict(discrete_cd_N=48, guidance_scale=3.0, ema_start_step=0)
 # 4a's tiny self-forcing step: TINY_CAUSAL_DIT_CFG (one head of 128, a
@@ -4896,6 +4928,506 @@ def run_anyflow(work: str, data: str,
         backend="VIDEO_SPARSE_ATTN")
 
 
+# -- 4a (DiffusionNFT, "ops", callbacks), the 4i "ops" step and 4w ----------
+
+# 4w: DiffusionNFT on the 4b checkpoint's DiT at 4i's latent shape (32,760
+# tokens), 1 prompt x 2 videos (the smallest group whose advantages are not
+# 0), 2 sampling steps (one trained timestep), full remat, AdamW
+NFT_METHOD = dict(reward_fn={"clipscore": 1.0, "pickscore": 1.0},
+                  sampling={"num_steps": 2}, num_video_per_prompt=2)
+NFT_LATENT = TRAIN_LATENTS[2:]
+NFT_SAMPLE_STEPS = 2
+# the rewards' CLIP dual tower: CLIP ViT-L/14's vision tower and CLIP-L's
+# text tower, whose projection is 1024 wide to meet the vision tower's
+# width (the JAX scorer takes the vision tokens' unprojected mean)
+CLIP_VISION_CFG = dict(hidden_size=1024, intermediate_size=4096,
+                       num_hidden_layers=24, num_attention_heads=16,
+                       image_size=224, patch_size=14, num_channels=3,
+                       hidden_act="quick_gelu", layer_norm_eps=1e-5,
+                       projection_dim=768)
+CLIP_TEXT_CFG = dict(vocab_size=49408, hidden_size=768,
+                     intermediate_size=3072, num_hidden_layers=12,
+                     num_attention_heads=12, max_position_embeddings=77,
+                     hidden_act="quick_gelu", layer_norm_eps=1e-5,
+                     eos_token_id=49407, projection_dim=1024)
+TINY_CLIP_VISION_CFG = dict(CLIP_VISION_CFG, hidden_size=32,
+                            intermediate_size=64, num_hidden_layers=2,
+                            num_attention_heads=4, image_size=28)
+TINY_CLIP_TEXT_CFG = dict(CLIP_TEXT_CFG, hidden_size=32,
+                          intermediate_size=48, num_hidden_layers=2,
+                          num_attention_heads=4, projection_dim=32)
+# CLIP's Split pattern
+CLIP_SPLIT = (r"<\|startoftext\|>|<\|endoftext\|>|'s|'t|'re|'ve|'m|'ll|'d"
+              r"|[\p{L}]+|[\p{N}]|[^\s\p{L}\p{N}]+")
+
+
+def write_clip_tokenizer(directory: str, texts: list[str]) -> str:
+    """A CLIP-layout tokenizer.json without the tokenizers package: the 256
+    byte characters and their ``</w>`` forms (ids 0-511, as CLIP's), merges
+    that build each word of ``texts`` left to right, the special tokens at
+    CLIP's ids 49406 / 49407, CLIP's normalizer, pre-tokenizers and
+    RobertaProcessing."""
+    import re
+
+    from fastvideo_tpu_torch.models.loader.tokenizer import _BYTE_CHARS
+
+    chars = [_BYTE_CHARS[b] for b in range(256)]
+    vocab = {c: i for i, c in enumerate(chars)}
+    vocab.update({c + "</w>": 256 + i for i, c in enumerate(chars)})
+    merges = []
+    for word in sorted({w for t in texts for w in re.findall(r"\w+",
+                                                               t.lower())}):
+        syms = ["".join(_BYTE_CHARS[b] for b in ch.encode()) for ch in word]
+        syms[-1] += "</w>"
+        while len(syms) > 1:
+            pair = (syms[0], syms[1])
+            if pair not in merges:
+                merges.append(pair)
+                vocab.setdefault(pair[0] + pair[1], len(vocab))
+            syms = [pair[0] + pair[1]] + syms[2:]
+    specials = {"<|startoftext|>": 49406, "<|endoftext|>": 49407}
+    vocab.update(specials)
+    os.makedirs(directory, exist_ok=True)
+    spec = {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": [{"id": i, "content": t, "single_word": False,
+                          "lstrip": False, "rstrip": False,
+                          "normalized": True, "special": True}
+                         for t, i in specials.items()],
+        "normalizer": {"type": "Sequence", "normalizers": [
+            {"type": "NFC"},
+            {"type": "Replace", "pattern": {"Regex": r"\s+"}, "content": " "},
+            {"type": "Lowercase"}]},
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+            {"type": "Split", "pattern": {"Regex": CLIP_SPLIT},
+             "behavior": "Removed", "invert": True},
+            {"type": "ByteLevel", "add_prefix_space": False,
+             "trim_offsets": True, "use_regex": False}]},
+        "post_processor": {"type": "RobertaProcessing",
+                           "sep": ["<|endoftext|>", 49407],
+                           "cls": ["<|startoftext|>", 49406],
+                           "trim_offsets": False, "add_prefix_space": False},
+        "decoder": None,
+        "model": {"type": "BPE", "dropout": None,
+                  "unk_token": "<|endoftext|>",
+                  "continuing_subword_prefix": "",
+                  "end_of_word_suffix": "</w>", "fuse_unk": False,
+                  "byte_fallback": False, "vocab": vocab,
+                  "merges": [f"{a} {b}" for a, b in merges]}}
+    with open(os.path.join(directory, "tokenizer.json"), "w") as fh:
+        json.dump(spec, fh)
+    with open(os.path.join(directory, "tokenizer_config.json"), "w") as fh:
+        json.dump({"tokenizer_class": "CLIPTokenizer",
+                   "pad_token": "<|endoftext|>", "model_max_length": 77}, fh)
+    return directory
+
+
+def write_clip_dual_tower(root: str, vision_cfg: dict, text_cfg: dict,
+                          seed: int, texts: list[str]) -> str:
+    """The rewards' checkpoint directory: text/ and vision/ with random bf16
+    weights written by the port's safetensors writer, and tokenizer/."""
+    import torch
+
+    from fastvideo_tpu_torch.models.loader.component_loader import (
+        _build_arch_config as arch)
+    from fastvideo_tpu_torch.models.loader.safetensors_io import save_file
+    from fastvideo_tpu_torch.models.registry import resolve_model_cls
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    write_clip_tokenizer(os.path.join(root, "tokenizer"), texts)
+    for sub, cls_name, cfg in (
+            ("text", "CLIPTextModelWithProjection", text_cfg),
+            ("vision", "CLIPVisionModelWithProjection", vision_cfg)):
+        model_cls, arch_cls = resolve_model_cls(cls_name)
+        d = os.path.join(root, sub)
+        os.makedirs(d, exist_ok=True)
+        with open(os.path.join(d, "config.json"), "w") as fh:
+            json.dump({"architectures": [cls_name], **cfg}, fh)
+        state = random_state(model_cls(arch(arch_cls, cfg), device="meta"),
+                             torch.bfloat16, "cuda", gen)
+        save_file(state, os.path.join(d, "model.safetensors"))
+    return root
+
+
+def nft_launches(layers: int, reduces: int, sample_steps: int,
+                 trained: int, decodes: int = 0, chunks: int = 0) -> dict:
+    """Launches of a DiffusionNFT outer step: ``sample_steps`` no-grad
+    passes of the old policy, then per trained timestep the old and ref
+    passes without grad and the student's under full remat (no forward
+    context: VSA at sparsity 0, K2 without grad, K7 fwd and bwd with), and
+    ``decodes`` VAE decodes of ``chunks`` chunks (33 convs and one VAE
+    attention with its merge a chunk)."""
+    no_grad = sample_steps + 2 * trained
+    return {"flash_fwd": (no_grad + 2 * trained) * layers + decodes * chunks,
+            "vsa_sparse_fwd": no_grad * layers,
+            "vsa_sparse_padded_fwd": 2 * trained * layers,
+            "flash_bwd_dq": trained * layers,
+            "flash_bwd_dkv": trained * layers,
+            "flash_bwd_dkv_reduce": reduces * trained * layers,
+            "vsa_sparse_bwd_dq": trained * layers,
+            "vsa_sparse_bwd_dkv": trained * layers,
+            "conv3d": 33 * decodes * chunks,
+            "flash_fwd_combine": decodes * chunks}
+
+
+def frames_of_latents(lat):
+    """4a's decode_fn: frames in (0, 1) from the latents' first three
+    channels (the tiny VAE is not on this path)."""
+    import torch
+
+    return torch.sigmoid(lat[:, :3].float()).cpu().numpy()
+
+
+def check_small_nft(work: str) -> None:
+    """One DiffusionNFT outer step of a tiny VSA Wan (2 layers), its
+    rewards from a tiny CLIP dual tower (both scorers), card against CPU:
+    the same checkpoint, seed and prompt, so the same draws (a CPU
+    generator on both). Rewards within 1e-2, the total and policy losses
+    within 1e-2 relative, the gradients within 3e-2 relative L2 and the
+    parameters after AdamW by check_small_pipeline_step's rule; the card's
+    launches against nft_launches."""
+    import numpy as np
+    import torch
+
+    os.environ["FASTVIDEO_ATTENTION_BACKEND"] = "VIDEO_SPARSE_ATTN"
+    ckpt = write_checkpoint(os.path.join(work, "nft", "Wan2.1-T2V-tiny"),
+                            TINY_DIT_CFG, TINY_VAE_CFG, TINY_T5_CFG, seed=12)
+    clip = write_clip_dual_tower(os.path.join(work, "nft", "clip"),
+                                 TINY_CLIP_VISION_CFG, TINY_CLIP_TEXT_CFG,
+                                 13, [PROMPT])
+    os.environ["FASTVIDEO_CLIPSCORE_WEIGHTS"] = clip
+    os.environ["FASTVIDEO_PICKSCORE_WEIGHTS"] = clip
+    emb = np.random.default_rng(12).standard_normal(
+        (1,) + TINY_TRAIN_EMBEDS[2:]).astype(np.float32)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        method, _ = build_method("diffusion_nft", ckpt, "", device,
+                                 dict(DMD_KW, learning_rate=1e-3),
+                                 method_config=NFT_METHOD)
+        pipe = method.pipeline
+        pipe.decode_fn = frames_of_latents
+        out, grads, counts, plain_counts = step_with_grads(
+            pipe, ([PROMPT], emb, TINY_TRAIN_LATENTS[2:]))
+        if device == "cuda":
+            launches, plain = counts, plain_counts
+        runs[device] = (out, grads,
+                        [p.detach().float().cpu() for p in pipe.params])
+        del method, pipe
+    tokens = math.prod(TINY_TRAIN_LATENTS[-3:]) // 4
+    check_launches("tiny NFT step", launches, plain, nft_launches(
+        TINY_DIT_CFG["num_layers"], split_backwards(
+            TINY_DIT_CFG, [(tokens, TINY_TRAIN_EMBEDS[2])]),
+        NFT_SAMPLE_STEPS, 1))
+    (c_out, c_g, c_p), (p_out, p_g, p_p) = runs["cuda"], runs["cpu"]
+    rel, worst_all, worst_sure, flips, n = adamw_agreement(c_g, p_g, c_p,
+                                                           p_p)
+    rewards = [k for k in c_out if k.startswith("reward/")]
+    reward_err = max(abs(c_out[k] - p_out[k]) for k in rewards)
+    loss_rel = max(abs(c_out[k] - p_out[k]) / abs(p_out[k])
+                   for k in ("total_loss", "policy_loss"))
+    print(f"  tiny NFT step, card vs CPU plain: rewards "
+          f"{ {k: round(c_out[k], 5) for k in rewards} } / "
+          f"{ {k: round(p_out[k], 5) for k in rewards} } (max diff "
+          f"{reward_err:.2e}, bar 1e-2); total loss {c_out['total_loss']:.5f}"
+          f" / {p_out['total_loss']:.5f}, policy {c_out['policy_loss']:.5f} /"
+          f" {p_out['policy_loss']:.5f} (rel {loss_rel:.2e}, bar 1e-2), KL "
+          f"{c_out['kl_div_loss']:.3e} / {p_out['kl_div_loss']:.3e}, "
+          f"grad_norm {c_out['grad_norm']:.5f} / {p_out['grad_norm']:.5f}; "
+          f"gradients rel L2 {rel:.2e} (bar 3e-2); parameters after AdamW: "
+          f"max diff {worst_all:.2e}, {worst_sure:.2e} where the gradients "
+          f"agree in sign and are >= 1e-5 (bar 2e-6; {flips} of {n} are "
+          f"not); card launches "
+          f"{json.dumps({k: v for k, v in launches.items() if v})}",
+          flush=True)
+    if not (reward_err < 1e-2 and loss_rel < 1e-2 and rel < 3e-2
+            and worst_sure <= 2e-6 and math.isfinite(c_out["total_loss"])):
+        raise SystemExit("tiny NFT step: the card disagrees with the plain "
+                         "path")
+
+
+def check_small_remat_ops(work: str) -> None:
+    """One SFT step of the tiny VSA Wan on the card under
+    selective_checkpointing "ops" (the linears' outputs saved) and under
+    "full", from one checkpoint, seed and batch: the same loss, the
+    gradients within 1e-5 of the largest, the same launches (the attention
+    kernels run again in both backwards)."""
+    import numpy as np
+    import torch
+
+    os.environ["FASTVIDEO_ATTENTION_BACKEND"] = "VIDEO_SPARSE_ATTN"
+    ckpt = write_checkpoint(os.path.join(work, "ops", "Wan2.1-T2V-tiny"),
+                            TINY_DIT_CFG, TINY_VAE_CFG, TINY_T5_CFG, seed=15)
+    rng = np.random.default_rng(15)
+    batch = (rng.standard_normal(TINY_TRAIN_LATENTS).astype(np.float32),
+             rng.standard_normal(TINY_TRAIN_EMBEDS).astype(np.float32))
+    runs = {}
+    for remat in ("ops", "full"):
+        method, _ = build_method("sft", ckpt, "", "cuda", dict(
+            TRAIN_KW, learning_rate=1e-3, selective_checkpointing=remat))
+        pipe = method.pipeline
+        out, grads, launches, plain = step_with_grads(pipe, batch,
+                                                      vsa_sparsity=0.8)
+        runs[remat] = (out, grads, launches, plain)
+        del method, pipe
+    (o_out, o_g, o_l, o_p), (f_out, f_g, f_l, f_p) = runs["ops"], runs["full"]
+    diff = max((a - b).abs().max().item() for a, b in zip(o_g, f_g))
+    scale = max(g.abs().max().item() for g in f_g)
+    tokens = math.prod(TINY_TRAIN_LATENTS[-3:]) // 4
+    expect = train_launches(TINY_DIT_CFG["num_layers"], 1, split_backwards(
+        TINY_DIT_CFG, [(tokens, TINY_TRAIN_EMBEDS[2])]))
+    check_launches("tiny SFT step under ops", o_l, o_p, expect)
+    check_launches("tiny SFT step under full", f_l, f_p, expect)
+    print(f"  tiny SFT step on the card, ops vs full: loss "
+          f"{o_out['loss']:.6f} / {f_out['loss']:.6f}, grad_norm "
+          f"{o_out['grad_norm']:.6f} / {f_out['grad_norm']:.6f}, largest "
+          f"gradient difference {diff:.3e} of a largest gradient "
+          f"{scale:.3e} (bar 1e-5 of it: the recomputes run on autograd's "
+          f"thread); launches equal {o_l == f_l}", flush=True)
+    if not (o_out["loss"] == f_out["loss"] and diff <= 1e-5 * scale):
+        raise SystemExit("tiny SFT step: ops and full remat disagree")
+
+
+def check_small_callbacks(work: str) -> None:
+    """One SFT step of the tiny VSA Wan through method.train with the
+    grad_clip and ema callbacks, card against CPU: the threshold set on
+    both; the EMA shadows within 2e-4 + 1e-6 (the EMA keeps 0.9 of the
+    shared start, so they differ by 0.1 of the parameters' gap, which two
+    first AdamW updates at lr 1e-3 bound by 2e-3; 1e-6 for the lerp's
+    fp32 rounding)."""
+    import numpy as np
+
+    from fastvideo_tpu_torch.training.callbacks import CallbackDict
+
+    os.environ["FASTVIDEO_ATTENTION_BACKEND"] = "VIDEO_SPARSE_ATTN"
+    ckpt = write_checkpoint(os.path.join(work, "callbacks",
+                                         "Wan2.1-T2V-tiny"),
+                            TINY_DIT_CFG, TINY_VAE_CFG, TINY_T5_CFG, seed=16)
+    rng = np.random.default_rng(16)
+    batch = (rng.standard_normal(TINY_TRAIN_LATENTS).astype(np.float32),
+             rng.standard_normal(TINY_TRAIN_EMBEDS).astype(np.float32))
+    shadows, thresholds = {}, {}
+    for device in ("cuda", "cpu"):
+        method, _ = build_method("sft", ckpt, "", device, dict(
+            TRAIN_KW, learning_rate=1e-3, max_train_steps=1))
+        cbs = CallbackDict({"grad_clip": {"max_grad_norm": 0.5},
+                            "ema": {"decay": 0.9}})
+        method.train([batch], callbacks=cbs)
+        shadows[device] = [s.cpu() for s in cbs["ema"].shadow]
+        thresholds[device] = method.args.max_grad_norm
+        del method
+    diff = max((a - b).abs().max().item()
+               for a, b in zip(shadows["cuda"], shadows["cpu"]))
+    print(f"  tiny SFT step with grad_clip and ema callbacks, card vs CPU: "
+          f"max_grad_norm {thresholds}, EMA shadows' largest difference "
+          f"{diff:.2e} (bar 2e-4 + 1e-6: 0.1 of two first AdamW updates)",
+          flush=True)
+    if not (thresholds["cuda"] == thresholds["cpu"] == 0.5
+            and diff <= 2e-4 + 1e-6):
+        raise SystemExit("tiny callbacks step: the card disagrees with the "
+                         "plain path")
+
+
+def check_small_rl_slice(work: str) -> None:
+    """4a's checks of the DiffusionNFT / callbacks / "ops" slice."""
+    check_small_nft(work)
+    check_small_remat_ops(work)
+    check_small_callbacks(work)
+
+
+def run_ops_step(work: str) -> dict:
+    """4i's shape under selective_checkpointing="ops": a warm-up step, then
+    one timed step, its peak memory against 4i's. If 81 frames do not fit
+    the card, the same at 41 frames (11 latent frames), and the line says
+    so."""
+    import torch
+
+    from fastvideo_tpu_torch.ops import _build
+
+    os.environ["FASTVIDEO_ATTENTION_BACKEND"] = "VIDEO_SPARSE_ATTN"
+    layers = DIT_CFG["num_layers"]
+    for latents in (TRAIN_LATENTS, TRAIN_LATENTS[:3] + (11,) +
+                    TRAIN_LATENTS[4:]):
+        torch.cuda.empty_cache()
+        method, _ = build_method(
+            "sft", os.path.join(work, "FastWan2.1-T2V-1.3B-Diffusers"),
+            os.path.join(work, "ops_out"), "cuda",
+            dict(TRAIN_KW, selective_checkpointing="ops", max_train_steps=2))
+        pipe = method.pipeline
+        loader = train_loader(latents, TRAIN_EMBEDS)
+        try:
+            method.train(loader, max_steps=1)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _build.reset_counts()
+            before = torch.cuda.memory_stats()
+            t0 = time.perf_counter()
+            method.train(loader, max_steps=2)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            after = torch.cuda.memory_stats()
+        except torch.cuda.OutOfMemoryError as exc:
+            print(f"  ops at {latents}: out of memory ({str(exc)[:120]})",
+                  flush=True)
+            continue
+        finally:
+            loader.shutdown()
+            del method, pipe
+        launches, plain = dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        tokens = math.prod(latents[-3:]) // 4
+        check_launches(f"SFT under ops {latents}", launches, plain,
+                       train_launches(layers, 1, split_backwards(
+                           DIT_CFG, [(tokens, TRAIN_EMBEDS[2])])))
+        grew = {k: after[k] - before[k] for k in ("num_alloc_retries",
+                                                  "num_device_alloc")}
+        print(f"  one step under selective_checkpointing=\"ops\" at latents "
+              f"{list(latents)}: {wall:.3f} s, peak memory {peak:.2f} GiB; "
+              f"launches as under full remat; allocator retries "
+              f"{grew['num_alloc_retries']}, device allocations "
+              f"{grew['num_device_alloc']}; after it {card_state()}",
+              flush=True)
+        torch.cuda.empty_cache()
+        return dict(launches=launches, step_s=wall, peak_gib=peak,
+                    latents=list(latents))
+    raise SystemExit("SFT under ops: out of memory at 81 and 41 frames")
+
+
+def nft_decoder(ckpt: str):
+    """4w's decode_fn: the checkpoint's VAE, each sample decoded alone as
+    4b's clip (the dispatched decode's chunks, bf16), pixels mapped from
+    [-1, 1] to [0, 1], to the host."""
+    import numpy as np
+    import torch
+
+    from fastvideo_tpu_torch.configs.pipelines.wan import (
+        FastWanT2V480PConfig)
+    from fastvideo_tpu_torch.models.loader.component_loader import (
+        load_model_component)
+    from fastvideo_tpu_torch.pipelines.stages.decoding import (
+        dispatched_chunk_frames)
+
+    cfg = FastWanT2V480PConfig()
+    vae = load_model_component(os.path.join(ckpt, "vae"),
+                               device=torch.device("cuda"),
+                               precision=cfg.vae_precision,
+                               model_config=cfg.vae_config)
+
+    @torch.no_grad()
+    def decode(latents):
+        out = []
+        for lat in latents:
+            z = vae.denormalize_latents(lat[None])
+            x = vae.decode(z.to(torch.bfloat16), chunk_frames=(
+                dispatched_chunk_frames(z, vae.config)))
+            out.append(((x.float() + 1) / 2).clamp(0, 1).cpu().numpy())
+        return np.concatenate(out)
+
+    return decode
+
+
+def run_diffusion_nft(work: str, profile_dir: str | None = None) -> dict:
+    """Phase 4w: diffusion_nft through build_from_config on the 4b
+    checkpoint's Wan2.1-T2V-1.3B-shaped DiT (student in fp32 masters, old
+    and ref as frozen copies), rewards from CLIPScore and PickScore on one
+    random CLIP dual tower at ViT-L/14 / CLIP-L widths, the 4b VAE as
+    decode_fn, 4b's UMT5 embedding of its prompt; a warm-up step, then one
+    timed: its stages, peak memory, losses, rewards, the roles' checks and
+    the launches against nft_launches."""
+    import numpy as np
+    import torch
+
+    from fastvideo_tpu_torch.attention.backends.vsa import vsa_topk
+    from fastvideo_tpu_torch.ops import _build
+    from fastvideo_tpu_torch.training.callbacks import Callback
+
+    os.environ["FASTVIDEO_ATTENTION_BACKEND"] = "VIDEO_SPARSE_ATTN"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ckpt = os.path.join(work, "FastWan2.1-T2V-1.3B-Diffusers")
+    t0 = time.perf_counter()
+    clip = write_clip_dual_tower(os.path.join(work, "clip_dual_tower"),
+                                 CLIP_VISION_CFG, CLIP_TEXT_CFG, 17, [PROMPT])
+    os.environ["FASTVIDEO_CLIPSCORE_WEIGHTS"] = clip
+    os.environ["FASTVIDEO_PICKSCORE_WEIGHTS"] = clip
+    embeds = np.load(os.path.join(work, "nft_prompt_embeds.npy"))
+    method, _ = build_method(
+        "diffusion_nft", ckpt, os.path.join(work, "nft_out"), "cuda",
+        dict(DMD_KW, max_train_steps=2), method_config=NFT_METHOD)
+    pipe = method.pipeline
+    pipe.decode_fn = nft_decoder(ckpt)
+    n_params = sum(p.numel() for p in pipe.params)
+    tiles = math.prod(NFT_LATENT[-3:]) // 4 // 280
+    print(f"  DiffusionNFTMethod built in {time.perf_counter() - t0:.1f} s "
+          f"(the CLIP dual tower written and loaded twice, the VAE "
+          f"loaded): student, old and ref of {n_params / 1e9:.3f} B fp32 "
+          f"parameters, remat {pipe.args.selective_checkpointing}, "
+          f"{pipe.cfg.num_video_per_prompt} videos a prompt, sampling "
+          f"timesteps {pipe.sampler.schedule()[0].tolist()}, "
+          f"{pipe.num_train_timesteps()}"
+          f" trained timestep; UMT5 embedding {list(embeds.shape)}; VSA top-"
+          f"{vsa_topk(0.0, tiles)} of {tiles} tiles (no forward context)",
+          flush=True)
+    rows = []
+
+    class Record(Callback):
+        def on_training_step_end(self, method, loss_dict, iteration=0):
+            rows.append(dict(loss_dict, stages=dict(method.stage_seconds)))
+
+    loader = [([PROMPT], embeds, NFT_LATENT)]
+    callbacks = {"record": {"_target_": Record}}
+    ref_sum = checksum(pipe.ref)
+    t0 = time.perf_counter()
+    method.train(loader, max_steps=1, callbacks=callbacks)
+    torch.cuda.synchronize()
+    print(f"  warm-up step {time.perf_counter() - t0:.2f} s; peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    old_sum = checksum(pipe.old)
+    watch = {n: p.detach().clone() for n, p in
+             list(pipe.student.named_parameters())[:4]}
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    method.train(loader, max_steps=2, callbacks=callbacks)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if profile_dir:
+        profile_train_step(method, loader, profile_dir, "nft_480x832")
+    row = rows[-1]
+    moved = all(not torch.equal(w, dict(pipe.student.named_parameters())[n])
+                for n, w in watch.items())
+    ref_same = checksum(pipe.ref) == ref_sum
+    old_moved = checksum(pipe.old) != old_sum
+    keys = ("total_loss", "policy_loss", "kl_div_loss", "grad_norm")
+    print(f"  timed step {wall:.3f} s: "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in row["stages"].items())
+          + f"; peak memory {peak:.2f} GiB; "
+          + ", ".join(f"{k} {row[k]:.6g}" for k in keys)
+          + ", rewards " + json.dumps({k: round(v, 6) for k, v in row.items()
+                                       if k.startswith("reward/")})
+          + f", old_decay {row['old_decay']}; student moved {moved}, ref "
+          f"unchanged {ref_same}, old moved on the second step {old_moved}",
+          flush=True)
+    print(f"  kernel launches {json.dumps(launches)}; plain calls "
+          f"{json.dumps(plain)}", flush=True)
+    tokens = math.prod(NFT_LATENT[-3:]) // 4
+    check_launches("DiffusionNFT 480x832", launches, plain, nft_launches(
+        DIT_CFG["num_layers"], split_backwards(
+            DIT_CFG, [(tokens, TRAIN_EMBEDS[2])]),
+        NFT_SAMPLE_STEPS, pipe.num_train_timesteps(),
+        decodes=pipe.cfg.num_video_per_prompt, chunks=vae_chunks(CLIP_480P)))
+    if not (all(math.isfinite(row[k]) for k in keys) and moved and ref_same
+            and old_moved and row["old_decay"] > 0):
+        raise SystemExit("DiffusionNFT 480x832: a loss not finite, the "
+                         "student not moved, ref changed or old not moved")
+    stages = row["stages"]
+    del method, pipe
+    torch.cuda.empty_cache()
+    return dict(launches=launches, step_s=wall, peak_gib=peak,
+                stage_s=stages, **{k: row[k] for k in keys})
+
+
 def profile_train_step(method, loader, out_dir: str,
                        label: str = "sft_480x832") -> None:
     """One more step under torch.profiler: device time by kernel name, the
@@ -4974,6 +5506,9 @@ def main() -> int:
     parser.add_argument("--dmd-steps", type=int, default=1,
                         help="timed DMD2 steps of phase 4n, after one "
                         "warm-up step (at least 1)")
+    parser.add_argument("--flex-struct", action="store_true",
+                        help="also time compiled flex_attention beside K1 "
+                        "struct and K6 struct in phase 3 (about 90 s)")
     args = parser.parse_args()
     if (args.vsa_steps < 4 or args.sta_steps < 2 or args.train_steps < 1
             or args.df_steps < 1 or args.dmd_steps < 1):
@@ -5006,7 +5541,7 @@ def main() -> int:
     report_sm90_build()
 
     phase("# phase 3: kernel checks at the main path's shapes")
-    results = run_kernel_checks(dev)
+    results = run_kernel_checks(dev, args.flex_struct)
     _build.reset_counts()
 
     work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
@@ -5019,6 +5554,7 @@ def main() -> int:
     check_small_dmd2(work)
     check_small_self_forcing(work)
     check_small_slice(work)
+    check_small_rl_slice(work)
     phase("# phase 4b: FastWan main path at full width, 81x480x832, 3 DMD "
           "steps, VSA sparsity 0.8")
     launches = run_main_path(work, args.profile)
@@ -5063,6 +5599,7 @@ def main() -> int:
           f"tokens, VSA 0.8, full remat, AdamW, fp32 master weights): 1 "
           f"warm-up + {args.train_steps} timed steps")
     train = run_training(work, args.train_steps, args.profile)
+    remat_ops = run_ops_step(work)
     phase(f"# phase 4j: Wan2.1-T2V-1.3B at full width and depth, 81x480x848 "
           f"with BSA_ATTN (K9b), {K9_STEPS} FlowUniPC steps with CFG")
     bsa_run = run_wan_path(work, "BSA_ATTN", K9_STEPS, {}, args.profile,
@@ -5133,6 +5670,14 @@ def main() -> int:
           f"step flow-map rollout, a generator and a critic update a step, "
           f"sparsity 0: 1 warm-up + {METHOD_STEPS} timed")
     anyflow = run_anyflow(work, data, args.profile)
+    phase(f"# phase 4w: diffusion_nft ({wan.split(', on')[0]}; old and ref "
+          f"as frozen copies) through build_from_config: 1 prompt x "
+          f"{NFT_METHOD['num_video_per_prompt']} videos at 81x480x832 "
+          f"latents, {NFT_SAMPLE_STEPS} sampling steps, the 4b VAE as "
+          f"decode_fn, CLIPScore and PickScore on a random CLIP dual tower "
+          f"(ViT-L/14 vision, CLIP-L text projected to 1024), sparsity 0: 1 "
+          f"warm-up + 1 timed")
+    nft = run_diffusion_nft(work, args.profile)
     shutil.rmtree(work, ignore_errors=True)
     # each kernel's count comes from the path that runs it
     launches["vsa_sparse_padded_fwd"] = vsa_launches["vsa_sparse_padded_fwd"]
@@ -5210,6 +5755,18 @@ def main() -> int:
         if n:
             results[name].update(kd_rollout_launches=n,
                                  kd_rollout_s=kd["rollout_s"])
+    # DiffusionNFT's launches, seconds and peak memory a step (4w), and the
+    # "ops" step's at 4i's shape
+    for name, n in nft["launches"].items():
+        if n:
+            results[name].update(diffusion_nft_launches=n,
+                                 diffusion_nft_step_s=nft["step_s"],
+                                 diffusion_nft_peak_gib=nft["peak_gib"])
+    for name, n in remat_ops["launches"].items():
+        if n:
+            results[name].update(remat_ops_launches=n,
+                                 remat_ops_step_s=remat_ops["step_s"],
+                                 remat_ops_peak_gib=remat_ops["peak_gib"])
     phase("# phase 5: the kernels line, the card line, the result line")
 
     kernels = []

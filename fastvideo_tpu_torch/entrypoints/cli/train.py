@@ -6,9 +6,12 @@ The config tree (JSON, or the simple YAML subset of ``api/parser.py``;
 unknown keys are errors):
 
     method: sft                 # or lora_finetune, kd, anyflow_pretrain,
-                                # dmd2, anyflow; dfsft / tfsft,
-                                # self_forcing, streaming_long_tuning,
-                                # causal_cd (a causal checkpoint)
+                                # dmd2, anyflow, diffusion_nft; dfsft /
+                                # tfsft, self_forcing,
+                                # streaming_long_tuning, causal_cd (a
+                                # causal checkpoint); or a dotted path to
+                                # a TrainingMethod (fastvideo_tpu.* reads
+                                # as fastvideo_tpu_torch.*)
     model:
       pretrained_model_path: /path/to/Diffusers-dir   # transformer/ inside
       dit_precision: fp32
@@ -45,7 +48,12 @@ unknown keys are errors):
                                 # r_embedder_gate_value,
                                 # r_embedder_deltatime_type; anyflow:
                                 # student_sample_steps, t_list_override,
-                                # use_mean_velocity, r_embedder_*
+                                # use_mean_velocity, r_embedder_*;
+                                # diffusion_nft: reward_fn, sampling,
+                                # num_video_per_prompt, adv_clip_max,
+                                # timestep_fraction, kl_beta, beta,
+                                # decay_type, adv_mode, ema_decay
+    callbacks: {}               # grad_clip, ema, validation or _target_
 
 ``method`` resolves through the plugin registry; ``data.path`` is read by
 ``dataset/parquet.py:build_parquet_dataloader`` (the port's own Parquet

@@ -73,7 +73,8 @@ class TrainingArgs(FastVideoArgs):
     output_dir: str = "outputs"
     checkpointing_steps: int = 500
     # activation checkpointing: "full" recomputes each DiT block in the
-    # backward; "ops" (keep the matmul outputs) is not ported
+    # backward; "ops" keeps the matmul outputs and recomputes the rest
+    # (training_utils.set_activation_checkpointing)
     selective_checkpointing: str = "full"
     validation_steps: int = 0
     # tracking ("jsonl" local files; unknown backends are skipped)

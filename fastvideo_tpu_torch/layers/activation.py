@@ -13,6 +13,7 @@ _ACT_FNS: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
     "gelu_pytorch_tanh": lambda x: F.gelu(x, approximate="tanh"),
     "silu": F.silu,
     "relu": F.relu,
+    "quick_gelu": lambda x: x * torch.sigmoid(1.702 * x),
 }
 
 

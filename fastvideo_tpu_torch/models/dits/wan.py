@@ -18,11 +18,16 @@ the backend before every attention, and are dropped by the final untiling.
 are recomputed in the backward, as JAX wraps each block in
 ``jax.checkpoint``. The checkpointed block is bound to the forward context
 of the forward (``bind_forward_context``), so its recompute picks the same
-VSA tiles on whatever thread autograd runs it.
+VSA tiles on whatever thread autograd runs it. With
+``gradient_checkpointing_policy = "ops"`` (``selective_checkpointing="ops"``)
+the checkpoint keeps the outputs of the matmuls (``aten.mm`` /
+``aten.addmm``: the linears, JAX's ``dots_with_no_batch_dims_saveable``)
+and recomputes the rest of the block, attention included.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -47,6 +52,25 @@ from fastvideo_tpu_torch.layers.norm import (FP32LayerNorm,
 from fastvideo_tpu_torch.layers.rotary import get_rotary_pos_embed_wan
 from fastvideo_tpu_torch.ops.vsa import (tile_tokens, tile_tokens_exact,
                                          untile_tokens, untile_tokens_exact)
+
+
+# the matmuls whose outputs "ops" keeps: the linears (a 2-D product, or a
+# flattened 3-D input, with or without bias)
+SAVED_UNDER_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def checkpoint_policy_kwargs(policy: str | None) -> dict:
+    """``torch.utils.checkpoint.checkpoint``'s extra arguments for a remat
+    policy: none for None (recompute the whole block), a selective context
+    that saves :data:`SAVED_UNDER_OPS` for "ops"."""
+    if policy is None:
+        return {}
+    if policy != "ops":
+        raise ValueError(f"unknown remat policy {policy!r}")
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+    return {"context_fn": functools.partial(
+        create_selective_checkpoint_contexts, list(SAVED_UNDER_OPS))}
 
 
 class WanTimeTextEmbedding(nn.Module):
@@ -280,8 +304,10 @@ class WanTransformer3DModel(nn.Module):
         self.scale_shift_table = nn.Parameter(
             torch.randn(1, 2, inner_dim, device=device, dtype=torch.float32) /
             inner_dim**0.5)
-        # set by the trainer: recompute each block in the backward
+        # set by the trainer: recompute each block in the backward; with the
+        # policy "ops" keep the matmul outputs (None: recompute everything)
         self.gradient_checkpointing = False
+        self.gradient_checkpointing_policy = None
 
     def forward(self, hidden_states: torch.Tensor,
                 encoder_hidden_states: torch.Tensor,
@@ -314,12 +340,13 @@ class WanTransformer3DModel(nn.Module):
         timestep_proj = timestep_proj.reshape(timestep_proj.shape[0], 6, -1)
         context = context.to(x.dtype)
         remat = self.gradient_checkpointing and torch.is_grad_enabled()
+        remat_kw = checkpoint_policy_kwargs(self.gradient_checkpointing_policy)
         for block in self.blocks:
             if remat:
                 x = torch.utils.checkpoint.checkpoint(
                     bind_forward_context(block), x, context, timestep_proj,
                     (cos, sin), None, grid=grid, pre_tiled=pre_tiled,
-                    use_reentrant=False)
+                    use_reentrant=False, **remat_kw)
             else:
                 x = block(x, context, timestep_proj, (cos, sin), None,
                           grid=grid, pre_tiled=pre_tiled)

@@ -19,7 +19,9 @@ and applies the layout rules of ``fastvideo_tpu.models.loader.export``
 The result's keys are the port module's ``state_dict()`` keys, and the
 same keys ``export_torch_layout`` writes into a checkpoint. A JAX
 ``CausalWanTransformer3DModel`` has the Wan DiT's parameter tree, so its
-parameters carry over by the same rules.
+parameters carry over by the same rules; so do the CLIP towers' (the
+vision patch embedding is a Linear in both packages, its ``class_embedding``
+and the position and token tables keep their paths).
 
 The parameters may also come as the nested mapping of a JAX training
 state (``TrainingPipeline.state.params`` from ``nnx.split``, as

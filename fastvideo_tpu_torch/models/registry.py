@@ -4,6 +4,8 @@ scheduler class names -> scheduler class."""
 from __future__ import annotations
 
 from fastvideo_tpu_torch.configs.models.dits.wan import WanArchConfig
+from fastvideo_tpu_torch.configs.models.encoders.clip import (
+    CLIPTextArchConfig, CLIPVisionArchConfig)
 from fastvideo_tpu_torch.configs.models.encoders.t5 import T5ArchConfig
 from fastvideo_tpu_torch.configs.models.vaes.wan import WanVAEArchConfig
 
@@ -26,6 +28,15 @@ def resolve_model_cls(class_name: str):
         from fastvideo_tpu_torch.models.encoders.t5 import T5EncoderModel
 
         return T5EncoderModel, T5ArchConfig
+    # a CLIPVisionModelWithProjection loads without its visual projection
+    if class_name in ("CLIPVisionModel", "CLIPVisionModelWithProjection"):
+        from fastvideo_tpu_torch.models.encoders.clip import CLIPVisionModel
+
+        return CLIPVisionModel, CLIPVisionArchConfig
+    if class_name in ("CLIPTextModel", "CLIPTextModelWithProjection"):
+        from fastvideo_tpu_torch.models.encoders.clip import CLIPTextModel
+
+        return CLIPTextModel, CLIPTextArchConfig
     raise ValueError(f"No model registered for {class_name!r} in the port")
 
 

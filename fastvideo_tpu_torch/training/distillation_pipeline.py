@@ -14,9 +14,9 @@ The three roles are ``nn.Module``s of one architecture; the generator and
 the fake score each have an AdamW (optax.adamw's update, the LR schedule
 counted per optimizer as optax counts it) and JAX's clipping; the teacher
 has no gradient and no optimizer. Every forward runs the DiT in bf16 on
-fp32 master weights. Under ``selective_checkpointing="full"`` the trained
-roles run each block under ``torch.utils.checkpoint``, which leaves the
-numbers as they are.
+fp32 master weights. Under ``selective_checkpointing="full"`` (or "ops",
+which also keeps the linears' outputs) the trained roles run each block
+under ``torch.utils.checkpoint``, which leaves the numbers as they are.
 
 No forward context is set, as in JAX: VSA runs at sparsity 0, every key
 tile of every query tile.
@@ -41,7 +41,8 @@ from fastvideo_tpu_torch.fastvideo_args import TrainingArgs
 from fastvideo_tpu_torch.training.trackers import initialize_trackers
 from fastvideo_tpu_torch.training.training_pipeline import (
     build_lr_schedule, build_optimizer, resolve_device)
-from fastvideo_tpu_torch.training.training_utils import clip_grad_norm
+from fastvideo_tpu_torch.training.training_utils import (
+    clip_grad_norm, set_activation_checkpointing)
 
 logger = logging.getLogger(__name__)
 
@@ -91,16 +92,12 @@ class DMD2DistillationPipeline:
         self.args = args
         self.dmd = dmd_config or DMDConfig()
         self.device = resolve_device(args)
-        remat = args.selective_checkpointing
-        if remat == "ops":
-            raise NotImplementedError(
-                'selective_checkpointing="ops" is not ported; use "full"')
         self.generator = generator.to(self.device).train()
         self.fake_score = fake_score.to(self.device).train()
         self.real_score = real_score.to(self.device).eval()
         self.real_score.requires_grad_(False)
         for m in (self.generator, self.fake_score):
-            m.gradient_checkpointing = remat == "full"
+            set_activation_checkpointing(m, args.selective_checkpointing)
         self.gen_params = [p for p in self.generator.parameters()
                            if p.requires_grad]
         self.fake_params = [p for p in self.fake_score.parameters()
@@ -304,11 +301,15 @@ class DMD2DistillationPipeline:
         """The alternating loop over a (latents, embeds) dataloader of
         [accum, B, ...] batches: micro-batch 0's embeddings, zero
         embeddings as the unconditional branch; the latents fix the noise's
-        shape only (the generator simulates its own forward)."""
-        if callbacks is not None:
-            raise NotImplementedError(
-                "training callbacks (training/callbacks.py) are not ported")
+        shape only (the generator simulates its own forward). ``callbacks``
+        are dispatched at train start, after each step and at train end."""
+        from fastvideo_tpu_torch.training.callbacks import normalize_callbacks
+
+        callbacks = normalize_callbacks(callbacks)
+        self._callbacks = callbacks
         max_steps = max_steps or self.args.max_train_steps
+        if callbacks is not None:
+            callbacks.dispatch("on_train_start", self, self.step)
         it = iter(dataloader)
         t0 = time.perf_counter()
         while self.step < max_steps:
@@ -321,9 +322,14 @@ class DMD2DistillationPipeline:
             metrics = self.train_one_step(emb, np.zeros_like(emb),
                                           tuple(np.asarray(latents)[0].shape))
             self.tracker.log(metrics, self.step)
+            if callbacks is not None:
+                callbacks.dispatch("on_training_step_end", self, metrics,
+                                   self.step)
             if self.step % log_every == 0:
                 dt = time.perf_counter() - t0
                 logger.info("%s step %d %s (%.2fs/it)", self.label, self.step,
                             {k: round(v, 4) for k, v in metrics.items()
                              if isinstance(v, float)}, dt / log_every)
                 t0 = time.perf_counter()
+        if callbacks is not None:
+            callbacks.dispatch("on_train_end", self, self.step)

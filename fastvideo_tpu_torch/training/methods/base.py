@@ -1,13 +1,13 @@
 """TrainingMethod plugin base and registry (port of
 fastvideo_tpu/training/methods/base.py).
 
-A method owns its role models and steps and is resolved by registry name.
-The port registers ``sft``, ``dfsft``, ``tfsft``, ``lora_finetune``,
-``dmd2``, ``self_forcing``, ``streaming_long_tuning``, ``causal_cd``,
-``kd``, ``anyflow_pretrain`` and ``anyflow``; the JAX package's other
-built-in name (``NOT_PORTED``: ``diffusion_nft``) raises with the ROADMAP
-item that brings it (and the JAX package's dotted ``_target_`` paths are
-not taken).
+A method owns its role models and steps and is resolved by registry name
+or by a dotted ``_target_`` path (``training/instantiate.py``: a path under
+``fastvideo_tpu.`` resolves in the port's package). The port registers
+every built-in method of the JAX package: ``sft``, ``dfsft``, ``tfsft``,
+``lora_finetune``, ``dmd2``, ``self_forcing``, ``streaming_long_tuning``,
+``causal_cd``, ``kd``, ``anyflow_pretrain``, ``anyflow`` and
+``diffusion_nft``.
 """
 
 from __future__ import annotations
@@ -23,10 +23,8 @@ logger = logging.getLogger(__name__)
 
 _METHOD_REGISTRY: dict[str, type["TrainingMethod"]] = {}
 
-# the JAX package's other built-in methods, and what the port waits on
-NOT_PORTED = {
-    "diffusion_nft": "ROADMAP Queue 1, diffusion_nft",
-}
+# the JAX package's built-in methods the port lacks, and what it waits on
+NOT_PORTED: dict[str, str] = {}
 
 
 def register_method(cls: type["TrainingMethod"]) -> type["TrainingMethod"]:
@@ -41,15 +39,29 @@ def list_methods() -> list[str]:
     return sorted(_METHOD_REGISTRY)
 
 
-def resolve_method(name: str) -> type["TrainingMethod"]:
-    """The registered method class of ``name``."""
-    if name in _METHOD_REGISTRY:
-        return _METHOD_REGISTRY[name]
-    if name in NOT_PORTED:
+def resolve_method(spec: str | dict[str, Any]) -> type["TrainingMethod"]:
+    """The method class of a registry name, a dotted path or a
+    ``{"_target_": path}`` dict."""
+    if isinstance(spec, dict):
+        from fastvideo_tpu_torch.training.instantiate import resolve_target
+
+        cls = resolve_target(str(spec.get("_target_", "")))
+    elif spec in _METHOD_REGISTRY:
+        cls = _METHOD_REGISTRY[spec]
+    elif spec in NOT_PORTED:
         raise NotImplementedError(
-            f"training method {name!r} is not ported: {NOT_PORTED[name]}")
-    raise ValueError(f"Unknown training method {name!r}; registered: "
-                     f"{list_methods()}")
+            f"training method {spec!r} is not ported: {NOT_PORTED[spec]}")
+    elif "." in spec:
+        from fastvideo_tpu_torch.training.instantiate import resolve_target
+
+        cls = resolve_target(spec)
+    else:
+        raise ValueError(
+            f"Unknown training method {spec!r}; registered: "
+            f"{list_methods()} (or pass a dotted _target_ path)")
+    if not (isinstance(cls, type) and issubclass(cls, TrainingMethod)):
+        raise TypeError(f"{cls!r} is not a TrainingMethod subclass")
+    return cls
 
 
 class TrainingMethod(abc.ABC):
@@ -96,7 +108,10 @@ class PipelineMethod(TrainingMethod):
         self.pipeline.train(dataloader, max_steps=max_steps, **kwargs)
 
     def save_checkpoint(self) -> None:
-        self.pipeline.save_checkpoint()
+        if hasattr(self.pipeline, "save_checkpoint"):
+            self.pipeline.save_checkpoint()
+        else:
+            super().save_checkpoint()
 
     def resume_from_checkpoint(self, step: int | None = None) -> None:
         self.pipeline.resume_from_checkpoint(step)

@@ -10,8 +10,8 @@ t_next. The EMA starts as a copy of the student and tracks it with
 ``ema_decay`` from ``ema_start_step`` on. There is no gradient clipping.
 Every forward is the model's full forward (``model(x, embeds, t)``, the
 self-attention of the selected backend: K1 and K6 under FLASH_ATTN), in
-bf16 on fp32 master weights; ``selective_checkpointing="full"`` runs the
-student's blocks under ``torch.utils.checkpoint``.
+bf16 on fp32 master weights; ``selective_checkpointing="full"`` (or "ops")
+runs the student's blocks under ``torch.utils.checkpoint``.
 
 The draws (the grid index, then the noise) come from the pipeline's CPU
 ``torch.Generator`` in :meth:`CausalCDPipeline.draw` alone, so a test can
@@ -41,7 +41,8 @@ from fastvideo_tpu_torch.training.run_config import (TrainRunConfig,
 from fastvideo_tpu_torch.training.trackers import initialize_trackers
 from fastvideo_tpu_torch.training.training_pipeline import (
     build_lr_schedule, build_optimizer, resolve_device)
-from fastvideo_tpu_torch.training.training_utils import global_grad_norm
+from fastvideo_tpu_torch.training.training_utils import (
+    global_grad_norm, set_activation_checkpointing)
 
 logger = logging.getLogger(__name__)
 
@@ -59,12 +60,9 @@ class CausalCDPipeline:
         args = training_args
         self.args = args
         self.device = resolve_device(args)
-        remat = args.selective_checkpointing
-        if remat == "ops":
-            raise NotImplementedError(
-                'selective_checkpointing="ops" is not ported; use "full"')
         self.student = student.to(self.device).train()
-        self.student.gradient_checkpointing = remat == "full"
+        set_activation_checkpointing(self.student,
+                                     args.selective_checkpointing)
         self.teacher = teacher.to(self.device).eval()
         self.teacher.requires_grad_(False)
         # the EMA starts from the student
@@ -175,11 +173,15 @@ class CausalCDPipeline:
 
     def train(self, dataloader, max_steps: int | None = None,
               log_every: int = 10, callbacks=None) -> None:
-        """The loop over a (latents, embeds) dataloader."""
-        if callbacks is not None:
-            raise NotImplementedError(
-                "training callbacks (training/callbacks.py) are not ported")
+        """The loop over a (latents, embeds) dataloader; ``callbacks`` are
+        dispatched at train start, after each step and at train end."""
+        from fastvideo_tpu_torch.training.callbacks import normalize_callbacks
+
+        callbacks = normalize_callbacks(callbacks)
+        self._callbacks = callbacks
         max_steps = max_steps or self.args.max_train_steps
+        if callbacks is not None:
+            callbacks.dispatch("on_train_start", self, self.step)
         it = iter(dataloader)
         t0 = time.perf_counter()
         while self.step < max_steps:
@@ -190,11 +192,16 @@ class CausalCDPipeline:
                 latents, embeds = next(it)
             metrics = self.train_one_step(latents, embeds)
             self.tracker.log(metrics, self.step)
+            if callbacks is not None:
+                callbacks.dispatch("on_training_step_end", self, metrics,
+                                   self.step)
             if self.step % log_every == 0:
                 dt = time.perf_counter() - t0
                 logger.info("causal_cd step %d loss %.4f (%.2fs/it)",
                             self.step, metrics["loss"], dt / log_every)
                 t0 = time.perf_counter()
+        if callbacks is not None:
+            callbacks.dispatch("on_train_end", self, self.step)
 
 
 @register_method

@@ -20,8 +20,8 @@ fly. Each loader batch gives its first micro-batch (``[0]``), as in JAX.
 Each step's metrics go to the tracker, as the port's other trainers'.
 
 No forward context is set, as in JAX: VSA runs at sparsity 0. Under
-``selective_checkpointing="full"`` the student's blocks are recomputed in
-the backward, which leaves the numbers as they are.
+``selective_checkpointing="full"`` (or "ops") the student's blocks are
+recomputed in the backward, which leaves the numbers as they are.
 
 Random numbers: JAX splits ``jax.random`` keys; the port draws from one CPU
 ``torch.Generator`` seeded from ``args.seed`` in :meth:`KDMethod.draw`
@@ -49,7 +49,8 @@ from fastvideo_tpu_torch.training.run_config import (TrainRunConfig,
 from fastvideo_tpu_torch.training.trackers import initialize_trackers
 from fastvideo_tpu_torch.training.training_pipeline import (
     build_lr_schedule, build_optimizer, resolve_device)
-from fastvideo_tpu_torch.training.training_utils import clip_grad_norm
+from fastvideo_tpu_torch.training.training_utils import (
+    clip_grad_norm, set_activation_checkpointing)
 
 logger = logging.getLogger(__name__)
 
@@ -78,12 +79,8 @@ class KDMethod(TrainingMethod):
         self.t_list = tuple(int(t) for t in t_list)
         self.num_train_timesteps = num_train_timesteps
         self.teacher_path_cache = teacher_path_cache
-        remat = args.selective_checkpointing
-        if remat == "ops":
-            raise NotImplementedError(
-                'selective_checkpointing="ops" is not ported; use "full"')
         self.student = student.to(self.device).train()
-        student.gradient_checkpointing = remat == "full"
+        set_activation_checkpointing(student, args.selective_checkpointing)
         self.teacher = teacher  # frozen; None: cache only
         if teacher is not None:
             self.teacher = teacher.to(self.device).eval().requires_grad_(
@@ -254,9 +251,13 @@ class KDMethod(TrainingMethod):
 
     def train(self, dataloader, max_steps: int | None = None,
               log_every: int = 10, callbacks=None) -> None:
-        if callbacks is not None:
-            raise NotImplementedError(
-                "training callbacks (training/callbacks.py) are not ported")
+        """The teacher's cache first (with ``teacher_path_cache``), then
+        steps from the cache or from fresh rollouts. ``callbacks`` are
+        taken and not dispatched: JAX's kd takes them in ``**kwargs`` and
+        dispatches none."""
+        if callbacks:
+            logger.warning("kd dispatches no training callbacks, as the "
+                           "JAX kd; ignoring them")
         max_steps = max_steps or self._args.max_train_steps
         use_cache = bool(self.teacher_path_cache)
         if use_cache and self.teacher is not None:

@@ -50,7 +50,7 @@ class TrainRunConfig:
     dmd: DMDSpec = field(default_factory=DMDSpec)
     # method-specific free-form options, passed to Method.from_config
     method_config: dict[str, Any] = field(default_factory=dict)
-    # named callbacks: not ported (the trainer raises when any is given)
+    # named callbacks (training/callbacks.py), passed to method.train
     callbacks: dict[str, Any] = field(default_factory=dict)
 
 

@@ -44,7 +44,8 @@ from fastvideo_tpu_torch.forward_context import set_forward_context
 from fastvideo_tpu_torch.training.checkpoint import CheckpointManager
 from fastvideo_tpu_torch.training.trackers import initialize_trackers
 from fastvideo_tpu_torch.training.training_utils import (
-    clip_grad_norm, compute_density_for_timestep_sampling)
+    clip_grad_norm, compute_density_for_timestep_sampling,
+    set_activation_checkpointing)
 
 logger = logging.getLogger(__name__)
 
@@ -108,13 +109,8 @@ class TrainingPipeline:
         self.device = resolve_device(args)
         self.transformer = transformer.to(self.device).train()
         self.scheduler = scheduler
-        remat = args.selective_checkpointing
-        if remat == "ops":
-            raise NotImplementedError(
-                'selective_checkpointing="ops" (keep the matmul outputs, '
-                "recompute the elementwise chains) is not ported; use "
-                '"full"')
-        transformer.gradient_checkpointing = remat == "full"
+        set_activation_checkpointing(transformer,
+                                     args.selective_checkpointing)
         self.params = [p for p in transformer.parameters() if p.requires_grad]
         if not self.params:
             raise ValueError("the transformer has no trainable parameter "
@@ -225,11 +221,17 @@ class TrainingPipeline:
               log_every: int = 10, validation_callback=None,
               callbacks=None) -> None:
         """``validation_callback(pipeline, step) -> dict | None`` runs every
-        ``args.validation_steps`` steps; its metrics go to the tracker."""
-        if callbacks is not None:
-            raise NotImplementedError(
-                "training callbacks (training/callbacks.py) are not ported")
+        ``args.validation_steps`` steps; its metrics go to the tracker.
+        ``callbacks`` (a ``CallbackDict`` or a raw ``{name: cfg}`` mapping,
+        ``training/callbacks.py``) are dispatched at train start, before
+        each step, after each step and at train end."""
+        from fastvideo_tpu_torch.training.callbacks import normalize_callbacks
+
+        callbacks = normalize_callbacks(callbacks)
+        self._callbacks = callbacks
         max_steps = max_steps or self.args.max_train_steps
+        if callbacks is not None:
+            callbacks.dispatch("on_train_start", self, self.step)
         it = iter(dataloader)
         t0 = time.perf_counter()
         while self.step < max_steps:
@@ -238,10 +240,16 @@ class TrainingPipeline:
             except StopIteration:
                 it = iter(dataloader)
                 latents, embeds = next(it)
+            if callbacks is not None:
+                callbacks.dispatch("on_before_optimizer_step", self,
+                                   self.step)
             metrics = self.train_one_step(
                 latents, embeds,
                 vsa_sparsity=self.current_vsa_sparsity(self.step + 1))
             self.tracker.log(metrics, self.step)
+            if callbacks is not None:
+                callbacks.dispatch("on_training_step_end", self, metrics,
+                                   self.step)
             if self.step % log_every == 0:
                 dt = time.perf_counter() - t0
                 logger.info("step %d loss %.4f grad_norm %.3f (%.2fs/it)",
@@ -259,6 +267,8 @@ class TrainingPipeline:
                     and self.args.checkpointing_steps
                     and self.step % self.args.checkpointing_steps == 0):
                 self.save_checkpoint()
+        if callbacks is not None:
+            callbacks.dispatch("on_train_end", self, self.step)
 
     @torch.no_grad()
     def validation_sample(self, embeds, latent_shape: tuple[int, ...],

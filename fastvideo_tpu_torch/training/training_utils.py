@@ -1,5 +1,6 @@
 """Training utilities (port of fastvideo_tpu/training/training_utils.py):
-timestep-density sampling, sigmas, the global gradient norm and clipping.
+timestep-density sampling, sigmas, the global gradient norm and clipping,
+and the activation checkpointing that ``selective_checkpointing`` names.
 
 Random draws come from a ``torch.Generator`` where JAX takes a key; the two
 give different numbers from one seed, so the tests hand both the same
@@ -65,3 +66,15 @@ def clip_grad_norm(params: Iterable[torch.nn.Parameter], max_norm: float
     for g in grads:
         g.mul_(scale.to(g.dtype))
     return norm
+
+
+def set_activation_checkpointing(model: torch.nn.Module, mode: str) -> None:
+    """``selective_checkpointing`` on a DiT, as the JAX trainer sets it:
+    "full" recomputes each block in the backward; "ops" also keeps the
+    matmul outputs where the model has a remat policy
+    (``gradient_checkpointing_policy``: the Wan DiT's forward; the causal
+    Wan's block-causal passes recompute whole blocks, as JAX's do); any
+    other value checkpoints nothing."""
+    model.gradient_checkpointing = mode in ("full", "ops")
+    if hasattr(model, "gradient_checkpointing_policy"):
+        model.gradient_checkpointing_policy = "ops" if mode == "ops" else None

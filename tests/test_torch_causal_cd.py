@@ -215,5 +215,7 @@ def test_build_from_config_trains_causal_cd(causal_checkpoint, tmp_path,
                      for n, p in m.named_parameters())
              for i, m in enumerate((pipe.student, pipe.teacher, pipe.ema))]
     assert moved == [True, False, True]
-    with pytest.raises(NotImplementedError, match="callbacks"):
-        method.train([], callbacks={"ema": {}})
+    # callbacks are dispatched (the loop is at max_train_steps: start and
+    # end only)
+    method.train([], callbacks={"grad_clip": {"max_grad_norm": 0.25}})
+    assert pipe.args.max_grad_norm == 0.25

@@ -363,5 +363,7 @@ def test_build_from_config_trains_dmd2_on_parquet(checkpoint, tmp_path):
         same = [torch.equal(before[i][n], p)
                 for n, p in m.named_parameters()]
         assert all(same) if i == 1 else not any(same), i
-    with pytest.raises(NotImplementedError, match="callbacks"):
-        method.train([], callbacks={"ema": {}})
+    # callbacks are dispatched (the loop is at max_train_steps: start and
+    # end only)
+    method.train([], callbacks={"grad_clip": {"max_grad_norm": 0.25}})
+    assert pipe.args.max_grad_norm == 0.25

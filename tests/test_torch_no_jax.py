@@ -53,7 +53,7 @@ def test_no_package_the_card_lacks_in_sources():
     """The card's machine has none of these: the port reads Parquet,
     safetensors and tokenizer.json files, and splits graphemes, itself."""
     absent = ("pyarrow", "tokenizers", "regex", "transformers",
-              "safetensors", "sentencepiece")
+              "safetensors", "sentencepiece", "PIL")
     bad = []
     for path in _port_sources():
         with open(path) as fh:
@@ -77,6 +77,14 @@ SLICE_MODULES = [
     "training/methods/lora.py", "training/methods/knowledge_distillation.py",
     "training/methods/anyflow_pretrain.py", "training/methods/anyflow.py",
     "models/schedulers/scheduling_flow_map_euler.py",
+    # the DiffusionNFT slice: CLIP towers and scorer, the BPE reader, the RL
+    # method, callbacks, _target_ instantiation
+    "configs/models/encoders/clip.py", "models/encoders/clip.py",
+    "models/clip_scoring.py", "models/loader/tokenizer.py",
+    "training/rl/__init__.py", "training/rl/rewards.py",
+    "training/rl/sampling.py", "training/rl/diffusion_nft.py",
+    "training/methods/rl.py", "training/instantiate.py",
+    "training/callbacks.py", "training/training_utils.py",
 ]
 
 
@@ -111,6 +119,43 @@ assert not [m for m in sys.modules
             if any(m == f or m.startswith(f + ".") for f in {forbidden!r})]
 print("ok")
 """
+
+
+TARGETS = """
+import importlib.abc, sys
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if any(name == f or name.startswith(f + ".") for f in FORBIDDEN):
+            raise ImportError("blocked: " + name)
+sys.meta_path.insert(0, Block())
+from fastvideo_tpu_torch.training.callbacks import CallbackDict
+from fastvideo_tpu_torch.training.instantiate import instantiate
+from fastvideo_tpu_torch.training.methods import resolve_method
+cls = resolve_method("fastvideo_tpu.training.methods.rl.DiffusionNFTMethod")
+assert cls.name == "diffusion_nft"
+cbs = CallbackDict({"e": {
+    "_target_": "fastvideo_tpu.training.callbacks.EMACallback"}})
+assert type(cbs["e"]).__module__ == "fastvideo_tpu_torch.training.callbacks"
+clip = instantiate({"_target_": "fastvideo_tpu.training.callbacks."
+                    "GradNormClipCallback", "max_grad_norm": 0.5})
+assert clip.max_grad_norm == 0.5
+assert not [m for m in sys.modules
+            if any(m == f or m.startswith(f + ".") for f in FORBIDDEN)]
+print("ok")
+"""
+
+
+def test_target_paths_resolve_with_jax_blocked():
+    """A dotted ``_target_`` under ``fastvideo_tpu.`` (a method, a callback,
+    ``instantiate``) resolves in the port's package with JAX, Flax and the
+    JAX package blocked, and none of them enters ``sys.modules``."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run(
+        [sys.executable, "-c",
+         TARGETS.replace("FORBIDDEN", repr(FORBIDDEN))],
+        capture_output=True, text=True, env=env, cwd=ROOT, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
 
 
 def test_port_imports_with_jax_blocked():

@@ -319,22 +319,22 @@ def test_full_checkpointing_keeps_the_gradients(monkeypatch):
     which runs outside the forward context (on CUDA on autograd's own
     thread): each checkpointed block is bound to the forward's context, so
     the recompute picks the same VSA tiles, and the loss and gradients are
-    those of no checkpointing. "ops" is not ported."""
+    those of no checkpointing; so are "ops"'s (which keeps the matmul
+    outputs: ``tests/test_torch_remat_ops.py``)."""
     lat, emb = _batch(3)
     rng = np.random.default_rng(7)
     draws = (torch.from_numpy(rng.random(1).astype(np.float32)),
              torch.from_numpy(rng.standard_normal(lat.shape[1:]).astype(
                  np.float32)))
     outs = {}
-    for remat in ("full", "none"):
+    for remat in ("full", "ops", "none"):
         pipe = _torch_pipe(monkeypatch, selective_checkpointing=remat)
-        assert pipe.transformer.gradient_checkpointing == (remat == "full")
+        assert pipe.transformer.gradient_checkpointing == (remat != "none")
         outs[remat] = _step_grads(pipe, lat, emb, [draws])
-    assert outs["full"][0]["loss"] == outs["none"][0]["loss"]
-    for a, b in zip(outs["full"][1], outs["none"][1]):
-        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
-    with pytest.raises(NotImplementedError, match="ops"):
-        _torch_pipe(monkeypatch, selective_checkpointing="ops")
+    for remat in ("full", "ops"):
+        assert outs[remat][0]["loss"] == outs["none"][0]["loss"]
+        for a, b in zip(outs[remat][1], outs["none"][1]):
+            torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
 
 
 def test_sigmas_and_density_sampling():

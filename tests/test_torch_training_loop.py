@@ -21,6 +21,7 @@ from fastvideo_tpu_torch.dataset.parquet import (DPSPBatchSampler,
 from fastvideo_tpu_torch.entrypoints.cli.train import build_from_config
 from fastvideo_tpu_torch.models.dits.wan import WanTransformer3DModel
 from fastvideo_tpu_torch.models.loader.safetensors_io import save_file
+from fastvideo_tpu_torch.training.callbacks import CallbackDict
 from fastvideo_tpu_torch.training.methods import NOT_PORTED, resolve_method
 from fastvideo_tpu_torch.training.methods.fine_tuning import SFTMethod
 from fastvideo_tpu_torch.training.run_config import (build_dataloader,
@@ -255,8 +256,17 @@ def test_what_waits_raises(checkpoint, tmp_path):
         build_dataloader(cfg, build_training_args(cfg))
     method = build_from_config(load_train_config(str(_write(
         tmp_path, _config(checkpoint, "")))))[0]
-    with pytest.raises(NotImplementedError, match="callbacks"):
-        method.train([], callbacks={"ema": {}})
+    # training callbacks are ported (tests/test_torch_callbacks.py): at
+    # max_train_steps the loop dispatches only train start and end
+    method.pipeline.step = method.args.max_train_steps
+    cbs = CallbackDict({"ema": {}})
+    method.train([], callbacks=cbs)
+    assert len(cbs["ema"].shadow) == len(method.pipeline.params)
+    # a dotted path resolves in the port, and must name a TrainingMethod
+    assert resolve_method("fastvideo_tpu.training.methods.fine_tuning."
+                          "SFTMethod") is type(method)
+    with pytest.raises(TypeError, match="not a TrainingMethod"):
+        resolve_method("fastvideo_tpu.training.callbacks.EMACallback")
 
 
 def test_validation_sample_with_the_current_parameters(checkpoint,
