@@ -48,7 +48,11 @@ Phases, each printing its own lines:
      distillation methods' shapes: K5 over a full clip on fresh caches,
      q = k = [1, 32760, 12, 128], and the KV-cache attention's grad route,
      K1 and K6 at the generator's last block, q [1, 4680, 12, 128] over
-     32,760 gathered keys, and at a full clip);
+     32,760 gathered keys, and at a full clip; K3's fp32 form at every
+     3x3x3 conv of the VAE encoder at 480x832 in both kinds of encode
+     chunk (the first frame behind the causal pad, 4 frames behind 2
+     cached), beside cuDNN in fp32; K1 at the I2V 14B DiT's 40 heads, q
+     [1, 32760, 40, 128] over 32,760, 512 and 257 keys, beside SDPA);
   4. a: tiny models, the card's whole path against the CPU's plain path
      (FastWan DMD, also with an fp32 decode; Wan UniPC + CFG with VSA and
      with STA on a padded grid, and on every other self-attention backend:
@@ -61,7 +65,10 @@ Phases, each printing its own lines:
      teacher rollout too), anyflow_pretrain and anyflow; one DiffusionNFT
      outer step with a tiny CLIP dual tower, one SFT step with the
      grad_clip and ema callbacks, and on the card one SFT step under
-     selective_checkpointing "ops" against one under "full");
+     selective_checkpointing "ops" against one under "full"; a tiny Wan
+     I2V generation from a PNG (tiny CLIP tower, the VAE encoder, UniPC +
+     CFG) and a tiny V2V generation from a .npy clip that is truncated and
+     resized);
      b: the FastWan main path at full width: a random-weight
      FastWan2.1-T2V-1.3B-shaped diffusers checkpoint written with the
      port's own safetensors writer, loaded by
@@ -152,6 +159,17 @@ Phases, each printing its own lines:
      by stage (sample, decode, score, update), peak memory, losses,
      rewards, the student moved, ref unchanged, old moved, the launches
      against their formula;
+     x: Wan2.1 image-to-video at the Wan2.1-I2V-14B-480P widths through
+     VideoGenerator.from_pretrained(ckpt).generate_video(prompt,
+     image_path=<a 544x960 PNG written with zlib and struct>): the DiT at
+     40 heads of 128, FFN 13824, 36 input channels, 257 CLIP ViT-H/14
+     image tokens (1280 wide) beside the text, cut to I2V_LAYERS (8) of its
+     40 blocks; the VAE with both halves and 4b's UMT5 and tokenizer;
+     81x480x832, I2V_STEPS (2) FlowUniPC steps with CFG: stage seconds
+     (ImageEncodingStage and WanImageVAEEncodingStage apart), seconds a
+     step and a block, peak memory, and the launches of K1 (bf16 and its
+     fp32 form), K3 (the encode's fp32, the decode's bf16) and the merge,
+     of the generation and of its encode, against counts from the shapes;
   5. the kernels line, the card line and the result line.
 
 Each phase header ends with the seconds since the start.
@@ -1926,6 +1944,138 @@ def check_fp32_vae_attn(dev, results: dict) -> None:
 # -- phase 3, the backward kernels (K6, K7 bwd) at the training shapes -------
 
 
+def encoder_conv_shapes(size: dict, frames: int) -> list[tuple]:
+    """(label, convs, C, Co, output frames, H, W): the VAE encoder's 3x3x3
+    convs that take K3, in one encode chunk of ``frames`` pixel frames at
+    ``size``, from its structure (models/vaes/wan.py:WanEncoder3d with
+    VAE_CFG; conv_in's 3 channels and the stride-2 convs stay plain). A
+    downsample3d halves a chunk's frames; the first chunk's one frame
+    stays one."""
+    dims = [VAE_CFG["base_dim"] * m for m in [1, *VAE_CFG["dim_mult"]]]
+    h, w, t = size["height"], size["width"], frames
+    out = []
+    for i, (cin, cout) in enumerate(zip(dims[:-1], dims[1:])):
+        n = 2 * VAE_CFG["num_res_blocks"]
+        if cin != cout:
+            out.append((f"down{i} resnet0 conv1 {cin}->{cout}", 1, cin, cout,
+                        t, h, w))
+            n -= 1
+        out.append((f"down{i} resnets {cout}x{cout}", n, cout, cout, t, h,
+                    w))
+        if i < len(dims) - 2:
+            h, w = h // 2, w // 2
+            if VAE_CFG["temperal_downsample"][i] and t > 1:
+                t //= 2
+    out.append((f"mid resnets {dims[-1]}x{dims[-1]}", 4, dims[-1], dims[-1],
+                t, h, w))
+    out.append((f"conv_out {dims[-1]}->{2 * VAE_CFG['z_dim']}", 1, dims[-1],
+                2 * VAE_CFG["z_dim"], t, h, w))
+    return out
+
+
+def encode_chunks(size: dict) -> list[int]:
+    """Pixel frames of each chunk of the encode at ``size``: the first
+    frame alone, then scale_factor_temporal at a time."""
+    step = VAE_CFG["scale_factor_temporal"]
+    f = size["num_frames"]
+    return [1] + [min(step, f - s) for s in range(1, f, step)]
+
+
+def check_encoder_convs(dev, results: dict) -> None:
+    """K3's fp32 form (3xTF32) at every 3x3x3 conv shape of the VAE
+    encoder at 480x832 (an I2V request's first frame and zeros, in fp32 as
+    vae_precision says), in both kinds of encode chunk: the first frame
+    alone behind the causal pad, and 4 frames behind 2 cached ones. Each
+    against the plain conv (the fp32 gate, 5e-5 + 1e-5 |plain|), with its
+    kernel, plain and cuDNN fp32 (TF32 off) times and its bound (3 TF32
+    products a pair on the real taps at 495 TFLOP/s, or the bytes)."""
+    import torch
+
+    from fastvideo_tpu_torch.ops import conv3d
+
+    g = torch.Generator(device=dev).manual_seed(17)
+    step = VAE_CFG["scale_factor_temporal"]
+    out, errs = {}, []
+    for kind, frames, tp in (("first chunk", 1, 2),
+                             (f"{step}-frame chunk", step, 0)):
+        for label, _, c, co, t_out, h, w in encoder_conv_shapes(CLIP_480P,
+                                                                frames):
+            t_in = t_out + 2 - tp
+            x = torch.randn(1, t_in, h, w, c, generator=g, device=dev)
+            wt = torch.randn(3, 3, 3, c, co, generator=g, device=dev) * (
+                27 * c)**-0.5
+            b = torch.randn(co, generator=g, device=dev)
+            name = f"conv3d fp32[encoder {label}@{h}x{w} {kind}]"
+            got = conv3d.conv3d_ndhwc(x, wt, b, time_pad=tp)
+            ref = conv3d.conv3d_ndhwc_plain(x, wt, b, time_pad=tp)
+            errs.append(check(f"{name} (tf32x3, N tile "
+                              f"{conv3d.conv_tf32_tile_n(co)}, "
+                              f"{conv3d.conv_tile_w(h, w)}-wide patches)",
+                              got, ref, 5e-5, 1e-5))
+            del got, ref
+            ms = time_ms(lambda: conv3d.conv3d_ndhwc(x, wt, b, time_pad=tp),
+                         3)
+            plain = time_ms(lambda: conv3d.conv3d_ndhwc_plain(
+                x, wt, b, time_pad=tp), 1)
+            lib = time_ms(cudnn_conv(x, wt, b, tp), 3)
+            flops = 2.0 * real_taps(t_out, 3, tp) * h * w * c * co * 9
+            nbytes = 4.0 * ((t_in + t_out) * h * w * c + wt.numel() + co)
+            bms, by = bound_ms(3 * flops, nbytes, "tf32")
+            out[f"{label}@{h}x{w} {kind}"] = dict(
+                ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms,
+                bound_by=by)
+            print(f"  {name}: {ms:.3f} ms kernel, {plain:.3f} ms plain, "
+                  f"{lib:.3f} ms cudnn fp32, bound {bms:.3f} ms ({by}, 3 x "
+                  f"{flops:.3e} TF32 FLOP)", flush=True)
+            del x
+    results["conv3d"]["encoder"] = out
+    results["conv3d"]["encoder_max_abs_err"] = max(errs)
+
+
+def check_i2v_flash(dev, results: dict) -> None:
+    """K1 at the I2V 14B DiT's widths, q [1, 32760, 40, 128] bf16 at 480x832:
+    the self-attention over 32,760 keys, the text cross-attention over 512
+    and the image cross-attention over 257 CLIP tokens (a last key chunk of
+    one); each against its plain version, with kernel, plain and SDPA
+    times and its bound."""
+    import torch
+
+    from fastvideo_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(23)
+    sq, h, d = 32760, 40, 128
+    q = torch.randn(1, sq, h, d, generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    errs = []
+    for key, skv in (("i2v_self", sq), ("i2v_text", 512),
+                     ("i2v_image", 257)):
+        k, v = (torch.randn(1, skv, h, d, generator=g, device=dev,
+                            dtype=torch.bfloat16) for _ in range(2))
+        label = f"flash_fwd[{key} q[1, {sq}, {h}, {d}] kv {skv}]"
+        check_schedule(label, torch.bfloat16, d)
+        out, lse = fa.flash_attention(q, k, v, return_lse=True)
+        ref, ref_lse = fa.flash_attention_plain(q, k, v, scale=d**-0.5)
+        errs.append(check(label, out, ref, *attn_tol(ref, torch.bfloat16)))
+        check(f"{label} lse", lse, ref_lse, 1e-3)
+        del out, lse, ref, ref_lse
+        ms = time_ms(lambda: fa.flash_attention(q, k, v), 3)
+        plain = time_ms(lambda: fa.flash_attention_plain(q, k, v,
+                                                         scale=d**-0.5), 1)
+        lib, backend = sdpa_ms(q, k, v)
+        flops = 4.0 * h * sq * skv * d
+        bms, by = bound_ms(flops, 2.0 * (2 * sq * h * d + 2 * skv * h * d) +
+                           4 * h * sq)
+        results["flash_fwd"].update({
+            f"{key}_ms": ms, f"{key}_plain_ms": plain,
+            f"{key}_library_ms": lib, f"{key}_bound_ms": bms,
+            f"{key}_bound_by": by})
+        print(f"  {label}: {ms:.3f} ms kernel, {plain:.3f} ms plain, "
+              f"{lib:.3f} ms sdpa ({backend}), bound {bms:.3f} ms ({by}, "
+              f"{flops:.3e} FLOP)", flush=True)
+        del k, v
+    results["flash_fwd"]["i2v_max_abs_err"] = max(errs)
+
+
 def kernel_device_ms(fn, names: dict, reps: int = 3) -> dict:
     """Device time a call of each kernel in ``names`` ({label: substring of
     its CUDA kernel name}) takes inside ``fn``, from torch.profiler over
@@ -2478,7 +2628,7 @@ def run_kernel_checks(dev, flex_struct: bool = False) -> dict:
                   check_flash_struct, check_vsa_bwd, check_vsa_dense,
                   check_conv, check_conv_int8, check_w8a8_linear,
                   check_flash_kv_mask, check_causal_distill,
-                  check_fp32_decode):
+                  check_fp32_decode, check_encoder_convs, check_i2v_flash):
         t0 = time.perf_counter()
         if check is check_w8a8_linear:
             check(dev)
@@ -2593,14 +2743,16 @@ def write_checkpoint(root: str, dit_cfg: dict, vae_cfg: dict, t5_cfg: dict,
                      seed: int, device: str = "cuda",
                      share: str | None = None,
                      class_name: str = "WanPipeline",
-                     dit_class: str = "WanTransformer3DModel") -> str:
-    """A diffusers-format Wan T2V checkpoint with random weights, written
-    with the port's own safetensors writer (the VAE's decoder half). The
-    DiT has the blocks of the attention backend selected when this is
-    called. With ``share`` only the transformer is written; the other
-    components are links to those of the checkpoint ``share``.
+                     dit_class: str = "WanTransformer3DModel",
+                     image_encoder_cfg: dict | None = None) -> str:
+    """A diffusers-format Wan checkpoint with random weights, written with
+    the port's own safetensors writer (the VAE with both halves). The DiT
+    has the blocks of the attention backend selected when this is called.
+    With ``share`` only the transformer (and the image encoder) is written;
+    the other components are links to those of the checkpoint ``share``.
     ``class_name`` is model_index.json's pipeline class, ``dit_class`` the
-    transformer's."""
+    transformer's; ``image_encoder_cfg`` adds an I2V checkpoint's CLIP
+    vision tower (``image_encoder``, bf16 weights)."""
     import torch
 
     from fastvideo_tpu_torch.configs.models.dits.wan import WanArchConfig
@@ -2620,13 +2772,17 @@ def write_checkpoint(root: str, dit_cfg: dict, vae_cfg: dict, t5_cfg: dict,
         with open(path, "w") as fh:
             json.dump(obj, fh)
 
-    dump(os.path.join(root, "model_index.json"), {
+    index = {
         "_class_name": class_name, "_diffusers_version": "0.33.0",
         "scheduler": ["diffusers", "UniPCMultistepScheduler"],
         "text_encoder": ["transformers", "UMT5EncoderModel"],
         "tokenizer": ["transformers", "T5TokenizerFast"],
         "transformer": ["diffusers", dit_class],
-        "vae": ["diffusers", "AutoencoderKLWan"]})
+        "vae": ["diffusers", "AutoencoderKLWan"]}
+    clip_class = "CLIPVisionModelWithProjection"
+    if image_encoder_cfg is not None:
+        index["image_encoder"] = ["transformers", clip_class]
+    dump(os.path.join(root, "model_index.json"), index)
     dit_cls = resolve_model_cls(dit_class)[0]
     parts = [
         ("transformer", dit_class, dit_cfg,
@@ -2644,10 +2800,18 @@ def write_checkpoint(root: str, dit_cfg: dict, vae_cfg: dict, t5_cfg: dict,
         parts = parts[:1]
         for sub in ("vae", "text_encoder", "tokenizer", "scheduler"):
             os.symlink(os.path.join(share, sub), os.path.join(root, sub))
+    if image_encoder_cfg is not None:
+        clip_cls, clip_arch = resolve_model_cls(clip_class)
+        parts.append((
+            "image_encoder", clip_class, image_encoder_cfg,
+            lambda: clip_cls(arch(clip_arch, image_encoder_cfg),
+                             device="meta"),
+            torch.bfloat16, "model.safetensors"))
     for sub, cls_name, cfg, build, dtype, fname in parts:
         d = os.path.join(root, sub)
         os.makedirs(d, exist_ok=True)
-        key = "architectures" if sub == "text_encoder" else "_class_name"
+        key = ("architectures" if sub in ("text_encoder", "image_encoder")
+               else "_class_name")
         dump(os.path.join(d, "config.json"),
              {key: [cls_name] if key == "architectures" else cls_name, **cfg})
         state = random_state(build(), dtype, device, gen)
@@ -2689,7 +2853,8 @@ def check_small_path(work: str, name: str, backend: str, gen_kw: dict,
                      conv_mode: str | None = None,
                      launched: tuple[str, ...] = (),
                      dit_cfg: dict = TINY_DIT_CFG,
-                     dit_class: str = "WanTransformer3DModel") -> None:
+                     dit_class: str = "WanTransformer3DModel",
+                     image_encoder_cfg: dict | None = None) -> None:
     """The whole path on a tiny random model: the card (kernels) against the
     CPU (plain versions), same checkpoint and seed, bf16 as served. The
     kernels in ``launched`` must launch in the card's run, and no plain
@@ -2704,7 +2869,8 @@ def check_small_path(work: str, name: str, backend: str, gen_kw: dict,
         os.environ["FASTVIDEO_VAE_CONV3D"] = conv_mode
     ckpt = write_checkpoint(os.path.join(work, backend, name), dit_cfg,
                             vae_cfg, TINY_T5_CFG, seed=7,
-                            class_name=class_name, dit_class=dit_class)
+                            class_name=class_name, dit_class=dit_class,
+                            image_encoder_cfg=image_encoder_cfg)
     outs = {}
     for device in ("cuda", "cpu"):
         _build.reset_counts()
@@ -5428,6 +5594,204 @@ def run_diffusion_nft(work: str, profile_dir: str | None = None) -> dict:
                 stage_s=stages, **{k: row[k] for k in keys})
 
 
+# -- Wan image-to-video and video-to-video (4a, 4x) ----------------------------
+
+# the tiny I2V DiT: [noise | the mask's 2 channels (the tiny VAE's time
+# ratio) | the condition latent] on its channels, the tiny CLIP's width as
+# image_dim; the tiny V2V DiT: [noise | control | zeros]
+TINY_I2V_DIT_CFG = dict(
+    TINY_DIT_CFG, in_channels=10,
+    image_dim=TINY_CLIP_VISION_CFG["hidden_size"],
+    added_kv_proj_dim=TINY_DIT_CFG["num_attention_heads"] *
+    TINY_DIT_CFG["attention_head_dim"])
+TINY_V2V_DIT_CFG = dict(TINY_DIT_CFG, in_channels=12)
+# 4x: Wan2.1-I2V-14B-480P's DiT at its published widths (Wan-AI's
+# Wan2.1-I2V-14B-480P-Diffusers: 40 heads of 128, FFN 13824, 36 input
+# channels = 16 noise + 4 mask + 16 condition, CLIP ViT-H/14's 1280 as
+# image_dim, K/V of the image tokens 5120 wide), cut to I2V_LAYERS of its 40
+# blocks, run I2V_STEPS of the published 50 FlowUniPC steps; CLIP
+# ViT-H/14's vision tower at its published widths (the JAX package's
+# CLIPVisionArchConfig defaults)
+I2V_LAYERS = 8
+I2V_STEPS = 2
+I2V_DIT_CFG = dict(DIT_CFG, num_attention_heads=40, in_channels=36,
+                   ffn_dim=13824, num_layers=I2V_LAYERS, image_dim=1280,
+                   added_kv_proj_dim=5120)
+CLIP_H_CFG = dict(hidden_size=1280, intermediate_size=5120,
+                  num_hidden_layers=32, num_attention_heads=16,
+                  image_size=224, patch_size=14, num_channels=3,
+                  hidden_act="gelu", layer_norm_eps=1e-5,
+                  projection_dim=1024)
+# the request's first frame: larger than the clip, so the LANCZOS resize runs
+I2V_IMAGE_HW = (544, 960)
+
+
+def write_png(path: str, img) -> str:
+    """An 8-bit RGB PNG of uint8 [H, W, 3] ``img``, every row unfiltered,
+    written with zlib and struct (the card's machine has no PIL)."""
+    import struct
+    import zlib
+
+    h, w, _ = img.shape
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body +
+                struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    raw = b"".join(b"\x00" + img[y].tobytes() for y in range(h))
+    with open(path, "wb") as fh:
+        fh.write(b"\x89PNG\r\n\x1a\n" +
+                 chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                 + chunk(b"IDAT", zlib.compress(raw))
+                 + chunk(b"IEND", b""))
+    return path
+
+
+def sample_image(h: int, w: int, seed: int):
+    """A uint8 [h, w, 3] image: colour ramps plus seeded noise."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    img = np.stack([xx * 255.0 / w, yy * 255.0 / h, (xx + yy) * 127.0 /
+                    (h + w)], -1) + rng.normal(0, 12, (h, w, 3))
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def check_small_i2v(work: str) -> None:
+    """4a's checks of the I2V / V2V slice, card against CPU: the tiny I2V
+    model (a tiny CLIP tower, the VAE encoder on its first frame, FlowUniPC
+    with CFG) from a PNG, and the tiny V2V model from a .npy clip longer
+    than the generation and of another size (truncated, LANCZOS-resized)."""
+    import numpy as np
+
+    os.makedirs(work, exist_ok=True)
+    png = write_png(os.path.join(work, "tiny_first_frame.png"),
+                    sample_image(40, 56, seed=3))
+    clip = os.path.join(work, "tiny_control.npy")
+    np.save(clip, np.stack([sample_image(40, 56, seed=s) for s in range(13)]))
+    size = dict(height=32, width=48, num_frames=9, seed=11)
+    check_small_path(work, "Wan2.1-I2V-tiny-Diffusers", "FLASH_ATTN",
+                     dict(prompt="w1 w2 w3", negative_prompt="w9 w8",
+                          image_path=png, num_inference_steps=4,
+                          guidance_scale=5.0, **size), {},
+                     class_name="WanImageToVideoPipeline",
+                     dit_cfg=TINY_I2V_DIT_CFG,
+                     image_encoder_cfg=TINY_CLIP_VISION_CFG,
+                     launched=("conv3d", "flash_fwd"))
+    check_small_path(work, "Wan2.1-V2V-tiny-Diffusers", "FLASH_ATTN",
+                     dict(prompt="w1 w2 w3", video_path=clip,
+                          num_inference_steps=3, guidance_scale=1.0, **size),
+                     {}, class_name="WanVideoToVideoPipeline",
+                     dit_cfg=TINY_V2V_DIT_CFG, launched=("conv3d",
+                                                         "flash_fwd"))
+
+
+def i2v_launches(size: dict) -> tuple[dict, dict]:
+    """(each kernel's launches in one 4x generation at ``size``, those of
+    its encode), from the shapes: K1 three times a DiT block (self, text
+    and image attention) in each of 2 CFG passes of I2V_STEPS steps, and
+    once a decode chunk (the VAE attention, bf16 at a head of 384, one
+    merge each); K3 at each encoder conv of each encode chunk
+    (encoder_conv_shapes) and each decoder conv of each decode chunk;
+    K1's fp32 form and its pre-pass once an encode chunk (the encoder's
+    mid-block attention over one latent frame), merged where its keys
+    split."""
+    import torch
+
+    from fastvideo_tpu_torch.ops import _build
+    from fastvideo_tpu_torch.ops import flash_attention as fa
+
+    t, h, w = latent_of(size)
+    chunks = encode_chunks(size)
+    sms = _build.num_sms(torch.device("cuda", 0))
+    merges = len(chunks) * int(fa.wide_splits(1, 1, h * w, h * w, sms,
+                                              fa.TF32_BLOCK_ROWS) > 1)
+    encode = {"conv3d": sum(n for f in chunks
+                            for _, n, *_ in encoder_conv_shapes(size, f)),
+              "flash_fwd_tf32": len(chunks),
+              "flash_fwd_tf32_split": len(chunks),
+              "flash_fwd_combine": merges}
+    decode_convs = vae_chunks(size) * sum(
+        n for _, n, *_ in decoder_conv_shapes((t, h, w)))
+    total = dict(encode,
+                 flash_fwd=I2V_LAYERS * 3 * 2 * I2V_STEPS + vae_chunks(size),
+                 conv3d=encode["conv3d"] + decode_convs,
+                 flash_fwd_combine=merges + vae_chunks(size))
+    return total, encode
+
+
+def run_i2v(work: str, profile_dir: str | None = None) -> dict:
+    """Phase 4x: Wan2.1 I2V at the 14B-480P widths (I2V_DIT_CFG, CLIP
+    ViT-H/14, the VAE with both halves, 4b's UMT5 and tokenizer) through
+    VideoGenerator.from_pretrained(ckpt).generate_video(prompt,
+    image_path=<a PNG written here>): 81x480x832, FlowUniPC with CFG. Stage
+    seconds (the CLIP and the VAE-encode stages apart), seconds a step and
+    a block, peak memory, and the launches of the generation and of its
+    encode against i2v_launches."""
+    import torch
+
+    from fastvideo_tpu_torch import VideoGenerator
+    from fastvideo_tpu_torch.ops import _build
+
+    os.environ["FASTVIDEO_ATTENTION_BACKEND"] = "FLASH_ATTN"
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ckpt = write_checkpoint(
+        os.path.join(work, "Wan2.1-I2V-14B-480P-Diffusers"), I2V_DIT_CFG,
+        VAE_CFG, T5_CFG, seed=44,
+        share=os.path.join(work, "FastWan2.1-T2V-1.3B-Diffusers"),
+        class_name="WanImageToVideoPipeline", image_encoder_cfg=CLIP_H_CFG)
+    png = write_png(os.path.join(work, "i2v_first_frame.png"),
+                    sample_image(*I2V_IMAGE_HW, seed=5))
+    print(f"  transformer ({I2V_LAYERS} blocks) and CLIP ViT-H/14 written "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    gen = VideoGenerator.from_pretrained(ckpt)
+    print(f"  from_pretrained in {time.perf_counter() - t0:.1f} s; pipeline "
+          f"{type(gen.pipeline).__name__}", flush=True)
+    stage = gen.pipeline.image_vae_encoding_stage
+    forward, encode = stage.forward, {}
+
+    def metered(batch, args):
+        before = dict(_build.LAUNCHES)
+        out = forward(batch, args)
+        encode.update({k: n - before.get(k, 0)
+                       for k, n in _build.LAUNCHES.items()
+                       if n != before.get(k, 0)})
+        return out
+
+    stage.forward = metered
+    kw = dict(prompt=PROMPT, negative_prompt=NEGATIVE_PROMPT, image_path=png,
+              seed=42, num_inference_steps=I2V_STEPS, guidance_scale=5.0,
+              save_video=False, **CLIP_480P)
+    result, launches, plain, peak = timed_generation(gen, kw)
+    times = {k: round(v, 4) for k, v in result["stage_times"].items()}
+    step_s = times["DenoisingStage"] / I2V_STEPS
+    expect, expect_encode = i2v_launches(CLIP_480P)
+    print(f"  generation {result['generation_time']:.3f} s (the first in the "
+          f"process at these shapes); stage seconds {json.dumps(times)}; "
+          f"{step_s:.3f} s a step, {step_s / (2 * I2V_LAYERS):.4f} s a block "
+          f"pass (2 CFG passes a step); peak memory {peak:.1f} GiB",
+          flush=True)
+    print(f"  kernel launches {json.dumps(launches)} (expected "
+          f"{json.dumps(expect)}); the encode's {json.dumps(encode)} "
+          f"(expected {json.dumps(expect_encode)}); plain calls "
+          f"{json.dumps(plain)}", flush=True)
+    check_generation("Wan I2V 14B widths 480x832", result, CLIP_480P,
+                     launches, plain, expect)
+    if encode != {k: n for k, n in expect_encode.items() if n}:
+        raise SystemExit(f"4x: the encode launched {encode}, expected "
+                         f"{expect_encode}")
+    if profile_dir:
+        stage.forward = forward
+        profile_generation(gen, kw, profile_dir, "wan_i2v_480x832")
+    del gen, result
+    torch.cuda.empty_cache()
+    return dict(launches=launches, step_s=step_s, peak_gib=peak,
+                encode=encode, stage_times=times)
+
+
 def profile_train_step(method, loader, out_dir: str,
                        label: str = "sft_480x832") -> None:
     """One more step under torch.profiler: device time by kernel name, the
@@ -5555,6 +5919,7 @@ def main() -> int:
     check_small_self_forcing(work)
     check_small_slice(work)
     check_small_rl_slice(work)
+    check_small_i2v(work)
     phase("# phase 4b: FastWan main path at full width, 81x480x832, 3 DMD "
           "steps, VSA sparsity 0.8")
     launches = run_main_path(work, args.profile)
@@ -5678,6 +6043,12 @@ def main() -> int:
           f"(ViT-L/14 vision, CLIP-L text projected to 1024), sparsity 0: 1 "
           f"warm-up + 1 timed")
     nft = run_diffusion_nft(work, args.profile)
+    phase(f"# phase 4x: Wan2.1 I2V at the Wan2.1-I2V-14B-480P widths (40 "
+          f"heads of 128, 36 input channels, CLIP ViT-H/14 image tokens) "
+          f"through VideoGenerator with image_path=<a PNG>: 81x480x832, "
+          f"FlowUniPC with CFG; cut to {I2V_LAYERS} of 40 DiT blocks and "
+          f"{I2V_STEPS} of 50 steps")
+    i2v = run_i2v(work, args.profile)
     shutil.rmtree(work, ignore_errors=True)
     # each kernel's count comes from the path that runs it
     launches["vsa_sparse_padded_fwd"] = vsa_launches["vsa_sparse_padded_fwd"]
@@ -5767,6 +6138,11 @@ def main() -> int:
             results[name].update(remat_ops_launches=n,
                                  remat_ops_step_s=remat_ops["step_s"],
                                  remat_ops_peak_gib=remat_ops["peak_gib"])
+    # Wan I2V's launches a generation, seconds a step and peak memory (4x)
+    for name, n in i2v["launches"].items():
+        if n:
+            results[name].update(i2v_launches=n, i2v_step_s=i2v["step_s"],
+                                 i2v_peak_gib=i2v["peak_gib"])
     phase("# phase 5: the kernels line, the card line, the result line")
 
     kernels = []

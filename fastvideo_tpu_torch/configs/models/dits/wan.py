@@ -1,6 +1,7 @@
 """Wan DiT architecture config (port of
 fastvideo_tpu/configs/models/dits/wan.py). Defaults are the 14B sizes; the
-checkpoint's config.json resizes them. The causal Wan reads three more
+checkpoint's config.json resizes them, and ``image_dim`` /
+``added_kv_proj_dim`` make it the I2V DiT. The causal Wan reads three more
 fields: ``local_attn_size``, ``sink_size`` and ``num_frames_per_block``;
 AnyFlow's dual-timestep branch four more (``r_embedder*``)."""
 
@@ -30,6 +31,10 @@ WAN_PARAM_NAMES_MAPPING: dict[str, str] = {
     r"condition_embedder.delta_embedder.mlp.fc_out.\1",
     r"^condition_embedder\.time_proj\.(.*)$":
     r"condition_embedder.time_modulation.linear.\1",
+    r"^condition_embedder\.image_embedder\.ff\.net\.0\.proj\.(.*)$":
+    r"condition_embedder.image_embedder.ff.fc_in.\1",
+    r"^condition_embedder\.image_embedder\.ff\.net\.2\.(.*)$":
+    r"condition_embedder.image_embedder.ff.fc_out.\1",
     r"^blocks\.(\d+)\.attn1\.to_q\.(.*)$": r"blocks.\1.to_q.\2",
     r"^blocks\.(\d+)\.attn1\.to_k\.(.*)$": r"blocks.\1.to_k.\2",
     r"^blocks\.(\d+)\.attn1\.to_v\.(.*)$": r"blocks.\1.to_v.\2",

@@ -40,6 +40,10 @@ class WanVAEArchConfig(VAEArchConfig):
     clip_output: bool = True
 
     @property
+    def temporal_compression_ratio(self) -> int:
+        return self.scale_factor_temporal
+
+    @property
     def spatial_compression_ratio(self) -> int:
         return self.scale_factor_spatial
 

@@ -16,6 +16,7 @@ class PipelineConfig:
     dit_config: ModelConfig | None = None
     vae_config: ModelConfig | None = None
     text_encoder_configs: tuple[ModelConfig, ...] = ()
+    image_encoder_config: ModelConfig | None = None
     postprocess_text_funcs: tuple[Callable, ...] = ()
 
     flow_shift: float | None = None

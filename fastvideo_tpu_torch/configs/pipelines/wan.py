@@ -1,6 +1,6 @@
 """Wan pipeline configs (port of fastvideo_tpu/configs/pipelines/wan.py):
-the FastWan 3-step DMD config, the TurboDiffusion T2V config and their Wan
-T2V base."""
+the Wan T2V base, FastWan's 3-step DMD config, the I2V (480p, 720p) and
+V2V configs, and TurboDiffusion's T2V and I2V configs."""
 
 from __future__ import annotations
 
@@ -45,6 +45,24 @@ class WanT2V480PConfig(PipelineConfig):
 
 
 @dataclasses.dataclass
+class WanI2V480PConfig(WanT2V480PConfig):
+    pass
+
+
+@dataclasses.dataclass
+class WanI2V720PConfig(WanI2V480PConfig):
+    flow_shift: float | None = 5.0
+
+
+@dataclasses.dataclass
+class WanV2VConfig(WanT2V480PConfig):
+    """Wan video-to-video: the DiT's input is [noise | video_latent |
+    zeros] on the channels, the control clip a seeded posterior sample."""
+
+    flow_shift: float | None = 5.0
+
+
+@dataclasses.dataclass
 class FastWanT2V480PConfig(WanT2V480PConfig):
     """FastWan 3-step DMD distilled sampling, bf16 text encoding."""
 
@@ -60,3 +78,10 @@ class TurboDiffusionT2VConfig(WanT2V480PConfig):
     scheduler."""
 
     flow_shift: float | None = 3.0
+
+
+@dataclasses.dataclass
+class TurboDiffusionI2VConfig(WanI2V480PConfig):
+    """TurboDiffusion I2V rCM sampling (sigma_max 200, in the pipeline)."""
+
+    flow_shift: float | None = 5.0

@@ -17,6 +17,12 @@ DEFAULT_NEGATIVE_PROMPT = (
 
 @dataclasses.dataclass
 class SamplingParam:
+    # image / video inputs (I2V, V2V): ``pil_image`` is a uint8 [H, W, 3]
+    # array in the port
+    image_path: str | None = None
+    pil_image: Any | None = None
+    video_path: str | None = None
+
     prompt: str | list[str] | None = None
     negative_prompt: str = DEFAULT_NEGATIVE_PROMPT
     output_path: str = "outputs/"

@@ -8,7 +8,13 @@ fastvideo_tpu/entrypoints/video_generator.py).
 A FastWan checkpoint runs the 3-step DMD sampler; a Wan2.1 T2V checkpoint
 runs ``num_inference_steps`` FlowUniPC steps with classifier-free guidance
 (``negative_prompt``, ``guidance_scale``); a TurboDiffusion checkpoint runs
-1-4 rCM steps. ``from_pretrained(..., transformer_quant="int8",
+1-4 rCM steps. An I2V checkpoint (``WanImageToVideoPipeline``, and
+TurboDiffusion I2V) takes ``image_path`` (a PNG or a ``.npy`` image) or
+``pil_image``, which in the port is the image itself as a uint8 [H, W, 3]
+array (the card's machine has no PIL); a V2V checkpoint
+(``WanVideoToVideoPipeline``) takes ``video_path`` (a ``.npy`` [T, H, W,
+3] clip) or the frames as ``video=``. ``from_pretrained(...,
+transformer_quant="int8",
 text_encoder_quant="int8-weight-only")`` serves the int8 forms, and
 ``FASTVIDEO_VAE_CONV3D=auto_int8`` the int8 decode convs.
 ``set_lora_adapter(nickname, path)`` attaches a LoRA adapter
@@ -109,6 +115,10 @@ class VideoGenerator:
             dmd_steps = self.fastvideo_args.pipeline_config.dmd_denoising_steps
         batch = ForwardBatch(
             prompt=param.prompt, negative_prompt=param.negative_prompt,
+            image_path=param.image_path,
+            video_path=(param.video_path if isinstance(param.video_path, str)
+                        else (param.video_path or [None])[0]),
+            pil_image=param.pil_image,
             height=param.height, width=param.width,
             num_frames=param.num_frames, seed=param.seed,
             num_inference_steps=param.num_inference_steps,

@@ -1,4 +1,11 @@
-"""Wan 2.1 text-to-video DiT (port of fastvideo_tpu/models/dits/wan.py).
+"""Wan 2.1 DiT, text- and image-to-video (port of
+fastvideo_tpu/models/dits/wan.py).
+
+With ``image_dim`` and ``added_kv_proj_dim`` set (the I2V checkpoints) the
+condition embedder projects the CLIP image tokens (``image_embedder``) and
+puts them in front of the text context, and each block's cross-attention
+attends the first 257 context tokens through its own K/V projections and
+the rest through the text ones, the two outputs summed.
 
 Module names follow the JAX package, so the port's ``state_dict()`` keys
 are the torch-layout keys that ``fastvideo_tpu.models.loader.export`` writes.
@@ -73,15 +80,33 @@ def checkpoint_policy_kwargs(policy: str | None) -> dict:
         create_selective_checkpoint_contexts, list(SAVED_UNDER_OPS))}
 
 
-class WanTimeTextEmbedding(nn.Module):
-    """Time and text conditioning embedder (T2V: no image branch).
+class WanImageEmbedding(nn.Module):
+    """CLIP image feature projector: fp32 LayerNorm, GELU MLP, fp32
+    LayerNorm, cast back to the input dtype."""
+
+    def __init__(self, in_features: int, out_features: int, *, device=None,
+                 dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.norm1 = FP32LayerNorm(in_features, **kw)
+        self.ff = MLP(in_features, in_features, out_features, act_type="gelu",
+                      **kw)
+        self.norm2 = FP32LayerNorm(out_features, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.norm2(self.ff(self.norm1(x))).to(x.dtype)
+
+
+class WanTimeTextImageEmbedding(nn.Module):
+    """Time, text and (with ``image_embed_dim``) image conditioning.
 
     With ``r_embedder`` (AnyFlow's dual-timestep branch) a second
     ``TimestepEmbedder``, ``delta_embedder``, embeds r (or t - r) and is
     fused into temb by a fixed gate g: ``additive`` temb + g delta, or
     ``gated`` (1 - g) temb + g delta."""
 
-    def __init__(self, dim: int, time_freq_dim: int, text_embed_dim: int, *,
+    def __init__(self, dim: int, time_freq_dim: int, text_embed_dim: int,
+                 image_embed_dim: int | None = None, *,
                  r_embedder: bool = False, r_embedder_fusion: str = "additive",
                  r_embedder_gate_value: float = 0.25,
                  r_embedder_deltatime_type: str = "r", device=None,
@@ -107,15 +132,18 @@ class WanTimeTextEmbedding(nn.Module):
                                                   act_layer="silu", **kw)
         self.text_embedder = MLP(text_embed_dim, dim, dim, bias=True,
                                  act_type="gelu_pytorch_tanh", **kw)
+        self.image_embedder = (WanImageEmbedding(image_embed_dim, dim, **kw)
+                               if image_embed_dim is not None else None)
 
     def forward(self, timestep: torch.Tensor,
                 encoder_hidden_states: torch.Tensor,
+                encoder_hidden_states_image: torch.Tensor | None = None,
                 timestep_seq_len: int | None = None,
                 r_timestep: torch.Tensor | None = None):
-        """(temb, its 6-way modulation, the text context). With
-        ``timestep_seq_len`` the timesteps are per token (B * seq_len of
-        them) and temb is [B, seq_len, C]. ``r_timestep`` reaches temb only
-        when the branch exists."""
+        """(temb, its 6-way modulation, the text context, the image
+        context or None). With ``timestep_seq_len`` the timesteps are per
+        token (B * seq_len of them) and temb is [B, seq_len, C].
+        ``r_timestep`` reaches temb only when the branch exists."""
         temb = self.time_embedder(timestep, timestep_seq_len)
         if self.delta_embedder is not None and r_timestep is not None:
             delta_input = (r_timestep if self.r_deltatime_type == "r" else
@@ -125,8 +153,14 @@ class WanTimeTextEmbedding(nn.Module):
                 temb = (1.0 - self.r_gate) * temb + self.r_gate * delta
             else:
                 temb = temb + self.r_gate * delta
+        image = None
+        if encoder_hidden_states_image is not None:
+            if self.image_embedder is None:
+                raise ValueError("image embeds passed to a DiT without an "
+                                 "image_embedder (image_dim is unset)")
+            image = self.image_embedder(encoder_hidden_states_image)
         return (temb, self.time_modulation(temb),
-                self.text_embedder(encoder_hidden_states))
+                self.text_embedder(encoder_hidden_states), image)
 
 
 @torch.no_grad()
@@ -160,22 +194,56 @@ class WanT2VCrossAttention(nn.Module):
                                    supported_backends=("FLASH_ATTN",
                                                        "TORCH_SDPA"))
 
-    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+    def qkv(self, x: torch.Tensor, context: torch.Tensor):
         b = x.shape[0]
         n, d = self.num_heads, self.head_dim
         q = self.norm_q(self.to_q(x)).reshape(b, -1, n, d)
         k = self.norm_k(self.to_k(context)).reshape(b, -1, n, d)
         v = self.to_v(context).reshape(b, -1, n, d)
-        out = self.attn(q, k, v)
+        return q, k, v
+
+    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+        out = self.attn(*self.qkv(x, context))
         return self.to_out(out.reshape(*out.shape[:2], -1))
+
+
+class WanI2VCrossAttention(WanT2VCrossAttention):
+    """Cross-attention over [257 image tokens | text]: the image tokens
+    through ``add_k_proj`` / ``add_v_proj`` (K RMS-normed by
+    ``norm_added_k``), the text through the T2V projections; the two
+    attention outputs summed before ``to_out``. The split is at 257 tokens
+    whatever the image context's length, as in the JAX package."""
+
+    NUM_IMAGE_TOKENS = 257
+
+    def __init__(self, dim: int, num_heads: int, eps: float = 1e-6, *,
+                 device=None, dtype=None):
+        super().__init__(dim, num_heads, eps, device=device, dtype=dtype)
+        kw = dict(device=device, dtype=dtype)
+        self.add_k_proj = Linear(dim, dim, **kw)
+        self.add_v_proj = Linear(dim, dim, **kw)
+        self.norm_added_k = RMSNorm(dim, eps=eps, **kw)
+
+    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+        nimg = self.NUM_IMAGE_TOKENS
+        context_img, context_txt = context[:, :nimg], context[:, nimg:]
+        b = x.shape[0]
+        n, d = self.num_heads, self.head_dim
+        q, k, v = self.qkv(x, context_txt)
+        k_img = self.norm_added_k(self.add_k_proj(context_img)).reshape(
+            b, -1, n, d)
+        v_img = self.add_v_proj(context_img).reshape(b, -1, n, d)
+        out = self.attn(q, k, v) + self.attn(q, k_img, v_img)
+        return self.to_out(out.reshape(b, -1, n * d))
 
 
 class WanTransformerBlock(nn.Module):
     """AdaLN DiT block: self-attention, text cross-attention, FFN."""
 
     def __init__(self, dim: int, ffn_dim: int, num_heads: int,
-                 qk_norm: str = "rms_norm_across_heads", eps: float = 1e-6, *,
-                 device=None, dtype=None):
+                 qk_norm: str = "rms_norm_across_heads", eps: float = 1e-6,
+                 added_kv_proj_dim: int | None = None, *, device=None,
+                 dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.dim = dim
@@ -193,7 +261,9 @@ class WanTransformerBlock(nn.Module):
         self.attn1 = DistributedAttention(num_heads, head_dim)
         self.self_attn_residual_norm = ScaleResidualLayerNormScaleShift(
             dim, eps=eps, elementwise_affine=True, **kw)
-        self.attn2 = WanT2VCrossAttention(dim, num_heads, eps=eps, **kw)
+        cross_cls = (WanI2VCrossAttention if added_kv_proj_dim is not None
+                     else WanT2VCrossAttention)
+        self.attn2 = cross_cls(dim, num_heads, eps=eps, **kw)
         self.cross_attn_residual_norm = ScaleResidualLayerNormScaleShift(
             dim, eps=eps, elementwise_affine=False, **kw)
         self.ffn = MLP(dim, ffn_dim, act_type="gelu_pytorch_tanh", **kw)
@@ -249,10 +319,11 @@ class WanTransformerBlockVSA(WanTransformerBlock):
     compression branch."""
 
     def __init__(self, dim: int, ffn_dim: int, num_heads: int,
-                 qk_norm: str = "rms_norm_across_heads", eps: float = 1e-6, *,
-                 device=None, dtype=None):
-        super().__init__(dim, ffn_dim, num_heads, qk_norm, eps, device=device,
-                         dtype=dtype)
+                 qk_norm: str = "rms_norm_across_heads", eps: float = 1e-6,
+                 added_kv_proj_dim: int | None = None, *, device=None,
+                 dtype=None):
+        super().__init__(dim, ffn_dim, num_heads, qk_norm, eps,
+                         added_kv_proj_dim, device=device, dtype=dtype)
         self.to_gate_compress = Linear(dim, dim, device=device, dtype=dtype)
 
     def gate_compress(self, norm_hidden: torch.Tensor) -> torch.Tensor:
@@ -262,7 +333,7 @@ class WanTransformerBlockVSA(WanTransformerBlock):
 
 
 class WanTransformer3DModel(nn.Module):
-    """Top-level Wan T2V DiT: [B, C, T, H, W] latents -> flow prediction."""
+    """Top-level Wan DiT: [B, C, T, H, W] latents -> flow prediction."""
 
     # a subclass with its own block class (the causal Wan) never runs in
     # the VSA tile-major order
@@ -272,16 +343,14 @@ class WanTransformer3DModel(nn.Module):
 
     def __init__(self, config: WanArchConfig, *, device=None, dtype=None):
         super().__init__()
-        if config.image_dim is not None or config.added_kv_proj_dim is not None:
-            raise NotImplementedError("the port has the T2V DiT only")
         kw = dict(device=device, dtype=dtype)
         self.config = config
         inner_dim = config.num_attention_heads * config.attention_head_dim
         self.inner_dim = inner_dim
         self.patch_embedding = PatchEmbed3D(config.in_channels, inner_dim,
                                             config.patch_size, **kw)
-        self.condition_embedder = WanTimeTextEmbedding(
-            inner_dim, config.freq_dim, config.text_dim,
+        self.condition_embedder = WanTimeTextImageEmbedding(
+            inner_dim, config.freq_dim, config.text_dim, config.image_dim,
             r_embedder=config.r_embedder,
             r_embedder_fusion=config.r_embedder_fusion,
             r_embedder_gate_value=config.r_embedder_gate_value,
@@ -293,7 +362,8 @@ class WanTransformer3DModel(nn.Module):
                                        WanTransformerBlock)
         self.blocks = nn.ModuleList([
             block_cls(inner_dim, config.ffn_dim, config.num_attention_heads,
-                      config.qk_norm, config.eps, **kw)
+                      config.qk_norm, config.eps, config.added_kv_proj_dim,
+                      **kw)
             for _ in range(config.num_layers)
         ])
         self.norm_out = LayerNormScaleShift(inner_dim, eps=config.eps,
@@ -312,10 +382,12 @@ class WanTransformer3DModel(nn.Module):
     def forward(self, hidden_states: torch.Tensor,
                 encoder_hidden_states: torch.Tensor,
                 timestep: torch.Tensor,
+                encoder_hidden_states_image: torch.Tensor | None = None,
                 r_timestep: torch.Tensor | None = None) -> torch.Tensor:
         """hidden_states [B, C, T, H, W]; timestep [B] (fp32).
-        ``r_timestep`` [B]: AnyFlow's flow-map target time, read only when
-        the config enables ``r_embedder``."""
+        ``encoder_hidden_states_image`` [B, N, image_dim]: the CLIP image
+        tokens of an I2V model. ``r_timestep`` [B]: AnyFlow's flow-map
+        target time, read only when the config enables ``r_embedder``."""
         cfg = self.config
         _, _, t, h, w = hidden_states.shape
         pt, ph, pw = cfg.patch_size
@@ -335,9 +407,12 @@ class WanTransformer3DModel(nn.Module):
             cos = tile_fn(cos[None], grid, tile)[0]
             sin = tile_fn(sin[None], grid, tile)[0]
 
-        temb, timestep_proj, context = self.condition_embedder(
-            timestep, encoder_hidden_states, r_timestep=r_timestep)
+        temb, timestep_proj, context, image = self.condition_embedder(
+            timestep, encoder_hidden_states, encoder_hidden_states_image,
+            r_timestep=r_timestep)
         timestep_proj = timestep_proj.reshape(timestep_proj.shape[0], 6, -1)
+        if image is not None:
+            context = torch.cat([image, context], dim=1)
         context = context.to(x.dtype)
         remat = self.gradient_checkpointing and torch.is_grad_enabled()
         remat_kw = checkpoint_policy_kwargs(self.gradient_checkpointing_policy)

@@ -11,8 +11,8 @@ the activation dtype, attention as ``jax.nn.dot_product_attention`` computes
 it (fp32 logits scaled by 1/sqrt(d), fp32 softmax, probabilities cast to
 V's dtype), in plain PyTorch, as the port's UMT5 computes its attention.
 
-:func:`preprocess_image` resizes without PIL: :func:`resize_bicubic` gives
-what Pillow's ``Image.resize((S, S))`` gives for an RGB uint8 image.
+:func:`preprocess_image` resizes without PIL: ``image_io.resize_bicubic``
+gives what Pillow's ``Image.resize((S, S))`` gives for an RGB uint8 image.
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ from fastvideo_tpu_torch.layers.embeddings import Embedding
 from fastvideo_tpu_torch.layers.linear import Linear
 from fastvideo_tpu_torch.layers.norm import FP32LayerNorm
 from fastvideo_tpu_torch.models.encoders.t5 import BaseEncoderOutput
+from fastvideo_tpu_torch.models.loader.image_io import resize_bicubic
 
 
 @dataclasses.dataclass
@@ -263,82 +264,6 @@ class CLIPTextModel(nn.Module):
         return CLIPTextOutput(last_hidden_state=hidden,
                               attention_mask=attention_mask,
                               pooler_output=pooled)
-
-
-# -- Pillow's resize, without PIL --------------------------------------------
-
-# Pillow's fixed-point precision of the 8-bit resample passes
-_PRECISION_BITS = 32 - 8 - 2
-
-
-def _bicubic(x: np.ndarray) -> np.ndarray:
-    """Pillow's bicubic kernel (a = -0.5), support 2."""
-    a = -0.5
-    x = np.abs(x)
-    near = ((a + 2.0) * x - (a + 3.0)) * x * x + 1
-    far = (((x - 5) * x + 8) * x - 4) * a
-    return np.where(x < 1.0, near, np.where(x < 2.0, far, 0.0))
-
-
-def _resample_coeffs(in_size: int, out_size: int
-                     ) -> tuple[np.ndarray, np.ndarray]:
-    """Pillow's ``precompute_coeffs`` for the box (0, in_size) and the
-    bicubic filter, with ``normalize_coeffs_8bpc``'s rounding: (first source
-    index [out], int32 coefficients [out, ksize]; taps past a row's window
-    are 0)."""
-    scale = in_size / out_size
-    filterscale = max(scale, 1.0)
-    support = 2.0 * filterscale
-    ksize = int(math.ceil(support)) * 2 + 1
-    center = (np.arange(out_size) + 0.5) * scale
-    # C's (int) truncates toward zero; a negative start is clamped to 0
-    xmin = np.maximum(np.trunc(center - support + 0.5), 0).astype(np.int64)
-    xmax = np.minimum(np.trunc(center + support + 0.5), in_size).astype(
-        np.int64) - xmin
-    taps = np.arange(ksize)
-    w = _bicubic((taps[None] + xmin[:, None] - center[:, None] + 0.5) *
-                 (1.0 / filterscale))
-    w = np.where(taps[None] < xmax[:, None], w, 0.0)
-    total = np.zeros(out_size)
-    for t in range(ksize):  # C's order of the sum
-        total = total + w[:, t]
-    total = total[:, None]
-    w = np.where(total != 0.0, w / np.where(total != 0.0, total, 1.0), w)
-    fixed = w * (1 << _PRECISION_BITS)
-    kk = np.where(w < 0, np.trunc(-0.5 + fixed), np.trunc(0.5 + fixed))
-    return xmin, kk.astype(np.int64)
-
-
-def _resample_axis(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
-    """One 8-bit pass of Pillow's resample along ``axis`` (0 rows, 1
-    columns) of a uint8 [H, W, C] image: the fixed-point sum from the
-    rounding half, then the floor shift and the clamp to [0, 255]."""
-    in_size = img.shape[axis]
-    xmin, kk = _resample_coeffs(in_size, out_size)
-    idx = np.minimum(xmin[:, None] + np.arange(kk.shape[1])[None],
-                     in_size - 1)
-    src = np.take(img.astype(np.int64), idx, axis=axis)
-    if axis == 0:  # [out, k, W, C]
-        acc = np.einsum("okwc,ok->owc", src, kk)
-    else:  # [H, out, k, C]
-        acc = np.einsum("hokc,ok->hoc", src, kk)
-    acc = acc + (1 << (_PRECISION_BITS - 1))
-    return np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
-
-
-def resize_bicubic(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
-    """What ``PIL.Image.fromarray(img).resize(size)`` gives for a uint8
-    [H, W, 3] image: Pillow's default bicubic resample, its support widened
-    by the shrink factor, its fixed-point coefficients, a horizontal then a
-    vertical pass, each rounded and clamped to uint8. ``size`` is (width,
-    height), as PIL's."""
-    out_w, out_h = size
-    out = np.asarray(img, np.uint8)
-    if out.shape[1] != out_w:
-        out = _resample_axis(out, out_w, axis=1)
-    if out.shape[0] != out_h:
-        out = _resample_axis(out, out_h, axis=0)
-    return out
 
 
 def preprocess_image(image: np.ndarray,

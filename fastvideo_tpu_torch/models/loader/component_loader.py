@@ -79,7 +79,9 @@ def load_model_component(component_dir: str, *, device: torch.device,
     none. ``arch_overrides`` set arch fields over config.json's; parts they
     grow (the class's ``optional_checkpoint_prefixes``) may be missing
     from the checkpoint, and are then left on the meta device for the
-    caller to fill."""
+    caller to fill. A submodule the class names in
+    ``droppable_checkpoint_parts`` (the VAE's encoder half) may be missing
+    from the checkpoint as a whole, and is then set to None."""
     hf_config = load_json_config(os.path.join(component_dir, "config.json"))
     class_name = hf_config.get("_class_name") or hf_config.get(
         "architectures", ["?"])[0]
@@ -101,14 +103,21 @@ def load_model_component(component_dir: str, *, device: torch.device,
         method = resolve_quant_method(quantize_spec)
         count = quantize_model_linears(model, QuantizationConfig(method=method),
                                        init_only=True)
+    droppable = getattr(model_cls, "droppable_checkpoint_parts", ())
+    optional = tuple(f"{part}." for part in droppable)
+    if arch_overrides:
+        optional += getattr(model_cls, "optional_checkpoint_prefixes", ())
     n = load_weights(model, iterate_safetensors(component_dir), mapping,
-                     device=device, dtype=dtype,
-                     ignore_prefixes=getattr(model_cls,
-                                             "ignored_checkpoint_prefixes",
-                                             ()),
-                     optional_prefixes=getattr(
-                         model_cls, "optional_checkpoint_prefixes", ())
-                     if arch_overrides else ())
+                     device=device, dtype=dtype, optional_prefixes=optional)
+    for part in droppable:
+        on_meta = [p.is_meta for p in getattr(model, part).parameters()]
+        if all(on_meta):
+            logger.info("%s holds no %s: it loads without one", component_dir,
+                        part)
+            setattr(model, part, None)
+        elif any(on_meta):
+            raise KeyError(f"{component_dir}: the checkpoint holds part of "
+                           f"{class_name}.{part}")
     logger.info("Loaded %d tensors for %s from %s (%d linears int8 at load)",
                 n, class_name, component_dir, count)
     if trainable:
@@ -161,6 +170,13 @@ class PipelineComponentLoader:
                 component_dir, device=device,
                 precision=precisions[0] if precisions else "fp32",
                 model_config=cfgs[0] if cfgs else None, quantize_spec=quant)
+        if module_name == "image_encoder":
+            return load_model_component(
+                component_dir, device=device, precision="fp32",
+                model_config=pipeline_config.image_encoder_config)
+        if module_name == "image_processor":
+            # the port preprocesses images itself (preprocess_image)
+            return None
         if module_name == "tokenizer":
             return load_tokenizer(component_dir)
         if module_name == "scheduler":

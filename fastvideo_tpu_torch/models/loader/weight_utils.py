@@ -36,12 +36,9 @@ def load_weights(model: nn.Module,
                  weights: Iterable[tuple[str, torch.Tensor]],
                  param_names_mapping: dict[str, str] | None = None, *,
                  device: torch.device | str, dtype: torch.dtype,
-                 ignore_prefixes: tuple[str, ...] = (),
                  optional_prefixes: tuple[str, ...] = ()) -> int:
     """Load ``weights`` into ``model`` on ``device``, floating tensors in
-    ``dtype``; checkpoint names starting with ``ignore_prefixes`` (after
-    mapping) belong to parts the module does not build and are skipped.
-    Parameters under ``optional_prefixes`` may be missing from the
+    ``dtype``. Parameters under ``optional_prefixes`` may be missing from the
     checkpoint: they are left as built (on the meta device, for the caller
     to fill). Returns the number of tensors loaded."""
     expected = model.state_dict(keep_vars=True)
@@ -51,8 +48,6 @@ def load_weights(model: nn.Module,
     for name, value in weights:
         target = (apply_param_mapping(name, param_names_mapping)
                   if param_names_mapping else name)
-        if target.startswith(ignore_prefixes):
-            continue
         if target in int8_weights:
             prefix = target[:-len("weight")]
             wq, scale = quantize_weight_int8(value.cpu())

@@ -1,8 +1,10 @@
-"""Wan 2.1 causal VAE, decoder only (port of fastvideo_tpu/models/vaes/wan.py).
+"""Wan 2.1 causal VAE, encoder and decoder (port of
+fastvideo_tpu/models/vaes/wan.py).
 
 Activations are channels-last (NDHWC) inside, NCDHW at the API. Every
-CausalConv3d whose shape ``ops.conv3d.supports`` accepts runs through
-``conv3d_ndhwc`` (K3 on CUDA); the (3, 1, 1) time convs and the 1x1
+stride-1 CausalConv3d whose shape ``ops.conv3d.supports`` accepts runs
+through ``conv3d_ndhwc`` (K3 on CUDA); the (3, 1, 1) time convs, the 1x1
+convs, the encoder's 3-channel ``conv_in`` and its stride-2 down-sampling
 convs stay plain PyTorch convs, as they are XLA convs in the JAX package.
 The mid-block attention runs through ``flash_attention`` (K1, head dim
 equal to the channel count).
@@ -12,6 +14,15 @@ causal conv carries its last two input frames to the next chunk
 (``StreamCache``), so the chunked decode equals the whole-clip decode.
 ``streaming_decode`` exposes the same carried cache to a caller that
 decodes a stream chunk by chunk (the streaming generator).
+
+The encode runs in causal chunks the same way (the JAX package encodes
+the whole clip in one program; at 81x480x832 in fp32 one full-resolution
+activation is 12.4 GB, and a residual block holds several): frame 0 alone,
+then ``scale_factor_temporal`` frames at a time. Each 3x3x3 conv carries
+its last two input frames, and each stride-2 time conv of a
+``downsample3d`` the input frames its next window starts at (one, in
+chunks of an even length), so the chunked encode equals the whole-clip
+encode.
 """
 
 from __future__ import annotations
@@ -48,16 +59,18 @@ def _triple(v):
 
 
 class CausalConv3d(nn.Module):
-    """3D conv with stride 1, temporally causal (2*pt zero frames in
-    front). The weight is torch's [Co, C, kt, kh, kw]."""
+    """3D conv, temporally causal (2*pt zero frames in front). The weight
+    is torch's [Co, C, kt, kh, kw]."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int | tuple[int, int, int],
-                 padding: int | tuple[int, int, int] = 0, *, device=None,
+                 padding: int | tuple[int, int, int] = 0,
+                 stride: int | tuple[int, int, int] = 1, *, device=None,
                  dtype=None):
         super().__init__()
         self.kernel_size = _triple(kernel_size)
         self.pad = _triple(padding)
+        self.stride = _triple(stride)
         self.weight = nn.Parameter(torch.empty(out_channels, in_channels,
                                                *self.kernel_size,
                                                device=device, dtype=dtype))
@@ -85,14 +98,14 @@ class CausalConv3d(nn.Module):
         w = self.weight.to(x.dtype)
         b = self.bias.to(x.dtype)
         mode = conv3d_ops.vae_conv3d_mode()
-        if conv3d_ops.supports(self.kernel_size, (1, 1, 1), (tp, ph, pw),
+        if conv3d_ops.supports(self.kernel_size, self.stride, (tp, ph, pw),
                                x.shape[-1], w.shape[0], w_dim=x.shape[3],
                                mode=mode, h_dim=x.shape[2]):
             return conv3d_ops.conv3d_ndhwc(x, w.permute(2, 3, 4, 1, 0), b,
                                            time_pad=tp, mode=mode)
         if tp or ph or pw:
             x = F.pad(x, (0, 0, pw, pw, ph, ph, tp, 0))
-        out = F.conv3d(x.permute(0, 4, 1, 2, 3), w, b)
+        out = F.conv3d(x.permute(0, 4, 1, 2, 3), w, b, stride=self.stride)
         return out.permute(0, 2, 3, 4, 1)
 
 
@@ -174,29 +187,46 @@ class WanMidBlock(nn.Module):
 
 
 class WanResample(nn.Module):
-    """Decoder up-sampling: 2x nearest spatial + (1, 3, 3) conv, and for
-    "upsample3d" a doubling (3, 1, 1) time conv over frames >= first_len
-    (frame 0 of the clip is never doubled)."""
+    """Up- and down-sampling. Decoder: 2x nearest spatial + (1, 3, 3) conv,
+    and for "upsample3d" a doubling (3, 1, 1) time conv over frames >=
+    first_len (frame 0 of the clip is never doubled). Encoder: a stride-2
+    (1, 3, 3) conv behind a right/bottom zero pad, and for "downsample3d" a
+    stride-2 (3, 1, 1) time conv over the whole clip with no pad, frame 0
+    passed through in front."""
 
     def __init__(self, dim: int, mode: str,
                  upsample_out_dim: int | None = None, *, device=None,
                  dtype=None):
         super().__init__()
-        if mode not in ("upsample2d", "upsample3d"):
-            raise NotImplementedError(f"WanResample mode {mode!r}: the port "
-                                      "has the decoder only")
+        if mode not in ("upsample2d", "upsample3d", "downsample2d",
+                        "downsample3d"):
+            raise NotImplementedError(f"WanResample mode {mode!r}")
         kw = dict(device=device, dtype=dtype)
         self.dim = dim
         self.mode = mode
-        out_dim = upsample_out_dim if upsample_out_dim is not None else dim // 2
-        self.resample_conv = CausalConv3d(dim, out_dim, (1, 3, 3),
-                                          padding=(0, 1, 1), **kw)
-        self.time_conv = (CausalConv3d(dim, dim * 2, (3, 1, 1),
-                                       padding=(1, 0, 0), **kw)
-                          if mode == "upsample3d" else None)
+        if mode.startswith("upsample"):
+            out_dim = (upsample_out_dim if upsample_out_dim is not None else
+                       dim // 2)
+            self.resample_conv = CausalConv3d(dim, out_dim, (1, 3, 3),
+                                              padding=(0, 1, 1), **kw)
+        else:
+            self.resample_conv = CausalConv3d(dim, dim, (1, 3, 3),
+                                              stride=(1, 2, 2), **kw)
+        self.time_conv = None
+        if mode == "upsample3d":
+            self.time_conv = CausalConv3d(dim, dim * 2, (3, 1, 1),
+                                          padding=(1, 0, 0), **kw)
+        elif mode == "downsample3d":
+            self.time_conv = CausalConv3d(dim, dim, (3, 1, 1),
+                                          stride=(2, 1, 1), **kw)
 
     def forward(self, x: torch.Tensor, first_len: int = 1,
                 ctx: StreamCache | None = None) -> torch.Tensor:
+        if self.mode.startswith("downsample"):
+            x = self.resample_conv(F.pad(x, (0, 0, 0, 1, 0, 1)))
+            if self.mode == "downsample3d":
+                x = self._time_downsample(x, first_len, ctx)
+            return x
         b, t, h, w, c = x.shape
         if self.mode == "upsample3d":
             x0, xr = x[:, :first_len], x[:, first_len:]
@@ -213,6 +243,24 @@ class WanResample(nn.Module):
                 x = x0
         x = x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
         return self.resample_conv(x)
+
+    def _time_downsample(self, x: torch.Tensor, first_len: int,
+                         ctx: StreamCache | None) -> torch.Tensor:
+        """Frames [0, first_len) in front of the stride-2 time conv over
+        every frame. In a chunk the conv's input starts with the frames
+        cached by the chunk before (where its next window starts), and
+        the frames from this chunk's next window on are cached."""
+        x0 = x[:, :first_len]
+        if ctx is not None:
+            prev = ctx.pop()
+            if prev is not None:
+                x = torch.cat([prev, x], dim=1)
+        n_out = (x.shape[1] - 3) // 2 + 1 if x.shape[1] >= 3 else 0
+        if ctx is not None:
+            ctx.push(x[:, 2 * n_out:].clone())
+        if n_out == 0:
+            return x0
+        return torch.cat([x0, self.time_conv(x[:, :2 * n_out + 1])], dim=1)
 
 
 class WanUpBlock(nn.Module):
@@ -238,6 +286,59 @@ class WanUpBlock(nn.Module):
         if self.upsamplers is not None:
             x = self.upsamplers[0](x, first_len=first_len, ctx=ctx)
         return x
+
+
+class WanEncoder3d(nn.Module):
+    """Pixel -> latent pyramid (Wan2.1 flat layout): per level
+    ``num_res_blocks`` residual blocks (an attention block after each at
+    the scales in ``attn_scales``), then a down-sampler except at the last
+    level; the mid block; RMSNorm, SiLU and ``conv_out`` to 2 * z_dim."""
+
+    def __init__(self, in_channels: int, dim: int, z_dim: int,
+                 dim_mult: tuple[int, ...], num_res_blocks: int,
+                 attn_scales: tuple[float, ...],
+                 temperal_downsample: tuple[bool, ...], *, device=None,
+                 dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        dims = [dim * u for u in [1, *dim_mult]]
+        self.conv_in = CausalConv3d(in_channels, dims[0], 3, padding=1, **kw)
+        blocks: list[nn.Module] = []
+        scale = 1.0
+        for i, (in_dim, out_dim) in enumerate(zip(dims[:-1], dims[1:],
+                                                  strict=True)):
+            for _ in range(num_res_blocks):
+                blocks.append(WanResidualBlock(in_dim, out_dim, **kw))
+                if scale in attn_scales:
+                    blocks.append(WanAttentionBlock(out_dim, **kw))
+                in_dim = out_dim
+            if i != len(dim_mult) - 1:
+                mode = ("downsample3d" if temperal_downsample[i] else
+                        "downsample2d")
+                blocks.append(WanResample(out_dim, mode, **kw))
+                scale /= 2.0
+        self.down_blocks = nn.ModuleList(blocks)
+        self.mid_block = WanMidBlock(dims[-1], **kw)
+        self.norm_out = WanRMSNorm(dims[-1], **kw)
+        self.conv_out = CausalConv3d(dims[-1], z_dim, 3, padding=1, **kw)
+
+    def forward(self, x: torch.Tensor, first_len: int = 1,
+                ctx: StreamCache | None = None) -> torch.Tensor:
+        """x [B, T, H, W, C] -> [B, T', H', W', 2 z_dim]. A chunk whose
+        frames a stride-2 time conv consumes without an output (the short
+        last chunk of a clip) ends there with no frames."""
+        x = self.conv_in(x, ctx=ctx)
+        for block in self.down_blocks:
+            if isinstance(block, WanResidualBlock):
+                x = block(x, ctx)
+            elif isinstance(block, WanResample):
+                x = block(x, first_len=first_len, ctx=ctx)
+                if x.shape[1] == 0:
+                    return x
+            else:
+                x = block(x)
+        x = self.mid_block(x, ctx)
+        return self.conv_out(F.silu(self.norm_out(x)), ctx=ctx)
 
 
 class WanDecoder3d(nn.Module):
@@ -275,19 +376,52 @@ class WanDecoder3d(nn.Module):
         return self.conv_out(F.silu(self.norm_out(x)), ctx=ctx)
 
 
-class AutoencoderKLWan(nn.Module):
-    """Wan 2.1 VAE decoder; the API is NCDHW."""
+class DiagonalGaussianDistribution:
+    """The encoder's posterior, split from its channels-last output [B, T,
+    H, W, 2 z] as in the JAX package: mean and logvar (clipped to [-30,
+    20]), each [B, T, H, W, z]."""
 
-    # checkpoint tensors of the encoder half, which the port does not build
-    ignored_checkpoint_prefixes = ("encoder.", "quant_conv.")
+    def __init__(self, parameters: torch.Tensor):
+        self.parameters = parameters
+        self.mean, logvar = parameters.chunk(2, dim=-1)
+        self.logvar = logvar.clamp(-30.0, 20.0)
+        self.std = torch.exp(0.5 * self.logvar)
+
+    def sample(self, generator: torch.Generator | None = None
+               ) -> torch.Tensor:
+        """mean + std * N(0, 1), the noise from ``generator`` (on the
+        posterior's device)."""
+        noise = torch.randn(self.mean.shape, generator=generator,
+                            dtype=self.mean.dtype, device=self.mean.device)
+        return self.mean + self.std * noise
+
+    def mode(self) -> torch.Tensor:
+        return self.mean
+
+
+class AutoencoderKLWan(nn.Module):
+    """Wan 2.1 VAE; the API is NCDHW (the posterior of :meth:`encode` is
+    channels-last, as in the JAX package)."""
+
+    # a checkpoint may hold the decoder half alone, as the JAX loader
+    # accepts: these parts then load as None (``encode`` refuses)
+    droppable_checkpoint_parts = ("encoder", "quant_conv")
 
     def __init__(self, config: WanVAEArchConfig, *, device=None, dtype=None):
         super().__init__()
         if config.is_residual or config.patch_size:
-            raise NotImplementedError("the port has the Wan2.1 VAE layout only")
+            raise NotImplementedError(
+                "the Wan2.2 VAE layout (is_residual, patch_size) is not "
+                "ported: ROADMAP Queue 1, the Wan2.2 item")
         kw = dict(device=device, dtype=dtype)
         self.config = config
         self.z_dim = config.z_dim
+        self.encoder = WanEncoder3d(
+            config.in_channels, config.base_dim, config.z_dim * 2,
+            config.dim_mult, config.num_res_blocks, config.attn_scales,
+            config.temperal_downsample, **kw)
+        self.quant_conv = CausalConv3d(config.z_dim * 2, config.z_dim * 2, 1,
+                                       **kw)
         self.post_quant_conv = CausalConv3d(config.z_dim, config.z_dim, 1, **kw)
         self.decoder = WanDecoder3d(
             config.decoder_base_dim or config.base_dim, config.z_dim,
@@ -295,13 +429,62 @@ class AutoencoderKLWan(nn.Module):
             tuple(config.temperal_downsample[::-1]), config.out_channels,
             **kw)
 
-    def denormalize_latents(self, latents: torch.Tensor) -> torch.Tensor:
+    def _latent_stats(self, latents: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+        shape = (1, -1, 1, 1, 1)
         mean = torch.as_tensor(self.config.latents_mean_arr(),
-                               device=latents.device)[None, :, None, None,
-                                                      None]
+                               device=latents.device).reshape(shape)
         std = torch.as_tensor(self.config.latents_std_arr(),
-                              device=latents.device)[None, :, None, None, None]
+                              device=latents.device).reshape(shape)
+        return mean, std
+
+    def normalize_latents(self, latents: torch.Tensor) -> torch.Tensor:
+        mean, std = self._latent_stats(latents)
+        return (latents - mean) / std
+
+    def denormalize_latents(self, latents: torch.Tensor) -> torch.Tensor:
+        mean, std = self._latent_stats(latents)
         return latents.float() * std + mean
+
+    def encode(self, x: torch.Tensor, *,
+               chunk_frames: int | None = None
+               ) -> DiagonalGaussianDistribution:
+        """Pixels x [B, C, T, H, W] in [-1, 1] -> the latent posterior
+        (channels-last). Frame 0 encodes alone, then ``chunk_frames``
+        frames at a time (``scale_factor_temporal`` by default; a multiple
+        of it), each conv carrying its causal context from the chunk
+        before; ``chunk_frames`` >= T - 1 encodes the clip in one pass."""
+        if self.encoder is None:
+            raise RuntimeError("this VAE was loaded from a checkpoint "
+                               "without its encoder half")
+        step = self.config.scale_factor_temporal
+        chunk = step if chunk_frames is None else int(chunk_frames)
+        x = x.permute(0, 2, 3, 4, 1)
+        t = x.shape[1]
+        if chunk >= t - 1:
+            out = self.encoder(x)
+        else:
+            if chunk <= 0 or chunk % step:
+                raise ValueError(f"chunk_frames {chunk} is not a positive "
+                                 f"multiple of {step}")
+            ctx = StreamCache(None)
+            outs = [self.encoder(x[:, :1], first_len=1, ctx=ctx)]
+            for start in range(1, t, chunk):
+                ctx = StreamCache(ctx.out)
+                out = self.encoder(x[:, start:start + chunk], first_len=0,
+                                   ctx=ctx)
+                if out.shape[1]:  # a short last chunk may end with none
+                    outs.append(out)
+            out = torch.cat(outs, dim=1)
+        return DiagonalGaussianDistribution(self.quant_conv(out))
+
+    def encode_latents(self, x: torch.Tensor,
+                       generator: torch.Generator | None = None
+                       ) -> torch.Tensor:
+        """The posterior's sample (with ``generator``) or mode, NCDHW."""
+        dist = self.encode(x)
+        z = dist.sample(generator) if generator is not None else dist.mode()
+        return z.permute(0, 4, 1, 2, 3)
 
     def decode(self, z: torch.Tensor, *,
                chunk_frames: int | None = None) -> torch.Tensor:

@@ -1,6 +1,6 @@
-"""Wan T2V pipelines (port of
-fastvideo_tpu/pipelines/basic/wan/wan_pipeline.py): WanPipeline, the 3-step
-DMD WanDMDPipeline and the self-forcing WanCausalDMDPipeline. Wan uses
+"""Wan pipelines (port of fastvideo_tpu/pipelines/basic/wan/wan_pipeline.py):
+WanPipeline, the 3-step DMD WanDMDPipeline, the image-to-video
+WanImageToVideoPipeline and the self-forcing WanCausalDMDPipeline. Wan uses
 FlowUniPC timesteps and the causal Wan flow-match Euler, whatever scheduler
 the checkpoint names. Each takes LoRA adapters (``LoRAPipelineMixin``)."""
 
@@ -16,6 +16,8 @@ from fastvideo_tpu_torch.pipelines.lora_pipeline import LoRAPipelineMixin
 from fastvideo_tpu_torch.pipelines.stages.causal_denoising import (
     CausalDenoisingStage)
 from fastvideo_tpu_torch.pipelines.stages.decoding import DecodingStage
+from fastvideo_tpu_torch.pipelines.stages.image_encoding import (
+    ImageEncodingStage, WanImageVAEEncodingStage)
 from fastvideo_tpu_torch.pipelines.stages.denoising import (DenoisingStage,
                                                             DmdDenoisingStage)
 from fastvideo_tpu_torch.pipelines.stages.input_validation import (
@@ -66,6 +68,27 @@ class WanDMDPipeline(WanPipeline):
                                 self.pipeline_config, device=self.device)
         self._stages[self._stages.index(self.denoising_stage)] = dmd
         self.denoising_stage = dmd
+
+
+class WanImageToVideoPipeline(WanPipeline):
+    """I2V: the CLIP image embeds and the first-frame condition latent,
+    made before timestep preparation, condition every DiT pass."""
+
+    _required_config_modules = [
+        "text_encoder", "tokenizer", "vae", "transformer", "scheduler",
+        "image_encoder", "image_processor"
+    ]
+
+    def create_pipeline_stages(self, fastvideo_args: FastVideoArgs) -> None:
+        super().create_pipeline_stages(fastvideo_args)
+        img_clip = ImageEncodingStage(self.get_module("image_encoder"),
+                                      device=self.device)
+        img_vae = WanImageVAEEncodingStage(self.get_module("vae"),
+                                           device=self.device)
+        pos = self._stages.index(self.timestep_preparation_stage)
+        self._stages[pos:pos] = [img_clip, img_vae]
+        self.image_encoding_stage = img_clip
+        self.image_vae_encoding_stage = img_vae
 
 
 class WanCausalDMDPipeline(WanPipeline):

@@ -1,5 +1,6 @@
 """ForwardBatch: the data passed between stages (port of
-fastvideo_tpu/pipelines/batch.py, the fields of the Wan T2V path)."""
+fastvideo_tpu/pipelines/batch.py, the fields of the Wan T2V, I2V and V2V
+paths)."""
 
 from __future__ import annotations
 
@@ -30,6 +31,18 @@ class ForwardBatch:
     negative_prompt_embeds: list[torch.Tensor] = dataclasses.field(
         default_factory=list)
     do_classifier_free_guidance: bool = False
+
+    # I2V / V2V inputs: an image file (PNG or .npy), or the image itself as
+    # a uint8 [H, W, 3] array (the card's machine has no PIL), and a source
+    # clip (.npy [T, H, W, 3]; or frames in ``extra["video"]``)
+    image_path: str | None = None
+    pil_image: Any = None
+    video_path: str | None = None
+    # CLIP image embeds (one entry per image encoder), the I2V condition
+    # latent [B, 4 + z, T, h, w] and the V2V control latent [B, z, T, h, w]
+    image_embeds: list[torch.Tensor] = dataclasses.field(default_factory=list)
+    image_latent: torch.Tensor | None = None
+    video_latent: torch.Tensor | None = None
 
     latents: torch.Tensor | None = None
 

@@ -13,6 +13,7 @@ import torch
 from fastvideo_tpu_torch.fastvideo_args import FastVideoArgs
 from fastvideo_tpu_torch.models.loader.component_loader import (
     PipelineComponentLoader)
+from fastvideo_tpu_torch.models.loader.safetensors_io import load_json_config
 from fastvideo_tpu_torch.pipelines.batch import ForwardBatch
 from fastvideo_tpu_torch.pipelines.stages.base import PipelineStage
 
@@ -35,9 +36,18 @@ class ComposedPipelineBase:
         self.create_pipeline_stages(fastvideo_args)
 
     def load_modules(self) -> None:
+        """Load each module the pipeline names. A directory that is missing
+        is an error when model_index.json lists the module, and otherwise
+        leaves the module out (an I2V checkpoint without
+        ``image_processor``), as in the JAX package."""
+        model_index = load_json_config(
+            os.path.join(self.model_path, "model_index.json"))
         for name in self._required_config_modules:
             component_dir = os.path.join(self.model_path, name)
             if not os.path.isdir(component_dir):
+                if name not in model_index:
+                    logger.warning("Optional module %s not present", name)
+                    continue
                 raise FileNotFoundError(
                     f"Pipeline module dir missing: {component_dir}")
             self.modules[name] = PipelineComponentLoader.load_module(

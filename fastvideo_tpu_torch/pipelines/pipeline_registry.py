@@ -1,20 +1,26 @@
 """model_index ``_class_name`` -> pipeline class (port of
-fastvideo_tpu/pipelines/pipeline_registry.py, the Wan, causal Wan and
-TurboDiffusion T2V entries)."""
+fastvideo_tpu/pipelines/pipeline_registry.py, the Wan T2V, I2V and V2V,
+causal Wan and TurboDiffusion entries; Lucy Edit's class raises)."""
 
 from __future__ import annotations
 
 from fastvideo_tpu_torch.pipelines.basic.turbodiffusion import (
     turbodiffusion_pipeline as turbo)
+from fastvideo_tpu_torch.pipelines.basic.wan import wan_v2v_pipeline as v2v
 from fastvideo_tpu_torch.pipelines.basic.wan.wan_pipeline import (
-    WanCausalDMDPipeline, WanDMDPipeline, WanPipeline)
+    WanCausalDMDPipeline, WanDMDPipeline, WanImageToVideoPipeline,
+    WanPipeline)
 
 _PIPELINES = {
     "WanPipeline": WanPipeline,
+    "WanImageToVideoPipeline": WanImageToVideoPipeline,
     "WanDMDPipeline": WanDMDPipeline,
     "WanCausalDMDPipeline": WanCausalDMDPipeline,
     "CausalWanPipeline": WanCausalDMDPipeline,
+    "WanVideoToVideoPipeline": v2v.WanVideoToVideoPipeline,
+    "LucyEditPipeline": v2v.LucyEditPipeline,
     "TurboDiffusionPipeline": turbo.TurboDiffusionPipeline,
+    "TurboDiffusionI2VPipeline": turbo.TurboDiffusionI2VPipeline,
 }
 
 

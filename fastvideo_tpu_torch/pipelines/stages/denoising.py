@@ -1,11 +1,13 @@
 """Denoising stages (port of fastvideo_tpu/pipelines/stages/denoising.py).
 
-``DenoisingStage`` is the multistep sampler of the Wan T2V path: per step a
-transformer pass on the prompt, with classifier-free guidance a second pass
-on the negative prompt (or the cached cond-uncond delta), the CFG combine,
-optional guidance rescale, then ``scheduler.step`` in fp32. The branches of
-the JAX stage for other pipelines (dual experts, TI2V, I2V/V2V channel
-concat, embedded guidance, camera and action inputs) raise.
+``DenoisingStage`` is the multistep sampler of the Wan T2V, I2V and V2V
+paths: per step a transformer pass on the prompt, with classifier-free
+guidance a second pass on the negative prompt (or the cached cond-uncond
+delta), the CFG combine, optional guidance rescale, then ``scheduler.step``
+in fp32. I2V feeds [noise | image_latent] on the channels and the CLIP
+image embeds to both passes; V2V feeds [noise | video_latent | zeros]. The
+branches of the JAX stage for other pipelines (dual experts, TI2V, Lucy
+Edit, embedded guidance, camera and action inputs) raise.
 
 ``DmdDenoisingStage`` is the 3-step DMD sampler: per step, predict x0 with a
 flow update to sigma 0, then renoise to the next step's sigma with noise
@@ -53,8 +55,7 @@ class DenoisingStage(PipelineStage):
 
     # request inputs of pipelines the port does not have; the entry point
     # hands every sampling keyword it does not know to ``batch.extra``
-    _UNPORTED_INPUTS = ("image_path", "pil_image", "video_path",
-                        "boundary_ratio", "use_embedded_guidance", "y_camera",
+    _UNPORTED_INPUTS = ("boundary_ratio", "use_embedded_guidance", "y_camera",
                         "c2ws_plucker_emb", "mouse_cond", "keyboard_cond")
 
     def _check_ported(self, batch: ForwardBatch) -> None:
@@ -63,16 +64,31 @@ class DenoisingStage(PipelineStage):
         if unported:
             raise NotImplementedError(
                 f"DenoisingStage: {unported} belong to pipelines that are "
-                "not ported (I2V/V2V/TI2V, dual experts, embedded guidance, "
-                "camera and action inputs); the port runs Wan T2V")
+                "not ported (Wan2.2 dual experts, embedded guidance, camera "
+                "and action inputs); the port runs Wan T2V, I2V and V2V")
 
-    def _predict(self, latents, ctx, t_arr, i, attn_metadata, batch):
+    @staticmethod
+    def _model_input(batch: ForwardBatch,
+                     latents: torch.Tensor) -> torch.Tensor:
+        """The DiT's input: the latents, with V2V's [video_latent | zeros]
+        or I2V's image_latent after them on the channels."""
+        if batch.video_latent is not None:
+            return torch.cat([latents, batch.video_latent.to(latents.dtype),
+                              torch.zeros_like(latents)], dim=1)
+        if batch.image_latent is not None:
+            return torch.cat([latents, batch.image_latent.to(latents.dtype)],
+                             dim=1)
+        return latents
+
+    def _predict(self, latents, ctx, t_arr, i, attn_metadata, batch,
+                 image_embeds=None):
         if attn_metadata is not None:
             attn_metadata.current_timestep = i
         with set_forward_context(current_timestep=i,
                                  attn_metadata=attn_metadata,
                                  forward_batch=batch):
-            return self.transformer(latents, ctx, t_arr)
+            return self.transformer(latents, ctx, t_arr,
+                                    encoder_hidden_states_image=image_embeds)
 
     def forward(self, batch: ForwardBatch,
                 fastvideo_args: FastVideoArgs) -> ForwardBatch:
@@ -82,6 +98,8 @@ class DenoisingStage(PipelineStage):
         pos_ctx = batch.prompt_embeds[0].to(target_dtype)
         neg_ctx = (batch.negative_prompt_embeds[0].to(target_dtype)
                    if batch.negative_prompt_embeds else None)
+        image_embeds = (batch.image_embeds[0].to(target_dtype)
+                        if batch.image_embeds else None)
         guidance = batch.guidance_scale
         do_cfg = batch.do_classifier_free_guidance and neg_ctx is not None
 
@@ -98,9 +116,9 @@ class DenoisingStage(PipelineStage):
         for i, t in enumerate(timesteps):
             t_arr = torch.full((latents.shape[0],), float(t),
                                dtype=torch.float32, device=latents.device)
-            model_in = latents.to(target_dtype)
+            model_in = self._model_input(batch, latents.to(target_dtype))
             noise_pred = self._predict(model_in, pos_ctx, t_arr, i,
-                                       attn_metadata, batch)
+                                       attn_metadata, batch, image_embeds)
             if do_cfg:
                 # delta caching: recompute the uncond pass only every
                 # `cfg_cache_interval` steps and on the final step; in
@@ -111,7 +129,8 @@ class DenoisingStage(PipelineStage):
                 noise_text = noise_pred
                 if recompute:
                     noise_uncond = self._predict(model_in, neg_ctx, t_arr, i,
-                                                 attn_metadata, batch)
+                                                 attn_metadata, batch,
+                                                 image_embeds)
                     cfg_delta = noise_pred - noise_uncond
                     noise_pred = noise_uncond + guidance * cfg_delta
                 else:
@@ -140,7 +159,9 @@ class DenoisingStage(PipelineStage):
 
 
 class DmdDenoisingStage(DenoisingStage):
-    """3-step distilled sampling."""
+    """3-step distilled sampling; the I2V / V2V condition latents go on the
+    channels as in ``DenoisingStage`` (the image embeds do not, as in
+    JAX)."""
 
     def forward(self, batch: ForwardBatch,
                 fastvideo_args: FastVideoArgs) -> ForwardBatch:
@@ -159,8 +180,9 @@ class DmdDenoisingStage(DenoisingStage):
             with set_forward_context(current_timestep=i,
                                      attn_metadata=attn_metadata,
                                      forward_batch=batch):
-                flow_pred = self.transformer(latents.to(target_dtype),
-                                             pos_ctx, t_arr)
+                flow_pred = self.transformer(
+                    self._model_input(batch, latents.to(target_dtype)),
+                    pos_ctx, t_arr)
             x0 = latents.float() - sigmas[i] * flow_pred.float()
             if i < len(timesteps) - 1:
                 next_sigma = sigmas[i + 1]

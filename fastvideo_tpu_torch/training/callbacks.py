@@ -210,10 +210,9 @@ class EMACallback(Callback):
 class ValidationCallback(Callback):
     """Call the method's ``validation_sample`` every ``every_n_steps`` with
     the keyword arguments it takes; skip (with one warning) where it needs
-    data the callback cannot supply. ``dataset_path`` (a validation prompt
-    file, the JAX package's ``dataset/validation.py``) waits on ROADMAP
-    Queue 1, I2V and V2V: its reader needs pyarrow and PIL, which the
-    card's machine lacks."""
+    data the callback cannot supply. With ``dataset_path`` (a validation
+    file, ``dataset/validation.py``) each event samples the file's prompts
+    in turn, at most ``max_samples`` of them."""
 
     def __init__(self, *, every_n_steps: int = 500, prompt: str = "",
                  num_inference_steps: int = 4, use_ema: bool = False,
@@ -226,10 +225,11 @@ class ValidationCallback(Callback):
         self._val_prompts: list[str] = []
         self._warned_signature = False
         if dataset_path:
-            raise NotImplementedError(
-                "ValidationCallback(dataset_path=...) is not ported: the "
-                "validation dataset reader waits on ROADMAP Queue 1, I2V and "
-                "V2V")
+            from fastvideo_tpu_torch.dataset.validation import (
+                ValidationDataset)
+
+            self._val_prompts = [s["prompt"]
+                                 for s in ValidationDataset(dataset_path)]
 
     def on_training_step_end(self, method, loss_dict, iteration=0) -> None:
         if self.every_n_steps <= 0 or iteration == 0 or \

@@ -83,8 +83,12 @@ def test_builtins_and_targets():
     cb = instantiate({"_target_": "fastvideo_tpu.training.callbacks."
                       "EMACallback", "decay": 0.25, "unknown_key": 1})
     assert isinstance(cb, tcb.EMACallback) and cb.decay == 0.25
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcb.ValidationCallback(dataset_path="prompts.csv")
+    # dataset_path reads the file (dataset/validation.py) as JAX's does: a
+    # missing file and an unknown format raise
+    with pytest.raises(FileNotFoundError):
+        tcb.ValidationCallback(dataset_path="no_such_prompts.csv")
+    with pytest.raises(ValueError, match="Unsupported"):
+        tcb.ValidationCallback(dataset_path=os.path.abspath(__file__))
 
 
 class Recorder(tcb.Callback):

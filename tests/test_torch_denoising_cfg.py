@@ -169,7 +169,7 @@ def test_per_request_sparsity_overrides_the_args(models, plain_cfg):
 
 @pytest.mark.parametrize("extra", [{"y_camera": {}}, {"mouse_cond": [0]},
                                    {"use_embedded_guidance": True},
-                                   {"image_path": "a.png"},
+                                   {"keyboard_cond": [1]},
                                    {"boundary_ratio": 0.9}])
 def test_unported_inputs_raise(models, extra):
     _, tmodel, data = models
@@ -180,3 +180,24 @@ def test_unported_inputs_raise(models, extra):
                          timesteps=[999], extra=extra)
     with pytest.raises(NotImplementedError, match=next(iter(extra))):
         stage.forward(batch, FastVideoArgs())
+
+
+def test_image_and_video_inputs_are_ported():
+    """I2V and V2V inputs pass the stage's check, and the DiT's input takes
+    their condition latents on the channels as in JAX: [noise |
+    image_latent] for I2V, [noise | video_latent | zeros] for V2V."""
+    stage = DenoisingStage(None, None, WanT2V480PConfig(),
+                           device=torch.device("cpu"))
+    stage._check_ported(ForwardBatch(extra={
+        "image_path": "a.png", "pil_image": 1, "video_path": "v.npy",
+        "video": 1}))
+    lat = torch.randn(1, 4, 3, 2, 2)
+    assert stage._model_input(ForwardBatch(), lat) is lat
+    img = torch.randn(1, 6, 3, 2, 2)
+    got = stage._model_input(ForwardBatch(image_latent=img), lat)
+    assert torch.equal(got, torch.cat([lat, img], dim=1))
+    vid = torch.randn(1, 4, 3, 2, 2)
+    got = stage._model_input(ForwardBatch(video_latent=vid,
+                                          image_latent=img), lat)
+    assert torch.equal(got, torch.cat([lat, vid, torch.zeros_like(lat)],
+                                      dim=1))

@@ -11,7 +11,9 @@ schedule: K7 bwd's ragged units, empty tiles and -1 slots, K9's groups of
 query tiles and ragged key units, the first schedule at other heads, and
 an unaligned operand that raises; K1's wide schedule at a head of 384 and
 its split merge, and K3's 3xTF32 form; K1's fp32 form at a head of 384 on
-its 3xTF32 schedule, its pre-pass and its fp32 merge). Marked ``cuda``: they
+its 3xTF32 schedule, its pre-pass and its fp32 merge; K3's 3xTF32 form at
+the VAE encoder's shapes and K1 at the I2V DiT's 40 heads over 257 CLIP
+keys). Marked ``cuda``: they
 skip without an sm_90 card. On the card
 (which has no JAX, so without the suite's conftest):
 
@@ -1429,6 +1431,55 @@ def test_conv3d_tf32_matches_plain(dev, c, co, kt, time_pad, t, h, w):
     assert out.shape == ref.shape and out.dtype == torch.float32
     assert torch.isfinite(out).all()
     torch.testing.assert_close(out, ref, atol=5e-5, rtol=1e-5)
+
+
+# the VAE encoder's 3x3x3 convs in fp32 (vae_precision): each channel pair
+# at its width (W 832, 416, 208, 104: the patch widths conv_tile_w picks
+# there), in the encode's first chunk (one frame behind the causal pad)
+# and in a later chunk (frames behind 2 cached ones), a few rows of H
+@pytest.mark.parametrize("c,co,t,time_pad,h,w", [
+    (96, 96, 1, 2, 4, 832),
+    (96, 96, 6, 0, 2, 832),
+    (96, 192, 6, 0, 3, 416),
+    (192, 192, 1, 2, 3, 416),
+    (192, 384, 4, 0, 3, 208),
+    (384, 384, 1, 2, 5, 208),
+    (384, 384, 3, 0, 7, 104),
+    (384, 32, 3, 0, 7, 104),     # conv_out: one N tile of 96 for 32
+    (384, 32, 1, 2, 5, 104),
+])
+def test_conv3d_tf32_encoder_shapes(dev, c, co, t, time_pad, h, w):
+    """K3's 3xTF32 schedule at the encoder's shapes, within chip_smoke's
+    gate, 5e-5 + 1e-5 |plain|."""
+    g = torch.Generator(device=dev).manual_seed(64)
+    x = torch.randn(1, t, h, w, c, generator=g, device=dev)
+    wt = torch.randn(3, 3, 3, c, co, generator=g, device=dev) * (
+        27 * c)**-0.5
+    b = torch.randn(co, generator=g, device=dev)
+    out = conv3d.conv3d_ndhwc(x, wt, b, time_pad=time_pad)
+    ref = conv3d.conv3d_ndhwc_plain(x, wt, b, time_pad=time_pad)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape and torch.isfinite(out).all()
+    torch.testing.assert_close(out, ref, atol=5e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("skv", [257, 512, 4096])
+def test_flash_sm90_i2v_widths(dev, skv):
+    """K1 on the Hopper schedule at the I2V 14B DiT's 40 heads of 128: over
+    the 257 CLIP tokens (a last key chunk of one), the 512 text tokens and
+    a self-attention's keys."""
+    g = torch.Generator(device=dev).manual_seed(22)
+    q = torch.randn(1, 1500, 40, 128, generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    k, v = (torch.randn(1, skv, 40, 128, generator=g, device=dev,
+                        dtype=torch.bfloat16) for _ in range(2))
+    before = _build.LAUNCHES["flash_fwd"]
+    out, lse = flash_attention.flash_attention(q, k, v, return_lse=True)
+    assert _build.LAUNCHES["flash_fwd"] == before + 1
+    ref, ref_lse = flash_attention.flash_attention_plain(q, k, v,
+                                                         scale=128**-0.5)
+    _close(out, ref, torch.bfloat16)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-4)
 
 
 # -- K1's fp32 form at a head of 384 (3xTF32) ----------------------------------

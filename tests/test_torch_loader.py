@@ -97,7 +97,7 @@ def _flat(model):
 def test_state_dict_from_jax_equals_the_exported_checkpoint(which,
                                                             monkeypatch):
     """Keys and values equal export_torch_layout's, and the port module
-    takes them strictly (VAE: the decoder half)."""
+    takes them strictly (VAE: both halves)."""
     monkeypatch.setenv("FASTVIDEO_ATTENTION_BACKEND", "VIDEO_SPARSE_ATTN")
     if which == "dit_vsa":
         jm = nnx.eval_shape(lambda: WanTransformer3DModel(
@@ -125,12 +125,9 @@ def test_state_dict_from_jax_equals_the_exported_checkpoint(which,
     assert set(ours) == set(exported)
     for k, v in exported.items():
         np.testing.assert_array_equal(ours[k].numpy(), v, err_msg=k)
-    skip = getattr(type(tm), "ignored_checkpoint_prefixes", ())
-    n = load_weights(tm, ours.items(), device="cpu", dtype=torch.float32,
-                     ignore_prefixes=skip)
+    n = load_weights(tm, ours.items(), device="cpu", dtype=torch.float32)
     assert n == len(tm.state_dict())
-    assert set(tm.state_dict()) == {k for k in ours
-                                    if not k.startswith(skip)}
+    assert set(tm.state_dict()) == set(ours)
 
 
 def test_load_is_strict_both_ways():

@@ -43,9 +43,7 @@ def test_chunked_int8_decode_matches_jax(monkeypatch):
                                  dtype=torch.float32)
     flat = {".".join(map(str, p)): np.asarray(v.get_value())
             for p, v in nnx.state(jvae, nnx.Param).flat_state()}
-    skip = TorchAutoencoderKLWan.ignored_checkpoint_prefixes
-    tvae.load_state_dict({k: v for k, v in state_dict_from_jax(flat).items()
-                          if not k.startswith(skip)}, strict=True)
+    tvae.load_state_dict(state_dict_from_jax(flat), strict=True)
     z = np.random.default_rng(7).standard_normal((1, 4, 4, 8, 8),
                                                  dtype=np.float32)
     want = np.asarray(jvae.decode(jnp.asarray(z), chunk_frames=1))

@@ -59,11 +59,9 @@ def _models():
         seed=1)
     flat = {".".join(map(str, p)): np.asarray(v.get_value())
             for p, v in nnx.state(jvae, nnx.Param).flat_state()}
-    state = {k: v for k, v in state_dict_from_jax(flat).items()
-             if not k.startswith(TorchAutoencoderKLWan.ignored_checkpoint_prefixes)}
     tvae = TorchAutoencoderKLWan(_arch(TorchWanVAEArchConfig),
                                  dtype=torch.float32)
-    tvae.load_state_dict(state, strict=True)
+    tvae.load_state_dict(state_dict_from_jax(flat), strict=True)
     return jvae, tvae
 
 
