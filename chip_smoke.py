@@ -68,7 +68,8 @@ Phases, each printing its own lines:
      selective_checkpointing "ops" against one under "full"; a tiny Wan
      I2V generation from a PNG (tiny CLIP tower, the VAE encoder, UniPC +
      CFG) and a tiny V2V generation from a .npy clip that is truncated and
-     resized);
+     resized; the port's ``main.py preprocess`` on tiny checkpoints, T2V,
+     I2V and ODE, the card's shards against the CPU's);
      b: the FastWan main path at full width: a random-weight
      FastWan2.1-T2V-1.3B-shaped diffusers checkpoint written with the
      port's own safetensors writer, loaded by
@@ -170,6 +171,17 @@ Phases, each printing its own lines:
      step and a block, peak memory, and the launches of K1 (bf16 and its
      fp32 form), K3 (the encode's fp32, the decode's bf16) and the merge,
      of the generation and of its encode, against counts from the shapes;
+     y: the preprocess pipelines through the port's CLI (``main.py
+     preprocess``, in this process) at 81x480x832 on random weights: T2V
+     over 2 .npy clips (4b's VAE and UMT5), I2V over one (with 4x's CLIP
+     ViT-H/14), ODE trajectories of one prompt from 4j's Wan2.1-T2V-1.3B
+     DiT (4c's configuration and seed) under FLASH_ATTN with 4 of the
+     published 48 teacher steps and guidance 6: seconds a sample split
+     into reading, encode, text and write, shard bytes and the writer's
+     MB/s, seconds a teacher step, the host's resident memory; every shard
+     read back through the port's readers equal to what was computed, and
+     the launches of K3 fp32, K1 fp32 and K1 against counts from the
+     shapes, with no plain call;
   5. the kernels line, the card line and the result line.
 
 Each phase header ends with the seconds since the start.
@@ -5697,21 +5709,9 @@ def i2v_launches(size: dict) -> tuple[dict, dict]:
     K1's fp32 form and its pre-pass once an encode chunk (the encoder's
     mid-block attention over one latent frame), merged where its keys
     split."""
-    import torch
-
-    from fastvideo_tpu_torch.ops import _build
-    from fastvideo_tpu_torch.ops import flash_attention as fa
-
     t, h, w = latent_of(size)
-    chunks = encode_chunks(size)
-    sms = _build.num_sms(torch.device("cuda", 0))
-    merges = len(chunks) * int(fa.wide_splits(1, 1, h * w, h * w, sms,
-                                              fa.TF32_BLOCK_ROWS) > 1)
-    encode = {"conv3d": sum(n for f in chunks
-                            for _, n, *_ in encoder_conv_shapes(size, f)),
-              "flash_fwd_tf32": len(chunks),
-              "flash_fwd_tf32_split": len(chunks),
-              "flash_fwd_combine": merges}
+    encode = encode_launches(size)
+    merges = encode["flash_fwd_combine"]
     decode_convs = vae_chunks(size) * sum(
         n for _, n, *_ in decoder_conv_shapes((t, h, w)))
     total = dict(encode,
@@ -5790,6 +5790,371 @@ def run_i2v(work: str, profile_dir: str | None = None) -> dict:
     torch.cuda.empty_cache()
     return dict(launches=launches, step_s=step_s, peak_gib=peak,
                 encode=encode, stage_times=times)
+
+
+# -- the preprocess pipelines (4a, 4y) ---------------------------------------
+
+# 4y: T2V over PREPROCESS_CLIPS clips and I2V over one, each 81x480x832
+# uint8; ODE over one prompt at 81x480x832 with ODE_STEPS of the published
+# 48 teacher steps (guidance 6, the JAX CLI's defaults otherwise)
+PREPROCESS_CLIPS = 2
+ODE_STEPS = 4
+
+
+def encode_launches(size: dict) -> dict:
+    """Each kernel's launches in one encode of a clip at ``size``: K3's
+    fp32 form at each encoder conv of each chunk (encoder_conv_shapes),
+    K1's fp32 form and its pre-pass once a chunk (the mid-block attention
+    over one latent frame), merged where its keys split."""
+    import torch
+
+    from fastvideo_tpu_torch.ops import _build
+    from fastvideo_tpu_torch.ops import flash_attention as fa
+
+    _, h, w = latent_of(size)
+    chunks = encode_chunks(size)
+    sms = _build.num_sms(torch.device("cuda", 0))
+    merges = len(chunks) * int(fa.wide_splits(1, 1, h * w, h * w, sms,
+                                              fa.TF32_BLOCK_ROWS) > 1)
+    return {"conv3d": sum(n for f in chunks
+                          for _, n, *_ in encoder_conv_shapes(size, f)),
+            "flash_fwd_tf32": len(chunks),
+            "flash_fwd_tf32_split": len(chunks),
+            "flash_fwd_combine": merges}
+
+
+def add_launches(*counts: dict) -> dict:
+    out: dict = {}
+    for c in counts:
+        for k, n in c.items():
+            out[k] = out.get(k, 0) + n
+    return {k: n for k, n in out.items() if n}
+
+
+def preprocess_launches(workload: str, size: dict, samples: int) -> dict:
+    """Each kernel's launches in one preprocess run of ``samples`` records:
+    t2v one encode a clip; i2v also the first frame's one-frame encode; ode
+    K1 twice a DiT block (self- and cross-attention) in each of 2 guidance
+    passes of ODE_STEPS steps (no encode)."""
+    if workload == "ode":
+        return {"flash_fwd": samples * DIT_CFG["num_layers"] * 2 * 2 *
+                ODE_STEPS}
+    per = [encode_launches(size)]
+    if workload == "i2v":
+        per.append(encode_launches(dict(size, num_frames=1)))
+    return add_launches(*(per * samples))
+
+
+@contextlib.contextmanager
+def preprocess_meter():
+    """Records what the CLI's pipeline computes: the pipeline it built, the
+    latents of every encode and the trajectory of every ODE sample, in
+    call order (the shards are held to them)."""
+    from fastvideo_tpu_torch.entrypoints.cli import main as cli
+    from fastvideo_tpu_torch.pipelines.preprocess import (
+        preprocess_pipeline as pp)
+    from fastvideo_tpu_torch.pipelines.preprocess import (
+        preprocess_pipeline_ode as pp_ode)
+
+    seen = dict(pipelines=[], latents=[], trajectories=[])
+    build = cli.build_preprocess_pipeline
+    encode = pp.PreprocessPipeline.encode_video
+    collect = pp_ode.PreprocessPipelineODE.collect_trajectory
+
+    def built(args):
+        out = build(args)
+        seen["pipelines"].append(out[0])
+        return out
+
+    def encoded(self, frames):
+        seen["latents"].append(encode(self, frames))
+        return seen["latents"][-1]
+
+    def collected(self, embeds, sample_seed):
+        seen["trajectories"].append(collect(self, embeds, sample_seed))
+        return seen["trajectories"][-1]
+
+    cli.build_preprocess_pipeline = built
+    pp.PreprocessPipeline.encode_video = encoded
+    pp_ode.PreprocessPipelineODE.collect_trajectory = collected
+    try:
+        yield seen
+    finally:
+        cli.build_preprocess_pipeline = build
+        pp.PreprocessPipeline.encode_video = encode
+        pp_ode.PreprocessPipelineODE.collect_trajectory = collect
+
+
+def write_clips(folder: str, size: dict, n: int, seed: int) -> str:
+    """``n`` random uint8 .npy clips [T, H, W, 3] at ``size`` and their
+    videos.jsonl (captions from the test vocabulary)."""
+    import numpy as np
+
+    os.makedirs(folder, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    with open(os.path.join(folder, "videos.jsonl"), "w") as fh:
+        for i in range(n):
+            np.save(os.path.join(folder, f"clip{i}.npy"), rng.integers(
+                0, 256, (size["num_frames"], size["height"], size["width"],
+                         3), dtype=np.uint8))
+            fh.write(json.dumps({"path": f"clip{i}.npy",
+                                 "caption": PROMPT.split(",")[i % 2]})
+                     + "\n")
+    with open(os.path.join(folder, "prompts.txt"), "w") as fh:
+        fh.write(PROMPT + "\n")
+    return folder
+
+
+def run_cli_preprocess(ckpt: str, data: str, out: str, workload: str,
+                       extra: tuple = (), device: str | None = None
+                       ) -> tuple[dict, dict, dict, float]:
+    """``main.py preprocess`` of the port's CLI, in this process: (what the
+    meter saw, the kernels' launches, the plain calls, its seconds)."""
+    import torch
+
+    from fastvideo_tpu_torch.entrypoints.cli.main import main as cli_main
+    from fastvideo_tpu_torch.ops import _build
+
+    argv = ["preprocess", "--model-path", ckpt, "--data-path", data,
+            "--output-dir", out, "--workload", workload, *extra]
+    if device:
+        argv += ["--device", device]
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    with preprocess_meter() as seen:
+        rc = cli_main(argv)
+    seconds = time.perf_counter() - t0
+    if rc != 0:
+        raise SystemExit(f"preprocess --workload {workload}: exit {rc}")
+    return seen, dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS), seconds
+
+
+def shard_columns(out: str, names: list[str]) -> dict:
+    from fastvideo_tpu_torch.dataset import parquet_io
+
+    files = sorted(f for f in os.listdir(out) if f.endswith(".parquet"))
+    cols: dict = {n: [] for n in names}
+    for f in files:
+        for n, rows in parquet_io.read_table(os.path.join(out, f),
+                                             names).items():
+            cols[n] += rows
+    return cols
+
+
+def latents_psnr(got, want) -> float:
+    import numpy as np
+
+    span = float(want.max() - want.min())
+    mse = float(np.mean((got.astype(np.float64) - want) ** 2))
+    return float("inf") if mse == 0 else 10 * np.log10(span**2 / mse)
+
+
+def check_small_preprocess(work: str) -> None:
+    """4a's checks of the preprocess slice, card against CPU: the port's
+    CLI on tiny checkpoints (the tiny Wan for T2V and ODE, the tiny I2V
+    with its CLIP tower for I2V) over two .npy clips of 9x32x48 and two
+    prompts; every tensor column of the card's shards against the CPU's
+    at PSNR > 35 dB, every other column equal; K3 and K1 launched on the
+    card (the VAE's fp32 convs and attention; the ODE teacher's K1) and no
+    plain call there."""
+    import numpy as np
+
+    from fastvideo_tpu_torch.dataset.parquet import (SCHEMA_I2V, SCHEMA_ODE,
+                                                     SCHEMA_T2V)
+
+    size = dict(height=32, width=48, num_frames=9)
+    data = write_clips(os.path.join(work, "pp_tiny_data"), size, 2, seed=5)
+    os.environ["FASTVIDEO_ATTENTION_BACKEND"] = "FLASH_ATTN"
+    t2v = write_checkpoint(os.path.join(work, "pp",
+                                        "Wan2.1-T2V-tiny-Diffusers"),
+                           TINY_DIT_CFG, TINY_VAE_CFG, TINY_T5_CFG, seed=7)
+    i2v = write_checkpoint(os.path.join(work, "pp",
+                                        "Wan2.1-I2V-tiny-Diffusers"),
+                           TINY_I2V_DIT_CFG, TINY_VAE_CFG, TINY_T5_CFG,
+                           seed=7, class_name="WanImageToVideoPipeline",
+                           image_encoder_cfg=TINY_CLIP_VISION_CFG)
+    ode = ("--ode-steps", "3", "--ode-height", "32", "--ode-width", "48",
+           "--ode-num-frames", "9")
+    for workload, ckpt, schema, extra, kernels in (
+            ("t2v", t2v, SCHEMA_T2V, (), ("conv3d", "flash_fwd")),
+            ("i2v", i2v, SCHEMA_I2V, (), ("conv3d", "flash_fwd")),
+            ("ode", t2v, SCHEMA_ODE, ode, ("flash_fwd",))):
+        cols = {}
+        for device in ("cuda", "cpu"):
+            out = os.path.join(work, "pp_tiny", workload, device)
+            _, launches, plain, _ = run_cli_preprocess(
+                ckpt, data, out, workload, extra, device)
+            if device == "cuda":
+                card = {k: n for k, n in launches.items() if n}
+                if any(plain.values()) or not all(launches.get(k)
+                                                  for k in kernels):
+                    raise SystemExit(f"tiny preprocess {workload}: launches "
+                                     f"{launches}, plain calls {plain}")
+            cols[device] = shard_columns(out, [n for n, _ in schema])
+        worst = float("inf")
+        for name, kind in schema:
+            on_card, cpu = cols["cuda"][name], cols["cpu"][name]
+            if kind == "binary":
+                dtypes = cols["cpu"][f"{name}_dtype"]
+                for c, p, dt in zip(on_card, cpu, dtypes):
+                    a, b = (np.frombuffer(v, np.dtype(dt)) for v in (c, p))
+                    if a.shape != b.shape or not np.isfinite(a).all():
+                        raise SystemExit(f"tiny preprocess {workload}: "
+                                         f"{name} differs in shape or is "
+                                         "not finite")
+                    worst = min(worst, latents_psnr(a, b))
+            elif on_card != cpu:
+                raise SystemExit(f"tiny preprocess {workload}: column "
+                                 f"{name} differs, card {on_card} CPU {cpu}")
+        print(f"  tiny preprocess {workload}: card vs CPU shards, worst "
+              f"tensor column PSNR {worst:.2f} dB (bar: > 35 dB); card "
+              f"launches {json.dumps(card)}", flush=True)
+        if not worst > 35:
+            raise SystemExit(f"tiny preprocess {workload}: the card "
+                             "disagrees with the CPU")
+
+
+def host_rss_gib() -> tuple[float, float]:
+    """(the process's resident set now, from /proc/self/statm; its peak so
+    far, from getrusage) in GiB."""
+    import resource
+
+    with open("/proc/self/statm") as fh:
+        pages = int(fh.read().split()[1])
+    now = pages * os.sysconf("SC_PAGE_SIZE") / 2**30
+    return now, resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
+def run_preprocess(work: str) -> dict:
+    """Phase 4y: the port's ``main.py preprocess`` at full width on random
+    weights, in this process: T2V over PREPROCESS_CLIPS .npy clips of
+    81x480x832 (4b's VAE and UMT5), I2V over one (and 4x's CLIP ViT-H/14),
+    ODE over one prompt with ODE_STEPS teacher steps of 4j's
+    Wan2.1-T2V-1.3B DiT (4c's configuration and seed, without VSA gates)
+    under FLASH_ATTN. Seconds a sample split into reading, encode, text
+    (and CLIP) and write, the shard bytes and the writer's MB/s, seconds
+    an ODE step, the host's resident memory; every shard read back
+    through the port's readers equal to what was computed, and the
+    launches against preprocess_launches with no plain call."""
+    import numpy as np
+    import torch
+
+    from fastvideo_tpu_torch.dataset.parquet import (
+        LatentsParquetMapStyleDataset, build_ode_dataloader)
+
+    os.environ["FASTVIDEO_ATTENTION_BACKEND"] = "FLASH_ATTN"
+    base = os.path.join(work, "FastWan2.1-T2V-1.3B-Diffusers")
+    teacher = os.path.join(work, "BSA_ATTN", "Wan2.1-T2V-1.3B-Diffusers")
+    i2v_ckpt = os.path.join(work, "Wan2.1-I2V-14B-480P-Diffusers")
+    data = write_clips(os.path.join(work, "pp_data"), CLIP_480P,
+                       PREPROCESS_CLIPS, seed=9)
+    out_root = os.path.join(work, "pp_out")
+    report = {}
+    for workload, ckpt, samples, extra in (
+            ("t2v", base, PREPROCESS_CLIPS, ()),
+            ("i2v", i2v_ckpt, 1, ()),
+            ("ode", teacher, 1, ("--ode-steps", str(ODE_STEPS)))):
+        if workload == "i2v":  # one clip: a data dir of the first alone
+            src = os.path.join(work, "pp_data_i2v")
+            os.makedirs(src, exist_ok=True)
+            os.symlink(os.path.join(data, "clip0.npy"),
+                       os.path.join(src, "clip0.npy"))
+            with open(os.path.join(src, "videos.jsonl"), "w") as fh:
+                fh.write(json.dumps({"path": "clip0.npy",
+                                     "caption": PROMPT}) + "\n")
+        else:
+            src = data
+        out = os.path.join(out_root, workload)
+        rss0 = host_rss_gib()[0]
+        torch.cuda.reset_peak_memory_stats()
+        seen, launches, plain, seconds = run_cli_preprocess(
+            ckpt, src, out, workload, extra)
+        rss1, hwm = host_rss_gib()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        pipe = seen["pipelines"][0]
+        stats = dict(pipe.stats)
+        n = stats["samples"]
+        if n != samples:
+            raise SystemExit(f"4y {workload}: {n} samples, not {samples}")
+        expect = preprocess_launches(workload, CLIP_480P, samples)
+        split = {k[:-2]: round(stats[k] / n, 4) for k in stats
+                 if k.endswith("_s")}
+        rate = stats["bytes"] / 1e6 / stats["write_s"]
+        print(f"  {workload}: {seconds:.1f} s in the CLI (loading "
+              f"included), {n} sample(s); seconds a sample "
+              f"{json.dumps(split)}; shard {stats['bytes']} bytes, writer "
+              f"{rate:.1f} MB/s; peak device memory {peak:.1f} GiB; host "
+              f"RSS {rss0:.2f} -> {rss1:.2f} GiB (process peak so far "
+              f"{hwm:.2f})", flush=True)
+        launches = {k: n for k, n in launches.items() if n}
+        print(f"  kernel launches {json.dumps(launches)} (expected "
+              f"{json.dumps(expect)}); plain calls {json.dumps(plain)}",
+              flush=True)
+        if launches != expect or any(plain.values()):
+            raise SystemExit(f"4y {workload}: launches {launches}, expected "
+                             f"{expect}; plain calls {plain}")
+        t0 = time.perf_counter()
+        if workload == "ode":
+            steps = stats["steps"]
+            traj = seen["trajectories"][0]
+            got, tsteps, emb = next(build_ode_dataloader(out, 1))
+            ok = (np.array_equal(got[0], traj) and traj.shape == (
+                ODE_STEPS, *latent_shape_of(CLIP_480P)) and np.isfinite(
+                traj).all() and (np.diff(tsteps[0]) < 0).all()
+                and emb.shape == (1, 512, T5_CFG["d_model"]))
+            print(f"  {steps} teacher steps, {stats['sample_s'] / steps:.3f}"
+                  f" s a step (2 DiT passes); the trajectory {traj.shape} "
+                  f"{traj.nbytes} bytes, timesteps "
+                  f"{np.round(tsteps[0], 2).tolist()}", flush=True)
+            step_s = stats["sample_s"] / steps
+            # the published 48 steps make a record 12 times this one's
+            from fastvideo_tpu_torch.dataset import snappy
+
+            full = np.tile(traj, (48 // ODE_STEPS, 1, 1, 1, 1)).tobytes()
+            t1 = time.perf_counter()
+            packed = snappy.compress(full)
+            rate48 = len(full) / 1e6 / (time.perf_counter() - t1)
+            print(f"  Snappy compress of a 48-step record's trajectory "
+                  f"({len(full)} bytes): {rate48:.1f} MB/s, "
+                  f"{len(packed) / len(full):.4f} of its size", flush=True)
+            del full, packed
+        else:
+            extras = (("clip_feature", "first_frame_latent")
+                      if workload == "i2v" else ())
+            ds = LatentsParquetMapStyleDataset(out, extra_columns=extras)
+            want = seen["latents"]
+            per = 2 if workload == "i2v" else 1
+            ok = len(ds) == samples
+            for i in range(len(ds)):
+                item = ds[i]
+                ok = ok and np.array_equal(item[0], want[per * i])
+                ok = ok and item[0].shape == latent_shape_of(CLIP_480P)
+                ok = ok and item[1].shape == (512, T5_CFG["d_model"])
+                ok = ok and np.isfinite(item[0]).all()
+                if extras:
+                    ff = item[2]["first_frame_latent"]
+                    ok = ok and np.array_equal(ff, want[per * i + 1])
+                    ok = ok and item[2]["clip_feature"].shape == (
+                        257, CLIP_H_CFG["hidden_size"])
+            step_s = rate48 = None
+        print(f"  read back through the port's reader in "
+              f"{time.perf_counter() - t0:.1f} s: "
+              f"{'equal' if ok else 'DIFFERENT'}", flush=True)
+        if not ok:
+            raise SystemExit(f"4y {workload}: the shard differs from what "
+                             "was computed")
+        report[workload] = dict(launches=launches, seconds=seconds,
+                                per_sample=split, bytes=stats["bytes"],
+                                writer_mb_s=rate, peak_gib=peak,
+                                host_rss_gib=rss1, step_s=step_s)
+    report["ode"]["compress_48_mb_s"] = rate48
+    return report
+
+
+def latent_shape_of(size: dict) -> tuple[int, int, int, int]:
+    return (VAE_CFG["z_dim"], *latent_of(size))
 
 
 def profile_train_step(method, loader, out_dir: str,
@@ -5920,6 +6285,7 @@ def main() -> int:
     check_small_slice(work)
     check_small_rl_slice(work)
     check_small_i2v(work)
+    check_small_preprocess(work)
     phase("# phase 4b: FastWan main path at full width, 81x480x832, 3 DMD "
           "steps, VSA sparsity 0.8")
     launches = run_main_path(work, args.profile)
@@ -6049,6 +6415,13 @@ def main() -> int:
           f"FlowUniPC with CFG; cut to {I2V_LAYERS} of 40 DiT blocks and "
           f"{I2V_STEPS} of 50 steps")
     i2v = run_i2v(work, args.profile)
+    phase(f"# phase 4y: the preprocess pipelines through the port's CLI "
+          f"(main.py preprocess) at 81x480x832: T2V over {PREPROCESS_CLIPS} "
+          f".npy clips (4b's VAE and UMT5), I2V over one (and 4x's CLIP "
+          f"ViT-H/14), ODE trajectories of one prompt from 4j's "
+          f"Wan2.1-T2V-1.3B DiT under FLASH_ATTN, {ODE_STEPS} of the "
+          f"published 48 teacher steps with guidance 6")
+    preprocess = run_preprocess(work)
     shutil.rmtree(work, ignore_errors=True)
     # each kernel's count comes from the path that runs it
     launches["vsa_sparse_padded_fwd"] = vsa_launches["vsa_sparse_padded_fwd"]
@@ -6143,6 +6516,11 @@ def main() -> int:
         if n:
             results[name].update(i2v_launches=n, i2v_step_s=i2v["step_s"],
                                  i2v_peak_gib=i2v["peak_gib"])
+    # the preprocess pipelines' launches a run and seconds a sample (4y)
+    for key, run in preprocess.items():
+        for name, n in run["launches"].items():
+            results[name].update({f"preprocess_{key}_launches": n,
+                                  f"preprocess_{key}_s": run["seconds"]})
     phase("# phase 5: the kernels line, the card line, the result line")
 
     kernels = []

@@ -1,10 +1,14 @@
-"""Parquet dataset of precomputed latents and text embeddings (port of
-fastvideo_tpu/dataset/parquet.py), on the port's own Parquet reader and
-writer (``dataset/parquet_io.py``; the card's machine has no pyarrow).
+"""Parquet datasets of precomputed latents and text embeddings, and of
+teacher ODE trajectories (port of fastvideo_tpu/dataset/parquet.py), on
+the port's own Parquet reader and writer (``dataset/parquet_io.py``; the
+card's machine has no pyarrow).
 
-Rows hold VAE latents and text embeddings as raw bytes with their shape
-and dtype; ``DPSPBatchSampler`` gives the same batch to every rank of an
-SP group and different batches across DP groups, seeded and resumable.
+Rows hold tensors as raw bytes with their shape and dtype, in the JAX
+package's schemas: ``SCHEMA_T2V`` (latents and text embedding),
+``SCHEMA_I2V`` (plus the first frame's CLIP feature and latent) and
+``SCHEMA_ODE`` (a trajectory and its timesteps). ``DPSPBatchSampler``
+gives the same batch to every rank of an SP group and different batches
+across DP groups, seeded and resumable.
 """
 
 from __future__ import annotations
@@ -37,6 +41,60 @@ SCHEMA_T2V = [
 ]
 
 
+def _tensor_schema(name: str) -> list[tuple[str, str]]:
+    return [(name, "binary"), (f"{name}_shape", "list<int32>"),
+            (f"{name}_dtype", "string")]
+
+
+# the T2V columns and the first frame's conditioning: its CLIP image
+# feature and its VAE latent (pyarrow_schema_i2v)
+SCHEMA_I2V = [*SCHEMA_T2V, *_tensor_schema("clip_feature"),
+              *_tensor_schema("first_frame_latent")]
+
+# a teacher's ODE trajectory over a text-only record: the latents after
+# every solver step and the matching timesteps (pyarrow_schema_ode)
+SCHEMA_ODE = [("id", "string"), *_tensor_schema("text_embedding"),
+              *_tensor_schema("trajectory_latents"),
+              *_tensor_schema("trajectory_timesteps"), ("caption", "string")]
+
+
+def _tensor_fields(name: str, arr: np.ndarray) -> dict:
+    return {
+        name: arr.tobytes(),
+        f"{name}_shape": list(arr.shape),
+        f"{name}_dtype": str(arr.dtype),
+    }
+
+
+def record_from_i2v_sample(sample_id: str, latents: np.ndarray,
+                           text_embedding: np.ndarray,
+                           clip_feature: np.ndarray,
+                           first_frame_latent: np.ndarray,
+                           caption: str = "", width: int = 0, height: int = 0,
+                           num_frames: int = 0, fps: float = 0.0,
+                           duration: float = 0.0) -> dict:
+    rec = record_from_sample(sample_id, latents, text_embedding,
+                             caption=caption, width=width, height=height,
+                             num_frames=num_frames, fps=fps,
+                             duration=duration)
+    rec.update(_tensor_fields("clip_feature", clip_feature))
+    rec.update(_tensor_fields("first_frame_latent", first_frame_latent))
+    return rec
+
+
+def record_from_ode_sample(sample_id: str, text_embedding: np.ndarray,
+                           trajectory_latents: np.ndarray,
+                           trajectory_timesteps: np.ndarray,
+                           caption: str = "") -> dict:
+    return {
+        "id": sample_id,
+        **_tensor_fields("text_embedding", text_embedding),
+        **_tensor_fields("trajectory_latents", trajectory_latents),
+        **_tensor_fields("trajectory_timesteps", trajectory_timesteps),
+        "caption": caption,
+    }
+
+
 def record_from_sample(sample_id: str, latents: np.ndarray,
                        text_embedding: np.ndarray, caption: str = "",
                        width: int = 0, height: int = 0, num_frames: int = 0,
@@ -59,20 +117,24 @@ def record_from_sample(sample_id: str, latents: np.ndarray,
 
 
 def write_parquet_dataset(records: list[dict], out_dir: str,
-                          rows_per_file: int = 256, schema=None) -> None:
+                          rows_per_file: int = 256, schema=None
+                          ) -> list[str]:
     """Snappy shards ``data_{idx:05d}.parquet`` of ``rows_per_file``
-    records each, numbered after the shards already in ``out_dir``."""
+    records each in ``schema``'s columns (``SCHEMA_T2V`` by default),
+    numbered after the shards already in ``out_dir``, so that successive
+    flushes never overwrite one another. Returns the shards' paths."""
     os.makedirs(out_dir, exist_ok=True)
     schema = schema if schema is not None else SCHEMA_T2V
     start = len([f for f in os.listdir(out_dir) if f.endswith(".parquet")])
+    paths = []
     for i in range(0, len(records), rows_per_file):
         chunk = records[i:i + rows_per_file]
         columns = {name: [r.get(name) for r in chunk] for name, _ in schema}
-        idx = start + i // rows_per_file
-        parquet_io.write_table(
-            os.path.join(out_dir, f"data_{idx:05d}.parquet"), columns,
-            schema)
+        paths.append(os.path.join(
+            out_dir, f"data_{start + i // rows_per_file:05d}.parquet"))
+        parquet_io.write_table(paths[-1], columns, schema)
     logger.info("Wrote %d records to %s", len(records), out_dir)
+    return paths
 
 
 def _decode_field(row: dict, name: str) -> np.ndarray:
@@ -135,6 +197,62 @@ class LatentsParquetMapStyleDataset:
             return latents, text, {c: _decode_field(row, c)
                                    for c in self.extra_columns}
         return latents, text
+
+
+class ODETrajectoryParquetDataset:
+    """Random-access reader over ``SCHEMA_ODE`` shards: each item is
+    (trajectory_latents [S, C, T, H, W], trajectory_timesteps [S],
+    text_embedding [L, D])."""
+
+    _TABLE_CACHE_MAX = 4
+
+    def __init__(self, path: str):
+        self.files = sorted(
+            os.path.join(path, f) for f in os.listdir(path)
+            if f.endswith(".parquet"))
+        if not self.files:
+            raise FileNotFoundError(f"no parquet files under {path}")
+        self._lens = [parquet_io.ParquetFile(f).num_rows for f in self.files]
+        self._offsets = np.cumsum([0, *self._lens])
+        self._columns = _tensor_columns(
+            ("trajectory_latents", "trajectory_timesteps", "text_embedding"))
+        self._tables: dict[int, dict[str, list]] = {}
+
+    def __len__(self) -> int:
+        return int(self._offsets[-1])
+
+    def _table(self, file_idx: int) -> dict[str, list]:
+        if file_idx not in self._tables:
+            if len(self._tables) >= self._TABLE_CACHE_MAX:
+                self._tables.pop(next(iter(self._tables)))
+            self._tables[file_idx] = parquet_io.read_table(
+                self.files[file_idx], self._columns)
+        return self._tables[file_idx]
+
+    def __getitem__(self, idx: int):
+        file_idx = int(np.searchsorted(self._offsets, idx, "right") - 1)
+        row_idx = idx - int(self._offsets[file_idx])
+        row = {k: v[row_idx] for k, v in self._table(file_idx).items()}
+        return (_decode_field(row, "trajectory_latents"),
+                _decode_field(row, "trajectory_timesteps"),
+                _decode_field(row, "text_embedding"))
+
+
+def build_ode_dataloader(path: str, batch_size: int, seed: int = 42):
+    """Yields (traj_latents [B, S, ...], traj_timesteps [B, S],
+    embeds [B, L, D]) numpy triples, shuffled per epoch, without end."""
+    dataset = ODETrajectoryParquetDataset(path)
+    sampler = DPSPBatchSampler(len(dataset), batch_size, 1, 0, seed)
+
+    def iterate():
+        while True:
+            for batch_indices in sampler:
+                items = [dataset[i] for i in batch_indices]
+                yield (np.stack([it[0] for it in items]),
+                       np.stack([it[1] for it in items]),
+                       np.stack([it[2] for it in items]))
+
+    return iterate()
 
 
 class DPSPBatchSampler:

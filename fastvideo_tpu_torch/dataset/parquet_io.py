@@ -608,42 +608,72 @@ def _page_slices(rows: list) -> list[tuple[int, int]]:
 def write_table(path: str, data: dict[str, list],
                 schema: list[tuple[str, str]]) -> None:
     """One row group of ``data`` ({column: rows}) in the column kinds of
-    ``schema`` (:data:`KINDS`), Snappy-compressed; every column optional."""
+    ``schema`` (:data:`KINDS`), Snappy-compressed; every column optional.
+    Each page goes to the file as it is made, so that the host holds one
+    page at a time beside the rows (an ODE trajectory shard is gigabytes);
+    the file appears under ``path`` once it is whole."""
     num_rows = len(next(iter(data.values()))) if data else 0
+    for name, _ in schema:
+        if len(data[name]) != num_rows:
+            raise ParquetError(f"column {name}: {len(data[name])} rows, "
+                               f"not {num_rows}")
     chunks = []
-    body = bytearray(MAGIC)
-    for name, kind in schema:
-        rows = data[name]
-        if len(rows) != num_rows:
-            raise ParquetError(f"column {name}: {len(rows)} rows, not "
-                               f"{num_rows}")
-        ptype, _, is_list = KINDS[kind]
-        start = len(body)
-        n_values = raw_total = 0
-        for lo, hi in _page_slices(rows):
-            defs, reps, values = _levels_of(rows[lo:hi], is_list)
-            page = bytearray()
-            for levels, top in ((reps, 1), (defs, 3 if is_list else 1)):
-                if levels is None:
-                    continue
-                enc = encode_rle(levels, top.bit_length())
-                page += struct.pack("<I", len(enc)) + enc
-            page += _plain_bytes(ptype, values)
-            packed = snappy.compress(page)
-            header = _encode_struct([
-                (1, "i32", DATA_PAGE), (2, "i32", len(page)),
-                (3, "i32", len(packed)),
-                (5, "struct", [(1, "i32", len(defs)), (2, "i32", PLAIN),
-                               (3, "i32", RLE), (4, "i32", RLE)])])
-            body += header + packed
-            raw_total += len(header) + len(page)
-            n_values += len(defs)
-        path_in_schema = [name, "list", "element"] if is_list else [name]
-        meta = [(1, "i32", ptype), (2, "list:i32", [PLAIN, RLE]),
-                (3, "list:bin", path_in_schema), (4, "i32", SNAPPY),
-                (5, "i64", n_values), (6, "i64", raw_total),
-                (7, "i64", len(body) - start), (9, "i64", start)]
-        chunks.append((start, meta, len(body) - start, raw_total))
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as fh:
+        fh.write(MAGIC)
+        pos = len(MAGIC)
+        for name, kind in schema:
+            rows = data[name]
+            ptype, _, is_list = KINDS[kind]
+            start = pos
+            n_values = raw_total = 0
+            for lo, hi in _page_slices(rows):
+                defs, reps, values = _levels_of(rows[lo:hi], is_list)
+                page = bytearray()
+                for levels, top in ((reps, 1), (defs, 3 if is_list else 1)):
+                    if levels is None:
+                        continue
+                    enc = encode_rle(levels, top.bit_length())
+                    page += struct.pack("<I", len(enc)) + enc
+                page += _plain_bytes(ptype, values)
+                packed = snappy.compress(page)
+                header = _encode_struct([
+                    (1, "i32", DATA_PAGE), (2, "i32", len(page)),
+                    (3, "i32", len(packed)),
+                    (5, "struct", [(1, "i32", len(defs)), (2, "i32", PLAIN),
+                                   (3, "i32", RLE), (4, "i32", RLE)])])
+                fh.write(header)
+                fh.write(packed)
+                pos += len(header) + len(packed)
+                raw_total += len(header) + len(page)
+                n_values += len(defs)
+                del page, packed
+            chunks.append((start, column_meta(name, ptype, is_list, n_values,
+                                              raw_total, pos - start),
+                           pos - start, raw_total))
+        fh.write(file_footer(schema, num_rows, chunks))
+    os.replace(tmp, path)
+
+
+def column_meta(name: str, ptype: int, is_list: bool, n_values: int,
+                raw_total: int, size: int) -> list:
+    """A Snappy column chunk's ``ColumnMetaData`` fields but its offset
+    (:func:`file_footer` adds it). Sizes and offsets are i64: an ODE
+    trajectory column chunk passes 2**31 bytes (each page stays below it,
+    its sizes are i32)."""
+    path_in_schema = [name, "list", "element"] if is_list else [name]
+    return [(1, "i32", ptype), (2, "list:i32", [PLAIN, RLE]),
+            (3, "list:bin", path_in_schema), (4, "i32", SNAPPY),
+            (5, "i64", n_values), (6, "i64", raw_total),
+            (7, "i64", size)]
+
+
+def file_footer(schema: list[tuple[str, str]], num_rows: int,
+                chunks: list) -> bytes:
+    """The footer, its length and the closing magic of a file whose
+    column chunks are ``chunks`` ((offset, ColumnMetaData fields without
+    the offset, compressed size, uncompressed size) each)."""
+    chunks = [(s, meta + [(9, "i64", s)], c, r) for s, meta, c, r in chunks]
     row_group = [
         (1, "list:struct", [[(2, "i64", s), (3, "struct", m)]
                             for s, m, _, _ in chunks]),
@@ -654,8 +684,4 @@ def write_table(path: str, data: dict[str, list],
         (1, "i32", 1), (2, "list:struct", _schema_elements(schema)),
         (3, "i64", num_rows), (4, "list:struct", [row_group]),
         (6, "bin", "fastvideo_tpu_torch parquet_io")])
-    body += footer + struct.pack("<I", len(footer)) + MAGIC
-    tmp = path + ".tmp"
-    with open(tmp, "wb") as fh:
-        fh.write(body)
-    os.replace(tmp, path)
+    return footer + struct.pack("<I", len(footer)) + MAGIC

@@ -121,14 +121,41 @@ def _literals(out: bytearray, src) -> None:
         out += chunk
 
 
+_UNIFORM = np.uint64(0x0101010101010101)
+
+
 def _runs(src) -> list[tuple[int, int]]:
-    """(start, end) of the runs of one byte of at least ``_MIN_RUN``."""
+    """(start, end) of the maximal runs of one byte of at least
+    ``_MIN_RUN``. Such a run holds a whole aligned 8-byte word of one byte,
+    so the scan looks for those words first (one pass over the data as
+    uint64, which finds none in random data), groups neighbouring ones of
+    the same byte, and widens each group by the equal bytes on either side
+    (at most 7: the word beyond is not uniform)."""
     arr = np.frombuffer(src, np.uint8)
-    if arr.size < _MIN_RUN:
+    n = arr.size
+    if n < _MIN_RUN:
         return []
-    edges = np.flatnonzero(arr[1:] != arr[:-1]) + 1
-    starts = np.concatenate([[0], edges])
-    ends = np.concatenate([edges, [arr.size]])
+    nw = n // 8
+    words = arr[:nw * 8].view(np.uint64)
+    low = words & np.uint64(0xFF)
+    idx = np.flatnonzero(words == low * _UNIFORM)
+    if idx.size == 0:
+        return []
+    val = arr[idx * 8]
+    new = np.ones(idx.size, bool)
+    new[1:] = (idx[1:] != idx[:-1] + 1) | (val[1:] != val[:-1])
+    first = np.flatnonzero(new)
+    last = np.append(first[1:], idx.size) - 1
+    starts, ends, val = idx[first] * 8, idx[last] * 8 + 8, val[first]
+    grow = np.ones(starts.size, bool)
+    for k in range(1, 8):  # equal bytes before each group
+        pos = starts - 1
+        grow &= (pos >= 0) & (arr[np.maximum(pos, 0)] == val)
+        starts = starts - grow
+    grow = np.ones(ends.size, bool)
+    for k in range(1, 8):  # and after it
+        grow &= (ends < n) & (arr[np.minimum(ends, n - 1)] == val)
+        ends = ends + grow
     keep = ends - starts >= _MIN_RUN
     return list(zip(starts[keep].tolist(), ends[keep].tolist()))
 

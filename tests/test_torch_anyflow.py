@@ -44,6 +44,7 @@ from fastvideo_tpu_torch.training.run_config import load_train_config
 
 sys.path.insert(0, os.path.dirname(__file__))
 
+from test_torch_jax_reference import jax_plain_attention  # noqa: E402,F401
 from test_torch_dmd2 import _assert_grads_close  # noqa: E402
 from test_torch_wan_dit import jax_params, numpy_model  # noqa: E402
 from utils import TINY_DIT  # noqa: E402
@@ -235,7 +236,7 @@ def _check_times(seen, u, shift, n_diff, n_cons):
     torch.testing.assert_close(r[n_diff + n_cons:], free[n_diff + n_cons:])
 
 
-def test_pretrain_loss_and_grads_match_jax(monkeypatch):
+def test_pretrain_loss_and_grads_match_jax(monkeypatch, jax_plain_attention):
     """The loss of a batch of 4 given JAX's draws, VSA at sparsity 0.5 on
     both sides (bf16 DiT passes rounded at different places): within 1e-2
     relative, the gradients by the DMD2 test's rule (3e-2 relative L2 over

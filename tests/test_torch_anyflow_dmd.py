@@ -25,6 +25,7 @@ from fastvideo_tpu_torch.training.methods import anyflow as tanyflow
 
 sys.path.insert(0, os.path.dirname(__file__))
 
+from test_torch_jax_reference import jax_plain_attention  # noqa: E402,F401
 from test_torch_anyflow import (EMBEDS, LATENT, LR, R_ARCH,  # noqa: E402
                                 _jax_model, _torch_model)
 from test_torch_dmd2 import (_assert_grads_close,  # noqa: E402
@@ -54,7 +55,7 @@ def _anyflow_pipes(monkeypatch, t_list=(1000.0, 800.0, 400.0, 0.0)):
     return jpipe, tpipe, tms
 
 
-def test_rollout_matches_jax(monkeypatch):
+def test_rollout_matches_jax(monkeypatch, jax_plain_attention):
     """The 3-step flow-map rollout (r = t_next reaches the generator) from
     one noise with the grad step handed to both: the sample within 2e-2
     of its largest magnitude, and the gradient of sum(x w) with respect to
@@ -109,7 +110,7 @@ def _jax_step_draws(rng, steps: int):
     return out
 
 
-def test_one_dmd_step_matches_jax(monkeypatch):
+def test_one_dmd_step_matches_jax(monkeypatch, jax_plain_attention):
     """One AnyFlow step (a generator and a critic update) over a 2-step
     schedule (1000, 500, 0) given JAX's draws: losses within 1e-2
     relative, grad norms within 2e-2 relative, the generator's and the

@@ -37,6 +37,7 @@ from fastvideo_tpu_torch.training.methods import knowledge_distillation as tkd
 
 sys.path.insert(0, os.path.dirname(__file__))
 
+from test_torch_jax_reference import jax_plain_attention  # noqa: E402,F401
 from test_torch_training import (LR, SPARSITY, _batch,  # noqa: E402
                                  _jax_draws, _torch_pipe)
 from test_torch_wan_dit import _arch, numpy_model  # noqa: E402
@@ -147,7 +148,8 @@ def _sft_pair(monkeypatch):
     return jpipe, tpipe
 
 
-def test_ema_over_three_sft_steps_matches_jax(monkeypatch, tmp_path):
+def test_ema_over_three_sft_steps_matches_jax(monkeypatch, tmp_path,
+                                              jax_plain_attention):
     """Three SFT steps through ``train(callbacks={"ema": ..., ...})`` on
     both packages, the port given JAX's draws: the hooks in JAX's order
     (start, then before / end a step, then train end); the port's shadow

@@ -29,6 +29,7 @@ from fastvideo_tpu_torch.training.run_config import load_train_config
 
 sys.path.insert(0, os.path.dirname(__file__))
 
+from test_torch_jax_reference import jax_plain_attention  # noqa: E402,F401
 from test_torch_dmd2 import _assert_grads_close, _loss_fn  # noqa: E402
 from test_torch_dmd2 import _params  # noqa: E402
 from test_torch_self_forcing import (EMBEDS, LATENT, LR,  # noqa: E402
@@ -115,7 +116,7 @@ N_GRID = 6
 EMA_DECAY = 0.5
 
 
-def test_two_steps_match_jax(monkeypatch):
+def test_two_steps_match_jax(monkeypatch, jax_plain_attention):
     """Two steps at ema_start_step 1 under FLASH_ATTN given JAX's draws:
     the loss within 1e-2 relative; step 0's gradients against JAX's and
     the parameters after its unclipped AdamW update by the SFT test's

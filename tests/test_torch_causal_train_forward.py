@@ -1,8 +1,11 @@
 """The port's causal Wan ``train_forward`` (diffusion forcing and teacher
 forcing, the full-sequence training forward under K1 struct's masks; on the
-CPU their plain versions) against the JAX one, whose Pallas kernels run in
-interpret mode, on JAX weights carried across by ``state_dict_from_jax``:
-outputs, and parameter gradients of a scalar loss against ``jax.grad``.
+CPU their plain versions) against the JAX one, whose flash attention runs
+through its plain softmax under the kernel's structural mask
+(``test_torch_jax_reference.py``; the kernels themselves are held in
+interpret mode by ``test_torch_flash_struct_mask.py``), on JAX weights
+carried across by ``state_dict_from_jax``: outputs, and parameter
+gradients of a scalar loss against ``jax.grad``.
 Then JAX's own checks of the same forward, on the port: it equals running
 the chunks one by one through ``forward_block`` with rolling caches, and
 teacher forcing leaves chunk 0 as it is. fp32 on both sides."""
@@ -25,6 +28,7 @@ from fastvideo_tpu_torch.ops import _build
 
 sys.path.insert(0, os.path.dirname(__file__))
 
+from test_torch_jax_reference import jax_plain_attention  # noqa: E402,F401
 from test_torch_wan_dit import jax_params, numpy_model  # noqa: E402
 from utils import TINY_DIT  # noqa: E402
 
@@ -93,7 +97,7 @@ def _args(mode, seed=0):
 
 
 @pytest.mark.parametrize("mode", list(MODES))
-def test_train_forward_matches_jax(models, mode):
+def test_train_forward_matches_jax(models, mode, jax_plain_attention):
     jmodel, tmodel = models
     args, kw = _args(mode)
     want = np.asarray(jmodel.train_forward(
@@ -112,7 +116,7 @@ def test_train_forward_matches_jax(models, mode):
 
 
 @pytest.mark.parametrize("mode", ["df", "tf_aug_t"])
-def test_gradients_match_jax_grad(models, mode):
+def test_gradients_match_jax_grad(models, mode, jax_plain_attention):
     """Parameter gradients of sum(out * g): within 1e-4 relative L2 over
     the model and 1e-3 per tensor (fp32, summation order only)."""
     jmodel, tmodel = models

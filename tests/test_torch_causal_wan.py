@@ -27,6 +27,7 @@ from fastvideo_tpu_torch.ops import _build
 
 sys.path.insert(0, os.path.dirname(__file__))
 
+from test_torch_jax_reference import jax_plain_attention  # noqa: E402,F401
 from test_torch_wan_dit import jax_params, numpy_model  # noqa: E402
 from utils import TINY_DIT  # noqa: E402
 
@@ -129,7 +130,7 @@ def _clone(caches):
             for c in caches]
 
 
-def test_forward_block_matches_jax_over_blocks(models):
+def test_forward_block_matches_jax_over_blocks(models, jax_plain_attention):
     """Three blocks of (denoise pass, commit pass) at t = 0, on a window of
     3 frames with a 1-frame sink: the third block evicts. The denoise
     passes leave every cache bit-identical."""

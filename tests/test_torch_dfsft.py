@@ -44,6 +44,7 @@ from fastvideo_tpu_torch.training.run_config import (ModelSpec,
 
 sys.path.insert(0, os.path.dirname(__file__))
 
+from test_torch_jax_reference import jax_plain_attention  # noqa: E402,F401
 from test_torch_training import _assert_adamw_params_close  # noqa: E402
 from test_torch_wan_dit import jax_params, numpy_model  # noqa: E402
 from utils import TINY_DIT  # noqa: E402
@@ -150,7 +151,7 @@ def test_timestep_index_range_matches_jax(lo, hi):
 @pytest.mark.parametrize("precondition", [True, False],
                          ids=["x0", "velocity"])
 def test_loss_matches_jax(jmodel, monkeypatch, precondition,
-                          teacher_forcing):
+                          teacher_forcing, jax_plain_attention):
     """The loss of one micro-batch given JAX's draws. bf16 compute on both
     sides, rounded at different places (XLA against PyTorch elementwise):
     within 1e-2 relative."""
@@ -172,7 +173,7 @@ def test_loss_matches_jax(jmodel, monkeypatch, precondition,
     par.destroy_mesh()
 
 
-def test_one_step_matches_jax(monkeypatch):
+def test_one_step_matches_jax(monkeypatch, jax_plain_attention):
     """One tfsft step (the diffusion-forcing draws and loss with the
     teacher-forcing forward) against JAX's train_one_step given its
     draws: loss within

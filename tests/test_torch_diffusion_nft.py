@@ -39,6 +39,7 @@ from fastvideo_tpu_torch.training.run_config import load_train_config
 
 sys.path.insert(0, os.path.dirname(__file__))
 
+from test_torch_jax_reference import jax_plain_attention  # noqa: E402,F401
 from test_torch_clip import _write_dual_tower  # noqa: E402
 from test_torch_wan_dit import jax_params, numpy_model  # noqa: E402
 
@@ -154,7 +155,7 @@ def dataclass_dict(cfg):
     {"num_steps": 3, "trajectory": "sde_reflow"},
     {"timesteps": [999.0, 600.0, 250.0]},
 ], ids=["ode_shift", "sde_reflow", "timesteps"])
-def test_sampler_matches_jax(monkeypatch, sampling):
+def test_sampler_matches_jax(monkeypatch, sampling, jax_plain_attention):
     """The schedule exactly; the sampled latents given JAX's noise and its
     sampler keys' fresh noise within 2e-2 of their largest magnitude (bf16
     DiT passes rounded at other places, three steps)."""
@@ -230,7 +231,7 @@ def _assert_moves_close(got: dict, want: dict, start: dict, updates: int):
 @pytest.mark.parametrize("adv_mode", ["all", "positive_only",
                                       "negative_only", "one_only",
                                       "binary"])
-def test_two_outer_steps_match_jax(monkeypatch, adv_mode):
+def test_two_outer_steps_match_jax(monkeypatch, adv_mode, jax_plain_attention):
     """Two outer steps (2 prompts x 2 videos, 2 sde_reflow sampling steps,
     one trained timestep, EMA 0.5) given JAX's draws: rewards within 2e-2
     of their scale, total / policy losses within 2e-2 relative, KL (0 at

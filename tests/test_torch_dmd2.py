@@ -40,6 +40,7 @@ from fastvideo_tpu_torch.training.run_config import load_train_config
 
 sys.path.insert(0, os.path.dirname(__file__))
 
+from test_torch_jax_reference import jax_plain_attention  # noqa: E402,F401
 from test_torch_training import _assert_adamw_params_close  # noqa: E402
 from test_torch_wan_dit import jax_params, numpy_model  # noqa: E402
 from utils import TINY_DIT  # noqa: E402
@@ -168,7 +169,7 @@ def _assert_params_close(model_or_list, want, start, updates, names=None):
     assert den > 0 and (num / den) ** 0.5 < 0.15, (num / den) ** 0.5
 
 
-def test_three_steps_match_jax(monkeypatch):
+def test_three_steps_match_jax(monkeypatch, jax_plain_attention):
     """3 steps at dfake_gen_update_ratio 2 (generator updates at steps 0
     and 2, a critic update every step) given JAX's draws, at the SFT
     test's bars (bf16 compute on both sides, rounded at different places):

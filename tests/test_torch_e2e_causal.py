@@ -14,6 +14,7 @@ from fastvideo_tpu.models.loader.component_loader import (
 
 sys.path.insert(0, os.path.dirname(__file__))
 
+from test_torch_jax_reference import jax_plain_attention  # noqa: E402,F401
 from test_torch_streaming import write_causal_checkpoint  # noqa: E402
 
 torch.set_num_threads(2)
@@ -25,7 +26,8 @@ FP32 = dict(precision="fp32", vae_decode_precision="fp32",
             text_encoder_precisions=("fp32",))
 
 
-def test_causal_generation_matches_jax(tmp_path, monkeypatch):
+def test_causal_generation_matches_jax(tmp_path, monkeypatch,
+                                       jax_plain_attention):
     # the blocks build their (unused) self-attention backend from the
     # environment, which other tests may leave set
     monkeypatch.setenv("FASTVIDEO_ATTENTION_BACKEND", "FLASH_ATTN")

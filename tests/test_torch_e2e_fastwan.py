@@ -14,6 +14,7 @@ import fastvideo_tpu_torch  # noqa: F401
 
 sys.path.insert(0, os.path.dirname(__file__))
 
+from test_torch_jax_reference import jax_plain_attention  # noqa: E402,F401
 from utils import make_tiny_wan_checkpoint  # noqa: E402
 
 torch.set_num_threads(2)
@@ -38,7 +39,7 @@ def ckpt(tmp_path_factory):
         mp.undo()
 
 
-def test_fastwan_dmd_vsa_matches_jax(ckpt, monkeypatch):
+def test_fastwan_dmd_vsa_matches_jax(ckpt, monkeypatch, jax_plain_attention):
     monkeypatch.setenv("FASTVIDEO_ATTENTION_BACKEND", "VIDEO_SPARSE_ATTN")
     import fastvideo_tpu.parallel as par
     from fastvideo_tpu import VideoGenerator as JaxGenerator

@@ -16,6 +16,7 @@ import fastvideo_tpu_torch  # noqa: F401
 
 sys.path.insert(0, os.path.dirname(__file__))
 
+from test_torch_jax_reference import jax_plain_attention  # noqa: E402,F401
 from utils import make_tiny_wan_checkpoint  # noqa: E402
 
 torch.set_num_threads(2)
@@ -41,7 +42,7 @@ def psnr(a, b):
     ("SLIDING_TILE_ATTN", 17, {}),
 ])
 def test_wan_unipc_cfg_matches_jax(backend, frames, kwargs, tmp_path,
-                                   monkeypatch):
+                                   monkeypatch, jax_plain_attention):
     monkeypatch.setenv("FASTVIDEO_ATTENTION_BACKEND", backend)
     import fastvideo_tpu.parallel as par
     from fastvideo_tpu import VideoGenerator as JaxGenerator

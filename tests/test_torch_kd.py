@@ -38,6 +38,7 @@ from fastvideo_tpu_torch.training.run_config import load_train_config
 
 sys.path.insert(0, os.path.dirname(__file__))
 
+from test_torch_jax_reference import jax_plain_attention  # noqa: E402,F401
 from test_torch_dmd2 import _assert_params_close, _params  # noqa: E402
 from test_torch_wan_dit import jax_params, numpy_model  # noqa: E402
 from utils import TINY_DIT  # noqa: E402
@@ -111,7 +112,7 @@ def _methods(monkeypatch):
     return jm, tm
 
 
-def test_rollout_and_step_match_jax(monkeypatch):
+def test_rollout_and_step_match_jax(monkeypatch, jax_plain_attention):
     """The teacher's rollout given JAX's noise and fresh draws: its first
     trajectory entry is the noise bit for bit, the others and the final x0
     within 2e-2 of their largest magnitude (bf16 DiT passes on both
@@ -160,7 +161,7 @@ def _loader(n):
     return [_batch(20 + i) for i in range(n)]
 
 
-def test_caches_cross_read(monkeypatch, tmp_path):
+def test_caches_cross_read(monkeypatch, tmp_path, jax_plain_attention):
     """A cache JAX writes reads in the port (and trains a step), and one the
     port writes reads in JAX: the same keys, shapes and dtypes, each a
     loader batch's first micro-batch."""

@@ -35,6 +35,7 @@ from fastvideo_tpu_torch.pipelines import lora_pipeline as tlp
 
 sys.path.insert(0, os.path.dirname(__file__))
 
+from test_torch_jax_reference import jax_plain_attention  # noqa: E402,F401
 from test_torch_wan_dit import jax_params, numpy_model  # noqa: E402
 from utils import TINY_DIT, make_tiny_wan_checkpoint  # noqa: E402
 
@@ -397,7 +398,8 @@ def adapter_file(tmp_path_factory):
     return _write(out, str(path))
 
 
-def test_fastwan_lora_frames_match_jax(ckpt, adapter_file, monkeypatch):
+def test_fastwan_lora_frames_match_jax(ckpt, adapter_file, monkeypatch,
+                                       jax_plain_attention):
     """The tiny FastWan DMD path (3 steps, fp32) with the same adapter file
     through each package's VideoGenerator: the base, the adapter active,
     merged and unmerged. Latents within 1e-3 and frames within 1 uint8

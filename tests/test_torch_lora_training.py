@@ -47,6 +47,7 @@ from fastvideo_tpu_torch.training.run_config import load_train_config
 
 sys.path.insert(0, os.path.dirname(__file__))
 
+from test_torch_jax_reference import jax_plain_attention  # noqa: E402,F401
 from test_torch_training import (  # noqa: E402
     _assert_adamw_params_close, _jax_draws)
 from test_torch_wan_dit import jax_params, numpy_model  # noqa: E402
@@ -152,7 +153,7 @@ def _jax_grads(jpipe, latents, embeds, key):
                                             grads.to_pure_dict()))
 
 
-def test_three_steps_match_jax(monkeypatch):
+def test_three_steps_match_jax(monkeypatch, jax_plain_attention):
     """Given JAX's A draws, the port's adapters start as JAX's (bit for
     bit), with B = 0; then 3 steps given JAX's draws, bf16 compute on both
     sides (rounded at different places):

@@ -98,6 +98,18 @@ SLICE_MODULES = [
     "pipelines/batch.py", "models/loader/component_loader.py",
     "configs/pipelines/wan.py", "configs/pipelines/base.py", "registry.py",
     "entrypoints/video_generator.py", "dataset/validation.py",
+    # the preprocess slice: transforms, the image processor, the shard
+    # schemas and readers, the stages, the three pipelines, the workflow
+    # and the CLI (clips, images and shards without PIL, imageio or
+    # pyarrow)
+    "dataset/transform.py", "image_processor.py", "dataset/parquet.py",
+    "dataset/parquet_io.py", "dataset/snappy.py",
+    "dataset/preprocessing.py",
+    "pipelines/preprocess/preprocess_pipeline.py",
+    "pipelines/preprocess/preprocess_pipeline_i2v.py",
+    "pipelines/preprocess/preprocess_pipeline_ode.py",
+    "workflow/workflow_base.py", "workflow/preprocess_workflow.py",
+    "entrypoints/cli/main.py",
 ]
 # packages the card's machine lacks, which no slice module may import
 SLICE_ABSENT = ("safetensors", "PIL", "imageio", "pyarrow")

@@ -149,6 +149,46 @@ def test_snappy_against_pyarrow(kind):
         assert len(mine) < len(data) // 4
 
 
+def _byte_runs(src):
+    """The maximal runs of one byte of at least 16, byte by byte."""
+    arr = np.frombuffer(src, np.uint8)
+    if arr.size < 16:
+        return []
+    edges = np.flatnonzero(arr[1:] != arr[:-1]) + 1
+    starts = np.concatenate([[0], edges])
+    ends = np.concatenate([edges, [arr.size]])
+    keep = ends - starts >= 16
+    return list(zip(starts[keep].tolist(), ends[keep].tolist()))
+
+
+@pytest.mark.parametrize("kind", ["few_values", "zero_blocks", "repeats",
+                                  "random"])
+def test_snappy_runs_match_a_byte_scan(kind):
+    """The compressor's word scan finds the runs a byte-by-byte scan
+    finds, at every alignment and length (runs of 15, 16 and 17 bytes,
+    runs that end in the last partial word, neighbouring runs of two
+    bytes)."""
+    rng = np.random.default_rng(len(kind))
+    for _ in range(400):
+        n = int(rng.integers(0, 300))
+        if kind == "few_values":
+            a = rng.integers(0, 3, n).astype(np.uint8)
+        elif kind == "zero_blocks":
+            a = rng.integers(0, 256, n).astype(np.uint8)
+            for _ in range(int(rng.integers(0, 6))):
+                i = int(rng.integers(0, max(n, 1)))
+                a[i:i + int(rng.integers(1, 40))] = rng.integers(0, 3)
+        elif kind == "repeats":
+            m = max(1, n // 10)
+            a = np.repeat(rng.integers(0, 3, m).astype(np.uint8),
+                          rng.integers(1, 30, m))[:n]
+        else:
+            a = rng.integers(0, 256, n).astype(np.uint8)
+        data = a.tobytes()
+        assert snappy._runs(data) == _byte_runs(data)
+        assert bytes(snappy.decompress(snappy.compress(data))) == data
+
+
 def test_snappy_rejects_bad_blocks():
     with pytest.raises(snappy.SnappyError):
         snappy.decompress(b"\x05\x01")  # a copy before any output

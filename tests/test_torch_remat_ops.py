@@ -44,6 +44,7 @@ from fastvideo_tpu_torch.training.training_utils import (
 
 sys.path.insert(0, os.path.dirname(__file__))
 
+from test_torch_jax_reference import jax_plain_attention  # noqa: E402,F401
 from test_torch_training import (LR, SPARSITY, _batch,  # noqa: E402
                                  _grads, _jax_draws, _torch_pipe)
 from test_torch_wan_dit import _arch, numpy_model  # noqa: E402
@@ -125,7 +126,7 @@ def test_ops_gradients_equal_full_and_none(monkeypatch):
     assert counts["full"] == counts["none"] + block_mms[0]
 
 
-def test_ops_step_matches_jax_ops_step(monkeypatch):
+def test_ops_step_matches_jax_ops_step(monkeypatch, jax_plain_attention):
     """One SFT step with "ops" on both sides (JAX's trainer sets
     ``dots_with_no_batch_dims_saveable``), the port given JAX's draws:
     the loss within 1e-2 relative, the gradients within 3e-2 relative L2

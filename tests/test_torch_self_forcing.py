@@ -43,6 +43,7 @@ from fastvideo_tpu_torch.training.run_config import load_train_config
 
 sys.path.insert(0, os.path.dirname(__file__))
 
+from test_torch_jax_reference import jax_plain_attention  # noqa: E402,F401
 from test_torch_dmd2 import (_assert_grads_close, _loss_fn,  # noqa: E402
                              _params)
 from test_torch_training import _assert_adamw_params_close  # noqa: E402
@@ -163,7 +164,7 @@ def capture_first_grads(monkeypatch, pipe, module=tdp) -> dict:
     return raw
 
 
-def test_two_steps_match_jax(monkeypatch):
+def test_two_steps_match_jax(monkeypatch, jax_plain_attention):
     """Step 0 updates the generator through block 0's last pass and the
     critic; step 1 the critic only (ratio 2). Given JAX's draws: each
     step's losses within 1e-2 relative and grad norms within 2e-2; step

@@ -31,6 +31,7 @@ from fastvideo_tpu_torch.models.schedulers.flow_match_euler import (
 
 sys.path.insert(0, os.path.dirname(__file__))
 
+from test_torch_jax_reference import jax_plain_attention  # noqa: E402,F401
 from test_torch_wan_dit import numpy_model  # noqa: E402
 from utils import (  # noqa: E402
     TINY_DIT, TINY_T5, TINY_VAE, _export_torch_layout, _make_tokenizer,
@@ -191,7 +192,7 @@ def _decode_in_fp32(monkeypatch, vae, cast):
 
 @pytest.mark.parametrize("decode", ["bf16", "fp32"])
 def test_streaming_generator_matches_jax(modules, tmp_path, monkeypatch,
-                                         decode):
+                                         decode, jax_plain_attention):
     """Both generators decode in bf16 as shipped. bf16 elementwise
     roundings (RMSNorm, SiLU, residual adds) differ between XLA and
     PyTorch, and through the tiny decoder's layers they move a uint8 pixel

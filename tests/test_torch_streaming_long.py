@@ -30,6 +30,7 @@ from fastvideo_tpu_torch.training.run_config import load_train_config
 
 sys.path.insert(0, os.path.dirname(__file__))
 
+from test_torch_jax_reference import jax_plain_attention  # noqa: E402,F401
 from test_torch_dmd2 import _params  # noqa: E402
 from test_torch_self_forcing import (EMBEDS, LATENT, STEPS,  # noqa: E402
                                      assert_params_close, causal_checkpoint,
@@ -146,7 +147,7 @@ def jax_stream_draws(rng, shape):
     return out
 
 
-def test_three_steps_match_jax(monkeypatch):
+def test_three_steps_match_jax(monkeypatch, jax_plain_attention):
     """Ratio 2 with a 1-step self-forcing stage, then a stream of at most
     8 latent frames in chunks of 4 (the window holds 4): step 0 is a
     self-forcing step with a generator update, step 1 the stream's first

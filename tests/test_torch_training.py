@@ -42,6 +42,7 @@ from fastvideo_tpu_torch.training.training_utils import clip_grad_norm
 
 sys.path.insert(0, os.path.dirname(__file__))
 
+from test_torch_jax_reference import jax_plain_attention  # noqa: E402,F401
 from test_torch_wan_dit import _arch, numpy_model  # noqa: E402
 
 torch.set_num_threads(2)
@@ -124,7 +125,7 @@ def _assert_adamw_params_close(got, want, got_grads, want_grads, lr,
                                                    diff[sure].max(initial=0))
 
 
-def test_one_step_matches_jax_pipeline(monkeypatch):
+def test_one_step_matches_jax_pipeline(monkeypatch, jax_plain_attention):
     """One SFT step: the port's loss, gradients, grad_norm and AdamW
     parameters against JAX's TrainingPipeline given JAX's draws. bf16
     compute on both sides, rounded at different places (XLA against

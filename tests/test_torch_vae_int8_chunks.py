@@ -18,13 +18,14 @@ from fastvideo_tpu.models.vaes.wan import AutoencoderKLWan
 
 sys.path.insert(0, os.path.dirname(__file__))
 
+from test_torch_jax_reference import jax_plain_attention  # noqa: E402,F401
 from test_torch_e2e_turbo_int8 import INT8_VAE  # noqa: E402
 from test_torch_int8_linear import _arch, numpy_model  # noqa: E402
 
 torch.set_num_threads(2)
 
 
-def test_chunked_int8_decode_matches_jax(monkeypatch):
+def test_chunked_int8_decode_matches_jax(monkeypatch, jax_plain_attention):
     """The decoder's int8 convs see the JAX package's chunk tensors: chunks
     of one latent frame, each temporal conv's cached frames concatenated in
     front of the chunk, one activation scale per chunk tensor."""

@@ -39,6 +39,7 @@ from fastvideo_tpu_torch.models.loader.jax_params import state_dict_from_jax
 
 sys.path.insert(0, os.path.dirname(__file__))
 
+from test_torch_jax_reference import jax_plain_attention  # noqa: E402,F401
 from test_torch_wan_dit import jax_params, numpy_model  # noqa: E402
 from utils import (TINY_CLIP, TINY_DIT,  # noqa: E402
                    make_tiny_wan_i2v_checkpoint)
@@ -140,7 +141,8 @@ def test_i2v_dit_forward_matches_jax(monkeypatch):
     assert not torch.allclose(got, other)  # the image tokens count
 
 
-def test_image_conditioning_matches_jax(tmp_path, i2v_ckpt):
+def test_image_conditioning_matches_jax(tmp_path, i2v_ckpt,
+                                        jax_plain_attention):
     """ImageEncodingStage's CLIP embeds and WanImageVAEEncodingStage's
     image_latent (the mask, then the posterior sample under the seed),
     the port's stages and modules against the JAX ones from one tiny I2V
@@ -211,7 +213,7 @@ def test_image_conditioning_matches_jax(tmp_path, i2v_ckpt):
 
 @pytest.mark.parametrize("variant", ["wan", "turbodiffusion"])
 def test_i2v_generation_matches_jax(variant, tmp_path, i2v_ckpt,
-                                    monkeypatch):
+                                    monkeypatch, jax_plain_attention):
     monkeypatch.setenv("FASTVIDEO_ATTENTION_BACKEND", "FLASH_ATTN")
     import fastvideo_tpu.parallel as par
     from fastvideo_tpu import VideoGenerator as JaxGenerator

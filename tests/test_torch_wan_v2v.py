@@ -28,6 +28,7 @@ import fastvideo_tpu  # noqa: F401  (the JAX reference)
 
 sys.path.insert(0, os.path.dirname(__file__))
 
+from test_torch_jax_reference import jax_plain_attention  # noqa: E402,F401
 from test_torch_wan_i2v import FP32, psnr, rbg_prng  # noqa: E402
 from utils import (make_tiny_lucy_edit_checkpoint,  # noqa: E402
                    make_tiny_wan_v2v_checkpoint)
@@ -63,7 +64,8 @@ def _resized_as_jax_means(frames, w, h):
 
 
 @pytest.mark.parametrize("source", ["npy_truncated", "extra_padded_resized"])
-def test_v2v_generation_matches_jax(source, v2v_ckpt, tmp_path, monkeypatch):
+def test_v2v_generation_matches_jax(source, v2v_ckpt, tmp_path, monkeypatch,
+                                    jax_plain_attention):
     monkeypatch.setenv("FASTVIDEO_ATTENTION_BACKEND", "FLASH_ATTN")
     import fastvideo_tpu.parallel as par
     from fastvideo_tpu import VideoGenerator as JaxGenerator

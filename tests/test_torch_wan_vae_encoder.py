@@ -30,6 +30,7 @@ from fastvideo_tpu_torch.models.vaes.wan import (
 
 sys.path.insert(0, os.path.dirname(__file__))
 
+from test_torch_jax_reference import jax_plain_attention  # noqa: E402,F401
 from test_torch_wan_vae import numpy_model  # noqa: E402
 from utils import TINY_VAE  # noqa: E402
 
@@ -86,7 +87,7 @@ def _close(got, want):
     ("3d_3d", 9),     # 1 + 2 chunks of 4
     ("3d_3d", 7),     # 1 + 4 + a short last chunk of 2
 ])
-def test_encode_matches_jax_whole_clip(name, frames):
+def test_encode_matches_jax_whole_clip(name, frames, jax_plain_attention):
     cfg = CONFIGS[name]
     jvae, tvae = _models(cfg)
     x = _pixels(frames)
