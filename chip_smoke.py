@@ -52,7 +52,15 @@ Phases, each printing its own lines:
      3x3x3 conv of the VAE encoder at 480x832 in both kinds of encode
      chunk (the first frame behind the causal pad, 4 frames behind 2
      cached), beside cuDNN in fp32; K1 at the I2V 14B DiT's 40 heads, q
-     [1, 32760, 40, 128] over 32,760, 512 and 257 keys, beside SDPA);
+     [1, 32760, 40, 128] over 32,760, 512 and 257 keys, beside SDPA; K1's
+     column-sliced form at the Wan2.2 VAE's attention at 704x1280 (bf16 at
+     a head of 1024 in the decoder's first and 4-frame chunks, fp32 at 640
+     on TI2V's first frame and on a 480x832 frame, and bf16 at 640 and
+     fp32 at 1024), beside SDPA and the backend that answered; K3 at each
+     distinct conv shape of the Wan2.2 VAE (the decoder's in bf16 in its
+     first chunk, its hot 256x256 conv in a 4-frame chunk too; the
+     encoder's in fp32 on the first frame), and the bound of one TI2V
+     decode's convs);
   4. a: tiny models, the card's whole path against the CPU's plain path
      (FastWan DMD, also with an fp32 decode; Wan UniPC + CFG with VSA and
      with STA on a padded grid, and on every other self-attention backend:
@@ -69,7 +77,9 @@ Phases, each printing its own lines:
      I2V generation from a PNG (tiny CLIP tower, the VAE encoder, UniPC +
      CFG) and a tiny V2V generation from a .npy clip that is truncated and
      resized; the port's ``main.py preprocess`` on tiny checkpoints, T2V,
-     I2V and ODE, the card's shards against the CPU's);
+     I2V and ODE, the card's shards against the CPU's; tiny Wan2.2 TI2V
+     (the Wan2.2 VAE's layout, pil_image), Lucy Edit (a .npy clip) and the
+     T2V-A14B's two experts, each device running both);
      b: the FastWan main path at full width: a random-weight
      FastWan2.1-T2V-1.3B-shaped diffusers checkpoint written with the
      port's own safetensors writer, loaded by
@@ -122,16 +132,19 @@ Phases, each printing its own lines:
      generator, teacher and critic in fp32 masters, on a Snappy shard of 2
      records (81x480x832 latents, 512 text tokens) that the port writes
      and reads, a generator and a critic update a step, VSA at sparsity 0
-     (top-117 of 117 tiles): a warm-up step, then --dmd-steps timed ones;
+     (top-117 of 117 tiles): --dmd-steps timed ones, the first with no
+     warm-up (the script's clock);
      seconds a step, losses and grad norms, peak memory, the teacher's
      checksum, the launch counts and the reader's MB/s on a random and on
      a zero-padded record;
      o, p, q: the causal distillation methods on 4g's checkpoint and 4n's
      shard through build_from_config, every role in fp32 masters, full
      remat: self_forcing (7 blocks, a generator and a critic update a
-     step: SF_STEPS timed step after a warm-up), streaming_long_tuning
+     step: SF_STEPS timed step), streaming_long_tuning
      (a stream from step 0 in chunks of at most 6 latent frames up to 27,
-     until it starts over) and causal_cd under FLASH_ATTN (CD_STEPS);
+     until it starts over, after its first chunk as a warm-up) and
+     causal_cd under FLASH_ATTN (CD_STEPS); 4o's and 4q's first steps
+     are timed (no warm-up: the script's clock);
      each step timed, with its CPU seconds, its allocator retries and
      the card's SM clock, temperature and power draw after it; losses
      and grad norms, peak memory, the trained roles moved and the frozen
@@ -144,8 +157,9 @@ Phases, each printing its own lines:
      seconds, the adapter's calls and extra launches, merged and unmerged
      within 8 uint8 levels of active, the weights restored by unmerge;
      s, t, u, v: the slice's methods through build_from_config on the 4b
-     checkpoint and 4n's shard, a warm-up step, then METHOD_STEPS timed
-     ones: lora_finetune (rank 32, 304 linears, VSA 0.8; the frozen
+     checkpoint and 4n's shard, METHOD_STEPS timed steps, the first with no
+     warm-up (the script's clock) but lora_finetune's (its
+     first step cannot move lora_A, whose B starts at 0): lora_finetune (rank 32, 304 linears, VSA 0.8; the frozen
      base's checksum), kd (t_list KD_T_LIST, a self-distillation teacher,
      generate_cache over the shard, a warm teacher rollout, steps from the
      cache), anyflow_pretrain (VSA 0.8, the copy rule) and anyflow (a
@@ -182,6 +196,23 @@ Phases, each printing its own lines:
      read back through the port's readers equal to what was computed, and
      the launches of K3 fp32, K1 fp32 and K1 against counts from the
      shapes, with no plain call;
+     z: Wan2.2-TI2V-5B at its published widths and depth (the DiT: 30
+     blocks, 24 heads of 128, FFN 14336, 48 latent channels; the Wan2.2
+     VAE: base 160, a decoder of base 256, z 48, residual levels, 2x2
+     pixel patches; 4b's UMT5) through VideoGenerator.from_pretrained(ckpt)
+     .generate_video(prompt, pil_image=<a 704x1280 image>): 121x704x1280
+     (27,280 DiT tokens), TI2V_STEPS (2) FlowUniPC steps with CFG, the
+     first frame encoded in fp32 and the clip decoded in bf16: seconds a
+     step, the encode and decode seconds, peak memory, latent frame 0
+     equal to the image's latent, and the launches of K1 (DiT), K1's
+     column-sliced form (the VAE's attention at 640 and 1024) and K3
+     against counts from the shapes;
+     za: the Wan2.2 T2V-A14B's two experts at their published widths (40
+     heads of 128, FFN 13824; 4b's Wan2.1 VAE and UMT5), cut to
+     A14B_LAYERS (8) of 40 blocks each, through a WanPipeline built with
+     required_config_modules naming transformer_2: 81x480x832, A14B_STEPS
+     (3) FlowUniPC steps at shift 12 with CFG, each expert's passes (the
+     high-noise one at or above timestep 875) and the launches;
   5. the kernels line, the card line and the result line.
 
 Each phase header ends with the seconds since the start.
@@ -245,6 +276,8 @@ REPLACES = {
     "flash_fwd_tf32_split": "fastvideo_tpu/ops/flash_attention.py:93 (the "
     "K and V operands of its fp32 form at a head of 384, split into TF32 "
     "heads and tails; call :222)",
+    "flash_fwd_cols": "fastvideo_tpu/ops/flash_attention.py:93 (bf16 and "
+    "fp32 at heads of 640 and 1024, the Wan2.2 VAE's attention; call :222)",
 }
 SOURCES = {
     "flash_fwd": "fastvideo_tpu_torch/csrc/flash_fwd.cu",
@@ -268,6 +301,7 @@ SOURCES = {
     "flash_fwd_tf32": "fastvideo_tpu_torch/csrc/flash_fwd_wide_tf32_sm90.cuh",
     "flash_fwd_tf32_split":
     "fastvideo_tpu_torch/csrc/flash_fwd_wide_tf32_sm90.cuh",
+    "flash_fwd_cols": "fastvideo_tpu_torch/csrc/flash_fwd_cols.cu",
 }
 # the flash kernels' Hopper instances by their mangled names' stem
 SM90_KERNELS = {"flash_fwd_sm90": {"0": "K1", "1": "K5", "2": "K1 struct"},
@@ -291,7 +325,7 @@ CONV8_SM90 = {"96": "K4 (Co 96: up3, the hot conv)",
 # the 3xTF32 conv instances by their N tile
 TF32_SM90 = {"8": "K3 fp32 conv_out (Co 3)", "96": "K3 fp32 (Co 96, 192, 384)"}
 # K1's schedule by the library's code (fvt_flash_fwd_sm90)
-FLASH_SCHEDULES = ("tile", "sm90", "sm90_wide", "sm90_wide_tf32")
+FLASH_SCHEDULES = ("tile", "sm90", "sm90_wide", "sm90_wide_tf32", "cols")
 # kernels a profiled generation reports whatever their rank: the VAE
 # attention's wide K1 and merge, and the first schedule's bf16 K1 instance
 # (attn_tile.cuh) that ran it before
@@ -2640,7 +2674,8 @@ def run_kernel_checks(dev, flex_struct: bool = False) -> dict:
                   check_flash_struct, check_vsa_bwd, check_vsa_dense,
                   check_conv, check_conv_int8, check_w8a8_linear,
                   check_flash_kv_mask, check_causal_distill,
-                  check_fp32_decode, check_encoder_convs, check_i2v_flash):
+                  check_fp32_decode, check_encoder_convs, check_i2v_flash,
+                  check_vae22_attn, check_vae22_convs):
         t0 = time.perf_counter()
         if check is check_w8a8_linear:
             check(dev)
@@ -2675,7 +2710,10 @@ def run_kernel_checks(dev, flex_struct: bool = False) -> dict:
 # -- phase 4: the main path at full width -------------------------------------
 
 # FastWan2.1-T2V-1.3B: the DiT and VAE at their published sizes, UMT5 at the
-# full width of UMT5-XXL with a small synthetic vocabulary
+# full width of UMT5-XXL with a small synthetic vocabulary, cut to 12 of its
+# 24 layers: with all 24 and the Wan2.2 phases' 24 GB of DiTs the whole
+# script would write more than the 45 GiB a run may write to the disk of the
+# card's machine
 DIT_CFG = dict(num_attention_heads=12, attention_head_dim=128, in_channels=16,
                out_channels=16, text_dim=4096, freq_dim=256, ffn_dim=8960,
                num_layers=30, patch_size=[1, 2, 2],
@@ -2685,7 +2723,7 @@ VAE_CFG = dict(base_dim=96, z_dim=16, dim_mult=[1, 2, 4, 4], num_res_blocks=2,
                attn_scales=[], temperal_downsample=[False, True, True],
                scale_factor_temporal=4, scale_factor_spatial=8)
 T5_CFG = dict(vocab_size=8192, d_model=4096, d_kv=64, d_ff=10240,
-              num_layers=24, num_heads=64, relative_attention_num_buckets=32,
+              num_layers=12, num_heads=64, relative_attention_num_buckets=32,
               relative_attention_max_distance=128,
               feed_forward_proj="gated-gelu", model_type="umt5")
 # a tiny model of the same families, for the check against the plain path
@@ -2756,15 +2794,27 @@ def write_checkpoint(root: str, dit_cfg: dict, vae_cfg: dict, t5_cfg: dict,
                      share: str | None = None,
                      class_name: str = "WanPipeline",
                      dit_class: str = "WanTransformer3DModel",
-                     image_encoder_cfg: dict | None = None) -> str:
+                     image_encoder_cfg: dict | None = None,
+                     experts: int = 1, own_vae: bool = False,
+                     weights_from: str | None = None,
+                     vae_dtype=None) -> str:
     """A diffusers-format Wan checkpoint with random weights, written with
     the port's own safetensors writer (the VAE with both halves). The DiT
     has the blocks of the attention backend selected when this is called.
-    With ``share`` only the transformer (and the image encoder) is written;
-    the other components are links to those of the checkpoint ``share``.
-    ``class_name`` is model_index.json's pipeline class, ``dit_class`` the
-    transformer's; ``image_encoder_cfg`` adds an I2V checkpoint's CLIP
-    vision tower (``image_encoder``, bf16 weights)."""
+    With ``share`` only the transformer (and the image encoder, and with
+    ``own_vae`` the VAE) is written; the other components are links to
+    those of the checkpoint ``share``. ``class_name`` is model_index.json's
+    pipeline class, ``dit_class`` the transformer's; ``image_encoder_cfg``
+    adds an I2V checkpoint's CLIP vision tower (``image_encoder``, bf16
+    weights); ``experts`` 2 adds a second DiT of the same config and other
+    weights (``transformer_2``, the Wan2.2 MoE's low-noise expert).
+    ``weights_from`` names a checkpoint whose transformer weights file this
+    one's transformer links to (the same parameters under this one's
+    config.json) instead of writing its own: the card's machine takes at
+    most 45 GiB of writes to its disk a run, and the paths' DiTs share
+    one of two 1.3B weight sets (4b's, with VSA's gate projections, and
+    :func:`dense_dit`'s). ``vae_dtype`` is the VAE file's dtype (fp32 by
+    default; the loader casts to the pipeline's vae_precision)."""
     import torch
 
     from fastvideo_tpu_torch.configs.models.dits.wan import WanArchConfig
@@ -2794,6 +2844,8 @@ def write_checkpoint(root: str, dit_cfg: dict, vae_cfg: dict, t5_cfg: dict,
     clip_class = "CLIPVisionModelWithProjection"
     if image_encoder_cfg is not None:
         index["image_encoder"] = ["transformers", clip_class]
+    if experts == 2:
+        index["transformer_2"] = ["diffusers", dit_class]
     dump(os.path.join(root, "model_index.json"), index)
     dit_cls = resolve_model_cls(dit_class)[0]
     parts = [
@@ -2803,15 +2855,20 @@ def write_checkpoint(root: str, dit_cfg: dict, vae_cfg: dict, t5_cfg: dict,
         ("vae", "AutoencoderKLWan", vae_cfg,
          lambda: AutoencoderKLWan(arch(WanVAEArchConfig, vae_cfg),
                                   device="meta"),
-         torch.float32, "diffusion_pytorch_model.safetensors"),
+         vae_dtype or torch.float32, "diffusion_pytorch_model.safetensors"),
         ("text_encoder", "UMT5EncoderModel", t5_cfg,
          lambda: T5EncoderModel(arch(T5ArchConfig, t5_cfg), device="meta"),
          torch.bfloat16, "model.safetensors"),
     ]
+    if experts == 2:
+        parts.insert(1, ("transformer_2",) + parts[0][1:])
     if share is not None:
-        parts = parts[:1]
+        keep = ("transformer", "transformer_2") + (("vae",) if own_vae
+                                                   else ())
+        parts = [p for p in parts if p[0] in keep]
         for sub in ("vae", "text_encoder", "tokenizer", "scheduler"):
-            os.symlink(os.path.join(share, sub), os.path.join(root, sub))
+            if sub not in keep:
+                os.symlink(os.path.join(share, sub), os.path.join(root, sub))
     if image_encoder_cfg is not None:
         clip_cls, clip_arch = resolve_model_cls(clip_class)
         parts.append((
@@ -2826,6 +2883,10 @@ def write_checkpoint(root: str, dit_cfg: dict, vae_cfg: dict, t5_cfg: dict,
                else "_class_name")
         dump(os.path.join(d, "config.json"),
              {key: [cls_name] if key == "architectures" else cls_name, **cfg})
+        if sub == "transformer" and weights_from is not None:
+            os.symlink(os.path.join(weights_from, sub, fname),
+                       os.path.join(d, fname))
+            continue
         state = random_state(build(), dtype, device, gen)
         save_file(state, os.path.join(d, fname))
         del state
@@ -2849,6 +2910,24 @@ def write_checkpoint(root: str, dit_cfg: dict, vae_cfg: dict, t5_cfg: dict,
     dump(os.path.join(sched, "scheduler_config.json"), {
         "_class_name": "UniPCMultistepScheduler", "num_train_timesteps": 1000,
         "solver_order": 2})
+    return root
+
+
+def dense_dit(work: str) -> str:
+    """A Wan2.1-T2V-1.3B checkpoint whose DiT has no VSA gate projections
+    (seed 43; 4b's UMT5 and VAE), written at its first use: the weights
+    that 4d, 4f, 4g, 4j and 4k link."""
+    root = os.path.join(work, "dense", "Wan2.1-T2V-1.3B-Diffusers")
+    if not os.path.exists(root):
+        backend = os.environ.get("FASTVIDEO_ATTENTION_BACKEND")
+        os.environ["FASTVIDEO_ATTENTION_BACKEND"] = "FLASH_ATTN"
+        write_checkpoint(root, DIT_CFG, VAE_CFG, T5_CFG, seed=43,
+                         share=os.path.join(work,
+                                            "FastWan2.1-T2V-1.3B-Diffusers"))
+        if backend is None:
+            os.environ.pop("FASTVIDEO_ATTENTION_BACKEND")
+        else:
+            os.environ["FASTVIDEO_ATTENTION_BACKEND"] = backend
     return root
 
 
@@ -3153,9 +3232,11 @@ def run_wan_path(work: str, backend: str, steps: int, from_kw: dict,
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     root = os.path.join(work, backend, "Wan2.1-T2V-1.3B-Diffusers")
+    base = os.path.join(work, "FastWan2.1-T2V-1.3B-Diffusers")
     ckpt = write_checkpoint(
-        root, DIT_CFG, VAE_CFG, T5_CFG, seed=43,
-        share=os.path.join(work, "FastWan2.1-T2V-1.3B-Diffusers"))
+        root, DIT_CFG, VAE_CFG, T5_CFG, seed=43, share=base,
+        weights_from=(base if backend == "VIDEO_SPARSE_ATTN" else
+                      dense_dit(work)))
     gen = VideoGenerator.from_pretrained(ckpt, **from_kw)
     print(f"  transformer written and pipeline loaded in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -3365,7 +3446,7 @@ def run_turbo_path(work: str, profile_dir: str | None = None) -> dict:
     ckpt = write_checkpoint(
         root, DIT_CFG, VAE_CFG, T5_CFG, seed=44,
         share=os.path.join(work, "FastWan2.1-T2V-1.3B-Diffusers"),
-        class_name="TurboDiffusionPipeline")
+        class_name="TurboDiffusionPipeline", weights_from=dense_dit(work))
     gen = VideoGenerator.from_pretrained(ckpt, transformer_quant="int8")
     print(f"  transformer written and pipeline loaded in "
           f"{time.perf_counter() - t0:.1f} s; scheduler "
@@ -3430,7 +3511,8 @@ def run_causal_path(work: str, profile_dir: str | None = None):
         root, CAUSAL_DIT_CFG, VAE_CFG, T5_CFG, seed=45,
         share=os.path.join(work, "FastWan2.1-T2V-1.3B-Diffusers"),
         class_name="WanCausalDMDPipeline",
-        dit_class="CausalWanTransformer3DModel")
+        dit_class="CausalWanTransformer3DModel",
+        weights_from=dense_dit(work))
     gen = VideoGenerator.from_pretrained(ckpt)
     sched = gen.pipeline.modules["scheduler"]
     print(f"  transformer written and pipeline loaded in "
@@ -4137,7 +4219,8 @@ def run_dmd2(work: str, steps: int, profile_dir: str | None = None) -> dict:
     """Phase 4n: DMD2Method through build_from_config (method dmd2, a
     Parquet data.path) on the 4b checkpoint's Wan2.1-T2V-1.3B-shaped DiT,
     three times in fp32 masters, then method.train over the port's
-    Parquet dataloader: one warm-up step, then ``steps`` timed ones."""
+    Parquet dataloader: ``steps`` timed steps, the first with no warm-up
+    (the script's clock)."""
     import torch
 
     from fastvideo_tpu_torch.attention.backends.vsa import vsa_topk
@@ -4150,7 +4233,7 @@ def run_dmd2(work: str, steps: int, profile_dir: str | None = None) -> dict:
     method, loader = build_method(
         "dmd2", os.path.join(work, "FastWan2.1-T2V-1.3B-Diffusers"),
         os.path.join(work, "dmd2_out"), "cuda",
-        dict(DMD_KW, max_train_steps=1 + steps), dmd=DMD_SPEC,
+        dict(DMD_KW, max_train_steps=steps), dmd=DMD_SPEC,
         data_path=data)
     pipe = method.pipeline
     n_params = sum(p.numel() for p in pipe.gen_params)
@@ -4164,19 +4247,13 @@ def run_dmd2(work: str, steps: int, profile_dir: str | None = None) -> dict:
           flush=True)
     teacher = checksum(pipe.real_score)
     try:
-        t0 = time.perf_counter()
-        method.train(loader, max_steps=1)
-        torch.cuda.synchronize()
-        print(f"  warm-up step {time.perf_counter() - t0:.2f} s; peak "
-              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
-              flush=True)
         watch = [{n: p.detach().clone() for n, p in
                   list(m.named_parameters())[:4]}
                  for m in (pipe.generator, pipe.fake_score)]
         torch.cuda.reset_peak_memory_stats()
         _build.reset_counts()
         t0 = time.perf_counter()
-        method.train(loader, max_steps=1 + steps)
+        method.train(loader, max_steps=steps)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches, plain = dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
@@ -4380,7 +4457,8 @@ def run_training_phase(label: str, method_name: str, work: str,
                        training: dict = DMD_KW, prepare=None) -> dict:
     """A training method through build_from_config on ``ckpt`` (default
     4g's causal checkpoint) and 4n's Parquet shard, then method.train:
-    ``warmup`` steps, then ``steps`` timed ones (fewer where
+    ``warmup`` steps (none: the first step is timed, its first-call costs
+    in it), then ``steps`` timed ones (fewer where
     ``until(rows)`` of the timed steps' metrics holds first), each timed
     apart, with the process's CPU seconds, the caching allocator's retries
     and device allocations in it and the card's state after it
@@ -4410,12 +4488,15 @@ def run_training_phase(label: str, method_name: str, work: str,
     sums = {r: checksum(getattr(pipe, r), frozen_only=True) for r in frozen}
     extra = prepare(method, loader) if prepare else {}
     try:
-        t0 = time.perf_counter()
-        method.train(loader, max_steps=warmup)
-        torch.cuda.synchronize()
-        print(f"  warm-up ({warmup} step) {time.perf_counter() - t0:.2f} s; "
-              f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
-              flush=True)
+        if warmup:
+            t0 = time.perf_counter()
+            method.train(loader, max_steps=warmup)
+            torch.cuda.synchronize()
+            print(f"  warm-up ({warmup} step) {time.perf_counter() - t0:.2f} "
+                  f"s; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+                  f"GiB", flush=True)
+        else:
+            print("  no warm-up step: the first step is timed", flush=True)
         watch = {}
         for r in roles:
             named = list(getattr(pipe, r).named_parameters())
@@ -4486,11 +4567,12 @@ def run_training_phase(label: str, method_name: str, work: str,
 def run_self_forcing(work: str, data: str,
                      profile_dir: str | None = None) -> dict:
     """Phase 4o: self_forcing at 81x480x832 (7 blocks, denoise steps (1000,
-    757, 522), a generator and a critic update a step)."""
+    757, 522), a generator and a critic update a step), its first step
+    timed (no warm-up: the script's clock)."""
     cfg = CAUSAL_DIT_CFG
     latents = (1,) + TRAIN_LATENTS[2:]
     return run_training_phase(
-        "self_forcing", "self_forcing", work, data, SF_METHOD, 1, SF_STEPS,
+        "self_forcing", "self_forcing", work, data, SF_METHOD, 0, SF_STEPS,
         lambda rows: self_forcing_launches(
             dict(cfg, local_attn_size=21), latents, TRAIN_EMBEDS[2],
             len(SF_METHOD["denoise_steps"]),
@@ -4535,7 +4617,7 @@ def run_causal_cd(work: str, data: str,
     updated every step."""
     tokens = math.prod(TRAIN_LATENTS[-3:]) // 4
     return run_training_phase(
-        "causal_cd", "causal_cd", work, data, CD_METHOD, 1, CD_STEPS,
+        "causal_cd", "causal_cd", work, data, CD_METHOD, 0, CD_STEPS,
         lambda rows: causal_cd_launches(CAUSAL_DIT_CFG, tokens,
                                         TRAIN_EMBEDS[2], len(rows)),
         ["student", "ema"], ["teacher"], profile_dir)
@@ -4561,7 +4643,7 @@ KD_T_LIST = (999, 937, 833, 624)
 # JAX package checks student_sample_steps and does not read it further)
 ANYFLOW_METHOD = dict(student_sample_steps=4,
                       t_list_override=[1000.0, 750.0, 500.0, 250.0, 0.0])
-# the timed steps of 4s-4v, each after one warm-up step
+# the timed steps of 4s-4v, the first with no warm-up but 4s's
 METHOD_STEPS = 1
 
 
@@ -5049,7 +5131,7 @@ def run_kd(work: str, data: str, profile_dir: str | None = None) -> dict:
 
     return run_training_phase(
         "kd", "kd", work, data,
-        dict(t_list=list(KD_T_LIST), teacher_path_cache=cache), 1,
+        dict(t_list=list(KD_T_LIST), teacher_path_cache=cache), 0,
         METHOD_STEPS, lambda rows: train_launches(
             layers, len(rows), split_backwards(
                 DIT_CFG, [(tokens, TRAIN_EMBEDS[2])])),
@@ -5079,7 +5161,7 @@ def run_anyflow_pretrain(work: str, data: str,
         return {}
 
     return run_training_phase(
-        "anyflow_pretrain", "anyflow_pretrain", work, data, {}, 1,
+        "anyflow_pretrain", "anyflow_pretrain", work, data, {}, 0,
         METHOD_STEPS, lambda rows: pretrain_launches(
             layers, len(rows), split_backwards(
                 DIT_CFG, [(tokens, TRAIN_EMBEDS[2])])),
@@ -5093,12 +5175,13 @@ def run_anyflow(work: str, data: str,
     """Phase 4v: anyflow at 4n's setup (the 4b checkpoint as generator,
     real and fake score in fp32 masters with the branch grown, full remat,
     sparsity 0), a 4-step flow-map rollout, a generator and a critic update
-    a step, on 4n's shard."""
+    a step, on 4n's shard; its first step timed (no warm-up: the script's
+    clock)."""
     layers = DIT_CFG["num_layers"]
     tokens = math.prod(TRAIN_LATENTS[-3:]) // 4
     rollout = len(ANYFLOW_METHOD["t_list_override"]) - 1
     return run_training_phase(
-        "anyflow", "anyflow", work, data, ANYFLOW_METHOD, 1, METHOD_STEPS,
+        "anyflow", "anyflow", work, data, ANYFLOW_METHOD, 0, METHOD_STEPS,
         lambda rows: anyflow_launches(layers, split_backwards(
             DIT_CFG, [(tokens, TRAIN_EMBEDS[2])]), len(rows), rollout),
         ["generator", "fake_score"], ["real_score"], profile_dir,
@@ -6153,6 +6236,522 @@ def run_preprocess(work: str) -> dict:
     return report
 
 
+# -- the Wan2.2 family (3, 4a, 4z, 4za) --------------------------------------
+
+# Wan2.2-TI2V-5B (Wan-AI/Wan2.2-TI2V-5B-Diffusers): the DiT (30 blocks, 24
+# heads of 128, FFN 14336, 48 latent channels in and out) and the Wan2.2 VAE
+# (base 160, a decoder of base 256, z 48, residual levels, 2x2 pixel
+# patches: 12 channels in and out) at their published widths and depths;
+# UMT5-XXL from 4b. The VAE config leaves scale_factor_spatial at the VAE's
+# own 8: the latent preparation multiplies it by the patch (the JAX rule),
+# so 704x1280 gives the 44x80 latent grid the decoder unfolds (the published
+# config.json's 16 would give 22x40). Random latents mean 0, std 1.
+TI2V_DIT_CFG = dict(DIT_CFG, num_attention_heads=24, in_channels=48,
+                    out_channels=48, ffn_dim=14336, num_layers=30)
+TI2V_VAE_CFG = dict(base_dim=160, decoder_base_dim=256, z_dim=48,
+                    dim_mult=[1, 2, 4, 4], num_res_blocks=2, attn_scales=[],
+                    temperal_downsample=[False, True, True], is_residual=True,
+                    patch_size=2, in_channels=12, out_channels=12,
+                    scale_factor_temporal=4, clip_output=False,
+                    latents_mean=[0.0] * 48, latents_std=[1.0] * 48)
+TI2V_SIZE = dict(height=704, width=1280, num_frames=121)
+TI2V_STEPS = 2
+# the T2V-A14B's experts at their published widths (40 heads of 128, FFN
+# 13824, the Wan2.1 VAE and UMT5 of 4b), cut to A14B_LAYERS of 40 blocks
+# each; at shift 12 FlowUniPC's third step is the first below the boundary
+# (875 of 1000), so 3 steps run both experts
+A14B_LAYERS = 8
+A14B_DIT_CFG = dict(DIT_CFG, num_attention_heads=40, ffn_dim=13824,
+                    num_layers=A14B_LAYERS)
+A14B_STEPS = 3
+# 4a: the Wan2.2 VAE's layout at tiny widths, its attention heads 16 and 32
+# (K1 takes multiples of 16)
+TINY_VAE22_CFG = dict(base_dim=8, decoder_base_dim=16, z_dim=4,
+                      dim_mult=[1, 2, 2], num_res_blocks=1, attn_scales=[],
+                      temperal_downsample=[False, True], is_residual=True,
+                      patch_size=2, in_channels=12, out_channels=12,
+                      latents_mean=[0.0] * 4, latents_std=[1.0] * 4,
+                      scale_factor_temporal=2, scale_factor_spatial=4,
+                      clip_output=False)
+TINY_LUCY_DIT_CFG = dict(TINY_DIT_CFG, in_channels=8)
+
+
+def vae22_latent(size: dict) -> tuple[int, int, int]:
+    """The (T, H, W) latent of the Wan2.2 VAE at ``size``: 4x in time, 8x
+    in space times the 2x2 patch."""
+    return ((size["num_frames"] - 1) // 4 + 1, size["height"] // 16,
+            size["width"] // 16)
+
+
+def vae22_decoder_conv_shapes(latent: tuple[int, int, int],
+                              first_len: int = 1) -> list[tuple]:
+    """The Wan2.2 decoder's 3x3 convs (all take K3) for a (T, H, W)
+    latent, from its structure (models/vaes/wan.py, TI2V_VAE_CFG: levels
+    of 1024, 1024, 1024, 512 and 256 channels, two temporal upsamples):
+    (label, convs, C, Co, kt, output frames, H, W), as
+    decoder_conv_shapes gives them for Wan2.1."""
+    t0, h0, w0 = latent
+    t1 = first_len + 2 * (t0 - first_len)
+    t2 = first_len + 2 * (t1 - first_len)
+    return [
+        ("conv_in 48->1024", 1, 48, 1024, 3, t0, h0, w0),
+        ("mid + up0 resnets 1024x1024", 10, 1024, 1024, 3, t0, h0, w0),
+        ("up0 resample (1,3,3)", 1, 1024, 1024, 1, t1, 2 * h0, 2 * w0),
+        ("up1 resnets 1024x1024", 6, 1024, 1024, 3, t1, 2 * h0, 2 * w0),
+        ("up1 resample (1,3,3)", 1, 1024, 1024, 1, t2, 4 * h0, 4 * w0),
+        ("up2 resnet0 conv1 1024->512", 1, 1024, 512, 3, t2, 4 * h0,
+         4 * w0),
+        ("up2 resnets 512x512", 5, 512, 512, 3, t2, 4 * h0, 4 * w0),
+        ("up2 resample (1,3,3)", 1, 512, 512, 1, t2, 8 * h0, 8 * w0),
+        ("up3 resnet0 conv1 512->256", 1, 512, 256, 3, t2, 8 * h0, 8 * w0),
+        ("up3 resnets 256x256", 5, 256, 256, 3, t2, 8 * h0, 8 * w0),
+        ("conv_out 256->12", 1, 256, 12, 3, t2, 8 * h0, 8 * w0),
+    ]
+
+
+def vae22_encoder_conv_shapes(size: dict, frames: int) -> list[tuple]:
+    """The Wan2.2 encoder's 3x3x3 convs that take K3 in one encode chunk of
+    ``frames`` pixel frames at ``size`` (patchified to half its height and
+    width; conv_in's 12 channels and the stride-2 convs stay plain):
+    (label, convs, C, Co, output frames, H, W), as encoder_conv_shapes."""
+    cfg = TI2V_VAE_CFG
+    dims = [cfg["base_dim"] * m for m in [1, *cfg["dim_mult"]]]
+    h, w, t = size["height"] // 2, size["width"] // 2, frames
+    out = []
+    for i, (cin, cout) in enumerate(zip(dims[:-1], dims[1:])):
+        n = 2 * cfg["num_res_blocks"]
+        if cin != cout:
+            out.append((f"down{i} resnet0 conv1 {cin}->{cout}", 1, cin, cout,
+                        t, h, w))
+            n -= 1
+        out.append((f"down{i} resnets {cout}x{cout}", n, cout, cout, t, h,
+                    w))
+        if i < len(dims) - 2:
+            h, w = h // 2, w // 2
+            if cfg["temperal_downsample"][i] and t > 1:
+                t //= 2
+    out.append((f"mid resnets {dims[-1]}x{dims[-1]}", 4, dims[-1], dims[-1],
+                t, h, w))
+    out.append((f"conv_out {dims[-1]}->{2 * cfg['z_dim']}", 1, dims[-1],
+                2 * cfg["z_dim"], t, h, w))
+    return out
+
+
+def vae22_chunk_frames(size: dict) -> int | None:
+    """Latent frames a later decode chunk of the Wan2.2 VAE holds at
+    ``size`` (the dispatched rule on its latent and config; None: one
+    pass)."""
+    import types
+
+    import torch
+
+    from fastvideo_tpu_torch.pipelines.stages.decoding import (
+        dispatched_chunk_frames)
+
+    z = torch.empty(1, TI2V_VAE_CFG["z_dim"], *vae22_latent(size),
+                    device="meta")
+    return dispatched_chunk_frames(z, types.SimpleNamespace(
+        **dict(TI2V_VAE_CFG, scale_factor_spatial=8)))
+
+
+def vae22_decode_chunks(size: dict) -> int:
+    """Decode chunks of the Wan2.2 VAE at ``size``: each runs the
+    decoder's attention once."""
+    t, chunk = vae22_latent(size)[0], vae22_chunk_frames(size)
+    return 1 if chunk is None or t <= chunk else 1 + -(-(t - 1) // chunk)
+
+
+def ti2v_launches(size: dict) -> dict:
+    """Each kernel's launches in one TI2V-5B generation at ``size``, from
+    the shapes: K1 (a head of 128) twice a DiT block (self and text
+    attention) in each of 2 CFG passes of TI2V_STEPS steps; K1's
+    column-sliced form once for the first frame's encode (the encoder's
+    mid block, fp32 at a head of 640) and once a decode chunk (bf16 at
+    1024); K3 at each of the first frame's encoder convs and at each
+    decoder conv of each decode chunk."""
+    chunks = vae22_decode_chunks(size)
+    encode = sum(n for _, n, *_ in vae22_encoder_conv_shapes(size, 1))
+    decode = sum(n for _, n, *_ in vae22_decoder_conv_shapes(
+        vae22_latent(size)))
+    return dict(flash_fwd=TI2V_DIT_CFG["num_layers"] * 2 * 2 * TI2V_STEPS,
+                flash_fwd_cols=1 + chunks, conv3d=encode + chunks * decode)
+
+
+def check_vae22_attn(dev, results: dict) -> None:
+    """K1's column-sliced form (heads of 640 and 1024) at the Wan2.2 VAE's
+    attention shapes at 704x1280 (3,520 tokens a latent frame): the
+    decoder's (bf16, 1024) in its first chunk and in a chunk of later
+    frames, the encoder's (fp32, 640) on TI2V's first frame and on Lucy
+    Edit's 480x832 frames (1,560 tokens), and the two other forms (bf16 at
+    640, fp32 at 1024). Each against the plain version, with kernel, plain
+    and SDPA times (and the SDPA backend that answered), and the bound:
+    4 B Sq Skv D operations at the type's peak (bf16 tensor cores; fp32
+    FMAs, which the fp32 form runs), or the bytes."""
+    import torch
+
+    from fastvideo_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(23)
+    chunk = vae22_chunk_frames(TI2V_SIZE)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [("decoder first chunk", 1, 3520, 1024, bf16),
+             (f"decoder {chunk}-frame chunk", chunk, 3520, 1024, bf16),
+             ("encoder TI2V first frame", 1, 3520, 640, f32),
+             ("encoder Lucy Edit 480x832 frame", 1, 1560, 640, f32),
+             ("bf16 at 640", 1, 3520, 640, bf16),
+             ("fp32 at 1024", 1, 3520, 1024, f32)]
+    out, errs = {}, []
+    for label, b, s, d, dtype in cases:
+        qkv = torch.randn(b, s, 1, 3 * d, generator=g, device=dev,
+                          dtype=dtype)
+        q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
+        name = f"flash_fwd_cols[{label} {list(q.shape)}]"
+        took = check_schedule(name, dtype, d)
+        if took != "cols":
+            raise SystemExit(f"{name}: the head of {d} took {took}")
+        got, lse = fa.flash_attention(q, k, v, return_lse=True)
+        ref, ref_lse = fa.flash_attention_plain(q, k, v, scale=d**-0.5)
+        errs.append(check(name, got, ref, *attn_tol(ref, dtype)))
+        check(f"{name} lse", lse, ref_lse, 1e-3)
+        del got, lse, ref, ref_lse
+        ms = time_ms(lambda: fa.flash_attention(q, k, v), 3)
+        plain = time_ms(lambda: fa.flash_attention_plain(q, k, v,
+                                                         scale=d**-0.5), 2)
+        lib, backend = sdpa_ms(q, k, v)
+        flops = 4.0 * b * s * s * d
+        esize = 2 if dtype == bf16 else 4
+        bms, by = bound_ms(flops, esize * 4.0 * b * s * d + 4.0 * b * s,
+                           "bf16" if dtype == bf16 else "fp32")
+        out[label] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                          library=backend, bound_ms=bms, bound_by=by,
+                          shape=f"{list(q.shape)} {str(dtype)[6:]}")
+        print(f"  {name}: {ms:.3f} ms kernel, {plain:.3f} ms plain, "
+              f"{lib:.3f} ms sdpa ({backend}), bound {bms:.3f} ms ({by}, "
+              f"{flops:.3e} FLOP)", flush=True)
+        del q, k, v, qkv
+    main = out[f"decoder {chunk}-frame chunk"]
+    results["flash_fwd_cols"] = dict(
+        max_abs_err=max(errs), ms=main["ms"], plain_ms=main["plain_ms"],
+        bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+        library_ms=main["library_ms"], shape=main["shape"], cases=out)
+
+
+def check_vae22_convs(dev, results: dict) -> None:
+    """K3 at each distinct 3x3 conv shape of the Wan2.2 VAE at 704x1280:
+    the decoder's (bf16) in its first chunk (one latent frame behind the
+    causal pad), the encoder's (fp32, the 3xTF32 form) on TI2V's first
+    frame, each against its plain version (the gates of check_conv and
+    check_encoder_convs); at the decoder's hot conv (up3's 256x256 resnet
+    convs at 352x640) also in a chunk of later frames, with kernel, plain,
+    cuDNN and bound times; and the bound of the convs of one TI2V decode."""
+    import torch
+
+    from fastvideo_tpu_torch.ops import conv3d
+
+    g = torch.Generator(device=dev).manual_seed(29)
+    latent = vae22_latent(TI2V_SIZE)
+    chunk = vae22_chunk_frames(TI2V_SIZE)
+    errs, seen, out = [], set(), {}
+    shapes = [(f"decoder {lab} first chunk", c, co, kt, kt - 1, 1, h, w,
+               torch.bfloat16)
+              for lab, _, c, co, kt, _, h, w in vae22_decoder_conv_shapes(
+                  (1, *latent[1:]))]
+    shapes += [(f"encoder {lab} first frame", c, co, 3, 2, 1, h, w,
+                torch.float32)
+               for lab, _, c, co, _, h, w in vae22_encoder_conv_shapes(
+                   TI2V_SIZE, 1)]
+    hot = [s for s in vae22_decoder_conv_shapes((chunk, *latent[1:]), 0)
+           if s[0].startswith("up3 resnets")][0]
+    shapes.append((f"decoder {hot[0]} {chunk}-frame chunk", hot[2], hot[3],
+                   3, 0, hot[5], hot[6], hot[7], torch.bfloat16))
+    for label, c, co, kt, tp, t_out, h, w, dtype in shapes:
+        if (c, co, kt, h, w, dtype, tp) in seen:
+            continue
+        seen.add((c, co, kt, h, w, dtype, tp))
+        t_in = t_out + kt - 1 - tp
+        x = torch.randn(1, t_in, h, w, c, generator=g, device=dev,
+                        dtype=dtype)
+        wt = (torch.randn(kt, 3, 3, c, co, generator=g, device=dev) *
+              (kt * 9 * c)**-0.5).to(dtype)
+        bias = torch.randn(co, generator=g, device=dev).to(dtype)
+        bf = dtype == torch.bfloat16
+        name = f"conv3d[wan2.2 {label}@{h}x{w}]"
+        if bf:
+            check_conv_schedule(name, c, co)
+        got = conv3d.conv3d_ndhwc(x, wt, bias, time_pad=tp)
+        ref = conv3d.conv3d_ndhwc_plain(x, wt, bias, time_pad=tp)
+        tile = (conv3d.conv_tile_n(co) if bf else
+                conv3d.conv_tf32_tile_n(co))
+        errs.append(check(f"{name} (N tile {tile})", got, ref,
+                          *((1e-2, 1.6e-2) if bf else (5e-5, 1e-5))))
+        del got, ref
+        if "-frame chunk" in label:
+            ms = time_ms(lambda: conv3d.conv3d_ndhwc(x, wt, bias,
+                                                     time_pad=tp), 3)
+            plain = time_ms(lambda: conv3d.conv3d_ndhwc_plain(
+                x, wt, bias, time_pad=tp), 1)
+            lib = time_ms(cudnn_conv(x, wt, bias, tp), 3)
+            flops = 2.0 * real_taps(t_out, kt, tp) * h * w * c * co * 9
+            nbytes = 2.0 * ((t_in + t_out) * h * w * c + wt.numel() + co)
+            bms, by = bound_ms(flops, nbytes)
+            out.update(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms,
+                       bound_by=by,
+                       shape=f"x{[1, t_in, h, w, c]} w{[kt, 3, 3, c, co]}")
+            print(f"  {name}: {ms:.3f} ms kernel, {plain:.3f} ms plain, "
+                  f"{lib:.3f} ms cudnn, bound {bms:.3f} ms ({by}, "
+                  f"{flops:.3e} FLOP)", flush=True)
+        del x
+    flops = nbytes = 0.0
+    chunks = vae22_decode_chunks(TI2V_SIZE)
+    for first_len, t0 in ((1, 1), (0, latent[0] - 1)):
+        for _, n, c, co, kt, t, h, w in vae22_decoder_conv_shapes(
+                (t0, *latent[1:]), first_len):
+            tp = kt - 1 if first_len else 0
+            flops += 2.0 * n * real_taps(t, kt, tp) * h * w * c * co * 9
+            nbytes += 2.0 * n * t * h * w * (c + co)
+    bms, by = bound_ms(flops, nbytes)
+    print(f"  K3 bound for one {TI2V_SIZE['num_frames']}x"
+          f"{TI2V_SIZE['height']}x{TI2V_SIZE['width']} Wan2.2 decode "
+          f"({chunks} chunks): {flops:.4e} FLOP, {bms:.1f} ms ({by})",
+          flush=True)
+    results["conv3d"]["wan22"] = dict(out, decode_bound_ms=bms,
+                                      max_abs_err=max(errs),
+                                      shapes=len(seen))
+
+
+def expert_generator(ckpt: str, device: str | None = None):
+    """A VideoGenerator whose WanPipeline is built with
+    ``required_config_modules`` naming ``transformer_2`` (both experts
+    load; ``from_pretrained`` loads WanPipeline's modules, one expert), on
+    the config ``from_pretrained`` resolves for the name."""
+    from fastvideo_tpu_torch import VideoGenerator
+    from fastvideo_tpu_torch.entrypoints.video_generator import (
+        resolve_device)
+    from fastvideo_tpu_torch.fastvideo_args import FastVideoArgs
+    from fastvideo_tpu_torch.pipelines.basic.wan.wan_pipeline import (
+        WanPipeline)
+    from fastvideo_tpu_torch.registry import get_pipeline_config_cls_for_name
+
+    dev = resolve_device(device)
+    args = FastVideoArgs.from_kwargs(model_path=ckpt, num_gpus=1,
+                                     device=str(dev))
+    args.pipeline_config = get_pipeline_config_cls_for_name(ckpt)(
+        model_path=ckpt)
+    modules = WanPipeline._required_config_modules + ["transformer_2"]
+    pipe = WanPipeline(ckpt, args, dev, required_config_modules=modules)
+    return VideoGenerator(args, pipe, dev)
+
+
+def expert_calls(gen) -> list[str]:
+    """A list that each DiT pass of ``gen``'s experts appends its expert's
+    name to."""
+    calls: list[str] = []
+    for name in ("transformer", "transformer_2"):
+        gen.pipeline.modules[name].register_forward_hook(
+            lambda *_, n=name: calls.append(n))
+    return calls
+
+
+def check_small_wan22(work: str) -> None:
+    """4a's checks of the Wan2.2 slice, card against CPU: tiny TI2V (the
+    Wan2.2 VAE's layout, the request's image as latent frame 0), tiny Lucy
+    Edit (from a .npy clip), and tiny T2V-A14B experts (built with
+    ``required_config_modules`` naming ``transformer_2``: both experts
+    run on each device)."""
+    import numpy as np
+
+    from fastvideo_tpu_torch.ops import _build
+
+    size = dict(height=32, width=48, num_frames=9, seed=11)
+    check_small_path(work, "Wan2.2-TI2V-5B-tiny-Diffusers", "FLASH_ATTN",
+                     dict(prompt="w1 w2 w3", negative_prompt="w9 w8",
+                          pil_image=sample_image(32, 48, seed=4),
+                          num_inference_steps=3, guidance_scale=5.0, **size),
+                     {}, vae_cfg=TINY_VAE22_CFG,
+                     launched=("conv3d", "flash_fwd"))
+    clip = os.path.join(work, "tiny_lucy_control.npy")
+    np.save(clip, np.stack([sample_image(40, 56, seed=s) for s in range(9)]))
+    check_small_path(work, "Lucy-Edit-Dev-tiny", "FLASH_ATTN",
+                     dict(prompt="w1 w2 w3", video_path=clip,
+                          num_inference_steps=3, guidance_scale=1.0, **size),
+                     {}, vae_cfg=TINY_VAE22_CFG,
+                     class_name="LucyEditPipeline",
+                     dit_cfg=TINY_LUCY_DIT_CFG,
+                     launched=("conv3d", "flash_fwd"))
+    os.environ["FASTVIDEO_ATTENTION_BACKEND"] = "FLASH_ATTN"
+    ckpt = write_checkpoint(os.path.join(work, "Wan2.2-T2V-A14B-tiny"),
+                            TINY_DIT_CFG, TINY_VAE_CFG, TINY_T5_CFG, seed=7,
+                            experts=2)
+    kw = dict(prompt="w1 w2 w3", negative_prompt="w9 w8",
+              num_inference_steps=A14B_STEPS, guidance_scale=5.0,
+              save_video=False, **size)
+    outs = {}
+    for device in ("cuda", "cpu"):
+        _build.reset_counts()
+        gen = expert_generator(ckpt, device)
+        calls = expert_calls(gen)
+        outs[device] = gen.generate_video(**kw)
+        if calls != ["transformer"] * 4 + ["transformer_2"] * 2:
+            raise SystemExit(f"tiny A14B on {device}: the experts ran "
+                             f"{calls}")
+        if device == "cuda" and any(_build.PLAIN_CALLS.values()):
+            raise SystemExit(f"tiny A14B: the card's run reached a plain "
+                             f"version: {_build.PLAIN_CALLS}")
+        del gen
+    p = psnr(outs["cuda"]["frames"][0], outs["cpu"]["frames"][0])
+    print(f"  tiny Wan2.2-T2V-A14B experts, card vs CPU plain: frames PSNR "
+          f"{p:.2f} dB (bar: > 35 dB); each device's passes "
+          f"{['transformer'] * 4 + ['transformer_2'] * 2}", flush=True)
+    if p <= 35:
+        raise SystemExit("tiny A14B: the card disagrees with the plain path")
+
+
+def run_ti2v(work: str, profile_dir: str | None = None) -> dict:
+    """Phase 4z: Wan2.2-TI2V-5B at full width and depth (TI2V_DIT_CFG,
+    TI2V_VAE_CFG, 4b's UMT5) through VideoGenerator.from_pretrained(ckpt)
+    .generate_video(prompt, pil_image=<a 704x1280 image>): 121x704x1280,
+    TI2V_STEPS FlowUniPC steps with CFG, the first frame encoded in fp32
+    (vae_precision), the clip decoded in bf16. Seconds a step, the encode
+    and decode seconds, peak memory, and the launches against
+    ti2v_launches; latent frame 0 is the image's latent throughout."""
+    import torch
+
+    from fastvideo_tpu_torch import VideoGenerator
+    from fastvideo_tpu_torch.ops import _build
+
+    os.environ["FASTVIDEO_ATTENTION_BACKEND"] = "FLASH_ATTN"
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ckpt = write_checkpoint(
+        os.path.join(work, "Wan2.2-TI2V-5B-Diffusers"), TI2V_DIT_CFG,
+        TI2V_VAE_CFG, T5_CFG, seed=45,
+        share=os.path.join(work, "FastWan2.1-T2V-1.3B-Diffusers"),
+        own_vae=True, vae_dtype=torch.bfloat16)
+    print(f"  transformer (30 blocks, 24 heads) and the Wan2.2 VAE written "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    gen = VideoGenerator.from_pretrained(ckpt)
+    cfg = gen.fastvideo_args.pipeline_config
+    print(f"  from_pretrained in {time.perf_counter() - t0:.1f} s; pipeline "
+          f"{type(gen.pipeline).__name__}, config {type(cfg).__name__} "
+          f"(ti2v_task {cfg.ti2v_task}, flow_shift {cfg.flow_shift})",
+          flush=True)
+    stage = gen.pipeline.denoising_stage
+    encode_first, encode_s = stage._ti2v_encode_first_frame, []
+
+    def timed_encode(batch):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        z = encode_first(batch)
+        torch.cuda.synchronize()
+        encode_s.append(time.perf_counter() - t1)
+        stage.ti2v_z = z
+        return z
+
+    stage._ti2v_encode_first_frame = timed_encode
+    image = sample_image(TI2V_SIZE["height"], TI2V_SIZE["width"], seed=6)
+    kw = dict(prompt=PROMPT, negative_prompt=NEGATIVE_PROMPT,
+              pil_image=image, seed=42, num_inference_steps=TI2V_STEPS,
+              guidance_scale=5.0, save_video=False, **TI2V_SIZE)
+    result, launches, plain, peak = timed_generation(gen, kw)
+    times = {k: round(v, 4) for k, v in result["stage_times"].items()}
+    step_s = (times["DenoisingStage"] - encode_s[0]) / TI2V_STEPS
+    expect = ti2v_launches(TI2V_SIZE)
+    tokens = math.prod(vae22_latent(TI2V_SIZE)) // 4
+    print(f"  generation {result['generation_time']:.3f} s (the first in the "
+          f"process at these shapes; {tokens} DiT tokens); stage seconds "
+          f"{json.dumps(times)}; first-frame encode {encode_s[0]:.3f} s "
+          f"(fp32, in DenoisingStage), {step_s:.3f} s a step (2 CFG "
+          f"passes), decode {times['DecodingStage']:.3f} s ("
+          f"{vae22_decode_chunks(TI2V_SIZE)} chunks, bf16); peak memory "
+          f"{peak:.1f} GiB", flush=True)
+    print(f"  kernel launches {json.dumps(launches)} (expected "
+          f"{json.dumps(expect)}); plain calls {json.dumps(plain)}",
+          flush=True)
+    check_generation("Wan2.2 TI2V-5B 704x1280", result, TI2V_SIZE,
+                     launches, plain, expect)
+    z0 = stage.ti2v_z.to(result["latents"].device)
+    if not torch.equal(result["latents"][:, :, :1].float(), z0.float()):
+        raise SystemExit("4z: latent frame 0 is not the image's latent")
+    if profile_dir:
+        profile_generation(gen, kw, profile_dir, "wan22_ti2v_704x1280")
+    del gen, result
+    torch.cuda.empty_cache()
+    return dict(launches=launches, step_s=step_s, peak_gib=peak,
+                encode_s=encode_s[0], decode_s=times["DecodingStage"],
+                generation_s=times, expected=expect)
+
+
+def run_a14b(work: str, profile_dir: str | None = None) -> dict:
+    """Phase 4za: the Wan2.2 T2V-A14B's two experts at full width
+    (A14B_DIT_CFG, A14B_LAYERS of 40 blocks each; 4b's Wan2.1 VAE and
+    UMT5) through a WanPipeline built with ``required_config_modules``
+    naming ``transformer_2``: 81x480x832, A14B_STEPS FlowUniPC steps at
+    shift 12 with CFG, the high-noise expert at or above timestep 875, the
+    low-noise one below. Seconds a step, peak memory, each expert's
+    passes, and the launches against the shapes'."""
+    import torch
+
+    from fastvideo_tpu_torch.ops import _build
+
+    os.environ["FASTVIDEO_ATTENTION_BACKEND"] = "FLASH_ATTN"
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ckpt = write_checkpoint(
+        os.path.join(work, "Wan2.2-T2V-A14B-Diffusers"), A14B_DIT_CFG,
+        VAE_CFG, T5_CFG, seed=46,
+        share=os.path.join(work, "FastWan2.1-T2V-1.3B-Diffusers"),
+        experts=2)
+    print(f"  two transformers ({A14B_LAYERS} blocks each, 40 heads) written "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    gen = expert_generator(ckpt)
+    cfg = gen.fastvideo_args.pipeline_config
+    print(f"  pipeline built with transformer_2 in "
+          f"{time.perf_counter() - t0:.1f} s; config {type(cfg).__name__} "
+          f"(boundary_ratio {cfg.boundary_ratio}, flow_shift "
+          f"{cfg.flow_shift})", flush=True)
+    calls = expert_calls(gen)
+    kw = dict(prompt=PROMPT, negative_prompt=NEGATIVE_PROMPT, seed=42,
+              num_inference_steps=A14B_STEPS, guidance_scale=5.0,
+              save_video=False, **CLIP_480P)
+    result, launches, plain, peak = timed_generation(gen, kw)
+    timesteps = [float(t) for t in
+                 gen.pipeline.denoising_stage.scheduler.timesteps]
+    high = sum(t >= cfg.boundary_ratio * 1000 for t in timesteps)
+    want_calls = (["transformer"] * 2 * high + ["transformer_2"] * 2 *
+                  (len(timesteps) - high))
+    times = {k: round(v, 4) for k, v in result["stage_times"].items()}
+    step_s = times["DenoisingStage"] / A14B_STEPS
+    chunks = vae_chunks(CLIP_480P)
+    decode = sum(n for _, n, *_ in decoder_conv_shapes(latent_of(CLIP_480P)))
+    expect = dict(flash_fwd=A14B_LAYERS * 2 * 2 * A14B_STEPS + chunks,
+                  flash_fwd_combine=chunks, conv3d=chunks * decode)
+    print(f"  generation {result['generation_time']:.3f} s (the first in the "
+          f"process at these shapes); timesteps "
+          f"{[round(t, 1) for t in timesteps]}; passes "
+          f"{calls.count('transformer')} of transformer, "
+          f"{calls.count('transformer_2')} of transformer_2; stage seconds "
+          f"{json.dumps(times)}; {step_s:.3f} s a step; peak memory "
+          f"{peak:.1f} GiB", flush=True)
+    print(f"  kernel launches {json.dumps(launches)} (expected "
+          f"{json.dumps(expect)}); plain calls {json.dumps(plain)}",
+          flush=True)
+    if calls != want_calls or not 0 < high < len(timesteps):
+        raise SystemExit(f"4za: the experts ran {calls}, expected "
+                         f"{want_calls}")
+    check_generation("Wan2.2 T2V-A14B 480x832", result, CLIP_480P, launches,
+                     plain, expect)
+    if profile_dir:
+        profile_generation(gen, kw, profile_dir, "wan22_a14b_480x832")
+    del gen, result
+    torch.cuda.empty_cache()
+    return dict(launches=launches, step_s=step_s, peak_gib=peak,
+                stage_times=times, expert_passes=dict(
+                    transformer=calls.count("transformer"),
+                    transformer_2=calls.count("transformer_2")))
+
+
 def latent_shape_of(size: dict) -> tuple[int, int, int, int]:
     return (VAE_CFG["z_dim"], *latent_of(size))
 
@@ -6233,8 +6832,8 @@ def main() -> int:
                         help="timed dfsft and tfsft steps of phases 4l and "
                         "4m, each after one warm-up step (at least 1)")
     parser.add_argument("--dmd-steps", type=int, default=1,
-                        help="timed DMD2 steps of phase 4n, after one "
-                        "warm-up step (at least 1)")
+                        help="timed DMD2 steps of phase 4n, the first with "
+                        "no warm-up step (at least 1)")
     parser.add_argument("--flex-struct", action="store_true",
                         help="also time compiled flex_attention beside K1 "
                         "struct and K6 struct in phase 3 (about 90 s)")
@@ -6286,6 +6885,7 @@ def main() -> int:
     check_small_rl_slice(work)
     check_small_i2v(work)
     check_small_preprocess(work)
+    check_small_wan22(work)
     phase("# phase 4b: FastWan main path at full width, 81x480x832, 3 DMD "
           "steps, VSA sparsity 0.8")
     launches = run_main_path(work, args.profile)
@@ -6355,7 +6955,8 @@ def main() -> int:
           f"checkpoint's DiT as generator, real and fake score in fp32 "
           f"masters, full remat, AdamW, a generator and a critic update a "
           f"step, VSA at sparsity 0) on a Parquet shard the port writes and "
-          f"reads: 1 warm-up + {args.dmd_steps} timed steps")
+          f"reads: {args.dmd_steps} timed step(s), the first with no "
+          f"warm-up")
     dmd2 = run_dmd2(work, args.dmd_steps, args.profile)
     data = os.path.join(work, "dmd2_data")
     causal = ("4g's CausalWan-1.3B checkpoint as every role, fp32 masters, "
@@ -6364,7 +6965,7 @@ def main() -> int:
     phase(f"# phase 4o: self_forcing distillation of CausalWan-1.3B at full "
           f"width and depth ({causal}): 7 blocks, denoise steps "
           f"{SF_METHOD['denoise_steps']}, a generator and a critic update a "
-          f"step: 1 warm-up + {SF_STEPS} timed steps")
+          f"step: {SF_STEPS} timed step(s), the first with no warm-up")
     sf = run_self_forcing(work, data, args.profile)
     phase(f"# phase 4p: streaming_long_tuning of CausalWan-1.3B ({causal}): "
           f"a stream from step 0 in chunks of at most 6 latent frames up to "
@@ -6372,8 +6973,8 @@ def main() -> int:
     stream_run = run_streaming_long(work, data, args.profile)
     phase(f"# phase 4q: causal_cd of CausalWan-1.3B ({causal}) under "
           f"FLASH_ATTN: N {CD_METHOD['discrete_cd_N']}, guidance "
-          f"{CD_METHOD['guidance_scale']}, the EMA from step 0: 1 warm-up + "
-          f"{CD_STEPS} timed steps")
+          f"{CD_METHOD['guidance_scale']}, the EMA from step 0: {CD_STEPS} "
+          f"timed step(s), the first with no warm-up")
     cd = run_causal_cd(work, data, args.profile)
     phase("# phase 4r: LoRA serving on 4b's checkpoint and prompt: a rank-32 "
           "adapter (official names under diffusion_model.) on the 300 block "
@@ -6389,17 +6990,17 @@ def main() -> int:
     lora_run = run_lora_finetune(work, data, args.profile)
     phase(f"# phase 4t: kd ({wan}), t_list {list(KD_T_LIST)}, a "
           f"self-distillation teacher, the cache path (generate_cache over "
-          f"the shard, then steps from the cache), sparsity 0: 1 warm-up + "
-          f"{METHOD_STEPS} timed")
+          f"the shard, then steps from the cache), sparsity 0: "
+          f"{METHOD_STEPS} timed, the first with no warm-up")
     kd = run_kd(work, data, args.profile)
     phase(f"# phase 4u: anyflow_pretrain ({wan}), the r_embedder grown on a "
-          f"checkpoint without delta weights (the copy rule), VSA 0.8: 1 "
-          f"warm-up + {METHOD_STEPS} timed")
+          f"checkpoint without delta weights (the copy rule), VSA 0.8: "
+          f"{METHOD_STEPS} timed, the first with no warm-up")
     pretrain = run_anyflow_pretrain(work, data, args.profile)
     phase(f"# phase 4v: anyflow at 4n's setup ({wan}, the branch on all "
           f"three roles), a {len(ANYFLOW_METHOD['t_list_override']) - 1}-"
           f"step flow-map rollout, a generator and a critic update a step, "
-          f"sparsity 0: 1 warm-up + {METHOD_STEPS} timed")
+          f"sparsity 0: {METHOD_STEPS} timed, the first with no warm-up")
     anyflow = run_anyflow(work, data, args.profile)
     phase(f"# phase 4w: diffusion_nft ({wan.split(', on')[0]}; old and ref "
           f"as frozen copies) through build_from_config: 1 prompt x "
@@ -6422,6 +7023,17 @@ def main() -> int:
           f"Wan2.1-T2V-1.3B DiT under FLASH_ATTN, {ODE_STEPS} of the "
           f"published 48 teacher steps with guidance 6")
     preprocess = run_preprocess(work)
+    phase(f"# phase 4z: Wan2.2-TI2V-5B at full width and depth through "
+          f"VideoGenerator with pil_image=<a 704x1280 image>: "
+          f"{TI2V_SIZE['num_frames']}x{TI2V_SIZE['height']}x"
+          f"{TI2V_SIZE['width']}, {TI2V_STEPS} FlowUniPC steps with CFG, the "
+          f"first frame encoded in fp32, the clip decoded in bf16")
+    ti2v = run_ti2v(work, args.profile)
+    phase(f"# phase 4za: the Wan2.2 T2V-A14B's two experts at full width "
+          f"(40 heads of 128), {A14B_LAYERS} of 40 blocks each, through a "
+          f"WanPipeline built with transformer_2: 81x480x832, {A14B_STEPS} "
+          f"FlowUniPC steps at shift 12 with CFG")
+    a14b = run_a14b(work, args.profile)
     shutil.rmtree(work, ignore_errors=True)
     # each kernel's count comes from the path that runs it
     launches["vsa_sparse_padded_fwd"] = vsa_launches["vsa_sparse_padded_fwd"]
@@ -6521,6 +7133,18 @@ def main() -> int:
         for name, n in run["launches"].items():
             results[name].update({f"preprocess_{key}_launches": n,
                                   f"preprocess_{key}_s": run["seconds"]})
+    # K1's column-sliced form's count and the Wan2.2 phases' numbers (4z,
+    # 4za)
+    launches["flash_fwd_cols"] = ti2v["launches"]["flash_fwd_cols"]
+    results["flash_fwd_cols"].update(
+        ti2v_step_s=ti2v["step_s"], ti2v_encode_s=ti2v["encode_s"],
+        ti2v_decode_s=ti2v["decode_s"], ti2v_peak_gib=ti2v["peak_gib"])
+    for key, run in (("ti2v", ti2v), ("a14b", a14b)):
+        for name, n in run["launches"].items():
+            if n:
+                results[name].update({f"{key}_launches": n,
+                                      f"{key}_step_s": run["step_s"],
+                                      f"{key}_peak_gib": run["peak_gib"]})
     phase("# phase 5: the kernels line, the card line, the result line")
 
     kernels = []

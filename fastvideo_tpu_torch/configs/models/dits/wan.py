@@ -83,6 +83,9 @@ class WanArchConfig(DiTArchConfig):
     added_kv_proj_dim: int | None = None
     rope_max_seq_len: int = 1024
     rope_theta: float = 10000.0
+    # Wan2.2 MoE boundary, as a checkpoint's config may carry it (the
+    # denoising stage reads the pipeline config's)
+    boundary_ratio: float | None = None
     # causal Wan: latent frames an attention window holds (-1: the default
     # of 21 that ``init_caches`` takes), frames of it frozen as a sink, and
     # latent frames generated per autoregressive block

@@ -26,3 +26,14 @@ class PipelineConfig:
     vae_precision: str = "fp32"
     vae_decode_precision: str = "bf16"
     text_encoder_precisions: tuple[str, ...] = ("fp32",)
+
+    # Wan2.2 TI2V-5B: the request's image replaces latent frame 0, and its
+    # tokens take timestep 0
+    ti2v_task: bool = False
+    # Lucy Edit (the Wan2.2 5B editing model): [noise | video] on the
+    # channels and per-token (uniform) timesteps
+    lucy_edit_task: bool = False
+    # Wan2.2 MoE: the boundary (a share of the training timesteps) at which
+    # the high-noise expert hands over to the low-noise one (None: one
+    # expert)
+    boundary_ratio: float | None = None

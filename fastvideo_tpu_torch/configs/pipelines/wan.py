@@ -1,6 +1,8 @@
 """Wan pipeline configs (port of fastvideo_tpu/configs/pipelines/wan.py):
-the Wan T2V base, FastWan's 3-step DMD config, the I2V (480p, 720p) and
-V2V configs, and TurboDiffusion's T2V and I2V configs."""
+the Wan T2V base and its 720p (T2V 14B) form, FastWan's 3-step DMD config,
+the I2V (480p, 720p) and V2V configs, the Wan2.2 family (TI2V-5B, the
+T2V-A14B's two experts, Lucy Edit), and TurboDiffusion's T2V (1.3B, 14B)
+and I2V configs."""
 
 from __future__ import annotations
 
@@ -45,6 +47,11 @@ class WanT2V480PConfig(PipelineConfig):
 
 
 @dataclasses.dataclass
+class WanT2V720PConfig(WanT2V480PConfig):
+    flow_shift: float | None = 5.0
+
+
+@dataclasses.dataclass
 class WanI2V480PConfig(WanT2V480PConfig):
     pass
 
@@ -73,11 +80,45 @@ class FastWanT2V480PConfig(WanT2V480PConfig):
 
 
 @dataclasses.dataclass
+class Wan2_2_TI2V_5B_Config(WanT2V480PConfig):
+    """Wan2.2 TI2V-5B: a request's image becomes latent frame 0."""
+
+    flow_shift: float | None = 5.0
+    ti2v_task: bool = True
+
+
+@dataclasses.dataclass
+class LucyEditDevConfig(WanT2V480PConfig):
+    """Lucy Edit (the Wan2.2 5B editing model): [noise | video] on the
+    channels (the checkpoint declares in_channels 2 z_dim), the control
+    clip's posterior mode, per-token timesteps."""
+
+    flow_shift: float | None = 5.0
+    lucy_edit_task: bool = True
+
+    def __post_init__(self) -> None:
+        assert not (self.ti2v_task and self.lucy_edit_task)
+
+
+@dataclasses.dataclass
+class Wan2_2_T2V_A14B_Config(WanT2V480PConfig):
+    """Wan2.2 MoE: two experts switched at a timestep boundary."""
+
+    flow_shift: float | None = 12.0
+    boundary_ratio: float | None = 0.875
+
+
+@dataclasses.dataclass
 class TurboDiffusionT2VConfig(WanT2V480PConfig):
     """TurboDiffusion 1-4 step rCM sampling; the pipeline installs the rCM
     scheduler."""
 
     flow_shift: float | None = 3.0
+
+
+@dataclasses.dataclass
+class TurboDiffusionT2V14BConfig(TurboDiffusionT2VConfig):
+    flow_shift: float | None = 5.0
 
 
 @dataclasses.dataclass

@@ -49,6 +49,8 @@
 //    split into TF32 heads and tails by a pre-pass (fvt_flash_tf32_split,
 //    then fvt_flash_fwd_wide_tf32 and, where it splits the keys,
 //    fvt_flash_fwd_combine_f32). fvt_flash_fwd refuses this case.
+//  - K1 at heads of 640 and 1024 (the Wan2.2 VAE's attention) is
+//    flash_fwd_cols.cu's, a source of its own: this one refuses them.
 //  - fp32 at other heads, bf16 K1 with other heads (the tiny models' 16
 //    and 32), and K5 and K1 struct at heads other than 64 and 128:
 //    attn_tile.cuh's schedule, WMMA 16x16x16 (bf16) or scalar FMA (fp32)
@@ -282,6 +284,9 @@ int dispatch(const void* q, const void* k, const void* v, void* o, void* lse, in
              int H, int Sq, int Skv, int D, const long long* st, float scale, const MaskArgs& m,
              cudaStream_t s) {
   if (D % 16 != 0 || Sq <= 0 || B <= 0 || H <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  // heads of 640 and 1024 are flash_fwd_cols.cu's (K1 alone): no schedule
+  // of this source takes them
+  if (D == 640 || D == 1024) return static_cast<int>(cudaErrorInvalidValue);
   if (use_sm90(dtype, D)) {
     if (D == 64) return launch_sm90<64, kMode>(q, k, v, o, lse, B, H, Sq, Skv, st, scale, m, s);
     return launch_sm90<128, kMode>(q, k, v, o, lse, B, H, Sq, Skv, st, scale, m, s);
@@ -305,8 +310,10 @@ int dispatch(const void* q, const void* k, const void* v, void* o, void* lse, in
 
 // K1's schedule at (dtype, D): 1 the Hopper one (flash_fwd_sm90.cuh), 2 the
 // wide Hopper one (flash_fwd_wide_sm90.cuh), 3 the 3xTF32 wide one
-// (flash_fwd_wide_tf32_sm90.cuh), 0 attn_tile.cuh's.
+// (flash_fwd_wide_tf32_sm90.cuh), 4 the column-sliced one of
+// flash_fwd_cols.cu (heads of 640 and 1024), 0 attn_tile.cuh's.
 extern "C" int fvt_flash_fwd_sm90(int dtype, int D) {
+  if ((dtype == 0 || dtype == 1) && (D == 640 || D == 1024)) return 4;
   return use_sm90(dtype, D) ? 1 : (use_wide(dtype, D) ? 2 : (use_wide_tf32(dtype, D) ? 3 : 0));
 }
 

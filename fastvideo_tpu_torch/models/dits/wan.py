@@ -1,5 +1,7 @@
-"""Wan 2.1 DiT, text- and image-to-video (port of
-fastvideo_tpu/models/dits/wan.py).
+"""Wan DiT, text- and image-to-video (port of
+fastvideo_tpu/models/dits/wan.py): Wan2.1, and Wan2.2's, whose TI2V and
+Lucy Edit forms take a timestep per token (``timestep`` [B, S]) and so a
+modulation per token.
 
 With ``image_dim`` and ``added_kv_proj_dim`` set (the I2V checkpoints) the
 condition embedder projects the CLIP image tokens (``image_embedder``) and
@@ -281,13 +283,18 @@ class WanTransformerBlock(nn.Module):
                 kv_valid: int | None = None,
                 grid: tuple[int, int, int] | None = None,
                 pre_tiled: bool = False) -> torch.Tensor:
-        """temb: [B, 6, C] modulation (fp32 math)."""
+        """temb: [B, 6, C] modulation, or [B, S, 6, C] per token (Wan2.2
+        TI2V); fp32 math."""
         orig_dtype = hidden_states.dtype
         b = hidden_states.shape[0]
         n, d = self.num_heads, self.dim // self.num_heads
-        e = self.scale_shift_table.float() + temb.float()
-        shift_msa, scale_msa, gate_msa, c_shift, c_scale, c_gate = (
-            e[:, i:i + 1] for i in range(6))
+        if temb.ndim == 4:
+            e = self.scale_shift_table.float()[None] + temb.float()
+            mods = [e[:, :, i] for i in range(6)]  # each [B, S, C]
+        else:
+            e = self.scale_shift_table.float() + temb.float()
+            mods = [e[:, i:i + 1] for i in range(6)]  # each [B, 1, C]
+        shift_msa, scale_msa, gate_msa, c_shift, c_scale, c_gate = mods
 
         # 1. self-attention
         norm_hidden = self.norm1.norm_f32(hidden_states)
@@ -384,16 +391,17 @@ class WanTransformer3DModel(nn.Module):
                 timestep: torch.Tensor,
                 encoder_hidden_states_image: torch.Tensor | None = None,
                 r_timestep: torch.Tensor | None = None) -> torch.Tensor:
-        """hidden_states [B, C, T, H, W]; timestep [B] (fp32).
-        ``encoder_hidden_states_image`` [B, N, image_dim]: the CLIP image
-        tokens of an I2V model. ``r_timestep`` [B]: AnyFlow's flow-map
-        target time, read only when the config enables ``r_embedder``."""
+        """hidden_states [B, C, T, H, W]; timestep [B], or [B, S] per token
+        (S the patch grid's tokens in raster order: Wan2.2 TI2V, Lucy Edit),
+        fp32. ``encoder_hidden_states_image`` [B, N, image_dim]: the CLIP
+        image tokens of an I2V model. ``r_timestep`` [B]: AnyFlow's
+        flow-map target time, read only when the config enables
+        ``r_embedder``. Per-token modulation follows the tokens into VSA's
+        tile-major order."""
         cfg = self.config
         _, _, t, h, w = hidden_states.shape
         pt, ph, pw = cfg.patch_size
         grid = (t // pt, h // ph, w // pw)
-        if timestep.ndim != 1:
-            raise NotImplementedError("per-token timesteps are not ported")
         cos, sin = get_rotary_pos_embed_wan(grid, cfg.attention_head_dim,
                                             cfg.rope_theta,
                                             device=hidden_states.device)
@@ -407,10 +415,21 @@ class WanTransformer3DModel(nn.Module):
             cos = tile_fn(cos[None], grid, tile)[0]
             sin = tile_fn(sin[None], grid, tile)[0]
 
+        ts_seq_len = timestep.shape[1] if timestep.ndim == 2 else None
+        if ts_seq_len is not None:
+            timestep = timestep.reshape(-1)
         temb, timestep_proj, context, image = self.condition_embedder(
             timestep, encoder_hidden_states, encoder_hidden_states_image,
-            r_timestep=r_timestep)
-        timestep_proj = timestep_proj.reshape(timestep_proj.shape[0], 6, -1)
+            timestep_seq_len=ts_seq_len, r_timestep=r_timestep)
+        if ts_seq_len is not None:
+            timestep_proj = timestep_proj.reshape(*timestep_proj.shape[:2], 6,
+                                                  -1)  # [B, S, 6, C]
+            if pre_tiled:
+                timestep_proj = tile_fn(timestep_proj, grid, tile)
+                temb = tile_fn(temb, grid, tile)
+        else:
+            timestep_proj = timestep_proj.reshape(timestep_proj.shape[0], 6,
+                                                  -1)
         if image is not None:
             context = torch.cat([image, context], dim=1)
         context = context.to(x.dtype)
@@ -426,8 +445,12 @@ class WanTransformer3DModel(nn.Module):
                 x = block(x, context, timestep_proj, (cos, sin), None,
                           grid=grid, pre_tiled=pre_tiled)
 
-        e = self.scale_shift_table.float() + temb.float()[:, None]
-        x = self.norm_out(x, e[:, 0:1], e[:, 1:2])
+        if temb.ndim == 3:  # [B, S, C] per token
+            e = self.scale_shift_table.float()[None] + temb.float()[:, :, None]
+            x = self.norm_out(x, e[:, :, 0], e[:, :, 1])
+        else:
+            e = self.scale_shift_table.float() + temb.float()[:, None]
+            x = self.norm_out(x, e[:, 0:1], e[:, 1:2])
         if pre_tiled:
             x = untile_fn(x, grid, tile)
         x = self.proj_out(x)

@@ -18,6 +18,8 @@ over the arguments.
 
 from __future__ import annotations
 
+import copy
+
 import inspect
 import logging
 import os
@@ -150,10 +152,15 @@ class PipelineComponentLoader:
     @staticmethod
     def load_module(module_name: str, component_dir: str, pipeline_config,
                     device: torch.device, fastvideo_args=None):
-        if module_name == "transformer":
+        if module_name in ("transformer", "transformer_2"):
+            cfg = pipeline_config.dit_config
+            if module_name == "transformer_2":
+                # the second expert's arch goes to a copy, not over the
+                # first's
+                cfg = copy.copy(cfg)
             dit = load_model_component(component_dir, device=device,
                                        precision=pipeline_config.precision,
-                                       model_config=pipeline_config.dit_config)
+                                       model_config=cfg)
             return _maybe_quantize_transformer(dit, fastvideo_args)
         if module_name == "vae":
             return load_model_component(

@@ -21,7 +21,10 @@ same keys ``export_torch_layout`` writes into a checkpoint. A JAX
 ``CausalWanTransformer3DModel`` has the Wan DiT's parameter tree, so its
 parameters carry over by the same rules; so do the CLIP towers' (the
 vision patch embedding is a Linear in both packages, its ``class_embedding``
-and the position and token tables keep their paths).
+and the position and token tables keep their paths), and the Wan2.2 VAE's
+(its residual levels' ``resnets`` / ``downsampler`` / ``upsampler`` keep
+their paths; the ``AvgDown3D`` and ``DupUp3D`` shortcuts hold no
+parameters).
 
 The parameters may also come as the nested mapping of a JAX training
 state (``TrainingPipeline.state.params`` from ``nnx.split``, as

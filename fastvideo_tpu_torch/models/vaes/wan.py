@@ -1,5 +1,12 @@
-"""Wan 2.1 causal VAE, encoder and decoder (port of
-fastvideo_tpu/models/vaes/wan.py).
+"""Wan causal VAE, encoder and decoder (port of
+fastvideo_tpu/models/vaes/wan.py), in the Wan2.1 layout and the Wan2.2 one
+(``is_residual``, ``patch_size``): the Wan2.2 VAE folds 2x2 pixel patches
+into the channels before the encoder and unfolds them after the decoder
+(:func:`pixel_patchify`), its encoder levels are ``WanResidualDownBlock``s
+(residual blocks, a down-sampler, and an average-pool shortcut around them,
+``AvgDown3D``) and its decoder levels ``WanResidualUpBlock``s (a duplicating
+shortcut, ``DupUp3D``), and its decoder may be wider than its encoder
+(``decoder_base_dim``).
 
 Activations are channels-last (NDHWC) inside, NCDHW at the API. Every
 stride-1 CausalConv3d whose shape ``ops.conv3d.supports`` accepts runs
@@ -7,7 +14,8 @@ through ``conv3d_ndhwc`` (K3 on CUDA); the (3, 1, 1) time convs, the 1x1
 convs, the encoder's 3-channel ``conv_in`` and its stride-2 down-sampling
 convs stay plain PyTorch convs, as they are XLA convs in the JAX package.
 The mid-block attention runs through ``flash_attention`` (K1, head dim
-equal to the channel count).
+equal to the channel count: 384 in the Wan2.1 decoder, 640 in the Wan2.2
+encoder and 1024 in its decoder).
 
 Long clips decode in chunks of latent frames, a Python loop in which each
 causal conv carries its last two input frames to the next chunk
@@ -288,17 +296,162 @@ class WanUpBlock(nn.Module):
         return x
 
 
+def pixel_patchify(x: torch.Tensor, p: int | None) -> torch.Tensor:
+    """[B, C, T, H, W] -> [B, C p p, T, H / p, W / p], the channel order
+    (c, w-sub, h-sub)."""
+    if not p or p == 1:
+        return x
+    b, c, t, h, w = x.shape
+    x = x.reshape(b, c, t, h // p, p, w // p, p).permute(0, 1, 6, 4, 2, 3, 5)
+    return x.reshape(b, c * p * p, t, h // p, w // p)
+
+
+def pixel_unpatchify(x: torch.Tensor, p: int | None) -> torch.Tensor:
+    """The inverse of :func:`pixel_patchify`."""
+    if not p or p == 1:
+        return x
+    b, cpp, t, h, w = x.shape
+    c = cpp // (p * p)
+    x = x.reshape(b, c, p, p, t, h, w).permute(0, 1, 4, 5, 3, 6, 2)
+    return x.reshape(b, c, t, h * p, w * p)
+
+
+class AvgDown3D(nn.Module):
+    """Space(/time)-to-depth average-pool shortcut: groups of ``factor_t``
+    frames (zero frames in front to fill the first) and ``factor_s`` x
+    ``factor_s`` pixels fold into the channels (channel-major order), and
+    each run of ``group_size`` of those channels is averaged."""
+
+    def __init__(self, in_channels: int, out_channels: int, factor_t: int,
+                 factor_s: int = 1):
+        super().__init__()
+        self.out_channels = out_channels
+        self.factor_t = factor_t
+        self.factor_s = factor_s
+        self.factor = factor_t * factor_s * factor_s
+        assert in_channels * self.factor % out_channels == 0
+        self.group_size = in_channels * self.factor // out_channels
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        ft, fs = self.factor_t, self.factor_s
+        b, t, h, w, c = x.shape
+        pad_t = (ft - t % ft) % ft
+        if pad_t:
+            x = F.pad(x, (0, 0, 0, 0, 0, 0, pad_t, 0))
+            t += pad_t
+        x = x.reshape(b, t // ft, ft, h // fs, fs, w // fs, fs, c)
+        x = x.permute(0, 1, 3, 5, 7, 2, 4, 6).reshape(
+            b, t // ft, h // fs, w // fs, self.out_channels, self.group_size)
+        return x.mean(dim=-1)
+
+
+class DupUp3D(nn.Module):
+    """Depth-to-space duplicating shortcut: each channel repeated, the
+    copies unfolded into ``factor_t`` frames and ``factor_s`` x
+    ``factor_s`` pixels; a first chunk (``first_len``) drops the
+    ``factor_t - 1`` duplicated leading frames."""
+
+    def __init__(self, in_channels: int, out_channels: int, factor_t: int,
+                 factor_s: int = 1):
+        super().__init__()
+        self.out_channels = out_channels
+        self.factor_t = factor_t
+        self.factor_s = factor_s
+        factor = factor_t * factor_s * factor_s
+        assert out_channels * factor % in_channels == 0
+        self.repeats = out_channels * factor // in_channels
+
+    def forward(self, x: torch.Tensor, first_len: int = 0) -> torch.Tensor:
+        ft, fs = self.factor_t, self.factor_s
+        b, t, h, w, _ = x.shape
+        x = x.repeat_interleave(self.repeats, dim=-1)
+        x = x.reshape(b, t, h, w, self.out_channels, ft, fs, fs)
+        x = x.permute(0, 1, 5, 2, 6, 3, 7, 4).reshape(
+            b, t * ft, h * fs, w * fs, self.out_channels)
+        if first_len:
+            x = x[:, ft - 1:]
+        return x
+
+
+class WanResidualDownBlock(nn.Module):
+    """A Wan2.2 encoder level: ``num_res_blocks`` residual blocks and a
+    down-sampler (``down_flag``), with an ``AvgDown3D`` shortcut of the
+    level's input added at the end."""
+
+    def __init__(self, in_dim: int, out_dim: int, num_res_blocks: int,
+                 temperal_downsample: bool = False, down_flag: bool = False,
+                 *, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.avg_shortcut = AvgDown3D(in_dim, out_dim,
+                                      factor_t=2 if temperal_downsample else 1,
+                                      factor_s=2 if down_flag else 1)
+        self.resnets = nn.ModuleList([
+            WanResidualBlock(in_dim if i == 0 else out_dim, out_dim, **kw)
+            for i in range(num_res_blocks)
+        ])
+        self.downsampler = None
+        if down_flag:
+            mode = "downsample3d" if temperal_downsample else "downsample2d"
+            self.downsampler = WanResample(out_dim, mode, **kw)
+
+    def forward(self, x: torch.Tensor, first_len: int = 1,
+                ctx: StreamCache | None = None) -> torch.Tensor:
+        shortcut = self.avg_shortcut(x)
+        for resnet in self.resnets:
+            x = resnet(x, ctx)
+        if self.downsampler is not None:
+            x = self.downsampler(x, first_len=first_len, ctx=ctx)
+        return x + shortcut
+
+
+class WanResidualUpBlock(nn.Module):
+    """A Wan2.2 decoder level: ``num_res_blocks + 1`` residual blocks and an
+    up-sampler to ``out_dim`` channels (``up_flag``), with a ``DupUp3D``
+    shortcut of the level's input added at the end."""
+
+    def __init__(self, in_dim: int, out_dim: int, num_res_blocks: int,
+                 temperal_upsample: bool = False, up_flag: bool = False, *,
+                 device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.avg_shortcut = (DupUp3D(in_dim, out_dim,
+                                     factor_t=2 if temperal_upsample else 1,
+                                     factor_s=2) if up_flag else None)
+        self.resnets = nn.ModuleList([
+            WanResidualBlock(in_dim if i == 0 else out_dim, out_dim, **kw)
+            for i in range(num_res_blocks + 1)
+        ])
+        self.upsampler = None
+        if up_flag:
+            mode = "upsample3d" if temperal_upsample else "upsample2d"
+            self.upsampler = WanResample(out_dim, mode,
+                                         upsample_out_dim=out_dim, **kw)
+
+    def forward(self, x: torch.Tensor, first_len: int = 1,
+                ctx: StreamCache | None = None) -> torch.Tensor:
+        x_copy = x
+        for resnet in self.resnets:
+            x = resnet(x, ctx)
+        if self.upsampler is not None:
+            x = self.upsampler(x, first_len=first_len, ctx=ctx)
+        if self.avg_shortcut is not None:
+            x = x + self.avg_shortcut(x_copy, first_len=first_len)
+        return x
+
+
 class WanEncoder3d(nn.Module):
-    """Pixel -> latent pyramid (Wan2.1 flat layout): per level
+    """Pixel -> latent pyramid. Wan2.1 flat layout: per level
     ``num_res_blocks`` residual blocks (an attention block after each at
     the scales in ``attn_scales``), then a down-sampler except at the last
-    level; the mid block; RMSNorm, SiLU and ``conv_out`` to 2 * z_dim."""
+    level. Wan2.2 (``is_residual``): one ``WanResidualDownBlock`` a level.
+    Then the mid block; RMSNorm, SiLU and ``conv_out`` to 2 * z_dim."""
 
     def __init__(self, in_channels: int, dim: int, z_dim: int,
                  dim_mult: tuple[int, ...], num_res_blocks: int,
                  attn_scales: tuple[float, ...],
-                 temperal_downsample: tuple[bool, ...], *, device=None,
-                 dtype=None):
+                 temperal_downsample: tuple[bool, ...],
+                 is_residual: bool = False, *, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         dims = [dim * u for u in [1, *dim_mult]]
@@ -307,6 +460,14 @@ class WanEncoder3d(nn.Module):
         scale = 1.0
         for i, (in_dim, out_dim) in enumerate(zip(dims[:-1], dims[1:],
                                                   strict=True)):
+            if is_residual:
+                last = i == len(dim_mult) - 1
+                blocks.append(WanResidualDownBlock(
+                    in_dim, out_dim, num_res_blocks,
+                    temperal_downsample=(temperal_downsample[i]
+                                         if not last else False),
+                    down_flag=not last, **kw))
+                continue
             for _ in range(num_res_blocks):
                 blocks.append(WanResidualBlock(in_dim, out_dim, **kw))
                 if scale in attn_scales:
@@ -331,7 +492,7 @@ class WanEncoder3d(nn.Module):
         for block in self.down_blocks:
             if isinstance(block, WanResidualBlock):
                 x = block(x, ctx)
-            elif isinstance(block, WanResample):
+            elif isinstance(block, (WanResample, WanResidualDownBlock)):
                 x = block(x, first_len=first_len, ctx=ctx)
                 if x.shape[1] == 0:
                     return x
@@ -342,23 +503,34 @@ class WanEncoder3d(nn.Module):
 
 
 class WanDecoder3d(nn.Module):
-    """Latent -> pixel pyramid (Wan2.1 layout)."""
+    """Latent -> pixel pyramid: the Wan2.1 layout's ``WanUpBlock``s (each
+    level after the first takes half its width from an up-sampler), or
+    Wan2.2's ``WanResidualUpBlock``s (``is_residual``)."""
 
     def __init__(self, dim: int, z_dim: int, dim_mult: tuple[int, ...],
                  num_res_blocks: int, temperal_upsample: tuple[bool, ...],
-                 out_channels: int = 3, *, device=None, dtype=None):
+                 out_channels: int = 3, is_residual: bool = False, *,
+                 device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         dims = [dim * u for u in [dim_mult[-1], *dim_mult[::-1]]]
         self.conv_in = CausalConv3d(z_dim, dims[0], 3, padding=1, **kw)
         self.mid_block = WanMidBlock(dims[0], **kw)
-        up_blocks = []
+        up_blocks: list[nn.Module] = []
         for i, (in_dim, out_dim) in enumerate(zip(dims[:-1], dims[1:],
                                                   strict=True)):
+            up_flag = i != len(dim_mult) - 1
+            if is_residual:
+                up_blocks.append(WanResidualUpBlock(
+                    in_dim, out_dim, num_res_blocks,
+                    temperal_upsample=(temperal_upsample[i] if up_flag
+                                       else False),
+                    up_flag=up_flag, **kw))
+                continue
             if i > 0:
                 in_dim = in_dim // 2
             mode = None
-            if i != len(dim_mult) - 1:
+            if up_flag:
                 mode = "upsample3d" if temperal_upsample[i] else "upsample2d"
             up_blocks.append(WanUpBlock(in_dim, out_dim, num_res_blocks, mode,
                                         **kw))
@@ -400,8 +572,10 @@ class DiagonalGaussianDistribution:
 
 
 class AutoencoderKLWan(nn.Module):
-    """Wan 2.1 VAE; the API is NCDHW (the posterior of :meth:`encode` is
-    channels-last, as in the JAX package)."""
+    """Wan VAE (2.1, or 2.2 with ``is_residual`` and ``patch_size``); the
+    API is NCDHW (the posterior of :meth:`encode` is channels-last, as in
+    the JAX package). With ``patch_size`` the configured ``in_channels`` /
+    ``out_channels`` are the patchified counts (3 p^2)."""
 
     # a checkpoint may hold the decoder half alone, as the JAX loader
     # accepts: these parts then load as None (``encode`` refuses)
@@ -409,17 +583,13 @@ class AutoencoderKLWan(nn.Module):
 
     def __init__(self, config: WanVAEArchConfig, *, device=None, dtype=None):
         super().__init__()
-        if config.is_residual or config.patch_size:
-            raise NotImplementedError(
-                "the Wan2.2 VAE layout (is_residual, patch_size) is not "
-                "ported: ROADMAP Queue 1, the Wan2.2 item")
         kw = dict(device=device, dtype=dtype)
         self.config = config
         self.z_dim = config.z_dim
         self.encoder = WanEncoder3d(
             config.in_channels, config.base_dim, config.z_dim * 2,
             config.dim_mult, config.num_res_blocks, config.attn_scales,
-            config.temperal_downsample, **kw)
+            config.temperal_downsample, config.is_residual, **kw)
         self.quant_conv = CausalConv3d(config.z_dim * 2, config.z_dim * 2, 1,
                                        **kw)
         self.post_quant_conv = CausalConv3d(config.z_dim, config.z_dim, 1, **kw)
@@ -427,7 +597,7 @@ class AutoencoderKLWan(nn.Module):
             config.decoder_base_dim or config.base_dim, config.z_dim,
             config.dim_mult, config.num_res_blocks,
             tuple(config.temperal_downsample[::-1]), config.out_channels,
-            **kw)
+            config.is_residual, **kw)
 
     def _latent_stats(self, latents: torch.Tensor
                       ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -453,15 +623,17 @@ class AutoencoderKLWan(nn.Module):
         (channels-last). Frame 0 encodes alone, then ``chunk_frames``
         frames at a time (``scale_factor_temporal`` by default; a multiple
         of it), each conv carrying its causal context from the chunk
-        before; ``chunk_frames`` >= T - 1 encodes the clip in one pass."""
+        before; ``chunk_frames`` >= T - 1 encodes the clip in one pass, as
+        does a Wan2.2-layout clip of other than 1 + ``scale_factor_temporal``
+        k frames. A ``patch_size`` VAE patchifies the pixels first."""
         if self.encoder is None:
             raise RuntimeError("this VAE was loaded from a checkpoint "
                                "without its encoder half")
         step = self.config.scale_factor_temporal
         chunk = step if chunk_frames is None else int(chunk_frames)
-        x = x.permute(0, 2, 3, 4, 1)
+        x = pixel_patchify(x, self.config.patch_size).permute(0, 2, 3, 4, 1)
         t = x.shape[1]
-        if chunk >= t - 1:
+        if chunk >= t - 1 or (self.config.is_residual and (t - 1) % step):
             out = self.encoder(x)
         else:
             if chunk <= 0 or chunk % step:
@@ -489,9 +661,10 @@ class AutoencoderKLWan(nn.Module):
     def decode(self, z: torch.Tensor, *,
                chunk_frames: int | None = None) -> torch.Tensor:
         """z [B, C, T, H, W] (denormalized) -> pixels [B, 3, T', H', W'] in
-        fp32, clipped to [-1, 1]. ``chunk_frames`` latent frames decode at a
-        time; by default clips whose full-resolution activations pass ~7e8
-        elements are chunked."""
+        fp32 (unpatchified where the VAE has ``patch_size``), clipped to
+        [-1, 1] where the config says ``clip_output``. ``chunk_frames``
+        latent frames decode at a time; by default clips whose
+        full-resolution activations pass ~7e8 elements are chunked."""
         x = self.post_quant_conv(z.permute(0, 2, 3, 4, 1))
         b, t, h, w, _ = x.shape
         if chunk_frames is None:
@@ -502,7 +675,8 @@ class AutoencoderKLWan(nn.Module):
             out = self._decode_chunked(x, max(chunk_frames, 1))
         else:
             out = self.decoder(x)
-        out = out.float().permute(0, 4, 1, 2, 3)
+        out = pixel_unpatchify(out.float().permute(0, 4, 1, 2, 3),
+                               self.config.patch_size)
         if self.config.clip_output:
             out = out.clamp(-1.0, 1.0)
         return out
@@ -516,6 +690,68 @@ class AutoencoderKLWan(nn.Module):
                                      ctx=ctx))
         return torch.cat(outs, dim=1)
 
+    def spatial_tiled_decode(self, z: torch.Tensor, *,
+                             tile_latent_min: tuple[int, int] = (32, 32),
+                             tile_latent_stride: tuple[int, int] = (24, 24)
+                             ) -> torch.Tensor:
+        """Overlapping spatial tiles of z [B, C, T, h, w] (edge-padded to
+        whole tiles), decoded as one batch and crossfaded with linear ramps
+        over the overlap, then cut to the clip's pixels (the spatial factor
+        times ``patch_size``). A clip within one tile decodes whole."""
+        b, _, _, lh, lw = z.shape
+        th, tw = tile_latent_min
+        sh, sw = tile_latent_stride
+        if lh <= th and lw <= tw:
+            return self.decode(z)
+        n_h = max(1, -(-(lh - th) // sh) + 1)
+        n_w = max(1, -(-(lw - tw) // sw) + 1)
+        pad_h = (n_h - 1) * sh + th - lh
+        pad_w = (n_w - 1) * sw + tw - lw
+        zp = F.pad(z, (0, pad_w, 0, pad_h, 0, 0), mode="replicate") if (
+            pad_h or pad_w) else z
+        tiles = [zp[..., i * sh:i * sh + th, j * sw:j * sw + tw]
+                 for i in range(n_h) for j in range(n_w)]
+        dec = self.decode(torch.cat(tiles, dim=0))
+        sr = self.config.spatial_compression_ratio * (
+            self.config.patch_size or 1)
+        dec_tiles = [dec[k * b:(k + 1) * b] for k in range(n_h * n_w)]
+
+        def blend(a, bb, ext, axis):
+            ext = min(ext, a.shape[axis], bb.shape[axis])
+            if ext <= 0:
+                return bb
+            shape = [1] * a.ndim
+            shape[axis] = ext
+            ramp = (torch.arange(ext, dtype=torch.float32, device=a.device)
+                    / ext).reshape(shape)
+            mixed = (a.narrow(axis, a.shape[axis] - ext, ext) * (1 - ramp)
+                     + bb.narrow(axis, 0, ext) * ramp)
+            return torch.cat([mixed, bb.narrow(axis, ext,
+                                               bb.shape[axis] - ext)],
+                             dim=axis)
+
+        rows = []
+        for i in range(n_h):
+            row = prev = None
+            for j in range(n_w):
+                tile = dec_tiles[i * n_w + j]
+                if row is None:
+                    row = tile
+                else:
+                    row = torch.cat([row[..., :j * sw * sr],
+                                     blend(prev, tile, (tw - sw) * sr, 4)],
+                                    dim=4)
+                prev = tile
+            rows.append(row)
+        out = prev = None
+        for i, row in enumerate(rows):
+            if out is None:
+                out = row
+            else:
+                out = torch.cat([out[:, :, :, :i * sh * sr],
+                                 blend(prev, row, (th - sh) * sr, 3)], dim=3)
+            prev = row
+        return out[:, :, :, :lh * sr, :lw * sr]
 
     def streaming_decode(self, z: torch.Tensor,
                          cache: list[torch.Tensor] | None,

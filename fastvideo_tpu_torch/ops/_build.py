@@ -18,7 +18,8 @@ backward sources hold a dQ and a dK/dV kernel each, ``flash_bwd_dq`` /
 ``flash_bwd_dkv_reduce`` adds a split dK/dV launch's partial sums,
 ``flash_fwd_combine`` merges a split wide K1 launch's partials, and K1's
 fp32 form at a head of 384 counts as ``flash_fwd_tf32``, its pre-pass as
-``flash_fwd_tf32_split``).
+``flash_fwd_tf32_split``; K1 at heads of 640 and 1024 is a source of its
+own, ``flash_fwd_cols``).
 
 The sources with Hopper schedules (the flash and sparse attention kernels,
 the convs K3 and K4) compile with ``-Xptxas -v``; :func:`ptxas_report` reads back
@@ -43,7 +44,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 # one shared library per csrc/<name>.cu
 SOURCES = ("flash_fwd", "vsa_sparse_fwd", "vsa_sparse_padded_fwd", "conv3d",
-           "conv3d_int8", "flash_bwd", "vsa_sparse_bwd", "dyn_sparse_fwd")
+           "conv3d_int8", "flash_bwd", "vsa_sparse_bwd", "dyn_sparse_fwd",
+           "flash_fwd_cols")
 # counted kernels -> the source that holds them (each backward source holds
 # a dQ and a dK/dV kernel, counted apart; dyn_sparse_fwd.cu holds K9a and
 # K9b, the query-tile form; K1 struct and K6 struct, the causal Wan
@@ -60,12 +62,13 @@ SOURCE_OF = {**{n: n for n in SOURCES[:5]}, "flash_fwd_kv_mask": "flash_fwd",
              "flash_bwd_dkv_reduce": "flash_bwd",
              "flash_fwd_combine": "flash_fwd",
              "flash_fwd_tf32": "flash_fwd",
-             "flash_fwd_tf32_split": "flash_fwd"}
+             "flash_fwd_tf32_split": "flash_fwd",
+             "flash_fwd_cols": "flash_fwd_cols"}
 KERNELS = tuple(SOURCE_OF)
 # sources whose ptxas resource report is kept beside their library
 PTXAS_VERBOSE = ("flash_fwd", "flash_bwd", "vsa_sparse_bwd", "dyn_sparse_fwd",
                  "vsa_sparse_padded_fwd", "conv3d", "vsa_sparse_fwd",
-                 "conv3d_int8")
+                 "conv3d_int8", "flash_fwd_cols")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -252,6 +255,15 @@ _SIGNATURES = {
     "fvt_flash_fwd_wide_tf32": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 +
     [ctypes.c_longlong] * 6 + [ctypes.c_float] + [ctypes.c_int] * 3 +
     [ctypes.c_void_p],
+    # dtype, D: 1 when K1 runs the column-sliced schedule; dtype: its
+    # shared memory
+    "fvt_flash_fwd_cols_route": [ctypes.c_int] * 2,
+    "fvt_flash_fwd_cols_smem": [ctypes.c_int],
+    # q, k, v, o, lse, dtype, B, H, Sq, Skv, D, 12 strides, scale, causal,
+    # kv_valid, stream
+    "fvt_flash_fwd_cols": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 +
+    [ctypes.c_longlong] * 12 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                                ctypes.c_void_p],
     # D: 1 when the flash backward runs its Hopper schedule
     "fvt_flash_bwd_sm90": [ctypes.c_int],
     # D, mode (0 K1, 1 K5, 2 K1 struct), Skv: the Hopper forward's dynamic

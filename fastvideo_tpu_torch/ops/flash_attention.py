@@ -74,6 +74,16 @@ them into the fp32 output. :func:`flash_attention_tf32x3_plain` emulates
 the kernel's arithmetic on the CPU (the tests hold it to the JAX kernel);
 the main path never calls it.
 
+K1 at a head of 640 or 1024 (bf16 or fp32), the Wan2.2 VAE's mid-block
+attention, runs a fifth schedule (``csrc/flash_fwd_cols.cu``,
+:func:`flash_schedule`'s "cols", its own counter ``flash_fwd_cols``): a
+block owns 64 query rows and 128 of O's columns, builds the scores over the
+whole head from pieces of Q and K streamed through shared memory, and adds
+P V for its columns alone (a head that wide fits no block whole). bf16 runs
+the products on WMMA, fp32 as fp32 FMAs. Its plain version is
+:func:`flash_attention_plain`, counted under the same name. No other
+schedule takes these heads: ``fvt_flash_fwd`` refuses them.
+
 Numerics follow the JAX kernel: fp32 scores and softmax statistics, the
 probabilities rounded to the value dtype before the P@V product, and a row
 with no valid key outputs 0. Masked keys are excluded exactly (-inf), so
@@ -102,6 +112,7 @@ NAME_BWD_REDUCE = "flash_bwd_dkv_reduce"
 NAME_COMBINE = "flash_fwd_combine"
 NAME_TF32 = "flash_fwd_tf32"
 NAME_TF32_SPLIT = "flash_fwd_tf32_split"
+NAME_COLS = "flash_fwd_cols"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the Hopper schedule's heads, and the keys a dK/dV block owns and the query
 # rows it streams a step (csrc/flash_bwd_sm90.cuh: kBwdOwn, kBwdStep)
@@ -124,6 +135,12 @@ WIDE_MAX_SPLITS = 8
 # whole chunks; wide_splits counts chunks of WIDE_CHUNK_KEYS, the same)
 TF32_BLOCK_ROWS = 64
 TF32_CHUNK_KEYS = 32
+# the column-sliced schedule (csrc/flash_fwd_cols.cu: kBQ, kBK, kDC): its
+# heads (bf16 and fp32), query rows a block, keys a chunk, O columns a block
+COLS_HEADS = (640, 1024)
+COLS_BLOCK_ROWS = 64
+COLS_CHUNK_KEYS = 64
+COLS_BLOCK_COLS = 128
 
 
 def flash_schedule(dtype: torch.dtype, d: int) -> str:
@@ -131,8 +148,11 @@ def flash_schedule(dtype: torch.dtype, d: int) -> str:
     "sm90" (wgmma and TMA) for bf16 with a head of 64 or 128 (K5 and K1
     struct too), "sm90_wide" for bf16 with a head of 384 (the VAE's
     attention; K1 only), "sm90_wide_tf32" for fp32 with a head of 384 (the
-    VAE attention of an fp32 decode; K1 only), else "tile" (the first,
-    WMMA or scalar, schedule)."""
+    VAE attention of an fp32 decode; K1 only), "cols" for bf16 or fp32 with
+    a head of 640 or 1024 (the Wan2.2 VAE's attention; K1 only), else
+    "tile" (the first, WMMA or scalar, schedule)."""
+    if dtype in (torch.bfloat16, torch.float32) and d in COLS_HEADS:
+        return "cols"
     if dtype == torch.bfloat16 and d in SM90_HEADS:
         return "sm90"
     if dtype == torch.bfloat16 and d == WIDE_HEAD:
@@ -494,7 +514,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Plain PyTorch version of K1 (and K1 struct, with ``chunk_tokens``):
     returns (out [B,Sq,H,D], lse [B,H,Sq])."""
     check_struct(chunk_tokens, tf_clean_len)
-    _build.count_plain(NAME_STRUCT if chunk_tokens > 0 else NAME)
+    _build.count_plain(NAME_STRUCT if chunk_tokens > 0 else
+                       NAME_COLS if q.shape[-1] in COLS_HEADS else NAME)
     skv = k.shape[1]
     kv_valid = skv if kv_valid is None else kv_valid
     outs, lses = [], []
@@ -667,14 +688,35 @@ def _flash_attention_tf32_cuda(q, k, v, *, scale, causal, kv_valid):
     return out, lse
 
 
+def _flash_attention_cols_cuda(q, k, v, dtype, *, scale, causal, kv_valid):
+    """K1 on the column-sliced schedule (heads of 640 and 1024)."""
+    b, sq, h, d = q.shape
+    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    _build.launch(NAME_COLS, "fvt_flash_fwd_cols", q.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), out.data_ptr(), lse.data_ptr(), dtype, b, h,
+                  sq, k.shape[1], d, *bhs(q), *bhs(k), *bhs(v), *bhs(out),
+                  float(scale), int(causal), int(kv_valid),
+                  _build.stream_ptr(q))
+    return out, lse
+
+
 def _flash_attention_cuda(q, k, v, *, scale, causal, kv_valid, chunk_tokens,
                           tf_clean_len):
     struct = chunk_tokens > 0
-    name = NAME_STRUCT if struct else NAME
-    dtype = _check_cuda_operands(name, q, k, v)
-    q, k, v = attn_operand(q), attn_operand(k), attn_operand(v)
     b, sq, h, d = q.shape
     schedule = flash_schedule(q.dtype, d)
+    if schedule == "cols" and struct:
+        raise _build.KernelError(
+            f"{NAME_STRUCT}: no schedule takes a head of {d} (the "
+            f"column-sliced one, heads {COLS_HEADS}, is K1's alone)")
+    name = (NAME_STRUCT if struct else
+            NAME_COLS if schedule == "cols" else NAME)
+    dtype = _check_cuda_operands(name, q, k, v)
+    q, k, v = attn_operand(q), attn_operand(k), attn_operand(v)
+    if schedule == "cols":
+        return _flash_attention_cols_cuda(q, k, v, dtype, scale=scale,
+                                          causal=causal, kv_valid=kv_valid)
     if not struct and schedule == "sm90_wide":
         return _flash_attention_wide_cuda(q, k, v, scale=scale,
                                           causal=causal, kv_valid=kv_valid)

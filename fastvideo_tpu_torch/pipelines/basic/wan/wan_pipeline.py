@@ -1,6 +1,11 @@
 """Wan pipelines (port of fastvideo_tpu/pipelines/basic/wan/wan_pipeline.py):
 WanPipeline, the 3-step DMD WanDMDPipeline, the image-to-video
-WanImageToVideoPipeline and the self-forcing WanCausalDMDPipeline. Wan uses
+WanImageToVideoPipeline and the self-forcing WanCausalDMDPipeline.
+WanPipeline also runs the Wan2.2 TI2V-5B (its DenoisingStage gets the VAE
+for the first-frame encode) and, where ``transformer_2`` is loaded, the
+T2V-A14B's two experts: WanPipeline's modules do not name
+``transformer_2``, so ``from_pretrained`` loads one expert, as in JAX, and
+a caller passes ``required_config_modules`` to load both. Wan uses
 FlowUniPC timesteps and the causal Wan flow-match Euler, whatever scheduler
 the checkpoint names. Each takes LoRA adapters (``LoRAPipelineMixin``)."""
 
@@ -53,7 +58,8 @@ class WanPipeline(LoRAPipelineMixin, ComposedPipelineBase):
             cfg.vae_config, device=dev))
         self.add_stage("denoising_stage", DenoisingStage(
             self.get_module("transformer"), self.get_module("scheduler"), cfg,
-            device=dev))
+            device=dev, transformer_2=self.get_module("transformer_2"),
+            vae=self.get_module("vae") if cfg.ti2v_task else None))
         self.add_stage("decoding_stage", DecodingStage(
             self.get_module("vae"), cfg, device=dev))
 

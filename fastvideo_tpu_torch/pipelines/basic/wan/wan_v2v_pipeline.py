@@ -3,7 +3,9 @@ fastvideo_tpu/pipelines/basic/wan/wan_v2v_pipeline.py): the Wan stages with
 a VideoVAEEncodingStage before denoising that turns the source clip into
 the channel-concat control latent (a seeded posterior sample), and a CLIP
 reference-image stage in front of it where the pipeline has an image
-encoder. ``LucyEditPipeline`` (Lucy Edit, on the Wan2.2 5B VAE) raises."""
+encoder. ``LucyEditPipeline`` (Lucy Edit, the Wan2.2 5B editing model)
+takes the posterior's mode; its config feeds [noise | video_latent] and a
+timestep per token to the DiT."""
 
 from __future__ import annotations
 
@@ -36,12 +38,10 @@ class WanVideoToVideoPipeline(WanPipeline):
 
 
 class LucyEditPipeline(WanVideoToVideoPipeline):
-    """Lucy Edit: not ported (its checkpoints take the Wan2.2 VAE)."""
+    """Lucy Edit (decart-ai/Lucy-Edit-Dev): no CLIP components, the
+    control clip's posterior mode ("argmax")."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "LucyEditPipeline is not ported: Lucy Edit runs on the Wan2.2 "
-            "VAE, ROADMAP Queue 1, the Wan2.2 item")
+    _control_sample_mode = "argmax"
 
 
 EntryClass = WanVideoToVideoPipeline

@@ -21,14 +21,20 @@ logger = logging.getLogger(__name__)
 
 
 class ComposedPipelineBase:
+    # the modules the pipeline loads from the checkpoint; a caller may name
+    # others (``required_config_modules``: the T2V-A14B's ``transformer_2``,
+    # which no pipeline class names, as in JAX)
     _required_config_modules: list[str] = []
 
     def __init__(self, model_path: str, fastvideo_args: FastVideoArgs,
-                 device: torch.device):
+                 device: torch.device,
+                 required_config_modules: list[str] | None = None):
         self.model_path = model_path
         self.fastvideo_args = fastvideo_args
         self.pipeline_config = fastvideo_args.pipeline_config
         self.device = device
+        if required_config_modules is not None:
+            self._required_config_modules = list(required_config_modules)
         self.modules: dict[str, Any] = {}
         self._stages: list[PipelineStage] = []
         self.load_modules()

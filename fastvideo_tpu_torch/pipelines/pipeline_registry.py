@@ -1,6 +1,6 @@
 """model_index ``_class_name`` -> pipeline class (port of
-fastvideo_tpu/pipelines/pipeline_registry.py, the Wan T2V, I2V and V2V,
-causal Wan and TurboDiffusion entries; Lucy Edit's class raises)."""
+fastvideo_tpu/pipelines/pipeline_registry.py, the Wan T2V, I2V, V2V and Lucy
+Edit, causal Wan and TurboDiffusion entries)."""
 
 from __future__ import annotations
 

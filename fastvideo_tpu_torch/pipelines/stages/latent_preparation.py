@@ -1,7 +1,9 @@
 """Latent preparation (port of
 fastvideo_tpu/pipelines/stages/latent_preparation.py): initial noise drawn
 per seed from a CPU ``torch.Generator`` (diffusers ``randn_tensor``
-semantics), so the latents equal the JAX package's at a fixed seed."""
+semantics), so the latents equal the JAX package's at a fixed seed. The
+latent grid is the frame divided by the VAE's ``scale_factor_spatial``
+times its ``patch_size`` (Wan2.2), as in JAX."""
 
 from __future__ import annotations
 
@@ -35,6 +37,10 @@ class LatentPreparationStage(PipelineStage):
             arch = self.vae_config.arch_config
             sf_t, sf_s, z_dim = (arch.scale_factor_temporal,
                                  arch.scale_factor_spatial, arch.z_dim)
+            # JAX's rule: the config's spatial factor times the patch (a
+            # config that counts the patch in its factor divides twice)
+            if arch.patch_size:
+                sf_s *= arch.patch_size
         num_latent_frames = (batch.num_frames - 1) // sf_t + 1
         batch_size = len(batch.seeds or [0]) * (
             len(batch.prompt) if isinstance(batch.prompt, list) else 1)

@@ -172,14 +172,32 @@ def test_per_request_sparsity_overrides_the_args(models, plain_cfg):
                                    {"keyboard_cond": [1]},
                                    {"boundary_ratio": 0.9}])
 def test_unported_inputs_raise(models, extra):
+    """Camera, action and embedded-guidance inputs raise. A request's
+    ``boundary_ratio`` is carried and not read, as in JAX (the stage reads
+    the config's): the step equals the step without it."""
     _, tmodel, data = models
     stage = DenoisingStage(tmodel, FlowUniPCMultistepScheduler(),
                            WanT2V480PConfig(), device=torch.device("cpu"))
-    batch = ForwardBatch(latents=torch.from_numpy(data["latents"]),
-                         prompt_embeds=[torch.from_numpy(data["pos"])],
-                         timesteps=[999], extra=extra)
+
+    def batch(extra):
+        return ForwardBatch(latents=torch.from_numpy(data["latents"]),
+                            prompt_embeds=[torch.from_numpy(data["pos"])],
+                            timesteps=[999], extra=extra)
+
+    if "boundary_ratio" in extra:
+        outs = []
+        for ex in (extra, {}):
+            sched = FlowUniPCMultistepScheduler(shift=3.0)
+            sched.set_timesteps(1)
+            stage.scheduler = sched
+            b = batch(ex)
+            b.timesteps = sched.timesteps
+            with torch.no_grad():
+                outs.append(stage.forward(b, FastVideoArgs()).latents)
+        assert torch.equal(outs[0], outs[1])
+        return
     with pytest.raises(NotImplementedError, match=next(iter(extra))):
-        stage.forward(batch, FastVideoArgs())
+        stage.forward(batch(extra), FastVideoArgs())
 
 
 def test_image_and_video_inputs_are_ported():

@@ -93,8 +93,10 @@ def test_wan_unipc_cfg_matches_jax(backend, frames, kwargs, tmp_path,
 
 
 def test_unported_wan_names_raise(tmp_path):
-    """The Wan-family names the port lacks raise; the I2V, V2V and
-    TurboDiffusion I2V names resolve to their configs, as in JAX."""
+    """No Wan-family name raises any more: the Wan2.2, T2V 14B, Lucy Edit
+    and TurboDiffusion 14B names resolve to the JAX registry's configs
+    (``from_pretrained`` then looks for the checkpoint), as do the I2V,
+    V2V and TurboDiffusion I2V names."""
     from fastvideo_tpu.registry import (
         get_pipeline_config_cls_for_name as jax_config_for)
 
@@ -103,7 +105,9 @@ def test_unported_wan_names_raise(tmp_path):
 
     for name in ("Wan2.2-T2V-A14B-Diffusers", "Wan2.1-T2V-14B-Diffusers",
                  "TurboDiffusion-T2V-14B-720P", "Lucy-Edit-Dev"):
-        with pytest.raises(NotImplementedError, match="not ported"):
+        ours = get_pipeline_config_cls_for_name(name)
+        assert ours.__name__ == jax_config_for(name).__name__, name
+        with pytest.raises(FileNotFoundError, match="model_index.json"):
             VideoGenerator.from_pretrained(str(tmp_path / name), device="cpu")
     for name in ("Wan2.1-I2V-14B-480P-Diffusers",
                  "Wan2.1-I2V-14B-720P-Diffusers", "Wan2.1-V2V-14B",

@@ -32,6 +32,11 @@ def _source(name: str) -> str:
     (torch.float32, 64, "tile"),      # fp32 forms
     (torch.float32, 128, "tile"),
     (torch.float32, 384, "sm90_wide_tf32"),  # an fp32 decode
+    (torch.bfloat16, 1024, "cols"),   # the Wan2.2 VAE's decoder attention
+    (torch.float32, 640, "cols"),     # and its encoder's
+    (torch.bfloat16, 640, "cols"),
+    (torch.float32, 1024, "cols"),
+    (torch.float32, 512, "tile"),
 ])
 def test_flash_schedule(dtype, d, want):
     assert fa.flash_schedule(dtype, d) == want
@@ -120,7 +125,28 @@ def test_host_rules_match_the_sources():
     assert set(_build.PTXAS_VERBOSE) == {"flash_fwd", "flash_bwd",
                                          "vsa_sparse_bwd", "dyn_sparse_fwd",
                                          "vsa_sparse_padded_fwd", "conv3d",
-                                         "vsa_sparse_fwd", "conv3d_int8"}
+                                         "vsa_sparse_fwd", "conv3d_int8",
+                                         "flash_fwd_cols"}
+
+
+def test_cols_rules_match_the_source():
+    """The column-sliced schedule's heads and tiles in Python are
+    flash_fwd_cols.cu's, and flash_fwd.cu reports its heads as code 4 and
+    refuses them."""
+    cols = _source("flash_fwd_cols.cu")
+    for name, want in (("kBQ", fa.COLS_BLOCK_ROWS),
+                       ("kBK", fa.COLS_CHUNK_KEYS),
+                       ("kDC", fa.COLS_BLOCK_COLS)):
+        assert int(re.search(name + r" = (\d+);", cols).group(1)) == want
+    rule = re.search(r"bool cols_head\(int D\) \{[^}]*\}", cols).group(0)
+    assert tuple(int(x) for x in re.findall(r"D == (\d+)", rule)) == \
+        fa.COLS_HEADS
+    assert all(d % fa.COLS_BLOCK_COLS == 0 for d in fa.COLS_HEADS)
+    fwd = _source("flash_fwd.cu")
+    assert "if (D == 640 || D == 1024) return static_cast<int>(" \
+        "cudaErrorInvalidValue);" in fwd
+    assert "(D == 640 || D == 1024)) return 4;" in fwd
+    assert _build.SOURCE_OF[fa.NAME_COLS] == "flash_fwd_cols"
 
 
 def test_ptxas_report_parses_a_log(tmp_path, monkeypatch):

@@ -937,11 +937,13 @@ def test_flash_bwd_split_dkv_and_reduce(dev):
                                      (torch.bfloat16, 16),
                                      (torch.bfloat16, 384),
                                      (torch.float32, 128),
-                                     (torch.float32, 384)])
+                                     (torch.float32, 384),
+                                     (torch.bfloat16, 1024),
+                                     (torch.float32, 640)])
 def test_flash_library_schedule_is_the_host_rule(dev, dtype, d):
     fwd = _build.query("flash_fwd", "fvt_flash_fwd_sm90",
                        int(dtype == torch.bfloat16), d)
-    assert ("tile", "sm90", "sm90_wide", "sm90_wide_tf32")[fwd] == \
+    assert ("tile", "sm90", "sm90_wide", "sm90_wide_tf32", "cols")[fwd] == \
         flash_attention.flash_schedule(dtype, d)
     if dtype == torch.bfloat16 and d <= 128:
         bwd = _build.query("flash_bwd", "fvt_flash_bwd_sm90", d)
@@ -1638,3 +1640,65 @@ def test_lora_linear_on_the_card_matches_the_cpu(dev, out_features):
         torch.testing.assert_close(got.cpu(), want,
                                    atol=2.0**-6 * want.std().item(),
                                    rtol=2.0**-6, msg=stage)
+
+
+# -- K1 at heads of 640 and 1024 (the Wan2.2 VAE's attention) --------------
+
+
+@pytest.mark.parametrize("b,sq,skv,h,d,dtype,causal,kv_valid,qkv", [
+    (1, 3520, 3520, 1, 1024, torch.bfloat16, False, None, True),  # decoder
+    (1, 3520, 3520, 1, 640, torch.float32, False, None, True),    # encoder
+    (2, 1000, 1000, 1, 1024, torch.float32, False, None, True),
+    (2, 77, 130, 3, 640, torch.bfloat16, False, 60, False),  # kv_valid
+    (1, 300, 333, 2, 1024, torch.bfloat16, True, None, False),  # causal
+    (1, 200, 70, 1, 640, torch.float32, True, None, False),
+    (1, 64, 96, 2, 1024, torch.bfloat16, False, 0, False),  # rows empty
+])
+def test_flash_cols_matches_plain(dev, b, sq, skv, h, d, dtype, causal,
+                                  kv_valid, qkv):
+    """K1 on the column-sliced schedule (heads of 640 and 1024, bf16 and
+    fp32) against the plain version: out within the attention tolerance,
+    the LSE within 1e-3 (-inf on empty rows), from q/k/v column views of
+    one qkv tensor as the VAE passes them and from separate tensors with
+    ragged query and key tiles; one launch, counted as flash_fwd_cols."""
+    g = torch.Generator(device=dev).manual_seed(67)
+    if qkv:
+        t = torch.randn(b, sq, h, 3 * d, generator=g, device=dev,
+                        dtype=dtype)
+        q, k, v = t[..., :d], t[..., d:2 * d], t[..., 2 * d:]
+    else:
+        q, k, v = (torch.randn(b, s, h, d, generator=g, device=dev,
+                               dtype=dtype) for s in (sq, skv, skv))
+    kw = dict(scale=d**-0.5, causal=causal,
+              kv_valid=skv if kv_valid is None else kv_valid)
+    before = dict(_build.LAUNCHES)
+    out, lse = flash_attention.flash_attention(q, k, v, return_lse=True,
+                                               **kw)
+    assert _build.LAUNCHES["flash_fwd_cols"] == before["flash_fwd_cols"] + 1
+    assert _build.LAUNCHES["flash_fwd"] == before["flash_fwd"]
+    ref, ref_lse = flash_attention.flash_attention_plain(q, k, v, **kw)
+    finite = torch.isfinite(ref_lse)
+    torch.cuda.synchronize()
+    assert torch.equal(finite, torch.isfinite(lse))
+    if kv_valid == 0:
+        assert torch.all(out == 0)
+        return
+    _close(out, ref, dtype)
+    torch.testing.assert_close(lse[finite], ref_lse[finite], atol=1e-3,
+                               rtol=0)
+
+
+def test_flash_cols_heads_refuse_other_schedules(dev):
+    """At heads of 640 and 1024 nothing falls back: the first schedule's
+    entry refuses them, K1 struct raises, and so does a backward."""
+    q = torch.randn(1, 128, 1, 1024, device=dev, dtype=torch.bfloat16)
+    st = [q.stride(0), q.stride(2), q.stride(1)] * 4
+    err = _build.load("flash_fwd").fvt_flash_fwd(
+        q.data_ptr(), q.data_ptr(), q.data_ptr(), q.data_ptr(), None, 1, 1,
+        1, 128, 128, 1024, *st, 1.0, 0, 128, None)
+    assert err != 0
+    with pytest.raises(_build.KernelError):
+        flash_attention.flash_attention(q, q, q, chunk_tokens=64)
+    qg = q.clone().requires_grad_(True)
+    with pytest.raises(_build.KernelError):
+        flash_attention.flash_attention(qg, qg, qg)

@@ -226,6 +226,7 @@ def _calls():
     wide = torch.zeros(2, 1, 2, 64, 384), torch.zeros(2, 1, 2, 64)
     wide_out = torch.zeros(1, 64, 2, 384, dtype=bf)
     q384 = torch.zeros(1, 64, 1, 384)  # the fp32 VAE attention's head
+    q1024 = torch.zeros(1, 64, 1, 1024, dtype=bf)  # the Wan2.2 VAE's head
     c = _cuda_typed
 
     def flash_bwd():
@@ -275,6 +276,8 @@ def _calls():
             c(q384), c(q384), c(q384)),
         "flash_fwd_tf32_split": lambda: flash_attention.tf32_split_kv(
             c(q384), c(q384)),
+        "flash_fwd_cols": lambda: flash_attention.flash_attention(
+            c(q1024), c(q1024), c(q1024)),
     }
 
 

@@ -47,7 +47,8 @@ def test_chunked_int8_decode_matches_jax(monkeypatch, jax_plain_attention):
     tvae.load_state_dict(state_dict_from_jax(flat), strict=True)
     z = np.random.default_rng(7).standard_normal((1, 4, 4, 8, 8),
                                                  dtype=np.float32)
-    want = np.asarray(jvae.decode(jnp.asarray(z), chunk_frames=1))
+    want = np.asarray(nnx.jit(lambda m, z_: m.decode(z_, chunk_frames=1))(
+        jvae, jnp.asarray(z)))
     before = _build.PLAIN_CALLS["conv3d_int8"]
     with torch.no_grad():
         got = tvae.decode(torch.from_numpy(z), chunk_frames=1).numpy()

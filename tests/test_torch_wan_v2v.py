@@ -3,8 +3,8 @@ fp32: WanVideoToVideoPipeline (control latent a seeded posterior sample,
 ``sample`` mode) through VideoGenerator on the tiny V2V checkpoint of
 tests/utils.py, the source clip from a ``.npy`` video_path (longer than
 the generation: truncated) and from ``extra["video"]`` (shorter: zero
-frames at the tail; another size: LANCZOS-resized); and Lucy Edit, which
-stays unported. The JAX stage's resize branch raises (it calls
+frames at the tail; another size: LANCZOS-resized); and the Lucy Edit
+pipeline's construction (its generation is test_torch_wan22_ti2v.py's). The JAX stage's resize branch raises (it calls
 ``PIL.Image.Image.fromarray``), so where the port resizes, the JAX side is
 given the frames that branch means to make (Pillow's LANCZOS of the
 uint8 frames, back to [0, 1]) and runs without it.
@@ -160,21 +160,28 @@ def test_control_latent_matches_jax(v2v_ckpt):
 
 
 def test_lucy_edit_raises(tmp_path):
-    """Lucy Edit runs on the Wan2.2 VAE: its name and its pipeline class
-    refuse, naming the ROADMAP item."""
+    """Lucy Edit is ported: its name gives LucyEditDevConfig and its
+    class LucyEditPipeline (the control clip's posterior mode). A
+    checkpoint whose name does not give it away builds the class with the
+    Wan T2V config, as in JAX (whose generation then feeds the V2V
+    channels; the Lucy Edit generation is test_torch_wan22_ti2v.py's)."""
     from fastvideo_tpu_torch import VideoGenerator
+    from fastvideo_tpu_torch.configs.pipelines.wan import (LucyEditDevConfig,
+                                                           WanT2V480PConfig)
+    from fastvideo_tpu_torch.pipelines.basic.wan.wan_v2v_pipeline import (
+        LucyEditPipeline)
     from fastvideo_tpu_torch.pipelines.pipeline_registry import (
         resolve_pipeline_cls)
 
-    with pytest.raises(NotImplementedError, match="not ported"):
-        VideoGenerator.from_pretrained(str(tmp_path / "Lucy-Edit-Dev"),
-                                       device="cpu")
-    ckpt = str(tmp_path / "lucy")
+    ckpt = str(tmp_path / "Lucy-Edit-Dev")
     with rbg_prng():
         make_tiny_lucy_edit_checkpoint(ckpt)
-    # a checkpoint whose name does not give it away still refuses by class
+    gen = VideoGenerator.from_pretrained(ckpt, device="cpu")
+    assert type(gen.pipeline) is LucyEditPipeline
+    assert type(gen.fastvideo_args.pipeline_config) is LucyEditDevConfig
+    assert gen.pipeline.video_vae_encoding_stage.sample_mode == "argmax"
     renamed = shutil.copytree(ckpt, str(tmp_path / "Wan2.1-T2V-edit"))
-    with pytest.raises(NotImplementedError, match="Wan2.2"):
-        VideoGenerator.from_pretrained(renamed, device="cpu")
-    assert resolve_pipeline_cls("LucyEditPipeline").__name__ == \
-        "LucyEditPipeline"
+    gen = VideoGenerator.from_pretrained(renamed, device="cpu")
+    assert type(gen.pipeline) is LucyEditPipeline
+    assert type(gen.fastvideo_args.pipeline_config) is WanT2V480PConfig
+    assert resolve_pipeline_cls("LucyEditPipeline") is LucyEditPipeline
