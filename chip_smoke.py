@@ -301,7 +301,7 @@ SOURCES = {
     "flash_fwd_tf32": "fastvideo_tpu_torch/csrc/flash_fwd_wide_tf32_sm90.cuh",
     "flash_fwd_tf32_split":
     "fastvideo_tpu_torch/csrc/flash_fwd_wide_tf32_sm90.cuh",
-    "flash_fwd_cols": "fastvideo_tpu_torch/csrc/flash_fwd_cols.cu",
+    "flash_fwd_cols": "fastvideo_tpu_torch/csrc/flash_fwd_cols_sm90.cuh",
 }
 # the flash kernels' Hopper instances by their mangled names' stem
 SM90_KERNELS = {"flash_fwd_sm90": {"0": "K1", "1": "K5", "2": "K1 struct"},
@@ -438,6 +438,11 @@ def sm90_instance(kernel: str):
     if "flash_fwd_wide_tf32_sm90" in kernel:
         return ("K1 wide fp32 (3xTF32, head 384)", "flash_fwd_wide_tf32_sm90",
                 384, 0)
+    m = re.search(r"(flash_fwd_cols_(?:bf16|f32))ILi(\d+)E", kernel)
+    if m:
+        form = "bf16" if m.group(1).endswith("bf16") else "fp32 (3xTF32)"
+        return (f"K1 column-sliced {form} (head {m.group(2)})", m.group(1),
+                int(m.group(2)), 0)
     m = re.search(r"conv3d_tf32_sm90ILi(\d+)E", kernel)
     if m:
         return TF32_SM90[m.group(1)], "conv3d_tf32_sm90", int(m.group(1)), 0
@@ -454,9 +459,13 @@ def report_sm90_build() -> None:
     2 patches). Fails on a spill in an instance with a head of 128, in a
     K3 instance of 96 or 128 output channels or in a K4 instance, and on a
     serialized-wgmma warning (C7518) in a head-of-128 instance of the
-    sparse kernels or in those conv instances;
+    sparse kernels or in those conv instances, and on either in the wide
+    K1 instances (heads of 384, 640 and 1024; the column-sliced ones' shared
+    memory from fvt_flash_fwd_cols_smem);
     the flash kernels' warnings (the head-of-64 struct dQ's C7518) are
     reported."""
+    import re
+
     from fastvideo_tpu_torch.ops import _build
 
     for src in _build.PTXAS_VERBOSE:
@@ -493,6 +502,9 @@ def report_sm90_build() -> None:
                     dyn = _build.query(src, "fvt_flash_fwd_wide_smem")
                 elif stem == "flash_fwd_wide_tf32_sm90":
                     dyn = _build.query(src, "fvt_flash_fwd_wide_tf32_smem")
+                elif stem.startswith("flash_fwd_cols"):
+                    dyn = _build.query(src, "fvt_flash_fwd_cols_smem",
+                                       int(stem.endswith("bf16")), d)
                 elif stem == "conv3d_tf32_sm90":  # d is the N tile
                     dyn = _build.query(src, "fvt_conv3d_tf32_smem",
                                        {8: 3, 96: 96}[d], 64)
@@ -506,6 +518,10 @@ def report_sm90_build() -> None:
                 label, stem, d, dyn = f"flash_fwd_combine ({out} out)", "", 0, 0
             elif "flash_tf32_split" in r["kernel"]:
                 label, stem, d, dyn = "flash_fwd_tf32_split", "", 0, 0
+            elif "cols_tf32_split" in r["kernel"]:
+                head = re.search(r"ILi(\d+)E", r["kernel"]).group(1)
+                label = f"flash_fwd_cols fp32 pre-pass (head {head})"
+                stem, d, dyn = "", 0, 0
             else:
                 continue
             spills = r["spill_stores"] + r["spill_loads"]
@@ -519,7 +535,8 @@ def report_sm90_build() -> None:
                   f"{r['warnings'] or 'none'}", flush=True)
             conv = stem in ("conv3d_sm90", "conv3d_int8_sm90",
                             "conv3d_tf32_sm90")
-            wide = stem in ("flash_fwd_wide_sm90", "flash_fwd_wide_tf32_sm90")
+            wide = stem in ("flash_fwd_wide_sm90", "flash_fwd_wide_tf32_sm90",
+                            "flash_fwd_cols_bf16", "flash_fwd_cols_f32")
             hot = (conv and d >= 96) or (not conv and d == 128) or wide
             if hot and spills:
                 raise SystemExit(f"{label}: ptxas reports {spills} spill "
@@ -696,7 +713,7 @@ def check_flash(dev, results: dict) -> None:
             qt, kt, vt, scale=d**-0.5))
         # the profiler names the Hopper kernel that ran
         kernel_device_ms(lambda: fa.flash_attention(q, k, v, **kw),
-                         {"K1": "flash_fwd_sm90"})
+                         {"K1": "flash_fwd_sm90"}, events_fallback=False)
         results["flash_fwd"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain,
                                     bound_ms=bms, bound_by=by,
                                     library_ms=lib,
@@ -2122,30 +2139,55 @@ def check_i2v_flash(dev, results: dict) -> None:
     results["flash_fwd"]["i2v_max_abs_err"] = max(errs)
 
 
-def kernel_device_ms(fn, names: dict, reps: int = 3) -> dict:
+def kernel_device_ms(fn, names: dict, reps: int = 3, sessions: int = 5,
+                     events_fallback: bool = True) -> dict:
     """Device time a call of each kernel in ``names`` ({label: substring of
     its CUDA kernel name}) takes inside ``fn``, from torch.profiler over
     ``reps`` calls after a warm-up: the mean over the launches it recorded
     (``fn`` launches each kernel once; the profiler may drop a launch's
-    record, which a sum over ``reps`` calls would count as 0 ms)."""
+    record, which a sum over ``reps`` calls would count as 0 ms).
+
+    The profiler may also record no launch of a kernel in a whole session,
+    so up to ``sessions`` sessions run until every kernel was seen. If one
+    kernel is still unseen, its time is the CUDA-event time of the whole
+    call less the others' profiled times (printed as such); if more are,
+    or ``events_fallback`` is off (the call is there to name the kernel
+    that ran), the script fails."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for label, sub in names.items():
-        hits = [e for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA
-                and sub in e.key]
-        if not hits:
-            raise SystemExit(f"profiler shows no device time for {sub}")
-        out[label] = sum(e.self_device_time_total for e in hits) / sum(
-            e.count for e in hits) / 1e3
+    sums = {label: [0.0, 0] for label in names}
+    for session in range(1, sessions + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        for label, sub in names.items():
+            for e in events:
+                if sub in e.key:
+                    sums[label][0] += e.self_device_time_total
+                    sums[label][1] += e.count
+        if all(n for _, n in sums.values()):
+            break
+    out = {label: us / n / 1e3 for label, (us, n) in sums.items() if n}
+    unseen = [label for label in names if label not in out]
+    if session > 1 or unseen:
+        print(f"  profiler: {session} sessions for {sorted(names.values())}; "
+              f"never recorded: {[names[u] for u in unseen] or 'none'}",
+              flush=True)
+    if len(unseen) > 1 or (unseen and not events_fallback):
+        raise SystemExit(f"profiler shows no device time for "
+                         f"{[names[u] for u in unseen]} in {sessions} sessions")
+    if unseen:
+        whole = time_ms(fn)
+        out[unseen[0]] = max(whole - sum(out.values()), 0.0)
+        print(f"  {names[unseen[0]]}: {out[unseen[0]]:.3f} ms from CUDA "
+              f"events ({whole:.3f} ms the whole call, less the other "
+              "kernels' profiled times)", flush=True)
     return out
 
 
@@ -6384,9 +6426,11 @@ def check_vae22_attn(dev, results: dict) -> None:
     frames, the encoder's (fp32, 640) on TI2V's first frame and on Lucy
     Edit's 480x832 frames (1,560 tokens), and the two other forms (bf16 at
     640, fp32 at 1024). Each against the plain version, with kernel, plain
-    and SDPA times (and the SDPA backend that answered), and the bound:
-    4 B Sq Skv D operations at the type's peak (bf16 tensor cores; fp32
-    FMAs, which the fp32 form runs), or the bytes."""
+    and SDPA times (and the SDPA backend that answered), the bound and the
+    kernel's time as a multiple of its bound and of SDPA's: 4 B Sq Skv D
+    operations at the bf16 tensor cores' peak, for fp32 three times that at
+    the TF32 peak (the 3xTF32 products the fp32 form runs; fp32 FMAs at
+    their peak printed beside it), or the bytes."""
     import torch
 
     from fastvideo_tpu_torch.ops import flash_attention as fa
@@ -6420,14 +6464,22 @@ def check_vae22_attn(dev, results: dict) -> None:
         lib, backend = sdpa_ms(q, k, v)
         flops = 4.0 * b * s * s * d
         esize = 2 if dtype == bf16 else 4
-        bms, by = bound_ms(flops, esize * 4.0 * b * s * d + 4.0 * b * s,
-                           "bf16" if dtype == bf16 else "fp32")
+        nbytes = esize * 4.0 * b * s * d + 4.0 * b * s
+        if dtype == bf16:
+            bms, by = bound_ms(flops, nbytes, "bf16")
+            fma = ""
+        else:
+            bms, by = bound_ms(3 * flops, nbytes, "tf32")
+            fma = (f"; fp32 FMAs {bound_ms(flops, nbytes, 'fp32')[0]:.3f} "
+                   "ms")
         out[label] = dict(ms=ms, plain_ms=plain, library_ms=lib,
                           library=backend, bound_ms=bms, bound_by=by,
                           shape=f"{list(q.shape)} {str(dtype)[6:]}")
         print(f"  {name}: {ms:.3f} ms kernel, {plain:.3f} ms plain, "
               f"{lib:.3f} ms sdpa ({backend}), bound {bms:.3f} ms ({by}, "
-              f"{flops:.3e} FLOP)", flush=True)
+              f"{flops:.3e} FLOP{' x 3 TF32' if dtype != bf16 else ''}"
+              f"{fma}); kernel {ms / bms:.2f}x its bound, {ms / lib:.3f}x "
+              f"sdpa", flush=True)
         del q, k, v, qkv
     main = out[f"decoder {chunk}-frame chunk"]
     results["flash_fwd_cols"] = dict(

@@ -82,6 +82,56 @@ __device__ __forceinline__ void bar_wait(uint64_t* bar, int parity) {
       : "memory");
 }
 
+// bar_wait with acquire at cluster scope: for data that other blocks of the
+// cluster stored into this block's shared memory (st_async_v4).
+__device__ __forceinline__ void bar_wait_cluster(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// -- clusters ------------------------------------------------------------------
+
+// This block's rank in its cluster.
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return static_cast<int>(r);
+}
+
+// Every thread of every block of the cluster arrives, then waits for all of
+// them (what each wrote before, barrier initialisations included, is
+// visible to the whole cluster after it).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
+}
+
+// The shared::cluster address of `p` (in this block's shared memory) in the
+// block of rank `rank` of the cluster.
+__device__ __forceinline__ uint32_t mapa(const void* p, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(smem_u32(p)), "r"(rank));
+  return r;
+}
+
+// 16 bytes stored at `addr` in another block's shared memory (shared::cluster
+// addresses from mapa), completing their bytes to that block's mbarrier
+// `bar`, which expects them (bar_expect).
+__device__ __forceinline__ void st_async_v4(uint32_t addr, float4 v, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, "
+      "[%5];\n" ::"r"(addr),
+      "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar)
+      : "memory");
+}
+
 // -- TMA ---------------------------------------------------------------------
 
 // A box of a 4-D tensor map (coordinates innermost first) into shared memory.

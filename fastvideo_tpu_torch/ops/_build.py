@@ -255,13 +255,13 @@ _SIGNATURES = {
     "fvt_flash_fwd_wide_tf32": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 +
     [ctypes.c_longlong] * 6 + [ctypes.c_float] + [ctypes.c_int] * 3 +
     [ctypes.c_void_p],
-    # dtype, D: 1 when K1 runs the column-sliced schedule; dtype: its
-    # shared memory
+    # dtype, D: 1 when K1 runs the column-sliced schedule; dtype, D: its
+    # dynamic shared memory a CTA
     "fvt_flash_fwd_cols_route": [ctypes.c_int] * 2,
-    "fvt_flash_fwd_cols_smem": [ctypes.c_int],
-    # q, k, v, o, lse, dtype, B, H, Sq, Skv, D, 12 strides, scale, causal,
-    # kv_valid, stream
-    "fvt_flash_fwd_cols": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 +
+    "fvt_flash_fwd_cols_smem": [ctypes.c_int] * 2,
+    # q, k, v, o, lse, split (fp32: the pre-pass's scratch; bf16: null),
+    # dtype, B, H, Sq, Skv, D, 12 strides, scale, causal, kv_valid, stream
+    "fvt_flash_fwd_cols": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 +
     [ctypes.c_longlong] * 12 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                                 ctypes.c_void_p],
     # D: 1 when the flash backward runs its Hopper schedule

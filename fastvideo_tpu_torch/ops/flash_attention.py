@@ -75,14 +75,21 @@ the kernel's arithmetic on the CPU (the tests hold it to the JAX kernel);
 the main path never calls it.
 
 K1 at a head of 640 or 1024 (bf16 or fp32), the Wan2.2 VAE's mid-block
-attention, runs a fifth schedule (``csrc/flash_fwd_cols.cu``,
-:func:`flash_schedule`'s "cols", its own counter ``flash_fwd_cols``): a
-block owns 64 query rows and 128 of O's columns, builds the scores over the
-whole head from pieces of Q and K streamed through shared memory, and adds
-P V for its columns alone (a head that wide fits no block whole). bf16 runs
-the products on WMMA, fp32 as fp32 FMAs. Its plain version is
-:func:`flash_attention_plain`, counted under the same name. No other
-schedule takes these heads: ``fvt_flash_fwd`` refuses them.
+attention, runs a fifth schedule (``csrc/flash_fwd_cols_sm90.cuh``,
+launched by ``csrc/flash_fwd_cols.cu``; :func:`flash_schedule`'s "cols",
+its own counter ``flash_fwd_cols``): a head that wide fits no SM whole, so a
+cluster of ``COLS_CLUSTER[dtype]`` CTAs owns a 64-row query tile, each CTA a
+slice of the head for both the scores and O, each of its two warpgroups
+half of that (:func:`cols_layout`). Every warpgroup computes a partial
+score over its columns; the partials are summed once, in one fixed order,
+through shared and distributed shared memory, so every warpgroup holds the
+same scores and softmax and adds P V for its own columns. bf16 runs wgmma,
+fp32 3xTF32 wgmma after a pre-pass (inside the same entry) that splits K
+and V^T into TF32 heads and tails into a scratch the wrapper allocates.
+:func:`cols_partials_plain` emulates the decomposition on the CPU (tests
+only); the plain version is :func:`flash_attention_plain`, counted under
+the same name. No other schedule takes these heads: ``fvt_flash_fwd``
+refuses them.
 
 Numerics follow the JAX kernel: fp32 scores and softmax statistics, the
 probabilities rounded to the value dtype before the P@V product, and a row
@@ -135,12 +142,19 @@ WIDE_MAX_SPLITS = 8
 # whole chunks; wide_splits counts chunks of WIDE_CHUNK_KEYS, the same)
 TF32_BLOCK_ROWS = 64
 TF32_CHUNK_KEYS = 32
-# the column-sliced schedule (csrc/flash_fwd_cols.cu: kBQ, kBK, kDC): its
-# heads (bf16 and fp32), query rows a block, keys a chunk, O columns a block
+# the column-sliced schedule (csrc/flash_fwd_cols_sm90.cuh: kColsBQ,
+# kColsBK, ColsShape<D, Bf16>::C, kColsMaxStages, kColsSmemMax, kColsSlot):
+# its heads (bf16 and fp32), query rows a cluster, keys a chunk (one
+# exchange of the scores and one softmax step), CTAs a cluster by dtype
+# (the head's slices), the most ring stages, a CTA's shared memory at
+# most, and the bytes of one warpgroup's fp32 scores of a chunk
 COLS_HEADS = (640, 1024)
 COLS_BLOCK_ROWS = 64
-COLS_CHUNK_KEYS = 64
-COLS_BLOCK_COLS = 128
+COLS_CHUNK_KEYS = 32
+COLS_CLUSTER = {torch.bfloat16: 2, torch.float32: 4}
+COLS_MAX_STAGES = 4
+COLS_SMEM_MAX = 232448
+COLS_SLOT_BYTES = 4 * 128 * 16
 
 
 def flash_schedule(dtype: torch.dtype, d: int) -> str:
@@ -284,6 +298,107 @@ def wide_combine(part: torch.Tensor, lse_part: torch.Tensor,
                   None if lse is None else lse.data_ptr(), splits, b, h, sq,
                   *bhs(out), _build.stream_ptr(part))
 
+
+def cols_layout(dtype: torch.dtype, d: int) -> dict:
+    """The column-sliced schedule's sizes at operands of ``dtype`` and a
+    head of ``d``, as csrc/flash_fwd_cols_sm90.cuh:ColsShape computes them:
+    "cluster" CTAs a query tile, "cta_cols" and "wg_cols" head columns a CTA
+    and a consumer warpgroup (for the scores and for O), "stages" of the
+    TMA ring, "unit" bytes a stage and "smem" bytes a CTA. bf16: 2 CTAs
+    (1024: 512 and 256 columns; 640: 320 and 160), two units (K, V) a
+    32-key chunk; fp32: 4 (256 and 128; 160 and 80), four units (K's and
+    V^T's TF32 heads and tails). The exchange's local slots are
+    double-buffered."""
+    bf16 = dtype == torch.bfloat16
+    c = COLS_CLUSTER[dtype]
+    dc = d // c
+    dw = dc // 2
+    esz = 2 if bf16 else 4
+    nqb = dc // (128 // esz)  # Q's and K's 128-byte boxes a CTA
+    nvb = -(-dw // 64)        # bf16: V's 64-column boxes a warpgroup
+    unit = (max(nqb, 2 * nvb) * COLS_CHUNK_KEYS * 128 if bf16 else
+            COLS_CHUNK_KEYS * dc * 4)
+    q_bytes = -(-COLS_BLOCK_ROWS * dc * esz // 1024) * 1024
+    fixed = (1024 + q_bytes + 4 * COLS_SLOT_BYTES +
+             2 * (c - 1) * COLS_SLOT_BYTES + 2048)
+    stages = min(COLS_MAX_STAGES, (COLS_SMEM_MAX - fixed) // unit)
+    return dict(cluster=c, cta_cols=dc, wg_cols=dw, stages=stages, unit=unit,
+                smem=fixed + stages * unit)
+
+
+def cols_keys_padded(skv: int) -> int:
+    """Keys of the fp32 column-sliced form's pre-pass output: ``skv``
+    rounded up to whole chunks of ``COLS_CHUNK_KEYS`` (at least one)."""
+    return max(1, -(-skv // COLS_CHUNK_KEYS)) * COLS_CHUNK_KEYS
+
+
+def cols_partials_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, scale: float, causal: bool = False,
+                        kv_valid: int | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """CPU emulation of the column-sliced schedule's decomposition (tests
+    only): the head cut into 2 ``COLS_CLUSTER[dtype]`` equal column slices,
+    one a warpgroup of the cluster; for each chunk of ``COLS_CHUNK_KEYS``
+    keys a partial score over each slice (fp32 sums; fp32 operands: hi hi +
+    hi lo + lo hi of their TF32 heads and tails, exact in fp64, rounded to
+    fp32), the partials added as a balanced tree in slice order (the
+    kernel's fixed order); the online softmax in log2 units of the scaled
+    scores; P rounded to bf16 (bf16 operands) or split into TF32 heads and
+    tails (fp32) before P V; O rescaled and summed chunk by chunk in fp32.
+    Returns (out [B, Sq, H, D] in q's dtype, lse fp32 [B, H, Sq])."""
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    kv_valid = skv if kv_valid is None else kv_valid
+    keys = max(0, min(kv_valid, skv))
+    tf32 = q.dtype == torch.float32
+    parts = 2 * COLS_CLUSTER[q.dtype]
+    w = d // parts
+    qf, kf, vf = (t.float().transpose(1, 2) for t in (q, k, v))
+    if tf32:
+        qs, ks, vs = (tuple(x.double() for x in tf32_split(t))
+                      for t in (qf, kf, vf))
+    scale_log2 = (torch.tensor(scale, dtype=torch.float32) *
+                  torch.tensor(1.4426950408889634, dtype=torch.float32))
+    mask = _structural_mask(range(sq), skv, kv_valid, causal, q.device)
+    m = q.new_full((b, h, sq), float("-inf"), dtype=torch.float32)
+    l = q.new_zeros((b, h, sq), dtype=torch.float32)
+    o = q.new_zeros((b, h, sq, d), dtype=torch.float32)
+    for j0 in range(0, keys, COLS_CHUNK_KEYS):
+        sl = slice(j0, min(j0 + COLS_CHUNK_KEYS, keys))
+        partials = []
+        for i in range(parts):
+            cs = slice(i * w, (i + 1) * w)
+            if tf32:
+                a = [t[..., cs] for t in qs]
+                kt = [t[:, :, sl, cs].transpose(-1, -2) for t in ks]
+                partials.append((a[0] @ kt[0] + a[0] @ kt[1] +
+                                 a[1] @ kt[0]).float())
+            else:
+                partials.append(qf[..., cs] @
+                                kf[:, :, sl, cs].transpose(-1, -2))
+        while len(partials) > 1:
+            partials = [partials[i] + partials[i + 1]
+                        for i in range(0, len(partials), 2)]
+        s = partials[0].masked_fill(~mask[:, sl], float("-inf"))
+        m_next = torch.maximum(m, s.amax(dim=-1) * scale_log2)
+        m_use = torch.where(torch.isinf(m_next), torch.zeros_like(m_next),
+                            m_next)
+        alpha = torch.exp2(m - m_use)
+        p = torch.exp2(s * scale_log2 - m_use[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        o = o * alpha[..., None]
+        if tf32:
+            ph, pl = (x.double() for x in tf32_split(p))
+            vh, vl = (t[:, :, sl] for t in vs)
+            o = o + (ph @ vh + ph @ vl + pl @ vh).float()
+        else:
+            o = o + p.to(v.dtype).float() @ vf[:, :, sl]
+        m = m_next
+    inv = torch.where(l == 0, torch.zeros_like(l), 1.0 / l)
+    out = (o * inv[..., None]).to(q.dtype).transpose(1, 2)
+    lse = torch.where(l == 0, torch.full_like(l, float("-inf")),
+                      m * math.log(2.0) + torch.log(l))
+    return out, lse
 
 def tf32_keys_padded(skv: int) -> int:
     """Keys of the 3xTF32 pre-pass's output: ``skv`` rounded up to whole
@@ -689,13 +804,20 @@ def _flash_attention_tf32_cuda(q, k, v, *, scale, causal, kv_valid):
 
 
 def _flash_attention_cols_cuda(q, k, v, dtype, *, scale, causal, kv_valid):
-    """K1 on the column-sliced schedule (heads of 640 and 1024)."""
+    """K1 on the column-sliced schedule (heads of 640 and 1024); the fp32
+    form's pre-pass writes its TF32 split of K and V^T into ``split``."""
     b, sq, h, d = q.shape
+    skv = k.shape[1]
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    split = None
+    if q.dtype == torch.float32:
+        split = torch.empty((4, b, h, cols_keys_padded(skv), d),
+                            dtype=torch.float32, device=q.device)
     _build.launch(NAME_COLS, "fvt_flash_fwd_cols", q.data_ptr(), k.data_ptr(),
-                  v.data_ptr(), out.data_ptr(), lse.data_ptr(), dtype, b, h,
-                  sq, k.shape[1], d, *bhs(q), *bhs(k), *bhs(v), *bhs(out),
+                  v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                  None if split is None else split.data_ptr(), dtype, b, h,
+                  sq, skv, d, *bhs(q), *bhs(k), *bhs(v), *bhs(out),
                   float(scale), int(causal), int(kv_valid),
                   _build.stream_ptr(q))
     return out, lse

@@ -26,11 +26,22 @@ grid is split, the reduction of its partial sums):
   [2,6360,1,384] (``k1_vae_848``), and in fp32 (an fp32 decode's, with the
   3xTF32 schedule's pre-pass and merge where the checkout has them) at the
   first chunk (``k1_vae_first_fp32``) and at a 2-frame chunk
-  (``k1_vae_chunk_fp32``).
+  (``k1_vae_chunk_fp32``);
+- K1 at the Wan2.2 VAE's heads of 640 and 1024 (the column-sliced
+  schedule), q, k and v column views of one qkv tensor: the decoder's
+  bf16 first chunk [1,3520,1,1024] (``k1_cols_dec_first``) and 4-frame
+  chunk [4,3520,1,1024] (``k1_cols_dec_chunk``), the encoder's fp32 TI2V
+  first frame [1,3520,1,640] (``k1_cols_enc_ti2v``) and Lucy Edit frame
+  [1,1560,1,640] (``k1_cols_enc_lucy``), bf16 at 640 [1,3520,1,640]
+  (``k1_cols_bf16_640``) and fp32 at 1024 [1,3520,1,1024]
+  (``k1_cols_fp32_1024``), each with ``scaled_dot_product_attention``'s
+  time on the same views (``sdpa_<row>``: the efficient-attention
+  backend, the only fused one that takes these heads).
 
-Prints one JSON line: the card and power limit, and each row's ms. Run it
-for two checkouts in turns (A, B, B, A) inside one call to compare them
-on one card, e.g. with the parent under build/parent:
+``--rows PREFIX`` times only the rows whose name starts with PREFIX (e.g.
+``k1_cols``). Prints one JSON line: the card and power limit, and each
+row's ms. Run it for two checkouts in turns (A, B, B, A) inside one call
+to compare them on one card, e.g. with the parent under build/parent:
 
     for r in build/parent . . build/parent; do
         python3 scripts/torch_flash_instance_times.py --root $r; done
@@ -65,12 +76,26 @@ def events_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def sdpa_ms(q, k, v, reps: int) -> float:
+    """One scaled_dot_product_attention call on [B, S, H, D] views, on its
+    efficient-attention backend (flash and cuDNN stop at a head of 256)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+        return events_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                         reps)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--root", required=True,
                         help="checkout whose fastvideo_tpu_torch to time")
     parser.add_argument("--reps", type=int, default=5,
                         help="launches a row (the 65,520-row rows: 2)")
+    parser.add_argument("--rows", default="",
+                        help="time only the rows whose name starts so")
     args = parser.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
@@ -91,30 +116,40 @@ def main() -> int:
         return torch.randn(*shape, generator=g, device=dev,
                            dtype=torch.bfloat16)
 
-    kv = rnd(1, 512, h, d), rnd(1, 512, h, d)
-    for label, sq in (("k1_cross_attn", 32760), ("k1_cross_attn_4f", 24960),
-                      ("k1_cross_attn_causal_block", CHUNK)):
-        q = rnd(1, sq, h, d)
-        ms[label] = events_ms(lambda: fa.flash_attention(q, *kv), args.reps)
-    q, do = rnd(1, 32760, h, d), rnd(1, 32760, h, d)
-    kw = dict(scale=scale, causal=False, kv_valid=512)
-    out, lse = fa.flash_attention(q, *kv, return_lse=True, **kw)
-    ms["k6_cross_attn_bwd"] = events_ms(
-        lambda: fa.flash_attention_bwd(q, *kv, out, lse, do, **kw), args.reps)
-    del kv, q, do, out, lse
+    def wanted(*names):
+        return any(n.startswith(args.rows) for n in names)
 
-    q = rnd(1, CHUNK, h, d)
-    k, v = rnd(1, WINDOW, h, d), rnd(1, WINDOW, h, d)
-    pos = torch.arange(WINDOW, device=dev)
-    for label, valid in (("k5_block0", CHUNK), ("k5_block3", 4 * CHUNK),
-                         ("k5_full", WINDOW)):
-        mask = pos >= WINDOW - valid
-        ms[label] = events_ms(lambda: fa.flash_attention_kv_mask(
-            q, k, v, mask, scale=scale), args.reps)
-    del q, k, v
+    if wanted("k1_cross_attn", "k6_cross_attn_bwd"):
+        kv = rnd(1, 512, h, d), rnd(1, 512, h, d)
+        for label, sq in (("k1_cross_attn", 32760),
+                          ("k1_cross_attn_4f", 24960),
+                          ("k1_cross_attn_causal_block", CHUNK)):
+            q = rnd(1, sq, h, d)
+            ms[label] = events_ms(lambda: fa.flash_attention(q, *kv),
+                                  args.reps)
+        q, do = rnd(1, 32760, h, d), rnd(1, 32760, h, d)
+        kw = dict(scale=scale, causal=False, kv_valid=512)
+        out, lse = fa.flash_attention(q, *kv, return_lse=True, **kw)
+        ms["k6_cross_attn_bwd"] = events_ms(
+            lambda: fa.flash_attention_bwd(q, *kv, out, lse, do, **kw),
+            args.reps)
+        del kv, q, do, out, lse
+
+    if wanted("k5_"):
+        q = rnd(1, CHUNK, h, d)
+        k, v = rnd(1, WINDOW, h, d), rnd(1, WINDOW, h, d)
+        pos = torch.arange(WINDOW, device=dev)
+        for label, valid in (("k5_block0", CHUNK), ("k5_block3", 4 * CHUNK),
+                             ("k5_full", WINDOW)):
+            mask = pos >= WINDOW - valid
+            ms[label] = events_ms(lambda: fa.flash_attention_kv_mask(
+                q, k, v, mask, scale=scale), args.reps)
+        del q, k, v
 
     for label, s_len, clean in (("dfsft", WINDOW, 0),
                                 ("tfsft", 2 * WINDOW, WINDOW)):
+        if not wanted(f"k1_struct_{label}", f"k6_struct_{label}_bwd"):
+            continue
         reps = args.reps if clean == 0 else max(1, min(args.reps, 2))
         q, k, v, do = (rnd(1, s_len, h, d) for _ in range(4))
         kw = dict(scale=scale, kv_valid=s_len, chunk_tokens=CHUNK,
@@ -127,31 +162,44 @@ def main() -> int:
         del q, k, v, do, out, lse
         torch.cuda.empty_cache()
 
-    e, nb, topk = 280, 117, 24
-    q, k, v, do = (torch.randn(1, h, nb * e, d, generator=g, device=dev,
-                               dtype=torch.bfloat16) for _ in range(4))
-    sizes = torch.full((nb,), e, dtype=torch.int32, device=dev)
-    idx = torch.rand(1, h, nb, nb, generator=g, device=dev).topk(
-        topk, dim=-1).indices.int()
-    kw = dict(scale=scale, tile_elems=e)
-    out, lse = vsa.block_sparse_attention(q, k, v, idx, sizes,
-                                          return_lse=True, **kw)
-    ms["k7_bwd_control"] = events_ms(lambda: vsa.block_sparse_attention_bwd(
-        q, k, v, idx, sizes, out, lse, do, **kw), args.reps)
+    if wanted("k7_bwd_control"):
+        e, nb, topk = 280, 117, 24
+        q, k, v, do = (torch.randn(1, h, nb * e, d, generator=g, device=dev,
+                                   dtype=torch.bfloat16) for _ in range(4))
+        sizes = torch.full((nb,), e, dtype=torch.int32, device=dev)
+        idx = torch.rand(1, h, nb, nb, generator=g, device=dev).topk(
+            topk, dim=-1).indices.int()
+        kw = dict(scale=scale, tile_elems=e)
+        out, lse = vsa.block_sparse_attention(q, k, v, idx, sizes,
+                                              return_lse=True, **kw)
+        ms["k7_bwd_control"] = events_ms(
+            lambda: vsa.block_sparse_attention_bwd(
+                q, k, v, idx, sizes, out, lse, do, **kw), args.reps)
+        del q, k, v, do, out, lse
+        torch.cuda.empty_cache()
 
-    del q, k, v, do, out, lse
-    torch.cuda.empty_cache()
-    for label, b, s_len, dtype in (
-            ("k1_vae_first", 1, 6240, torch.bfloat16),
-            ("k1_vae_chunk", 2, 6240, torch.bfloat16),
-            ("k1_vae_848", 2, 6360, torch.bfloat16),
-            ("k1_vae_first_fp32", 1, 6240, torch.float32),
-            ("k1_vae_chunk_fp32", 2, 6240, torch.float32)):
-        qkv = torch.randn(b, s_len, 1, 3 * 384, generator=g, device=dev,
+    bf16, f32 = torch.bfloat16, torch.float32
+    for label, b, s_len, dd, dtype in (
+            ("k1_vae_first", 1, 6240, 384, bf16),
+            ("k1_vae_chunk", 2, 6240, 384, bf16),
+            ("k1_vae_848", 2, 6360, 384, bf16),
+            ("k1_vae_first_fp32", 1, 6240, 384, f32),
+            ("k1_vae_chunk_fp32", 2, 6240, 384, f32),
+            ("k1_cols_dec_first", 1, 3520, 1024, bf16),
+            ("k1_cols_dec_chunk", 4, 3520, 1024, bf16),
+            ("k1_cols_enc_ti2v", 1, 3520, 640, f32),
+            ("k1_cols_enc_lucy", 1, 1560, 640, f32),
+            ("k1_cols_bf16_640", 1, 3520, 640, bf16),
+            ("k1_cols_fp32_1024", 1, 3520, 1024, f32)):
+        if not wanted(label):
+            continue
+        qkv = torch.randn(b, s_len, 1, 3 * dd, generator=g, device=dev,
                           dtype=dtype)
-        q, k, v = qkv[..., :384], qkv[..., 384:768], qkv[..., 768:]
+        q, k, v = qkv[..., :dd], qkv[..., dd:2 * dd], qkv[..., 2 * dd:]
         ms[label] = events_ms(lambda: fa.flash_attention(q, k, v),
                               args.reps)
+        if label.startswith("k1_cols"):
+            ms[f"sdpa_{label}"] = sdpa_ms(q, k, v, args.reps)
         del qkv, q, k, v
 
     card = subprocess.run(

@@ -131,17 +131,20 @@ def test_host_rules_match_the_sources():
 
 def test_cols_rules_match_the_source():
     """The column-sliced schedule's heads and tiles in Python are
-    flash_fwd_cols.cu's, and flash_fwd.cu reports its heads as code 4 and
-    refuses them."""
-    cols = _source("flash_fwd_cols.cu")
-    for name, want in (("kBQ", fa.COLS_BLOCK_ROWS),
-                       ("kBK", fa.COLS_CHUNK_KEYS),
-                       ("kDC", fa.COLS_BLOCK_COLS)):
-        assert int(re.search(name + r" = (\d+);", cols).group(1)) == want
-    rule = re.search(r"bool cols_head\(int D\) \{[^}]*\}", cols).group(0)
+    flash_fwd_cols_sm90.cuh's, and flash_fwd.cu reports its heads as code 4
+    and refuses them."""
+    cols = _source("flash_fwd_cols_sm90.cuh")
+    for name, want in (("kColsBQ", fa.COLS_BLOCK_ROWS),
+                       ("kColsBK", fa.COLS_CHUNK_KEYS),
+                       ("C", fa.COLS_CLUSTER[torch.bfloat16])):
+        assert int(re.search(name + r" = (?:Bf16 \? )?(\d+)", cols).group(1)) \
+            == want
+    rule = re.search(r"bool cols_head\(int D\) \{[^}]*\}",
+                     _source("flash_fwd_cols.cu")).group(0)
     assert tuple(int(x) for x in re.findall(r"D == (\d+)", rule)) == \
         fa.COLS_HEADS
-    assert all(d % fa.COLS_BLOCK_COLS == 0 for d in fa.COLS_HEADS)
+    assert all(d % (2 * c * 16) == 0 for d in fa.COLS_HEADS
+               for c in fa.COLS_CLUSTER.values())
     fwd = _source("flash_fwd.cu")
     assert "if (D == 640 || D == 1024) return static_cast<int>(" \
         "cudaErrorInvalidValue);" in fwd

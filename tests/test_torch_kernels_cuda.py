@@ -1653,6 +1653,13 @@ def test_lora_linear_on_the_card_matches_the_cpu(dev, out_features):
     (1, 300, 333, 2, 1024, torch.bfloat16, True, None, False),  # causal
     (1, 200, 70, 1, 640, torch.float32, True, None, False),
     (1, 64, 96, 2, 1024, torch.bfloat16, False, 0, False),  # rows empty
+    (1, 3520, 3520, 1, 640, torch.bfloat16, False, None, True),
+    # a query tile ending inside a key chunk (rows 64..99, causal keys to
+    # 99 of the chunk 96..127), and the cluster's last tile of one row
+    (1, 100, 100, 1, 1024, torch.bfloat16, True, None, False),
+    (2, 65, 65, 3, 1024, torch.float32, False, None, True),
+    (3, 130, 200, 2, 640, torch.float32, True, 150, False),
+    (2, 129, 161, 3, 640, torch.bfloat16, False, 140, False),
 ])
 def test_flash_cols_matches_plain(dev, b, sq, skv, h, d, dtype, causal,
                                   kv_valid, qkv):
