@@ -60,7 +60,10 @@ Phases, each printing its own lines:
      distinct conv shape of the Wan2.2 VAE (the decoder's in bf16 in its
      first chunk, its hot 256x256 conv in a 4-frame chunk too; the
      encoder's in fp32 on the first frame), and the bound of one TI2V
-     decode's convs);
+     decode's convs); then the Ulysses exchange of sequence parallelism
+     (parallel/ulysses.py: all_to_all_single from tokens to heads and
+     back) on a world-1 NCCL group at the DiT's self-attention shape
+     [1, 32760, 12, 128] bf16, its round trip held bit for bit and timed;
   4. a: tiny models, the card's whole path against the CPU's plain path
      (FastWan DMD, also with an fp32 decode; Wan UniPC + CFG with VSA and
      with STA on a padded grid, and on every other self-attention backend:
@@ -213,6 +216,18 @@ Phases, each printing its own lines:
      required_config_modules naming transformer_2: 81x480x832, A14B_STEPS
      (3) FlowUniPC steps at shift 12 with CFG, each expert's passes (the
      high-noise one at or above timestep 875) and the launches;
+     zb: 4b's generation through the worker-process executor at world
+     size 1 (a VideoGenerator on a MultiprocExecutor built with
+     from_pretrained's arguments): one spawned worker on cuda:0 in
+     a one-process NCCL group builds the pipeline on the mesh and returns
+     rank 0's clip as uint8 through shared memory), on 4b's checkpoint
+     (no new weights written): a warm-up, then a timed generation; its
+     frames equal to 4b's bit for bit, the worker's K1 / K2 / K3
+     launches (read through collective_rpc) equal to 4b's, the worker's
+     start and load
+     seconds, the generation seconds beside 4b's and the pipeline's own
+     seconds in the worker (the executor's cost is the difference), and
+     every worker stopped at the end;
   5. the kernels line, the card line and the result line.
 
 Each phase header ends with the seconds since the start.
@@ -3169,7 +3184,11 @@ def run_main_path(work: str, profile_dir: str | None = None) -> dict:
     fp32 = run_fp32_decode(gen, kw, result["stage_times"]["DecodingStage"])
     if profile_dir:
         profile_generation(gen, kw, profile_dir, "fastwan_480x832")
-    return dict(launches, fp32_decode=fp32)
+    # what 4zb must give through the worker process
+    ref = dict(frames=result["frames"][0], launches=launches,
+               generation_s=result["generation_time"],
+               stage_times=result["stage_times"])
+    return dict(launches, fp32_decode=fp32, in_process=ref)
 
 
 def run_fp32_decode(gen, kw: dict, bf16_decode_s: float) -> dict:
@@ -6583,6 +6602,7 @@ def expert_generator(ckpt: str, device: str | None = None):
     from fastvideo_tpu_torch.pipelines.basic.wan.wan_pipeline import (
         WanPipeline)
     from fastvideo_tpu_torch.registry import get_pipeline_config_cls_for_name
+    from fastvideo_tpu_torch.worker.executor import Executor
 
     dev = resolve_device(device)
     args = FastVideoArgs.from_kwargs(model_path=ckpt, num_gpus=1,
@@ -6591,7 +6611,7 @@ def expert_generator(ckpt: str, device: str | None = None):
         model_path=ckpt)
     modules = WanPipeline._required_config_modules + ["transformer_2"]
     pipe = WanPipeline(ckpt, args, dev, required_config_modules=modules)
-    return VideoGenerator(args, pipe, dev)
+    return VideoGenerator(args, Executor(args, dev, pipe), dev)
 
 
 def expert_calls(gen) -> list[str]:
@@ -6804,6 +6824,138 @@ def run_a14b(work: str, profile_dir: str | None = None) -> dict:
                     transformer_2=calls.count("transformer_2")))
 
 
+def check_ulysses_exchange(dev) -> dict:
+    """The Ulysses exchange (``parallel.ulysses``: ``seq_to_heads``, then
+    ``heads_to_seq``, each one ``all_to_all_single``) on a one-process
+    NCCL group at the DiT's self-attention shape: the round trip must give
+    its input back bit for bit. Its time a round trip and one way (CUDA
+    events), beside the time one read and one write of the tensor take at
+    the card's memory rate."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from fastvideo_tpu_torch.parallel.mesh import backend_for
+    from fastvideo_tpu_torch.parallel.ulysses import (heads_to_seq,
+                                                      seq_to_heads)
+
+    backend = backend_for(dev)
+    store = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    dist.init_process_group(backend, init_method=f"file://{store}/store",
+                            rank=0, world_size=1)
+    try:
+        group = dist.group.WORLD
+        gen = torch.Generator(device=dev).manual_seed(0)
+        x = torch.randn(1, 32760, 12, 128, device=dev, dtype=torch.bfloat16,
+                        generator=gen)
+
+        def round_trip():
+            return heads_to_seq(seq_to_heads(x, group), group)
+
+        y = round_trip()
+        torch.cuda.synchronize()
+        exact = torch.equal(y, x)
+        ms = time_ms(round_trip, reps=20, warmup=3)
+        one_way = time_ms(lambda: seq_to_heads(x, group), reps=20, warmup=3)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    nbytes = x.numel() * x.element_size()
+    print(f"  Ulysses exchange on a world-1 {backend} group, "
+          f"[1, 32760, 12, 128] bf16 ({nbytes / 2**20:.1f} MiB): round trip "
+          f"{'exact' if exact else 'NOT EXACT'}; {ms:.3f} ms a round trip, "
+          f"{one_way:.3f} ms one way (all_to_all_single with its stack and "
+          f"concatenation copies; one read and one write of the tensor at "
+          f"{PEAK_BYTES / 1e12:.2f} TB/s take "
+          f"{2 * nbytes / PEAK_BYTES * 1e3:.3f} ms)", flush=True)
+    if not exact:
+        raise SystemExit("the Ulysses round trip did not give its input back")
+    return dict(round_trip_ms=ms, one_way_ms=one_way)
+
+
+def run_executor_path(work: str, ref: dict) -> dict:
+    """4zb: 4b's generation through ``MultiprocExecutor`` at world size 1,
+    on 4b's checkpoint. The worker's frames must equal 4b's in-process
+    frames bit for bit and its launches 4b's; every worker must be stopped
+    at the end."""
+    import numpy as np
+    import torch
+
+    from fastvideo_tpu_torch import VideoGenerator
+    from fastvideo_tpu_torch.entrypoints.video_generator import (
+        resolve_device)
+    from fastvideo_tpu_torch.fastvideo_args import FastVideoArgs
+    from fastvideo_tpu_torch.registry import get_pipeline_config_cls_for_name
+    from fastvideo_tpu_torch.worker.executor import MultiprocExecutor
+
+    os.environ["FASTVIDEO_ATTENTION_BACKEND"] = "VIDEO_SPARSE_ATTN"
+    ckpt = os.path.join(work, "FastWan2.1-T2V-1.3B-Diffusers")
+    if not os.path.isfile(os.path.join(ckpt, "model_index.json")):
+        raise SystemExit(f"4zb: 4b's checkpoint {ckpt} is gone")
+    torch.cuda.empty_cache()
+    # the arguments from_pretrained gives 4b, on the worker-process
+    # executor (from_pretrained keeps one card in process)
+    dev = resolve_device(None)
+    args = FastVideoArgs.from_kwargs(model_path=ckpt, num_gpus=1,
+                                     device=str(dev), VSA_sparsity=0.8)
+    args.pipeline_config = get_pipeline_config_cls_for_name(ckpt)(
+        model_path=ckpt)
+    t0 = time.perf_counter()
+    gen = VideoGenerator(args, MultiprocExecutor(args, dev), dev)
+    built_s = time.perf_counter() - t0
+    executor = gen.executor
+    try:
+        print(f"  worker up in {built_s:.2f} s: started and joined its NCCL "
+              f"group in {executor.startup['start_s']:.2f} s, built the "
+              f"pipeline in {executor.startup['load_s']:.2f} s", flush=True)
+        kw = dict(prompt=PROMPT, seed=42, save_video=False, **CLIP_480P)
+        warm = gen.generate_video(**kw)
+        print(f"  warm-up generation {warm['generation_time']:.2f} s",
+              flush=True)
+        del warm
+        executor.collective_rpc("reset_kernel_counts")
+        result = gen.generate_video(**kw)
+        [(launches, plain)] = executor.collective_rpc("kernel_counts")
+        frames = result["frames"][0]
+        gen_s, fwd_s = result["generation_time"], result["forward_time"]
+        times = {k: round(v, 4) for k, v in result["stage_times"].items()}
+        print(f"  generation {gen_s:.3f} s through the executor (4b in "
+              f"process {ref['generation_s']:.3f} s); the pipeline in the "
+              f"worker {fwd_s:.3f} s, so the executor's call, the clip's "
+              f"{frames.nbytes / 2**20:.1f} MiB of uint8 through shared "
+              f"memory and the host copies take {gen_s - fwd_s:.3f} s; "
+              f"stage seconds "
+              f"{json.dumps(times)}", flush=True)
+        print(f"  worker kernel launches {json.dumps(launches)}; plain calls "
+              f"{json.dumps(plain)}", flush=True)
+        check_generation("FastWan 480x832 through the worker process", result,
+                         CLIP_480P, launches, plain,
+                         {k: n for k, n in ref["launches"].items() if n})
+        for name in ("flash_fwd", "vsa_sparse_fwd", "conv3d"):
+            print(f"  {name}: {launches[name]} launches in the worker, "
+                  f"{ref['launches'][name]} in 4b", flush=True)
+        if launches != ref["launches"]:
+            raise SystemExit(f"4zb: the worker's launches {launches} differ "
+                             f"from 4b's {ref['launches']}")
+        diff = np.abs(frames.astype(np.int16) -
+                      ref["frames"].astype(np.int16))
+        same = not diff.any()
+        print(f"  frames against 4b's: "
+              f"{'equal bit for bit' if same else 'DIFFERENT'} (max diff "
+              f"{int(diff.max())}, {int((diff > 0).sum())} of {diff.size} "
+              f"values differ)", flush=True)
+        if not same:
+            raise SystemExit("4zb: the worker's frames differ from 4b's")
+    finally:
+        gen.shutdown()
+    if any(executor.alive):
+        raise SystemExit("4zb: a worker outlived the executor's shutdown")
+    return dict(generation_s=gen_s, forward_s=fwd_s,
+                start_s=executor.startup["start_s"],
+                load_s=executor.startup["load_s"], launches=launches)
+
+
 def latent_shape_of(size: dict) -> tuple[int, int, int, int]:
     return (VAE_CFG["z_dim"], *latent_of(size))
 
@@ -6922,6 +7074,7 @@ def main() -> int:
 
     phase("# phase 3: kernel checks at the main path's shapes")
     results = run_kernel_checks(dev, args.flex_struct)
+    check_ulysses_exchange(dev)
     _build.reset_counts()
 
     work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
@@ -6941,6 +7094,7 @@ def main() -> int:
     phase("# phase 4b: FastWan main path at full width, 81x480x832, 3 DMD "
           "steps, VSA sparsity 0.8")
     launches = run_main_path(work, args.profile)
+    main_ref = launches.pop("in_process")
     results["conv3d"]["fp32_decode"] = launches.pop("fp32_decode")
     # K1's fp32 form and its pre-pass run in 4b's fp32 decode
     for name in ("flash_fwd_tf32", "flash_fwd_tf32_split"):
@@ -7086,6 +7240,12 @@ def main() -> int:
           f"WanPipeline built with transformer_2: 81x480x832, {A14B_STEPS} "
           f"FlowUniPC steps at shift 12 with CFG")
     a14b = run_a14b(work, args.profile)
+    phase("# phase 4zb: 4b's FastWan generation through the worker-process "
+          "executor at world size 1 (one spawned worker on cuda:0, a "
+          "one-process NCCL group) on 4b's checkpoint: 81x480x832, 3 DMD "
+          "steps, VSA 0.8, seed 42; frames and launches against 4b's")
+    run_executor_path(work, main_ref)
+    del main_ref
     shutil.rmtree(work, ignore_errors=True)
     # each kernel's count comes from the path that runs it
     launches["vsa_sparse_padded_fwd"] = vsa_launches["vsa_sparse_padded_fwd"]

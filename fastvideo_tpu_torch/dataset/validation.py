@@ -26,6 +26,7 @@ from typing import Any
 from fastvideo_tpu_torch.dataset import parquet_io
 from fastvideo_tpu_torch.models.loader.image_io import (load_image,
                                                         load_video_frames)
+from fastvideo_tpu_torch.parallel.mesh import DP_AXIS, current_mesh
 
 logger = logging.getLogger(__name__)
 
@@ -74,7 +75,7 @@ class ValidationDataset:
         all_samples = _load_rows(self.filename)
         self.original_total_samples = len(all_samples)
         if num_dp_groups is None or dp_group_id is None:
-            num_dp_groups, dp_group_id = 1, 0
+            num_dp_groups, dp_group_id = self._mesh_defaults()
         self.num_dp_groups = max(1, num_dp_groups)
         self.dp_group_id = dp_group_id
 
@@ -97,6 +98,16 @@ class ValidationDataset:
             self.total_samples - self.original_total_samples,
             self.dp_group_id, self.num_dp_groups, self.start_idx,
             self.end_idx)
+
+    @staticmethod
+    def _mesh_defaults() -> tuple[int, int]:
+        """(dp groups, this rank's group) from the mesh; (1, 0) with none.
+        One process a card, so the group is this rank's dp index (JAX's
+        single controller reads group 0's share)."""
+        mesh = current_mesh()
+        if mesh is None:
+            return 1, 0
+        return mesh.shape[DP_AXIS], mesh.coords[DP_AXIS]
 
     def __len__(self) -> int:
         return len(self.samples)

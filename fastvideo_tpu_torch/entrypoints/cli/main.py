@@ -42,6 +42,7 @@ def _add_generate(sub: argparse._SubParsersAction) -> None:
     p.add_argument("--num-gpus", type=int, default=1)
     p.add_argument("--sp-size", type=int, default=1)
     p.add_argument("--tp-size", type=int, default=1)
+    p.add_argument("--dp-size", type=int, default=-1)
     p.add_argument("--attention-backend", default=None)
     _add_device(p)
     p.set_defaults(func=_cmd_generate)
@@ -54,7 +55,7 @@ def _cmd_generate(args: argparse.Namespace) -> int:
         os.environ["FASTVIDEO_ATTENTION_BACKEND"] = args.attention_backend
     gen = VideoGenerator.from_pretrained(
         args.model_path, device=args.device, num_gpus=args.num_gpus,
-        sp_size=args.sp_size, tp_size=args.tp_size)
+        sp_size=args.sp_size, tp_size=args.tp_size, dp_size=args.dp_size)
     kwargs = dict(height=args.height, width=args.width,
                   num_frames=args.num_frames,
                   num_inference_steps=args.num_inference_steps,
@@ -62,7 +63,10 @@ def _cmd_generate(args: argparse.Namespace) -> int:
                   fps=args.fps, output_path=args.output_path)
     if args.negative_prompt:
         kwargs["negative_prompt"] = args.negative_prompt
-    result = gen.generate_video(args.prompt, **kwargs)
+    try:
+        result = gen.generate_video(args.prompt, **kwargs)
+    finally:
+        gen.shutdown()
     logger.info("Done: %s", result.get("video_path"))
     return 0
 

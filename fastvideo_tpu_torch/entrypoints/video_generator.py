@@ -22,7 +22,12 @@ text_encoder_quant="int8-weight-only")`` serves the int8 forms, and
 in and out); ``lora_path`` is stored and not applied, as in JAX.
 
 It runs on the CUDA card unless the caller passes ``device="cpu"``; with
-no CUDA device and no ``device`` it raises.
+no CUDA device and no ``device`` it raises. ``num_gpus`` > 1 spreads a
+generation over that many cards (``sp_size``, ``tp_size``, ``dp_size``;
+by default sp takes them all, as in the JAX package) through worker
+processes, one a card (``worker/executor.py``); the frames come back from
+rank 0. Under torchrun each process builds its own share instead.
+``shutdown()`` stops the workers.
 """
 
 from __future__ import annotations
@@ -39,9 +44,9 @@ import torch
 from fastvideo_tpu_torch.configs.pipelines.wan import WanT2V480PConfig
 from fastvideo_tpu_torch.configs.sample import SamplingParam
 from fastvideo_tpu_torch.fastvideo_args import FastVideoArgs
-from fastvideo_tpu_torch.pipelines import build_pipeline
 from fastvideo_tpu_torch.pipelines.batch import ForwardBatch
 from fastvideo_tpu_torch.registry import get_pipeline_config_cls_for_name
+from fastvideo_tpu_torch.worker.executor import Executor
 
 logger = logging.getLogger(__name__)
 
@@ -61,19 +66,31 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
     return dev
 
 
+def video_uint8(output: torch.Tensor) -> torch.Tensor:
+    """[B, C, T, H, W] in [-1, 1] -> uint8 [B, C, T, H, W] on the host."""
+    return ((output.clamp(-1, 1) + 1) / 2 * 255).round().to(
+        torch.uint8).cpu()
+
+
 def frames_uint8(output: torch.Tensor) -> list[np.ndarray]:
-    """[B, C, T, H, W] in [-1, 1] -> list of [T, H, W, C] uint8."""
-    video = ((output.clamp(-1, 1) + 1) / 2 * 255).round().to(torch.uint8)
-    return [v.permute(1, 2, 3, 0).cpu().numpy() for v in video]
+    """[B, C, T, H, W] in [-1, 1], or ``video_uint8``'s, -> list of
+    [T, H, W, C] uint8 (views of the host video)."""
+    video = output if output.dtype == torch.uint8 else video_uint8(output)
+    return [v.permute(1, 2, 3, 0).numpy() for v in video]
 
 
 class VideoGenerator:
 
-    def __init__(self, fastvideo_args: FastVideoArgs, pipeline,
+    def __init__(self, fastvideo_args: FastVideoArgs, executor: Executor,
                  device: torch.device):
         self.fastvideo_args = fastvideo_args
-        self.pipeline = pipeline
+        self.executor = executor
         self.device = device
+
+    @property
+    def pipeline(self):
+        """The pipeline in this process (None behind worker processes)."""
+        return self.executor.pipeline
 
     @classmethod
     def from_pretrained(cls, model_path: str, *,
@@ -81,7 +98,9 @@ class VideoGenerator:
                         num_gpus: int = 1, **kwargs) -> "VideoGenerator":
         """Load a diffusers-format checkpoint. Keyword arguments that name a
         PipelineConfig field (e.g. ``precision``) set it; the rest go to
-        FastVideoArgs (e.g. ``VSA_sparsity``)."""
+        FastVideoArgs (e.g. ``VSA_sparsity``, ``sp_size``). A CUDA run
+        asking for more cards than the machine has raises (in the worker
+        processes' executor)."""
         dev = resolve_device(device)
         config_cls = get_pipeline_config_cls_for_name(model_path)
         if config_cls is None:
@@ -97,14 +116,15 @@ class VideoGenerator:
                                          num_gpus=num_gpus, device=str(dev),
                                          **kwargs)
         args.pipeline_config = pipeline_config
-        return cls(args, build_pipeline(args, dev), dev)
+        return cls(args, Executor.get_class(args)(args, dev), dev)
 
     def generate_video(self, prompt: str | list[str] | None = None,
                        sampling_param: SamplingParam | None = None,
                        **kwargs) -> dict[str, Any]:
         """Returns ``frames`` (one [T, H, W, 3] uint8 array per video),
-        ``latents``, ``stage_times`` (seconds by stage class name) and
-        ``generation_time`` (seconds)."""
+        ``latents``, ``stage_times`` (seconds by stage class name),
+        ``generation_time`` (seconds) and ``forward_time`` (the pipeline's
+        seconds where it ran: a worker's, behind worker processes)."""
         t0 = time.perf_counter()
         param = sampling_param or SamplingParam()
         if prompt is not None:
@@ -128,14 +148,19 @@ class VideoGenerator:
             return_trajectory_latents=param.return_trajectory_latents,
             extra=dict(param.extra))
         batch.extra["num_videos_per_prompt"] = param.num_videos_per_prompt
-        batch = self.pipeline.forward(batch, self.fastvideo_args)
-        frames = frames_uint8(batch.output)
+        t_forward = time.perf_counter()
+        batch = self.executor.execute_forward(batch, self.fastvideo_args)
+        forward_time = batch.extra.pop("worker_forward_s",
+                                       time.perf_counter() - t_forward)
+        video = batch.extra.pop("video_uint8", None)
+        frames = frames_uint8(batch.output if video is None else video)
         result: dict[str, Any] = {
             "prompts": param.prompt,
             "frames": frames,
             "latents": batch.latents,
             "stage_times": batch.logging_info.stage_times,
             "generation_time": time.perf_counter() - t0,
+            "forward_time": forward_time,
         }
         if batch.return_trajectory_latents:
             result["trajectory_latents"] = batch.trajectory_latents
@@ -150,10 +175,11 @@ class VideoGenerator:
                          lora_path: str | None = None) -> None:
         """Load and attach a LoRA adapter to the pipeline's DiT (merge and
         unmerge through ``self.pipeline``)."""
-        if not hasattr(self.pipeline, "set_lora_adapter"):
-            raise NotImplementedError(
-                "Pipeline does not support LoRA adapters")
-        self.pipeline.set_lora_adapter(lora_nickname, lora_path)
+        self.executor.set_lora_adapter(lora_nickname, lora_path)
+
+    def shutdown(self) -> None:
+        """Stop the executor (and its worker processes)."""
+        self.executor.shutdown()
 
     @staticmethod
     def save_video(frames: np.ndarray, param: SamplingParam) -> str:

@@ -31,6 +31,11 @@ environment_flags: dict[str, Callable[[], Any]] = {
     # FastVideoArgs.text_encoder_quant; "" disables
     "FASTVIDEO_TEXT_ENCODER_QUANT":
     lambda: os.getenv("FASTVIDEO_TEXT_ENCODER_QUANT", "") or None,
+    # seconds one engine iteration may take before the executor's watchdog
+    # dumps every thread's stack (it does not stop the iteration); <= 0
+    # disables it
+    "FASTVIDEO_ENGINE_ITERATION_TIMEOUT_S":
+    lambda: int(os.getenv("FASTVIDEO_ENGINE_ITERATION_TIMEOUT_S", "600")),
 }
 
 

@@ -2,14 +2,19 @@
 fastvideo_tpu/fastvideo_args.py, the fields the inference and SFT training
 paths read).
 
-The port runs on one card: ``num_gpus``, ``sp_size`` and ``tp_size`` (and
-for training ``dp_size``) must be 1 until the parallelism slice.
+Serving spreads over ``num_gpus`` processes, one a card, on the mesh
+``mesh_config()`` gives (``parallel/``): with sp = tp = 1 and dp left at
+-1, sp takes all of ``num_gpus``, as in the JAX package. Training runs on
+one card: ``TrainingArgs`` refuses more (ROADMAP Queue 1, the training half
+of parallelism).
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Any
+
+from fastvideo_tpu_torch.parallel.mesh import MeshConfig
 
 
 @dataclasses.dataclass
@@ -18,6 +23,11 @@ class FastVideoArgs:
     num_gpus: int = 1
     tp_size: int = 1
     sp_size: int = 1
+    dp_size: int = -1
+    # seconds the process groups (and the executor's calls) wait; None
+    # keeps torch.distributed's default and lets a call run as long as it
+    # takes (a dead worker is still found at once)
+    dist_timeout: int | None = None
     # "cuda" (default) or "cpu"; resolved by the entry point
     device: str | None = None
     flow_shift: float | None = None
@@ -33,15 +43,29 @@ class FastVideoArgs:
     lora_nickname: str = "default"
     pipeline_config: Any = None
 
+    def mesh_config(self) -> MeshConfig:
+        dp = self.dp_size
+        if dp == -1:
+            # the world is num_gpus, not every device of the host
+            dp = max(1, self.num_gpus // (self.sp_size * self.tp_size))
+        return MeshConfig(dp_size=dp, sp_size=self.sp_size,
+                          tp_size=self.tp_size)
+
     @classmethod
     def from_kwargs(cls, **kwargs) -> "FastVideoArgs":
         unknown = set(kwargs) - {f.name for f in dataclasses.fields(cls)}
         if unknown:
             raise TypeError(f"unknown arguments for the port: {sorted(unknown)}")
         args = cls(**kwargs)
-        if args.num_gpus != 1 or args.sp_size != 1 or args.tp_size != 1:
-            raise NotImplementedError(
-                "the port runs on one card (num_gpus = sp_size = tp_size = 1)")
+        # num_gpus defines the world; sp fills it
+        if args.num_gpus > 1 and args.sp_size == 1 and args.tp_size == 1 \
+                and args.dp_size == -1:
+            args.sp_size = args.num_gpus
+        dp, sp, tp = args.mesh_config().resolve(args.num_gpus)
+        if dp * sp * tp != args.num_gpus:
+            raise ValueError(f"dp*sp*tp={dp * sp * tp} must equal "
+                             f"num_gpus={args.num_gpus}: one process a card, "
+                             "each with a place in the mesh")
         return args
 
 
@@ -84,9 +108,11 @@ class TrainingArgs(FastVideoArgs):
     seed: int = 42
 
     def __post_init__(self):
-        if self.num_gpus != 1 or self.sp_size != 1 or self.tp_size != 1:
+        if (self.num_gpus != 1 or self.sp_size != 1 or self.tp_size != 1
+                or self.dp_size not in (-1, 1)):
             raise NotImplementedError(
                 "the port trains on one card (num_gpus = sp_size = tp_size "
-                "= 1)")
+                "= 1): training's dp, FSDP and sp are ROADMAP Queue 1's "
+                "training half of parallelism")
         self.betas = tuple(self.betas)
         self.trackers = tuple(self.trackers or ())

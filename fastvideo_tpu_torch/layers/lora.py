@@ -39,7 +39,13 @@ class LoRALinear(Linear):
     def from_linear(cls, linear: Linear, rank: int = 16,
                     alpha: float | None = None) -> "LoRALinear":
         """A LoRA layer over ``linear``'s own weight and bias tensors (shared,
-        not copied), with zero adapters."""
+        not copied), with zero adapters. A linear split over tensor
+        parallelism takes no adapter: its delta would need the same split,
+        which the port does not make."""
+        if getattr(linear, "tp_size", 1) > 1:
+            raise NotImplementedError(
+                "LoRA adapters on tensor-parallel linears (tp > 1) are not "
+                "ported")
         w = linear.weight
         new = cls(linear.in_features, linear.out_features,
                   bias=linear.bias is not None, rank=rank, alpha=alpha,

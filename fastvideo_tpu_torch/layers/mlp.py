@@ -1,4 +1,6 @@
-"""MLP block (port of fastvideo_tpu/layers/mlp.py): fc_in -> act -> fc_out."""
+"""MLP block (port of fastvideo_tpu/layers/mlp.py): fc_in -> act -> fc_out,
+a column-parallel linear into a row-parallel one (the hidden features stay
+split over tp through the activation; one all-reduce at fc_out)."""
 
 from __future__ import annotations
 
@@ -6,7 +8,8 @@ import torch
 from torch import nn
 
 from fastvideo_tpu_torch.layers.activation import get_act_fn
-from fastvideo_tpu_torch.layers.linear import Linear
+from fastvideo_tpu_torch.layers.linear import (ColumnParallelLinear,
+                                               RowParallelLinear)
 
 
 class MLP(nn.Module):
@@ -17,10 +20,10 @@ class MLP(nn.Module):
                  dtype=None):
         super().__init__()
         output_dim = output_dim or input_dim
-        self.fc_in = Linear(input_dim, mlp_hidden_dim, bias, device=device,
-                            dtype=dtype)
-        self.fc_out = Linear(mlp_hidden_dim, output_dim, bias, device=device,
-                             dtype=dtype)
+        self.fc_in = ColumnParallelLinear(input_dim, mlp_hidden_dim, bias,
+                                          device=device, dtype=dtype)
+        self.fc_out = RowParallelLinear(mlp_hidden_dim, output_dim, bias,
+                                        device=device, dtype=dtype)
         self.act = get_act_fn(act_type)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -10,6 +10,9 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from fastvideo_tpu_torch.parallel.collectives import all_reduce
+from fastvideo_tpu_torch.parallel.mesh import TP_AXIS, get_tp_size
+
 
 def _f32(t: torch.Tensor | float) -> torch.Tensor | float:
     return t.float() if torch.is_tensor(t) else float(t)
@@ -17,18 +20,34 @@ def _f32(t: torch.Tensor | float) -> torch.Tensor | float:
 
 class RMSNorm(nn.Module):
     """w * x / sqrt(mean(x^2) + eps); the statistics in fp32, the result
-    cast back to the input dtype before the weight multiply."""
+    cast back to the input dtype before the weight multiply.
 
-    def __init__(self, hidden_size: int, eps: float = 1e-6, *, device=None,
-                 dtype=None):
+    With ``tp_sharded`` the norm acts on features split over tp (the
+    output of a column-parallel linear, e.g. Wan's q/k norm across heads):
+    the rank holds its share of the weight and the mean of squares is
+    summed over tp, as GSPMD does for the JAX module."""
+
+    def __init__(self, hidden_size: int, eps: float = 1e-6, *,
+                 tp_sharded: bool = False, device=None, dtype=None):
         super().__init__()
         self.eps = eps
-        self.weight = nn.Parameter(torch.ones(hidden_size, device=device,
-                                              dtype=dtype))
+        self.hidden_size = hidden_size
+        self.tp_size = get_tp_size() if tp_sharded else 1
+        if self.tp_size > 1:
+            if hidden_size % self.tp_size:
+                raise ValueError(f"RMSNorm of {hidden_size} does not split "
+                                 f"over tp={self.tp_size}")
+            self.tp_axes = {"weight": (TP_AXIS,)}
+        self.weight = nn.Parameter(torch.ones(hidden_size // self.tp_size,
+                                              device=device, dtype=dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
-        var = xf.square().mean(dim=-1, keepdim=True)
+        if self.tp_size > 1:
+            var = all_reduce(xf.square().sum(dim=-1, keepdim=True),
+                             TP_AXIS) / self.hidden_size
+        else:
+            var = xf.square().mean(dim=-1, keepdim=True)
         out = (xf * torch.rsqrt(var + self.eps)).to(x.dtype)
         return out * self.weight.to(x.dtype)
 

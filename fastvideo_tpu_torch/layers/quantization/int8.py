@@ -11,6 +11,14 @@ around it are plain PyTorch, as they are XLA elementwise ops in JAX. The
 weight-only form dequantizes the weight to the activation dtype and runs a
 plain ``F.linear``.
 
+Under tensor parallelism an ``Int8Linear`` keeps its source linear's split
+and ``tp_axes`` (``weight_q`` as the weight, ``scale`` as the bias of a
+column linear or whole for a row linear), as JAX's int8 linears keep the
+kernel's axes. A row-parallel one takes its weight's and its activations'
+amax over the whole input row (a max over tp) before it quantizes, so its
+scales are those of the unsplit layer, and all-reduces its dequantized
+partial products before the bias.
+
 Every rounding follows the JAX package: scales are ``max(amax / 127, 1e-8)``
 in fp32, values round half to even and clip to [-127, 127], the W8A8 output
 is ``acc * sx * scale`` in fp32 cast to the layer's parameter dtype, and the
@@ -29,6 +37,8 @@ from torch import nn
 from fastvideo_tpu_torch.layers.embeddings import PatchEmbed3D
 from fastvideo_tpu_torch.layers.linear import Linear
 from fastvideo_tpu_torch.layers.lora import LoRALinear
+from fastvideo_tpu_torch.parallel.collectives import all_reduce
+from fastvideo_tpu_torch.parallel.mesh import TP_AXIS
 
 logger = logging.getLogger(__name__)
 
@@ -68,20 +78,31 @@ def div127(t: torch.Tensor) -> torch.Tensor:
     return t / torch.full_like(t, 127.0)
 
 
-def quantize_weight_int8(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def _amax(x: torch.Tensor, dim: int, row_parallel: bool) -> torch.Tensor:
+    """amax over ``dim`` in fp32 (exact: abs and max do not round); over
+    the whole row of a row-parallel layer (a max over tp)."""
+    amax = x.abs().amax(dim=dim, keepdim=dim != 1).float()
+    if row_parallel:
+        amax = all_reduce(amax, TP_AXIS, torch.distributed.ReduceOp.MAX)
+    return amax
+
+
+def quantize_weight_int8(w: torch.Tensor, row_parallel: bool = False
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """[out, in] -> (int8 weight [out, in], fp32 scale [out]), amax over
     ``in``. On a CPU tensor this is the JAX package's
     ``host_quantize_weight_int8``: quantize before the upload."""
-    amax = w.abs().amax(dim=1).float()  # exact: abs and max do not round
+    amax = _amax(w, 1, row_parallel)
     scale = div127(amax).clamp_min(1e-8)
     wq = torch.round(w.float() / scale[:, None]).clamp_(-127, 127)
     return wq.to(torch.int8), scale
 
 
-def quantize_activation(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def quantize_activation(x: torch.Tensor, row_parallel: bool = False
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """Dynamic per-token symmetric int8: [..., in] -> (int8, fp32 scale
     [..., 1])."""
-    amax = x.abs().amax(dim=-1, keepdim=True).float()
+    amax = _amax(x, -1, row_parallel)
     scale = div127(amax).clamp_min(1e-8)
     xq = torch.round(x.float() / scale).clamp_(-127, 127)
     return xq.to(torch.int8), scale
@@ -127,6 +148,11 @@ class Int8Linear(nn.Module):
         self.bias = (nn.Parameter(torch.zeros(out_features, dtype=dtype,
                                               device=device))
                      if bias else None)
+        self.tp_mode, self.tp_size, self.tp_axes = None, 1, {}
+
+    @property
+    def row_parallel(self) -> bool:
+        return self.tp_mode == "row" and self.tp_size > 1
 
     @classmethod
     def from_linear(cls, linear: Linear, weight_only: bool = False,
@@ -138,12 +164,21 @@ class Int8Linear(nn.Module):
         new = cls(linear.in_features, linear.out_features,
                   bias=linear.bias is not None, weight_only=weight_only,
                   dtype=w.dtype, device="meta")
+        new.tp_mode = getattr(linear, "tp_mode", None)
+        new.tp_size = getattr(linear, "tp_size", 1)
+        axes = getattr(linear, "tp_axes", {})
+        if "weight" in axes:
+            new.tp_axes = {"weight_q": axes["weight"],
+                           "scale": axes["weight"][:1]}
+            if "bias" in axes:
+                new.tp_axes["bias"] = axes["bias"]
         if init_only:
             new.to_empty(device=w.device)
             new.weight_q.zero_()
             new.scale.fill_(1.0)
         else:
-            new.weight_q, new.scale = quantize_weight_int8(w.detach())
+            new.weight_q, new.scale = quantize_weight_int8(
+                w.detach(), new.row_parallel)
         new.bias = linear.bias
         return new
 
@@ -154,10 +189,14 @@ class Int8Linear(nn.Module):
             y = F.linear(x, w)
         else:
             FORWARD_CALLS["int8_w8a8"] += 1
-            xq, sx = quantize_activation(x)
+            xq, sx = quantize_activation(x, self.row_parallel)
             acc = int8_mm(xq.reshape(-1, self.in_features), self.weight_q)
             acc = acc.reshape(*x.shape[:-1], self.out_features)
+            if self.row_parallel:  # the exact int32 sum of the partials
+                acc = all_reduce(acc, TP_AXIS)
             y = (acc.float() * sx * self.scale).to(self.out_dtype)
+        if self.weight_only and self.row_parallel:
+            y = all_reduce(y, TP_AXIS)
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
         return y

@@ -64,6 +64,7 @@ from fastvideo_tpu_torch.models.dits.wan import (WanTransformer3DModel,
 # needs first
 from fastvideo_tpu_torch.forward_context import bind_forward_context
 from fastvideo_tpu_torch.ops import _build
+from fastvideo_tpu_torch.parallel import get_tp_size
 from fastvideo_tpu_torch.ops.flash_attention import (flash_attention,
                                                      flash_attention_kv_mask)
 
@@ -329,6 +330,15 @@ class CausalWanTransformer3DModel(WanTransformer3DModel):
     """Block-autoregressive Wan. Its parameters are the Wan DiT's."""
 
     block_cls = CausalWanTransformerBlock
+
+    def __init__(self, config, *, device=None, dtype=None):
+        # its cached attention and the block passes below hold every head;
+        # under sp it runs whole on each rank, as the JAX model does
+        if get_tp_size() > 1:
+            raise NotImplementedError(
+                "the causal Wan under tensor parallelism (tp > 1) is not "
+                "ported")
+        super().__init__(config, device=device, dtype=dtype)
 
     # -- caches -------------------------------------------------------------
 

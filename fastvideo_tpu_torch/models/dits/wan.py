@@ -9,6 +9,15 @@ puts them in front of the text context, and each block's cross-attention
 attends the first 257 context tokens through its own K/V projections and
 the rest through the text ones, the two outputs summed.
 
+Under the mesh (``parallel/``) the tokens are split over sp after the
+patch embedding (and the VSA tile order), padded to a multiple of sp: the
+RoPE tables and the per-token modulation are padded and split with them,
+the padded keys are masked (``kv_valid``; with VSA's pre-tiled tokens the
+backend cuts them off itself), and the tokens are gathered back before
+the output projection. The attention and FFN projections are column- and
+row-parallel over tp, and the q/k norms over all heads sum their squares
+over tp. The batch is split over dp. Every rank returns the whole output.
+
 Module names follow the JAX package, so the port's ``state_dict()`` keys
 are the torch-layout keys that ``fastvideo_tpu.models.loader.export`` writes.
 The AdaLN modulation runs in fp32 with bf16 activations. The blocks'
@@ -52,7 +61,8 @@ from fastvideo_tpu_torch.layers.embeddings import (ModulateProjection,
                                                    PatchEmbed3D,
                                                    TimestepEmbedder,
                                                    unpatchify)
-from fastvideo_tpu_torch.layers.linear import Linear
+from fastvideo_tpu_torch.layers.linear import (ColumnParallelLinear, Linear,
+                                               RowParallelLinear)
 from fastvideo_tpu_torch.layers.mlp import MLP
 from fastvideo_tpu_torch.layers.norm import (FP32LayerNorm,
                                              LayerNormScaleShift, RMSNorm,
@@ -61,6 +71,9 @@ from fastvideo_tpu_torch.layers.norm import (FP32LayerNorm,
 from fastvideo_tpu_torch.layers.rotary import get_rotary_pos_embed_wan
 from fastvideo_tpu_torch.ops.vsa import (tile_tokens, tile_tokens_exact,
                                          untile_tokens, untile_tokens_exact)
+from fastvideo_tpu_torch.parallel import (get_sp_size, pad_rope_to,
+                                          shard_seq, unshard_seq)
+from fastvideo_tpu_torch.parallel.ulysses import shard_batch, sp_slice
 
 
 # the matmuls whose outputs "ops" keeps: the linears (a 2-D product, or a
@@ -186,22 +199,23 @@ class WanT2VCrossAttention(nn.Module):
         kw = dict(device=device, dtype=dtype)
         self.num_heads = num_heads
         self.head_dim = dim // num_heads
-        self.to_q = Linear(dim, dim, **kw)
-        self.to_k = Linear(dim, dim, **kw)
-        self.to_v = Linear(dim, dim, **kw)
-        self.to_out = Linear(dim, dim, **kw)
-        self.norm_q = RMSNorm(dim, eps=eps, **kw)
-        self.norm_k = RMSNorm(dim, eps=eps, **kw)
+        self.to_q = ColumnParallelLinear(dim, dim, **kw)
+        self.to_k = ColumnParallelLinear(dim, dim, **kw)
+        self.to_v = ColumnParallelLinear(dim, dim, **kw)
+        self.to_out = RowParallelLinear(dim, dim, **kw)
+        self.norm_q = RMSNorm(dim, eps=eps, tp_sharded=True, **kw)
+        self.norm_k = RMSNorm(dim, eps=eps, tp_sharded=True, **kw)
         self.attn = LocalAttention(num_heads, self.head_dim,
                                    supported_backends=("FLASH_ATTN",
                                                        "TORCH_SDPA"))
 
     def qkv(self, x: torch.Tensor, context: torch.Tensor):
-        b = x.shape[0]
-        n, d = self.num_heads, self.head_dim
-        q = self.norm_q(self.to_q(x)).reshape(b, -1, n, d)
-        k = self.norm_k(self.to_k(context)).reshape(b, -1, n, d)
-        v = self.to_v(context).reshape(b, -1, n, d)
+        """q, k, v [B, S, H, D] with the rank's tp share of the heads."""
+        b, d = x.shape[0], self.head_dim
+        q = self.norm_q(self.to_q(x)).reshape(b, x.shape[1], -1, d)
+        k = self.norm_k(self.to_k(context)).reshape(b, context.shape[1], -1,
+                                                    d)
+        v = self.to_v(context).reshape(b, context.shape[1], -1, d)
         return q, k, v
 
     def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
@@ -222,21 +236,21 @@ class WanI2VCrossAttention(WanT2VCrossAttention):
                  device=None, dtype=None):
         super().__init__(dim, num_heads, eps, device=device, dtype=dtype)
         kw = dict(device=device, dtype=dtype)
-        self.add_k_proj = Linear(dim, dim, **kw)
-        self.add_v_proj = Linear(dim, dim, **kw)
-        self.norm_added_k = RMSNorm(dim, eps=eps, **kw)
+        self.add_k_proj = ColumnParallelLinear(dim, dim, **kw)
+        self.add_v_proj = ColumnParallelLinear(dim, dim, **kw)
+        self.norm_added_k = RMSNorm(dim, eps=eps, tp_sharded=True, **kw)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
         nimg = self.NUM_IMAGE_TOKENS
         context_img, context_txt = context[:, :nimg], context[:, nimg:]
-        b = x.shape[0]
-        n, d = self.num_heads, self.head_dim
+        b, d = x.shape[0], self.head_dim
+        n_img = context_img.shape[1]
         q, k, v = self.qkv(x, context_txt)
         k_img = self.norm_added_k(self.add_k_proj(context_img)).reshape(
-            b, -1, n, d)
-        v_img = self.add_v_proj(context_img).reshape(b, -1, n, d)
+            b, n_img, -1, d)
+        v_img = self.add_v_proj(context_img).reshape(b, n_img, -1, d)
         out = self.attn(q, k, v) + self.attn(q, k_img, v_img)
-        return self.to_out(out.reshape(b, -1, n * d))
+        return self.to_out(out.reshape(b, x.shape[1], -1))
 
 
 class WanTransformerBlock(nn.Module):
@@ -252,14 +266,14 @@ class WanTransformerBlock(nn.Module):
         self.num_heads = num_heads
         head_dim = dim // num_heads
         self.norm1 = FP32LayerNorm(dim, eps, elementwise_affine=False, **kw)
-        self.to_q = Linear(dim, dim, **kw)
-        self.to_k = Linear(dim, dim, **kw)
-        self.to_v = Linear(dim, dim, **kw)
-        self.to_out = Linear(dim, dim, **kw)
+        self.to_q = ColumnParallelLinear(dim, dim, **kw)
+        self.to_k = ColumnParallelLinear(dim, dim, **kw)
+        self.to_v = ColumnParallelLinear(dim, dim, **kw)
+        self.to_out = RowParallelLinear(dim, dim, **kw)
         if qk_norm != "rms_norm_across_heads":
             raise ValueError(f"Unsupported qk_norm: {qk_norm}")
-        self.norm_q = RMSNorm(dim, eps=eps, **kw)
-        self.norm_k = RMSNorm(dim, eps=eps, **kw)
+        self.norm_q = RMSNorm(dim, eps=eps, tp_sharded=True, **kw)
+        self.norm_k = RMSNorm(dim, eps=eps, tp_sharded=True, **kw)
         self.attn1 = DistributedAttention(num_heads, head_dim)
         self.self_attn_residual_norm = ScaleResidualLayerNormScaleShift(
             dim, eps=eps, elementwise_affine=True, **kw)
@@ -286,8 +300,8 @@ class WanTransformerBlock(nn.Module):
         """temb: [B, 6, C] modulation, or [B, S, 6, C] per token (Wan2.2
         TI2V); fp32 math."""
         orig_dtype = hidden_states.dtype
-        b = hidden_states.shape[0]
-        n, d = self.num_heads, self.dim // self.num_heads
+        b, s = hidden_states.shape[:2]
+        d = self.dim // self.num_heads
         if temb.ndim == 4:
             e = self.scale_shift_table.float()[None] + temb.float()
             mods = [e[:, :, i] for i in range(6)]  # each [B, S, C]
@@ -300,13 +314,14 @@ class WanTransformerBlock(nn.Module):
         norm_hidden = self.norm1.norm_f32(hidden_states)
         norm_hidden = (norm_hidden * (1.0 + scale_msa) + shift_msa).to(
             orig_dtype)
-        q = self.norm_q(self.to_q(norm_hidden)).reshape(b, -1, n, d)
-        k = self.norm_k(self.to_k(norm_hidden)).reshape(b, -1, n, d)
-        v = self.to_v(norm_hidden).reshape(b, -1, n, d)
+        # the rank's tp share of the heads
+        q = self.norm_q(self.to_q(norm_hidden)).reshape(b, s, -1, d)
+        k = self.norm_k(self.to_k(norm_hidden)).reshape(b, s, -1, d)
+        v = self.to_v(norm_hidden).reshape(b, s, -1, d)
         attn_out = self.attn1(q, k, v, freqs_cis=freqs_cis, kv_valid=kv_valid,
                               grid=grid, gate=self.gate_compress(norm_hidden),
                               pre_tiled=pre_tiled)
-        attn_out = self.to_out(attn_out.reshape(b, -1, self.dim))
+        attn_out = self.to_out(attn_out.reshape(b, s, -1))
         norm_hidden, hidden_states = self.self_attn_residual_norm(
             hidden_states, attn_out, gate_msa, 0.0, 0.0)
 
@@ -414,6 +429,16 @@ class WanTransformer3DModel(nn.Module):
             x = tile_fn(x, grid, tile)
             cos = tile_fn(cos[None], grid, tile)[0]
             sin = tile_fn(sin[None], grid, tile)[0]
+        # the rank's tokens (and batch): the rope tables follow the sp
+        # padding (an identity rotation) and the rank's slice
+        x, orig_seq_len = shard_seq(x)
+        seq_len = x.shape[1] * get_sp_size()
+        cos, sin = pad_rope_to(cos, sin, seq_len)
+        cos, sin = sp_slice(cos, 0), sp_slice(sin, 0)
+        # the sp padding is masked out of the keys; VSA's pre-tiled tokens
+        # are cut to the tiles by the backend
+        kv_valid = (orig_seq_len if seq_len != orig_seq_len and not pre_tiled
+                    else None)
 
         ts_seq_len = timestep.shape[1] if timestep.ndim == 2 else None
         if ts_seq_len is not None:
@@ -427,22 +452,27 @@ class WanTransformer3DModel(nn.Module):
             if pre_tiled:
                 timestep_proj = tile_fn(timestep_proj, grid, tile)
                 temb = tile_fn(temb, grid, tile)
+            # per-token modulation follows the tokens' zero padding
+            # (JAX's pad_tokens_to) and split
+            timestep_proj = shard_seq(timestep_proj)[0]
+            temb = shard_seq(temb)[0]
         else:
-            timestep_proj = timestep_proj.reshape(timestep_proj.shape[0], 6,
-                                                  -1)
+            timestep_proj = shard_batch(timestep_proj.reshape(
+                timestep_proj.shape[0], 6, -1))
+            temb = shard_batch(temb)
         if image is not None:
             context = torch.cat([image, context], dim=1)
-        context = context.to(x.dtype)
+        context = shard_batch(context.to(x.dtype))
         remat = self.gradient_checkpointing and torch.is_grad_enabled()
         remat_kw = checkpoint_policy_kwargs(self.gradient_checkpointing_policy)
         for block in self.blocks:
             if remat:
                 x = torch.utils.checkpoint.checkpoint(
                     bind_forward_context(block), x, context, timestep_proj,
-                    (cos, sin), None, grid=grid, pre_tiled=pre_tiled,
+                    (cos, sin), kv_valid, grid=grid, pre_tiled=pre_tiled,
                     use_reentrant=False, **remat_kw)
             else:
-                x = block(x, context, timestep_proj, (cos, sin), None,
+                x = block(x, context, timestep_proj, (cos, sin), kv_valid,
                           grid=grid, pre_tiled=pre_tiled)
 
         if temb.ndim == 3:  # [B, S, C] per token
@@ -451,6 +481,7 @@ class WanTransformer3DModel(nn.Module):
         else:
             e = self.scale_shift_table.float() + temb.float()[:, None]
             x = self.norm_out(x, e[:, 0:1], e[:, 1:2])
+        x = unshard_seq(x, orig_seq_len, batch=hidden_states.shape[0])
         if pre_tiled:
             x = untile_fn(x, grid, tile)
         x = self.proj_out(x)

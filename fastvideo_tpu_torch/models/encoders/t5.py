@@ -4,6 +4,11 @@ RMS "layer norm" (no mean, no bias), attention without 1/sqrt(d) scaling,
 binned relative position bias (in every layer for UMT5, shared from layer
 0 for T5), gated-activation FF. Norm statistics and attention scores are
 fp32; the matmuls run in the parameter dtype.
+
+Under tensor parallelism q/k/v and the FF's input projections are
+column-parallel and o and wo row-parallel, so a rank attends with its
+share of the heads; the relative position bias table [buckets, heads]
+gives each rank its heads' columns.
 """
 
 from __future__ import annotations
@@ -18,8 +23,10 @@ from torch import nn
 from fastvideo_tpu_torch.configs.models.encoders.t5 import T5ArchConfig
 from fastvideo_tpu_torch.layers.activation import get_act_fn
 from fastvideo_tpu_torch.layers.embeddings import Embedding
-from fastvideo_tpu_torch.layers.linear import Linear
+from fastvideo_tpu_torch.layers.linear import (ColumnParallelLinear,
+                                               RowParallelLinear, tp_split)
 from fastvideo_tpu_torch.layers.norm import RMSNorm
+from fastvideo_tpu_torch.parallel.mesh import TP_AXIS, get_tp_size
 
 
 @dataclasses.dataclass
@@ -52,18 +59,22 @@ class T5SelfAttention(nn.Module):
                  dtype=None):
         super().__init__()
         self.config = config
-        self.n_heads = config.num_heads
+        # this rank's heads
+        self.n_heads = tp_split(config.num_heads, get_tp_size(), "num_heads")
         self.d_kv = config.d_kv
         inner = config.num_heads * config.d_kv
         kw = dict(bias=False, device=device, dtype=dtype)
-        self.q = Linear(config.d_model, inner, **kw)
-        self.k = Linear(config.d_model, inner, **kw)
-        self.v = Linear(config.d_model, inner, **kw)
-        self.o = Linear(inner, config.d_model, **kw)
-        self.relative_attention_bias = (Embedding(
-            config.relative_attention_num_buckets, config.num_heads,
-            device=device, dtype=dtype)
-            if has_relative_attention_bias else None)
+        self.q = ColumnParallelLinear(config.d_model, inner, **kw)
+        self.k = ColumnParallelLinear(config.d_model, inner, **kw)
+        self.v = ColumnParallelLinear(config.d_model, inner, **kw)
+        self.o = RowParallelLinear(inner, config.d_model, **kw)
+        self.relative_attention_bias = None
+        if has_relative_attention_bias:
+            self.relative_attention_bias = Embedding(
+                config.relative_attention_num_buckets, self.n_heads,
+                device=device, dtype=dtype)
+            self.relative_attention_bias.tp_axes = {"weight": (None,
+                                                               TP_AXIS)}
 
     def compute_bias(self, q_len: int, k_len: int) -> torch.Tensor:
         """[1, H, Q, K] additive bias."""
@@ -102,11 +113,13 @@ class T5FF(nn.Module):
         kw = dict(bias=False, device=device, dtype=dtype)
         self.gated = config.is_gated_act
         if self.gated:
-            self.wi_0 = Linear(config.d_model, config.d_ff, **kw)
-            self.wi_1 = Linear(config.d_model, config.d_ff, **kw)
+            self.wi_0 = ColumnParallelLinear(config.d_model, config.d_ff,
+                                             **kw)
+            self.wi_1 = ColumnParallelLinear(config.d_model, config.d_ff,
+                                             **kw)
         else:
-            self.wi = Linear(config.d_model, config.d_ff, **kw)
-        self.wo = Linear(config.d_ff, config.d_model, **kw)
+            self.wi = ColumnParallelLinear(config.d_model, config.d_ff, **kw)
+        self.wo = RowParallelLinear(config.d_ff, config.d_model, **kw)
         self.act = get_act_fn(config.dense_act_fn)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

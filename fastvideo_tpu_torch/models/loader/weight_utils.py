@@ -9,6 +9,12 @@ with no checkpoint tensor are both errors.
 The weight of an ``Int8Linear`` is a quantize-at-load slot: the checkpoint
 tensor is quantized on the host, as it was stored, and only the int8 weight
 and its fp32 scales go to the device.
+
+Under tensor parallelism the model is built with each rank's share of its
+split parameters (``tp_axes``), and each checkpoint tensor, whole in the
+file, is cut to this rank's slice on the host (``parallel.shard_state``'s
+rule) before it goes to the device; an int8 slot quantizes the whole
+tensor first, so its scales are the unsplit layer's.
 """
 
 from __future__ import annotations
@@ -21,6 +27,9 @@ from torch import nn
 
 from fastvideo_tpu_torch.layers.quantization.int8 import (Int8Linear,
                                                           quantize_weight_int8)
+from fastvideo_tpu_torch.parallel.mesh import current_mesh
+from fastvideo_tpu_torch.parallel.shard import (param_spec, shard_tensor,
+                                                tp_axes_of, tp_segments_of)
 
 
 def apply_param_mapping(name: str, mapping: dict[str, str]) -> str:
@@ -44,6 +53,17 @@ def load_weights(model: nn.Module,
     expected = model.state_dict(keep_vars=True)
     int8_weights = {f"{n}.weight" for n, m in model.named_modules()
                     if isinstance(m, Int8Linear)}
+    mesh = current_mesh()
+    axes = tp_axes_of(model) if mesh is not None and mesh.size > 1 else {}
+    segments = tp_segments_of(model) if axes else {}
+
+    def local(name: str, value: torch.Tensor) -> torch.Tensor:
+        if name not in axes:
+            return value
+        return shard_tensor(value, param_spec(tuple(value.shape), axes[name],
+                                              mesh), mesh,
+                            segments.get(name))
+
     state: dict[str, torch.Tensor] = {}
     for name, value in weights:
         target = (apply_param_mapping(name, param_names_mapping)
@@ -51,6 +71,8 @@ def load_weights(model: nn.Module,
         if target in int8_weights:
             prefix = target[:-len("weight")]
             wq, scale = quantize_weight_int8(value.cpu())
+            wq = local(prefix + "weight_q", wq)
+            scale = local(prefix + "scale", scale)
             if wq.shape != expected[prefix + "weight_q"].shape:
                 raise ValueError(
                     f"Shape mismatch for {target}: checkpoint "
@@ -62,6 +84,7 @@ def load_weights(model: nn.Module,
         if target not in expected:
             raise KeyError(f"Checkpoint key {name!r} (-> {target!r}) has no "
                            f"matching parameter in {type(model).__name__}")
+        value = local(target, value)
         shape = tuple(expected[target].shape)
         if tuple(value.shape) != shape:
             if value.numel() != expected[target].numel():

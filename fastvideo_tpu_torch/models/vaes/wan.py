@@ -42,6 +42,8 @@ from torch import nn
 from fastvideo_tpu_torch.configs.models.vaes.wan import WanVAEArchConfig
 from fastvideo_tpu_torch.ops import conv3d as conv3d_ops
 from fastvideo_tpu_torch.ops.flash_attention import flash_attention
+from fastvideo_tpu_torch.parallel.collectives import world_all_gather
+from fastvideo_tpu_torch.parallel.mesh import get_mesh
 
 
 class StreamCache:
@@ -692,12 +694,17 @@ class AutoencoderKLWan(nn.Module):
 
     def spatial_tiled_decode(self, z: torch.Tensor, *,
                              tile_latent_min: tuple[int, int] = (32, 32),
-                             tile_latent_stride: tuple[int, int] = (24, 24)
-                             ) -> torch.Tensor:
+                             tile_latent_stride: tuple[int, int] = (24, 24),
+                             shard_tiles: bool = False) -> torch.Tensor:
         """Overlapping spatial tiles of z [B, C, T, h, w] (edge-padded to
         whole tiles), decoded as one batch and crossfaded with linear ramps
         over the overlap, then cut to the clip's pixels (the spatial factor
-        times ``patch_size``). A clip within one tile decodes whole."""
+        times ``patch_size``). A clip within one tile decodes whole.
+
+        With ``shard_tiles`` the tiles, stacked on the batch, are padded
+        (with copies of the first) to a multiple of the mesh's ranks; each
+        rank decodes its contiguous share and the decoded tiles are
+        all-gathered over every rank before the blend."""
         b, _, _, lh, lw = z.shape
         th, tw = tile_latent_min
         sh, sw = tile_latent_stride
@@ -711,7 +718,18 @@ class AutoencoderKLWan(nn.Module):
             pad_h or pad_w) else z
         tiles = [zp[..., i * sh:i * sh + th, j * sw:j * sw + tw]
                  for i in range(n_h) for j in range(n_w)]
-        dec = self.decode(torch.cat(tiles, dim=0))
+        stacked = torch.cat(tiles, dim=0)  # [n_tiles * B, ...]
+        if shard_tiles and get_mesh().size > 1:
+            mesh = get_mesh()
+            n_total = stacked.shape[0]
+            pad_tiles = -n_total % mesh.size
+            if pad_tiles:
+                stacked = torch.cat([stacked, stacked[:pad_tiles]], dim=0)
+            per = stacked.shape[0] // mesh.size
+            dec = self.decode(stacked[mesh.rank * per:(mesh.rank + 1) * per])
+            dec = world_all_gather(dec.contiguous())[:n_total]
+        else:
+            dec = self.decode(stacked)
         sr = self.config.spatial_compression_ratio * (
             self.config.patch_size or 1)
         dec_tiles = [dec[k * b:(k + 1) * b] for k in range(n_h * n_w)]
@@ -752,6 +770,11 @@ class AutoencoderKLWan(nn.Module):
                                  blend(prev, row, (th - sh) * sr, 3)], dim=3)
             prev = row
         return out[:, :, :, :lh * sr, :lw * sr]
+
+    def parallel_tiled_decode(self, z: torch.Tensor, **kwargs) -> torch.Tensor:
+        """Spatially tiled decode with the tiles shared over the mesh's
+        ranks."""
+        return self.spatial_tiled_decode(z, shard_tiles=True, **kwargs)
 
     def streaming_decode(self, z: torch.Tensor,
                          cache: list[torch.Tensor] | None,

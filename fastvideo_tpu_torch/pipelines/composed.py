@@ -1,6 +1,10 @@
 """ComposedPipelineBase (port of fastvideo_tpu/pipelines/composed.py):
 load the modules a pipeline needs from model_index.json's directory, then
-compose and run its stages."""
+compose and run its stages.
+
+The pipeline makes (or joins) the device mesh when it is built, from
+``fastvideo_args.mesh_config()``; its modules are built, and its stages
+run, under that mesh."""
 
 from __future__ import annotations
 
@@ -14,6 +18,7 @@ from fastvideo_tpu_torch.fastvideo_args import FastVideoArgs
 from fastvideo_tpu_torch.models.loader.component_loader import (
     PipelineComponentLoader)
 from fastvideo_tpu_torch.models.loader.safetensors_io import load_json_config
+from fastvideo_tpu_torch.parallel import maybe_init_mesh, mesh_context
 from fastvideo_tpu_torch.pipelines.batch import ForwardBatch
 from fastvideo_tpu_torch.pipelines.stages.base import PipelineStage
 
@@ -37,9 +42,12 @@ class ComposedPipelineBase:
             self._required_config_modules = list(required_config_modules)
         self.modules: dict[str, Any] = {}
         self._stages: list[PipelineStage] = []
-        self.load_modules()
-        self.initialize_pipeline(fastvideo_args)
-        self.create_pipeline_stages(fastvideo_args)
+        self.mesh = maybe_init_mesh(fastvideo_args.mesh_config(),
+                                    device=device)
+        with mesh_context(self.mesh):
+            self.load_modules()
+            self.initialize_pipeline(fastvideo_args)
+            self.create_pipeline_stages(fastvideo_args)
 
     def load_modules(self) -> None:
         """Load each module the pipeline names. A directory that is missing
@@ -80,7 +88,7 @@ class ComposedPipelineBase:
 
     def forward(self, batch: ForwardBatch,
                 fastvideo_args: FastVideoArgs) -> ForwardBatch:
-        with torch.inference_mode():
+        with torch.inference_mode(), mesh_context(self.mesh):
             for stage in self._stages:
                 batch = stage(batch, fastvideo_args)
         return batch

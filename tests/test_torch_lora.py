@@ -460,6 +460,6 @@ def test_lora_path_is_stored_not_applied(ckpt, adapter_file, monkeypatch):
     dit = gen.pipeline.get_module("transformer")
     assert not tlp.lora_layers(dit)
     assert isinstance(dit.blocks[0].to_q, Linear)
-    gen.pipeline = object()
+    gen.executor.pipeline = object()
     with pytest.raises(NotImplementedError, match="does not support LoRA"):
         gen.set_lora_adapter("s", adapter_file)

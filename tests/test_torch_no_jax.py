@@ -110,6 +110,14 @@ SLICE_MODULES = [
     "pipelines/preprocess/preprocess_pipeline_ode.py",
     "workflow/workflow_base.py", "workflow/preprocess_workflow.py",
     "entrypoints/cli/main.py",
+    # the parallelism slice: the mesh, the collectives, Ulysses, the tp
+    # sharding rule and the worker-process executor (torch.distributed
+    # only), and the layers and models it threads through
+    "parallel/__init__.py", "parallel/mesh.py", "parallel/collectives.py",
+    "parallel/ulysses.py", "parallel/shard.py", "worker/executor.py",
+    "layers/linear.py", "layers/mlp.py", "layers/norm.py",
+    "attention/layer.py", "models/encoders/t5.py",
+    "models/loader/weight_utils.py",
 ]
 # packages the card's machine lacks, which no slice module may import
 SLICE_ABSENT = ("safetensors", "PIL", "imageio", "pyarrow")

@@ -72,8 +72,9 @@ def test_a14b_experts_match_jax(tmp_path, monkeypatch, jax_plain_attention):
     got_one = gen.generate_video(**kw, boundary_ratio=0.1)
     _same(got_one, want_one, (1, 4, 3, 16, 24))
 
-    gen.pipeline = WanPipeline(a14b_ckpt, gen.fastvideo_args, gen.device,
-                               required_config_modules=modules)
+    gen.executor.pipeline = WanPipeline(a14b_ckpt, gen.fastvideo_args,
+                                        gen.device,
+                                        required_config_modules=modules)
     stage = gen.pipeline.denoising_stage
     calls = []
     for name in ("transformer", "transformer_2"):
